@@ -1,0 +1,34 @@
+"""SPEC-RL in PyTorch and CUDA for an NVIDIA H100 (sm_90a).
+
+A port of ``repro`` (JAX, Pallas kernels for the TPU), which stays beside it
+as the reference every slice of the port is tested against: same weights
+(``models.convert.from_jax_params``), same inputs, same random draws.
+
+Rules of the package:
+
+* It imports ``torch`` and never ``jax``, and no module of ``repro`` — not
+  even one that imports no JAX itself, because importing any ``repro.*``
+  runs ``repro/__init__.py``, which imports JAX.  What it needs of such a
+  module it keeps as its own copy: ``models/config.py``, ``configs/``,
+  ``core/cache.py``, ``data/`` and ``rewards/``.  ``RolloutBatch`` and
+  ``PromptBatch`` are built here (``core/spec_rollout.py``,
+  ``data/dataset.py``), never imported.
+* Paths and names mirror ``repro`` wherever that helps a reader find a
+  module's counterpart; inside, it is PyTorch: ``nn.Module`` parameter
+  containers, plain functions on tensors, an explicit ``device`` and
+  explicit random generators (``engine/sampling.py``'s keys).
+* Entry points (``models.model.init_lm``, ``models.convert.from_jax_params``,
+  ``engine.sampling.make_key``) run on ``cuda`` unless the caller passes
+  ``device="cpu"``; with no GPU and no ``device="cpu"`` they raise.  The
+  rollout runs on whatever device the model lives on.  Nothing moves to the
+  CPU quietly.
+* Every TPU kernel on the ported path is a CUDA C++ kernel written by hand
+  for Hopper (``csrc/*.cu``, built by ``kernels/_build.py`` with ``nvcc`` and
+  bound with ``ctypes``).  Each kernel module's wrapper launches its kernel
+  on a CUDA tensor or raises; it takes the plain PyTorch version only for a
+  tensor that lies on the CPU.
+
+This slice ports the speculative rollout (``core.rollout``): the vanilla
+branch and the one-pass branch (verify+prefill, cache compaction, resumed
+decode) of dense GQA models such as qwen3-1.7b.
+"""

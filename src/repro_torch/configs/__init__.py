@@ -1,0 +1,26 @@
+"""Architecture registry of the port: the dense qwen3 configs it runs.
+
+The other architectures of ``repro.configs`` need model families the port
+does not have yet (MLA, MoE, RWKV6, Mamba, encoder-decoder, vision prefix).
+"""
+from __future__ import annotations
+
+import importlib
+from repro_torch.models.config import ModelConfig
+
+# arch id -> module name
+ARCH_IDS = {
+    "qwen3-0.6b": "qwen3_0p6b",
+    "qwen3-1.7b": "qwen3_1p7b",
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch '{arch_id}' in the port; known: "
+                       f"{sorted(ARCH_IDS)}")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCH_IDS[arch_id]}")
+    cfg = mod.config()
+    cfg.validate()
+    return cfg
+

@@ -1,0 +1,257 @@
+"""SPEC-RL speculative rollout (port of ``repro/core/spec_rollout.py``).
+
+Per step, for each prompt: take the cached previous rollout as a draft,
+verify it in one prefill of the current policy over prompt ⊕ draft, compact
+the caches to the accepted prefix, resume decoding from them, and assemble
+``y = draft[:n] ⊕ continuation`` — the one-pass branch.  A batch with no
+drafts (cold cache, or ``variant="off"``) is a vanilla ``generate``.
+
+This slice ports those two branches.  These raise ``NotImplementedError``
+and name the slice that brings them: the variants ``random``, ``full`` and
+``delayed`` and the two-pass path (``one_pass="off"``) with the GRPO update
+(ROADMAP Queue 1 item 7); the draft engine (item 9); ``backfill="slots"``
+(item 10); the mesh (item 15).  The port has no observatory yet (item 14):
+no tracer spans or ledger rows are emitted.
+
+Stage timers wait for the device with ``torch.cuda.synchronize()`` where
+JAX calls ``block_until_ready``.
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import sync
+from repro_torch.engine.generate import (GenerateConfig, generate,
+                                         resume_from_cache)
+from repro_torch.engine.sampling import split_key
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+from .cache import RolloutCache
+from .verify import verify_and_prefill
+
+VARIANTS = ("off", "spec", "random", "delayed", "full")
+PORTED_VARIANTS = ("off", "spec")
+
+
+@dataclass(frozen=True)
+class SpecConfig:
+    variant: str = "spec"
+    lenience: float = math.e ** 0.5     # paper default for GRPO
+    cache_history: int = 4
+    one_pass: str = "auto"              # 'auto' | 'on' (| 'off': two-pass)
+    backfill: str = "none"              # 'none' (| 'slots')
+    draft: Any = None                   # §9 draft engine config (None = off)
+
+    @property
+    def cache_lag(self) -> int:
+        return 2 if self.variant == "delayed" else 1
+
+    @property
+    def log_lenience(self) -> float:
+        return math.log(self.lenience) if math.isfinite(self.lenience) else 1e9
+
+
+@dataclass
+class RolloutBatch:
+    """Uniform output consumed by the RL trainer, whatever the variant.
+
+    ``n`` is the per-row verified prefix length (zeros for a vanilla step);
+    the JAX package reports it only through its observatory
+    (``rollout.reuse_len``), which the port does not have yet."""
+    prompt: np.ndarray            # (B, P) left-padded
+    prompt_mask: np.ndarray       # (B, P)
+    response: np.ndarray          # (B, N) right-padded
+    response_mask: np.ndarray     # (B, N)
+    behaviour_logprobs: np.ndarray  # (B, N)
+    length: np.ndarray            # (B,)
+    metrics: Dict[str, float] = field(default_factory=dict)
+    n: Optional[np.ndarray] = None  # (B,)
+
+
+def assemble(draft_tokens, prefix_lp, n, cont_tokens, cont_lp, cont_len, *,
+             pad_id: int = 0):
+    """y = draft[:n] ⊕ continuation, right-padded to N columns.
+    Returns (tokens, lp, mask, length)."""
+    B, N = draft_tokens.shape
+    j = torch.arange(N, dtype=torch.int32, device=draft_tokens.device)[None, :]
+    in_prefix = j < n[:, None]
+    total = n + cont_len
+    in_resp = j < total[:, None]
+    gather = torch.clamp(j - n[:, None], 0, N - 1).long()
+    cont_tok_shift = torch.gather(cont_tokens, 1, gather)
+    cont_lp_shift = torch.gather(cont_lp, 1, gather)
+    tokens = torch.where(in_prefix, draft_tokens,
+                         torch.where(in_resp, cont_tok_shift,
+                                     torch.full_like(cont_tok_shift, pad_id)))
+    lp = torch.where(in_prefix, prefix_lp,
+                     torch.where(in_resp, cont_lp_shift,
+                                 torch.zeros_like(cont_lp_shift)))
+    return tokens, lp, in_resp, total
+
+
+def _draft_metrics() -> Dict[str, float]:
+    """The draft-engine keys of JAX's metrics, as JAX reports them with the
+    draft engine off."""
+    return {"draft_accept_rate": 0.0, "draft_mean_len": 0.0,
+            "tokens_per_forward": 1.0, "decode_forwards": 0.0}
+
+
+def use_one_pass(cfg: ModelConfig, spec: SpecConfig) -> bool:
+    """Whether the fused verify→compact→resume path applies."""
+    if spec.variant not in ("spec", "delayed") or spec.one_pass == "off":
+        return False
+    ok = M.supports_cache_realign(cfg)
+    if spec.one_pass == "on" and not ok:
+        raise ValueError("one_pass='on' requires an attention-only trunk")
+    return ok
+
+
+def _check_ported(spec: SpecConfig, mesh) -> None:
+    if spec.variant not in VARIANTS:
+        raise ValueError(f"unknown variant {spec.variant!r}")
+    if spec.variant not in PORTED_VARIANTS:
+        raise NotImplementedError(
+            f"variant={spec.variant!r} arrives with the GRPO-update slice "
+            "(ROADMAP Queue 1 item 7)")
+    if spec.variant == "spec" and spec.one_pass == "off":
+        raise NotImplementedError("the two-pass path arrives with the "
+                                  "GRPO-update slice (ROADMAP Queue 1 item 7)")
+    if spec.draft is not None:
+        raise NotImplementedError("the draft engine arrives with ROADMAP "
+                                  "Queue 1 item 9")
+    if spec.backfill != "none":
+        raise NotImplementedError("backfill='slots' arrives with slot "
+                                  "serving (ROADMAP Queue 1 item 10)")
+    if mesh is not None:
+        raise NotImplementedError("the mesh arrives with ROADMAP Queue 1 "
+                                  "item 15")
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+@torch.no_grad()
+def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
+            spec: SpecConfig, prompts, prompt_mask, prompt_ids: Sequence[int],
+            cache: Optional[RolloutCache], key, step: int, mesh=None
+            ) -> RolloutBatch:
+    """One rollout step for a prompt batch, on the model's device.
+
+    prompts: (B, P) left-padded, prompt_mask: (B, P) (arrays or tensors);
+    prompt_ids: stable cache keys; cache: the host-side ``RolloutCache``
+    (refreshed in place); key: a sampling key (``engine.sampling``)."""
+    _check_ported(spec, mesh)
+    dev = model.device
+    prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
+    B, P = prompts.shape
+    N = gen.max_new_tokens
+    t0 = time.perf_counter()
+    metrics: Dict[str, float] = {"step": step}
+
+    use_cache = spec.variant != "off" and cache is not None
+    drafts = cache.batch_get(prompt_ids, N, spec.cache_lag) if use_cache else None
+    have_drafts = use_cache and int(drafts["draft_len"].sum()) > 0
+
+    if not have_drafts:
+        key, sub = split_key(key)
+        out = generate(model, cfg, gen, prompts, prompt_mask, sub)
+        resp, lp, length = out["tokens"], out["logprobs"], out["length"]
+        resp_mask = torch.arange(N, device=dev)[None, :] < length[:, None]
+        n_generated = int(out["n_generated"])
+        rollout_time = time.perf_counter() - t0
+        metrics.update(
+            n_generated=n_generated, n_reused=0,
+            verified_prefix_mean=0.0, full_reuse_ratio=0.0,
+            accept_rate=0.0, draft_coverage=0.0,
+            verify_time=0.0, rollout_time=rollout_time,
+            assembly_time=0.0, compact_time=0.0, decode_time=rollout_time,
+            one_pass=0.0, prefill_passes=1.0, **_draft_metrics())
+        _update_cache(cache, prompt_ids, resp, lp, length, step, gen.eos_id)
+        return RolloutBatch(
+            prompt=_np(prompts), prompt_mask=_np(prompt_mask),
+            response=_np(resp), response_mask=_np(resp_mask),
+            behaviour_logprobs=_np(lp), length=_np(length), metrics=metrics,
+            n=np.zeros((B,), np.int32))
+
+    draft_tokens = torch.as_tensor(drafts["draft_tokens"], device=dev)
+    draft_lp = torch.as_tensor(drafts["draft_logprobs"], device=dev)
+    draft_len = torch.as_tensor(drafts["draft_len"], device=dev)
+    draft_eos = torch.as_tensor(drafts["draft_eos"], device=dev)
+    if not use_one_pass(cfg, spec):
+        raise NotImplementedError("the two-pass path arrives with the "
+                                  "GRPO-update slice (ROADMAP Queue 1 item 7)")
+
+    # ---- fused path: ONE forward over prompt ⊕ draft ---------------------
+    tv0 = time.perf_counter()
+    key, sub = split_key(key)
+    ver = verify_and_prefill(model, cfg, prompts, prompt_mask, draft_tokens,
+                             draft_lp, draft_len, sub, spec.log_lenience,
+                             temperature=gen.temperature, top_p=gen.top_p)
+    n = ver["n"]
+    prefix_lp = ver["lp_curr"]
+    accept_rate = float(ver["accept_rate"])
+    sync(dev)
+    verify_time = time.perf_counter() - tv0
+
+    # compact the caches to [prompt | draft[:n]], left-aligned at W
+    W = P + N
+    tc0 = time.perf_counter()
+    p_len = prompt_mask.sum(dim=1, dtype=torch.int32)
+    caches = M.realign_decode_cache(cfg, ver.pop("caches"),
+                                    (N - n).to(torch.int32), p_len + n, W)
+    sync(dev)
+    compact_time = time.perf_counter() - tc0
+
+    # resume decoding from the compacted cache — zero redundant prefill
+    full_reuse = (n == draft_len) & draft_eos
+    td0 = time.perf_counter()
+    key, sub = split_key(key)
+    cont = resume_from_cache(model, cfg, gen, caches, ver["seed_logits"],
+                             p_len + n, W, sub, initial_done=full_reuse,
+                             row_budget=N - n)
+    del caches
+    sync(dev)
+    decode_time = time.perf_counter() - td0
+    rollout_time = compact_time + decode_time
+
+    # ---- assembly ----------------------------------------------------------
+    ta0 = time.perf_counter()
+    resp, lp, resp_mask, length = assemble(
+        draft_tokens, prefix_lp, n, cont["tokens"], cont["logprobs"],
+        cont["length"], pad_id=gen.pad_id)
+    sync(dev)
+    assembly_time = time.perf_counter() - ta0
+
+    _update_cache(cache, prompt_ids, resp, lp, length, step, gen.eos_id)
+    metrics.update(
+        n_generated=int(cont["n_generated"]),
+        n_reused=int(n.sum()),
+        verified_prefix_mean=float(n.float().mean()),
+        full_reuse_ratio=float(full_reuse.float().mean()),
+        accept_rate=accept_rate,
+        draft_coverage=float((draft_len > 0).float().mean()),
+        verify_time=verify_time, rollout_time=rollout_time,
+        assembly_time=assembly_time, compact_time=compact_time,
+        decode_time=decode_time, one_pass=1.0, prefill_passes=1.0,
+        **_draft_metrics())
+    return RolloutBatch(
+        prompt=_np(prompts), prompt_mask=_np(prompt_mask),
+        response=_np(resp), response_mask=_np(resp_mask),
+        behaviour_logprobs=_np(lp), length=_np(length), metrics=metrics,
+        n=_np(n))
+
+
+def _update_cache(cache: Optional[RolloutCache], prompt_ids, resp, lp, length,
+                  step, eos_id):
+    if cache is None:
+        return
+    cache.batch_put(prompt_ids, _np(resp), _np(lp), _np(length), step, eos_id)

@@ -1,0 +1,70 @@
+"""SPEC-RL draft verification (port of ``repro/core/verify.py``, the
+prefilling flavour of the one-pass path).
+
+One prefill of the current policy over [prompt | draft] fills the decode
+caches and yields ``p_curr``; the accept/first-reject test
+(``kernels.spec_verify``) yields the rejection position ``n`` per row.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.engine.generate import positions_from_mask
+from repro_torch.engine.sampling import logprobs_of
+from repro_torch.kernels.spec_verify.ops import spec_verify
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+def _accept_uniforms(key, B: int, N: int) -> torch.Tensor:
+    """Per-token acceptance uniforms u (B, N), one stream for the batch."""
+    return key.uniform((B, N))
+
+
+@torch.no_grad()
+def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
+                       draft_tokens, draft_logprobs, draft_len, key,
+                       log_lenience: float, *, temperature: float = 1.0,
+                       top_p: float = 1.0) -> Dict[str, torch.Tensor]:
+    """prompt: (B, P) left-padded; draft_*: (B, N) right-padded (tensors on
+    the model's device).
+
+    Returns ``n`` (B,) int32 in [0, draft_len], ``lp_curr`` (B, N),
+    ``accept_rate``, ``caches`` (slots [0, W) = [prompt | draft], width
+    W + N) and ``seed_logits`` (B, V), the logits at index P + n - 1 (the
+    last prompt token when n == 0).
+
+    Only the logits at [P - 1, W - 1) feed ``lp_curr``; the log-softmax is
+    taken over those rows alone (the same values as JAX's full-width pass,
+    without its extra (B, P, V) copy)."""
+    B, P = prompt.shape
+    N = draft_tokens.shape[1]
+    W = P + N
+    dev = prompt.device
+    didx = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+    draft_mask = didx < draft_len[:, None]
+    full = torch.cat([prompt, torch.where(draft_mask, draft_tokens,
+                                          torch.zeros_like(draft_tokens))],
+                     dim=1)
+    mask = torch.cat([prompt_mask, draft_mask], dim=1)
+    positions = positions_from_mask(mask)
+    caches = M.init_cache(cfg, B, W + N, device=dev)
+    logits, caches = M.prefill(model, cfg, full, positions, caches)
+
+    # logits[t] predicts token t+1 (engine.score's extraction)
+    lp = logprobs_of(logits[:, P - 1:W - 1], full[:, P:], temperature, top_p)
+    valid = mask[:, P:] & mask[:, P - 1:W - 1]
+    lp_curr = torch.where(valid, lp, torch.zeros_like(lp))       # (B, N)
+    del lp
+
+    u = _accept_uniforms(key, B, N)
+    n = spec_verify(lp_curr, draft_logprobs, u, draft_len, log_lenience)
+
+    seed_idx = (P + n - 1).long()                    # n == 0 -> last prompt tok
+    seed_logits = logits[torch.arange(B, device=dev), seed_idx]
+    del logits
+    total = torch.clamp(draft_len.sum(), min=1)
+    return {"n": n, "lp_curr": lp_curr, "accept_rate": n.sum() / total,
+            "caches": caches, "seed_logits": seed_logits}

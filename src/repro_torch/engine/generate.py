@@ -1,0 +1,153 @@
+"""Batched generation and teacher-forced scoring (port of
+``repro/engine/generate.py``).
+
+``generate`` is prefill then the decode loop; ``resume_from_cache`` is the
+decode loop alone, started from a populated cache (the one-pass SPEC-RL
+entry).  JAX's ``lax.while_loop`` becomes a host loop over a fixed-shape
+step that keeps JAX's key-split order and done-row behaviour: a done row
+stores the pad token, feeds position -1 (its embedding is zeroed and its
+cache slot is still written, with pos -1), and the loop runs until every
+row is done or N tokens were taken.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+from .sampling import entropy_of, logprobs_of, sample, split_key
+
+PAD = 0
+
+
+def positions_from_mask(mask: torch.Tensor) -> torch.Tensor:
+    """mask: (B, T) bool -> positions (B, T) int32, -1 where invalid."""
+    pos = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    return torch.where(mask, pos, torch.full_like(pos, -1))
+
+
+@dataclass(frozen=True)
+class GenerateConfig:
+    max_new_tokens: int = 64
+    temperature: float = 1.0
+    top_p: float = 1.0
+    eos_id: int = 2
+    pad_id: int = PAD
+
+
+def _on(model: M.LM, x, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=dtype, device=model.device)
+
+
+@torch.no_grad()
+def generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, prompt,
+             prompt_mask, key, initial_done=None, row_budget=None
+             ) -> Dict[str, torch.Tensor]:
+    """prompt: (B, P) int left-padded; prompt_mask: (B, P) bool (arrays or
+    tensors; moved to the model's device).  Returns ``tokens`` (B, N),
+    ``logprobs`` (B, N), ``length`` (B,) and ``n_generated``."""
+    prompt = _on(model, prompt, torch.int32)
+    prompt_mask = _on(model, prompt_mask, torch.bool)
+    B, P = prompt.shape
+    N = gen.max_new_tokens
+    positions = positions_from_mask(prompt_mask)
+    caches = M.init_cache(cfg, B, P + N, device=model.device)
+    logits, caches = M.prefill(model, cfg, prompt, positions, caches)
+    seed_logits = logits[:, -1].clone()
+    del logits
+    p_len = prompt_mask.sum(dim=1, dtype=torch.int32)
+    return _decode_loop(model, cfg, gen, caches, seed_logits, p_len, P, key,
+                        initial_done, row_budget, kv_start=P - p_len)
+
+
+def _decode_loop(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
+                 seed_logits, next_pos, write_offset: int, key,
+                 initial_done, row_budget, kv_start=None
+                 ) -> Dict[str, torch.Tensor]:
+    """Sample from ``seed_logits``, then decode until every row is done or N
+    tokens were taken.  Key-split order is JAX's: one split before the first
+    sample, one after every decode step."""
+    B = seed_logits.shape[0]
+    N = gen.max_new_tokens
+    dev = seed_logits.device
+    key, sub = split_key(key)
+    cur_tok, cur_lp = sample(sub, seed_logits, gen.temperature, gen.top_p)
+
+    tokens_buf = torch.full((B, N), gen.pad_id, dtype=torch.int32, device=dev)
+    lp_buf = torch.zeros((B, N), dtype=torch.float32, device=dev)
+    done = (torch.zeros(B, dtype=torch.bool, device=dev) if initial_done is None
+            else torch.as_tensor(initial_done, dtype=torch.bool, device=dev))
+    budget = (torch.full((B,), N, dtype=torch.int32, device=dev)
+              if row_budget is None else
+              torch.as_tensor(row_budget, dtype=torch.int32, device=dev))
+    done = done | (budget <= 0)
+    count = torch.zeros(B, dtype=torch.int32, device=dev)
+    next_pos = next_pos.to(torch.int32)
+    pad = torch.full_like(cur_tok, gen.pad_id)
+    zero = torch.zeros_like(cur_lp)
+    minus1 = torch.full_like(next_pos, -1)
+
+    step = 0
+    while step < N and not bool(done.all()):
+        tok_store = torch.where(done, pad, cur_tok)
+        tokens_buf[:, step] = tok_store
+        lp_buf[:, step] = torch.where(done, zero, cur_lp)
+        count += (~done).to(torch.int32)
+        done_next = done | (cur_tok == gen.eos_id) | (count >= budget)
+        # live cache extent: [kv_start, write_offset + step] — the dead left
+        # padding and the unwritten tail are skipped by the decode kernel
+        logits, caches = M.decode_step(
+            model, cfg, tok_store[:, None],
+            torch.where(done, minus1, next_pos)[:, None],
+            caches, write_offset + step,
+            kv_length=write_offset + 1 + step, kv_start=kv_start)
+        key, sub = split_key(key)
+        cur_tok, cur_lp = sample(sub, logits[:, 0], gen.temperature, gen.top_p)
+        done = done_next
+        next_pos = next_pos + 1
+        step += 1
+    return {"tokens": tokens_buf, "logprobs": lp_buf, "length": count,
+            "n_generated": count.sum()}
+
+
+@torch.no_grad()
+def resume_from_cache(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
+                      caches, seed_logits, next_pos, write_offset: int, key,
+                      initial_done=None, row_budget=None
+                      ) -> Dict[str, torch.Tensor]:
+    """Continue decoding from a compacted cache: slots [0, write_offset)
+    hold [left-aligned prompt ⊕ accepted prefix]; seed_logits (B, V) are the
+    logits of the last accepted token; next_pos (B,) = prompt_len + n.
+    Returns the same dict as ``generate``."""
+    next_pos = next_pos.to(torch.int32)
+    return _decode_loop(model, cfg, gen, caches, seed_logits, next_pos,
+                        write_offset, key, initial_done, row_budget,
+                        kv_start=write_offset - next_pos)
+
+
+@torch.no_grad()
+def score(model: M.LM, cfg: ModelConfig, tokens, mask, *,
+          temperature: float = 1.0, top_p: float = 1.0,
+          return_entropy: bool = False) -> Dict[str, torch.Tensor]:
+    """Teacher-forced log-prob of every token given its prefix.
+    tokens: (B, L) left-padded; mask: (B, L) bool."""
+    tokens = _on(model, tokens, torch.int32)
+    mask = _on(model, mask, torch.bool)
+    positions = positions_from_mask(mask)
+    logits, _ = M.forward(model, cfg, tokens, positions)
+    lp_next = logprobs_of(logits[:, :-1], tokens[:, 1:], temperature, top_p)
+    lp = torch.cat([torch.zeros_like(lp_next[:, :1]), lp_next], dim=1)
+    valid = mask & torch.cat([torch.zeros_like(mask[:, :1]), mask[:, :-1]],
+                             dim=1)
+    out = {"logprobs": torch.where(valid, lp, torch.zeros_like(lp)),
+           "valid": valid}
+    if return_entropy:
+        ent = entropy_of(logits[:, :-1], temperature)
+        ent = torch.cat([torch.zeros_like(ent[:, :1]), ent], dim=1)
+        out["entropy"] = torch.where(valid, ent, torch.zeros_like(ent))
+    return out
+

@@ -1,0 +1,21 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ in ``csrc/``).
+
+Each kernel module (``<name>/ops.py``) holds a wrapper that checks its
+inputs and launches the kernel on CUDA tensors (or raises), the plain
+PyTorch version of the same function (used for CPU tensors and by the
+tests), and counts its launches in ``LAUNCHES[<name>]``: one per call that
+launched the kernel, and nowhere else.  ``reset_launches`` sets every count
+to 0, so a caller can show that a run went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+KERNELS = ("decode_attention", "flash_attention", "spec_verify", "cache_roll")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0

@@ -1,0 +1,135 @@
+"""Short-query decode attention over a dense cache (port of
+``repro/kernels/decode_attention``).
+
+``decode_attention`` launches the split-K CUDA kernel
+(``csrc/decode_attention.cu``, which replaces ``decode_attention_pallas``,
+``repro/kernels/decode_attention/kernel.py:193``) on CUDA tensors and runs
+``decode_attention_plain`` on CPU tensors.  Every decode token of every
+layer comes here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels._build import launch
+
+NEG_INF = -1e30
+BLOCK_K = 64          # cache slots per split (csrc/decode_attention.cu)
+MAX_GT = 16           # G * T queries per KV head the kernel packs
+
+
+def _norm_inputs(q, q_pos, lengths, starts, S):
+    """q_pos -> (B, T) int32 (a (B,) position only at T == 1);
+    lengths/starts -> (B,) int32 clipped to [0, S] (None = [0, S))."""
+    B, _, T = q.shape[:3]
+    q_pos = q_pos.reshape(B, -1).to(torch.int32)
+    if q_pos.shape != (B, T):
+        raise ValueError(f"q_pos {tuple(q_pos.shape)} must be (B, T)="
+                         f"{(B, T)} for T > 1 query blocks")
+    dev = q.device
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    lengths = torch.clamp(torch.as_tensor(lengths, device=dev).reshape(-1)
+                          .expand(B).to(torch.int32), max=S)
+    if starts is None:
+        starts = torch.zeros((B,), dtype=torch.int32, device=dev)
+    starts = torch.clamp(torch.as_tensor(starts, device=dev).reshape(-1)
+                         .expand(B).to(torch.int32), 0, S)
+    return q_pos.contiguous(), lengths.contiguous(), starts.contiguous()
+
+
+def decode_attention_plain(q, k, v, q_pos, k_pos, lengths, starts, *,
+                           window: int = 0) -> torch.Tensor:
+    """The naive oracle (``repro/kernels/decode_attention/ref.py``): full
+    masked softmax over the cache in float32.  q_pos (B, T), lengths and
+    starts (B,) as ``_norm_inputs`` leaves them.  Returns (B, Hq, T, Dv)."""
+    B, Hq, T, Dk = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, T, Dk).float()
+    scores = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * (
+        1.0 / math.sqrt(Dk))
+    kp = k_pos[:, None, None, None, :]
+    qp = q_pos[:, None, None, :, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        mask &= (qp - kp) < window
+    j = torch.arange(S, dtype=torch.int32, device=q.device)
+    mask &= j < lengths[:, None, None, None, None]
+    mask &= j >= starts[:, None, None, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    w = torch.where(mask.any(dim=-1, keepdim=True), w, torch.zeros_like(w))
+    out = torch.einsum("bhgts,bhsd->bhgtd", w, v.float())
+    return out.reshape(B, Hq, T, v.shape[-1])
+
+
+def _check_kernel_inputs(q, k, v, k_pos) -> None:
+    B, Hq, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError("decode_attention kernel takes bfloat16 q/k/v, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if D not in (64, 128):
+        raise ValueError(f"decode_attention kernel takes head_dim 64 or 128, "
+                         f"got {D}")
+    if Hq % Hkv or (Hq // Hkv) * T > MAX_GT:
+        raise ValueError(f"decode_attention kernel packs at most {MAX_GT} "
+                         f"queries per KV head; got G={Hq // Hkv}, T={T}")
+    if k_pos.shape != (B, S) or k_pos.dtype != torch.int32:
+        raise ValueError(f"k_pos must be (B, S) int32, got "
+                         f"{tuple(k_pos.shape)} {k_pos.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("k_pos", k_pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"decode_attention kernel needs a contiguous {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention kernel needs 16-byte aligned "
+                             f"{name}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def decode_attention_cuda(q, k, v, q_pos, k_pos, lengths, starts, *,
+                          window: int = 0) -> torch.Tensor:
+    """Launch the kernel (inputs as ``_norm_inputs`` leaves them)."""
+    _check_kernel_inputs(q, k, v, k_pos)
+    B, Hq, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    GT = (Hq // Hkv) * T
+    nsplit = -(-S // BLOCK_K)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.empty((B, Hkv, nsplit, GT), **f32)
+    l = torch.empty((B, Hkv, nsplit, GT), **f32)
+    acc = torch.empty((B, Hkv, nsplit, GT, D), **f32)
+    out = torch.empty((B, Hq, T, D), **f32)
+    launch("repro_decode_attention", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+           k_pos.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
+           m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+           B, Hq, Hkv, T, S, D, nsplit, int(window), 1.0 / math.sqrt(D))
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, q_pos, k_pos, lengths=None, starts=None, *,
+                     window: int = 0) -> torch.Tensor:
+    """q: (B, Hq, T, D); k/v: (B, Hkv, S, D); q_pos: (B,), (B, 1) or
+    (B, T); k_pos: (B, S) int32; lengths/starts: optional per-row live
+    bounds (slot j live iff starts[b] <= j < lengths[b]).  Returns
+    (B, Hq, T, D) float32.  CUDA tensors launch the kernel (or raise); CPU
+    tensors take the plain version."""
+    S = k.shape[2]
+    q_pos, lengths, starts = _norm_inputs(q, q_pos, lengths, starts, S)
+    if q.device.type == "cuda":
+        return decode_attention_cuda(q, k, v, q_pos, k_pos, lengths, starts,
+                                     window=window)
+    if q.device.type != "cpu":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    return decode_attention_plain(q, k, v, q_pos, k_pos, lengths, starts,
+                                  window=window)

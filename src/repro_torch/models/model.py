@@ -1,0 +1,201 @@
+"""Top-level language model (port of ``repro/models/model.py``, dense GQA
+trunks): embeddings, trunk, head, and the cache operations of the one-pass
+rollout.
+
+Entry points mirror JAX's, with the params pytree replaced by an ``LM``:
+
+``forward``      full-sequence logits, no cache.
+``prefill``      fills caches at slots [0, T) from a left-padded prompt.
+``decode_step``  a short token block against the caches.
+
+Caches are updated in place and returned (see ``models/blocks.py`` for the
+layout).  ``realign_decode_cache`` returns new k/v buffers (the roll works
+out of place, as in JAX) and new ``pos`` arrays.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.cache_gather.ops import cache_roll
+
+from .blocks import Block, apply_trunk, check_supported, init_trunk_cache
+from .config import ATTN, ModelConfig
+from .layers import Dense, RMSNorm, apply_dense, apply_rmsnorm, softcap
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+class LM(nn.Module):
+    """``{"embed", "layers", "final_norm"[, "lm_head"]}``; ``layers[i]`` is
+    global layer i (JAX stacks them per run under ``trunk``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        cfg.validate()
+        check_supported(cfg)
+        dtype = torch_dtype(cfg.param_dtype)
+        kw = dict(dtype=dtype, device=device)
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
+                                  requires_grad=False)
+        self.layers = nn.ModuleList(Block(cfg, **kw)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.d_model, **kw)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        Dense(cfg.d_model, cfg.vocab_size, **kw))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+@torch.no_grad()
+def init_lm(cfg: ModelConfig, *, seed: int, device: DeviceLike = None) -> LM:
+    """Random parameters from an explicit ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (the card unless ``device="cpu"``).  Same
+    distributions as ``repro.models.model.init_lm``, not the same numbers:
+    tests carry JAX's parameters across with ``convert.from_jax_params``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = LM(cfg, device=dev)
+    emb = torch.empty(model.embed.shape, dtype=torch.float32, device=dev)
+    emb.normal_(0.0, 1.0, generator=gen)
+    model.embed.copy_(emb * 0.02)
+    del emb
+    for mod in model.modules():
+        if isinstance(mod, (Dense, RMSNorm)):
+            mod.reset(gen)
+    return model
+
+
+def count_params(model: LM) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def _embed(model: LM, cfg: ModelConfig, tokens, positions):
+    x = model.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+    return torch.where((positions >= 0)[..., None], x, torch.zeros_like(x))
+
+
+def _logits(model: LM, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        logits = x @ model.embed.to(x.dtype).T
+    else:
+        logits = apply_dense(model.lm_head, x)
+    return softcap(logits.float(), cfg.logit_softcap)
+
+
+@torch.no_grad()
+def forward(model: LM, cfg: ModelConfig, tokens, positions):
+    """tokens: (B, T) int; positions: (B, T) int32 with -1 on padding.
+    Returns (logits (B, T, V) float32, aux dict)."""
+    x = _embed(model, cfg, tokens, positions)
+    x, _ = apply_trunk(model.layers, cfg, x, positions)
+    x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
+    return _logits(model, cfg, x), {}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None):
+    return init_trunk_cache(cfg, batch, max_len, torch_dtype(cfg.dtype),
+                            resolve_device(device))
+
+
+@torch.no_grad()
+def prefill(model: LM, cfg: ModelConfig, tokens, positions, caches):
+    """Run the prompt through the model, filling caches at slots [0, T).
+
+    Returns (logits (B, T, V), caches)."""
+    x = _embed(model, cfg, tokens, positions)
+    x, caches = apply_trunk(model.layers, cfg, x, positions, caches=caches,
+                            cache_start=0)
+    x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
+    return _logits(model, cfg, x), caches
+
+
+@torch.no_grad()
+def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
+                cache_start: int, *, kv_length=None, kv_start=None):
+    """One decode step: one token per row.
+
+    token, position: (B, 1) (-1 marks done rows); cache_start: the slot the
+    token is written at (one for the whole batch).  kv_length: per-row live
+    cache extent (int or (B,)), default ``cache_start + 1``; kv_start:
+    per-row first live slot, only for contiguous layouts.  Both become (B,)
+    int32 tensors once here, not once per layer.  Draft blocks (T = k + 1)
+    arrive with the draft engine's slice (ROADMAP Queue 1 item 9).
+    Returns (logits (B, 1, V), caches)."""
+    B, T = token.shape
+    if T != 1:
+        raise NotImplementedError("decode blocks of T > 1 arrive with the "
+                                  "draft engine (ROADMAP Queue 1 item 9)")
+    dev = token.device
+    if kv_length is None:
+        kv_length = cache_start + T
+    kv_length = torch.as_tensor(kv_length, dtype=torch.int32, device=dev
+                                ).reshape(-1).expand(B).contiguous()
+    if kv_start is not None:
+        kv_start = torch.as_tensor(kv_start, dtype=torch.int32, device=dev
+                                   ).reshape(-1).expand(B).contiguous()
+    x = _embed(model, cfg, token, position)
+    x, caches = apply_trunk(model.layers, cfg, x, position, caches=caches,
+                            cache_start=cache_start, kv_length=kv_length,
+                            kv_start=kv_start)
+    x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
+    return _logits(model, cfg, x), caches
+
+
+def supports_cache_realign(cfg: ModelConfig) -> bool:
+    """Compaction needs per-slot KV state in every trunk layer."""
+    return all(kind == ATTN for kind, _ in cfg.layer_plan())
+
+
+def _roll_rows(buf, shift):
+    """Right-rotate ``buf`` (run, B, H, S, D) along the S axis, per-batch
+    shift (B,) int32, over the flattened (run, B, H) rows as JAX does."""
+    lead = buf.shape[:-2]
+    reps = 1
+    for d in lead:
+        reps *= d
+    per_b = reps // (lead[0] * lead[1])          # heads folded after batch
+    shift_r = (shift.to(torch.int32).repeat_interleave(per_b)
+               .repeat(lead[0]).contiguous())
+    flat = buf.reshape((reps,) + tuple(buf.shape[-2:]))
+    return cache_roll(flat, shift_r).reshape(buf.shape)
+
+
+@torch.no_grad()
+def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
+                         width: int):
+    """Compact verify-prefill caches to the left-aligned decode layout.
+
+    Row b's accepted context occupies slots [P - p_len, P + n) after the
+    prefill over [prompt | draft]; rotating right by ``shift[b] = width -
+    (P + n[b])`` lands it at [width - valid_len, width).  ``pos`` is
+    rewritten in closed form (-1 outside the valid range); only k and v are
+    rolled, so wrapped-in slots keep their stale K/V, as in JAX.
+    Returns new caches (the rolled k/v are new tensors)."""
+    if not supports_cache_realign(cfg):
+        raise ValueError("realign needs attention-only trunks")
+    new_caches = []
+    for run in caches:
+        sc = run["self"]
+        run_len, B, S = sc["pos"].shape
+        dev = sc["pos"].device
+        j = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        start = (width - valid_len.to(torch.int32))[:, None]
+        pos_row = torch.where((j >= start) & (j < width), j - start,
+                              torch.full_like(j, -1))
+        new_sc = {"pos": pos_row[None].repeat(run_len, 1, 1)}
+        for name in ("k", "v"):
+            new_sc[name] = _roll_rows(sc[name], shift)
+        new_caches.append({"self": new_sc})
+    return new_caches

@@ -1,0 +1,150 @@
+"""The port's kernel ops on the CPU (their plain versions) against the JAX
+package's kernels run in Pallas interpret mode and against their jnp
+references, on the same numpy inputs.
+
+Tolerances: the two attentions agree to atol 1e-5 (float32 softmax
+attention summed in another order: a few ulps of values of order 1);
+spec_verify and cache_roll are compared exactly."""
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.cache_gather.ops import cache_roll as jax_cache_roll  # noqa: E402
+from repro.kernels.decode_attention.ops import \
+    decode_attention as jax_decode_attention  # noqa: E402
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jax_flash_attention  # noqa: E402
+from repro.kernels.spec_verify.ops import spec_verify as jax_spec_verify  # noqa: E402
+from repro_torch.kernels.cache_gather.ops import cache_roll  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.spec_verify.ops import spec_verify  # noqa: E402
+
+ATOL = 1e-5
+# reduced qwen3-1.7b with num_kv_heads=2: 4 query heads, 2 KV heads (G=2),
+# head_dim 64
+HQ, HKV, D = 4, 2, 64
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _decode_case(T, S=48, B=5, seed=0):
+    """Left-padded caches with mixed depths.  Row 0 is done (all queries at
+    -1), row 1 fills the cache, row 2 has a short valid query prefix (the
+    draft-block contract: queries at consecutive positions, -1 after)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, HQ, T, D), dtype=np.float32)
+    k = rng.standard_normal((B, HKV, S, D), dtype=np.float32)
+    v = rng.standard_normal((B, HKV, S, D), dtype=np.float32)
+    k_pos = np.full((B, S), -1, np.int32)
+    q_pos = np.full((B, T), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    starts = np.zeros(B, np.int32)
+    for b in range(B):
+        live = S if b == 1 else int(rng.integers(T + 2, S))
+        pad = int(rng.integers(0, live - T - 1))
+        k_pos[b, pad:live] = np.arange(live - pad)
+        lengths[b], starts[b] = live, pad
+        q_len = 0 if b == 0 else (max(T // 2, 1) if b == 2 else T)
+        q_pos[b, :q_len] = live - pad - T + np.arange(q_len)
+    return q, k, v, q_pos, k_pos, lengths, starts
+
+
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("window", [0, 16])
+def test_decode_attention_plain_matches_jax(T, window):
+    q, k, v, q_pos, k_pos, lengths, starts = _decode_case(T, seed=T + window)
+    got = decode_attention(_t(q), _t(k), _t(v), _t(q_pos), _t(k_pos),
+                           _t(lengths), _t(starts), window=window).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos, lengths,
+                                          starts))
+    for impl in ("interpret", "naive"):
+        want = np.asarray(jax_decode_attention(*args, window=window,
+                                               impl=impl, block_k=16))
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.all(got[0] == 0.0)                 # done row: exactly zero
+    if T > 1:
+        assert np.all(got[2, :, T // 2:] == 0.0)  # padded queries: zero
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_flash_attention_plain_matches_jax(window):
+    rng = np.random.default_rng(7 + window)
+    B, T, S = 3, 24, 40
+    q = rng.standard_normal((B, HQ, T, D), dtype=np.float32)
+    k = rng.standard_normal((B, HKV, S, D), dtype=np.float32)
+    v = rng.standard_normal((B, HKV, S, D), dtype=np.float32)
+    # verify layout: left-padded prompt + right-padded draft over slots
+    # [0, T), empty cache slots after; row 2 is all padding
+    q_pos = np.full((B, T), -1, np.int32)
+    k_pos = np.full((B, S), -1, np.int32)
+    for b, (pad, valid) in enumerate([(3, 18), (0, T), (0, 0)]):
+        q_pos[b, pad:pad + valid] = np.arange(valid)
+        k_pos[b, :T] = q_pos[b]
+    got = flash_attention(_t(q), _t(k), _t(v), _t(q_pos), _t(k_pos),
+                          window=window).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos))
+    for impl in ("interpret", "ref"):
+        want = np.asarray(jax_flash_attention(*args, window=window, impl=impl,
+                                              block_q=8, block_k=16))
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.all(got[2] == 0.0)
+
+
+@pytest.mark.parametrize("log_lenience", [0.0, np.log(0.8), 0.5])
+def test_spec_verify_plain_matches_jax_exactly(log_lenience):
+    rng = np.random.default_rng(11)
+    B, N = 9, 37
+    lp_prev = (-rng.exponential(2.0, (B, N))).astype(np.float32)
+    lp_curr = (lp_prev + rng.normal(0, 1.5, (B, N))).astype(np.float32)
+    u = rng.uniform(size=(B, N)).astype(np.float32)
+    valid = np.array([0, N, 1, 5, 20, 36, 37, 3, 12], np.int32)
+    got = spec_verify(_t(lp_curr), _t(lp_prev), _t(u), _t(valid),
+                      float(log_lenience)).numpy()
+    args = tuple(jnp.asarray(a) for a in (lp_curr, lp_prev, u, valid))
+    for impl in ("interpret", "ref"):
+        want = np.asarray(jax_spec_verify(*args, float(log_lenience),
+                                          impl=impl, block_t=16))
+        np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+    assert np.any((got > 0) & (got < valid))      # some partial accepts
+
+
+def test_cache_roll_plain_matches_jax_exactly():
+    rng = np.random.default_rng(5)
+    R, S = 12, 40
+    buf = rng.standard_normal((R, S, D), dtype=np.float32)
+    shift = rng.integers(0, S + 1, R).astype(np.int32)
+    shift[:2] = (0, S)
+    got = cache_roll(_t(buf), _t(shift)).numpy()
+    for impl in ("interpret", "ref"):
+        want = np.asarray(jax_cache_roll(jnp.asarray(buf), jnp.asarray(shift),
+                                         impl=impl))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_wrappers_raise_on_a_device_without_a_kernel():
+    """Only CPU tensors take the plain version; any other device without a
+    kernel raises instead of falling back."""
+    meta = dict(device="meta")
+    q = torch.empty(2, HQ, 1, D, **meta)
+    kv = torch.empty(2, HKV, 8, D, **meta)
+    pos = torch.empty(2, 8, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention(q, kv, kv, torch.empty(2, 1, dtype=torch.int32,
+                                                **meta), pos)
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention(torch.empty(2, HQ, 8, D, **meta), kv, kv, pos, pos)
+    with pytest.raises(ValueError, match="no kernel"):
+        spec_verify(torch.empty(2, 8, **meta), torch.empty(2, 8, **meta),
+                    torch.empty(2, 8, **meta),
+                    torch.empty(2, dtype=torch.int32, **meta), 0.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        cache_roll(torch.empty(4, 8, D, **meta),
+                   torch.empty(4, dtype=torch.int32, **meta))

@@ -1,0 +1,190 @@
+"""The port's speculative rollout on the CPU against ``repro.core.rollout``,
+plus sampling parity and the port's import and device rules.
+
+Random draws are shared: ``JaxKey`` wraps a JAX key and draws its Gumbel
+and uniform noise with ``jax.random``, so the port's sampled tokens and
+accept uniforms are the reference's, bit for bit.  Parameters come from
+``repro.models.model.init_lm`` through ``from_jax_params``.  At the reduced
+qwen3-1.7b with num_kv_heads=2 (G = 2) in float32 the two rollouts must give
+identical tokens, lengths and rejection positions ``n``, and behaviour
+log-probs within atol 1e-4."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+import repro.core.spec_rollout as jax_spec_rollout  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.core import RolloutCache as JaxRolloutCache  # noqa: E402
+from repro.core import SpecConfig as JaxSpecConfig  # noqa: E402
+from repro.engine import sampling as jax_sampling  # noqa: E402
+from repro.engine.generate import GenerateConfig as JaxGenerateConfig  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import RolloutCache, SpecConfig, rollout  # noqa: E402
+from repro_torch.data.dataset import PromptDataset  # noqa: E402
+from repro_torch.data.tokenizer import EOS_ID, PAD_ID  # noqa: E402
+from repro_torch.engine import sampling  # noqa: E402
+from repro_torch.engine.generate import GenerateConfig  # noqa: E402
+from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems  # noqa: E402
+
+ATOL = 1e-4
+PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+class JaxKey:
+    """The port's key protocol over a JAX key (test side only)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self):
+        a, b = jax.random.split(self.key)
+        return JaxKey(a), JaxKey(b)
+
+    def gumbel(self, shape):
+        return torch.from_numpy(np.array(jax.random.gumbel(
+            self.key, tuple(shape), jnp.float32)))
+
+    def uniform(self, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            self.key, tuple(shape), jnp.float32)))
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jax_get_config("qwen3-1.7b").reduced(num_kv_heads=2)
+    cfg = get_config("qwen3-1.7b").reduced(num_kv_heads=2)
+    params = JM.init_lm(jax.random.PRNGKey(0), jcfg)
+    model = from_jax_params(jax.tree.map(np.asarray, params), cfg,
+                            device="cpu")
+    return jcfg, cfg, params, model
+
+
+@pytest.mark.parametrize("temperature,top_p", [(1.0, 1.0), (0.7, 0.9)])
+def test_sample_and_logprobs_match(temperature, top_p):
+    rng = np.random.default_rng(3)
+    logits = (3.0 * rng.standard_normal((6, 50))).astype(np.float32)
+    key = jax.random.PRNGKey(9)
+    _, sub = jax_sampling.split_key(key)
+    want_tok, want_lp = jax_sampling.sample(sub, jnp.asarray(logits),
+                                            temperature, top_p)
+    _, tsub = sampling.split_key(JaxKey(key))
+    tok, lp = sampling.sample(tsub, torch.from_numpy(logits), temperature,
+                              top_p)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(want_tok))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(want_lp), atol=1e-6)
+    toks = rng.integers(0, 50, (6,)).astype(np.int32)
+    np.testing.assert_allclose(
+        sampling.logprobs_of(torch.from_numpy(logits), torch.from_numpy(toks),
+                             temperature, top_p).numpy(),
+        np.asarray(jax_sampling.logprobs_of(jnp.asarray(logits),
+                                            jnp.asarray(toks), temperature,
+                                            top_p)), atol=1e-6)
+
+
+def test_two_epoch_rollout_matches_jax(models, monkeypatch):
+    """Epoch 0 vanilla, epoch 1 the one-pass branch (lenience 0.8, so the
+    rejection position varies from row to row), through one RolloutCache
+    each, driven as ``Collector.rollout_once`` drives JAX's."""
+    jcfg, cfg, params, model = models
+    problems = generate_problems(MathTaskConfig(num_problems=4, seed=0))
+    batch = next(PromptDataset(problems, max_prompt_len=16).epochs(
+        4, 4, 1, shuffle=False))
+    N = 24
+    jgen = JaxGenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
+    gen = GenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
+    jspec = JaxSpecConfig(variant="spec", lenience=0.8,
+                          verify_impl="interpret", compact_impl="interpret")
+    spec = SpecConfig(variant="spec", lenience=0.8)
+    jcache, cache = JaxRolloutCache(group_size=4), RolloutCache(group_size=4)
+
+    jax_n = {}
+    verify = jax_spec_rollout.verify_and_prefill
+
+    def spy(*args, **kw):
+        out = verify(*args, **kw)
+        jax_n["n"] = np.asarray(out["n"])
+        return out
+
+    monkeypatch.setattr(jax_spec_rollout, "verify_and_prefill", spy)
+    key = jax.random.PRNGKey(3)
+    for epoch in (0, 1):
+        key, sub = jax.random.split(key)
+        want = jax_spec_rollout.rollout(
+            params, jcfg, jgen, jspec, jnp.asarray(batch.tokens),
+            jnp.asarray(batch.mask), batch.cache_keys, jcache, sub, epoch)
+        got = rollout(model, cfg, gen, spec, batch.tokens, batch.mask,
+                      batch.cache_keys, cache, JaxKey(sub), epoch)
+        np.testing.assert_array_equal(got.response, want.response)
+        np.testing.assert_array_equal(got.length, want.length)
+        np.testing.assert_array_equal(got.response_mask, want.response_mask)
+        np.testing.assert_allclose(got.behaviour_logprobs,
+                                   want.behaviour_logprobs, atol=ATOL)
+        for k in ("one_pass", "n_generated", "n_reused", "prefill_passes"):
+            assert got.metrics[k] == want.metrics[k], k
+        assert set(got.metrics) == set(want.metrics)
+    np.testing.assert_array_equal(got.n, jax_n["n"])
+    assert got.metrics["one_pass"] == 1.0
+    assert np.any((got.n > 0) & (got.n < N)) and len(set(got.n.tolist())) > 2
+
+
+def test_unported_branches_raise(models):
+    _, cfg, _, model = models
+    gen = GenerateConfig(max_new_tokens=4)
+    toks = np.ones((2, 3), np.int32)
+    mask = np.ones((2, 3), bool)
+    for spec in (SpecConfig(variant="random"), SpecConfig(variant="delayed"),
+                 SpecConfig(one_pass="off"), SpecConfig(backfill="slots"),
+                 SpecConfig(draft=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rollout(model, cfg, gen, spec, toks, mask, [0, 1], RolloutCache(),
+                    sampling.make_key(0, "cpu"), 0)
+
+
+def test_port_imports_no_jax_and_no_repro():
+    """Every module of repro_torch imports with JAX made unimportable, and
+    no ``repro`` module is loaded along the way."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None and"
+        " (m == 'repro' or m.startswith('repro.') or m.startswith('jax'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_entry_points_need_cuda_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    from repro_torch.models import model as M
+    cfg = get_config("qwen3-1.7b").reduced(num_kv_heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_lm(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sampling.make_key(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax_params({}, cfg)
+    M.init_lm(cfg, seed=0, device="cpu")
