@@ -9,30 +9,47 @@ Run from the root of a checkout, with no arguments:
 What it does, failing (nonzero exit, no result line) at the first fault:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the four CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
-   and prints the build time and ``ptxas`` register/spill lines;
-3. for each kernel, at the shapes the qwen3-1.7b rollout gives it, in
+2. builds the seven CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
+   (one ``nvcc`` per source, all started together) and prints the build
+   time and ``ptxas`` register/spill lines;
+3. for each kernel, at the shapes the qwen3-1.7b paths give it, in
    bfloat16: calls the public wrapper the model calls (with positions and
    bounds in the raw forms the wrapper converts, done rows and a row with
-   no live slot among them) and holds its result against the plain PyTorch
-   version on the same inputs (exactly for spec_verify and cache_roll,
-   within ``ATTN_TOL`` for the two attentions; rows that see no key must
-   come out exactly 0), then times the kernel entry on inputs already in
-   its form, the plain version and, where one PyTorch call computes the
-   same function, that call (CUDA events, median of ``REPS`` launches with
-   the L2 cache flushed before each);
+   no live slot among them; the paged decode's dead table entries point at
+   blocks of NaN) and holds its result against the plain PyTorch version
+   on the same inputs (exactly for spec_verify, cache_roll,
+   cache_slot_write and paged_gather, within ``ATTN_TOL`` for the three
+   attentions; rows that see no key must come out exactly 0), then times
+   the kernel entry on inputs already in its form, the plain version and
+   the yardstick: one PyTorch call that computes the same function where
+   there is one, and for the paged decode the two-step gather + dense
+   decode kernel (CUDA events, median of ``REPS`` launches with the L2
+   cache flushed before each);
 4. holds the port on the card against the port on the CPU at a small size
    (the reduced qwen3-1.7b in bfloat16: forward, prefill, decode steps and
    the compaction roll, teacher-forced), within ``SMALL_TOL``;
-5. runs the main path: two rollout epochs of full-width, full-depth
-   qwen3-1.7b (random weights from a seed) through ``repro_torch.core.
-   rollout`` — epoch 0 vanilla, epoch 1 the one-pass speculative branch —
-   with the launch counts set to 0 just before and read just after, and
-   checks the outputs; then shows where a short vanilla generate's time
-   goes (host wall time, device busy time and top kernels from
-   ``torch.profiler``);
-6. prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line
-   again, and last ``{"ok": true, "device": {...}}``.
+5. runs four paths of full-width, full-depth qwen3-1.7b (random weights
+   from a seed), each with the launch counts set to 0 just before it and
+   read just after, and checks their outputs:
+   ``rollout``  two epochs of ``repro_torch.core.rollout`` with the fixed
+                decode batch (epoch 0 vanilla, epoch 1 the one-pass
+                speculative branch);
+   ``slots``    the same two epochs with ``backfill="slots"``: the batch
+                drained through the slot engine, 8 slots for 16 rows, epoch
+                1 by speculative-prefix admission;
+   ``paged``    the fixed-batch two epochs over the paged KV layout
+                (``cache_layout="paged"``): decode through the paged kernel,
+                compaction through paged_gather and the slot write;
+                after each of these three, a ``breakdown`` line shows where
+                16 decode steps of the path's decode loop spend their time
+                (host wall time, device busy time, kernel launches, top
+                kernels and host ops from ``torch.profiler``);
+   ``serve``    one run of ``python -m repro_torch.launch.serve`` on the
+                card (its reduced config, ``--spec-prefix --arrival-every
+                2``);
+6. prints one ``{"kernels": [...]}`` JSON line (launches per path beside
+   their sum), the ``nvidia-smi`` line again, and last ``{"ok": true,
+   "device": {...}}``.
 
 What is too long for the end of the output goes to ``chiprun_out/`` beside
 this script: the kernels' build log (``chip_smoke_build.log``, with the
@@ -53,7 +70,7 @@ import sys
 import time
 from pathlib import Path
 
-ATTN_TOL = 1e-3     # both attentions compute in float32 from the same bf16
+ATTN_TOL = 1e-3     # the attentions compute in float32 from the same bf16
                     # inputs; they differ only in summation order
 SMALL_TOL = 5e-2    # card vs CPU logits in bfloat16 (8-bit mantissa: each
                     # rounding at another place moves a value of order 1 by
@@ -65,6 +82,7 @@ BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 
 # the slice's traffic
 PROMPTS, GROUP, P, N = 4, 4, 64, 256
+SLOTS = 8                       # decode slots of the slot-backfill path
 LENIENCE = 0.99
 SEED = 0
 
@@ -125,6 +143,7 @@ def bound(nbytes: float, flops: float):
 def kernel_checks(torch, timer):
     """Each kernel against its plain version at the slice's shapes."""
     from repro_torch.kernels.cache_gather import ops as roll_ops
+    from repro_torch.kernels.cache_slot_write import ops as sw_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.spec_verify import ops as sv_ops
@@ -145,7 +164,11 @@ def kernel_checks(torch, timer):
     def randn(*shape):
         return torch.randn(shape, generator=gen, **bf)
 
-    def record(name, src, replaces, err, fn, plain, library, nbytes, flops):
+    def record(name, src, replaces, err, fn, plain, library, nbytes, flops,
+               two_step=None):
+        """``library``: one PyTorch call computing the same function (or
+        None); ``two_step``: (label, fn) of a comparison that is not one
+        library call, timed and reported beside it."""
         ms, plain_ms = timer.ms(fn), timer.ms(plain)
         library_ms = timer.ms(library) if library is not None else None
         b_ms, b_by = bound(nbytes, flops)
@@ -153,9 +176,14 @@ def kernel_checks(torch, timer):
                "replaces": replaces, "launches": None, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": library_ms}
+        extra = ""
+        if two_step is not None:
+            rec["two_step"], rec["two_step_ms"] = two_step[0], timer.ms(
+                two_step[1])
+            extra = f" two_step_ms={rec['two_step_ms']} ({two_step[0]})"
         records[name] = rec
         log(f"kernel {name}: max_abs_err={err} ms={ms} plain_ms={plain_ms} "
-            f"library_ms={library_ms} bound_ms={b_ms} ({b_by})")
+            f"library_ms={library_ms}{extra} bound_ms={b_ms} ({b_by})")
 
     # --- decode_attention: a resumed decode step of epoch 1 (S = W + N) ----
     # Rows 0-2 are done (q_pos -1, as the decode loop feeds rows past EOS);
@@ -283,6 +311,114 @@ def kernel_checks(torch, timer):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # --- paged_decode_attention: the same resumed step over a paged cache --
+    # pools (B*nb, Hkv, 32, D) behind a shuffled table (B, nb), nb*32 = S;
+    # the same q, positions and bounds as decode_attention above.  Every
+    # table entry of a block outside a row's [starts, lengths) points at a
+    # block of NaN: a kernel that reads one fails the check.
+    bs = 32
+    nb = S // bs
+    NB = B * nb
+    table = torch.randperm(NB, generator=gen, device=dev).to(torch.int32
+                                                              ).reshape(B, nb)
+    k_pool, v_pool = randn(NB, Hkv, bs, D), randn(NB, Hkv, bs, D)
+    blk = torch.arange(nb, device=dev)[None, :]
+    dead = (((blk + 1) * bs <= st32[:, None]) | (blk * bs >= len32[:, None])
+            | (len32 <= st32)[:, None])
+    k_pool[table[dead].long()] = float("nan")
+    v_pool[table[dead].long()] = float("nan")
+    pargs = (q, k_pool, v_pool, table, qp32, k_pos, len32, st32)
+    got = dec_ops.paged_decode_attention(q, k_pool, v_pool, table, q_pos,
+                                         k_pos, lengths, starts)
+    want = dec_ops.paged_decode_attention_plain(*pargs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL,
+            f"paged_decode_attention: max_abs_err {err} > {ATTN_TOL} or "
+            "non-finite (a dead block was read)")
+    require(bool((got[:4] == 0).all()) and bool((want[:4] == 0).all()),
+            "paged_decode_attention: done rows and the row with no live "
+            "slot must come out exactly 0")
+    n_live_blocks = int((~dead & row_live[:, None]).sum())
+
+    def two_step():
+        kg = roll_ops.paged_gather_cuda(k_pool.view(NB, Hkv * bs, D), table)
+        vg = roll_ops.paged_gather_cuda(v_pool.view(NB, Hkv * bs, D), table)
+        return dec_ops.decode_attention_cuda(
+            q, kg.view(B, nb, Hkv, bs, D).transpose(1, 2).reshape(B, Hkv, S, D),
+            vg.view(B, nb, Hkv, bs, D).transpose(1, 2).reshape(B, Hkv, S, D),
+            qp32, k_pos, len32, st32)
+
+    record("paged_decode_attention",
+           "src/repro_torch/csrc/paged_decode_attention.cu",
+           "src/repro/kernels/decode_attention/kernel.py:120", err,
+           lambda: dec_ops.paged_decode_attention_cuda(*pargs),
+           lambda: dec_ops.paged_decode_attention_plain(*pargs), None,
+           nbytes=int(row_live.sum()) * Hq * D * 2 + n_seen * Hkv * D * 2 * 2
+           + n_span * 4 + n_live_blocks * 4 + 3 * B * 4 + B * Hq * D * 4,
+           flops=4 * n_seen * Hq * D,
+           two_step=("paged_gather kernels, a transpose copy, the dense "
+                     "decode_attention kernel", two_step))
+    del k_pool, v_pool
+
+    # --- cache_slot_write: one admission of 3 requests into the 8-slot ----
+    # persistent cache of the slot engine (28 layers x 8 slots x 8 heads,
+    # S = P + 2N), the group padded to 8 rows by repeating its row 0, as
+    # write_cache_slots flattens it
+    L, Bs = 28, SLOTS
+    Rd = L * Bs * Hkv
+    dst, src = randn(Rd, S, D), randn(Rd, S, D)
+    slot_ids = torch.tensor([5, 2, 7] + [5] * (Bs - 3), device=dev)
+    r0 = torch.arange(L, device=dev)[:, None, None]
+    h = torch.arange(Hkv, device=dev)[None, None, :]
+    rows = ((r0 * Bs + slot_ids[None, :, None]) * Hkv + h).reshape(-1)
+    src_for_dst = sw_ops._invert_rows(rows, Rd, Rd)
+    got, want = dst.clone(), dst.clone()
+    sw_ops.cache_slot_write(got, src, rows)
+    sw_ops.cache_slot_write_plain(want, src, src_for_dst)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "cache_slot_write differs from its plain "
+            "version")
+    untouched = src_for_dst < 0
+    require(torch.equal(got[untouched], dst[untouched]),
+            "cache_slot_write touched a row nobody admitted")
+    del got, want
+    uniq = torch.nonzero(~untouched).reshape(-1)
+    src_sel = src[src_for_dst[uniq].long()]
+    row_bytes = S * D * 2
+    record("cache_slot_write", "src/repro_torch/csrc/cache_slot_write.cu",
+           "src/repro/kernels/cache_slot_write/kernel.py:30", 0.0,
+           lambda: sw_ops.cache_slot_write_cuda(dst, src, src_for_dst),
+           lambda: sw_ops.cache_slot_write_plain(dst, src, src_for_dst),
+           lambda: dst.index_copy_(0, uniq, src_sel),
+           nbytes=2 * int(uniq.numel()) * row_bytes + Rd * 4, flops=0.0)
+    del dst, src, src_sel
+    torch.cuda.empty_cache()
+
+    # --- paged_gather: one pool of the paged compaction (28 layers, 288 ----
+    # blocks each, heads folded into the block rows) through the identity
+    # stripes of the 16 rows, shuffled
+    NBt = 28 * NB
+    pool = randn(NBt, Hkv * bs, D)
+    gtable = torch.randperm(NBt, generator=gen, device=dev).to(torch.int32
+                                                              ).reshape(-1, nb)
+    got = roll_ops.paged_gather(pool, gtable)
+    want = roll_ops.paged_gather_plain(pool, gtable)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "paged_gather differs from its plain "
+            "version")
+    del got, want
+    flat = gtable.reshape(-1).long()
+    record("paged_gather", "src/repro_torch/csrc/paged_gather.cu",
+           "src/repro/kernels/cache_gather/kernel.py:63", 0.0,
+           lambda: roll_ops.paged_gather_cuda(pool, gtable),
+           lambda: roll_ops.paged_gather_plain(pool, gtable),
+           lambda: pool.index_select(0, flat),
+           nbytes=2 * pool.numel() * 2 + gtable.numel() * 4, flops=0.0)
+    del pool
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # the epoch-0 shapes of the two attentions, for the record
     S0 = W
     k0, v0 = randn(B, Hkv, S0, D), randn(B, Hkv, S0, D)
@@ -364,22 +500,18 @@ def small_reference(torch):
     require(err <= SMALL_TOL, f"card vs CPU max_abs_err {err} > {SMALL_TOL}")
 
 
-# ---------------------------------------------------------------- main path
+# ---------------------------------------------------------------- main paths
 
 
-def main_path(torch):
+def setup_model(torch):
+    """Full-width, full-depth qwen3-1.7b with random weights, the prompt
+    batch and the generation config the rollout paths share."""
     from repro_torch.configs import get_config
-    from repro_torch.core import RolloutCache, SpecConfig, rollout
     from repro_torch.data.dataset import PromptDataset
     from repro_torch.data.tokenizer import EOS_ID, PAD_ID
     from repro_torch.engine.generate import GenerateConfig
-    from repro_torch.engine.sampling import make_key, split_key
-    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import model as M
     from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
-    from repro_torch.rewards.verifier import batch_rewards
-
-    import numpy as np
 
     cfg = get_config("qwen3-1.7b")
     t0 = time.perf_counter()
@@ -393,10 +525,22 @@ def main_path(torch):
         PROMPTS, GROUP, 1, shuffle=False))
     gen = GenerateConfig(max_new_tokens=N, temperature=1.0, top_p=1.0,
                          eos_id=EOS_ID, pad_id=PAD_ID)
-    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    return model, cfg, batch, gen
+
+
+def rollout_path(torch, label, model, cfg, batch, gen, spec):
+    """Two rollout epochs (epoch 0 vanilla, epoch 1 speculative) with the
+    launch counts set to 0 just before and read just after; checks the
+    outputs and returns (launches, the two RolloutBatches)."""
+    import numpy as np
+
+    from repro_torch.core import RolloutCache, rollout
+    from repro_torch.engine.sampling import make_key, split_key
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.rewards.verifier import batch_rewards
+
     cache = RolloutCache(history=spec.cache_history, group_size=GROUP)
     key = make_key(SEED)
-
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     rbs = []
@@ -410,100 +554,216 @@ def main_path(torch):
         wall = time.perf_counter() - te
         rewards = batch_rewards(rb.response, rb.length, batch.answers)
         m = rb.metrics
-        log("epoch " + json.dumps({
-            "epoch": epoch, "wall_s": wall, "n_generated": m["n_generated"],
-            "n_reused": m["n_reused"], "accept_rate": m["accept_rate"],
-            "one_pass": m["one_pass"], "verify_time": m["verify_time"],
+        line = {
+            "path": label, "epoch": epoch, "wall_s": wall,
+            "n_generated": m["n_generated"], "n_reused": m["n_reused"],
+            "accept_rate": m["accept_rate"], "one_pass": m["one_pass"],
+            "verify_time": m["verify_time"],
             "compact_time": m["compact_time"],
             "decode_time": m["decode_time"],
-            "reward_mean": float(rewards.mean()),
-            "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
-            "n": rb.n.tolist()}))
+            "reward_mean": float(rewards.mean())}
+        if spec.backfill == "slots":
+            line.update(engine_steps=m["engine_steps"],
+                        slot_occupancy=m["slot_occupancy"],
+                        admissions=m["admissions"])
+        line.update(launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                    n=rb.n.tolist())
+        log("epoch " + json.dumps(line))
         rbs.append(rb)
     launches = dict(LAUNCHES)
-    log(f"main path launches: {launches}; peak memory "
+    log(f"{label} path launches: {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     rb0, rb1 = rbs
     B = PROMPTS * GROUP
     for rb in rbs:
         require(rb.response.shape == (B, N)
-                and rb.behaviour_logprobs.shape == (B, N), "output shapes")
+                and rb.behaviour_logprobs.shape == (B, N),
+                f"{label}: output shapes")
         lp = rb.behaviour_logprobs
-        require(np.all(np.isfinite(lp)), "non-finite behaviour logprobs")
+        require(np.all(np.isfinite(lp)), f"{label}: non-finite logprobs")
         require(np.all(lp[rb.response_mask] <= 0.0)
-                and np.all(lp[~rb.response_mask] == 0.0), "logprob layout")
+                and np.all(lp[~rb.response_mask] == 0.0),
+                f"{label}: logprob layout")
         require(np.array_equal(rb.response_mask.sum(1), rb.length),
-                "response mask vs length")
+                f"{label}: response mask vs length")
         require(np.all((rb.response >= 0) & (rb.response < cfg.vocab_size)),
-                "token ids out of range")
+                f"{label}: token ids out of range")
     require(rb0.metrics["one_pass"] == 0.0 and rb0.metrics["n_generated"] > 0,
-            f"epoch 0 was not a vanilla rollout: {rb0.metrics}")
+            f"{label}: epoch 0 was not a vanilla rollout: {rb0.metrics}")
     require(rb1.metrics["one_pass"] == 1.0,
-            f"epoch 1 did not take the one-pass branch: {rb1.metrics}")
+            f"{label}: epoch 1 did not take the one-pass branch: "
+            f"{rb1.metrics}")
     n = rb1.n
-    require(np.any((n > 0) & (n < N)), f"no partial acceptance: n={n}")
-    require(int(n.sum()) == rb1.metrics["n_reused"], "n vs n_reused")
+    require(np.any((n > 0) & (n < N)), f"{label}: no partial acceptance: "
+            f"n={n}")
+    require(int(n.sum()) == rb1.metrics["n_reused"], f"{label}: n vs n_reused")
     for b in range(B):
         nb = int(n[b])
         require(np.array_equal(rb1.response[b, :nb], rb0.response[b, :nb]),
-                f"row {b}: response does not start with its draft[:{nb}]")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
-    time_breakdown(torch, model, cfg, gen, batch)
+                f"{label}: row {b}: response does not start with its "
+                f"draft[:{nb}]")
+    return launches, rbs
+
+
+def main_path(torch, model, cfg, batch, gen):
+    """The fixed decode batch's path; then its time breakdown."""
+    from repro_torch.core import SpecConfig
+
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    launches, _ = rollout_path(torch, "rollout", model, cfg, batch, gen, spec)
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "rollout path")
+    generate_breakdown(torch, model, cfg, gen, batch)
     return launches
 
 
-def time_breakdown(torch, model, cfg, gen, batch, steps: int = 16):
-    """Where a vanilla generate's time goes (prefill + ``steps`` decode
-    steps at the slice's batch): host wall time without the profiler, then
-    device busy time and the top kernels and host ops from
-    ``torch.profiler`` over the same call."""
-    from dataclasses import replace
+def slots_path(torch, model, cfg, batch, gen):
+    """Straggler backfill: the batch drained through the slot engine."""
+    from repro_torch.core import SpecConfig
 
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
+                      backfill="slots", backfill_slots=SLOTS)
+    launches, rbs = rollout_path(torch, "slots", model, cfg, batch, gen, spec)
+    B = PROMPTS * GROUP
+    for rb in rbs:
+        require(rb.metrics["admissions"] == B and
+                rb.metrics["backfill_slots"] == SLOTS,
+                f"slots: {rb.metrics['admissions']} admissions of {B} rows "
+                f"on {rb.metrics['backfill_slots']} slots")
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll", "cache_slot_write"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "slots path")
+    engine_breakdown(torch, model, cfg, gen, batch)
+    return launches
+
+
+def paged_path(torch, model, cfg, batch, gen):
+    """The fixed-batch rollout over the paged KV layout."""
+    from repro_torch.core import SpecConfig
+
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    paged = cfg.replace(cache_layout="paged")
+    launches, _ = rollout_path(torch, "paged", model, paged, batch, gen, spec)
+    for name in ("paged_decode_attention", "paged_gather", "cache_slot_write",
+                 "flash_attention", "spec_verify", "cache_roll"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "paged path")
+    require(launches["decode_attention"] == 0, "the paged path launched the "
+            f"dense decode kernel {launches['decode_attention']} times")
+    generate_breakdown(torch, model, paged, gen, batch)
+    return launches
+
+
+def serve_path(torch):
+    """One run of the port's serve launcher on the card."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = serve.main(["--spec-prefix", "--arrival-every", "2"])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"serve path: rc={rc} in {time.perf_counter() - t0:.2f} s, "
+        f"launches: {launches}")
+    require(rc == 0, f"launch.serve exited {rc}")
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll", "cache_slot_write"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "serve path")
+    return launches
+
+
+BREAKDOWN_STEPS = 16
+_PROFILE_ROWS = ["what\tside\tname\tcalls\tself_ms"]
+
+
+def time_breakdown(torch, what: str, run):
+    """Where the time of ``run()`` goes: host wall time without the
+    profiler, then device busy time, CUDA kernel launches and the top
+    kernels and host ops from ``torch.profiler`` over the same call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.engine.generate import generate
-    from repro_torch.engine.sampling import make_key
-
-    g = replace(gen, eos_id=-1, max_new_tokens=steps)   # exactly `steps` steps
-
-    def run():
-        generate(model, cfg, g, batch.tokens, batch.mask, make_key(SEED + 1))
+    def timed():
+        run()
         torch.cuda.synchronize()
 
-    run()
+    timed()
     t0 = time.perf_counter()
-    run()
+    timed()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        timed()
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
+    launches = sum(e.count for e in host if e.key == "cudaLaunchKernel")
     log("breakdown " + json.dumps({
-        "what": f"generate B={batch.tokens.shape[0]} "
-                f"P={batch.tokens.shape[1]} steps={steps}",
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "what": what, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "cuda_launches": launches,
         "top_kernels": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                         for e in kernels[:8]],
         "top_host_ops": [[e.key[:60], e.count, e.self_cpu_time_total / 1e3]
                          for e in host[:8]]}))
-    rows = ["side\tname\tcalls\tself_ms"]
-    rows += [f"device\t{e.key}\t{e.count}\t{e.self_device_time_total / 1e3}"
-             for e in kernels[:40]]
-    rows += [f"host\t{e.key}\t{e.count}\t{e.self_cpu_time_total / 1e3}"
-             for e in host[:40]]
-    (OUT_DIR / "chip_smoke_profile.tsv").write_text("\n".join(rows) + "\n")
+    _PROFILE_ROWS.extend(
+        [f"{what}\tdevice\t{e.key}\t{e.count}\t{e.self_device_time_total / 1e3}"
+         for e in kernels[:40]]
+        + [f"{what}\thost\t{e.key}\t{e.count}\t{e.self_cpu_time_total / 1e3}"
+           for e in host[:40]])
+    (OUT_DIR / "chip_smoke_profile.tsv").write_text(
+        "\n".join(_PROFILE_ROWS) + "\n")
+
+
+def generate_breakdown(torch, model, cfg, gen, batch):
+    """A vanilla generate at the slice's batch: prefill + 16 decode steps."""
+    from dataclasses import replace
+
+    from repro_torch.engine.generate import generate
+    from repro_torch.engine.sampling import make_key
+
+    g = replace(gen, eos_id=-1, max_new_tokens=BREAKDOWN_STEPS)
+    time_breakdown(
+        torch, f"generate {cfg.cache_layout} B={batch.tokens.shape[0]} "
+        f"P={batch.tokens.shape[1]} steps={BREAKDOWN_STEPS}",
+        lambda: generate(model, cfg, g, batch.tokens, batch.mask,
+                         make_key(SEED + 1)))
+
+
+def engine_breakdown(torch, model, cfg, gen, batch):
+    """The slot engine serving SLOTS requests of 16 tokens on SLOTS slots:
+    one admission (prefill) + 16 decode steps."""
+    from dataclasses import replace
+
+    from repro_torch.engine.sampling import make_key, request_keys
+    from repro_torch.serving import Request, SlotEngine
+
+    g = replace(gen, eos_id=-1, max_new_tokens=BREAKDOWN_STEPS)
+    keys = request_keys(make_key(SEED + 1), SLOTS)
+
+    def run():
+        eng = SlotEngine(model, cfg, g, num_slots=SLOTS, prompt_width=P)
+        for i in range(SLOTS):
+            row = batch.tokens[i, P - int(batch.mask[i].sum()):]
+            eng.submit(Request(request_id=i, prompt=row, key=keys[i],
+                               max_new_tokens=BREAKDOWN_STEPS))
+        eng.run()
+
+    time_breakdown(torch, f"slot engine B={SLOTS} P={P} "
+                   f"steps={BREAKDOWN_STEPS}", run)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -538,9 +798,18 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     small_reference(torch)
-    launches = main_path(torch)
+    model, cfg, batch, gen = setup_model(torch)
+    paths = {"rollout": main_path(torch, model, cfg, batch, gen),
+             "slots": slots_path(torch, model, cfg, batch, gen),
+             "paged": paged_path(torch, model, cfg, batch, gen)}
+    del model
+    torch.cuda.empty_cache()
+    paths["serve"] = serve_path(torch)
     for name, rec in records.items():
-        rec["launches"] = launches[name]
+        rec["launches_by_path"] = {p: paths[p][name] for p in paths}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        require(rec["launches"] > 0, f"kernel {name} was launched on no path")
+    log(f"chip smoke: all checks passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,10 @@ Rules of the package:
   on a CUDA tensor or raises; it takes the plain PyTorch version only for a
   tensor that lies on the CPU.
 
-This slice ports the speculative rollout (``core.rollout``): the vanilla
-branch and the one-pass branch (verify+prefill, cache compaction, resumed
-decode) of dense GQA models such as qwen3-1.7b.
+The port runs the speculative rollout (``core.rollout``) of dense GQA
+models such as qwen3-1.7b: the vanilla branch and the one-pass branch
+(verify+prefill, cache compaction, resumed decode), with the fixed decode
+batch or drained through the serving slot engine (``backfill="slots"``,
+``serving/``), over a dense or a paged KV cache (``cache_layout``), and the
+slot server (``python -m repro_torch.launch.serve``).
 """

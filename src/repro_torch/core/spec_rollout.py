@@ -6,12 +6,19 @@ the caches to the accepted prefix, resume decoding from them, and assemble
 ``y = draft[:n] ⊕ continuation`` — the one-pass branch.  A batch with no
 drafts (cold cache, or ``variant="off"``) is a vanilla ``generate``.
 
-This slice ports those two branches.  These raise ``NotImplementedError``
-and name the slice that brings them: the variants ``random``, ``full`` and
-``delayed`` and the two-pass path (``one_pass="off"``) with the GRPO update
-(ROADMAP Queue 1 item 7); the draft engine (item 9); ``backfill="slots"``
-(item 10); the mesh (item 15).  The port has no observatory yet (item 14):
-no tracer spans or ledger rows are emitted.
+The port runs those two branches, and ``backfill="slots"``, which drains
+the batch through the serving slot engine instead
+(``serving/rl_adapter.py``: a row that finishes picks up the next prompt;
+drafts enter through speculative-prefix admission).  These raise
+``NotImplementedError`` and name the slice that brings them: the variants
+``random``, ``full`` and ``delayed`` and the two-pass path
+(``one_pass="off"``) with the GRPO update (ROADMAP Queue 1 item 7); the
+draft engine (item 9); the mesh (item 15).  The port has no observatory yet
+(item 14): no tracer spans or ledger rows are emitted.
+
+``key`` may be a scalar key (one stream for the batch) or a key batch (one
+key per row, ``engine/sampling.py``), which makes every row's tokens
+independent of how rows are grouped: the contract slot backfill rests on.
 
 Stage timers wait for the device with ``torch.cuda.synchronize()`` where
 JAX calls ``block_until_ready``.
@@ -46,7 +53,9 @@ class SpecConfig:
     lenience: float = math.e ** 0.5     # paper default for GRPO
     cache_history: int = 4
     one_pass: str = "auto"              # 'auto' | 'on' (| 'off': two-pass)
-    backfill: str = "none"              # 'none' (| 'slots')
+    backfill: str = "none"              # 'none' | 'slots' (slot engine)
+    backfill_slots: int = 0             # decode slots for 'slots'
+                                        # (0 -> half the prompt batch)
     draft: Any = None                   # §9 draft engine config (None = off)
 
     @property
@@ -126,16 +135,17 @@ def _check_ported(spec: SpecConfig, mesh) -> None:
     if spec.draft is not None:
         raise NotImplementedError("the draft engine arrives with ROADMAP "
                                   "Queue 1 item 9")
-    if spec.backfill != "none":
-        raise NotImplementedError("backfill='slots' arrives with slot "
-                                  "serving (ROADMAP Queue 1 item 10)")
+    if spec.backfill not in ("none", "slots"):
+        raise ValueError(f"unknown backfill {spec.backfill!r}")
     if mesh is not None:
         raise NotImplementedError("the mesh arrives with ROADMAP Queue 1 "
                                   "item 15")
 
 
-def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 @torch.no_grad()
@@ -147,8 +157,13 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
 
     prompts: (B, P) left-padded, prompt_mask: (B, P) (arrays or tensors);
     prompt_ids: stable cache keys; cache: the host-side ``RolloutCache``
-    (refreshed in place); key: a sampling key (``engine.sampling``)."""
+    (refreshed in place); key: a scalar key or a key batch
+    (``engine.sampling``)."""
     _check_ported(spec, mesh)
+    if spec.backfill == "slots":
+        from repro_torch.serving.rl_adapter import rollout_via_slots
+        return rollout_via_slots(model, cfg, gen, spec, prompts, prompt_mask,
+                                 prompt_ids, cache, key, step)
     dev = model.device
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)

@@ -19,7 +19,10 @@ from repro_torch.models.config import ModelConfig
 
 
 def _accept_uniforms(key, B: int, N: int) -> torch.Tensor:
-    """Per-token acceptance uniforms u (B, N), one stream for the batch."""
+    """Per-token acceptance uniforms u (B, N): one stream for the batch
+    from a scalar key, row b's from key b alone from a key batch (so the
+    rejection position is a per-request quantity, whatever the admission
+    group)."""
     return key.uniform((B, N))
 
 

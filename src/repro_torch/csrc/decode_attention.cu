@@ -26,171 +26,15 @@
 //  * scores, softmax partials and P.V are fp32; a second small kernel merges
 //    the splits' (m, l, acc) partials with the log-sum-exp rescale, reading
 //    only the live splits.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// The kernels themselves are in decode_attention.cuh, which the paged kernel
+// (paged_decode_attention.cu) shares; here a split is BK = 64 contiguous
+// slots of the row's (S, D) cache.
+#include "decode_attention.cuh"
 
 namespace {
 
 constexpr int BK = 64;          // cache slots per split
-constexpr int THREADS = 128;    // 4 warps
-constexpr int MAX_GT = 16;      // G * T queries per block
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ int first_live_split(int start) { return start / BK; }
-__device__ __forceinline__ int end_live_split(int len) { return (len + BK - 1) / BK; }
-
-template <int D>
-__global__ void __launch_bounds__(THREADS) decode_split_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, const int* __restrict__ lengths,
-    const int* __restrict__ starts, float* __restrict__ m_part,
-    float* __restrict__ l_part, float* __restrict__ acc_part, int Hkv, int G,
-    int T, int S, int nsplit, int window, float scale) {
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int GT = G * T;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lengths[b], st = starts[b];
-  if (split < first_live_split(st) || split >= end_live_split(len) || len <= st)
-    return;  // dead split: the combine kernel never reads its partials
-
-  __shared__ float qs[MAX_GT][D];
-  __shared__ __align__(16) __nv_bfloat16 ks[BK][D + 8];  // +8: no bank conflicts
-  __shared__ __align__(16) __nv_bfloat16 vs[BK][D];
-  __shared__ float ps[MAX_GT][BK];
-  __shared__ int kp[BK];
-  __shared__ int qp[MAX_GT];
-
-  const int Hq = Hkv * G;
-  const int j0 = split * BK;
-  for (int i = tid; i < GT * D; i += THREADS) {
-    const int r = i / D, d = i % D, g = r / T, t = r % T;
-    qs[r][d] = __bfloat162float(q[(((size_t)b * Hq + h * G + g) * T + t) * D + d]);
-  }
-  if (tid < GT) qp[tid] = q_pos[(size_t)b * T + (tid % T)];
-
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  const size_t kv_base = ((size_t)b * Hkv + h) * S;
-  for (int i = tid; i < BK * VPR; i += THREADS) {
-    const int j = i / VPR, c = (i % VPR) * 8;
-    const int slot = j0 + j;
-    uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-    if (slot < S) {
-      kv4 = *reinterpret_cast<const uint4*>(k + (kv_base + slot) * D + c);
-      vv4 = *reinterpret_cast<const uint4*>(v + (kv_base + slot) * D + c);
-    }
-    *reinterpret_cast<uint4*>(&ks[j][c]) = kv4;
-    *reinterpret_cast<uint4*>(&vs[j][c]) = vv4;
-  }
-  for (int j = tid; j < BK; j += THREADS) {
-    const int slot = j0 + j;
-    kp[j] = slot < S ? k_pos[(size_t)b * S + slot] : -1;
-  }
-  __syncthreads();
-
-  // scores: one (query row, slot) pair per thread and pass
-  for (int p = tid; p < GT * BK; p += THREADS) {
-    const int r = p / BK, j = p % BK, slot = j0 + j;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(&ks[j][c]);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        acc += qs[r][c + 2 * e] * f.x + qs[r][c + 2 * e + 1] * f.y;
-      }
-    }
-    const int kpj = kp[j], qpr = qp[r];
-    bool ok = kpj >= 0 && kpj <= qpr && slot < len && slot >= st;
-    if (window > 0) ok = ok && (qpr - kpj) < window;
-    ps[r][j] = ok ? acc * scale : NEG_INF;
-  }
-  __syncthreads();
-
-  // per-row partial softmax over this split: (m, l); p overwrites the scores
-  const size_t part = ((size_t)b * Hkv + h) * nsplit + split;
-  for (int r = warp; r < GT; r += THREADS / 32) {
-    const float s0 = ps[r][lane], s1 = ps[r][lane + 32];
-    const float m = warp_max(fmaxf(s0, s1));
-    const float p0 = s0 == NEG_INF ? 0.f : expf(s0 - m);
-    const float p1 = s1 == NEG_INF ? 0.f : expf(s1 - m);
-    const float l = warp_sum(p0 + p1);
-    ps[r][lane] = p0;
-    ps[r][lane + 32] = p1;
-    if (lane == 0) {
-      m_part[part * GT + r] = m;
-      l_part[part * GT + r] = l;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < GT * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    float a = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < BK; ++j) a += ps[r][j] * __bfloat162float(vs[j][d]);
-    acc_part[(part * GT + r) * D + d] = a;
-  }
-}
-
-// One block per (query row, kv head, batch row); threads over D.
-template <int D>
-__global__ void __launch_bounds__(D) decode_combine_kernel(
-    const float* __restrict__ m_part, const float* __restrict__ l_part,
-    const float* __restrict__ acc_part, const int* __restrict__ lengths,
-    const int* __restrict__ starts, float* __restrict__ out, int Hkv, int G,
-    int T, int nsplit) {
-  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int GT = G * T;
-  const int len = lengths[b], st = starts[b];
-  int s_lo = first_live_split(st), s_hi = end_live_split(len);
-  if (len <= st) s_hi = s_lo;  // no live slot: the output is 0
-  const size_t base = ((size_t)b * Hkv + h) * nsplit;
-  float mg = NEG_INF;
-  for (int s = s_lo; s < s_hi; ++s) mg = fmaxf(mg, m_part[(base + s) * GT + r]);
-  float lt = 0.f, at = 0.f;
-  for (int s = s_lo; s < s_hi; ++s) {
-    const float coef = expf(m_part[(base + s) * GT + r] - mg);
-    lt += coef * l_part[(base + s) * GT + r];
-    at += coef * acc_part[((base + s) * GT + r) * D + d];
-  }
-  const int g = r / T, t = r % T;
-  const int Hq = Hkv * G;
-  out[(((size_t)b * Hq + h * G + g) * T + t) * D + d] = at / (lt > 0.f ? lt : 1.f);
-}
-
-template <int D>
-cudaError_t run(const void* q, const void* k, const void* v, const int* q_pos,
-                const int* k_pos, const int* lengths, const int* starts,
-                float* m, float* l, float* acc, float* out, int B, int Hq,
-                int Hkv, int T, int S, int nsplit, int window, float scale,
-                cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  decode_split_kernel<D><<<dim3(nsplit, Hkv, B), THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), q_pos, k_pos, lengths, starts, m, l,
-      acc, Hkv, G, T, S, nsplit, window, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<D><<<dim3(G * T, Hkv, B), D, 0, stream>>>(
-      m, l, acc, lengths, starts, out, Hkv, G, T, nsplit);
-  return cudaGetLastError();
-}
 
 }  // namespace
 
@@ -199,7 +43,7 @@ extern "C" int repro_decode_attention(
     const void* k_pos, const void* lengths, const void* starts, void* m,
     void* l, void* acc, void* out, int B, int Hq, int Hkv, int T, int S, int D,
     int nsplit, int window, float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * T > MAX_GT ||
+  if (Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * T > decode_attn::MAX_GT ||
       nsplit * BK < S)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* qp = static_cast<const int*>(q_pos);
@@ -213,11 +57,13 @@ extern "C" int repro_decode_attention(
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 128)
-    err = run<128>(q, k, v, qp, kp, ln, sp, mm, ll, aa, oo, B, Hq, Hkv, T, S,
-                   nsplit, window, scale, st);
+    err = decode_attn::run<128, BK, false>(q, k, v, nullptr, qp, kp, ln, sp, mm,
+                                           ll, aa, oo, B, Hq, Hkv, T, S, nsplit,
+                                           window, scale, st);
   else if (D == 64)
-    err = run<64>(q, k, v, qp, kp, ln, sp, mm, ll, aa, oo, B, Hq, Hkv, T, S,
-                  nsplit, window, scale, st);
+    err = decode_attn::run<64, BK, false>(q, k, v, nullptr, qp, kp, ln, sp, mm,
+                                          ll, aa, oo, B, Hq, Hkv, T, S, nsplit,
+                                          window, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -8,6 +8,10 @@ step that keeps JAX's key-split order and done-row behaviour: a done row
 stores the pad token, feeds position -1 (its embedding is zeroed and its
 cache slot is still written, with pos -1), and the loop runs until every
 row is done or N tokens were taken.
+
+``key`` is a scalar key or a key batch (``engine/sampling.py``); with a key
+batch each row samples from its own stream, which is what makes the slot
+engine's rows equal a fixed batch's, row for row.
 """
 from __future__ import annotations
 
@@ -70,7 +74,7 @@ def _decode_loop(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
                  ) -> Dict[str, torch.Tensor]:
     """Sample from ``seed_logits``, then decode until every row is done or N
     tokens were taken.  Key-split order is JAX's: one split before the first
-    sample, one after every decode step."""
+    sample, one after every decode step (row by row for a key batch)."""
     B = seed_logits.shape[0]
     N = gen.max_new_tokens
     dev = seed_logits.device

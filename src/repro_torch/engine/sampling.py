@@ -8,13 +8,31 @@ Random keys are a small protocol instead of JAX's key arrays:
 * ``key.gumbel(shape)`` and ``key.uniform(shape)`` draw float32 noise on the
   key's device.
 
+Two kinds of key keep JAX's two kinds apart.  A scalar key (JAX's (2,)
+key) draws the whole batch's noise from one stream.  A key batch (JAX's
+(B, 2) per-row keys) draws row b of ``gumbel((B, V))`` and
+``uniform((B, N))`` from its key b alone, so a row's tokens depend on its
+key and its tokens only, whatever batch it is sampled in: the invariance
+the slot engine (``serving/engine_loop.py``) rests on.  A key batch can be
+indexed (``kb[j]`` is a one-row batch), assigned by row (``kb[slot] =
+other[j]``) and stacked (``stack_keys``); ``split`` works row by row;
+``fold_in(key, i)`` derives row i's key from a scalar key.
+
 ``jax.random.categorical(key, logp)`` is exactly
 ``argmax(logp + gumbel(key, logp.shape))``, so ``sample`` draws that way: a
-key that wraps a JAX key and draws with ``jax.random`` (the tests define
-one) makes the sampled tokens identical to the reference.  The port's own
-``Key`` wraps a ``torch.Generator`` on the device, seeded from an integer;
-``split`` derives the two child seeds deterministically (splitmix64), so a
-seed fixes the whole stream.
+key that wraps a JAX key and draws with ``jax.random`` (the tests define a
+scalar one and a per-row one) makes the sampled tokens identical to the
+reference.
+
+The port's own keys: ``Key`` wraps a ``torch.Generator`` on the device,
+seeded from an integer; ``split`` derives the two child seeds
+deterministically (splitmix64), so a seed fixes the whole stream.
+``KeyBatch`` holds (B, 2) 32-bit words in an int64 tensor on the device and
+draws with a counter-based hash (Wellons' lowbias32, keyed by both words),
+vectorised over the batch: a fixed number of elementwise ops per draw,
+whatever B is, and the same bits on the CPU and the card.  Every product is
+kept below 2**63 (``_mul32`` splits the 32-bit multiplier), because int64
+tensors have no unsigned wrap-around and no logical shift.
 """
 from __future__ import annotations
 
@@ -27,6 +45,7 @@ from repro_torch.device import DeviceLike, resolve_device
 NEG_INF = -1e30
 _MASK64 = (1 << 64) - 1
 _TINY = torch.finfo(torch.float32).tiny
+_M32 = 0xFFFFFFFF
 
 
 def _splitmix64(x: int) -> int:
@@ -57,8 +76,93 @@ class Key:
                           dtype=torch.float32, device=self.device)
 
     def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
-        u = self.uniform(shape).clamp_min_(_TINY)
-        return -torch.log(-torch.log(u))
+        return _gumbel(self.uniform(shape))
+
+    def fold_in(self, i: int) -> "KeyBatch":
+        """Row ``i``'s key of a per-request key batch (JAX's
+        ``fold_in(key, i)``): a one-row ``KeyBatch``."""
+        words = torch.tensor([[self.seed & _M32, self.seed >> 32]],
+                             dtype=torch.int64, device=self.device)
+        return KeyBatch(_derive(words, (2 * int(i) + 3,))[:, 0])
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for x in [0, 2**32), with every product < 2**49."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32: a bijective 32-bit hash with full avalanche."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _derive(words: torch.Tensor, tags: Sequence[int]) -> torch.Tensor:
+    """Child words (B, len(tags), 2) of ``words`` (B, 2), one child per
+    32-bit tag, all in one pass."""
+    t = torch.tensor(tags, dtype=torch.int64, device=words.device)[None, :]
+    k0, k1 = words[:, :1], words[:, 1:]
+    a = _mix32(k0 ^ _mix32((k1 + t) & _M32))
+    b = _mix32(k1 ^ _mix32((a + 0x9E3779B9) & _M32))
+    return torch.stack([a, b], dim=2)
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(u.clamp_min_(_TINY)))
+
+
+class KeyBatch:
+    """Per-row keys: ``words`` (B, 2) int64 holding 32-bit values."""
+
+    def __init__(self, words: torch.Tensor):
+        if words.ndim != 2 or words.shape[1] != 2:
+            raise ValueError(f"KeyBatch wants (B, 2) words, got "
+                             f"{tuple(words.shape)}")
+        self.words = words
+
+    @property
+    def device(self) -> torch.device:
+        return self.words.device
+
+    def __len__(self) -> int:
+        return self.words.shape[0]
+
+    def __getitem__(self, idx) -> "KeyBatch":
+        if isinstance(idx, int):
+            idx = slice(idx, idx + 1)
+        return KeyBatch(self.words[idx])
+
+    def __setitem__(self, idx, other: "KeyBatch") -> None:
+        self.words[idx] = other.words.to(self.device)
+
+    @classmethod
+    def stack(cls, keys: Sequence["KeyBatch"]) -> "KeyBatch":
+        dev = keys[0].device
+        return cls(torch.cat([k.words.to(dev) for k in keys], dim=0))
+
+    def split(self) -> Tuple["KeyBatch", "KeyBatch"]:
+        children = _derive(self.words, (1, 2))
+        return KeyBatch(children[:, 0]), KeyBatch(children[:, 1])
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """float32 in [0, 1), (B, ...): row b from key b alone."""
+        shape = tuple(shape)
+        if shape[0] != len(self):
+            raise ValueError(f"a batch of {len(self)} keys draws (B, ...) "
+                             f"noise with B = {len(self)}, not {shape}")
+        n = 1
+        for d in shape[1:]:
+            n *= d
+        j = torch.arange(n, dtype=torch.int64, device=self.device)[None, :]
+        x = _mix32(j ^ self.words[:, :1])
+        x = _mix32(x ^ self.words[:, 1:])
+        return ((x >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
+
+    def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
+        return _gumbel(self.uniform(shape))
 
 
 def make_key(seed: int, device: DeviceLike = None) -> Key:
@@ -68,6 +172,25 @@ def make_key(seed: int, device: DeviceLike = None) -> Key:
 
 def split_key(key):
     return key.split()
+
+
+def fold_in(key, i: int):
+    """Row ``i``'s key derived from a scalar key (a one-row key batch)."""
+    return key.fold_in(i)
+
+
+def stack_keys(keys: Sequence):
+    """Stack one-row key batches (of one kind) into one batch."""
+    return type(keys[0]).stack(list(keys))
+
+
+def request_keys(key, batch: int):
+    """Per-request keys for ``batch`` rows: a key batch is returned as it
+    is; a scalar key is expanded with ``fold_in`` (a different stream from
+    scalar-key sampling, which draws batch-coupled noise)."""
+    if not hasattr(key, "fold_in"):
+        return key
+    return stack_keys([fold_in(key, i) for i in range(batch)])
 
 
 def adjust_logits(logits: torch.Tensor, temperature: float = 1.0,

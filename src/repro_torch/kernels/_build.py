@@ -24,7 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("decode_attention", "flash_attention", "spec_verify", "cache_roll")
+SOURCES = ("decode_attention", "flash_attention", "spec_verify", "cache_roll",
+           "cache_slot_write", "paged_gather", "paged_decode_attention")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
          "-lineinfo"]
@@ -44,6 +45,13 @@ SIGNATURES = {
     "repro_spec_verify": [_P] * 5 + [_I, _I, _F, _P],
     # buf, shift, out, R, S, row_bytes, stream
     "repro_cache_roll": [_P] * 3 + [_L, _I, _I, _P],
+    # dst, src, src_for_dst, Rd, row_bytes, stream
+    "repro_cache_slot_write": [_P] * 3 + [_L, _L, _P],
+    # pool, table, out, n_blocks, block_bytes, stream
+    "repro_paged_gather": [_P] * 3 + [_L, _L, _P],
+    # q, k_pool, v_pool, table, q_pos, k_pos, lengths, starts, m, l, acc,
+    # out, B, Hq, Hkv, T, nb, bs, D, window, scale, stream
+    "repro_paged_decode_attention": [_P] * 12 + [_I] * 8 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,5 +1,4 @@
-"""KV-cache compaction roll (port of ``cache_roll`` in
-``repro/kernels/cache_gather``).
+"""KV-cache compaction primitives (port of ``repro/kernels/cache_gather``).
 
 ``cache_roll`` right-rotates each (S, D) row of a flattened cache buffer by
 a per-row shift — the primitive behind ``model.realign_decode_cache``.  It
@@ -7,6 +6,12 @@ launches the CUDA kernel (``csrc/cache_roll.cu``, which replaces
 ``cache_roll_pallas``, ``repro/kernels/cache_gather/kernel.py:38``) on CUDA
 tensors and runs ``cache_roll_plain`` on CPU tensors; both work out of place
 and agree bit for bit.
+
+``paged_gather`` materialises the dense logical view of a paged block pool
+(``out[r, i] = pool[table[r, i]]``), which the paged realign rolls and
+re-pages.  It launches ``csrc/paged_gather.cu`` (which replaces
+``paged_gather_pallas``, ``repro/kernels/cache_gather/kernel.py:63``) on
+CUDA tensors and runs ``paged_gather_plain`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -54,3 +59,46 @@ def cache_roll(buf: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     if buf.device.type != "cpu":
         raise ValueError(f"cache_roll: no kernel for {buf.device}")
     return cache_roll_plain(buf, shift)
+
+
+def paged_gather_plain(pool: torch.Tensor, table: torch.Tensor
+                       ) -> torch.Tensor:
+    """out[r, i] = pool[table[r, i]] by ``index_select``."""
+    R, nb = table.shape
+    return pool.index_select(0, table.reshape(-1).to(torch.int64)).reshape(
+        (R, nb) + tuple(pool.shape[1:]))
+
+
+def paged_gather_cuda(pool: torch.Tensor, table: torch.Tensor
+                      ) -> torch.Tensor:
+    R, nb = table.shape
+    block_bytes = pool[0].numel() * pool.element_size()
+    if not pool.is_contiguous() or pool.data_ptr() % 16 or block_bytes % 16:
+        raise ValueError("paged_gather kernel needs a contiguous, 16-byte "
+                         "aligned pool whose blocks are a multiple of 16 bytes")
+    if table.dtype != torch.int32 or not table.is_contiguous() or \
+            table.device != pool.device:
+        raise ValueError("paged_gather kernel needs table (R, nb) int32 on "
+                         "the pool's device")
+    out = torch.empty((R, nb) + tuple(pool.shape[1:]), dtype=pool.dtype,
+                      device=pool.device)
+    launch("repro_paged_gather", pool.device, pool.data_ptr(),
+           table.data_ptr(), out.data_ptr(), R * nb, block_bytes)
+    LAUNCHES["paged_gather"] += 1
+    return out
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """pool: (NB, X, D); table: (R, nb) int in [0, NB).  Returns a new
+    (R, nb, X, D) tensor with out[r, i] = pool[table[r, i]].  CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    if pool.ndim != 3 or table.ndim != 2:
+        raise ValueError(f"paged_gather wants pool (NB, X, D) and table "
+                         f"(R, nb), got {tuple(pool.shape)}, "
+                         f"{tuple(table.shape)}")
+    table = table.to(torch.int32).contiguous()
+    if pool.device.type == "cuda":
+        return paged_gather_cuda(pool, table)
+    if pool.device.type != "cpu":
+        raise ValueError(f"paged_gather: no kernel for {pool.device}")
+    return paged_gather_plain(pool, table)

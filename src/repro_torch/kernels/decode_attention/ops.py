@@ -1,11 +1,18 @@
-"""Short-query decode attention over a dense cache (port of
+"""Short-query decode attention over a dense or a paged cache (port of
 ``repro/kernels/decode_attention``).
 
 ``decode_attention`` launches the split-K CUDA kernel
 (``csrc/decode_attention.cu``, which replaces ``decode_attention_pallas``,
 ``repro/kernels/decode_attention/kernel.py:193``) on CUDA tensors and runs
 ``decode_attention_plain`` on CPU tensors.  Every decode token of every
-layer comes here.
+layer of a dense cache comes here.
+
+``paged_decode_attention`` is the same function with K/V read from a block
+pool through a block table; it launches ``csrc/paged_decode_attention.cu``
+(which replaces ``paged_decode_attention_pallas``,
+``repro/kernels/decode_attention/kernel.py:120``) on CUDA tensors and runs
+``paged_decode_attention_plain`` (gather, then the dense plain version) on
+CPU tensors.  Every decode token of a paged cache comes here.
 """
 from __future__ import annotations
 
@@ -133,3 +140,121 @@ def decode_attention(q, k, v, q_pos, k_pos, lengths=None, starts=None, *,
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     return decode_attention_plain(q, k, v, q_pos, k_pos, lengths, starts,
                                   window=window)
+
+
+PAGED_BLOCK_SIZES = (32, 64)    # kv_block_size the paged kernel is built for
+
+
+def gather_paged_kv(pool: torch.Tensor, table: torch.Tensor, width: int
+                    ) -> torch.Tensor:
+    """Dense logical view (B, Hkv, width, D) of a (NB, Hkv, bs, D) pool
+    through table (B, nb), sliced to the logical width: shape- and
+    value-identical to the dense cache buffer (the paged plain version and
+    the model's T > 1 paged forwards read it)."""
+    B, nb = table.shape
+    _, Hkv, bs, D = pool.shape
+    g = pool.index_select(0, table.reshape(-1).to(torch.int64))
+    return (g.reshape(B, nb, Hkv, bs, D).transpose(1, 2)
+            .reshape(B, Hkv, nb * bs, D)[:, :, :width])
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, table, q_pos, k_pos,
+                                 lengths, starts, *, window: int = 0
+                                 ) -> torch.Tensor:
+    """Gather the pools to the dense view of k_pos's (logical) width, zero
+    the slots outside [starts, lengths) (what they hold is never attended,
+    and a dead table entry may point at anything), and run
+    ``decode_attention_plain``: bit-identical to the dense cache's plain
+    version on the same logical cache.  q_pos (B, T), lengths/starts (B,)
+    as ``_norm_inputs`` leaves them."""
+    S = k_pos.shape[1]
+    j = torch.arange(S, dtype=torch.int32, device=q.device)[None, :]
+    live = ((j >= starts[:, None]) & (j < lengths[:, None]))[:, None, :, None]
+    zero = torch.zeros((), dtype=k_pool.dtype, device=q.device)
+    k = torch.where(live, gather_paged_kv(k_pool, table, S), zero)
+    v = torch.where(live, gather_paged_kv(v_pool, table, S), zero)
+    return decode_attention_plain(q, k, v, q_pos, k_pos, lengths, starts,
+                                  window=window)
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, k_pos,
+                                lengths, starts, *, window: int = 0
+                                ) -> torch.Tensor:
+    """Launch the kernel (inputs as ``_norm_inputs`` leaves them; k_pos
+    already padded to nb * bs)."""
+    B, Hq, T, D = q.shape
+    NB, Hkv, bs, _ = k_pool.shape
+    nb = table.shape[1]
+    if not (q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16):
+        raise TypeError("paged_decode_attention kernel takes bfloat16 "
+                        f"q/pools, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if k_pool.shape != v_pool.shape or k_pool.shape[3] != D:
+        raise ValueError(f"pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if D not in (64, 128) or bs not in PAGED_BLOCK_SIZES:
+        raise ValueError(f"paged_decode_attention kernel takes head_dim 64 "
+                         f"or 128 and block size {PAGED_BLOCK_SIZES}, got "
+                         f"{D} and {bs}")
+    if Hq % Hkv or (Hq // Hkv) * T > MAX_GT:
+        raise ValueError(f"paged_decode_attention kernel packs at most "
+                         f"{MAX_GT} queries per KV head; got G={Hq // Hkv}, "
+                         f"T={T}")
+    if table.shape != (B, nb) or table.dtype != torch.int32 or \
+            k_pos.shape != (B, nb * bs) or k_pos.dtype != torch.int32:
+        raise ValueError(f"table must be (B, nb) int32 and k_pos (B, nb*bs) "
+                         f"int32, got {tuple(table.shape)} {table.dtype}, "
+                         f"{tuple(k_pos.shape)} {k_pos.dtype}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("table", table), ("k_pos", k_pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"paged_decode_attention kernel needs a "
+                             f"contiguous {name}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_decode_attention kernel loads the pools in "
+                         "16-byte vectors: they must be 16-byte aligned")
+    GT = (Hq // Hkv) * T
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.empty((B, Hkv, nb, GT), **f32)
+    l = torch.empty((B, Hkv, nb, GT), **f32)
+    acc = torch.empty((B, Hkv, nb, GT, D), **f32)
+    out = torch.empty((B, Hq, T, D), **f32)
+    launch("repro_paged_decode_attention", q.device,
+           q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+           table.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+           lengths.data_ptr(), starts.data_ptr(), m.data_ptr(), l.data_ptr(),
+           acc.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, nb, bs, D,
+           int(window), 1.0 / math.sqrt(D))
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, q_pos, k_pos,
+                           lengths=None, starts=None, *, window: int = 0
+                           ) -> torch.Tensor:
+    """q: (B, Hq, T, D); k_pool/v_pool: (NB, Hkv, bs, D) block pools;
+    table: (B, nb) int block ids (logical slot j of row b lives at
+    ``pool[table[b, j // bs], :, j % bs]``); k_pos: (B, S) positions of the
+    logical width S <= nb * bs; q_pos, lengths, starts as in
+    ``decode_attention``.  Returns (B, Hq, T, D) float32.  CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    S = k_pos.shape[1]
+    bs, nb = k_pool.shape[2], table.shape[1]
+    if S > nb * bs:
+        raise ValueError(f"k_pos width {S} exceeds the table's {nb} blocks "
+                         f"of {bs}")
+    q_pos, lengths, starts = _norm_inputs(q, q_pos, lengths, starts, S)
+    k_pos = k_pos.to(torch.int32)
+    if q.device.type == "cuda":
+        if S < nb * bs:
+            # the block-rounding slack is empty: pad with -1 (masked)
+            k_pos = torch.nn.functional.pad(k_pos, (0, nb * bs - S), value=-1)
+        return paged_decode_attention_cuda(
+            q, k_pool, v_pool, table.to(torch.int32).contiguous(), q_pos,
+            k_pos.contiguous(), lengths, starts, window=window)
+    if q.device.type != "cpu":
+        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+    return paged_decode_attention_plain(q, k_pool, v_pool, table, q_pos,
+                                        k_pos, lengths, starts, window=window)

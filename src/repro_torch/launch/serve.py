@@ -1,0 +1,207 @@
+"""Serving launcher of the port (``repro/launch/serve.py``'s flags for the
+slot server): a continuous-batching slot server with a request arrival
+stream, speculative-prefix admission and latency/throughput stats
+(DESIGN.md §6), or one-shot fixed-batch generation (``--engine fixed``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
+        --spec-prefix
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
+        --arch qwen3-1.7b --requests 64 --slots 8 --spec-prefix
+
+Runs on the card unless ``--device cpu``.  As in JAX the model config is
+always the architecture's ``.reduced(...)`` smoke variant, with random
+weights from ``--seed``; on the card it runs in bfloat16 (the port's
+kernels take bfloat16), on the CPU in float32 as JAX's.  ``--cache-layout
+paged`` serves through ``--engine fixed`` only: the paged slot engine
+arrives with ROADMAP Queue 1 item 11.  The §9 draft engine, §10 hardening,
+§11/§14 observatory and §8 mesh flags of the reference arrive with their
+slices.
+"""
+from __future__ import annotations
+
+import argparse
+import random
+import time
+
+import numpy as np
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.cache import RolloutCache
+from repro_torch.data.dataset import PromptDataset
+from repro_torch.data.tokenizer import VOCAB_SIZE, decode
+from repro_torch.device import resolve_device, sync
+from repro_torch.engine.generate import GenerateConfig, generate
+from repro_torch.engine.sampling import fold_in, make_key, stack_keys
+from repro_torch.models import model as M
+from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
+from repro_torch.serving import Request, make_slot_engine
+
+# long-tailed per-request budgets (fractions of --max-new-tokens): most
+# requests are short, a few run to the full budget — the regime where
+# fixed-batch decode idles on its stragglers
+TAIL_FRACTIONS = (0.25, 0.25, 0.5, 1.0)
+TAIL_WEIGHTS = (0.5, 0.25, 0.15, 0.1)
+
+
+def build_requests(ds: PromptDataset, rng: random.Random, n_requests: int,
+                   max_new_tokens: int, key) -> list:
+    batch = ds.sample_batch(rng, n_requests, 1)
+    reqs = []
+    for i in range(n_requests):
+        p_len = int(batch.mask[i].sum())
+        budget = max(1, int(max_new_tokens *
+                            rng.choices(TAIL_FRACTIONS, TAIL_WEIGHTS)[0]))
+        reqs.append(Request(
+            request_id=i, prompt=batch.tokens[i, -p_len:].astype(np.int32),
+            key=fold_in(key, i), max_new_tokens=budget))
+    return reqs
+
+
+def serve_fixed(model, cfg, gen, reqs, prompt_width, slots):
+    """Fixed-batch baseline: decode ``slots``-sized batches to the slowest
+    row, each row on its own key and budget.  Returns (tokens dict,
+    n_generated)."""
+    outs, total = {}, 0
+    for lo in range(0, len(reqs), slots):
+        chunk = reqs[lo:lo + slots]
+        B = len(chunk)
+        toks = np.zeros((B, prompt_width), np.int32)
+        mask = np.zeros((B, prompt_width), bool)
+        for j, r in enumerate(chunk):
+            toks[j, prompt_width - len(r.prompt):] = r.prompt
+            mask[j, prompt_width - len(r.prompt):] = True
+        keys = stack_keys([r.key for r in chunk])
+        budget = np.asarray([r.max_new_tokens for r in chunk], np.int32)
+        out = generate(model, cfg, gen, toks, mask, keys, row_budget=budget)
+        sync(model.device)
+        length = out["length"].cpu().numpy()
+        tokens = out["tokens"].cpu().numpy()
+        for j, r in enumerate(chunk):
+            outs[r.request_id] = tokens[j, :int(length[j])]
+        total += int(out["n_generated"])
+    return outs, total
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", choices=sorted(ARCH_IDS), default="qwen3-0.6b")
+    p.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="tiny reduced run (default); --no-smoke serves the "
+                        "full request/token budget")
+    p.add_argument("--engine", choices=["auto", "slots", "fixed"],
+                   default="auto")
+    p.add_argument("--slots", type=int, default=4,
+                   help="decode-batch slots (also the fixed-batch size)")
+    p.add_argument("--requests", type=int, default=None)
+    p.add_argument("--max-new-tokens", type=int, default=None)
+    p.add_argument("--prompt-len", type=int, default=10)
+    p.add_argument("--arrival-every", type=int, default=0,
+                   help="stagger arrivals: one request every K engine steps "
+                        "(0 = all queued up front)")
+    p.add_argument("--spec-prefix", action="store_true",
+                   help="serve every request twice: the first pass's output "
+                        "becomes the second pass's speculative prefix")
+    p.add_argument("--cache-layout", choices=["dense", "paged"],
+                   default="dense",
+                   help="§13 KV cache layout ('paged' with --engine fixed)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    n_requests = args.requests or (8 if args.smoke else 64)
+    max_new = args.max_new_tokens or (12 if args.smoke else 64)
+
+    dtype = "bfloat16" if device.type == "cuda" else "float32"
+    cfg = get_config(args.arch).reduced(vocab_size=max(VOCAB_SIZE, 64),
+                                        dtype=dtype, param_dtype=dtype)
+    if cfg.vocab_size < VOCAB_SIZE:
+        cfg = cfg.replace(vocab_size=VOCAB_SIZE)
+    if args.cache_layout != cfg.cache_layout:
+        cfg = cfg.replace(cache_layout=args.cache_layout)
+    model = M.init_lm(cfg, seed=args.seed, device=device)
+    gen = GenerateConfig(max_new_tokens=max_new)
+
+    def make_engine(spec_prefix: bool):
+        return make_slot_engine(model, cfg, gen, num_slots=args.slots,
+                                prompt_width=args.prompt_len,
+                                spec_prefix=spec_prefix, log_lenience=0.0)
+
+    rng = random.Random(args.seed)
+    problems = generate_problems(MathTaskConfig(num_problems=n_requests))
+    ds = PromptDataset(problems, max_prompt_len=args.prompt_len)
+    reqs = build_requests(ds, rng, n_requests, max_new,
+                          make_key(args.seed + 3, device))
+
+    engine_kind = args.engine
+    if engine_kind == "auto":
+        engine_kind = "slots" if M.supports_slot_serving(cfg) else "fixed"
+    if engine_kind == "fixed" and (args.spec_prefix or args.arrival_every):
+        raise SystemExit("--spec-prefix/--arrival-every need the slot "
+                         "engine; drop the flags or use --engine slots")
+
+    t0 = time.time()
+    if engine_kind == "fixed":
+        outs, n_gen = serve_fixed(model, cfg, gen, reqs, args.prompt_len,
+                                  args.slots)
+        dt = time.time() - t0
+        print(f"arch={cfg.name} engine=fixed: served {n_requests} requests, "
+              f"{n_gen} tokens in {dt:.2f}s ({n_gen / max(dt, 1e-9):.0f} tok/s)")
+        for i in range(min(n_requests, 4)):
+            print(f"  req{i}: {decode(outs[i])!r}")
+        return 0
+
+    if args.spec_prefix:
+        # pass 1 (vanilla) builds the draft cache; pass 2 below serves with
+        # speculative-prefix admission against the same policy
+        warm = make_engine(spec_prefix=False)
+        for r in reqs:
+            warm.submit(Request(request_id=r.request_id, prompt=r.prompt,
+                                key=r.key, max_new_tokens=r.max_new_tokens))
+        warm_resp = warm.run()
+        drafts = RolloutCache()
+        for r in reqs:
+            resp = warm_resp[r.request_id]
+            drafts.put(r.request_id, resp.tokens, resp.logprobs, resp.length,
+                       step=0, eos_id=gen.eos_id)
+        vkey = make_key(args.seed + 11, device)
+        for i, r in enumerate(reqs):
+            e = drafts.get(r.request_id)
+            r.verify_key = fold_in(vkey, i)
+            r.draft_tokens, r.draft_logprobs = e.tokens, e.logprobs
+            r.draft_eos = e.ends_with_eos
+        t0 = time.time()
+
+    engine = make_engine(spec_prefix=args.spec_prefix)
+    if args.arrival_every > 0:
+        resps = engine.run(arrivals=[(i * args.arrival_every, r)
+                                     for i, r in enumerate(reqs)])
+    else:
+        for r in reqs:
+            engine.submit(r)
+        resps = engine.run()
+    dt = time.time() - t0
+    s = engine.stats()
+    n_gen = int(s["generated_tokens"])
+    print(f"arch={cfg.name} engine=slots(spec={args.spec_prefix}, "
+          f"shards=1): served {len(resps)}/{n_requests} requests, {n_gen} "
+          f"generated (+{int(s['reused_tokens'])} reused) tokens in "
+          f"{dt:.2f}s "
+          f"({(n_gen + int(s['reused_tokens'])) / max(dt, 1e-9):.0f} tok/s)")
+    print(f"  occupancy={s['occupancy']:.2f} engine_steps={int(s['engine_steps'])} "
+          f"admissions={int(s['admitted'])} "
+          f"mean_queue_wait={s['mean_queue_wait'] * 1e3:.1f}ms "
+          f"mean_serve={s['mean_serve_time'] * 1e3:.1f}ms")
+    for i in range(min(n_requests, 4)):
+        r = resps[i]
+        full = np.concatenate([
+            np.asarray(reqs[i].draft_tokens[:r.n_accepted], np.int32)
+            if r.n_accepted else np.zeros(0, np.int32), r.tokens])
+        print(f"  req{i} [{r.finish_reason}]: {decode(full)!r}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

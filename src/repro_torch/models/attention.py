@@ -1,5 +1,5 @@
-"""GQA attention with qk-norm and RoPE over a dense KV cache (port of the
-GQA part of ``repro/models/attention.py``).
+"""GQA attention with qk-norm and RoPE over a dense or a paged KV cache
+(port of the GQA part of ``repro/models/attention.py``).
 
 Masking is by position, as in JAX: a query at ``pq`` attends to a key at
 ``pk`` iff ``pk >= 0 and pk <= pq`` (and ``pq - pk < window`` when a
@@ -8,25 +8,42 @@ sliding window is set); padding slots carry ``-1``.
 Routing (all through ``repro_torch.kernels``, which launch the Hopper
 kernels on CUDA tensors and run their plain versions on CPU tensors):
 
-* T == 1 with a cache (every decode token): ``decode_attention``.
-* Everything else (prefill, verify, score: T > 1): ``flash_attention``.
-  Short draft blocks (T = k + 1) go there too until the draft engine's
-  slice routes them to the decode kernel, which already takes T > 1.
-  The JAX package reaches its flash kernel only under ``use_pallas``; the
-  port always takes its own kernel on this path.  JAX's plain
+* T == 1 with a dense cache (every decode token): ``decode_attention``.
+* T == 1 with a paged cache: ``paged_decode_attention``, which reads the
+  block pools directly.  JAX reaches its paged kernel only under
+  ``decode_impl`` "pallas"/"interpret" (``attention.py:199``) and with
+  "auto" decodes over the gathered view; the port takes its own kernel on
+  this path, as it does for ``flash_attention``.  Its plain version gathers
+  the view and runs the dense plain version, so on the CPU the paged layout
+  is bit-identical to the dense one.
+* Everything else (prefill, verify, score: T > 1): ``flash_attention``, over
+  the gathered logical view for a paged cache (``gather_paged_kv``, plain
+  ``index_select`` as JAX's ``_paged_gather`` is ``jnp.take``).  Short
+  draft blocks (T = k + 1) go there too until the draft engine's slice
+  routes them to the decode kernel, which already takes T > 1.  The JAX
+  package reaches its flash kernel only under ``use_pallas``; the port
+  always takes its own kernel on this path.  JAX's plain
   ``dot_product_attention`` is ``flash_attention_plain`` here, which CPU
   tensors take.
 
-The cache is written in place: ``cache["k"][..., s:s+T, :] = k`` on the
-caller's tensors (JAX returns new arrays; the caches the port hands back
-are the same objects it was given).
+The cache is written in place (JAX returns new arrays; the caches the port
+hands back are the same objects it was given): ``_cache_write`` for dense
+buffers and ``pos``, at one slot for the whole batch or at a slot per row
+(the slot engine's rows sit at their own depths); ``_paged_write`` through
+the block table for the pools.  Both are plain scatters, as in JAX.
+
+Paged layer cache (DESIGN.md §13): ``{"k", "v": (NB, Hkv, bs, D) pools,
+"pos": (B, S) logical positions, "table": (B, nb) block ids}``; the logical
+width S is unrounded, only the pools are whole blocks.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                     gather_paged_kv,
+                                                     paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 from .config import ModelConfig
@@ -54,6 +71,8 @@ class GQA(nn.Module):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device) -> dict:
+    if cfg.cache_layout == "paged":
+        return init_paged_kv_cache(cfg, batch, max_len, dtype, device)
     hd = cfg.resolved_head_dim
     shape = (batch, cfg.num_kv_heads, max_len, hd)
     return {
@@ -64,29 +83,99 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
-def _cache_write(buf: torch.Tensor, update: torch.Tensor, start: int,
-                 dim: int = -2) -> None:
-    """In place: ``buf[..., start:start+T, (:)] = update`` along ``dim``.
+def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                        device) -> dict:
+    """Paged layer cache with identity-stripe tables: row b owns blocks
+    [b * nb, (b + 1) * nb) of the pool, nb = ceil(max_len / bs).  The
+    logical width stays ``max_len`` (``pos`` is the dense layout's), so
+    every gather slices back to it and paged outputs equal dense ones."""
+    bs = cfg.kv_block_size
+    nb = -(-max_len // bs)
+    hd = cfg.resolved_head_dim
+    shape = (batch * nb, cfg.num_kv_heads, bs, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+        "table": torch.arange(batch * nb, dtype=torch.int32,
+                              device=device).reshape(batch, nb),
+    }
 
-    ``start`` is one slot for the whole batch (prefill, lockstep decode),
-    clamped like ``dynamic_update_slice`` so the window fits.  Per-row
-    starts belong to the slot-serving slice."""
-    if isinstance(start, torch.Tensor):
-        raise NotImplementedError("per-row cache_start arrives with slot "
-                                  "serving (ROADMAP Queue 1 item 10)")
+
+def _row_starts(start, B: int, S: int, T: int, device) -> torch.Tensor:
+    """(B,) int64 first slot per row, clamped like ``dynamic_update_slice``
+    so the T-slot window fits in S."""
+    s = torch.as_tensor(start, dtype=torch.int64, device=device
+                        ).reshape(-1).expand(B)
+    return torch.clamp(s, 0, S - T)
+
+
+def _cache_write(buf: torch.Tensor, update: torch.Tensor, start,
+                 dim: int = -2) -> None:
+    """In place: ``buf[b, ..., s_b:s_b+T, (:)] = update[b]`` along ``dim``.
+
+    ``start`` is one slot for the whole batch (prefill, lockstep decode) or
+    a (B,) tensor of slots, one per row (the slot engine); each is clamped
+    like ``dynamic_update_slice`` so the window fits."""
     T = update.shape[dim]
     S = buf.shape[dim]
-    s = min(max(int(start), 0), S - T)
-    buf.narrow(dim, s, T).copy_(update)
+    if not isinstance(start, torch.Tensor):
+        s = min(max(int(start), 0), S - T)
+        buf.narrow(dim, s, T).copy_(update)
+        return
+    B = buf.shape[0]
+    d = dim % buf.ndim
+    idx = (_row_starts(start, B, S, T, buf.device)[:, None]
+           + torch.arange(T, device=buf.device)[None, :])       # (B, T)
+    rows = torch.arange(B, device=buf.device)[:, None]
+    # advanced indices on dims 0 and d: move d next to the batch dim
+    buf.movedim(d, 1)[rows, idx] = update.movedim(d, 1).to(buf.dtype)
 
 
-def _decode_attention(q, k, v, q_pos, kv_pos, *,
-                      window: int, cache_start, kv_length, kv_start):
-    """Decode-shaped call: live bounds ``[kv_start, kv_length)`` per row."""
+def _paged_write(pool: torch.Tensor, update: torch.Tensor, start,
+                 table: torch.Tensor, s_logical: int) -> None:
+    """In place: the T-token update (B, Hkv, T, D) lands at logical slots
+    [start, start + T) of each row (clamped to the logical width like the
+    dense write), token t at ``pool[table[b, (s+t) // bs], :, (s+t) % bs]``.
+
+    A block-aligned prefill (one start, T >= bs) writes whole blocks,
+    zero-padding a ragged tail (those slots keep pos -1 until a decode step
+    claims them); a short update (a decode step) writes token by token."""
+    update = update.to(pool.dtype)
+    bs = pool.shape[-2]
+    B = table.shape[0]
+    T = update.shape[2]
+    if isinstance(start, torch.Tensor):          # a slot per row
+        rows = torch.arange(B, device=pool.device)
+        s0 = _row_starts(start, B, s_logical, T, pool.device)
+        for t in range(T):
+            idx = s0 + t
+            pool[table[rows, idx // bs].long(), :, idx % bs] = update[:, :, t]
+        return
+    s0 = min(max(int(start), 0), s_logical - T)
+    if T < bs:
+        for t in range(T):
+            blk, off = divmod(s0 + t, bs)
+            pool[table[:, blk].long(), :, off] = update[:, :, t]
+        return
+    pad = (-T) % bs
+    if pad:
+        update = torch.nn.functional.pad(update, (0, 0, 0, pad))
+    nbw = (T + pad) // bs
+    chunks = update.reshape(B, update.shape[1], nbw, bs, -1)
+    for i in range(nbw):
+        pool[table[:, s0 // bs + i].long()] = chunks[:, :, i]
+
+
+def _decode_attention(q, k, v, q_pos, kv_pos, *, window: int, cache_start,
+                      kv_length, kv_start, table=None):
+    """Decode-shaped call: live bounds ``[kv_start, kv_length)`` per row.
+    With ``table``, k and v are the block pools."""
     B, _, T = q.shape[:3]
     dev = q.device
     if kv_length is None:
-        kv_length = int(cache_start) + T
+        kv_length = torch.as_tensor(cache_start, device=dev) + T
     lengths = torch.as_tensor(kv_length, dtype=torch.int32, device=dev
                               ).reshape(-1).expand(B)
     starts = None if kv_start is None else torch.as_tensor(
@@ -96,6 +185,10 @@ def _decode_attention(q, k, v, q_pos, kv_pos, *,
         # outside the window of the earliest query; skip their slots
         qp = q_pos[:, 0].to(torch.int32)
         starts = torch.maximum(starts, starts + qp - window + 1)
+    if table is not None:
+        return paged_decode_attention(q, k.to(q.dtype), v.to(q.dtype), table,
+                                      q_pos, kv_pos, lengths, starts,
+                                      window=window)
     return decode_attention(q, k.to(q.dtype), v.to(q.dtype), q_pos, kv_pos,
                             lengths, starts, window=window)
 
@@ -103,10 +196,10 @@ def _decode_attention(q, k, v, q_pos, kv_pos, *,
 def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
               cache_start=None, kv_length=None, kv_start=None):
     """Causal self-attention.  x: (B, T, d); positions: (B, T) int32.  With
-    ``cache`` (a layer's
-    ``{"k", "v": (B, Hkv, S, D), "pos": (B, S)}`` views), writes K/V/pos at
-    ``cache_start`` in place and attends over the whole cache.  Returns
-    (out (B, T, d), cache or None)."""
+    ``cache`` (a layer's ``{"k", "v": (B, Hkv, S, D), "pos": (B, S)}``
+    views, or its paged pools, ``pos`` and ``table``), writes K/V/pos at
+    ``cache_start`` (one slot, or (B,) slots) in place and attends over the
+    whole cache.  Returns (out (B, T, d), cache or None)."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     q = apply_dense(p.wq, x).view(B, T, cfg.num_heads, hd).transpose(1, 2)
@@ -122,19 +215,31 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
     k = apply_rope(k, positions, cfg.rope_theta)
     kv_pos = positions
 
+    table = None
     if cache is not None:
-        _cache_write(cache["k"], k.to(cache["k"].dtype), cache_start)
-        _cache_write(cache["v"], v.to(cache["v"].dtype), cache_start)
         _cache_write(cache["pos"], positions.to(torch.int32), cache_start,
                      dim=-1)
-        k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
+        kv_pos = cache["pos"]
+        if "table" in cache:
+            table = cache["table"]
+            S_log = kv_pos.shape[-1]
+            _paged_write(cache["k"], k, cache_start, table, S_log)
+            _paged_write(cache["v"], v, cache_start, table, S_log)
+        else:
+            _cache_write(cache["k"], k.to(cache["k"].dtype), cache_start)
+            _cache_write(cache["v"], v.to(cache["v"].dtype), cache_start)
+        k, v = cache["k"], cache["v"]
 
     if cache is not None and T == 1:
         out = _decode_attention(q, k, v, positions, kv_pos,
                                 window=cfg.sliding_window,
                                 cache_start=cache_start, kv_length=kv_length,
-                                kv_start=kv_start)
+                                kv_start=kv_start, table=table)
     else:
+        if table is not None:
+            S_log = kv_pos.shape[-1]
+            k = gather_paged_kv(k, table, S_log)
+            v = gather_paged_kv(v, table, S_log)
         out = flash_attention(q, k.to(q.dtype).contiguous(),
                               v.to(q.dtype).contiguous(), positions, kv_pos,
                               window=cfg.sliding_window)

@@ -5,8 +5,10 @@ Layers are an ``nn.ModuleList`` run by a Python loop (JAX scans stacked
 parameters).  The caches keep JAX's per-run stacked layout so that
 ``model._roll_rows`` flattens (run, batch, head) rows exactly as JAX does:
 ``caches[run] = {"self": {"k", "v": (run_len, B, Hkv, S, D),
-"pos": (run_len, B, S)}}``.  Layer ``i`` of a run reads and writes the views
-``k[i]``, ``v[i]``, ``pos[i]`` in place.
+"pos": (run_len, B, S)}}``, or with ``cfg.cache_layout == "paged"``
+``{"k", "v": (run_len, NB, Hkv, bs, D) pools, "pos": (run_len, B, S),
+"table": (run_len, B, nb)}``.  Layer ``i`` of a run reads and writes the
+views ``k[i]``, ``v[i]``, ``pos[i]`` (and ``table[i]``) in place.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def signature_runs(cfg: ModelConfig) -> List[Tuple[BlockSig, int]]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense attention trunks with a dense KV cache."""
+    """The port runs dense attention trunks over a dense or paged cache."""
     for sig in block_signatures(cfg):
         if sig != (ATTN, False, False):
             raise NotImplementedError(
@@ -46,9 +48,6 @@ def check_supported(cfg: ModelConfig) -> None:
                 "(ROADMAP Queue 1 item 13)")
     if cfg.attention_kind != "gqa":
         raise NotImplementedError("MLA arrives with ROADMAP Queue 1 item 13")
-    if cfg.cache_layout != "dense":
-        raise NotImplementedError("the paged cache arrives with ROADMAP "
-                                  "Queue 1 item 11")
     if cfg.encoder_layers or cfg.num_prefix_embeddings or cfg.mtp:
         raise NotImplementedError("encoder, vision prefix and MTP arrive "
                                   "with ROADMAP Queue 1 item 13")

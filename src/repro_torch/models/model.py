@@ -9,8 +9,11 @@ Entry points mirror JAX's, with the params pytree replaced by an ``LM``:
 ``decode_step``  a short token block against the caches.
 
 Caches are updated in place and returned (see ``models/blocks.py`` for the
-layout).  ``realign_decode_cache`` returns new k/v buffers (the roll works
-out of place, as in JAX) and new ``pos`` arrays.
+dense and paged layouts).  ``realign_decode_cache`` returns new k/v buffers
+for a dense cache (the roll works out of place, as in JAX) and new ``pos``
+arrays; a paged cache's pools are gathered, rolled and re-paged in place.
+``write_cache_slots`` admits prefilled rows into the slot engine's
+persistent cache in place.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.cache_gather.ops import cache_roll
+from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather
+from repro_torch.kernels.cache_slot_write.ops import (cache_slot_write,
+                                                      paged_slot_write)
 
 from .blocks import Block, apply_trunk, check_supported, init_trunk_cache
 from .config import ATTN, ModelConfig
@@ -123,21 +128,26 @@ def prefill(model: LM, cfg: ModelConfig, tokens, positions, caches):
 
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
-                cache_start: int, *, kv_length=None, kv_start=None):
+                cache_start, *, kv_length=None, kv_start=None):
     """One decode step: one token per row.
 
     token, position: (B, 1) (-1 marks done rows); cache_start: the slot the
-    token is written at (one for the whole batch).  kv_length: per-row live
-    cache extent (int or (B,)), default ``cache_start + 1``; kv_start:
-    per-row first live slot, only for contiguous layouts.  Both become (B,)
-    int32 tensors once here, not once per layer.  Draft blocks (T = k + 1)
-    arrive with the draft engine's slice (ROADMAP Queue 1 item 9).
+    token is written at, one int for the whole batch (lockstep decode) or
+    (B,) slots, one per row (the slot engine, whose rows sit at their own
+    depths).  kv_length: per-row live cache extent (int or (B,)), default
+    ``cache_start + 1``; kv_start: per-row first live slot, only for
+    contiguous layouts.  Both become (B,) int32 tensors once here, not once
+    per layer.  Draft blocks (T = k + 1) arrive with the draft engine's
+    slice (ROADMAP Queue 1 item 9).
     Returns (logits (B, 1, V), caches)."""
     B, T = token.shape
     if T != 1:
         raise NotImplementedError("decode blocks of T > 1 arrive with the "
                                   "draft engine (ROADMAP Queue 1 item 9)")
     dev = token.device
+    if not isinstance(cache_start, int):
+        cache_start = torch.as_tensor(cache_start, dtype=torch.int32,
+                                      device=dev).reshape(-1).expand(B)
     if kv_length is None:
         kv_length = cache_start + T
     kv_length = torch.as_tensor(kv_length, dtype=torch.int32, device=dev
@@ -172,6 +182,35 @@ def _roll_rows(buf, shift):
     return cache_roll(flat, shift_r).reshape(buf.shape)
 
 
+def _paged_run_gather(sc):
+    """Dense logical K/V view of one paged cache run: {"k", "v": (run, B,
+    Hkv, S, D)} with S the logical (``pos``) width, through the
+    ``paged_gather`` kernel with heads folded into the block rows."""
+    table = sc["table"]
+    run_len, B, nb = table.shape
+    S_log = sc["pos"].shape[-1]
+    out = {}
+    for name in ("k", "v"):
+        pool = sc[name]
+        NB, Hkv, bs, D = pool.shape[1:]
+        r0 = torch.arange(run_len, dtype=torch.int32,
+                          device=pool.device)[:, None, None]
+        tab = (r0 * NB + table.to(torch.int32)).reshape(run_len * B, nb)
+        g = paged_gather(pool.view(run_len * NB, Hkv * bs, D), tab)
+        out[name] = (g.view(run_len, B, nb, Hkv, bs, D).transpose(2, 3)
+                     .reshape(run_len, B, Hkv, nb * bs, D)[..., :S_log, :])
+    return out
+
+
+def _pad_to_blocks(buf, nb: int, bs: int):
+    """Zero-pad a dense logical buffer (..., S, D) to the block-rounded
+    width nb * bs so it cuts into whole blocks for re-paging."""
+    S = buf.shape[-2]
+    if S == nb * bs:
+        return buf
+    return torch.nn.functional.pad(buf, (0, 0, 0, nb * bs - S))
+
+
 @torch.no_grad()
 def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
                          width: int):
@@ -182,7 +221,12 @@ def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
     (P + n[b])`` lands it at [width - valid_len, width).  ``pos`` is
     rewritten in closed form (-1 outside the valid range); only k and v are
     rolled, so wrapped-in slots keep their stale K/V, as in JAX.
-    Returns new caches (the rolled k/v are new tensors)."""
+
+    A paged cache (§13, identity-stripe tables the rollout owns alone) is
+    gathered to its dense logical view (``paged_gather``), rolled like the
+    dense one, and re-paged in place through the unchanged tables
+    (``paged_slot_write``).  Returns new caches (a dense cache's rolled
+    k/v are new tensors)."""
     if not supports_cache_realign(cfg):
         raise ValueError("realign needs attention-only trunks")
     new_caches = []
@@ -195,7 +239,87 @@ def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
         pos_row = torch.where((j >= start) & (j < width), j - start,
                               torch.full_like(j, -1))
         new_sc = {"pos": pos_row[None].repeat(run_len, 1, 1)}
-        for name in ("k", "v"):
-            new_sc[name] = _roll_rows(sc[name], shift)
+        if "table" in sc:
+            nb = sc["table"].shape[-1]
+            bs = sc["k"].shape[-2]
+            for name, buf in _paged_run_gather(sc).items():
+                rolled = _pad_to_blocks(_roll_rows(buf, shift), nb, bs)
+                new_sc[name] = paged_slot_write(sc[name], rolled, sc["table"])
+            new_sc["table"] = sc["table"]
+        else:
+            for name in ("k", "v"):
+                new_sc[name] = _roll_rows(sc[name], shift)
         new_caches.append({"self": new_sc})
     return new_caches
+
+
+def supports_slot_serving(cfg: ModelConfig, model_kwargs=None) -> bool:
+    """Whether the slot engine (DESIGN.md §6) applies: per-slot KV state in
+    every layer and none of the modality extras the persistent decode
+    batch does not carry."""
+    kw = model_kwargs or {}
+    return (supports_cache_realign(cfg)
+            and not cfg.encoder_layers
+            and not cfg.num_prefix_embeddings
+            and kw.get("encoder_out") is None
+            and kw.get("prefix_embeds") is None)
+
+
+@torch.no_grad()
+def write_cache_slots(cfg: ModelConfig, dst_caches, src_caches, slots):
+    """Admit prefilled rows into the persistent serving batch, in place.
+
+    dst_caches: trunk caches over B slots; src_caches: the same structure
+    over R admitted rows (same sequence length); slots: (R,) destination
+    slot per source row.  Row ``slots[i]`` of every K/V buffer is replaced
+    by source row ``i`` through the ``cache_slot_write`` kernel on the
+    flattened (run, batch, head) rows, the layout ``cache_roll`` rolls; the
+    last source row wins on a duplicate slot (the admission path pads a
+    group by repeating its row 0).  ``pos`` rides a plain scatter.  Every
+    other slot is untouched.  Returns dst_caches."""
+    if not supports_cache_realign(cfg):
+        raise ValueError("slot serving needs attention trunks")
+    if any("table" in run["self"] for run in dst_caches):
+        return _write_cache_slots_paged(dst_caches, src_caches, slots)
+    for dst_run, src_run in zip(dst_caches, src_caches):
+        dsc, ssc = dst_run["self"], src_run["self"]
+        dev = dsc["pos"].device
+        sl = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+        dsc["pos"][:, sl] = ssc["pos"]
+        for name in ("k", "v"):
+            d, s = dsc[name], ssc[name]
+            run_len, B, H = d.shape[:3]
+            R = s.shape[1]
+            r0 = torch.arange(run_len, device=dev)[:, None, None]
+            h = torch.arange(H, device=dev)[None, None, :]
+            rows = ((r0 * B + sl[None, :, None]) * H + h).reshape(-1)
+            cache_slot_write(d.view((run_len * B * H,) + tuple(d.shape[-2:])),
+                             s.reshape((run_len * R * H,) + tuple(s.shape[-2:])),
+                             rows)
+    return dst_caches
+
+
+def _write_cache_slots_paged(dst_caches, src_caches, slots):
+    """Admit dense prefilled rows into a paged persistent cache (§13), in
+    place: each admitted row is re-paged into the blocks its table row
+    references (``paged_slot_write``).  The addressed blocks must belong to
+    those rows alone.  A dense source narrower than the logical width is
+    padded with empty slots (pos -1), and its K/V zero-padded to the
+    block-rounded width so the scatter lands on whole blocks."""
+    for dst_run, src_run in zip(dst_caches, src_caches):
+        dsc, ssc = dst_run["self"], src_run["self"]
+        dev = dsc["pos"].device
+        sl = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+        S_paged, S_src = dsc["pos"].shape[-1], ssc["pos"].shape[-1]
+        if S_src > S_paged:
+            raise ValueError(f"admitted rows ({S_src} slots) are wider than "
+                             f"the paged cache ({S_paged})")
+        nb = dsc["table"].shape[-1]
+        bs = dsc["k"].shape[-2]
+        dsc["pos"][:, sl] = torch.nn.functional.pad(
+            ssc["pos"], (0, S_paged - S_src), value=-1)
+        table = dsc["table"][:, sl]                      # (run, R, nb)
+        for name in ("k", "v"):
+            paged_slot_write(dsc[name], _pad_to_blocks(ssc[name], nb, bs),
+                             table)
+    return dst_caches

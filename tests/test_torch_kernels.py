@@ -2,9 +2,12 @@
 package's kernels run in Pallas interpret mode and against their jnp
 references, on the same numpy inputs.
 
-Tolerances: the two attentions agree to atol 1e-5 (float32 softmax
-attention summed in another order: a few ulps of values of order 1);
-spec_verify and cache_roll are compared exactly."""
+Tolerances: the attentions (dense and paged decode, flash) agree to atol
+1e-5 (float32 softmax attention summed in another order: a few ulps of
+values of order 1); spec_verify, cache_roll, cache_slot_write,
+paged_slot_write and paged_gather are compared exactly, and the paged
+decode equals the port's own dense plain version on the gathered view
+exactly."""
 import numpy as np
 import pytest
 
@@ -14,13 +17,21 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels.cache_gather.ops import cache_roll as jax_cache_roll  # noqa: E402
+from repro.kernels.cache_gather.ops import paged_gather as jax_paged_gather  # noqa: E402
+from repro.kernels.cache_slot_write import ops as jax_slot_ops  # noqa: E402
 from repro.kernels.decode_attention.ops import \
     decode_attention as jax_decode_attention  # noqa: E402
+from repro.kernels.decode_attention.ops import \
+    paged_decode_attention as jax_paged_decode_attention  # noqa: E402
 from repro.kernels.flash_attention.ops import \
     flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.spec_verify.ops import spec_verify as jax_spec_verify  # noqa: E402
-from repro_torch.kernels.cache_gather.ops import cache_roll  # noqa: E402
-from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather  # noqa: E402
+from repro_torch.kernels.cache_slot_write.ops import (  # noqa: E402
+    cache_slot_write, paged_slot_write)
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention, decode_attention_plain, gather_paged_kv,
+    paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.spec_verify.ops import spec_verify  # noqa: E402
 
@@ -129,6 +140,90 @@ def test_cache_roll_plain_matches_jax_exactly():
         np.testing.assert_array_equal(got, want)
 
 
+def test_cache_slot_write_plain_matches_jax_exactly():
+    """Duplicate destinations with different sources: the last source row
+    wins in both; untouched rows stay bit-identical, written in place."""
+    rng = np.random.default_rng(13)
+    Rd, Rs, S = 10, 6, 12
+    dst = rng.standard_normal((Rd, S, D), dtype=np.float32)
+    src = rng.standard_normal((Rs, S, D), dtype=np.float32)
+    dst_rows = np.array([7, 2, 7, 0, 2, 7], np.int32)
+    got = _t(dst.copy())
+    out = cache_slot_write(got, _t(src), _t(dst_rows))
+    assert out is got                                # in place
+    for impl in ("interpret", "ref"):
+        want = np.asarray(jax_slot_ops.cache_slot_write(
+            jnp.asarray(dst), jnp.asarray(src), jnp.asarray(dst_rows),
+            impl=impl))
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got[7].numpy(), src[5])   # last wins
+    np.testing.assert_array_equal(got[2].numpy(), src[4])
+    untouched = [r for r in range(Rd) if r not in dst_rows]
+    np.testing.assert_array_equal(got.numpy()[untouched], dst[untouched])
+
+
+def test_paged_slot_write_plain_matches_jax_exactly():
+    rng = np.random.default_rng(17)
+    run, NB, bs, nb, R = 2, 11, 4, 3, 2
+    pool = rng.standard_normal((run, NB, HKV, bs, D), dtype=np.float32)
+    src = rng.standard_normal((run, R, HKV, nb * bs, D), dtype=np.float32)
+    tables = np.stack([rng.permutation(NB)[:R * nb].reshape(R, nb)
+                       for _ in range(run)]).astype(np.int32)
+    got = _t(pool.copy())
+    paged_slot_write(got, _t(src), _t(tables))
+    for impl in ("interpret", "ref"):
+        want = np.asarray(jax_slot_ops.paged_slot_write(
+            jnp.asarray(pool), jnp.asarray(src), jnp.asarray(tables),
+            impl=impl))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_paged_gather_plain_matches_jax_exactly():
+    rng = np.random.default_rng(19)
+    NB, X, R, nb = 9, 8, 4, 3
+    pool = rng.standard_normal((NB, X, D), dtype=np.float32)
+    table = rng.integers(0, NB, (R, nb)).astype(np.int32)
+    got = paged_gather(_t(pool), _t(table)).numpy()
+    for impl in ("interpret", "ref"):
+        want = np.asarray(jax_paged_gather(jnp.asarray(pool),
+                                           jnp.asarray(table), impl=impl))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("window", [0, 8])
+def test_paged_decode_attention_plain_matches_jax(T, window):
+    """Pools behind a shuffled block table; a logical width short of the
+    block-rounded one (k_pos padded with -1 inside); row 0 done, row 3
+    with no live slot.  Within 1e-5 of JAX's paged kernel in interpret
+    mode, and exactly the port's dense plain version on the gathered
+    view."""
+    q, _, _, q_pos, k_pos, lengths, starts = _decode_case(T, S=45, B=5,
+                                                          seed=29 + T)
+    bs, B = 8, 5
+    nb = -(-45 // bs)                               # 6 blocks of 8 = 48 > 45
+    rng = np.random.default_rng(T + window)
+    NB = B * nb + 3
+    k_pool = rng.standard_normal((NB, HKV, bs, D), dtype=np.float32)
+    v_pool = rng.standard_normal((NB, HKV, bs, D), dtype=np.float32)
+    table = rng.permutation(NB)[:B * nb].reshape(B, nb).astype(np.int32)
+    lengths[3] = starts[3]
+    got = paged_decode_attention(_t(q), _t(k_pool), _t(v_pool), _t(table),
+                                 _t(q_pos), _t(k_pos), _t(lengths),
+                                 _t(starts), window=window).numpy()
+    want = np.asarray(jax_paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, k_pool, v_pool, table, q_pos, k_pos,
+                                   lengths, starts)),
+        window=window, impl="interpret"))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    k = gather_paged_kv(_t(k_pool), _t(table), 45)
+    v = gather_paged_kv(_t(v_pool), _t(table), 45)
+    dense = decode_attention_plain(_t(q), k, v, _t(q_pos), _t(k_pos),
+                                   _t(lengths), _t(starts), window=window)
+    np.testing.assert_array_equal(got, dense.numpy())
+    assert np.all(got[0] == 0.0) and np.all(got[3] == 0.0)
+
+
 def test_wrappers_raise_on_a_device_without_a_kernel():
     """Only CPU tensors take the plain version; any other device without a
     kernel raises instead of falling back."""
@@ -148,3 +243,15 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         cache_roll(torch.empty(4, 8, D, **meta),
                    torch.empty(4, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        cache_slot_write(torch.empty(4, 8, D, **meta),
+                         torch.empty(2, 8, D, **meta),
+                         torch.zeros(2, dtype=torch.int64, **meta))
+    table = torch.zeros(2, 2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        paged_gather(torch.empty(4, 8, D, **meta), table)
+    pool = torch.empty(4, HKV, 4, D, **meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        paged_decode_attention(q, pool, pool, table,
+                               torch.empty(2, 1, dtype=torch.int32, **meta),
+                               pos)

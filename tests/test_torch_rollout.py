@@ -61,6 +61,53 @@ class JaxKey:
         return torch.from_numpy(np.array(jax.random.uniform(
             self.key, tuple(shape), jnp.float32)))
 
+    def fold_in(self, i):
+        return JaxKeyBatch(jax.random.fold_in(self.key, i)[None])
+
+
+class JaxKeyBatch:
+    """The port's key-batch protocol over (B, 2) JAX keys: row b draws with
+    ``jax.random`` from key b alone, as JAX's per-row sampling vmaps it."""
+
+    def __init__(self, keys):
+        self.keys = jnp.asarray(keys)
+
+    def __len__(self):
+        return self.keys.shape[0]
+
+    def __getitem__(self, idx):
+        if isinstance(idx, int):
+            idx = slice(idx, idx + 1)
+        return JaxKeyBatch(self.keys[idx])
+
+    def __setitem__(self, idx, other):
+        self.keys = self.keys.at[idx].set(other.keys[0])
+
+    @classmethod
+    def stack(cls, keys):
+        return cls(jnp.concatenate([k.keys for k in keys]))
+
+    def split(self):
+        a, b = jax_sampling.split_key(self.keys)
+        return JaxKeyBatch(a), JaxKeyBatch(b)
+
+    def _draw(self, fn, shape):
+        row = tuple(shape[1:])
+        return torch.from_numpy(np.array(jax.vmap(
+            lambda k: fn(k, row, jnp.float32))(self.keys)))
+
+    def gumbel(self, shape):
+        return self._draw(jax.random.gumbel, shape)
+
+    def uniform(self, shape):
+        return self._draw(jax.random.uniform, shape)
+
+
+def row_keys(seed, n):
+    """(n, 2) JAX per-row keys, ``fold_in(PRNGKey(seed), i)``."""
+    return jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(seed), i)
+                    )(jnp.arange(n))
+
 
 @pytest.fixture(scope="module")
 def models():
@@ -146,22 +193,35 @@ def test_unported_branches_raise(models):
     toks = np.ones((2, 3), np.int32)
     mask = np.ones((2, 3), bool)
     for spec in (SpecConfig(variant="random"), SpecConfig(variant="delayed"),
-                 SpecConfig(one_pass="off"), SpecConfig(backfill="slots"),
-                 SpecConfig(draft=object())):
+                 SpecConfig(one_pass="off"), SpecConfig(draft=object()),
+                 SpecConfig(variant="delayed", backfill="slots")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rollout(model, cfg, gen, spec, toks, mask, [0, 1], RolloutCache(),
                     sampling.make_key(0, "cpu"), 0)
 
 
+# modules of each slice that the walk below must reach
+SLICE_MODULES = (
+    "repro_torch.core.spec_rollout", "repro_torch.engine.generate",
+    "repro_torch.kernels.decode_attention.ops",
+    "repro_torch.kernels.cache_gather.ops",
+    "repro_torch.kernels.cache_slot_write.ops",
+    "repro_torch.serving.engine_loop", "repro_torch.serving.rl_adapter",
+    "repro_torch.serving.mesh_server", "repro_torch.serving.request",
+    "repro_torch.serving.scheduler", "repro_torch.launch.serve")
+
+
 def test_port_imports_no_jax_and_no_repro():
-    """Every module of repro_torch imports with JAX made unimportable, and
-    no ``repro`` module is loaded along the way."""
+    """Every module of repro_torch (those of the serving/paged slice among
+    them) imports with JAX made unimportable, and no ``repro`` module is
+    loaded along the way."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    print(m.name)\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'repro' or m.startswith('repro.') or m.startswith('jax'))]\n"
         "assert not bad, bad\n"
@@ -169,7 +229,10 @@ def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    lines = out.stdout.split()
+    assert out.returncode == 0 and lines[-1] == "ok", out.stderr
+    missing = set(SLICE_MODULES) - set(lines)
+    assert not missing, missing
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     offenders = [str(p) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
