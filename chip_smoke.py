@@ -9,44 +9,62 @@ Run from the root of a checkout, with no arguments:
 What it does, failing (nonzero exit, no result line) at the first fault:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the seven CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
+2. builds the eight CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
    (one ``nvcc`` per source, all started together) and prints the build
    time and ``ptxas`` register/spill lines;
-3. for each kernel, at the shapes the qwen3-1.7b paths give it, in
-   bfloat16: calls the public wrapper the model calls (with positions and
-   bounds in the raw forms the wrapper converts, done rows and a row with
-   no live slot among them; the paged decode's dead table entries point at
-   blocks of NaN) and holds its result against the plain PyTorch version
-   on the same inputs (exactly for spec_verify, cache_roll,
-   cache_slot_write and paged_gather, within ``ATTN_TOL`` for the three
-   attentions; rows that see no key must come out exactly 0), then times
-   the kernel entry on inputs already in its form, the plain version and
-   the yardstick: one PyTorch call that computes the same function where
-   there is one, and for the paged decode the two-step gather + dense
-   decode kernel (CUDA events, median of ``REPS`` launches with the L2
-   cache flushed before each);
+3. for each kernel, at the shapes its path gives it, calls the public
+   wrapper the model calls and holds its result against the plain PyTorch
+   version on the same inputs.  The seven attention-path kernels run at
+   the qwen3-1.7b shapes in bfloat16 (positions and bounds in the raw forms
+   the wrapper converts, done rows and a row with no live slot among them;
+   the paged decode's dead table entries point at blocks of NaN): exactly
+   for spec_verify, cache_roll, cache_slot_write and paged_gather, within
+   ``ATTN_TOL`` for the three attentions, rows that see no key exactly 0.
+   ``wkv`` runs at the rwkv6-3b shapes in float32, at T = P + N (the verify
+   score, with the pads' k = 0, w = 1) and T = 1 (a decode step), from a
+   nonzero state, its output new and written over its input, within
+   ``WKV_TOL`` of the largest magnitude.  Then it times the kernel entry on
+   inputs already in its form, the plain version and the yardstick: one
+   PyTorch call that computes the same function where there is one, and
+   for the paged decode the two-step gather + dense decode kernel (CUDA
+   events, median of ``REPS`` launches with the L2 cache flushed before
+   each);
 4. holds the port on the card against the port on the CPU at a small size
-   (the reduced qwen3-1.7b in bfloat16: forward, prefill, decode steps and
-   the compaction roll, teacher-forced), within ``SMALL_TOL``;
-5. runs four paths of full-width, full-depth qwen3-1.7b (random weights
-   from a seed), each with the launch counts set to 0 just before it and
-   read just after, and checks their outputs:
-   ``rollout``  two epochs of ``repro_torch.core.rollout`` with the fixed
-                decode batch (epoch 0 vanilla, epoch 1 the one-pass
-                speculative branch);
+   (the reduced qwen3-1.7b and rwkv6-3b in bfloat16: forward, prefill,
+   decode steps and, for qwen, the compaction roll, teacher-forced),
+   within the arch's ``SMALL_TOL``, and the card's bfloat16 run no further
+   than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
+   reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
+   (the attention kernels take bfloat16 only);
+5. runs five paths (random weights from a seed), each with the launch
+   counts set to 0 just before it and read just after, and checks their
+   outputs:
+   ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
+                full-depth qwen3-1.7b with the fixed decode batch (epoch 0
+                vanilla, epoch 1 the one-pass speculative branch);
    ``slots``    the same two epochs with ``backfill="slots"``: the batch
                 drained through the slot engine, 8 slots for 16 rows, epoch
                 1 by speculative-prefix admission;
    ``paged``    the fixed-batch two epochs over the paged KV layout
                 (``cache_layout="paged"``): decode through the paged kernel,
                 compaction through paged_gather and the slot write;
-                after each of these three, a ``breakdown`` line shows where
-                16 decode steps of the path's decode loop spend their time
-                (host wall time, device busy time, kernel launches, top
-                kernels and host ops from ``torch.profiler``);
    ``serve``    one run of ``python -m repro_torch.launch.serve`` on the
                 card (its reduced config, ``--spec-prefix --arrival-every
                 2``);
+   ``rwkv``     two epochs of full-width, full-depth rwkv6-3b (the qwen
+                model freed first): epoch 1 the two-pass branch (verify
+                score, left-align, re-prefill), every recurrence through
+                ``wkv``, no attention or cache kernel launched; then,
+                outside the launch counts, its witnesses in float32: the
+                same two epochs (logged), and the score against prefill +
+                decode steps on the same tokens, with the kernel and with
+                the plain recurrence, and against the score of embeddings
+                nudged by 1e-7, at full depth (within ``CHAOS_FACTOR``) and
+                cut to one layer (within ``CONSISTENCY_TOL``);
+   after ``rollout``, ``slots``, ``paged`` and ``rwkv``, a ``breakdown``
+   line shows where 16 decode steps of the path's decode loop spend their
+   time (host wall time, device busy time, kernel launches, top kernels
+   and host ops from ``torch.profiler``);
 6. prints one ``{"kernels": [...]}`` JSON line (launches per path beside
    their sum), the ``nvidia-smi`` line again, and last ``{"ok": true,
    "device": {...}}``.
@@ -72,13 +90,36 @@ from pathlib import Path
 
 ATTN_TOL = 1e-3     # the attentions compute in float32 from the same bf16
                     # inputs; they differ only in summation order
-SMALL_TOL = 5e-2    # card vs CPU logits in bfloat16 (8-bit mantissa: each
-                    # rounding at another place moves a value of order 1 by
-                    # up to 4e-3; two layers of them)
+# card vs CPU logits of the reduced configs in bfloat16 (8-bit mantissa:
+# each rounding at another place moves a value of order 1 by up to 4e-3;
+# two layers of them).  rwkv6-3b rounds more: its token-shift mixes and
+# group norm run in bfloat16, as JAX's do, and its bfloat16 logits lie 0.119
+# from its float32 ones on the CPU (qwen3-1.7b's about 0.04); the card's lay
+# 0.0508 from the CPU's in four runs, qwen3-1.7b's 0.0313
+SMALL_TOL = {"qwen3-1.7b": 5e-2, "rwkv6-3b": 8e-2}
+BF16_GAP = 1.5      # the card's bfloat16 run may lie at most this many times
+                    # as far from the CPU's float32 run as the CPU's own
+                    # bfloat16 run does
+SMALL_TOL_F32 = 1e-3    # card vs CPU logits in float32 (summation order
+                        # only; logits of order 3)
+# the rwkv6-3b score (the verify's teacher-forced log-probs) against its
+# prefill + decode steps on the same tokens, in float32 at full width:
+CONSISTENCY_TOL = 1e-3  # cut to one layer, where rounding stays at 1e-6 and a
+                        # fault of the cache hand-off or the kernel would not
+CHAOS_FACTOR = 3.0      # at full depth, where the random weights amplify
+                        # rounding (a 1e-7 nudge of the embeddings moves the
+                        # log-probs by about 0.03, as far as score and decode
+                        # differ): the kernel's gap at most this many times
+                        # the plain recurrence's or the nudge's
+CONSISTENCY_STEPS = 64
 REPS = 20
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+WKV_TOL = 1e-4      # wkv against its plain version, relative to the output's
+                    # largest magnitude: float32 both, the state summed over up
+                    # to 320 steps and y over hd terms in another order
 
 # the slice's traffic
 PROMPTS, GROUP, P, N = 4, 4, 64, 256
@@ -131,9 +172,11 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
+    """The least time (ms) for the work at the card's peaks, and which of
+    the two bounds it; ``flop_rate`` is the peak for the operations' type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -165,13 +208,13 @@ def kernel_checks(torch, timer):
         return torch.randn(shape, generator=gen, **bf)
 
     def record(name, src, replaces, err, fn, plain, library, nbytes, flops,
-               two_step=None):
+               two_step=None, flop_rate=BF16_FLOP_PER_S):
         """``library``: one PyTorch call computing the same function (or
         None); ``two_step``: (label, fn) of a comparison that is not one
         library call, timed and reported beside it."""
         ms, plain_ms = timer.ms(fn), timer.ms(plain)
         library_ms = timer.ms(library) if library is not None else None
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, flop_rate)
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": None, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -446,21 +489,109 @@ def kernel_checks(torch, timer):
         f"ms={timer.ms(lambda: dec_ops.decode_attention_cuda(*a0))}")
     log(f"kernel flash_attention at (T, S)=({P}, {S0}): max_abs_err={errf0} "
         f"ms={timer.ms(lambda: fl_ops.flash_attention_cuda(*fa0))}")
+    del k0, v0, fa0
+    decode = wkv_check(torch, timer, gen, p_len, n, record)
+    records["wkv"].update(decode)
     return records
+
+
+def wkv_check(torch, timer, gen, p_len, n, record):
+    """The RWKV6 recurrence at the rwkv path's shapes (B = 16, H = 40,
+    hd = 64): the epoch-1 verify score (T = P + N, the prompt's left pads
+    and the draft's right pads as k = 0, w = 1) and a decode step (T = 1,
+    one done row), both from a nonzero state, w drawn from the model's
+    range exp(-exp(-6 + noise)); y and the final state (new and written
+    over s0, as the cache is) against the plain version."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    dev = gen.device
+    B, H, hd = PROMPTS * GROUP, 40, 64
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def inputs(T, valid, Bc=B, Hc=H, hdc=hd):
+        shape = (Bc, T, Hc, hdc)
+        r, k, v = (torch.randn(shape, generator=gen, **f32) for _ in range(3))
+        logw = -6.0 + 0.5 * torch.randn(shape, generator=gen, **f32)
+        w = torch.exp(-torch.exp(logw))
+        vm = valid[:, :, None, None]
+        k = torch.where(vm, k, torch.zeros_like(k))
+        w = torch.where(vm, w, torch.ones_like(w))
+        u = 0.1 * torch.randn((Hc, hdc), generator=gen, **f32)
+        s0 = torch.randn((Bc, Hc, hdc, hdc), generator=gen, **f32)
+        return r, k, v, w, u, s0
+
+    def check(T, args):
+        r, k, v, w, u, s0 = args
+        y, s = wkv_ops.wkv(r, k, v, w, u, s0)
+        s_in_place = s0.clone()
+        y2, _ = wkv_ops.wkv(r, k, v, w, u, s_in_place, s_out=s_in_place)
+        want_y, want_s = wkv_ops.wkv_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, want, what in ((y, want_y, "y"), (s, want_s, "state"),
+                                (y2, want_y, "y (in place)"),
+                                (s_in_place, want_s, "state (in place)")):
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            require(bool(torch.isfinite(got).all()) and e <= WKV_TOL * scale,
+                    f"wkv T={T}: {what} max_abs_err {e} > {WKV_TOL} x "
+                    f"{scale}")
+            err = max(err, e)
+        # bytes: r/k/v/w read and y written once, the state read and
+        # written; operations the function needs: 5 float32 flops per state
+        # element per step (2 for sum_i r_i S_ij, 3 for w_i S_ij + k_i v_j),
+        # on the CUDA cores; the u-term, (sum_i r_i u_i k_i) v_j, is O(hd)
+        # a step (the kernel, in wkv_scan's order, spends 7)
+        nbytes = 5 * r.numel() * 4 + 2 * s0.numel() * 4 + u.numel() * 4
+        flops = 5 * r.numel() * r.shape[-1]
+        s_out = torch.empty_like(s0)
+        return (err, lambda: wkv_ops.wkv_cuda(r, k, v, w, u, s0, s_out),
+                lambda: wkv_ops.wkv_plain(r, k, v, w, u, s0), nbytes, flops)
+
+    # the head dim of the reduced config (the small reference's)
+    check(37, inputs(37, torch.ones((2, 37), dtype=torch.bool, device=dev),
+                     Bc=2, Hc=4, hdc=32))
+
+    T = P + N
+    col = torch.arange(T, device=dev)[None, :]
+    valid = (((col >= P - p_len[:, None]) & (col < P))
+             | ((col >= P) & (col < P + n[:, None])))
+    err, fn, plain, nbytes, flops = check(T, inputs(T, valid))
+    record("wkv", "src/repro_torch/csrc/wkv.cu",
+           "src/repro/kernels/rwkv6_wkv/kernel.py:53", err, fn, plain, None,
+           nbytes=nbytes, flops=flops, flop_rate=FP32_FLOP_PER_S)
+    del fn, plain
+    valid1 = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    valid1[0] = False                                      # a done row
+    err1, fn1, plain1, nbytes1, flops1 = check(1, inputs(1, valid1))
+    ms1, plain_ms1 = timer.ms(fn1), timer.ms(plain1)
+    b1, by1 = bound(nbytes1, flops1, FP32_FLOP_PER_S)
+    log(f"kernel wkv at T=1: max_abs_err={err1} ms={ms1} plain_ms={plain_ms1} "
+        f"bound_ms={b1} ({by1})")
+    return {"decode_ms": ms1, "decode_plain_ms": plain_ms1,
+            "decode_bound_ms": b1, "decode_max_abs_err": err1}
 
 
 # ---------------------------------------------------------------- small ref
 
 
-def small_reference(torch):
+def small_reference(torch, arch: str, tol: float, tol_f32=None,
+                    **overrides):
     """The port on the card against the port on the CPU, teacher-forced, at
-    the reduced qwen3-1.7b in bfloat16 (head_dim 64, G = 2)."""
+    a reduced config in bfloat16: forward, prefill and decode steps (and,
+    for an attention trunk, the compaction roll), within ``tol``.  Both are
+    also held against the CPU's float32 run of the same weights: the card's
+    bfloat16 may lie at most ``BF16_GAP`` times as far from it as the CPU's
+    does.  With ``tol_f32`` the card runs the float32 model too, held
+    against the CPU's within it (only for trunks whose kernels take
+    float32)."""
     from repro_torch.configs import get_config
     from repro_torch.engine.generate import positions_from_mask
     from repro_torch.models import model as M
 
-    cfg = get_config("qwen3-1.7b").reduced(num_kv_heads=2, dtype="bfloat16",
-                                           param_dtype="bfloat16")
+    cfg = get_config(arch).reduced(dtype="bfloat16", param_dtype="bfloat16",
+                                   **overrides)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     cpu_model = M.init_lm(cfg, seed=SEED, device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     g = torch.Generator().manual_seed(SEED)
@@ -474,7 +605,7 @@ def small_reference(torch):
                         dtype=torch.int32)
     shift = torch.tensor([0, 3, 5, 1], dtype=torch.int32)
 
-    def run(model, dev):
+    def run(model, dev, cfg):
         pos = positions_from_mask(mask.to(dev))
         outs = [M.forward(model, cfg, prompt.to(dev), pos)[0]]
         caches = M.init_cache(cfg, B, Pp + 2 * steps, device=dev)
@@ -486,26 +617,51 @@ def small_reference(torch):
                 model, cfg, nxt[:, s:s + 1].to(dev), (p_len + s)[:, None],
                 caches, Pp + s, kv_length=Pp + 1 + s, kv_start=Pp - p_len)
             outs.append(logits)
-        width = Pp + steps
-        caches = M.realign_decode_cache(cfg, caches, shift.to(dev),
-                                        p_len + steps - shift.to(dev), width)
-        outs.append(caches[0]["self"]["k"].float())
+        if M.supports_cache_realign(cfg):
+            width = Pp + steps
+            caches = M.realign_decode_cache(cfg, caches, shift.to(dev),
+                                            p_len + steps - shift.to(dev),
+                                            width)
+            outs.append(caches[0]["self"]["k"].float())
         return [o.float().cpu() for o in outs]
 
-    want = run(cpu_model, torch.device("cpu"))
-    got = run(gpu_model, torch.device("cuda"))
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    log(f"small reference (reduced qwen3-1.7b, bf16, card vs CPU): "
-        f"max_abs_err={err} tol={SMALL_TOL}")
-    require(err <= SMALL_TOL, f"card vs CPU max_abs_err {err} > {SMALL_TOL}")
+    def max_err(xs, ys):
+        return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
+
+    def finite(xs):
+        return all(bool(torch.isfinite(a).all()) for a in xs)
+
+    want = run(cpu_model, torch.device("cpu"), cfg)
+    got = run(gpu_model, torch.device("cuda"), cfg)
+    ref32 = run(cpu_model.float(), torch.device("cpu"), cfg32)
+    err, cpu_gap, card_gap = (max_err(got, want), max_err(want, ref32),
+                              max_err(got, ref32))
+    log(f"small reference (reduced {arch}, bf16, card vs CPU): "
+        f"max_abs_err={err} tol={tol}; from the CPU's float32: CPU bf16 "
+        f"{cpu_gap}, card bf16 {card_gap} (at most {BF16_GAP}x the CPU's)")
+    require(finite(got) and err <= tol,
+            f"{arch}: card vs CPU max_abs_err {err} > {tol} or non-finite")
+    require(card_gap <= BF16_GAP * cpu_gap,
+            f"{arch}: the card's bf16 lies {card_gap} from float32, more "
+            f"than {BF16_GAP} x the CPU's {cpu_gap}")
+    if tol_f32 is not None:
+        got32 = run(gpu_model.float(), torch.device("cuda"), cfg32)
+        err32 = max_err(got32, ref32)
+        log(f"small reference (reduced {arch}, float32, card vs CPU): "
+            f"max_abs_err={err32} tol={tol_f32}")
+        require(finite(got32) and err32 <= tol_f32,
+                f"{arch}: float32 card vs CPU max_abs_err {err32} > "
+                f"{tol_f32} or non-finite")
 
 
 # ---------------------------------------------------------------- main paths
 
 
-def setup_model(torch):
-    """Full-width, full-depth qwen3-1.7b with random weights, the prompt
-    batch and the generation config the rollout paths share."""
+def setup_model(torch, arch: str = "qwen3-1.7b", dtype=None):
+    """A full-width, full-depth model with random weights from ``SEED``
+    (in ``dtype`` for parameters and activations, if given, else the
+    config's), the prompt batch and the generation config the rollout paths
+    share."""
     from repro_torch.configs import get_config
     from repro_torch.data.dataset import PromptDataset
     from repro_torch.data.tokenizer import EOS_ID, PAD_ID
@@ -513,7 +669,9 @@ def setup_model(torch):
     from repro_torch.models import model as M
     from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
     t0 = time.perf_counter()
     model = M.init_lm(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
@@ -529,12 +687,14 @@ def setup_model(torch):
 
 
 def rollout_path(torch, label, model, cfg, batch, gen, spec):
-    """Two rollout epochs (epoch 0 vanilla, epoch 1 speculative) with the
+    """Two rollout epochs (epoch 0 vanilla, epoch 1 speculative: the
+    one-pass branch for an attention trunk, else the two-pass one) with the
     launch counts set to 0 just before and read just after; checks the
     outputs and returns (launches, the two RolloutBatches)."""
     import numpy as np
 
     from repro_torch.core import RolloutCache, rollout
+    from repro_torch.core.spec_rollout import use_one_pass
     from repro_torch.engine.sampling import make_key, split_key
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.rewards.verifier import batch_rewards
@@ -558,6 +718,7 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
             "path": label, "epoch": epoch, "wall_s": wall,
             "n_generated": m["n_generated"], "n_reused": m["n_reused"],
             "accept_rate": m["accept_rate"], "one_pass": m["one_pass"],
+            "prefill_passes": m["prefill_passes"],
             "verify_time": m["verify_time"],
             "compact_time": m["compact_time"],
             "decode_time": m["decode_time"],
@@ -591,9 +752,11 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
                 f"{label}: token ids out of range")
     require(rb0.metrics["one_pass"] == 0.0 and rb0.metrics["n_generated"] > 0,
             f"{label}: epoch 0 was not a vanilla rollout: {rb0.metrics}")
-    require(rb1.metrics["one_pass"] == 1.0,
-            f"{label}: epoch 1 did not take the one-pass branch: "
-            f"{rb1.metrics}")
+    one_pass = use_one_pass(cfg, spec)
+    want = (1.0, 1.0) if one_pass else (0.0, 2.0)
+    require((rb1.metrics["one_pass"], rb1.metrics["prefill_passes"]) == want,
+            f"{label}: epoch 1 did not take the "
+            f"{'one' if one_pass else 'two'}-pass branch: {rb1.metrics}")
     n = rb1.n
     require(np.any((n > 0) & (n < N)), f"{label}: no partial acceptance: "
             f"n={n}")
@@ -603,6 +766,13 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
         require(np.array_equal(rb1.response[b, :nb], rb0.response[b, :nb]),
                 f"{label}: row {b}: response does not start with its "
                 f"draft[:{nb}]")
+    # the accepted draft tokens' log-probs under the verify pass against
+    # those the epoch-0 decode drew them with (same weights: only rounding
+    # separates them, and it drives the rejections)
+    reused = np.arange(N)[None, :] < n[:, None]
+    gap = np.abs(rb1.behaviour_logprobs - rb0.behaviour_logprobs)[reused]
+    log(f"{label}: reused prefix log-prob gap over {gap.size} tokens: "
+        f"mean {float(gap.mean())} max {float(gap.max())}")
     return launches, rbs
 
 
@@ -656,6 +826,121 @@ def paged_path(torch, model, cfg, batch, gen):
             f"dense decode kernel {launches['decode_attention']} times")
     generate_breakdown(torch, model, paged, gen, batch)
     return launches
+
+
+def rwkv_path(torch):
+    """Two epochs of full-width, full-depth rwkv6-3b: epoch 0 vanilla,
+    epoch 1 the two-pass speculative branch (verify score, left-align,
+    re-prefill and decode), every T of the recurrence through ``wkv``;
+    then its time breakdown.  No attention or cache kernel may run.  Then
+    the witnesses in float32, outside the counts: the same two epochs, and
+    the consistency of score and decode at full depth and at one layer."""
+    from repro_torch.core import SpecConfig
+    from repro_torch.models import model as M
+
+    model, cfg, batch, gen = setup_model(torch, "rwkv6-3b")
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    launches, rbs = rollout_path(torch, "rwkv", model, cfg, batch, gen, spec)
+    require(rbs[1].metrics["n_reused"] > 0, "rwkv: nothing was reused")
+    require(launches["wkv"] > 0 and launches["spec_verify"] == 1,
+            f"rwkv path: wkv {launches['wkv']} launches, spec_verify "
+            f"{launches['spec_verify']} (want > 0 and 1)")
+    for name in ("decode_attention", "flash_attention", "cache_roll",
+                 "cache_slot_write", "paged_gather", "paged_decode_attention"):
+        require(launches[name] == 0, f"rwkv path launched {name} "
+                f"{launches[name]} times")
+    generate_breakdown(torch, model, cfg, gen, batch)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg32, batch, gen = setup_model(torch, "rwkv6-3b", "float32")
+    rollout_path(torch, "rwkv-float32", model, cfg32, batch, gen, spec)
+    rwkv_consistency(torch, model, cfg32)
+    del model
+    torch.cuda.empty_cache()
+    one = cfg32.replace(num_layers=1)
+    rwkv_consistency(torch, M.init_lm(one, seed=SEED, device="cuda"), one,
+                     max_gap=CONSISTENCY_TOL)
+    return launches
+
+
+def rwkv_consistency(torch, model, cfg, max_gap=None):
+    """The score of prompt + continuation (the verify's log-probs) against
+    the prefill + decode steps' log-probs of the same tokens, as the
+    rollout's two epochs draw them; then both again with the plain
+    recurrence in place of the kernel, and the score with the embeddings
+    nudged by 1e-7.  With ``max_gap``: the kernel's largest gap within it;
+    else its mean gap within ``CHAOS_FACTOR`` of the larger of the plain
+    recurrence's and the nudge's."""
+    from repro_torch.engine.generate import positions_from_mask, score
+    from repro_torch.engine.sampling import logprobs_of
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv as R
+
+    B, C = PROMPTS * GROUP, CONSISTENCY_STEPS
+    g = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(3, cfg.vocab_size, (B, P + C), generator=g,
+                           dtype=torch.int32).cuda()
+    mask = torch.ones(B, P + C, dtype=torch.bool)
+    for b in range(B):
+        mask[b, :3 * b] = False
+    mask = mask.cuda()
+
+    @torch.no_grad()
+    def both():
+        lp_score = score(model, cfg, tokens, mask)["logprobs"][:, P:]
+        pos = positions_from_mask(mask)
+        caches = M.init_cache(cfg, B, P + C, device="cuda")
+        logits, caches = M.prefill(model, cfg, tokens[:, :P], pos[:, :P],
+                                   caches)
+        lps = [logprobs_of(logits[:, -1], tokens[:, P])]
+        for s in range(C - 1):
+            t = P + s
+            logits, caches = M.decode_step(model, cfg, tokens[:, t:t + 1],
+                                           pos[:, t:t + 1], caches, t)
+            lps.append(logprobs_of(logits[:, 0], tokens[:, t + 1]))
+        return lp_score, torch.stack(lps, 1)
+
+    def plain(r, k, v, w, u, s0, s_out=None):
+        y, s = wkv_ops.wkv_plain(r, k, v, w, u, s0)
+        s_out = torch.empty_like(s0) if s_out is None else s_out
+        return y, s_out.copy_(s)
+
+    def gap(a, b):
+        d = (a - b).abs()
+        return float(d.mean()), float(d.max())
+
+    lp_score, lp_dec = both()
+    kernel_wkv, R.wkv = R.wkv, plain
+    try:
+        plain_score, plain_dec = both()
+    finally:
+        R.wkv = kernel_wkv
+    embed = model.embed.detach().clone()
+    nudge = torch.randn(embed.shape, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 1), device="cuda")
+    with torch.no_grad():
+        model.embed.mul_(1.0 + 1e-7 * nudge)
+        nudged = score(model, cfg, tokens, mask)["logprobs"][:, P:]
+        model.embed.copy_(embed)
+    gaps = {"kernel": gap(lp_score, lp_dec), "plain": gap(plain_score,
+                                                          plain_dec),
+            "score_kernel_vs_plain": gap(lp_score, plain_score),
+            "score_nudged": gap(lp_score, nudged)}
+    log(f"rwkv consistency {cfg.param_dtype} L={cfg.num_layers} B={B} "
+        f"P={P} steps={C} (mean, max |log-prob| gap): " + json.dumps(gaps))
+    require(all(bool(torch.isfinite(x).all()) for x in
+                (lp_score, lp_dec, plain_score, plain_dec, nudged)),
+            "rwkv consistency: non-finite log-probs")
+    if max_gap is not None:
+        require(gaps["kernel"][1] <= max_gap,
+                f"rwkv consistency L={cfg.num_layers}: score vs decode "
+                f"{gaps['kernel'][1]} > {max_gap}")
+    else:
+        floor = max(gaps["plain"][0], gaps["score_nudged"][0])
+        require(gaps["kernel"][0] <= CHAOS_FACTOR * floor,
+                f"rwkv consistency L={cfg.num_layers}: score vs decode "
+                f"{gaps['kernel'][0]} > {CHAOS_FACTOR} x {floor}")
 
 
 def serve_path(torch):
@@ -725,15 +1010,17 @@ def time_breakdown(torch, what: str, run):
 
 
 def generate_breakdown(torch, model, cfg, gen, batch):
-    """A vanilla generate at the slice's batch: prefill + 16 decode steps."""
+    """A vanilla generate at the slice's batch: prefill + 16 decode steps,
+    named by the cache layout (an RWKV trunk's: ``rwkv``)."""
     from dataclasses import replace
 
     from repro_torch.engine.generate import generate
     from repro_torch.engine.sampling import make_key
 
     g = replace(gen, eos_id=-1, max_new_tokens=BREAKDOWN_STEPS)
+    layout = "rwkv" if cfg.block_kind == "rwkv" else cfg.cache_layout
     time_breakdown(
-        torch, f"generate {cfg.cache_layout} B={batch.tokens.shape[0]} "
+        torch, f"generate {layout} B={batch.tokens.shape[0]} "
         f"P={batch.tokens.shape[1]} steps={BREAKDOWN_STEPS}",
         lambda: generate(model, cfg, g, batch.tokens, batch.mask,
                          make_key(SEED + 1)))
@@ -797,7 +1084,10 @@ def main() -> int:
     records = kernel_checks(torch, timer)
     del timer
     torch.cuda.empty_cache()
-    small_reference(torch)
+    small_reference(torch, "qwen3-1.7b", SMALL_TOL["qwen3-1.7b"],
+                    num_kv_heads=2)
+    small_reference(torch, "rwkv6-3b", SMALL_TOL["rwkv6-3b"],
+                    tol_f32=SMALL_TOL_F32)
     model, cfg, batch, gen = setup_model(torch)
     paths = {"rollout": main_path(torch, model, cfg, batch, gen),
              "slots": slots_path(torch, model, cfg, batch, gen),
@@ -805,6 +1095,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     paths["serve"] = serve_path(torch)
+    paths["rwkv"] = rwkv_path(torch)
     for name, rec in records.items():
         rec["launches_by_path"] = {p: paths[p][name] for p in paths}
         rec["launches"] = sum(rec["launches_by_path"].values())

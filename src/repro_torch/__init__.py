@@ -29,9 +29,13 @@ Rules of the package:
   tensor that lies on the CPU.
 
 The port runs the speculative rollout (``core.rollout``) of dense GQA
-models such as qwen3-1.7b: the vanilla branch and the one-pass branch
-(verify+prefill, cache compaction, resumed decode), with the fixed decode
-batch or drained through the serving slot engine (``backfill="slots"``,
-``serving/``), over a dense or a paged KV cache (``cache_layout``), and the
-slot server (``python -m repro_torch.launch.serve``).
+models such as qwen3-1.7b and of RWKV6 trunks such as rwkv6-3b
+(``models/rwkv.py``, the recurrence in ``csrc/wkv.cu``): the vanilla
+branch, the one-pass branch (verify+prefill, cache compaction, resumed
+decode) for attention trunks, and the two-pass branch (score, left-align,
+re-prefill and decode) for recurrent trunks and ``one_pass="off"``; with
+the fixed decode batch or, for attention trunks, drained through the
+serving slot engine (``backfill="slots"``, ``serving/``), over a dense or a
+paged KV cache (``cache_layout``), and the slot server (``python -m
+repro_torch.launch.serve``).
 """

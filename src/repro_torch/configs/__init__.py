@@ -1,7 +1,8 @@
-"""Architecture registry of the port: the dense qwen3 configs it runs.
+"""Architecture registry of the port: the dense qwen3 configs and the
+RWKV6 trunk (rwkv6-3b) it runs.
 
 The other architectures of ``repro.configs`` need model families the port
-does not have yet (MLA, MoE, RWKV6, Mamba, encoder-decoder, vision prefix).
+does not have yet (MLA, MoE, Mamba, encoder-decoder, vision prefix).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 ARCH_IDS = {
     "qwen3-0.6b": "qwen3_0p6b",
     "qwen3-1.7b": "qwen3_1p7b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 

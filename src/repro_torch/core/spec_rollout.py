@@ -1,20 +1,26 @@
 """SPEC-RL speculative rollout (port of ``repro/core/spec_rollout.py``).
 
 Per step, for each prompt: take the cached previous rollout as a draft,
-verify it in one prefill of the current policy over prompt ⊕ draft, compact
-the caches to the accepted prefix, resume decoding from them, and assemble
-``y = draft[:n] ⊕ continuation`` — the one-pass branch.  A batch with no
-drafts (cold cache, or ``variant="off"``) is a vanilla ``generate``.
+verify it with the current policy over prompt ⊕ draft, keep the accepted
+prefix, decode the rest, and assemble ``y = draft[:n] ⊕ continuation``.
+A batch with no drafts (cold cache, or ``variant="off"``) is a vanilla
+``generate``.  The continuation runs on one of two engine paths:
 
-The port runs those two branches, and ``backfill="slots"``, which drains
-the batch through the serving slot engine instead
-(``serving/rl_adapter.py``: a row that finishes picks up the next prompt;
-drafts enter through speculative-prefix admission).  These raise
+* **one-pass** (attention trunks): the verify forward is a prefill, its
+  caches are compacted to the accepted region and decoding resumes from
+  them;
+* **two-pass** (recurrent trunks such as RWKV6, and ``one_pass="off"``):
+  score then re-prefill: ``verify_drafts`` scores prompt ⊕ draft,
+  ``left_align`` packs prompt ⊕ accepted prefix, and ``generate`` prefills
+  it again.
+
+``backfill="slots"`` drains the batch through the serving slot engine
+instead (``serving/rl_adapter.py``: a row that finishes picks up the next
+prompt; drafts enter through speculative-prefix admission).  These raise
 ``NotImplementedError`` and name the slice that brings them: the variants
-``random``, ``full`` and ``delayed`` and the two-pass path
-(``one_pass="off"``) with the GRPO update (ROADMAP Queue 1 item 7); the
-draft engine (item 9); the mesh (item 15).  The port has no observatory yet
-(item 14): no tracer spans or ledger rows are emitted.
+``random``, ``full`` and ``delayed`` with the GRPO update (ROADMAP Queue 1
+item 7); the draft engine (item 9); the mesh (item 15).  The port has no
+observatory yet (item 14): no tracer spans or ledger rows are emitted.
 
 ``key`` may be a scalar key (one stream for the batch) or a key batch (one
 key per row, ``engine/sampling.py``), which makes every row's tokens
@@ -41,7 +47,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
 from .cache import RolloutCache
-from .verify import verify_and_prefill
+from .verify import verify_and_prefill, verify_drafts
 
 VARIANTS = ("off", "spec", "random", "delayed", "full")
 PORTED_VARIANTS = ("off", "spec")
@@ -52,7 +58,7 @@ class SpecConfig:
     variant: str = "spec"
     lenience: float = math.e ** 0.5     # paper default for GRPO
     cache_history: int = 4
-    one_pass: str = "auto"              # 'auto' | 'on' (| 'off': two-pass)
+    one_pass: str = "auto"              # 'auto' | 'on' | 'off' (two-pass)
     backfill: str = "none"              # 'none' | 'slots' (slot engine)
     backfill_slots: int = 0             # decode slots for 'slots'
                                         # (0 -> half the prompt batch)
@@ -82,6 +88,19 @@ class RolloutBatch:
     length: np.ndarray            # (B,)
     metrics: Dict[str, float] = field(default_factory=dict)
     n: Optional[np.ndarray] = None  # (B,)
+
+
+def left_align(tokens, mask):
+    """Shift each row so its last valid token sits in the last column (one
+    gather with modular source indices, JAX's ``impl="gather"``).
+
+    Requires the columns after the last valid one to be padding (true for
+    [left-padded prompt | right-padded prefix] layouts)."""
+    W = tokens.shape[1]
+    idx = torch.arange(W, dtype=torch.int64, device=tokens.device)[None, :]
+    end = torch.where(mask, idx + 1, torch.zeros_like(idx)).amax(dim=1)
+    src = torch.remainder(idx - (W - end)[:, None], W)
+    return torch.gather(tokens, 1, src), torch.gather(mask, 1, src)
 
 
 def assemble(draft_tokens, prefix_lp, n, cont_tokens, cont_lp, cont_len, *,
@@ -129,9 +148,6 @@ def _check_ported(spec: SpecConfig, mesh) -> None:
         raise NotImplementedError(
             f"variant={spec.variant!r} arrives with the GRPO-update slice "
             "(ROADMAP Queue 1 item 7)")
-    if spec.variant == "spec" and spec.one_pass == "off":
-        raise NotImplementedError("the two-pass path arrives with the "
-                                  "GRPO-update slice (ROADMAP Queue 1 item 7)")
     if spec.draft is not None:
         raise NotImplementedError("the draft engine arrives with ROADMAP "
                                   "Queue 1 item 9")
@@ -201,39 +217,54 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     draft_lp = torch.as_tensor(drafts["draft_logprobs"], device=dev)
     draft_len = torch.as_tensor(drafts["draft_len"], device=dev)
     draft_eos = torch.as_tensor(drafts["draft_eos"], device=dev)
-    if not use_one_pass(cfg, spec):
-        raise NotImplementedError("the two-pass path arrives with the "
-                                  "GRPO-update slice (ROADMAP Queue 1 item 7)")
+    one_pass = use_one_pass(cfg, spec)
 
-    # ---- fused path: ONE forward over prompt ⊕ draft ---------------------
+    # ---- verify: one forward of the current policy over prompt ⊕ draft ---
+    # (one-pass: a prefill that fills the caches; two-pass: a score)
     tv0 = time.perf_counter()
     key, sub = split_key(key)
-    ver = verify_and_prefill(model, cfg, prompts, prompt_mask, draft_tokens,
-                             draft_lp, draft_len, sub, spec.log_lenience,
-                             temperature=gen.temperature, top_p=gen.top_p)
+    verify = verify_and_prefill if one_pass else verify_drafts
+    ver = verify(model, cfg, prompts, prompt_mask, draft_tokens, draft_lp,
+                 draft_len, sub, spec.log_lenience,
+                 temperature=gen.temperature, top_p=gen.top_p)
     n = ver["n"]
     prefix_lp = ver["lp_curr"]
     accept_rate = float(ver["accept_rate"])
     sync(dev)
     verify_time = time.perf_counter() - tv0
+    full_reuse = (n == draft_len) & draft_eos
 
-    # compact the caches to [prompt | draft[:n]], left-aligned at W
+    # ---- one-pass: compact the caches to [prompt | draft[:n]],
+    # left-aligned at W; two-pass: left-align prompt ⊕ draft[:n] ----------
     W = P + N
     tc0 = time.perf_counter()
-    p_len = prompt_mask.sum(dim=1, dtype=torch.int32)
-    caches = M.realign_decode_cache(cfg, ver.pop("caches"),
-                                    (N - n).to(torch.int32), p_len + n, W)
+    if one_pass:
+        p_len = prompt_mask.sum(dim=1, dtype=torch.int32)
+        caches = M.realign_decode_cache(cfg, ver.pop("caches"),
+                                        (N - n).to(torch.int32), p_len + n, W)
+    else:
+        prefix_mask = torch.arange(N, device=dev)[None, :] < n[:, None]
+        combined = torch.cat([prompts, torch.where(
+            prefix_mask, draft_tokens.to(torch.int32),
+            torch.full_like(prompts[:, :1], gen.pad_id))], dim=1)
+        aligned, aligned_mask = left_align(
+            combined, torch.cat([prompt_mask, prefix_mask], dim=1))
     sync(dev)
     compact_time = time.perf_counter() - tc0
 
-    # resume decoding from the compacted cache — zero redundant prefill
-    full_reuse = (n == draft_len) & draft_eos
+    # ---- decode: one-pass resumes from the compacted cache (no second
+    # prefill); two-pass prefills the aligned prefix again ----------------
     td0 = time.perf_counter()
     key, sub = split_key(key)
-    cont = resume_from_cache(model, cfg, gen, caches, ver["seed_logits"],
-                             p_len + n, W, sub, initial_done=full_reuse,
-                             row_budget=N - n)
-    del caches
+    if one_pass:
+        cont = resume_from_cache(model, cfg, gen, caches, ver["seed_logits"],
+                                 p_len + n, W, sub, initial_done=full_reuse,
+                                 row_budget=N - n)
+        del caches
+    else:
+        cont = generate(model, cfg, gen, aligned, aligned_mask, sub,
+                        initial_done=full_reuse, row_budget=N - n)
+    del ver
     sync(dev)
     decode_time = time.perf_counter() - td0
     rollout_time = compact_time + decode_time
@@ -256,8 +287,8 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         draft_coverage=float((draft_len > 0).float().mean()),
         verify_time=verify_time, rollout_time=rollout_time,
         assembly_time=assembly_time, compact_time=compact_time,
-        decode_time=decode_time, one_pass=1.0, prefill_passes=1.0,
-        **_draft_metrics())
+        decode_time=decode_time, one_pass=float(one_pass),
+        prefill_passes=1.0 if one_pass else 2.0, **_draft_metrics())
     return RolloutBatch(
         prompt=_np(prompts), prompt_mask=_np(prompt_mask),
         response=_np(resp), response_mask=_np(resp_mask),

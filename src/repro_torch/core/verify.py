@@ -1,9 +1,13 @@
-"""SPEC-RL draft verification (port of ``repro/core/verify.py``, the
-prefilling flavour of the one-pass path).
+"""SPEC-RL draft verification (port of ``repro/core/verify.py``).
 
-One prefill of the current policy over [prompt | draft] fills the decode
-caches and yields ``p_curr``; the accept/first-reject test
-(``kernels.spec_verify``) yields the rejection position ``n`` per row.
+One teacher-forced forward of the current policy over [prompt | draft]
+yields ``p_curr``; the accept/first-reject test (``kernels.spec_verify``)
+yields the rejection position ``n`` per row.  Two flavours:
+
+* ``verify_drafts``: scoring only (no caches), for the two-pass branch
+  (recurrent trunks and ``one_pass="off"``);
+* ``verify_and_prefill``: the same forward through ``M.prefill``, so the
+  decode caches come out filled, for the one-pass branch.
 """
 from __future__ import annotations
 
@@ -11,7 +15,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.engine.generate import positions_from_mask
+from repro_torch.engine.generate import positions_from_mask, score
 from repro_torch.engine.sampling import logprobs_of
 from repro_torch.kernels.spec_verify.ops import spec_verify
 from repro_torch.models import model as M
@@ -24,6 +28,39 @@ def _accept_uniforms(key, B: int, N: int) -> torch.Tensor:
     rejection position is a per-request quantity, whatever the admission
     group)."""
     return key.uniform((B, N))
+
+
+def _packed(prompt, prompt_mask, draft_tokens, draft_len):
+    """[prompt | draft] with the draft's padding zeroed, and its mask."""
+    N = draft_tokens.shape[1]
+    didx = torch.arange(N, dtype=torch.int32, device=prompt.device)[None, :]
+    draft_mask = didx < draft_len[:, None]
+    full = torch.cat([prompt, torch.where(draft_mask, draft_tokens,
+                                          torch.zeros_like(draft_tokens))],
+                     dim=1)
+    return full, torch.cat([prompt_mask, draft_mask], dim=1)
+
+
+@torch.no_grad()
+def verify_drafts(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
+                  draft_tokens, draft_logprobs, draft_len, key,
+                  log_lenience: float, *, temperature: float = 1.0,
+                  top_p: float = 1.0) -> Dict[str, torch.Tensor]:
+    """prompt: (B, P) left-padded; draft_*: (B, N) right-padded (tensors on
+    the model's device).  ``engine.score`` over [prompt | draft], then the
+    accept test.
+
+    Returns ``n`` (B,) int32 in [0, draft_len], ``lp_curr`` (B, N) (the
+    current policy's log-probs of the draft tokens) and ``accept_rate``."""
+    B, P = prompt.shape
+    N = draft_tokens.shape[1]
+    full, mask = _packed(prompt, prompt_mask, draft_tokens, draft_len)
+    sc = score(model, cfg, full, mask, temperature=temperature, top_p=top_p)
+    lp_curr = sc["logprobs"][:, P:].contiguous()                 # (B, N)
+    u = _accept_uniforms(key, B, N)
+    n = spec_verify(lp_curr, draft_logprobs, u, draft_len, log_lenience)
+    total = torch.clamp(draft_len.sum(), min=1)
+    return {"n": n, "lp_curr": lp_curr, "accept_rate": n.sum() / total}
 
 
 @torch.no_grad()
@@ -46,12 +83,7 @@ def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
     N = draft_tokens.shape[1]
     W = P + N
     dev = prompt.device
-    didx = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
-    draft_mask = didx < draft_len[:, None]
-    full = torch.cat([prompt, torch.where(draft_mask, draft_tokens,
-                                          torch.zeros_like(draft_tokens))],
-                     dim=1)
-    mask = torch.cat([prompt_mask, draft_mask], dim=1)
+    full, mask = _packed(prompt, prompt_mask, draft_tokens, draft_len)
     positions = positions_from_mask(mask)
     caches = M.init_cache(cfg, B, W + N, device=dev)
     logits, caches = M.prefill(model, cfg, full, positions, caches)

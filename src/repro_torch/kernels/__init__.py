@@ -12,7 +12,8 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("decode_attention", "flash_attention", "spec_verify", "cache_roll",
-           "cache_slot_write", "paged_gather", "paged_decode_attention")
+           "cache_slot_write", "paged_gather", "paged_decode_attention",
+           "wkv")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

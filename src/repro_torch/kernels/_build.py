@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "kernels"
 SOURCES = ("decode_attention", "flash_attention", "spec_verify", "cache_roll",
-           "cache_slot_write", "paged_gather", "paged_decode_attention")
+           "cache_slot_write", "paged_gather", "paged_decode_attention",
+           "wkv")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
          "-lineinfo"]
@@ -52,6 +53,8 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, q_pos, k_pos, lengths, starts, m, l, acc,
     # out, B, Hq, Hkv, T, nb, bs, D, window, scale, stream
     "repro_paged_decode_attention": [_P] * 12 + [_I] * 8 + [_F, _P],
+    # r, k, v, w, u, s0, y, s_out, B, T, H, hd, stream
+    "repro_wkv": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

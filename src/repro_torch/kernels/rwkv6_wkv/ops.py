@@ -1,0 +1,90 @@
+"""RWKV6 time-mix recurrence (port of ``repro/kernels/rwkv6_wkv``).
+
+Per (batch, head), with data-dependent per-channel decay ``w_t``::
+
+    y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+    S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
+
+``wkv`` launches the CUDA kernel (``csrc/wkv.cu``, which replaces
+``wkv_pallas``, ``repro/kernels/rwkv6_wkv/kernel.py:53``, and the
+``to_bh`` transposes of its ``ops.py``) on CUDA tensors and runs
+``wkv_plain``, a loop over t in ``wkv_scan``'s order
+(``repro/models/rwkv.py:106``), on CPU tensors.
+
+The function is bound by its bytes at T in the hundreds (85 us at
+T = 320 for the slice's shapes; its 5 fp32 flops per state element per
+step take 63 us, and the T sequential steps add a latency floor) and by
+the state's read and write at T = 1.  The kernel keeps ``wkv_scan``'s
+order, which spends 7 flops an element (the u-term inside the r-sum).  It keeps each (b, h) state in
+registers for the whole sequence, one block per (b, h) with four threads
+per state column, and stages r/k/v/w in shared memory 16 steps at a time
+(the source's note has the details).  It reads the model's (B, T, H, hd)
+layout in place and may write the final state over ``s0``: that is how the
+decode cache is updated in place.  The pad contract is the caller's: w = 1
+and k = 0 leave the state unchanged.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels._build import launch
+
+HEAD_DIMS = (32, 64)
+
+
+def wkv_plain(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: (B, T, H, hd) float32; u: (H, hd); s0: (B, H, hd, hd).
+    Returns (y (B, T, H, hd), s_final (B, H, hd, hd)), both float32."""
+    s = s0.float()
+    u4 = u.float()[None, :, :, None]
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]           # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + u4 * kv))
+        s = w[:, t, :, :, None] * s + kv
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(r)
+    return y, s
+
+
+def wkv_cuda(r, k, v, w, u, s0, s_out) -> torch.Tensor:
+    """The kernel entry: every tensor contiguous float32 on one device;
+    writes the final state into ``s_out`` (which may be ``s0``) and returns
+    y."""
+    B, T, H, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv kernel: head dim {hd} not in {HEAD_DIMS}")
+    for name, t, shape in (("r", r, (B, T, H, hd)), ("k", k, (B, T, H, hd)),
+                           ("v", v, (B, T, H, hd)), ("w", w, (B, T, H, hd)),
+                           ("u", u, (H, hd)), ("s0", s0, (B, H, hd, hd)),
+                           ("s_out", s_out, (B, H, hd, hd))):
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != r.device or tuple(t.shape) != shape):
+            raise ValueError(f"wkv kernel needs a contiguous float32 {name} "
+                             f"of shape {shape} on {r.device}")
+    y = torch.empty_like(r)
+    launch("repro_wkv", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+           w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
+           s_out.data_ptr(), B, T, H, hd)
+    LAUNCHES["wkv"] += 1
+    return y
+
+
+def wkv(r, k, v, w, u, s0, s_out: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: (B, T, H, hd) float32; u: (H, hd); s0: (B, H, hd, hd)
+    float32.  The final state goes into ``s_out`` (a new tensor if None;
+    ``s0`` itself to update a cache in place).  Returns (y, s_out).  CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if s_out is None:
+        s_out = torch.empty_like(s0)
+    if r.device.type == "cuda":
+        return wkv_cuda(r, k, v, w, u, s0, s_out), s_out
+    if r.device.type != "cpu":
+        raise ValueError(f"wkv: no kernel for {r.device}")
+    y, s = wkv_plain(r, k, v, w, u, s0)
+    s_out.copy_(s)
+    return y, s_out

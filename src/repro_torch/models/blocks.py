@@ -1,14 +1,16 @@
-"""Decoder blocks and the layer stack (port of ``repro/models/blocks.py``,
-attention blocks with a dense FFN).
+"""Decoder blocks and the layer stack (port of ``repro/models/blocks.py``):
+attention blocks with a dense FFN, and RWKV6 blocks.
 
 Layers are an ``nn.ModuleList`` run by a Python loop (JAX scans stacked
 parameters).  The caches keep JAX's per-run stacked layout so that
 ``model._roll_rows`` flattens (run, batch, head) rows exactly as JAX does:
-``caches[run] = {"self": {"k", "v": (run_len, B, Hkv, S, D),
-"pos": (run_len, B, S)}}``, or with ``cfg.cache_layout == "paged"``
+for an attention run ``caches[run] = {"self": {"k", "v": (run_len, B, Hkv,
+S, D), "pos": (run_len, B, S)}}``, or with ``cfg.cache_layout == "paged"``
 ``{"k", "v": (run_len, NB, Hkv, bs, D) pools, "pos": (run_len, B, S),
-"table": (run_len, B, nb)}``.  Layer ``i`` of a run reads and writes the
-views ``k[i]``, ``v[i]``, ``pos[i]`` (and ``table[i]``) in place.
+"table": (run_len, B, nb)}``; for an RWKV run ``caches[run] = {"rwkv":
+{"shift_t", "shift_c": (run_len, B, d), "wkv": (run_len, B, H, hd, hd)}}``.
+Layer ``i`` of a run reads and writes the views ``buf[i]`` of its run's
+buffers in place.
 """
 from __future__ import annotations
 
@@ -17,9 +19,11 @@ from typing import List, Tuple
 from torch import nn
 
 from .attention import GQA, apply_gqa, init_kv_cache
-from .config import ATTN, ModelConfig
-from .layers import RMSNorm, apply_rmsnorm
+from .config import ATTN, RWKV, ModelConfig
+from .layers import LayerNorm, RMSNorm, apply_layernorm, apply_rmsnorm
 from .moe import apply_ffn, make_ffn
+from .rwkv import (RWKVChannelMix, RWKVTimeMix, apply_rwkv_channel_mix,
+                   apply_rwkv_time_mix, init_rwkv_cache)
 
 BlockSig = Tuple[str, bool, bool]  # (kind, is_moe, cross_attention)
 
@@ -39,10 +43,14 @@ def signature_runs(cfg: ModelConfig) -> List[Tuple[BlockSig, int]]:
     return runs
 
 
+SUPPORTED = ((ATTN, False, False), (RWKV, False, False))
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense attention trunks over a dense or paged cache."""
+    """The port runs dense attention trunks over a dense or paged cache and
+    RWKV6 trunks."""
     for sig in block_signatures(cfg):
-        if sig != (ATTN, False, False):
+        if sig not in SUPPORTED:
             raise NotImplementedError(
                 f"{cfg.name}: block {sig} needs the other model families "
                 "(ROADMAP Queue 1 item 13)")
@@ -54,7 +62,7 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """``{"norm1", "attn", "norm2", "mlp"}``."""
+    """An attention block: ``{"norm1", "attn", "norm2", "mlp"}``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device=None):
         super().__init__()
@@ -63,6 +71,34 @@ class Block(nn.Module):
         self.attn = GQA(cfg, **kw)
         self.norm2 = RMSNorm(cfg.d_model, **kw)
         self.mlp = make_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind, **kw)
+
+
+class RWKVBlock(nn.Module):
+    """``{"norm1", "time_mix", "norm2", "channel_mix"}``, LayerNorms."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.norm1 = LayerNorm(cfg.d_model, **kw)
+        self.time_mix = RWKVTimeMix(cfg, **kw)
+        self.norm2 = LayerNorm(cfg.d_model, **kw)
+        self.channel_mix = RWKVChannelMix(cfg, **kw)
+
+
+def make_block(cfg: ModelConfig, sig: BlockSig, *, dtype, device=None):
+    return (RWKVBlock if sig[0] == RWKV else Block)(cfg, dtype=dtype,
+                                                    device=device)
+
+
+def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
+                     cache=None):
+    """LayerNorm (eps 1e-5, JAX's default) -> time mix -> residual, then
+    LayerNorm -> channel mix -> residual."""
+    h = apply_layernorm(p.norm1, x)
+    x = x + apply_rwkv_time_mix(p.time_mix, cfg, h, positions, cache=cache)
+    h = apply_layernorm(p.norm2, x)
+    return x + apply_rwkv_channel_mix(p.channel_mix, cfg, h, positions,
+                                      cache=cache)
 
 
 def apply_block(p: Block, cfg: ModelConfig, x, positions, *, cache=None,
@@ -79,9 +115,13 @@ def apply_block(p: Block, cfg: ModelConfig, x, positions, *, cache=None,
 def init_trunk_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device):
     caches = []
-    for _, run_len in signature_runs(cfg):
-        one = init_kv_cache(cfg, batch, max_len, dtype, device)
-        caches.append({"self": {
+    for sig, run_len in signature_runs(cfg):
+        if sig[0] == RWKV:
+            kind, one = "rwkv", init_rwkv_cache(cfg, batch, dtype, device)
+        else:
+            kind, one = "self", init_kv_cache(cfg, batch, max_len, dtype,
+                                              device)
+        caches.append({kind: {
             name: buf[None].repeat((run_len,) + (1,) * buf.ndim)
             for name, buf in one.items()}})
     return caches
@@ -91,15 +131,22 @@ def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 caches=None, cache_start=None, kv_length=None,
                 kv_start=None):
     """Run all layers; the caches (if given) are updated in place and
-    returned."""
+    returned.  The attention arguments (cache_start, kv_length, kv_start)
+    go unused by RWKV layers."""
     i = 0
-    for run_idx, (_, run_len) in enumerate(signature_runs(cfg)):
-        sc = caches[run_idx]["self"] if caches is not None else None
+    for run_idx, (sig, run_len) in enumerate(signature_runs(cfg)):
+        rwkv = sig[0] == RWKV
+        sc = (None if caches is None
+              else caches[run_idx]["rwkv" if rwkv else "self"])
         for j in range(run_len):
             layer_cache = None if sc is None else {
                 name: buf[j] for name, buf in sc.items()}
-            x = apply_block(layers[i], cfg, x, positions, cache=layer_cache,
-                            cache_start=cache_start, kv_length=kv_length,
-                            kv_start=kv_start)
+            if rwkv:
+                x = apply_rwkv_block(layers[i], cfg, x, positions,
+                                     cache=layer_cache)
+            else:
+                x = apply_block(layers[i], cfg, x, positions,
+                                cache=layer_cache, cache_start=cache_start,
+                                kv_length=kv_length, kv_start=kv_start)
             i += 1
     return x, caches

@@ -1,5 +1,5 @@
 """Primitive layers (port of ``repro/models/layers.py``): dense, RMSNorm,
-rotary embeddings, softcap.
+LayerNorm, rotary embeddings, softcap.
 
 Parameters live in small ``nn.Module`` containers whose attribute names are
 the JAX pytree's keys (``kernel``, ``scale``), so ``models/convert.py`` maps
@@ -53,6 +53,21 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
 
+class LayerNorm(nn.Module):
+    """``{"scale", "bias"}`` (the RWKV blocks' norms)."""
+
+    def __init__(self, dim: int, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
+                                  requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device),
+                                 requires_grad=False)
+
+    def reset(self, generator: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+
 def apply_dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
     y = x @ p.kernel.to(x.dtype)
     if p.bias is not None:
@@ -67,6 +82,17 @@ def apply_rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p.scale.float()).to(x.dtype)
+
+
+def apply_layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """Computes in float32 (biased variance, as ``jnp.var``) and casts back
+    to ``x``'s dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale.float() + p.bias.float()).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

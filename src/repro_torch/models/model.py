@@ -1,6 +1,7 @@
 """Top-level language model (port of ``repro/models/model.py``, dense GQA
-trunks): embeddings, trunk, head, and the cache operations of the one-pass
-rollout.
+and RWKV6 trunks): embeddings, trunk, head, and the cache operations of the
+one-pass rollout (attention trunks only: a recurrent state cannot be
+compacted, so RWKV6 rollouts take the two-pass branch).
 
 Entry points mirror JAX's, with the params pytree replaced by an ``LM``:
 
@@ -25,7 +26,8 @@ from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather
 from repro_torch.kernels.cache_slot_write.ops import (cache_slot_write,
                                                       paged_slot_write)
 
-from .blocks import Block, apply_trunk, check_supported, init_trunk_cache
+from .blocks import (apply_trunk, block_signatures, check_supported,
+                     init_trunk_cache, make_block)
 from .config import ATTN, ModelConfig
 from .layers import Dense, RMSNorm, apply_dense, apply_rmsnorm, softcap
 
@@ -50,8 +52,8 @@ class LM(nn.Module):
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
                                   requires_grad=False)
-        self.layers = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(make_block(cfg, sig, **kw)
+                                    for sig in block_signatures(cfg))
         self.final_norm = RMSNorm(cfg.d_model, **kw)
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.d_model, cfg.vocab_size, **kw))
@@ -75,8 +77,8 @@ def init_lm(cfg: ModelConfig, *, seed: int, device: DeviceLike = None) -> LM:
     emb.normal_(0.0, 1.0, generator=gen)
     model.embed.copy_(emb * 0.02)
     del emb
-    for mod in model.modules():
-        if isinstance(mod, (Dense, RMSNorm)):
+    for mod in model.modules():       # each container draws its own leaves
+        if hasattr(mod, "reset"):
             mod.reset(gen)
     return model
 
@@ -138,7 +140,8 @@ def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
     ``cache_start + 1``; kv_start: per-row first live slot, only for
     contiguous layouts.  Both become (B,) int32 tensors once here, not once
     per layer.  Draft blocks (T = k + 1) arrive with the draft engine's
-    slice (ROADMAP Queue 1 item 9).
+    slice (ROADMAP Queue 1 item 9).  An RWKV trunk ignores cache_start,
+    kv_length and kv_start: its cache is a running state.
     Returns (logits (B, 1, V), caches)."""
     B, T = token.shape
     if T != 1:

@@ -51,6 +51,9 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                                   "GRPO-update slice (ROADMAP Queue 1 item 7)")
     if not M.supports_slot_serving(cfg):
         raise ValueError("backfill='slots' needs an attention-only trunk")
+    if spec.variant != "off" and spec.one_pass == "off":
+        raise ValueError("backfill='slots' is a one-pass engine path; "
+                         "one_pass='off' contradicts it")
 
     prompts_np = _np(prompts).astype(np.int32)
     mask_np = _np(prompt_mask).astype(bool)
@@ -66,8 +69,7 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         else None
     have_drafts = use_cache and int(drafts["draft_len"].sum()) > 0
     if have_drafts:
-        if not use_one_pass(cfg, spec):
-            raise ValueError("backfill='slots' is a one-pass engine path")
+        assert use_one_pass(cfg, spec)
         # mirror rollout's one-pass splits: verify stream, then decode stream
         keys, verify_keys = split_key(keys)
         keys, decode_keys = split_key(keys)

@@ -32,6 +32,7 @@ from repro.engine.generate import GenerateConfig as JaxGenerateConfig  # noqa: E
 from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import RolloutCache, SpecConfig, rollout  # noqa: E402
+from repro_torch.core.spec_rollout import left_align  # noqa: E402
 from repro_torch.data.dataset import PromptDataset  # noqa: E402
 from repro_torch.data.tokenizer import EOS_ID, PAD_ID  # noqa: E402
 from repro_torch.engine import sampling  # noqa: E402
@@ -145,6 +146,16 @@ def test_two_epoch_rollout_matches_jax(models, monkeypatch):
     """Epoch 0 vanilla, epoch 1 the one-pass branch (lenience 0.8, so the
     rejection position varies from row to row), through one RolloutCache
     each, driven as ``Collector.rollout_once`` drives JAX's."""
+    _two_epoch_parity(models, monkeypatch, "auto")
+
+
+def test_two_pass_rollout_matches_jax(models, monkeypatch):
+    """The same two epochs with ``one_pass="off"``: epoch 1 takes the
+    two-pass branch (score, left-align, re-prefill)."""
+    _two_epoch_parity(models, monkeypatch, "off")
+
+
+def _two_epoch_parity(models, monkeypatch, one_pass):
     jcfg, cfg, params, model = models
     problems = generate_problems(MathTaskConfig(num_problems=4, seed=0))
     batch = next(PromptDataset(problems, max_prompt_len=16).epochs(
@@ -152,20 +163,21 @@ def test_two_epoch_rollout_matches_jax(models, monkeypatch):
     N = 24
     jgen = JaxGenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
     gen = GenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
-    jspec = JaxSpecConfig(variant="spec", lenience=0.8,
+    jspec = JaxSpecConfig(variant="spec", lenience=0.8, one_pass=one_pass,
                           verify_impl="interpret", compact_impl="interpret")
-    spec = SpecConfig(variant="spec", lenience=0.8)
+    spec = SpecConfig(variant="spec", lenience=0.8, one_pass=one_pass)
     jcache, cache = JaxRolloutCache(group_size=4), RolloutCache(group_size=4)
 
     jax_n = {}
-    verify = jax_spec_rollout.verify_and_prefill
+    name = "verify_and_prefill" if one_pass == "auto" else "verify_drafts"
+    verify = getattr(jax_spec_rollout, name)
 
     def spy(*args, **kw):
         out = verify(*args, **kw)
         jax_n["n"] = np.asarray(out["n"])
         return out
 
-    monkeypatch.setattr(jax_spec_rollout, "verify_and_prefill", spy)
+    monkeypatch.setattr(jax_spec_rollout, name, spy)
     key = jax.random.PRNGKey(3)
     for epoch in (0, 1):
         key, sub = jax.random.split(key)
@@ -183,8 +195,31 @@ def test_two_epoch_rollout_matches_jax(models, monkeypatch):
             assert got.metrics[k] == want.metrics[k], k
         assert set(got.metrics) == set(want.metrics)
     np.testing.assert_array_equal(got.n, jax_n["n"])
-    assert got.metrics["one_pass"] == 1.0
+    assert got.metrics["one_pass"] == (1.0 if one_pass == "auto" else 0.0)
+    assert got.metrics["prefill_passes"] == (1.0 if one_pass == "auto"
+                                             else 2.0)
     assert np.any((got.n > 0) & (got.n < N)) and len(set(got.n.tolist())) > 2
+
+
+def test_left_align_matches_jax():
+    """[left-padded prompt | right-padded prefix] rows, an empty prefix and
+    an all-valid row among them, against JAX's gather and roll impls."""
+    rng = np.random.default_rng(4)
+    P, N = 6, 5
+    p_len = np.array([6, 3, 1, 4])
+    n = np.array([5, 0, 2, 3])
+    cols = np.arange(P + N)[None, :]
+    mask = (((cols >= P - p_len[:, None]) & (cols < P))
+            | ((cols >= P) & (cols < P + n[:, None])))
+    tokens = np.where(mask, rng.integers(3, 100, mask.shape), 0
+                      ).astype(np.int32)
+    got_t, got_m = left_align(torch.from_numpy(tokens), torch.from_numpy(mask))
+    for impl in ("gather", "roll"):
+        want_t, want_m = jax_spec_rollout.left_align(
+            jnp.asarray(tokens), jnp.asarray(mask), impl=impl)
+        np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+        np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    assert got_m[:, -1].all()
 
 
 def test_unported_branches_raise(models):
@@ -193,7 +228,7 @@ def test_unported_branches_raise(models):
     toks = np.ones((2, 3), np.int32)
     mask = np.ones((2, 3), bool)
     for spec in (SpecConfig(variant="random"), SpecConfig(variant="delayed"),
-                 SpecConfig(one_pass="off"), SpecConfig(draft=object()),
+                 SpecConfig(draft=object()),
                  SpecConfig(variant="delayed", backfill="slots")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rollout(model, cfg, gen, spec, toks, mask, [0, 1], RolloutCache(),
@@ -208,7 +243,9 @@ SLICE_MODULES = (
     "repro_torch.kernels.cache_slot_write.ops",
     "repro_torch.serving.engine_loop", "repro_torch.serving.rl_adapter",
     "repro_torch.serving.mesh_server", "repro_torch.serving.request",
-    "repro_torch.serving.scheduler", "repro_torch.launch.serve")
+    "repro_torch.serving.scheduler", "repro_torch.launch.serve",
+    "repro_torch.models.rwkv", "repro_torch.kernels.rwkv6_wkv.ops",
+    "repro_torch.configs.rwkv6_3b")
 
 
 def test_port_imports_no_jax_and_no_repro():
