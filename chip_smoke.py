@@ -20,6 +20,11 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    the paged decode's dead table entries point at blocks of NaN): exactly
    for spec_verify, cache_roll, cache_slot_write and paged_gather, within
    ``ATTN_TOL`` for the three attentions, rows that see no key exactly 0.
+   flash_attention runs a one-tile rehearsal first (B = 1, T = S = 64),
+   then the epoch-1 verify, a D = 64 case at the reduced widths (4 / 2
+   heads), a ragged one (T = 70, S = 130, rows of padding only) and a
+   peaked one (each query's largest logit about 20), and at the epoch-0
+   shapes (T = 64, S = 320) it is timed beside SDPA.
    ``wkv`` runs at the rwkv6-3b shapes in float32, at T = P + N (the verify
    score, with the pads' k = 0, w = 1) and T = 1 (a decode step), from a
    nonzero state, its output new and written over its input, within
@@ -27,8 +32,8 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    inputs already in its form, the plain version and the yardstick: one
    PyTorch call that computes the same function where there is one, and
    for the paged decode the two-step gather + dense decode kernel (CUDA
-   events, median of ``REPS`` launches with the L2 cache flushed before
-   each);
+   events, median of ``REPS`` launches, the L2 cache flushed before
+   each, the three timed in turns);
 4. holds the port on the card against the port on the CPU at a small size
    (the reduced qwen3-1.7b and rwkv6-3b in bfloat16: forward, prefill,
    decode steps and, for qwen, the compaction roll, teacher-forced),
@@ -148,28 +153,40 @@ def smi_line() -> str:
 
 
 class Timer:
-    """Median device time of one call, L2 flushed before each launch."""
+    """Median device time of one call, L2 flushed before each launch.
+    ``turns`` times several functions in turns (forward, then backward
+    order, rep after rep), so that they share the card's state."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
                                  device="cuda")      # 256 MB > 50 MB L2
 
-    def ms(self, fn, reps: int = REPS) -> float:
+    def _once(self, fn) -> float:
         torch = self.torch
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+        self.flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def turns(self, *fns, reps: int = REPS):
+        for fn in fns:
+            for _ in range(3):
+                fn()
+        times = [[] for _ in fns]
+        for rep in range(reps):
+            order = range(len(fns)) if rep % 2 == 0 else reversed(
+                range(len(fns)))
+            for i in order:
+                times[i].append(self._once(fns[i]))
+        return [statistics.median(t) for t in times]
+
+    def ms(self, fn, reps: int = REPS) -> float:
+        return self.turns(fn, reps=reps)[0]
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -181,6 +198,52 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 
 
 # ---------------------------------------------------------------- kernels
+
+
+def flash_case(torch, gen, name, B, Hq, Hkv, T, S, D, spans, peak=None):
+    """One flash_attention case through the public wrapper against the
+    plain version: row b's queries ``spans[b] = (pad, valid)`` sit at
+    positions 0.. after ``pad`` padded slots (q_pos -1, given as int64 for
+    the wrapper to convert), its keys are the same slots (k_pos past T
+    empty).  With ``peak``, each query is scaled so that its largest
+    visible logit is about ``peak`` (where rounding the softmax weights
+    shows most).  Within ATTN_TOL; rows that see no key exactly 0."""
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+
+    dev = gen.device
+    q_pos = torch.full((B, T), -1, dtype=torch.int64, device=dev)
+    for b, (pad, valid) in enumerate(spans):
+        q_pos[b, pad:pad + valid] = torch.arange(valid, device=dev)
+    k_pos = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    k_pos[:, :min(T, S)] = q_pos[:, :min(T, S)].to(torch.int32)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.randn((B, Hq, T, D), generator=gen, **bf)
+    k = torch.randn((B, Hkv, S, D), generator=gen, **bf)
+    v = torch.randn((B, Hkv, S, D), generator=gen, **bf)
+    vis = ((k_pos[:, None, :] >= 0)
+           & (k_pos[:, None, :] <= q_pos[:, :, None]))          # (B, T, S)
+    if peak is not None:
+        kr = k.float().repeat_interleave(Hq // Hkv, dim=1)
+        logits = torch.einsum("bhtd,bhsd->bhts", q.float(), kr) / math.sqrt(D)
+        top = logits.masked_fill(~vis[:, None], -1e30).amax(-1)
+        factor = torch.where(top > 0, peak / top.clamp(min=1e-6),
+                             torch.ones_like(top))
+        q = (q.float() * factor[..., None]).to(torch.bfloat16)
+        del kr, logits
+    got = fl_ops.flash_attention(q, k, v, q_pos, k_pos)
+    want = fl_ops.flash_attention_plain(q, k, v, q_pos.to(torch.int32), k_pos)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    dead = ~vis.any(-1)                                          # (B, T)
+    log(f"kernel flash_attention {name} (B={B}, Hq={Hq}, Hkv={Hkv}, T={T}, "
+        f"S={S}, D={D}): max_abs_err={err}, {int(dead.sum())} query rows "
+        "see no key")
+    require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL,
+            f"flash_attention {name}: max_abs_err {err} > {ATTN_TOL}")
+    require(bool((got.transpose(1, 2)[dead] == 0).all())
+            and bool((want.transpose(1, 2)[dead] == 0).all()),
+            f"flash_attention {name}: rows that see no key must be exactly 0")
+    return err
 
 
 def kernel_checks(torch, timer):
@@ -212,8 +275,9 @@ def kernel_checks(torch, timer):
         """``library``: one PyTorch call computing the same function (or
         None); ``two_step``: (label, fn) of a comparison that is not one
         library call, timed and reported beside it."""
-        ms, plain_ms = timer.ms(fn), timer.ms(plain)
-        library_ms = timer.ms(library) if library is not None else None
+        fns = [fn, plain] + [f for f in (library,) if f is not None]
+        ms, plain_ms, *lib = timer.turns(*fns)
+        library_ms = lib[0] if lib else None
         b_ms, b_by = bound(nbytes, flops, flop_rate)
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": None, "max_abs_err": err,
@@ -275,9 +339,14 @@ def kernel_checks(torch, timer):
            + n_span * 4 + 3 * B * 4 + B * Hq * D * 4,
            flops=4 * n_seen * Hq * D)
 
-    # --- flash_attention: the verify prefill of epoch 1 (T = W, S = W + N) -
-    # left-padded prompt and right-padded draft: the padded query rows carry
-    # q_pos -1 and must come out exactly 0; q_pos goes in as int64
+    # --- flash_attention: first the one-tile rehearsal (a wrong wgmma
+    # descriptor, swizzle or fragment mapping shows here first), then the
+    # verify prefill of epoch 1 (T = W, S = W + N), then the other regimes
+    errs = [flash_case(torch, gen, "one tile", 1, Hq, Hkv, 64, 64, D,
+                       [(0, 64)])]
+    # --- the verify prefill of epoch 1: left-padded prompt and right-padded
+    # draft; the padded query rows carry q_pos -1 and must come out exactly
+    # 0; q_pos goes in as int64
     T = W
     col = torch.arange(T, device=dev)[None, :]
     pad = P - p_len[:, None]
@@ -295,11 +364,30 @@ def kernel_checks(torch, timer):
     require(err <= ATTN_TOL, f"flash_attention: max_abs_err {err} > {ATTN_TOL}")
     require(bool((got.transpose(1, 2)[~valid] == 0).all()),
             "flash_attention: padded query rows must come out exactly 0")
+    log(f"kernel flash_attention epoch-1 verify (B={B}, Hq={Hq}, Hkv={Hkv}, "
+        f"T={T}, S={S}, D={D}): max_abs_err={err}")
+    errs += [err,
+             # the reduced configs' and the serve path's widths
+             flash_case(torch, gen, "D=64", 4, 4, 2, 40, 96, 64,
+                        [(0, 40), (7, 33), (3, 20), (0, 1)]),
+             # the slot engine's admissions: ragged T and S, rows of padding
+             flash_case(torch, gen, "ragged", 4, Hq, Hkv, 70, 130, D,
+                        [(5, 65), (0, 0), (9, 40), (0, 0)]),
+             # the largest logit of each row about 20
+             flash_case(torch, gen, "peaked", 4, Hq, Hkv, T, S, D,
+                        [(3, 300), (0, W), (10, 120), (0, 64)], peak=20.0)]
+    err = max(errs)
     vis = ((k_pos_f[:, None, :] >= 0)
            & (k_pos_f[:, None, :] <= q_pos_f[:, :, None]))     # (B, T, S)
     pairs = int(vis.sum())
     kv_seen = int(vis.any(dim=1).sum())
     fmask = vis[:, None].expand(B, Hq, T, S)
+    # the K/V tiles the kernel loads (its tile list, once per KV head) beside
+    # the K/V the function needs
+    kv_loaded = int(fl_ops.live_key_tiles(q_pos_f, k_pos_f).sum()) * Hkv \
+        * fl_ops.BK * D * 2 * 2
+    log(f"kernel flash_attention epoch-1 verify: K/V bytes loaded "
+        f"{kv_loaded}, needed {kv_seen * Hkv * D * 2 * 2}")
     # bytes: q of the valid rows only (a padded row's q is never needed),
     # the K/V some query sees, both position arrays, the whole fp32 output
     # (padded rows are written as zeros)
@@ -487,8 +575,16 @@ def kernel_checks(torch, timer):
             f"epoch-0 shapes: decode err {err0}, flash err {errf0} > {ATTN_TOL}")
     log(f"kernel decode_attention at S={S0}: max_abs_err={err0} "
         f"ms={timer.ms(lambda: dec_ops.decode_attention_cuda(*a0))}")
+    vis0 = ((kp_pref[:, None, :] >= 0)
+            & (kp_pref[:, None, :] <= qp_pref[:, :, None]))
+    mask0 = vis0[:, None].expand(B, Hq, P, S0)
+    ms0, lib0 = timer.turns(
+        lambda: fl_ops.flash_attention_cuda(*fa0),
+        lambda: F.scaled_dot_product_attention(fa0[0], k0, v0,
+                                               attn_mask=mask0,
+                                               enable_gqa=True))
     log(f"kernel flash_attention at (T, S)=({P}, {S0}): max_abs_err={errf0} "
-        f"ms={timer.ms(lambda: fl_ops.flash_attention_cuda(*fa0))}")
+        f"ms={ms0} library_ms={lib0} (SDPA)")
     del k0, v0, fa0
     decode = wkv_check(torch, timer, gen, p_len, n, record)
     records["wkv"].update(decode)
@@ -564,7 +660,7 @@ def wkv_check(torch, timer, gen, p_len, n, record):
     valid1 = torch.ones((B, 1), dtype=torch.bool, device=dev)
     valid1[0] = False                                      # a done row
     err1, fn1, plain1, nbytes1, flops1 = check(1, inputs(1, valid1))
-    ms1, plain_ms1 = timer.ms(fn1), timer.ms(plain1)
+    ms1, plain_ms1 = timer.turns(fn1, plain1)
     b1, by1 = bound(nbytes1, flops1, FP32_FLOP_PER_S)
     log(f"kernel wkv at T=1: max_abs_err={err1} ms={ms1} plain_ms={plain_ms1} "
         f"bound_ms={b1} ({by1})")

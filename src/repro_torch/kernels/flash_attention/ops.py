@@ -16,6 +16,9 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import launch
 
 NEG_INF = -1e30
+BQ = BK = 64            # the kernel's query and key tile
+MAX_KEYS = 512 * BK     # the kernel lists at most 512 key tiles per block
+MAX_BATCH = 65535       # the grid's third dimension
 
 
 def flash_attention_plain(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -41,6 +44,34 @@ def flash_attention_plain(q, k, v, q_pos, k_pos, *, causal: bool = True,
     return out.reshape(B, Hq, T, D)
 
 
+def live_key_tiles(q_pos, k_pos, *, causal: bool = True, window: int = 0
+                   ) -> torch.Tensor:
+    """The kernel's tile list as a mask (B, T tiles, S tiles): key tile j
+    is loaded for query tile i iff one of its keys has k_pos >= 0, (causal)
+    k_pos <= the largest q_pos of the query tile and (window > 0) k_pos >
+    its smallest q_pos - window.  Every visible (query, key) pair lies in a
+    live tile; a query tile of padding only (causal) loads nothing."""
+    B, T = q_pos.shape
+    S = k_pos.shape[1]
+    nq, nk = -(-T // BQ), -(-S // BK)
+    qp = torch.full((B, nq * BQ), -1, dtype=torch.int64)
+    qp[:, :T] = q_pos.long().cpu()
+    big = torch.iinfo(torch.int64).max
+    rows = torch.arange(nq * BQ) < T
+    qmax = qp.view(B, nq, BQ).amax(-1)
+    qmin = torch.where(rows, qp, torch.full_like(qp, big)).view(
+        B, nq, BQ).amin(-1)
+    kp = torch.full((B, nk * BK), -1, dtype=torch.int64)
+    kp[:, :S] = k_pos.long().cpu()
+    kp = kp.view(B, 1, nk, BK)
+    live = (kp >= 0).expand(B, nq, nk, BK)
+    if causal:
+        live = live & (kp <= qmax[:, :, None, None])
+    if window > 0:
+        live = live & (kp > qmin[:, :, None, None] - window)
+    return live.any(-1)
+
+
 def _check_kernel_inputs(q, k, v, q_pos, k_pos) -> None:
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -53,6 +84,9 @@ def _check_kernel_inputs(q, k, v, q_pos, k_pos) -> None:
     if D not in (64, 128):
         raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, "
                          f"got {D}")
+    if S > MAX_KEYS or B > MAX_BATCH:
+        raise ValueError(f"flash_attention kernel takes at most {MAX_KEYS} "
+                         f"keys and {MAX_BATCH} rows, got S={S}, B={B}")
     if q_pos.shape != (B, T) or k_pos.shape != (B, S) or \
             q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
         raise ValueError("q_pos (B, T) and k_pos (B, S) must be int32")

@@ -32,6 +32,7 @@ from repro_torch.kernels.cache_slot_write.ops import (  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, decode_attention_plain, gather_paged_kv,
     paged_decode_attention)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.spec_verify.ops import spec_verify  # noqa: E402
 
@@ -106,6 +107,102 @@ def test_flash_attention_plain_matches_jax(window):
                                               block_q=8, block_k=16))
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     assert np.all(got[2] == 0.0)
+
+
+def _flash_regime_case(regime, seed):
+    """``peaked``: q scaled by 8, so the largest logit of a row is in the
+    tens and the softmax weights span many binades (where rounding P shows
+    most).  ``ragged``: T = 70 and S = 130 (no multiple of any tile),
+    G = 2 at D = 64, a row of only padding, a left-padded row and a row
+    whose draft stops early, keys past T empty."""
+    rng = np.random.default_rng(seed)
+    B, T, S = (3, 40, 56) if regime == "peaked" else (4, 70, 130)
+    q = rng.standard_normal((B, HQ, T, D), dtype=np.float32)
+    if regime == "peaked":
+        q *= 8.0
+    k = rng.standard_normal((B, HKV, S, D), dtype=np.float32)
+    v = rng.standard_normal((B, HKV, S, D), dtype=np.float32)
+    q_pos = np.full((B, T), -1, np.int32)
+    k_pos = np.full((B, S), -1, np.int32)
+    spans = [(0, T), (5, T - 5), (0, 0), (11, 33)][:B]
+    for b, (pad, valid) in enumerate(spans):
+        q_pos[b, pad:pad + valid] = np.arange(valid)
+        k_pos[b, :T] = q_pos[b]
+    return q, k, v, q_pos, k_pos
+
+
+@pytest.mark.parametrize("regime", ["peaked", "ragged"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_flash_attention_plain_matches_jax_regimes(regime, window):
+    q, k, v, q_pos, k_pos = _flash_regime_case(regime, 11 + window)
+    got = flash_attention(_t(q), _t(k), _t(v), _t(q_pos), _t(k_pos),
+                          window=window).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos))
+    for impl in ("interpret", "ref"):
+        want = np.asarray(jax_flash_attention(*args, window=window, impl=impl,
+                                              block_q=16, block_k=32))
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    seen = ((k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= q_pos[:, :, None])
+            ).any(-1)                                        # (B, T)
+    assert np.all(got.transpose(0, 2, 1, 3)[~seen] == 0.0)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8),
+                                           (False, 0), (False, 8)])
+def test_live_key_tiles_cover_every_visible_pair(causal, window):
+    """The kernel's tile list (its Python twin) against a brute-force count
+    of visible (query, key) pairs: every visible pair lies in a listed tile,
+    a tile with none is listed only where the rule's bounds are loose, and
+    a causal query tile of padding only lists nothing."""
+    q, k, v, q_pos, k_pos = _flash_regime_case("ragged", 3)
+    T, S = q_pos.shape[1], k_pos.shape[1]
+    q_pos = np.concatenate([q_pos, np.full((q_pos.shape[0], 64), -1,
+                                           np.int32)], 1)  # a padding tile
+    T += 64
+    qp, kp = q_pos[:, :, None], k_pos[:, None, :]
+    vis = kp >= 0
+    if causal:
+        vis = vis & (kp <= qp)
+    if window > 0:
+        vis = vis & (qp - kp < window)
+    live = flash_ops.live_key_tiles(_t(q_pos), _t(k_pos), causal=causal,
+                                    window=window).numpy()
+    BQ, BK = flash_ops.BQ, flash_ops.BK
+    assert live.shape == (q_pos.shape[0], -(-T // BQ), -(-S // BK))
+    for b in range(vis.shape[0]):
+        for i in range(live.shape[1]):
+            for j in range(live.shape[2]):
+                pairs = int(vis[b, i * BQ:(i + 1) * BQ, j * BK:(j + 1) * BK].sum())
+                assert pairs == 0 or live[b, i, j], (b, i, j, pairs)
+    if causal:
+        assert not live[:, -1].any()                   # the padding tile
+        assert not live[2].any()                       # the row of padding
+    assert live.sum() < live.size                      # something skipped
+
+
+def test_flash_kernel_refuses_what_it_cannot_take():
+    """The kernel entry raises before any launch on inputs outside the
+    kernel's contract (meta tensors: the checks need no card)."""
+    meta = dict(device="meta")
+    bf = dict(dtype=torch.bfloat16, **meta)
+    i32 = dict(dtype=torch.int32, **meta)
+    q = torch.empty(2, HQ, 8, D, **bf)
+    too_long = flash_ops.MAX_KEYS + 64
+    kv = torch.empty(2, HKV, too_long, D, **bf)
+    with pytest.raises(ValueError, match="at most"):
+        flash_ops.flash_attention_cuda(q, kv, kv, torch.empty(2, 8, **i32),
+                                       torch.empty(2, too_long, **i32))
+    kv = torch.empty(2, HKV, 16, D, **bf)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention_cuda(torch.empty(2, HQ, 8, 32, **bf),
+                                       torch.empty(2, HKV, 16, 32, **bf),
+                                       torch.empty(2, HKV, 16, 32, **bf),
+                                       torch.empty(2, 8, **i32),
+                                       torch.empty(2, 16, **i32))
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_ops.flash_attention_cuda(q.float(), kv, kv,
+                                       torch.empty(2, 8, **i32),
+                                       torch.empty(2, 16, **i32))
 
 
 @pytest.mark.parametrize("log_lenience", [0.0, np.log(0.8), 0.5])
