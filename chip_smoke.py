@@ -17,9 +17,14 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    version on the same inputs.  The seven attention-path kernels run at
    the qwen3-1.7b shapes in bfloat16 (positions and bounds in the raw forms
    the wrapper converts, done rows and a row with no live slot among them;
-   the paged decode's dead table entries point at blocks of NaN): exactly
-   for spec_verify, cache_roll, cache_slot_write and paged_gather, within
+   every pool slot outside a row's live span holds NaN): exactly for
+   spec_verify, cache_roll, cache_slot_write and paged_gather, within
    ``ATTN_TOL`` for the three attentions, rows that see no key exactly 0.
+   The two decode kernels also run every regime they claim, dense and
+   paged (``decode_case``, NaN at every slot outside a live span): draft
+   blocks of T = 4 and 8 at G = 2, a window of 16, D = 64 with 4 / 2
+   heads, block size 64, live spans of one slot, of the whole cache, off
+   tile edges and past S, and the slot engine's B = 8 (timed).
    flash_attention runs a one-tile rehearsal first (B = 1, T = S = 64),
    then the epoch-1 verify, a D = 64 case at the reduced widths (4 / 2
    heads), a ragged one (T = 70, S = 130, rows of padding only) and a
@@ -33,7 +38,10 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    PyTorch call that computes the same function where there is one, and
    for the paged decode the two-step gather + dense decode kernel (CUDA
    events, median of ``REPS`` launches, the L2 cache flushed before
-   each, the three timed in turns);
+   each, the three timed in turns), and each kernel's device time: the
+   mean CUPTI duration of its own launches (``torch.profiler``) over
+   ``REPS`` more L2-flushed calls, with the kernels a call launched (the
+   decode kernels must launch once a call and nothing else);
 4. holds the port on the card against the port on the CPU at a small size
    (the reduced qwen3-1.7b and rwkv6-3b in bfloat16: forward, prefill,
    decode steps and, for qwen, the compaction roll, teacher-forced),
@@ -118,6 +126,8 @@ CHAOS_FACTOR = 3.0      # at full depth, where the random weights amplify
                         # the plain recurrence's or the nudge's
 CONSISTENCY_STEPS = 64
 REPS = 20
+SPIN_CYCLES = 1_000_000     # about 0.5 ms of the card's clock before each
+                            # timed call (more than a wrapper's host time)
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
@@ -155,7 +165,10 @@ def smi_line() -> str:
 class Timer:
     """Median device time of one call, L2 flushed before each launch.
     ``turns`` times several functions in turns (forward, then backward
-    order, rep after rep), so that they share the card's state."""
+    order, rep after rep), so that they share the card's state.  After the
+    flush the card spins for ``SPIN_CYCLES`` (``torch.cuda._sleep``), so
+    that the host has queued the call before the start event runs: the
+    events time the card's work, not the host's wrapper."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -165,6 +178,7 @@ class Timer:
     def _once(self, fn) -> float:
         torch = self.torch
         self.flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -187,6 +201,35 @@ class Timer:
 
     def ms(self, fn, reps: int = REPS) -> float:
         return self.turns(fn, reps=reps)[0]
+
+    def device_ms(self, fn, kernel: str, reps: int = REPS):
+        """The mean device time (ms, CUPTI through ``torch.profiler``) of
+        the launches of ``kernel`` (a part of its name) over ``reps`` calls
+        of ``fn``, the L2 flushed before each; and per call, the launches
+        of ``kernel`` and of any other kernel (the flush aside)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = launches = others = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if kernel in e.key:
+                total += e.self_device_time_total
+                launches += e.count
+            elif "FillFunctor" not in e.key and "Memset" not in e.key:
+                others += e.count
+        require(launches > 0, f"the profiler saw no launch of {kernel}")
+        return total / launches / 1e3, launches / reps, others / reps
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -246,6 +289,87 @@ def flash_case(torch, gen, name, B, Hq, Hkv, T, S, D, spans, peak=None):
     return err
 
 
+def decode_case(torch, gen, name, Hq, Hkv, T, S, D, spans, q_lens, *,
+                window=0, block_sizes=(32,)):
+    """One decode case through both public wrappers against the plain
+    version.  Row b's live span is ``spans[b] = (starts, lengths)`` (lengths
+    may pass S), its keys at positions 0.. from starts; its first
+    ``q_lens[b]`` queries sit at the span's last positions (the draft-block
+    contract), the rest at -1; positions and bounds go in as int64 for the
+    wrappers to convert.  The dense cache holds NaN at every slot outside
+    its row's span, and so do the paged pools (a shuffled table, each block
+    size of ``block_sizes``; spare blocks NaN too): a kernel that reads one
+    shows it.  Within ATTN_TOL of the plain version on the clean cache;
+    queries that see no key exactly 0.  Returns the larger error and the
+    dense kernel's arguments in its form."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    dev = gen.device
+    B = len(spans)
+    starts = torch.tensor([a for a, _ in spans], device=dev)
+    lengths = torch.tensor([z for _, z in spans], device=dev)
+    j = torch.arange(S, device=dev)[None, :]
+    live = (j >= starts[:, None]) & (j < lengths[:, None])
+    k_pos = torch.where(live, j - starts[:, None], torch.full_like(j, -1)
+                        ).to(torch.int32)
+    q_pos = torch.full((B, T), -1, dtype=torch.int64, device=dev)
+    for b, n in enumerate(q_lens):
+        span = int(live[b].sum())
+        q_pos[b, :n] = span - n + torch.arange(n, device=dev)
+    q_pos = q_pos.clamp(min=-1)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.randn((B, Hq, T, D), generator=gen, **bf)
+    k = torch.randn((B, Hkv, S, D), generator=gen, **bf)
+    v = torch.randn((B, Hkv, S, D), generator=gen, **bf)
+    lv = live[:, None, :, None]
+    nan = torch.tensor(float("nan"), **bf)
+    k_bad, v_bad = torch.where(lv, k, nan), torch.where(lv, v, nan)
+    k_ok, v_ok = torch.where(lv, k, 0.0), torch.where(lv, v, 0.0)
+    kargs = (q, k_bad, v_bad, q_pos.to(torch.int32), k_pos,
+             lengths.clamp(max=S).to(torch.int32),
+             starts.clamp(0, S).to(torch.int32))
+    want = dec_ops.decode_attention_plain(q, k_ok, v_ok, *kargs[3:],
+                                          window=window)
+    vis = (live[:, None, :] & (k_pos[:, None, :] >= 0)
+           & (k_pos[:, None, :] <= q_pos[:, :, None]))
+    if window > 0:
+        vis &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
+    dead = ~vis.any(-1)                                          # (B, T)
+    gots = {"dense": dec_ops.decode_attention(q, k_bad, v_bad, q_pos, k_pos,
+                                              lengths, starts, window=window)}
+    for bs in block_sizes:
+        nb = -(-S // bs)
+        NB = B * nb + 2
+        table = torch.randperm(NB, generator=gen, device=dev)[:B * nb].to(
+            torch.int32).reshape(B, nb)
+        pools = []
+        for x in (k_bad, v_bad):
+            pad = torch.full((B, Hkv, nb * bs, D), float("nan"), **bf)
+            pad[:, :, :S] = x
+            pool = torch.full((NB, Hkv, bs, D), float("nan"), **bf)
+            pool[table.reshape(-1).long()] = pad.view(
+                B, Hkv, nb, bs, D).transpose(1, 2).reshape(B * nb, Hkv, bs, D)
+            pools.append(pool)
+        gots[f"paged bs={bs}"] = dec_ops.paged_decode_attention(
+            q, pools[0], pools[1], table, q_pos, k_pos, lengths, starts,
+            window=window)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, got in gots.items():
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        log(f"kernel decode {name} {what} (B={B}, Hq={Hq}, Hkv={Hkv}, T={T}, "
+            f"S={S}, D={D}, window={window}): max_abs_err={e}, "
+            f"{int(dead.sum())} queries see no key")
+        require(bool(torch.isfinite(got).all()) and e <= ATTN_TOL,
+                f"decode {name} {what}: max_abs_err {e} > {ATTN_TOL} or "
+                "non-finite (a slot outside the live span was read)")
+        require(bool((got.transpose(1, 2)[dead] == 0).all()),
+                f"decode {name} {what}: queries that see no key must be "
+                "exactly 0")
+    return err, kargs
+
+
 def kernel_checks(torch, timer):
     """Each kernel against its plain version at the slice's shapes."""
     from repro_torch.kernels.cache_gather import ops as roll_ops
@@ -271,26 +395,41 @@ def kernel_checks(torch, timer):
         return torch.randn(shape, generator=gen, **bf)
 
     def record(name, src, replaces, err, fn, plain, library, nbytes, flops,
-               two_step=None, flop_rate=BF16_FLOP_PER_S):
-        """``library``: one PyTorch call computing the same function (or
+               kernel, two_step=None, flop_rate=BF16_FLOP_PER_S):
+        """``kernel``: a part of the CUDA kernel's name, for its device
+        time; ``library``: one PyTorch call computing the same function (or
         None); ``two_step``: (label, fn) of a comparison that is not one
         library call, timed and reported beside it."""
         fns = [fn, plain] + [f for f in (library,) if f is not None]
         ms, plain_ms, *lib = timer.turns(*fns)
         library_ms = lib[0] if lib else None
+        dev_ms, per_call, others = timer.device_ms(fn, kernel)
         b_ms, b_by = bound(nbytes, flops, flop_rate)
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": None, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": library_ms}
+               "bound_by": b_by, "library_ms": library_ms,
+               "device_ms": dev_ms, "kernels_per_call": per_call,
+               "other_kernels_per_call": others}
         extra = ""
         if two_step is not None:
             rec["two_step"], rec["two_step_ms"] = two_step[0], timer.ms(
                 two_step[1])
             extra = f" two_step_ms={rec['two_step_ms']} ({two_step[0]})"
         records[name] = rec
-        log(f"kernel {name}: max_abs_err={err} ms={ms} plain_ms={plain_ms} "
-            f"library_ms={library_ms}{extra} bound_ms={b_ms} ({b_by})")
+        log(f"kernel {name}: max_abs_err={err} ms={ms} device_ms={dev_ms} "
+            f"plain_ms={plain_ms} library_ms={library_ms}{extra} "
+            f"bound_ms={b_ms} ({b_by}); kernels a call: {per_call} of "
+            f"{kernel}, {others} other")
+        return rec
+
+    def one_launch(name):
+        rec = records[name]
+        require(rec["kernels_per_call"] == 1 and
+                rec["other_kernels_per_call"] == 0,
+                f"{name}: {rec['kernels_per_call']} launches of its kernel "
+                f"and {rec['other_kernels_per_call']} others a call, want "
+                "one launch and nothing else")
 
     # --- decode_attention: a resumed decode step of epoch 1 (S = W + N) ----
     # Rows 0-2 are done (q_pos -1, as the decode loop feeds rows past EOS);
@@ -337,7 +476,44 @@ def kernel_checks(torch, timer):
                                                   enable_gqa=True),
            nbytes=int(row_live.sum()) * Hq * D * 2 + n_seen * Hkv * D * 2 * 2
            + n_span * 4 + 3 * B * 4 + B * Hq * D * 4,
-           flops=4 * n_seen * Hq * D)
+           flops=4 * n_seen * Hq * D, kernel="dense_decode_kernel")
+    one_launch("decode_attention")
+
+    # --- the decode kernels' other regimes, dense and paged (block size 32,
+    # and 64 where named): draft blocks of T = 4 and 8 at G = 2 (G * T = 8
+    # and 16, queries past q_len at -1), a window of 16, the reduced
+    # configs' D = 64 with 4 / 2 heads, live spans of one slot, of the whole
+    # cache, off tile edges and past S
+    cases = [
+        ("T=4", Hq, Hkv, 4, S, D, [(100, 420), (0, S), (37, 291), (250, 250)],
+         [4, 2, 4, 3], 0, (32,)),
+        ("T=8", Hq, Hkv, 8, S, D, [(3, 500), (64, 65), (0, S), (200, 330)],
+         [8, 1, 5, 0], 0, (32, 64)),
+        ("window 16", Hq, Hkv, 1, S, D,
+         [(10, 400), (0, S), (320, 449), (31, 33)], [1, 1, 1, 1], 16, (32,)),
+        ("D=64", 4, 2, 1, 96, 64, [(0, 96), (7, 40), (95, 96), (33, 65)],
+         [1, 1, 1, 1], 0, (32, 64)),
+        ("spans", Hq, Hkv, 1, S, D,
+         [(0, 1), (0, S), (31, 33), (33, 95), (S - 1, S), (17, S + 24),
+          (64, 128), (5, 5)], [1] * 8, 0, (32, 64)),
+    ]
+    errs = [decode_case(torch, gen, name, hq, hkv, t, s_, d, spans, q_lens,
+                        window=w, block_sizes=bss)[0]
+            for name, hq, hkv, t, s_, d, spans, q_lens, w, bss in cases]
+    # the slot engine's decode step: 8 slots of S = 576, timed
+    p8 = torch.randint(6, 10, (SLOTS,), generator=gen, device=dev)
+    n8 = torch.randint(0, N + 1, (SLOTS,), generator=gen, device=dev)
+    spans8 = [(int(W - a - c), W + 1 + step) for a, c in zip(p8, n8)]
+    err8, a8 = decode_case(torch, gen, "slot engine", Hq, Hkv, 1, S, D, spans8,
+                           [1] * SLOTS)
+    ms8 = timer.ms(lambda: dec_ops.decode_attention_cuda(*a8))
+    dev8 = timer.device_ms(lambda: dec_ops.decode_attention_cuda(*a8),
+                           "dense_decode_kernel")[0]
+    log(f"kernel decode_attention at the slot engine's shape (B={SLOTS}, "
+        f"S={S}): ms={ms8} device_ms={dev8}")
+    records["decode_attention"].update(
+        regimes_max_abs_err=max(errs + [err8]), slots_ms=ms8,
+        slots_device_ms=dev8)
 
     # --- flash_attention: first the one-tile rehearsal (a wrong wgmma
     # descriptor, swizzle or fragment mapping shows here first), then the
@@ -399,7 +575,7 @@ def kernel_checks(torch, timer):
                                                   enable_gqa=True),
            nbytes=int(valid.sum()) * Hq * D * 2 + kv_seen * Hkv * D * 2 * 2
            + B * (T + S) * 4 + B * Hq * T * D * 4,
-           flops=4 * D * Hq * pairs)
+           flops=4 * D * Hq * pairs, kernel="flash_kernel")
 
     # --- spec_verify: the accept test of epoch 1 (B, N) --------------------
     f32 = dict(dtype=torch.float32, device=dev)
@@ -417,7 +593,8 @@ def kernel_checks(torch, timer):
            "src/repro/kernels/spec_verify/kernel.py:44", 0.0,
            lambda: sv_ops.spec_verify_cuda(*sargs),
            lambda: sv_ops.spec_verify_plain(*sargs), None,
-           nbytes=3 * B * N * 4 + 2 * B * 4, flops=5 * B * N)
+           nbytes=3 * B * N * 4 + 2 * B * 4, flops=5 * B * N,
+           kernel="spec_verify_kernel")
 
     # --- cache_roll: the compaction of one epoch-1 buffer (28*16*8 rows) ---
     R = 28 * B * Hkv
@@ -437,7 +614,8 @@ def kernel_checks(torch, timer):
            lambda: roll_ops.cache_roll_cuda(buf, shift),
            lambda: roll_ops.cache_roll_plain(buf, shift),
            lambda: torch.gather(buf, 1, gidx),
-           nbytes=2 * buf.numel() * 2 + R * 4, flops=0.0)
+           nbytes=2 * buf.numel() * 2 + R * 4, flops=0.0,
+           kernel="cache_roll_kernel")
     del buf, gidx
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -445,8 +623,8 @@ def kernel_checks(torch, timer):
     # --- paged_decode_attention: the same resumed step over a paged cache --
     # pools (B*nb, Hkv, 32, D) behind a shuffled table (B, nb), nb*32 = S;
     # the same q, positions and bounds as decode_attention above.  Every
-    # table entry of a block outside a row's [starts, lengths) points at a
-    # block of NaN: a kernel that reads one fails the check.
+    # slot outside a row's [starts, lengths) holds NaN, in the blocks that
+    # hold live slots too: a kernel that reads one fails the check.
     bs = 32
     nb = S // bs
     NB = B * nb
@@ -456,8 +634,10 @@ def kernel_checks(torch, timer):
     blk = torch.arange(nb, device=dev)[None, :]
     dead = (((blk + 1) * bs <= st32[:, None]) | (blk * bs >= len32[:, None])
             | (len32 <= st32)[:, None])
-    k_pool[table[dead].long()] = float("nan")
-    v_pool[table[dead].long()] = float("nan")
+    dead_slot = ((j < st32[:, None]) | (j >= len32[:, None])).view(B, nb, bs)
+    rb, ib, sb = torch.nonzero(dead_slot, as_tuple=True)
+    k_pool[table[rb, ib].long(), :, sb] = float("nan")
+    v_pool[table[rb, ib].long(), :, sb] = float("nan")
     pargs = (q, k_pool, v_pool, table, qp32, k_pos, len32, st32)
     got = dec_ops.paged_decode_attention(q, k_pool, v_pool, table, q_pos,
                                          k_pos, lengths, starts)
@@ -487,9 +667,10 @@ def kernel_checks(torch, timer):
            lambda: dec_ops.paged_decode_attention_plain(*pargs), None,
            nbytes=int(row_live.sum()) * Hq * D * 2 + n_seen * Hkv * D * 2 * 2
            + n_span * 4 + n_live_blocks * 4 + 3 * B * 4 + B * Hq * D * 4,
-           flops=4 * n_seen * Hq * D,
+           flops=4 * n_seen * Hq * D, kernel="paged_decode_kernel",
            two_step=("paged_gather kernels, a transpose copy, the dense "
                      "decode_attention kernel", two_step))
+    one_launch("paged_decode_attention")
     del k_pool, v_pool
 
     # --- cache_slot_write: one admission of 3 requests into the 8-slot ----
@@ -522,7 +703,8 @@ def kernel_checks(torch, timer):
            lambda: sw_ops.cache_slot_write_cuda(dst, src, src_for_dst),
            lambda: sw_ops.cache_slot_write_plain(dst, src, src_for_dst),
            lambda: dst.index_copy_(0, uniq, src_sel),
-           nbytes=2 * int(uniq.numel()) * row_bytes + Rd * 4, flops=0.0)
+           nbytes=2 * int(uniq.numel()) * row_bytes + Rd * 4, flops=0.0,
+           kernel="slot_write_kernel")
     del dst, src, src_sel
     torch.cuda.empty_cache()
 
@@ -545,7 +727,8 @@ def kernel_checks(torch, timer):
            lambda: roll_ops.paged_gather_cuda(pool, gtable),
            lambda: roll_ops.paged_gather_plain(pool, gtable),
            lambda: pool.index_select(0, flat),
-           nbytes=2 * pool.numel() * 2 + gtable.numel() * 4, flops=0.0)
+           nbytes=2 * pool.numel() * 2 + gtable.numel() * 4, flops=0.0,
+           kernel="paged_gather_kernel")
     del pool
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -574,7 +757,10 @@ def kernel_checks(torch, timer):
     require(err0 <= ATTN_TOL and errf0 <= ATTN_TOL,
             f"epoch-0 shapes: decode err {err0}, flash err {errf0} > {ATTN_TOL}")
     log(f"kernel decode_attention at S={S0}: max_abs_err={err0} "
-        f"ms={timer.ms(lambda: dec_ops.decode_attention_cuda(*a0))}")
+        f"ms={timer.ms(lambda: dec_ops.decode_attention_cuda(*a0))} "
+        "device_ms=" + str(timer.device_ms(
+            lambda: dec_ops.decode_attention_cuda(*a0),
+            "dense_decode_kernel")[0]))
     vis0 = ((kp_pref[:, None, :] >= 0)
             & (kp_pref[:, None, :] <= qp_pref[:, :, None]))
     mask0 = vis0[:, None].expand(B, Hq, P, S0)
@@ -655,7 +841,8 @@ def wkv_check(torch, timer, gen, p_len, n, record):
     err, fn, plain, nbytes, flops = check(T, inputs(T, valid))
     record("wkv", "src/repro_torch/csrc/wkv.cu",
            "src/repro/kernels/rwkv6_wkv/kernel.py:53", err, fn, plain, None,
-           nbytes=nbytes, flops=flops, flop_rate=FP32_FLOP_PER_S)
+           nbytes=nbytes, flops=flops, kernel="wkv_kernel",
+           flop_rate=FP32_FLOP_PER_S)
     del fn, plain
     valid1 = torch.ones((B, 1), dtype=torch.bool, device=dev)
     valid1[0] = False                                      # a done row
@@ -1087,7 +1274,8 @@ def time_breakdown(torch, what: str, run):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
-    launches = sum(e.count for e in host if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in host              # and ...KernelExC
+                   if e.key.startswith("cudaLaunchKernel"))
     log("breakdown " + json.dumps({
         "what": what, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,

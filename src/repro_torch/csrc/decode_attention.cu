@@ -1,70 +1,82 @@
-// Split-K flash-decode attention over a dense KV cache, for Hopper (sm_90a).
+// Flash-decode attention over a dense KV cache, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel src/repro/kernels/decode_attention/kernel.py:193
 // (decode_attention_pallas: body _decode_kernel :55, merge _combine :96).
 //
-// Contract (the Pallas kernel's): q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16;
-// q_pos (B, T), k_pos (B, S), lengths/starts (B,) int32.  Key slot j of row b
-// feeds query t iff k_pos >= 0, k_pos <= q_pos[b, t], (window > 0) q_pos -
-// k_pos < window, and starts[b] <= j < lengths[b].  A query with q_pos -1
-// (a done row) comes out exactly 0.  Output (B, Hq, T, D) float32.  The
-// kernel takes the per-query positions themselves where the Pallas kernel
-// takes (q_pos0, q_len): for the valid-prefix blocks every caller builds,
-// the two say the same.
+// Contract (the Pallas kernel's): q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16,
+// D = 64 or 128, G * T <= 16 (G = Hq / Hkv); q_pos (B, T), k_pos (B, S),
+// lengths/starts (B,) int32.  Key slot j of row b feeds query t iff k_pos >=
+// 0, k_pos <= q_pos[b, t], (window > 0) q_pos - k_pos < window, and
+// starts[b] <= j < lengths[b].  A query with q_pos -1 (a done row), and
+// every query of a row with lengths <= starts, comes out exactly 0.  Output
+// (B, Hq, T, D) float32.  The kernel takes the per-query positions
+// themselves where the Pallas kernel takes (q_pos0, q_len): for the
+// valid-prefix blocks every caller builds, the two say the same.  What a
+// slot outside [starts, lengths) holds is never read.
 //
-// What bounds it on the H100: bytes.  Each decode token reads the live K/V
-// of every row (2 * live * Hkv * D * 2 bytes) for 4 * G * T * D FLOPs per
-// slot and KV head, about 1 FLOP per byte, far below the ~295 FLOP/byte at
-// which bf16 tensor cores become the limit.  So the design spends nothing
-// on tensor cores and everything on touching only live bytes once:
-//  * the grid is (split, kv head, row); a split of BK = 64 slots outside
-//    [starts, lengths) returns at once and reads nothing (the dead left pad
-//    of a compacted cache, the unwritten tail);
-//  * the G * T queries that share a KV head are packed into one block, so
-//    each K/V tile is read from device memory once per group, with 16-byte
-//    loads into shared memory;
-//  * scores, softmax partials and P.V are fp32; a second small kernel merges
-//    the splits' (m, l, acc) partials with the log-sum-exp rescale, reading
-//    only the live splits.
-//
-// The kernels themselves are in decode_attention.cuh, which the paged kernel
-// (paged_decode_attention.cu) shares; here a split is BK = 64 contiguous
-// slots of the row's (S, D) cache.
+// What bounds it on the H100: bytes, the live K/V of each (row, KV head)
+// read once (about one flop a byte); at decode shapes, latency on the way
+// there.  The design is in decode_attention.cuh, which the paged kernel
+// (paged_decode_attention.cu) shares: one launch of (C, Hkv, B) blocks in
+// clusters of C (the caller's `cluster`), a bulk-copy ring of TILE = 32
+// contiguous slots of the row's (S, D) cache, fp32 online softmax on the
+// CUDA cores, and the cluster's partials merged through shared memory.
 #include "decode_attention.cuh"
 
 namespace {
 
-constexpr int BK = 64;          // cache slots per split
+using decode_attn::Layout;
+using decode_attn::Params;
+
+constexpr int TILE = 32;        // cache slots a tile (one bulk copy of K, of V)
+
+template <int D, int GTP>
+__global__ void __launch_bounds__(decode_attn::THREADS,
+                                  decode_attn::min_blocks(GTP))
+    dense_decode_kernel(const Params p) {
+  decode_attn::body<D, TILE, GTP, false>(p);
+}
+
+// The kernel for G * T queries padded to GTP (2, 4, 8 or 16).
+template <int D>
+cudaError_t run(const Params& p, int B, int C, cudaStream_t st) {
+  const int GT = p.G * p.T;
+  if (GT <= 2)
+    return decode_attn::launch(dense_decode_kernel<D, 2>,
+                               Layout<D, TILE, 2>::BYTES, p, B, C, st);
+  if (GT <= 4)
+    return decode_attn::launch(dense_decode_kernel<D, 4>,
+                               Layout<D, TILE, 4>::BYTES, p, B, C, st);
+  if (GT <= 8)
+    return decode_attn::launch(dense_decode_kernel<D, 8>,
+                               Layout<D, TILE, 8>::BYTES, p, B, C, st);
+  return decode_attn::launch(dense_decode_kernel<D, 16>,
+                             Layout<D, TILE, 16>::BYTES, p, B, C, st);
+}
 
 }  // namespace
 
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* k_pos, const void* lengths, const void* starts, void* m,
-    void* l, void* acc, void* out, int B, int Hq, int Hkv, int T, int S, int D,
-    int nsplit, int window, float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * T > decode_attn::MAX_GT ||
-      nsplit * BK < S)
+    const void* k_pos, const void* lengths, const void* starts, void* out,
+    int B, int Hq, int Hkv, int T, int S, int D, int cluster, int window,
+    float scale, void* stream) {
+  if (!decode_attn::valid(B, Hq, Hkv, T, S, cluster) || (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* qp = static_cast<const int*>(q_pos);
-  auto* kp = static_cast<const int*>(k_pos);
-  auto* ln = static_cast<const int*>(lengths);
-  auto* sp = static_cast<const int*>(starts);
-  auto* mm = static_cast<float*>(m);
-  auto* ll = static_cast<float*>(l);
-  auto* aa = static_cast<float*>(acc);
-  auto* oo = static_cast<float*>(out);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  Params p{static_cast<const __nv_bfloat16*>(q),
+           static_cast<const __nv_bfloat16*>(k),
+           static_cast<const __nv_bfloat16*>(v),
+           nullptr,
+           static_cast<const int*>(q_pos),
+           static_cast<const int*>(k_pos),
+           static_cast<const int*>(lengths),
+           static_cast<const int*>(starts),
+           static_cast<float*>(out),
+           Hkv, Hq / Hkv, T, S, 0, window,
+           scale * decode_attn::LOG2E};
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 128)
-    err = decode_attn::run<128, BK, false>(q, k, v, nullptr, qp, kp, ln, sp, mm,
-                                           ll, aa, oo, B, Hq, Hkv, T, S, nsplit,
-                                           window, scale, st);
-  else if (D == 64)
-    err = decode_attn::run<64, BK, false>(q, k, v, nullptr, qp, kp, ln, sp, mm,
-                                          ll, aa, oo, B, Hq, Hkv, T, S, nsplit,
-                                          window, scale, st);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err = D == 128 ? run<128>(p, B, cluster, st)
+                                   : run<64>(p, B, cluster, st);
   return static_cast<int>(err);
 }

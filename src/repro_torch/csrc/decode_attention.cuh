@@ -1,203 +1,447 @@
-// Split-K flash-decode attention, shared by the dense kernel
-// (decode_attention.cu) and the paged one (paged_decode_attention.cu).
+// Flash-decode attention for Hopper (sm_90a) in one launch, shared by the
+// dense kernel (decode_attention.cu) and the paged one
+// (paged_decode_attention.cu).
 //
-// One block per (split, KV head, row) computes the fp32 softmax partial
-// (m, l, acc) of the G * T queries that share the KV head over BK cache
-// slots; a second kernel merges the live splits with the log-sum-exp
-// rescale.  The two layouts differ only in where a split's K/V tile lives:
-//  * dense:  k[b, h, split * BK + j, :] of a (B, Hkv, S, D) cache;
-//  * paged:  k_pool[table[b, split], h, j, :] of a (NB, Hkv, BK, D) pool, so
-//    a split is one block of the pool (BK = the block size).
-// A split outside [starts, lengths) returns before loading anything (and
-// the merge never reads it); inside a live split, slots outside the bounds
-// load zeros, so what they hold (stale or unwritten K/V) cannot leak.
+// What bounds it: bytes.  A decode step reads the live K/V of every (row,
+// KV head) once, 2 * live * D * 2 bytes, for 4 * G * T * D flops a slot:
+// about one flop a byte, so the arithmetic stays on the CUDA cores in fp32
+// (mma.sync would pad G * T = 2 queries to 16 rows and split P into bf16
+// terms; a version built that way was no faster).  At decode shapes (a few
+// hundred live slots a row, 128 (row, KV head) pairs, 14.5 MB a step) the
+// time beside the bytes is latency, in this order (tools/
+// decode_attention_probe.py measures each): the launch and one round trip
+// for the row bounds before the first copy; the tiles, which a block
+// requests together and which land together near the end of the transfer;
+// the compute of the last tiles after they land; the merge.  The design:
+//
+//  * One launch.  The grid is (C, Hkv, B) in thread-block clusters of C
+//    blocks along x (C <= 4; 2 when G * T > 4): the C blocks of one (row,
+//    KV head) split its live tiles [starts / TILE, ceil(lengths / TILE))
+//    into equal shares of whole tiles (decode_work_ranges in ops.py is the
+//    Python twin).  No partial goes through device memory: each block
+//    merges its warps' softmax partials (m, l, acc) in shared memory,
+//    rank c > 0 stores its own into a slot of rank 0's shared memory
+//    (st.shared::cluster) and leaves after one cluster-barrier arrive, and
+//    rank 0 waits on that barrier, merges with the log-sum-exp rescale and
+//    writes `out`.  The wrapper allocates only `out` and picks C: the
+//    smallest that puts a block on every SM (more only add merging).
+//  * Loads in flight while the block computes.  A producer warp fills a
+//    ring of NS = 4 stages with cp.async.bulk, one copy each of K and V a
+//    tile (a head's slots are contiguous in both layouts) and the tile's
+//    k_pos by cp.async, on a full mbarrier per stage; consumer warp w takes
+//    tiles w, w + 4, ... in stage w and frees it through its empty
+//    mbarrier.  A copy brings only the tile's live rows [max(starts, j0),
+//    min(lengths, j0 + TILE)): no byte outside a row's live range is read,
+//    a tile with no live slot is never fetched, and a row none of whose
+//    queries is live (q_pos < 0) fetches nothing.  The layouts differ only
+//    in a tile's address: (b * Hkv + h) * S + j0 for dense, table[b, tile]
+//    * Hkv + h (a pool block, TILE = its size) for paged: the PAGED
+//    template parameter.
+//  * A warp computes a whole tile, so four tiles of a block run at once,
+//    each warp with its own online softmax (m, l, acc) for the G * T
+//    queries of the KV head (padded to GTP).  Lane l holds columns
+//    [l * D / 32, (l + 1) * D / 32) of q (scaled into the exp2 domain) and
+//    of acc in registers; a slot's K row is one 8-byte (D = 128) or 4-byte
+//    load a lane, and the dot products of 32 (slot, query) pairs at a time
+//    are reduced by a reduce-scatter butterfly (31 shuffles for 32 sums,
+//    lane i keeps sum i).  The scores are masked, exponentiated (l summed
+//    per lane, reduced once at the end) and handed to P.V through a few
+//    floats of shared memory.  Slots outside [starts, lengths) hold
+//    whatever the ring held before: their scores are selected to -inf and
+//    P.V walks the live rows only, so nothing there can leak, not even a
+//    NaN.
+//  * A block with no tile still reaches every barrier; its partial (m =
+//    -inf, l = 0, acc = 0) weighs nothing, and a query that sees no key
+//    comes out exactly 0.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace decode_attn {
 
-constexpr int THREADS = 128;    // 4 warps
-constexpr int MAX_GT = 16;      // G * T queries per block
+constexpr int NW = 4;                      // consumer warps
+constexpr int THREADS = 32 * (NW + 1);     // + the producer warp
+constexpr int NS = NW;                     // K/V stages: one a consumer warp
+constexpr int MAX_GT = 16;                 // G * T queries per KV head
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+__host__ __device__ constexpr int min_blocks(int gtp) { return gtp <= 4 ? 3 : 2; }
+// The largest cluster for GTP padded queries: rank 0 keeps a slot for each
+// peer's partial.
+__host__ __device__ constexpr int cluster_cap(int gtp) { return gtp <= 4 ? 4 : 2; }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+struct Params {
+  const __nv_bfloat16* q;      // (B, Hkv * G, T, D)
+  const __nv_bfloat16* k;      // dense (B, Hkv, S, D); paged (NB, Hkv, TILE, D)
+  const __nv_bfloat16* v;
+  const int* table;            // paged: (B, nb) block ids
+  const int* q_pos;            // (B, T)
+  const int* k_pos;            // (B, S)
+  const int* lengths;          // (B,)
+  const int* starts;           // (B,)
+  float* out;                  // (B, Hkv * G, T, D)
+  int Hkv, G, T, S, nb, window;
+  float scale_log2;            // softmax scale * log2(e)
+};
 
-template <int BK>
-__device__ __forceinline__ int first_live_split(int start) { return start / BK; }
-template <int BK>
-__device__ __forceinline__ int end_live_split(int len) { return (len + BK - 1) / BK; }
+template <int D, int TILE, int GTP>
+struct Layout {
+  static constexpr int DPL = D / 32;                  // columns a lane
+  static constexpr int PAIRS = TILE * GTP;            // (slot, query) pairs
+  static constexpr int NV = 32;                       // sums a butterfly
+  static constexpr int ROUNDS = PAIRS / NV;
+  static constexpr int SPR = NV / GTP;                // slots a round
+  static constexpr int ROW = D * 2;                   // bytes of a K/V slot
+  static constexpr int STAGE = 2 * TILE * ROW;        // K tile, then V tile
+  static constexpr int PART = 2 * GTP + GTP * D;      // floats: m, l, acc
+  // byte offsets into dynamic shared memory; the warps' acc partials go
+  // over the ring once it is drained
+  static constexpr int KPOS = NS * STAGE;             // a stage's k_pos
+  static constexpr int CPART = KPOS + NS * TILE * 4;  // the block's partial
+  static constexpr int PEERS = CPART + PART * 4;      // rank 0: its peers'
+  static constexpr int WM = PEERS + (cluster_cap(GTP) - 1) * PART * 4;
+  static constexpr int WL = WM + NW * GTP * 4;        // warp partial m, l
+  static constexpr int PW = WL + NW * GTP * 4;        // a warp's p
+  static constexpr int PA = PW + NW * PAIRS * 4;      // a warp's rescale
+  static constexpr int BARS = PA + NW * GTP * 4;      // full[NS], empty[NS]
+  static constexpr int BYTES = BARS + 16 * NS;
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(TILE % 32 == 0 && GTP >= 2 && GTP <= MAX_GT, "shape");
+  static_assert(PAIRS % NV == 0 && NV % GTP == 0, "whole rounds");
+  static_assert(NW * GTP * D * 4 <= NS * STAGE, "warp partials fit the ring");
+  static_assert(BARS % 8 == 0 && PEERS % 16 == 0, "alignment");
+};
 
-// k/v: the dense cache (B, Hkv, S, D) or the pool (NB, Hkv, BK, D); table
-// (B, nsplit) block ids when PAGED (S == nsplit * BK), unused otherwise.
-template <int D, int BK, bool PAGED>
-__global__ void __launch_bounds__(THREADS) split_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ table,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    const int* __restrict__ lengths, const int* __restrict__ starts,
-    float* __restrict__ m_part, float* __restrict__ l_part,
-    float* __restrict__ acc_part, int Hkv, int G, int T, int S, int nsplit,
-    int window, float scale) {
-  static_assert(BK % 32 == 0, "a split is whole warps of slots");
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int GT = G * T;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lengths[b], st = starts[b];
-  if (split < first_live_split<BK>(st) || split >= end_live_split<BK>(len) ||
-      len <= st)
-    return;  // dead split: the combine kernel never reads its partials
-
-  __shared__ float qs[MAX_GT][D];
-  __shared__ __align__(16) __nv_bfloat16 ks[BK][D + 8];  // +8: no bank conflicts
-  __shared__ __align__(16) __nv_bfloat16 vs[BK][D];
-  __shared__ float ps[MAX_GT][BK];
-  __shared__ int kp[BK];
-  __shared__ int qp[MAX_GT];
-
-  const int Hq = Hkv * G;
-  const int j0 = split * BK;
-  for (int i = tid; i < GT * D; i += THREADS) {
-    const int r = i / D, d = i % D, g = r / T, t = r % T;
-    qs[r][d] = __bfloat162float(q[(((size_t)b * Hq + h * G + g) * T + t) * D + d]);
+// DPL consecutive bf16 at p (4- or 8-byte aligned) as floats.
+template <int DPL>
+__device__ __forceinline__ void load_bf16(const void* p, float (&f)[DPL]) {
+  if constexpr (DPL == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  } else {
+    static_assert(DPL == 2, "D / 32 columns a lane");
+    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+    f[0] = a.x; f[1] = a.y;
   }
-  if (tid < GT) qp[tid] = q_pos[(size_t)b * T + (tid % T)];
+}
 
-  // the split's tile: slot j of the split is row j of `tile`
-  size_t tile;
-  if (PAGED)
-    tile = ((size_t)table[(size_t)b * nsplit + split] * Hkv + h) * BK;
-  else
-    tile = ((size_t)b * Hkv + h) * S + j0;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = tid; i < BK * VPR; i += THREADS) {
-    const int j = i / VPR, c = (i % VPR) * 8;
-    const int slot = j0 + j;
-    uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-    if (slot < S && slot >= st && slot < len) {
-      kv4 = *reinterpret_cast<const uint4*>(k + (tile + j) * D + c);
-      vv4 = *reinterpret_cast<const uint4*>(v + (tile + j) * D + c);
+// Reduce-scatter over the warp: afterwards lane l holds the warp's sum of
+// v[l / (32 / NV)].  N - 1 shuffles at offsets 16, 8, ... halve the set each
+// level (lanes with bit O set keep the upper half); plain shuffles at the
+// offsets left finish the sum among the 32 / NV lanes that share one.  A
+// template recursion, so that every index is a constant and v stays in
+// registers.
+template <int N, int O, int NV>
+__device__ __forceinline__ float reduce_scatter_level(float (&v)[NV], int lane) {
+  if constexpr (N > 1) {
+    const bool upper = lane & O;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = upper ? v[i] : v[i + N / 2];
+      const float keep = upper ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(FULL, send, O);
     }
-    *reinterpret_cast<uint4*>(&ks[j][c]) = kv4;
-    *reinterpret_cast<uint4*>(&vs[j][c]) = vv4;
+    return reduce_scatter_level<N / 2, O / 2>(v, lane);
+  } else {
+    float x = v[0];
+#pragma unroll
+    for (int o = O; o >= 1; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+    return x;
   }
-  for (int j = tid; j < BK; j += THREADS) {
-    const int slot = j0 + j;
-    kp[j] = slot < S ? k_pos[(size_t)b * S + slot] : -1;
+}
+
+template <int NV>
+__device__ __forceinline__ float reduce_scatter(float (&v)[NV], int lane) {
+  return reduce_scatter_level<NV, 16>(v, lane);
+}
+
+template <int D, int TILE, int GTP, bool PAGED>
+__device__ __forceinline__ void body(const Params& p) {
+  using L = Layout<D, TILE, GTP>;
+  constexpr int DPL = L::DPL, NV = L::NV, ROUNDS = L::ROUNDS, SPR = L::SPR;
+  constexpr int ROW = L::ROW, PART = L::PART;
+  static_assert(NS == NW, "consumer warp w owns stage w");
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* cpart = reinterpret_cast<float*>(smem + L::CPART);
+  float* peers = reinterpret_cast<float*>(smem + L::PEERS);
+  float* wm = reinterpret_cast<float*>(smem + L::WM);
+  float* wl = reinterpret_cast<float*>(smem + L::WL);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + NS;
+
+  const int C = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int rank = (int)hopper::cluster_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = p.T, GT = p.G * p.T, S = p.S;
+  const int st = max(p.starts[b], 0), len = min(p.lengths[b], S);
+
+  // this block's share of the row's live tiles (none if no query is live)
+  bool any_query = false;
+  for (int t = 0; t < T; ++t) any_query |= p.q_pos[(size_t)b * T + t] >= 0;
+  int t_lo = 0, t_hi = 0;
+  if (len > st && any_query) {
+    const int first = st / TILE, n = (len + TILE - 1) / TILE - first;
+    t_lo = first + rank * n / C;
+    t_hi = first + (rank + 1) * n / C;
+  }
+  const int ntiles = t_hi - t_lo;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 33);       // the bulk copies + 32 lanes
+      hopper::mbar_init(&empty[s], 1);       // the stage's consumer warp
+    }
+    hopper::mbar_fence_init();
   }
   __syncthreads();
+  hopper::cluster_arrive_relaxed();          // phase 1: this block runs
 
-  // scores: one (query row, slot) pair per thread and pass
-  for (int p = tid; p < GT * BK; p += THREADS) {
-    const int r = p / BK, j = p % BK, slot = j0 + j;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(&ks[j][c]);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const size_t head = (size_t)b * p.Hkv + h;
+  if (warp == NW) {
+    // ============================================================ producer
+    int entry = 0;                           // table[b, t_lo + i] in lane i % 32
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % NS, tile = t_lo + i, j0 = tile * TILE;
+      if (PAGED && i % 32 == 0)
+        entry = i + lane < ntiles ? p.table[(size_t)b * p.nb + tile + lane] : 0;
+      const int blk = PAGED ? __shfl_sync(FULL, entry, i % 32) : 0;
+      const int lo = max(st, j0), hi = min(len, j0 + TILE);
+      const size_t row = PAGED ? ((size_t)blk * p.Hkv + h) * TILE + (lo - j0)
+                               : head * S + lo;
+      hopper::mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t bytes = (uint32_t)(hi - lo) * ROW;
+        uint8_t* ks = smem + s * L::STAGE + (lo - j0) * ROW;
+        hopper::mbar_expect_tx(&full[s], 2 * bytes);
+        hopper::bulk_load(ks, p.k + row * D, bytes, &full[s]);
+        hopper::bulk_load(ks + TILE * ROW, p.v + row * D, bytes, &full[s]);
+      }
+      // the live slots' positions, 4 bytes a lane and copy
+      int* kps = reinterpret_cast<int*>(smem + L::KPOS) + s * TILE;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        acc += qs[r][c + 2 * e] * f.x + qs[r][c + 2 * e + 1] * f.y;
+      for (int j = lane; j < TILE; j += 32)
+        if (j0 + j >= lo && j0 + j < hi)
+          hopper::cp_async_4(kps + j, p.k_pos + (size_t)b * S + j0 + j);
+      hopper::cp_async_arrive(&full[s]);
+      __syncwarp();
+    }
+  } else {
+    // =========================================================== consumers
+    // lane's columns of each query row, in the exp2 domain (0 past G * T)
+    float qr[GTP][DPL];
+#pragma unroll
+    for (int r = 0; r < GTP; ++r) {
+      if (r < GT) {
+        load_bf16<DPL>(p.q + (head * GT + r) * D + lane * DPL, qr[r]);
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) qr[r][c] *= p.scale_log2;
+      } else {
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) qr[r][c] = 0.f;
       }
     }
-    const int kpj = kp[j], qpr = qp[r];
-    bool ok = kpj >= 0 && kpj <= qpr && slot < len && slot >= st;
-    if (window > 0) ok = ok && (qpr - kpj) < window;
-    ps[r][j] = ok ? acc * scale : NEG_INF;
-  }
-  __syncthreads();
-
-  // per-row partial softmax over this split: (m, l); p overwrites the scores
-  constexpr int PER_LANE = BK / 32;
-  const size_t part = ((size_t)b * Hkv + h) * nsplit + split;
-  for (int r = warp; r < GT; r += THREADS / 32) {
-    float s[PER_LANE];
-    float mx = NEG_INF;
+    // after the butterfly this lane holds the sum of pair (slot sl, query
+    // rq) of each round of SPR slots; its query's position masks it
+    const int rq = lane % GTP, sl = lane / GTP;
+    const int qp = rq < GT ? p.q_pos[(size_t)b * T + rq % T] : -1;
+    float m_run = NEG_INF, l_run = 0.f;     // l: this lane's slots only
+    float acc[GTP][DPL];
 #pragma unroll
-    for (int e = 0; e < PER_LANE; ++e) {
-      s[e] = ps[r][lane + 32 * e];
-      mx = fmaxf(mx, s[e]);
-    }
-    const float m = warp_max(mx);
-    float psum = 0.f;
+    for (int r = 0; r < GTP; ++r)
 #pragma unroll
-    for (int e = 0; e < PER_LANE; ++e) {
-      const float p = s[e] == NEG_INF ? 0.f : expf(s[e] - m);
-      ps[r][lane + 32 * e] = p;
-      psum += p;
-    }
-    const float l = warp_sum(psum);
-    if (lane == 0) {
-      m_part[part * GT + r] = m;
-      l_part[part * GT + r] = l;
-    }
-  }
-  __syncthreads();
+      for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+    const int s = warp;                      // this warp's stage
+    float* pw = reinterpret_cast<float*>(smem + L::PW) + warp * L::PAIRS;
+    float* pa = reinterpret_cast<float*>(smem + L::PA) + warp * GTP;
+    const uint8_t* ks = smem + s * L::STAGE;
+    const uint8_t* vs = ks + TILE * ROW;
+    const int* kps = reinterpret_cast<const int*>(smem + L::KPOS) + s * TILE;
 
-  for (int i = tid; i < GT * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    float a = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < BK; ++j) a += ps[r][j] * __bfloat162float(vs[j][d]);
-    acc_part[(part * GT + r) * D + d] = a;
+    for (int i = warp; i < ntiles; i += NW) {
+      const int j0 = (t_lo + i) * TILE;
+      const int lo = max(st, j0) - j0, hi = min(len, j0 + TILE) - j0;
+      hopper::mbar_wait(&full[s], (i / NS) & 1);
+      float sc[ROUNDS];
+      float mt = NEG_INF;
+#pragma unroll
+      for (int k = 0; k < ROUNDS; ++k) {
+        float dots[NV];
+#pragma unroll
+        for (int e = 0; e < SPR; ++e) {
+          float kf[DPL];
+          load_bf16<DPL>(ks + (k * SPR + e) * ROW + lane * DPL * 2, kf);
+#pragma unroll
+          for (int r = 0; r < GTP; ++r) {
+            float d = 0.f;
+#pragma unroll
+            for (int c = 0; c < DPL; ++c) d += qr[r][c] * kf[c];
+            dots[e * GTP + r] = d;
+          }
+        }
+        const float x = reduce_scatter<NV>(dots, lane);
+        const int j = k * SPR + sl;
+        const int key = j >= lo && j < hi ? kps[j] : -1;
+        const bool ok = key >= 0 && key <= qp &&
+                        (p.window <= 0 || qp - key < p.window);
+        sc[k] = ok ? x : NEG_INF;
+        mt = fmaxf(mt, sc[k]);
+      }
+      // online softmax of this lane's query over the tile
+#pragma unroll
+      for (int o = GTP; o < 32; o <<= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, o));
+      const float m_new = fmaxf(m_run, mt);
+      const float alpha = exp2f(m_run - m_new);
+      l_run *= alpha;
+#pragma unroll
+      for (int k = 0; k < ROUNDS; ++k) {
+        const float pk = sc[k] > 0.5f * NEG_INF ? exp2f(sc[k] - m_new) : 0.f;
+        l_run += pk;
+        pw[k * NV + lane] = pk;
+      }
+      m_run = m_new;
+      if (sl == 0) pa[rq] = alpha;
+      __syncwarp();
+      // acc = acc * alpha + sum over the live rows of p * V
+#pragma unroll
+      for (int r = 0; r < GTP; ++r) {
+        const float a = pa[r];
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) acc[r][c] *= a;
+      }
+#pragma unroll 4
+      for (int j = lo; j < hi; ++j) {
+        float vf[DPL];
+        load_bf16<DPL>(vs + j * ROW + lane * DPL * 2, vf);
+        const float* pj = pw + j * GTP;
+#pragma unroll
+        for (int r = 0; r < GTP; ++r) {
+          const float pr = pj[r];
+#pragma unroll
+          for (int c = 0; c < DPL; ++c) acc[r][c] += pr * vf[c];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int o = GTP; o < 32; o <<= 1)
+      l_run += __shfl_xor_sync(FULL, l_run, o);
+
+    // ---- the four warps' partials -> the block's (acc over the ring)
+    hopper::named_barrier(1, 32 * NW);       // every warp is off the ring
+    float* wacc = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int r = 0; r < GTP; ++r)
+#pragma unroll
+      for (int c = 0; c < DPL; ++c)
+        wacc[(warp * GTP + r) * D + lane * DPL + c] = acc[r][c];
+    if (sl == 0) {
+      wm[warp * GTP + rq] = m_run;
+      wl[warp * GTP + rq] = l_run;
+    }
+    hopper::named_barrier(1, 32 * NW);
+    // the block's partial: m[GTP], l[GTP], acc[GTP][D]
+    for (int e = tid; e < GT * D; e += 32 * NW) {
+      const int r = e / D;
+      float mg = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) mg = fmaxf(mg, wm[w * GTP + r]);
+      float a = 0.f, l = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float f = exp2f(wm[w * GTP + r] - mg);
+        a += f * wacc[(w * GTP + r) * D + e % D];
+        l += f * wl[w * GTP + r];
+      }
+      cpart[2 * GTP + e] = a;
+      if (e % D == 0) {
+        cpart[r] = mg;
+        cpart[GTP + r] = l;
+      }
+    }
+    hopper::named_barrier(1, 32 * NW);
+  }
+
+  // ---- rank c > 0 hands its partial to rank 0 and leaves
+  __syncwarp();
+  hopper::cluster_wait();                    // phase 1: rank 0 runs
+  if (rank > 0) {
+    if (warp < NW) {
+      float* slot = peers + (rank - 1) * PART;
+      for (int e = tid; e < PART / 4; e += 32 * NW)
+        hopper::st_cluster_v4(hopper::cluster_map(slot + 4 * e, 0),
+                              reinterpret_cast<const float4*>(cpart)[e]);
+    }
+    __syncwarp();
+    hopper::cluster_arrive();                // phase 2: released to rank 0
+    return;
+  }
+  __syncwarp();
+  hopper::cluster_arrive();
+  hopper::cluster_wait();                    // phase 2: every peer's partial
+  if (warp < NW) {
+    float* o = p.out + head * GT * D;
+    for (int e = tid; e < GT * D; e += 32 * NW) {
+      const int r = e / D;
+      float mg = cpart[r];
+#pragma unroll
+      for (int c = 1; c < cluster_cap(GTP); ++c)
+        if (c < C) mg = fmaxf(mg, peers[(c - 1) * PART + r]);
+      float f = exp2f(cpart[r] - mg);
+      float a = f * cpart[2 * GTP + e], l = f * cpart[GTP + r];
+#pragma unroll
+      for (int c = 1; c < cluster_cap(GTP); ++c)
+        if (c < C) {
+          const float* q = peers + (c - 1) * PART;
+          f = exp2f(q[r] - mg);
+          a += f * q[2 * GTP + e];
+          l += f * q[GTP + r];
+        }
+      o[e] = l > 0.f ? a / l : 0.f;
+    }
   }
 }
 
-// One block per (query row, kv head, batch row); threads over D.
-template <int D, int BK>
-__global__ void __launch_bounds__(D) combine_kernel(
-    const float* __restrict__ m_part, const float* __restrict__ l_part,
-    const float* __restrict__ acc_part, const int* __restrict__ lengths,
-    const int* __restrict__ starts, float* __restrict__ out, int Hkv, int G,
-    int T, int nsplit) {
-  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int GT = G * T;
-  const int len = lengths[b], st = starts[b];
-  int s_lo = first_live_split<BK>(st), s_hi = end_live_split<BK>(len);
-  if (len <= st) s_hi = s_lo;  // no live slot: the output is 0
-  const size_t base = ((size_t)b * Hkv + h) * nsplit;
-  float mg = NEG_INF;
-  for (int s = s_lo; s < s_hi; ++s) mg = fmaxf(mg, m_part[(base + s) * GT + r]);
-  float lt = 0.f, at = 0.f;
-  for (int s = s_lo; s < s_hi; ++s) {
-    const float coef = expf(m_part[(base + s) * GT + r] - mg);
-    lt += coef * l_part[(base + s) * GT + r];
-    at += coef * acc_part[((base + s) * GT + r) * D + d];
-  }
-  const int g = r / T, t = r % T;
-  const int Hq = Hkv * G;
-  out[(((size_t)b * Hq + h * G + g) * T + t) * D + d] = at / (lt > 0.f ? lt : 1.f);
-}
-
-template <int D, int BK, bool PAGED>
-cudaError_t run(const void* q, const void* k, const void* v, const int* table,
-                const int* q_pos, const int* k_pos, const int* lengths,
-                const int* starts, float* m, float* l, float* acc, float* out,
-                int B, int Hq, int Hkv, int T, int S, int nsplit, int window,
-                float scale, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  split_kernel<D, BK, PAGED><<<dim3(nsplit, Hkv, B), THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), table, q_pos, k_pos, lengths, starts,
-      m, l, acc, Hkv, G, T, S, nsplit, window, scale);
-  cudaError_t err = cudaGetLastError();
+// Launch `kernel` (a __global__ wrapper of body) with `bytes` of dynamic
+// shared memory as a (C, Hkv, B) grid of C-block clusters.  Returns the
+// launch's error: a refused cluster launch never runs.
+inline cudaError_t launch(void (*kernel)(Params), int bytes, const Params& p,
+                          int B, int C, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  combine_kernel<D, BK><<<dim3(G * T, Hkv, B), D, 0, stream>>>(
-      m, l, acc, lengths, starts, out, Hkv, G, T, nsplit);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, p.Hkv, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The checks both entry points share; true if the launch may go ahead.
+inline bool valid(int B, int Hq, int Hkv, int T, int S, int C) {
+  if (B < 0 || Hkv <= 0 || Hq % Hkv != 0 || T <= 0 || S <= 0) return false;
+  const int GT = (Hq / Hkv) * T;
+  return GT <= MAX_GT && C >= 1 && C <= cluster_cap(GT <= 2 ? 2 : GT);
 }
 
 }  // namespace decode_attn

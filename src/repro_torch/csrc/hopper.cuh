@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the port's kernels, as inline PTX:
-// mbarriers, bulk and tensor (TMA) copies, and warpgroup matrix multiply
-// (wgmma) with its shared-memory descriptors.
+// mbarriers, named barriers, thread-block clusters (rank, barrier, stores to
+// a peer's shared memory), cp.async, bulk and tensor (TMA) copies, and
+// warpgroup matrix multiply (wgmma) with its shared-memory descriptors.
 #pragma once
 #include <stdint.h>
 
@@ -47,7 +48,69 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a multiple
+// of 32: a subset of the block's warps meets without the others.
+__device__ __forceinline__ void named_barrier(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------------ thread-block clusters
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves.  Every thread of every block of the
+// cluster arrives once a phase; wait returns once all have arrived.  arrive
+// releases the thread's earlier writes (to its own and to peers' shared
+// memory) and wait acquires the others'; arrive_relaxed orders nothing.  A
+// thread may exit after its last arrive.  All threads of a warp execute
+// each of them together.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (in this block's shared memory) in the shared memory
+// of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// Stores four floats at a cluster_map address (another block's shared
+// memory).
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+}
+
 // ------------------------------------------------------------ bulk copies
+
+// 4 bytes global -> shared, asynchronously (Ampere's cp.async).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
+               "l"(src) : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed; the barrier's count must include it (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
 
 // global -> shared, `bytes` (a multiple of 16) completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,

@@ -36,9 +36,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
-    # q, k, v, q_pos, k_pos, lengths, starts, m, l, acc, out,
-    # B, Hq, Hkv, T, S, D, nsplit, window, scale, stream
-    "repro_decode_attention": [_P] * 11 + [_I] * 8 + [_F, _P],
+    # q, k, v, q_pos, k_pos, lengths, starts, out,
+    # B, Hq, Hkv, T, S, D, cluster, window, scale, stream
+    "repro_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
     # q, k, v, q_pos, k_pos, out, B, Hq, Hkv, T, S, D, causal, window,
     # scale, stream
     "repro_flash_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
@@ -50,9 +50,9 @@ SIGNATURES = {
     "repro_cache_slot_write": [_P] * 3 + [_L, _L, _P],
     # pool, table, out, n_blocks, block_bytes, stream
     "repro_paged_gather": [_P] * 3 + [_L, _L, _P],
-    # q, k_pool, v_pool, table, q_pos, k_pos, lengths, starts, m, l, acc,
-    # out, B, Hq, Hkv, T, nb, bs, D, window, scale, stream
-    "repro_paged_decode_attention": [_P] * 12 + [_I] * 8 + [_F, _P],
+    # q, k_pool, v_pool, table, q_pos, k_pos, lengths, starts, out,
+    # B, Hq, Hkv, T, nb, bs, D, cluster, window, scale, stream
+    "repro_paged_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     # r, k, v, w, u, s0, y, s_out, B, T, H, hd, stream
     "repro_wkv": [_P] * 8 + [_I] * 4 + [_P],
 }

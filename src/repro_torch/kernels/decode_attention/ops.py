@@ -1,8 +1,8 @@
 """Short-query decode attention over a dense or a paged cache (port of
 ``repro/kernels/decode_attention``).
 
-``decode_attention`` launches the split-K CUDA kernel
-(``csrc/decode_attention.cu``, which replaces ``decode_attention_pallas``,
+``decode_attention`` launches the CUDA kernel (``csrc/decode_attention.cu``,
+which replaces ``decode_attention_pallas``,
 ``repro/kernels/decode_attention/kernel.py:193``) on CUDA tensors and runs
 ``decode_attention_plain`` on CPU tensors.  Every decode token of every
 layer of a dense cache comes here.
@@ -13,9 +13,15 @@ pool through a block table; it launches ``csrc/paged_decode_attention.cu``
 ``repro/kernels/decode_attention/kernel.py:120``) on CUDA tensors and runs
 ``paged_decode_attention_plain`` (gather, then the dense plain version) on
 CPU tensors.  Every decode token of a paged cache comes here.
+
+Both kernels are one launch of (C, Hkv, B) blocks in clusters of C: the C
+blocks of a (row, KV head) share its live tiles (``decode_work_ranges``
+is their partition) and merge their softmax partials through shared
+memory; ``cluster_size`` picks C.  The wrappers allocate only the output.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -24,8 +30,54 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import launch
 
 NEG_INF = -1e30
-BLOCK_K = 64          # cache slots per split (csrc/decode_attention.cu)
+DENSE_TILE = 32       # cache slots a tile of the dense kernel (one bulk copy)
 MAX_GT = 16           # G * T queries per KV head the kernel packs
+
+
+def cluster_cap(gt: int) -> int:
+    """The kernels' largest cluster for G * T queries a KV head (rank 0
+    keeps a slot of shared memory for each peer's partial):
+    ``decode_attn::cluster_cap`` in ``csrc/decode_attention.cuh``."""
+    return 4 if gt <= 4 else 2
+
+
+def cluster_size(rows: int, n_tiles: int, sms: int, gt: int) -> int:
+    """The blocks C that share one (row, KV head): the smallest C that puts
+    a block on every SM (``rows * C >= sms``, rows = B * Hkv), within
+    ``cluster_cap(gt)`` and no more than a row has tiles.  More blocks than
+    SMs only add merging (``tools/decode_attention_ab.py`` sweeps C).  From
+    shapes only: it reads nothing on the device."""
+    want = -(-sms // max(rows, 1))
+    return max(1, min(want, cluster_cap(gt), n_tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_work_ranges(starts, lengths, S: int, tile: int, C: int,
+                       q_pos=None) -> torch.Tensor:
+    """The kernels' work partition, (B, C, 2) int64: block c of row b's
+    cluster fetches tiles [lo, hi), tile t holding slots [t * tile,
+    (t + 1) * tile) of which it copies only those in [starts, lengths).  A
+    row's live tiles, [starts // tile, ceil(lengths / tile)), are cut into
+    C shares of whole tiles (block c from first + c * n // C up to first +
+    (c + 1) * n // C); a row with lengths <= starts, or (given q_pos (B, T))
+    none of whose queries has a position, fetches nothing.  starts and
+    lengths are clamped to [0, S] as the wrappers clamp them."""
+    st = torch.clamp(torch.as_tensor(starts).reshape(-1).long().cpu(), 0, S)
+    ln = torch.clamp(torch.as_tensor(lengths).reshape(-1).long().cpu(), 0, S)
+    live = ln > st
+    if q_pos is not None:
+        qp = torch.as_tensor(q_pos).reshape(st.numel(), -1).cpu()
+        live &= (qp >= 0).any(1)
+    first = st // tile
+    n = torch.where(live, -(-ln // tile) - first, torch.zeros_like(first))
+    c = torch.arange(C)[None, :]
+    lo = first[:, None] + c * n[:, None] // C
+    hi = first[:, None] + (c + 1) * n[:, None] // C
+    return torch.stack([lo, hi], -1)
 
 
 def _norm_inputs(q, q_pos, lengths, starts, S):
@@ -74,52 +126,64 @@ def decode_attention_plain(q, k, v, q_pos, k_pos, lengths, starts, *,
     return out.reshape(B, Hq, T, v.shape[-1])
 
 
-def _check_kernel_inputs(q, k, v, k_pos) -> None:
+def _check_common(q, q_pos, lengths, starts, G, D, name) -> None:
+    """What both kernels require of q and the per-row inputs."""
+    B, _, T, _ = q.shape
+    if D not in (64, 128):
+        raise ValueError(f"{name} kernel takes head_dim 64 or 128, got {D}")
+    if G * T > MAX_GT:
+        raise ValueError(f"{name} kernel packs at most {MAX_GT} queries per "
+                         f"KV head; got G={G}, T={T}")
+    for what, t, shape in (("q_pos", q_pos, (B, T)), ("lengths", lengths, (B,)),
+                           ("starts", starts, (B,))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} kernel takes {what} {shape} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_tensors(name, q, tensors) -> None:
+    for what, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs a contiguous {what}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel needs 16-byte aligned {what}")
+        if t.device != q.device:
+            raise ValueError(f"{what} is on {t.device}, q on {q.device}")
+
+
+def _check_kernel_inputs(q, k, v, q_pos, k_pos, lengths, starts) -> None:
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError("decode_attention kernel takes bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or S < 1 \
+            or Hq % Hkv:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"decode_attention kernel takes head_dim 64 or 128, "
-                         f"got {D}")
-    if Hq % Hkv or (Hq // Hkv) * T > MAX_GT:
-        raise ValueError(f"decode_attention kernel packs at most {MAX_GT} "
-                         f"queries per KV head; got G={Hq // Hkv}, T={T}")
+    _check_common(q, q_pos, lengths, starts, Hq // Hkv, D, "decode_attention")
     if k_pos.shape != (B, S) or k_pos.dtype != torch.int32:
         raise ValueError(f"k_pos must be (B, S) int32, got "
                          f"{tuple(k_pos.shape)} {k_pos.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("k_pos", k_pos)):
-        if not t.is_contiguous():
-            raise ValueError(f"decode_attention kernel needs a contiguous {name}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"decode_attention kernel needs 16-byte aligned "
-                             f"{name}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    _check_tensors("decode_attention", q, (
+        ("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos),
+        ("lengths", lengths), ("starts", starts)))
 
 
 def decode_attention_cuda(q, k, v, q_pos, k_pos, lengths, starts, *,
                           window: int = 0) -> torch.Tensor:
     """Launch the kernel (inputs as ``_norm_inputs`` leaves them)."""
-    _check_kernel_inputs(q, k, v, k_pos)
+    _check_kernel_inputs(q, k, v, q_pos, k_pos, lengths, starts)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    GT = (Hq // Hkv) * T
-    nsplit = -(-S // BLOCK_K)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hkv, nsplit, GT), **f32)
-    l = torch.empty((B, Hkv, nsplit, GT), **f32)
-    acc = torch.empty((B, Hkv, nsplit, GT, D), **f32)
-    out = torch.empty((B, Hq, T, D), **f32)
+    C = cluster_size(B * Hkv, -(-S // DENSE_TILE), _sm_count(q.device.index),
+                     (Hq // Hkv) * T)
+    out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
     launch("repro_decode_attention", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
            k_pos.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-           m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
-           B, Hq, Hkv, T, S, D, nsplit, int(window), 1.0 / math.sqrt(D))
+           out.data_ptr(), B, Hq, Hkv, T, S, D, C, int(window),
+           1.0 / math.sqrt(D))
     LAUNCHES["decode_attention"] += 1
     return out
 
@@ -188,45 +252,31 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, k_pos,
     if not (q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16):
         raise TypeError("paged_decode_attention kernel takes bfloat16 "
                         f"q/pools, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
-    if k_pool.shape != v_pool.shape or k_pool.shape[3] != D:
+    if k_pool.shape != v_pool.shape or k_pool.shape[3] != D or Hq % Hkv:
         raise ValueError(f"pools {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if D not in (64, 128) or bs not in PAGED_BLOCK_SIZES:
-        raise ValueError(f"paged_decode_attention kernel takes head_dim 64 "
-                         f"or 128 and block size {PAGED_BLOCK_SIZES}, got "
-                         f"{D} and {bs}")
-    if Hq % Hkv or (Hq // Hkv) * T > MAX_GT:
-        raise ValueError(f"paged_decode_attention kernel packs at most "
-                         f"{MAX_GT} queries per KV head; got G={Hq // Hkv}, "
-                         f"T={T}")
-    if table.shape != (B, nb) or table.dtype != torch.int32 or \
+    if bs not in PAGED_BLOCK_SIZES:
+        raise ValueError(f"paged_decode_attention kernel takes block size "
+                         f"{PAGED_BLOCK_SIZES}, got {bs}")
+    _check_common(q, q_pos, lengths, starts, Hq // Hkv, D,
+                  "paged_decode_attention")
+    if table.shape != (B, nb) or table.dtype != torch.int32 or nb < 1 or \
             k_pos.shape != (B, nb * bs) or k_pos.dtype != torch.int32:
         raise ValueError(f"table must be (B, nb) int32 and k_pos (B, nb*bs) "
                          f"int32, got {tuple(table.shape)} {table.dtype}, "
                          f"{tuple(k_pos.shape)} {k_pos.dtype}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("table", table), ("k_pos", k_pos)):
-        if not t.is_contiguous():
-            raise ValueError(f"paged_decode_attention kernel needs a "
-                             f"contiguous {name}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_decode_attention kernel loads the pools in "
-                         "16-byte vectors: they must be 16-byte aligned")
-    GT = (Hq // Hkv) * T
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hkv, nb, GT), **f32)
-    l = torch.empty((B, Hkv, nb, GT), **f32)
-    acc = torch.empty((B, Hkv, nb, GT, D), **f32)
-    out = torch.empty((B, Hq, T, D), **f32)
+    _check_tensors("paged_decode_attention", q, (
+        ("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table),
+        ("q_pos", q_pos), ("k_pos", k_pos), ("lengths", lengths),
+        ("starts", starts)))
+    C = cluster_size(B * Hkv, nb, _sm_count(q.device.index), (Hq // Hkv) * T)
+    out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
     launch("repro_paged_decode_attention", q.device,
            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
            table.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-           lengths.data_ptr(), starts.data_ptr(), m.data_ptr(), l.data_ptr(),
-           acc.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, nb, bs, D,
-           int(window), 1.0 / math.sqrt(D))
+           lengths.data_ptr(), starts.data_ptr(), out.data_ptr(), B, Hq, Hkv,
+           T, nb, bs, D, C, int(window), 1.0 / math.sqrt(D))
     LAUNCHES["paged_decode_attention"] += 1
     return out
 

@@ -29,6 +29,7 @@ from repro.kernels.spec_verify.ops import spec_verify as jax_spec_verify  # noqa
 from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather  # noqa: E402
 from repro_torch.kernels.cache_slot_write.ops import (  # noqa: E402
     cache_slot_write, paged_slot_write)
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, decode_attention_plain, gather_paged_kv,
     paged_decode_attention)
@@ -319,6 +320,119 @@ def test_paged_decode_attention_plain_matches_jax(T, window):
                                    _t(lengths), _t(starts), window=window)
     np.testing.assert_array_equal(got, dense.numpy())
     assert np.all(got[0] == 0.0) and np.all(got[3] == 0.0)
+
+
+@pytest.mark.parametrize("layout,tile", [("dense", dec_ops.DENSE_TILE),
+                                         ("paged", 32), ("paged", 64)])
+@pytest.mark.parametrize("C", [1, 3, 4])
+def test_decode_work_ranges_cover_each_live_slot_once(layout, tile, C):
+    """The decode kernels' work partition (its Python twin) against brute
+    force: every live slot of a row with a live query lies in exactly one
+    block's tiles, no block fetches a tile without a live slot or past the
+    cache, the shares differ by at most one tile, and a row with an empty
+    span or no live query fetches nothing.  Spans: random, empty, one
+    slot, the whole cache, off tile edges, lengths past S."""
+    rng = np.random.default_rng(C + tile)
+    S = 576 if layout == "dense" else 18 * tile
+    n_rand = 40
+    st = rng.integers(0, S, n_rand)
+    ln = st + rng.integers(0, S, n_rand)
+    fixed = [(0, 0), (7, 7), (9, 3), (0, S), (0, S + 5), (S - 1, S),
+             (tile - 1, tile + 1), (tile, 2 * tile), (5, 6), (3, 2 * tile + 3)]
+    st = np.concatenate([st, [a for a, _ in fixed], [4, 4]])
+    ln = np.concatenate([ln, [b for _, b in fixed], [200, 200]])
+    B = st.size
+    q_pos = np.zeros((B, 2), np.int32)
+    q_pos[-1] = -1                      # no live query: nothing fetched
+    q_pos[-2, 1] = -1                   # one live query: fetched
+    ranges = dec_ops.decode_work_ranges(_t(st), _t(ln), S, tile, C,
+                                        q_pos=_t(q_pos)).numpy()
+    assert ranges.shape == (B, C, 2)
+    for b in range(B):
+        lo_s, hi_s = min(st[b], S), min(ln[b], S)
+        live_row = hi_s > lo_s and b != B - 1
+        owner = np.zeros(S, np.int64)
+        counts = []
+        for c in range(C):
+            t_lo, t_hi = ranges[b, c]
+            counts.append(t_hi - t_lo)
+            for t in range(t_lo, t_hi):
+                assert 0 <= t < -(-S // tile), (b, c, t)
+                a, z = max(t * tile, lo_s), min((t + 1) * tile, hi_s)
+                assert z > a, f"row {b} block {c} fetches dead tile {t}"
+                owner[a:z] += 1
+        want = np.zeros(S, np.int64)
+        if live_row:
+            want[lo_s:hi_s] = 1
+        np.testing.assert_array_equal(owner, want, err_msg=f"row {b}")
+        assert max(counts) - min(counts) <= 1
+        assert live_row or sum(counts) == 0
+
+
+def test_decode_cluster_size_puts_a_block_on_every_sm():
+    """The wrappers' cluster: the smallest C that puts a block on every SM,
+    within the kernels' cap for G * T, never more than a row has tiles."""
+    for rows, n_tiles, gt in ((128, 18, 2), (64, 18, 2), (16, 10, 4),
+                              (16, 10, 8), (4, 3, 16), (1, 1, 2),
+                              (512, 18, 2)):
+        got = dec_ops.cluster_size(rows, n_tiles, 132, gt)
+        cap = min(dec_ops.cluster_cap(gt), n_tiles)
+        assert 1 <= got <= cap
+        assert rows * got >= 132 or got == cap
+        assert got == 1 or rows * (got - 1) < 132
+    assert dec_ops.cluster_size(128, 18, 132, 2) == 2    # the epoch-1 step
+
+
+def test_decode_kernels_refuse_what_they_cannot_take():
+    """Both decode kernel entries raise before any launch on inputs outside
+    the kernels' contract (meta tensors: the checks need no card)."""
+    meta = dict(device="meta")
+    bf = dict(dtype=torch.bfloat16, **meta)
+    i32 = dict(dtype=torch.int32, **meta)
+    B, S = 2, 64
+
+    def dense(q=None, kv=None, q_pos=None, k_pos=None, lengths=None):
+        q = torch.empty(B, HQ, 1, D, **bf) if q is None else q
+        kv = torch.empty(B, HKV, S, q.shape[-1], **bf) if kv is None else kv
+        T = q.shape[2]
+        dec_ops.decode_attention_cuda(
+            q, kv, kv, torch.empty(B, T, **i32) if q_pos is None else q_pos,
+            torch.empty(B, kv.shape[2], **i32) if k_pos is None else k_pos,
+            torch.empty(B, **i32) if lengths is None else lengths,
+            torch.empty(B, **i32))
+
+    def paged(bs=32, q=None, table=None):
+        q = torch.empty(B, HQ, 1, D, **bf) if q is None else q
+        pool = torch.empty(6, HKV, bs, q.shape[-1], **bf)
+        dec_ops.paged_decode_attention_cuda(
+            q, pool, pool, torch.empty(B, 3, **i32) if table is None else table,
+            torch.empty(B, q.shape[2], **i32), torch.empty(B, 3 * bs, **i32),
+            torch.empty(B, **i32), torch.empty(B, **i32))
+
+    with pytest.raises(ValueError, match="head_dim"):
+        dense(q=torch.empty(B, HQ, 1, 32, **bf))
+    with pytest.raises(ValueError, match="at most 16"):
+        dense(q=torch.empty(B, HQ, 9, D, **bf))            # G * T = 18
+    with pytest.raises(TypeError, match="bfloat16"):
+        dense(q=torch.empty(B, HQ, 1, D, dtype=torch.float32, **meta))
+    with pytest.raises(ValueError, match="q_pos"):
+        dense(q_pos=torch.empty(B, 1, dtype=torch.int64, **meta))
+    with pytest.raises(ValueError, match="lengths"):
+        dense(lengths=torch.empty(B, 1, **i32))
+    with pytest.raises(ValueError, match="k_pos"):
+        dense(k_pos=torch.empty(B, S + 1, **i32))
+    with pytest.raises(ValueError, match="contiguous"):
+        dense(kv=torch.empty(B, HKV, D, S, **bf).transpose(2, 3))
+    with pytest.raises(ValueError, match="do not match"):
+        dense(kv=torch.empty(B, HKV, 0, D, **bf))          # an empty cache
+    with pytest.raises(ValueError, match="block size"):
+        paged(bs=16)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged(q=torch.empty(B, HQ, 1, 32, **bf))
+    with pytest.raises(ValueError, match="at most 16"):
+        paged(q=torch.empty(B, HQ, 12, D, **bf))
+    with pytest.raises(ValueError, match="table"):
+        paged(table=torch.empty(B, 3, dtype=torch.int64, **meta))
 
 
 def test_wrappers_raise_on_a_device_without_a_kernel():
