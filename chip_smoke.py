@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 
 What it does, failing (nonzero exit, no result line) at the first fault:
 
-1. prints the card's name and power limit (``nvidia-smi``);
+1. prints the card's name and power limit (``nvidia-smi``), and a draw of
+   a key seeded above 2**63 on the card;
 2. builds the eight CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
    (one ``nvcc`` per source, all started together) and prints the build
    time and ``ptxas`` register/spill lines;
@@ -31,9 +32,14 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    peaked one (each query's largest logit about 20), and at the epoch-0
    shapes (T = 64, S = 320) it is timed beside SDPA.
    ``wkv`` runs at the rwkv6-3b shapes in float32, at T = P + N (the verify
-   score, with the pads' k = 0, w = 1) and T = 1 (a decode step), from a
-   nonzero state, its output new and written over its input, within
-   ``WKV_TOL`` of the largest magnitude.  Then it times the kernel entry on
+   score, with the pads' k = 0, w = 1), T = P (the epoch-0 prefill, the
+   prompts' left pads) and T = 1 (a decode step), and at the reduced
+   config's hd = 32 (T = 37), from a nonzero state, its output new and
+   written over its input, within ``WKV_TOL`` of the largest magnitude, one
+   launch a call at each of the three.  ``spec_verify`` runs with int32
+   lengths (as its callers hold them) and int64 ones (one launch a call
+   with either), exactly equal to its plain version.  Then it times the
+   kernel entry on
    inputs already in its form, the plain version and the yardstick: one
    PyTorch call that computes the same function where there is one, and
    for the paged decode the two-step gather + dense decode kernel (CUDA
@@ -67,7 +73,8 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    ``rwkv``     two epochs of full-width, full-depth rwkv6-3b (the qwen
                 model freed first): epoch 1 the two-pass branch (verify
                 score, left-align, re-prefill), every recurrence through
-                ``wkv``, no attention or cache kernel launched; then,
+                ``wkv`` (its launches split by T), no attention or cache
+                kernel launched; then,
                 outside the launch counts, its witnesses in float32: the
                 same two epochs (logged), and the score against prefill +
                 decode steps on the same tokens, with the kernel and with
@@ -582,19 +589,46 @@ def kernel_checks(torch, timer):
     lp_prev = -torch.rand((B, N), generator=gen, **f32) * 8.0
     lp_curr = lp_prev + 0.01 * torch.randn((B, N), generator=gen, **f32)
     u = torch.rand((B, N), generator=gen, **f32)
+    # lengths of none, one token, off the float4 and warp edges, all
     vlen = torch.full((B,), N, dtype=torch.int64, device=dev)
-    vlen[0] = 0
+    vlen[:5] = torch.tensor([0, 1, 37, 129, N - 1])
     sargs = (lp_curr, lp_prev, u, vlen.to(torch.int32), math.log(LENIENCE))
-    got = sv_ops.spec_verify(lp_curr, lp_prev, u, vlen, math.log(LENIENCE))
-    want = sv_ops.spec_verify_plain(*sargs)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), f"spec_verify differs: {got} vs {want}")
+    sargs64 = sargs[:3] + (vlen,) + sargs[4:]
+    spec_verify_check(torch, sv_ops, sargs, cover=False)
+    # the scalar loads (N % 4 != 0, rows not 16-byte aligned) and a draft
+    # longer than the 256 tokens a warp covers at once (a rejection in the
+    # second chunk, and the early exit after the first); row r accepts
+    # every token before sure[r] (lp_curr 1 above lp_prev) and about two
+    # in three after it, so that every case of the mask occurs
+    for n_tok, lens, sure in (
+            (37, [0, 1, 3, 4, 5, 17, 36, 37], [0, 5, 0, 2, 5, 10, 30, 37]),
+            (300, [0, 1, 37, 129, 255, 256, 257, 299, 300],
+             [0, 0, 40, 100, 250, 256, 256, 280, 300])):
+        rows = len(lens)
+        prev = -torch.rand((rows, n_tok), generator=gen, **f32) * 8.0
+        accept = (torch.arange(n_tok, device=dev)[None, :]
+                  < torch.tensor(sure, device=dev)[:, None])
+        curr = prev + torch.where(accept, 1.0, torch.randn(
+            (rows, n_tok), generator=gen, **f32))
+        spec_verify_check(torch, sv_ops, (
+            curr, prev, torch.rand((rows, n_tok), generator=gen, **f32),
+            torch.tensor(lens, dtype=torch.int32, device=dev),
+            math.log(LENIENCE)))
     record("spec_verify", "src/repro_torch/csrc/spec_verify.cu",
            "src/repro/kernels/spec_verify/kernel.py:44", 0.0,
            lambda: sv_ops.spec_verify_cuda(*sargs),
            lambda: sv_ops.spec_verify_plain(*sargs), None,
            nbytes=3 * B * N * 4 + 2 * B * 4, flops=5 * B * N,
            kernel="spec_verify_kernel")
+    one_launch("spec_verify")
+    # int64 lengths (the callers hold int32) take no conversion either
+    _, per_call, others = timer.device_ms(
+        lambda: sv_ops.spec_verify(*sargs64), "spec_verify_kernel")
+    require(per_call == 1 and others == 0,
+            f"spec_verify with int64 valid_len: {per_call} launches of its "
+            f"kernel and {others} others a call, want one and nothing else")
+    log(f"kernel spec_verify with int64 valid_len: kernels a call: "
+        f"{per_call}, {others} other")
 
     # --- cache_roll: the compaction of one epoch-1 buffer (28*16*8 rows) ---
     R = 28 * B * Hkv
@@ -777,30 +811,78 @@ def kernel_checks(torch, timer):
     return records
 
 
+def spec_verify_check(torch, sv_ops, args, cover=True):
+    """``spec_verify`` on the card, with ``args``' int32 lengths and the
+    same as int64, exactly equal to its plain version.  With ``cover`` the
+    rows must hold a rejection inside the length, a full accept and a
+    rejection that only the length hides, so that each branch of the
+    kernel's mask is held (inputs made to hold them; random draws need
+    not)."""
+    lp_curr, lp_prev, u, vlen, ll = args
+    want = sv_ops.spec_verify_plain(*args)
+    for what, vl in (("int32", vlen), ("int64", vlen.long())):
+        got = sv_ops.spec_verify(lp_curr, lp_prev, u, vl, ll)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"spec_verify {tuple(lp_curr.shape)} "
+                f"with {what} valid_len differs: {got} vs {want}")
+    B, N = lp_curr.shape
+    unmasked = sv_ops.spec_verify_plain(
+        lp_curr, lp_prev, u, torch.full_like(vlen, N), ll)
+    vl = vlen.long()
+    kinds = {"rejected inside": bool(((want > 0) & (want < vl)).any()),
+             "all accepted": bool(((want == vl) & (vl > 0)).any()),
+             "hidden by the length": bool(((unmasked >= vl) & (unmasked < N)
+                                           & (vl > 0)).any())}
+    log(f"kernel spec_verify {tuple(lp_curr.shape)}: lengths "
+        f"{vl.tolist()}, first rejections {want.tolist()}")
+    require(all(kinds.values()) or not cover,
+            f"spec_verify {tuple(lp_curr.shape)}: rows lack a case: {kinds}")
+
+
+WKV_H, WKV_HD = 40, 64     # rwkv6-3b's heads
+
+
+def wkv_inputs(torch, gen, T, valid, H=WKV_H, hd=WKV_HD):
+    """r, k, v, w (B, T, H, hd), u (H, hd) and s0 (B, H, hd, hd) in float32
+    on ``gen``'s device, B = ``valid.shape[0]``: w from the model's range
+    exp(-exp(-6 + noise)), the pad contract (k = 0, w = 1) where ``valid``
+    (B, T) is False, a nonzero state."""
+    B = valid.shape[0]
+    f32 = dict(dtype=torch.float32, device=gen.device)
+    shape = (B, T, H, hd)
+    r, k, v = (torch.randn(shape, generator=gen, **f32) for _ in range(3))
+    logw = -6.0 + 0.5 * torch.randn(shape, generator=gen, **f32)
+    w = torch.exp(-torch.exp(logw))
+    vm = valid[:, :, None, None]
+    k = torch.where(vm, k, torch.zeros_like(k))
+    w = torch.where(vm, w, torch.ones_like(w))
+    u = 0.1 * torch.randn((H, hd), generator=gen, **f32)
+    s0 = torch.randn((B, H, hd, hd), generator=gen, **f32)
+    return r, k, v, w, u, s0
+
+
+def score_valid(torch, p_len, n):
+    """(B, P + N) mask of the epoch-1 score: each row's left-padded prompt
+    of ``p_len`` tokens, then its ``n`` draft tokens."""
+    col = torch.arange(P + N, device=p_len.device)[None, :]
+    return (((col >= P - p_len[:, None]) & (col < P))
+            | ((col >= P) & (col < P + n[:, None])))
+
+
 def wkv_check(torch, timer, gen, p_len, n, record):
     """The RWKV6 recurrence at the rwkv path's shapes (B = 16, H = 40,
-    hd = 64): the epoch-1 verify score (T = P + N, the prompt's left pads
-    and the draft's right pads as k = 0, w = 1) and a decode step (T = 1,
-    one done row), both from a nonzero state, w drawn from the model's
-    range exp(-exp(-6 + noise)); y and the final state (new and written
-    over s0, as the cache is) against the plain version."""
+    hd = 64) in its three regimes: the epoch-1 verify score (T = P + N, the
+    prompt's left pads and the draft's right pads as k = 0, w = 1), the
+    epoch-0 prefill (T = P, the prompt's left pads) and a decode step
+    (T = 1, one done row), and at the reduced config's hd = 32 (T = 37);
+    each from a nonzero state, w drawn from the model's range
+    exp(-exp(-6 + noise)); y and the final state (new and written over s0,
+    as the cache is) against the plain version.  Each of the three is
+    timed and held to one launch a call and no other kernel."""
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
     dev = gen.device
-    B, H, hd = PROMPTS * GROUP, 40, 64
-    f32 = dict(dtype=torch.float32, device=dev)
-
-    def inputs(T, valid, Bc=B, Hc=H, hdc=hd):
-        shape = (Bc, T, Hc, hdc)
-        r, k, v = (torch.randn(shape, generator=gen, **f32) for _ in range(3))
-        logw = -6.0 + 0.5 * torch.randn(shape, generator=gen, **f32)
-        w = torch.exp(-torch.exp(logw))
-        vm = valid[:, :, None, None]
-        k = torch.where(vm, k, torch.zeros_like(k))
-        w = torch.where(vm, w, torch.ones_like(w))
-        u = 0.1 * torch.randn((Hc, hdc), generator=gen, **f32)
-        s0 = torch.randn((Bc, Hc, hdc, hdc), generator=gen, **f32)
-        return r, k, v, w, u, s0
+    B = PROMPTS * GROUP
 
     def check(T, args):
         r, k, v, w, u, s0 = args
@@ -823,36 +905,53 @@ def wkv_check(torch, timer, gen, p_len, n, record):
         # written; operations the function needs: 5 float32 flops per state
         # element per step (2 for sum_i r_i S_ij, 3 for w_i S_ij + k_i v_j),
         # on the CUDA cores; the u-term, (sum_i r_i u_i k_i) v_j, is O(hd)
-        # a step (the kernel, in wkv_scan's order, spends 7)
+        # a step
         nbytes = 5 * r.numel() * 4 + 2 * s0.numel() * 4 + u.numel() * 4
         flops = 5 * r.numel() * r.shape[-1]
         s_out = torch.empty_like(s0)
         return (err, lambda: wkv_ops.wkv_cuda(r, k, v, w, u, s0, s_out),
                 lambda: wkv_ops.wkv_plain(r, k, v, w, u, s0), nbytes, flops)
 
-    # the head dim of the reduced config (the small reference's)
-    check(37, inputs(37, torch.ones((2, 37), dtype=torch.bool, device=dev),
-                     Bc=2, Hc=4, hdc=32))
+    def one_launch(T, per_call, others):
+        require(per_call == 1 and others == 0,
+                f"wkv T={T}: {per_call} launches of its kernel and {others} "
+                "others a call, want one launch and nothing else")
 
-    T = P + N
-    col = torch.arange(T, device=dev)[None, :]
-    valid = (((col >= P - p_len[:, None]) & (col < P))
-             | ((col >= P) & (col < P + n[:, None])))
-    err, fn, plain, nbytes, flops = check(T, inputs(T, valid))
-    record("wkv", "src/repro_torch/csrc/wkv.cu",
-           "src/repro/kernels/rwkv6_wkv/kernel.py:53", err, fn, plain, None,
-           nbytes=nbytes, flops=flops, kernel="wkv_kernel",
-           flop_rate=FP32_FLOP_PER_S)
+    # the head dim of the reduced config (the small reference's)
+    check(37, wkv_inputs(torch, gen, 37, torch.ones((2, 37), dtype=torch.bool,
+                                                    device=dev), H=4, hd=32))
+    # rwkv6-3b's head dim with a last ring stage partly filled (T = 70 is
+    # not a multiple of the stage's 16 steps), left pads as in a prefill
+    check(70, wkv_inputs(torch, gen, 70, torch.arange(70, device=dev)[None, :]
+                         >= torch.tensor([[0], [3], [17], [69]], device=dev),
+                         H=8))
+
+    err, fn, plain, nbytes, flops = check(
+        P + N, wkv_inputs(torch, gen, P + N, score_valid(torch, p_len, n)))
+    rec = record("wkv", "src/repro_torch/csrc/wkv.cu",
+                 "src/repro/kernels/rwkv6_wkv/kernel.py:53", err, fn, plain,
+                 None, nbytes=nbytes, flops=flops, kernel="wkv_",
+                 flop_rate=FP32_FLOP_PER_S)
+    one_launch(P + N, rec["kernels_per_call"], rec["other_kernels_per_call"])
     del fn, plain
-    valid1 = torch.ones((B, 1), dtype=torch.bool, device=dev)
-    valid1[0] = False                                      # a done row
-    err1, fn1, plain1, nbytes1, flops1 = check(1, inputs(1, valid1))
-    ms1, plain_ms1 = timer.turns(fn1, plain1)
-    b1, by1 = bound(nbytes1, flops1, FP32_FLOP_PER_S)
-    log(f"kernel wkv at T=1: max_abs_err={err1} ms={ms1} plain_ms={plain_ms1} "
-        f"bound_ms={b1} ({by1})")
-    return {"decode_ms": ms1, "decode_plain_ms": plain_ms1,
-            "decode_bound_ms": b1, "decode_max_abs_err": err1}
+    col = torch.arange(P, device=dev)[None, :]
+    valid = {P: col >= P - p_len[:, None],
+             1: torch.arange(B, device=dev)[:, None] > 0}    # row 0 done
+    extra = {}
+    for T, what in ((P, "prefill"), (1, "decode")):
+        err_t, fn_t, plain_t, nbytes_t, flops_t = check(
+            T, wkv_inputs(torch, gen, T, valid[T]))
+        ms_t, plain_ms_t = timer.turns(fn_t, plain_t)
+        dev_ms_t, per_call, others = timer.device_ms(fn_t, "wkv_")
+        one_launch(T, per_call, others)
+        b_t, by_t = bound(nbytes_t, flops_t, FP32_FLOP_PER_S)
+        log(f"kernel wkv at T={T}: max_abs_err={err_t} ms={ms_t} "
+            f"device_ms={dev_ms_t} plain_ms={plain_ms_t} bound_ms={b_t} "
+            f"({by_t}); kernels a call: {per_call} of wkv_, {others} other")
+        extra.update({f"{what}_ms": ms_t, f"{what}_device_ms": dev_ms_t,
+                      f"{what}_plain_ms": plain_ms_t, f"{what}_bound_ms": b_t,
+                      f"{what}_max_abs_err": err_t})
+    return extra
 
 
 # ---------------------------------------------------------------- small ref
@@ -1117,13 +1216,20 @@ def rwkv_path(torch):
     re-prefill and decode), every T of the recurrence through ``wkv``;
     then its time breakdown.  No attention or cache kernel may run.  Then
     the witnesses in float32, outside the counts: the same two epochs, and
-    the consistency of score and decode at full depth and at one layer."""
+    the consistency of score and decode at full depth and at one layer.
+    Returns the launches and the ``wkv`` launches by T."""
     from repro_torch.core import SpecConfig
+    from repro_torch.kernels import WKV_LAUNCHES_BY_T
     from repro_torch.models import model as M
 
     model, cfg, batch, gen = setup_model(torch, "rwkv6-3b")
     spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
     launches, rbs = rollout_path(torch, "rwkv", model, cfg, batch, gen, spec)
+    by_t = dict(sorted(WKV_LAUNCHES_BY_T.items()))
+    log(f"rwkv wkv launches by T: {json.dumps(by_t)}")
+    require(sum(by_t.values()) == launches["wkv"],
+            f"rwkv path: wkv launches by T {by_t} do not sum to "
+            f"{launches['wkv']}")
     require(rbs[1].metrics["n_reused"] > 0, "rwkv: nothing was reused")
     require(launches["wkv"] > 0 and launches["spec_verify"] == 1,
             f"rwkv path: wkv {launches['wkv']} launches, spec_verify "
@@ -1143,7 +1249,7 @@ def rwkv_path(torch):
     one = cfg32.replace(num_layers=1)
     rwkv_consistency(torch, M.init_lm(one, seed=SEED, device="cuda"), one,
                      max_gap=CONSISTENCY_TOL)
-    return launches
+    return launches, by_t
 
 
 def rwkv_consistency(torch, model, cfg, max_gap=None):
@@ -1364,6 +1470,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             log("  ptxas: " + line.strip())
 
+    from repro_torch.engine.sampling import make_key
+
+    high_seed = make_key(2 ** 64 - 1).uniform((4,)).tolist()
+    log(f"make_key(2**64 - 1) on the card draws {high_seed}")
     timer = Timer(torch)
     records = kernel_checks(torch, timer)
     del timer
@@ -1379,12 +1489,13 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     paths["serve"] = serve_path(torch)
-    paths["rwkv"] = rwkv_path(torch)
+    paths["rwkv"], records["wkv"]["launches_by_t"] = rwkv_path(torch)
     for name, rec in records.items():
         rec["launches_by_path"] = {p: paths[p][name] for p in paths}
         rec["launches"] = sum(rec["launches_by_path"].values())
         require(rec["launches"] > 0, f"kernel {name} was launched on no path")
-    log(f"chip smoke: all checks passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip smoke: all checks passed in {time.perf_counter() - t_start:.1f} s "
+        f"(make_key(2**64 - 1) on the card drew {high_seed})")
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

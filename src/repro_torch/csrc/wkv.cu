@@ -1,141 +1,327 @@
 // RWKV6 ("Finch") time-mix recurrence for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel src/repro/kernels/rwkv6_wkv/kernel.py:53
-// (wkv_pallas, body _wkv_kernel :23) and its wrapper's to_bh transposes
+// (wkv_pallas, body _wkv_kernel :24) and its wrapper's to_bh transposes
 // (ops.py:25); the reference recurrence is src/repro/models/rwkv.py:106
 // (wkv_scan).
 //
 // Per (batch b, head h), with the state S (hd x hd, row i = key channel,
 // column j = value channel) starting at s0[b, h]:
-//     y_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
+//     y_t[j] = sum_i r_t[i] S[i][j] + (sum_i r_t[i] u[i] k_t[i]) v_t[j]
 //     S[i][j] = w_t[i] * S[i][j] + k_t[i] * v_t[j]
 // r, k, v, w: (B, T, H, hd) float32 contiguous (the model's layout, read
 // in place: no transpose); u: (H, hd); s0, s_out: (B, H, hd, hd); y:
-// (B, T, H, hd).  s_out may be s0: each block reads its state before it
-// writes it, which is how the decode cache is updated in place.  Pads
-// need no mask: the caller sets w = 1 and k = 0 there, which leaves S
-// unchanged.
+// (B, T, H, hd); every pointer 16-byte aligned.  s_out may be s0: each
+// state element is read before it is written, by the same thread, which
+// is how the decode cache is updated in place.  Pads need no mask: the
+// caller sets w = 1 and k = 0 there, which leaves S unchanged.  The bonus
+// is factored as the TPU kernel and its oracle factor it (kernel.py:40,
+// ref.py:20), not in wkv_scan's order (u k v inside the r-sum); the plain
+// version keeps wkv_scan's order, and the two agree within the smoke's
+// WKV_TOL (1e-4 of the output's magnitude).
 //
-// What bounds it on the H100: at T = 320 (the verify score) the bytes
-// (r/k/v/w/y and the state, 283 MB: 85 us at peak) bound the function; its
-// fp32 CUDA-core work, 5 flops per state element per step (2 for
-// sum_i r_i S_ij, 3 for the update; the u-term (sum_i r_i u_i k_i) v_j is
-// O(hd) a step), is 4.2 GFLOP at B = 16, H = 40, hd = 64, 63 us.  This
-// kernel spends 7 flops (four instructions) an element: it keeps
-// wkv_scan's order, u*k*v inside the r-sum; factoring the u-term out of
-// the element loop would take it to three.  The T sequential steps set a
-// latency floor on top.  At T = 1 (a decode step) the state's read and
-// write (21 MB) bound it.  Nothing carries between blocks on Hopper,
-// so the TPU's walk over time tiles with S in VMEM becomes a loop inside
-// one block that keeps S in registers for the whole sequence:
-// * one block per (b, h) of 4 * hd threads; thread (p, g) holds rows
-//   i = ii * 16 + p (ii < hd / 16) of the four columns 4g .. 4g + 3, so a
-//   staged row feeds four columns and a step costs a thread hd / 16
-//   shared-memory loads for its 4 * hd / 16 state elements;
-// * r, k, w and u*k of a row are packed as one float4 and v as rows of
-//   float4, staged in shared memory TC steps at a time in one coalesced
-//   pass (rows of hd contiguous floats), so the global latency is paid once
-//   per TC steps; y of the chunk goes back the same way;
-// * y's four column sums over the 16 row lanes of a half-warp are a
-//   butterfly: two shuffles halve the columns a lane carries to two, one
-//   to one, two more finish the sum (5 shuffles for 4 columns);
-// * registers are the occupancy limit: at most 51 let five 256-thread
-//   blocks share an SM, so all B * H = 640 blocks of the slice run in one
-//   wave.
+// One C entry, one launch a call, two kernels chosen by T:
+//
+// T > 1 (the epoch-0 prefill, T = 64, and the verify score and re-prefill,
+// T = 320): bound by bytes, 283 MB at T = 320 for B = 16, H = 40, hd = 64
+// (85 us); the CUDA cores' float32 work, 5 flops per state element per
+// step, takes 63 us, and the T sequential steps add a latency floor.
+// Nothing carries between blocks on Hopper, so the TPU's walk over time
+// tiles with S in VMEM becomes a loop inside one block per (b, h) that
+// keeps S in registers for the whole sequence (wkv_seq_kernel):
+// * thread (p, g) of L = hd / R row lanes holds rows R p .. R p + R - 1
+//   of the C columns C g .. C g + C - 1 (R = 4, C = 8 at hd = 64: 128
+//   threads), so r, k and w of its rows are one 16-byte shared load each,
+//   v of its columns two more, and u of its rows stays in registers;
+// * an element costs three instructions a step, acc = fma(r, S, acc) and
+//   S = fma(w, S, k v); each lane first puts its rows' share of the bonus,
+//   (sum over its rows of r u k) v[c], into its column accumulators, so a
+//   butterfly over the L row lanes sums y_j exactly (8 shuffles for 8
+//   columns over 16 lanes);
+// * r, k, v and w arrive in a ring of NS = 2 stages of TC = 16 steps:
+//   warp 0 issues one bulk copy per row (hd * 4 bytes, as the rows lie in
+//   global memory) completing on the stage's mbarrier, a chunk ahead, so
+//   chunk n + 1 lands while chunk n is computed; the block meets once a
+//   chunk, before warp 0 refills the stage it has just finished (a
+//   separate producer warp would take registers the consumers need);
+// * y goes straight from the butterfly to global memory, every lane
+//   storing its column's sum (the two lanes of a column hold the same
+//   value), so no branch parts the warp between shuffles;
+// * __launch_bounds__(128, 5): at most 102 registers (ptxas -v in the
+//   build log: 95, no spills) and 32 KB of ring, so five blocks share an
+//   SM and all B * H = 640 blocks run in one wave.
+// Measured (tools/wkv_probe.py): bound by instruction issue, about 165
+// warp-instructions a step of which 96 are the arithmetic itself; the
+// 4 x 4 layout (more warps, more butterfly and loads per element) and
+// 8 x 8 (fewer warps) are slower.
+//
+// T = 1 (the decode step: 16,384 of the 16,480 launches on the rwkv path
+// of chip_smoke.py): bound by the state's read and write, 21 MB (6.5 us).
+// One block per (b, h) (wkv_step_kernel: 16 row lanes x hd / 4 column
+// groups of threads).  Every load a thread needs (its state elements,
+// r, k, w of its rows, v of its columns, u) is issued at once, straight
+// into registers: one DRAM round trip, no shared memory, no barrier; the
+// blocks finish at different times, so one block's state write overlaps
+// other blocks' reads.  tools/wkv_probe.py times the alternatives (its own
+// kernels, appended to a copy of this file): blocks of 16 or 32 columns
+// of a (b, h) are no faster, and persistent blocks walking the (b, h)
+// items with a two-stage ring of bulk copies of each item's 16 KB state
+// and rows, the new state written back by bulk store, are slower.
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int LANES = 16;   // row lanes sharing a column group
-constexpr int TC = 16;      // time steps staged at a time
+constexpr int TC = 16;        // T > 1: time steps a ring stage holds
+constexpr int NS = 2;         // T > 1: ring stages
+constexpr int SEQ_ROWS = 4;   // T > 1 at hd = 64: rows a thread holds
+constexpr int SEQ_COLS = 8;   // T > 1 at hd = 64: columns a thread holds
+constexpr int LANES = 16;     // T = 1: row lanes sharing a column group
+constexpr unsigned FULL = 0xffffffffu;
 
+// R consecutive floats at p (16-byte aligned for R % 4 == 0, 8 for R = 2).
+template <int R>
+__device__ __forceinline__ void load_rows(const float* p, float (&x)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      x[i] = q.x; x[i + 1] = q.y; x[i + 2] = q.z; x[i + 3] = q.w;
+    }
+  } else if constexpr (R == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    x[0] = q.x; x[1] = q.y;
+  } else {
+    static_assert(R == 1, "R is 1, 2 or a multiple of 4");
+    x[0] = *p;
+  }
+}
+
+// Thread (p, g)'s R x C state elements: rows R p .. R p + R - 1, columns
+// C g .. C g + C - 1 of an hd x hd state at s.
+template <int R, int C>
+__device__ __forceinline__ void load_state(const float* s, int p, int g,
+                                           int hd, float (&S)[R][C]) {
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii)
+#pragma unroll
+    for (int c4 = 0; c4 < C; c4 += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(s + (R * p + ii) * hd + C * g + c4);
+      S[ii][c4] = x.x; S[ii][c4 + 1] = x.y; S[ii][c4 + 2] = x.z; S[ii][c4 + 3] = x.w;
+    }
+}
+
+template <int R, int C>
+__device__ __forceinline__ void store_state(float* s, int p, int g, int hd,
+                                            const float (&S)[R][C]) {
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii)
+#pragma unroll
+    for (int c4 = 0; c4 < C; c4 += 4)
+      *reinterpret_cast<float4*>(s + (R * p + ii) * hd + C * g + c4) =
+          make_float4(S[ii][c4], S[ii][c4 + 1], S[ii][c4 + 2], S[ii][c4 + 3]);
+}
+
+// One step of the recurrence for thread (p, g) of L row lanes (p < L, the
+// L lanes of a column group adjacent in a warp): updates its R x C state
+// elements and leaves in acc its rows' share of y of its C columns; the
+// bonus enters as those rows' share, (sum over its rows of r u k) v[c].
+template <int R, int C>
+__device__ __forceinline__ void wkv_update(float (&S)[R][C], const float (&rr)[R],
+                                           const float (&kk)[R], const float (&ww)[R],
+                                           const float (&uu)[R], const float (&vc)[C],
+                                           float (&acc)[C]) {
+  float bonus = 0.f;
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii) bonus = fmaf(rr[ii] * uu[ii], kk[ii], bonus);
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = bonus * vc[c];
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      acc[c] = fmaf(rr[ii], S[ii][c], acc[c]);
+      S[ii][c] = fmaf(ww[ii], S[ii][c], kk[ii] * vc[c]);
+    }
+  }
+}
+
+// y of column C g + ycol<C, L>(p): acc summed over the L row lanes (every
+// lane of the warp takes part), by a butterfly: a reduce-scatter that halves
+// the columns a lane carries at each of lane bits L / 2, L / 4, ... (the
+// lane with the bit set keeps the upper half), then a plain sum over the
+// rest.
+template <int C, int L>
+__device__ __forceinline__ float reduce_lanes(float (&acc)[C], int p) {
+  static_assert(C <= L, "a lane ends with one column at most");
+  int n = C, bit = L / 2;
+#pragma unroll
+  for (; n > 1; n >>= 1, bit >>= 1) {
+    const bool upper = p & bit;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float keep = upper ? acc[n / 2 + i] : acc[i];
+      const float send = upper ? acc[i] : acc[n / 2 + i];
+      acc[i] = keep + __shfl_xor_sync(FULL, send, bit);
+    }
+  }
+#pragma unroll
+  for (; bit > 0; bit >>= 1) acc[0] += __shfl_xor_sync(FULL, acc[0], bit);
+  return acc[0];
+}
+
+template <int R, int C, int L>
+__device__ __forceinline__ float wkv_step(float (&S)[R][C], const float (&rr)[R],
+                                          const float (&kk)[R], const float (&ww)[R],
+                                          const float (&uu)[R], const float (&vc)[C],
+                                          int p) {
+  float acc[C];
+  wkv_update<R, C>(S, rr, kk, ww, uu, vc, acc);
+  return reduce_lanes<C, L>(acc, p);
+}
+
+// The column of C g .. C g + C - 1 that lane p holds after the butterfly;
+// lanes with p % (L / C) == 0 hold one each.
+template <int C, int L>
+__device__ __forceinline__ int ycol(int p) {
+  int col = 0;
+#pragma unroll
+  for (int n = C, bit = L / 2; n > 1; n >>= 1, bit >>= 1)
+    if (p & bit) col += n / 2;
+  return col;
+}
+
+// warp 0 of a T > 1 block: one bulk copy per (array, step) row of chunk c
+// (steps c TC .. c TC + nt - 1) into stage c % NS of the ring.
 template <int HD>
-__global__ void __launch_bounds__(4 * HD, 1280 / (4 * HD)) wkv_kernel(
+__device__ __forceinline__ void produce_chunk(
+    float (&ring)[NS][4][TC][HD], uint64_t* full, const float* r,
+    const float* k, const float* v, const float* w, size_t base,
+    size_t t_stride, int T, int c, int lane) {
+  const int s = c % NS, t0 = c * TC, nt = min(TC, T - t0);
+  if (lane == 0) hopper::mbar_expect_tx(&full[s], 4 * nt * HD * 4);
+  __syncwarp();
+  for (int i = lane; i < 4 * nt; i += 32) {
+    const int a = i / nt, tt = i % nt;
+    const float* src = a == 0 ? r : a == 1 ? k : a == 2 ? v : w;
+    hopper::bulk_load(&ring[s][a][tt][0],
+                      src + base + (size_t)(t0 + tt) * t_stride, HD * 4,
+                      &full[s]);
+  }
+}
+
+// ------------------------------------------------------------------ T > 1
+
+// Row lanes: thread (p, g) of L * HD / C (L = HD / R row lanes) holds rows
+// R p .. R p + R - 1 of the C columns C g .. C g + C - 1.
+template <int HD, int R, int C>
+__global__ void __launch_bounds__(HD / R * HD / C, 5) wkv_seq_kernel(
     const float* __restrict__ r, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ w,
-    const float* __restrict__ u, const float* s0, float* y, float* s_out,
-    int T, int H) {
-  constexpr int NT = 4 * HD;
-  constexpr int R = HD / LANES;
-  __shared__ float4 rkw_s[TC][HD];   // (r, k, w, u*k) of each row
-  __shared__ __align__(16) float v_s[TC][HD];
-  __shared__ float y_s[TC][HD];
+    const float* __restrict__ u, const float* s0, float* __restrict__ y,
+    float* s_out, int T, int H) {
+  constexpr int L = HD / R;
+  __shared__ __align__(128) float ring[NS][4][TC][HD];   // r, k, v, w rows
+  __shared__ __align__(8) uint64_t full[NS];
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int p = tid % LANES, g = tid / LANES;
-  const bool hi = p & 8, mid = p & 4;
-  const int col = (hi ? 2 : 0) + (mid ? 1 : 0);   // after the butterfly
-
-  float S[R][4];
-  const float4* s_in = reinterpret_cast<const float4*>(s0 + (size_t)bh * HD * HD);
-#pragma unroll
-  for (int ii = 0; ii < R; ++ii) {
-    const float4 x = s_in[(ii * LANES + p) * (HD / 4) + g];
-    S[ii][0] = x.x; S[ii][1] = x.y; S[ii][2] = x.z; S[ii][3] = x.w;
-  }
-
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int p = tid % L, g = tid / L;
   const size_t t_stride = (size_t)H * HD;                 // one time step
   const size_t base = ((size_t)b * T * H + h) * HD;       // (b, 0, h, 0)
-  for (int t0 = 0; t0 < T; t0 += TC) {
-    const int nt = min(TC, T - t0);
-    __syncthreads();          // the previous chunk's y_s is written out
-    for (int e = tid; e < nt * HD; e += NT) {
-      const int tt = e / HD, c = e % HD;
-      const size_t off = base + (size_t)(t0 + tt) * t_stride + c;
-      const float kc = k[off];
-      rkw_s[tt][c] = make_float4(r[off], kc, w[off], u[h * HD + c] * kc);
-      v_s[tt][c] = v[off];
-    }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float4 v4 = reinterpret_cast<const float4*>(v_s[tt])[g];
-      const float vc[4] = {v4.x, v4.y, v4.z, v4.w};
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ii = 0; ii < R; ++ii) {
-        const float4 q = rkw_s[tt][ii * LANES + p];    // (r, k, w, u*k)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[c] = fmaf(q.x, fmaf(q.w, vc[c], S[ii][c]), acc[c]);
-          S[ii][c] = fmaf(q.z, S[ii][c], q.y * vc[c]);
-        }
-      }
-      // butterfly over the 16 row lanes: keep two columns, then one
-      const float a0 = hi ? acc[2] : acc[0], a1 = hi ? acc[3] : acc[1];
-      const float b0 = hi ? acc[0] : acc[2], b1 = hi ? acc[1] : acc[3];
-      const float c0 = a0 + __shfl_xor_sync(0xffffffffu, b0, 8);
-      const float c1 = a1 + __shfl_xor_sync(0xffffffffu, b1, 8);
-      float sum = (mid ? c1 : c0) +
-                  __shfl_xor_sync(0xffffffffu, mid ? c0 : c1, 4);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      if ((p & 3) == 0) y_s[tt][4 * g + col] = sum;
-    }
-    __syncthreads();
-    for (int e = tid; e < nt * HD; e += NT) {
-      const int tt = e / HD, c = e % HD;
-      y[base + (size_t)(t0 + tt) * t_stride + c] = y_s[tt][c];
-    }
-  }
+  const int nchunks = (T + TC - 1) / TC;
 
-  float4* s_dst = reinterpret_cast<float4*>(s_out + (size_t)bh * HD * HD);
-#pragma unroll
-  for (int ii = 0; ii < R; ++ii)
-    s_dst[(ii * LANES + p) * (HD / 4) + g] =
-        make_float4(S[ii][0], S[ii][1], S[ii][2], S[ii][3]);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid < 32)
+    for (int c = 0; c < min(NS, nchunks); ++c)
+      produce_chunk<HD>(ring, full, r, k, v, w, base, t_stride, T, c, lane);
+
+  float uu[R], S[R][C];
+  load_rows<R>(u + h * HD + R * p, uu);
+  load_state<R, C>(s0 + (size_t)bh * HD * HD, p, g, HD, S);
+  // y at step t; every lane stores it (the L / C lanes that hold a column
+  // store the same value), so no branch parts the warp between shuffles
+  float* y_t = y + base + C * g + ycol<C, L>(p);
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % NS, nt = min(TC, T - c * TC);
+    hopper::mbar_wait(&full[s], (c / NS) & 1);
+#pragma unroll 2
+    for (int tt = 0; tt < nt; ++tt, y_t += t_stride) {
+      float rr[R], kk[R], ww[R], vc[C];
+      load_rows<R>(&ring[s][0][tt][R * p], rr);
+      load_rows<R>(&ring[s][1][tt][R * p], kk);
+      load_rows<R>(&ring[s][3][tt][R * p], ww);
+      load_rows<C>(&ring[s][2][tt][C * g], vc);
+      *y_t = wkv_step<R, C, L>(S, rr, kk, ww, uu, vc, p);
+    }
+    __syncthreads();          // every warp is done with stage s
+    if (tid < 32 && c + NS < nchunks)
+      produce_chunk<HD>(ring, full, r, k, v, w, base, t_stride, T, c + NS,
+                        lane);
+  }
+  store_state<R, C>(s_out + (size_t)bh * HD * HD, p, g, HD, S);
+}
+
+// ------------------------------------------------------------------ T = 1
+
+__device__ __forceinline__ void unpack4(const float4 x, float (&vc)[4]) {
+  vc[0] = x.x; vc[1] = x.y; vc[2] = x.z; vc[3] = x.w;
+}
+
+// One block per (b, h): thread (p, g), p = row lane of LANES, holds rows
+// R p .. R p + R - 1 of the columns 4 g .. 4 g + 3; every load issued at
+// once into registers.
+template <int HD>
+__global__ void __launch_bounds__(4 * HD) wkv_step_kernel(
+    const float* __restrict__ r, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ w,
+    const float* __restrict__ u, const float* s0, float* __restrict__ y,
+    float* s_out, int H) {
+  constexpr int R = HD / LANES;
+  const int bh = blockIdx.x, h = bh % H;
+  const int p = threadIdx.x % LANES, g = threadIdx.x / LANES;
+  const size_t row = (size_t)bh * HD;     // (b, 0, h, 0) at T = 1
+  float S[R][4], rr[R], kk[R], ww[R], uu[R], vc[4];
+  load_state<R, 4>(s0 + (size_t)bh * HD * HD, p, g, HD, S);
+  load_rows<R>(r + row + R * p, rr);
+  load_rows<R>(k + row + R * p, kk);
+  load_rows<R>(w + row + R * p, ww);
+  load_rows<R>(u + h * HD + R * p, uu);
+  unpack4(*reinterpret_cast<const float4*>(v + row + 4 * g), vc);
+  const float yv = wkv_step<R, 4, LANES>(S, rr, kk, ww, uu, vc, p);
+  if ((p & 3) == 0) y[row + 4 * g + ycol<4, LANES>(p)] = yv;
+  store_state<R, 4>(s_out + (size_t)bh * HD * HD, p, g, HD, S);
 }
 
 template <int HD>
-void launch_hd(const void* r, const void* k, const void* v, const void* w,
-               const void* u, const void* s0, void* y, void* s_out, int B,
-               int T, int H, cudaStream_t stream) {
-  wkv_kernel<HD><<<B * H, 4 * HD, 0, stream>>>(
-      static_cast<const float*>(r), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(w),
-      static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<float*>(y), static_cast<float*>(s_out), T, H);
+int launch_hd(const void* r, const void* k, const void* v, const void* w,
+              const void* u, const void* s0, void* y, void* s_out, int B,
+              int T, int H, cudaStream_t stream) {
+  const auto* rf = static_cast<const float*>(r);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* uf = static_cast<const float*>(u);
+  const auto* sf = static_cast<const float*>(s0);
+  auto* yf = static_cast<float*>(y);
+  auto* of = static_cast<float*>(s_out);
+  if (T != 1) {
+    // hd = 32 (the reduced config): 8 row lanes of 4 rows x 4 columns
+    constexpr int R = HD == 32 ? 4 : SEQ_ROWS;
+    constexpr int C = HD == 32 ? 4 : SEQ_COLS;
+    wkv_seq_kernel<HD, R, C><<<B * H, HD / R * HD / C, 0, stream>>>(
+        rf, kf, vf, wf, uf, sf, yf, of, T, H);
+  } else {
+    wkv_step_kernel<HD><<<B * H, 4 * HD, 0, stream>>>(rf, kf, vf, wf, uf, sf,
+                                                      yf, of, H);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -146,12 +332,7 @@ extern "C" int repro_wkv(const void* r, const void* k, const void* v,
                          void* stream) {
   if (B <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) {
-    launch_hd<64>(r, k, v, w, u, s0, y, s_out, B, T, H, st);
-  } else if (hd == 32) {
-    launch_hd<32>(r, k, v, w, u, s0, y, s_out, B, T, H, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (hd == 64) return launch_hd<64>(r, k, v, w, u, s0, y, s_out, B, T, H, st);
+  if (hd == 32) return launch_hd<32>(r, k, v, w, u, s0, y, s_out, B, T, H, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

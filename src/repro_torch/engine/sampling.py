@@ -68,7 +68,13 @@ class Key:
 
     def _generator(self) -> torch.Generator:
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed >> 1)      # manual_seed takes 63 bits
+        # CUDA's Philox reads all 64 bits; the CPU's Mersenne Twister only
+        # the low 32, so the high word is folded into them there (seeds
+        # below 2**32 are kept as they are, and s and s + 2**32 differ)
+        seed = self.seed
+        if gen.device.type == "cpu":
+            seed = (seed ^ (seed >> 32)) & _M32
+        gen.manual_seed(seed)
         return gen
 
     def uniform(self, shape: Sequence[int]) -> torch.Tensor:

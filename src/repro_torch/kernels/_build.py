@@ -42,8 +42,9 @@ SIGNATURES = {
     # q, k, v, q_pos, k_pos, out, B, Hq, Hkv, T, S, D, causal, window,
     # scale, stream
     "repro_flash_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
-    # lp_curr, lp_prev, u, valid_len, out, B, N, log_lenience, stream
-    "repro_spec_verify": [_P] * 5 + [_I, _I, _F, _P],
+    # lp_curr, lp_prev, u, valid_len, valid_len is int64, out, B, N,
+    # log_lenience, stream
+    "repro_spec_verify": [_P] * 4 + [_I, _P, _I, _I, _F, _P],
     # buf, shift, out, R, S, row_bytes, stream
     "repro_cache_roll": [_P] * 3 + [_L, _I, _I, _P],
     # dst, src, src_for_dst, Rd, row_bytes, stream

@@ -14,14 +14,18 @@ Per (batch, head), with data-dependent per-channel decay ``w_t``::
 The function is bound by its bytes at T in the hundreds (85 us at
 T = 320 for the slice's shapes; its 5 fp32 flops per state element per
 step take 63 us, and the T sequential steps add a latency floor) and by
-the state's read and write at T = 1.  The kernel keeps ``wkv_scan``'s
-order, which spends 7 flops an element (the u-term inside the r-sum).  It keeps each (b, h) state in
-registers for the whole sequence, one block per (b, h) with four threads
-per state column, and stages r/k/v/w in shared memory 16 steps at a time
-(the source's note has the details).  It reads the model's (B, T, H, hd)
-layout in place and may write the final state over ``s0``: that is how the
-decode cache is updated in place.  The pad contract is the caller's: w = 1
-and k = 0 leave the state unchanged.
+the state's read and write at T = 1.  One launch a call, the kernel chosen
+by T (the source's note has the details).  For T > 1 each (b, h) state
+stays in registers for the whole sequence, one block per (b, h), with the
+bonus factored as the TPU kernel factors it (three instructions per state
+element a step) and r/k/v/w brought in by bulk copies into a ring of
+16-step stages, a chunk ahead of the compute.  For T = 1 (the decode step)
+every load of a block goes out at once into registers.  The kernel reads the model's
+(B, T, H, hd) layout in place and may write the final state over ``s0``:
+that is how the decode cache is updated in place.  The pad contract is the
+caller's: w = 1 and k = 0 leave the state unchanged.  ``wkv_plain`` keeps
+``wkv_scan``'s order (the u-term inside the r-sum); the two orders agree
+within rounding.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, WKV_LAUNCHES_BY_T
 from repro_torch.kernels._build import launch
 
 HEAD_DIMS = (32, 64)
@@ -49,10 +53,28 @@ def wkv_plain(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, s
 
 
+def wkv_step_partition(B: int, H: int, hd: int) -> torch.Tensor:
+    """The T = 1 kernel's work partition, the Python twin of
+    ``wkv_step_kernel``'s indexing in ``csrc/wkv.cu``: one row (block,
+    thread, b, h, i, j) for every state element S[b, h, i, j] a thread
+    holds.  Block ``blk`` takes (b, h) = divmod(blk, H); its thread ``tid``,
+    row lane p = tid % 16 of column group g = tid // 16, holds rows
+    R p .. R p + R - 1 (R = hd // 16) of the columns 4 g .. 4 g + 3."""
+    R = hd // 16
+    out = []
+    for blk in range(B * H):
+        b, h = divmod(blk, H)
+        for tid in range(4 * hd):
+            p, g = tid % 16, tid // 16
+            out += [(blk, tid, b, h, R * p + ii, 4 * g + c)
+                    for ii in range(R) for c in range(4)]
+    return torch.tensor(out, dtype=torch.int64)
+
+
 def wkv_cuda(r, k, v, w, u, s0, s_out) -> torch.Tensor:
-    """The kernel entry: every tensor contiguous float32 on one device;
-    writes the final state into ``s_out`` (which may be ``s0``) and returns
-    y."""
+    """The kernel entry: every tensor contiguous float32, 16-byte aligned,
+    on one device; writes the final state into ``s_out`` (which may be
+    ``s0``) and returns y.  One launch, nothing else."""
     B, T, H, hd = r.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"wkv kernel: head dim {hd} not in {HEAD_DIMS}")
@@ -64,11 +86,14 @@ def wkv_cuda(r, k, v, w, u, s0, s_out) -> torch.Tensor:
                 or t.device != r.device or tuple(t.shape) != shape):
             raise ValueError(f"wkv kernel needs a contiguous float32 {name} "
                              f"of shape {shape} on {r.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv kernel needs {name} 16-byte aligned")
     y = torch.empty_like(r)
     launch("repro_wkv", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
            w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
            s_out.data_ptr(), B, T, H, hd)
     LAUNCHES["wkv"] += 1
+    WKV_LAUNCHES_BY_T[T] = WKV_LAUNCHES_BY_T.get(T, 0) + 1
     return y
 
 

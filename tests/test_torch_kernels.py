@@ -35,6 +35,8 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.engine import sampling  # noqa: E402
+from repro_torch.kernels.spec_verify import ops as sv_ops  # noqa: E402
 from repro_torch.kernels.spec_verify.ops import spec_verify  # noqa: E402
 
 ATOL = 1e-5
@@ -223,6 +225,80 @@ def test_spec_verify_plain_matches_jax_exactly(log_lenience):
         np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32
     assert np.any((got > 0) & (got < valid))      # some partial accepts
+
+
+@pytest.mark.parametrize("log_lenience", [0.0, np.log(0.8)])
+def test_spec_verify_plain_takes_int32_and_int64_lengths(log_lenience):
+    """The callers' lengths come as int32 or int64: the same answer either
+    way, and both equal to JAX's kernel in interpret mode (lengths of 0,
+    of the whole draft and in between)."""
+    rng = np.random.default_rng(12)
+    B, N = 7, 40
+    lp_prev = (-rng.exponential(2.0, (B, N))).astype(np.float32)
+    lp_curr = (lp_prev + rng.normal(0, 1.0, (B, N))).astype(np.float32)
+    u = rng.uniform(size=(B, N)).astype(np.float32)
+    valid = np.array([0, N, 1, 9, 23, 39, 17], np.int32)
+    args = tuple(_t(a) for a in (lp_curr, lp_prev, u))
+    got32 = spec_verify(*args, _t(valid), float(log_lenience))
+    got64 = spec_verify(*args, _t(valid.astype(np.int64)), float(log_lenience))
+    assert got32.dtype == got64.dtype == torch.int32
+    np.testing.assert_array_equal(got32.numpy(), got64.numpy())
+    want = np.asarray(jax_spec_verify(
+        *(jnp.asarray(a) for a in (lp_curr, lp_prev, u, valid)),
+        float(log_lenience), impl="interpret", block_t=16))
+    np.testing.assert_array_equal(got64.numpy(), want)
+
+
+def test_spec_verify_kernel_refuses_what_it_cannot_take():
+    """The kernel entry raises before any launch on what the kernel cannot
+    take (meta tensors): another dtype of the log-probs or of the lengths,
+    a non-contiguous input, shapes that do not match."""
+    meta = dict(device="meta")
+    f32 = dict(dtype=torch.float32, **meta)
+    x = torch.empty(4, 16, **f32)
+    vl = torch.empty(4, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="float32"):
+        sv_ops.spec_verify_cuda(x.double(), x, x, vl, 0.0)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        sv_ops.spec_verify_cuda(x, x, x, vl.to(torch.int16), 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        sv_ops.spec_verify_cuda(x, torch.empty(16, 4, **f32).t(), x, vl, 0.0)
+    with pytest.raises(ValueError, match="valid_len"):
+        sv_ops.spec_verify_cuda(x, x, x, torch.empty(5, dtype=torch.int64,
+                                                     **meta), 0.0)
+    with pytest.raises(ValueError, match="lp_prev"):
+        sv_ops.spec_verify_cuda(x, torch.empty(4, 15, **f32), x, vl, 0.0)
+
+
+@pytest.mark.parametrize("seeds", [(0, 1), (6, 7)])
+def test_adjacent_seeds_draw_different_noise(seeds):
+    """A key's draw uses all 64 bits of its seed: adjacent seeds (which
+    differ only in the lowest bit) draw different noise, as JAX's
+    PRNGKey(0) and PRNGKey(1) do, and the same seed draws the same."""
+    a, b = (sampling.make_key(s, "cpu") for s in seeds)
+    ua, ub = a.uniform((64,)), b.uniform((64,))
+    assert not torch.equal(ua, ub)
+    assert not torch.equal(a.gumbel((8,)), b.gumbel((8,)))
+    torch.testing.assert_close(sampling.make_key(seeds[0], "cpu").uniform((64,)),
+                               ua, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seeds", [(0, 2 ** 32), (5, 5 + 2 ** 40)])
+def test_seeds_apart_in_the_high_word_draw_different_noise_on_cpu(seeds):
+    """The CPU generator reads 32 bits of a seed: the key folds the high
+    word into them, so seeds that differ only above bit 31 draw different
+    noise there too."""
+    a, b = (sampling.make_key(s, "cpu") for s in seeds)
+    assert not torch.equal(a.uniform((64,)), b.uniform((64,)))
+
+
+def test_a_seed_above_2_to_the_63_seeds_a_key():
+    """A seed above 2**63 (a split of any key may give one) seeds a
+    generator, and its neighbour below draws other noise."""
+    big = 2 ** 64 - 1
+    draw = sampling.make_key(big, "cpu").uniform((16,))
+    assert bool(torch.isfinite(draw).all())
+    assert not torch.equal(draw, sampling.make_key(big - 1, "cpu").uniform((16,)))
 
 
 def test_cache_roll_plain_matches_jax_exactly():

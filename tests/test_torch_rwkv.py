@@ -41,6 +41,7 @@ from repro_torch.core import RolloutCache, SpecConfig, rollout  # noqa: E402
 from repro_torch.data.dataset import PromptDataset  # noqa: E402
 from repro_torch.data.tokenizer import EOS_ID, PAD_ID  # noqa: E402
 from repro_torch.engine.generate import GenerateConfig, positions_from_mask  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ops import wkv, wkv_plain  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import rwkv as R  # noqa: E402
@@ -114,6 +115,66 @@ def test_wkv_state_handoff_in_place_and_pads():
     keep = [t for t in range(24) if t != 3]
     _, s_b = wkv(r[:, keep], k[:, keep], v[:, keep], w[:, keep], u, s0)
     _close(s_a, s_b, "pad state")
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_wkv_step_partition_covers_each_element_once(hd):
+    """The T = 1 kernel's partition (its Python twin) against brute force:
+    every state element of every (b, h) lies in exactly one thread of one
+    block; a block takes one whole (b, h); a thread takes R = hd / 16
+    consecutive rows of 4 adjacent columns."""
+    Bc, H = 3, 5
+    part = wkv_ops.wkv_step_partition(Bc, H, hd).numpy()
+    blk, tid, b, h, i, j = part.T
+    assert len(part) == Bc * H * hd * hd
+    flat = ((b * H + h) * hd + i) * hd + j
+    np.testing.assert_array_equal(np.sort(flat), np.arange(Bc * H * hd * hd))
+    assert blk.max() + 1 == Bc * H
+    for n in range(blk.max() + 1):
+        mine = part[blk == n]
+        assert len({(x[2], x[3]) for x in mine}) == 1, f"block {n}"
+        assert len(mine) == hd * hd, f"block {n}"
+    R = hd // 16
+    for key in {(x[0], x[1]) for x in part[:: 7 * R]}:
+        mine = part[(blk == key[0]) & (tid == key[1])]
+        rows, cs = np.unique(mine[:, 4]), np.unique(mine[:, 5])
+        assert len(mine) == 4 * R and len(rows) == R and len(cs) == 4
+        assert rows[-1] - rows[0] == R - 1 and rows[0] % R == 0
+        assert cs[-1] - cs[0] == 3 and cs[0] % 4 == 0
+
+
+def test_wkv_kernel_refuses_what_it_cannot_take():
+    """The kernel entry raises before any launch on inputs outside the
+    kernel's contract (meta tensors: the checks need no card): a head dim
+    other than 32 or 64, another dtype, a wrong shape, a non-contiguous
+    input; and ``wkv`` on a device without a kernel raises too."""
+    meta = dict(device="meta", dtype=torch.float32)
+    Bc, T, H = 2, 5, 3
+
+    def call(hd=64, dtype=None, r=None, u=None, s_out=None):
+        x = torch.empty(Bc, T, H, hd, device="meta",
+                        dtype=dtype or torch.float32)
+        s0 = torch.empty(Bc, H, hd, hd, **meta)
+        wkv_ops.wkv_cuda(x if r is None else r, x, x, x,
+                         torch.empty(H, hd, **meta) if u is None else u, s0,
+                         s0 if s_out is None else s_out)
+
+    with pytest.raises(ValueError, match="head dim"):
+        call(hd=48)
+    with pytest.raises(ValueError, match="head dim"):
+        call(hd=128)
+    with pytest.raises(ValueError, match="float32"):
+        call(dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shape"):
+        call(u=torch.empty(H + 1, 64, **meta))
+    with pytest.raises(ValueError, match="s_out"):
+        call(s_out=torch.empty(Bc, H, 64, 32, **meta))
+    with pytest.raises(ValueError, match="contiguous"):
+        call(r=torch.empty(Bc, H, T, 64, **meta).transpose(1, 2))
+    x = torch.empty(Bc, T, H, 64, **meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        wkv(x, x, x, x, torch.empty(H, 64, **meta),
+            torch.empty(Bc, H, 64, 64, **meta))
 
 
 @pytest.fixture(scope="module")
