@@ -55,7 +55,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs five paths (random weights from a seed), each with the launch
+5. runs six paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs:
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
@@ -67,6 +67,19 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    ``paged``    the fixed-batch two epochs over the paged KV layout
                 (``cache_layout="paged"``): decode through the paged kernel,
                 compaction through paged_gather and the slot write;
+   ``train``    the GRPO train step on the same model: two
+                ``Trainer.train_step`` calls (epoch 0 vanilla, epoch 1
+                one-pass spec, the real verifier; a ``train`` line each with
+                the stage split, loss, grad norm, launches by stage and peak
+                memory), then ``Trainer.optimize`` on the epoch-1 rollout
+                with seeded mixed rewards, at the default lr and at 1e-3: a
+                finite loss, a nonzero gradient in every parameter, no kernel
+                launched by the actor update (its forward takes the
+                differentiable route), ``flash_attention`` launched once a
+                layer by the old-policy and by the reference scoring; then,
+                with the model freed, its float32 witness: two layers at
+                full width, the actor update on the card against the whole
+                ``optimize`` on the CPU from the same weights and rollout;
    ``serve``    one run of ``python -m repro_torch.launch.serve`` on the
                 card (its reduced config, ``--spec-prefix --arrival-every
                 2``);
@@ -148,6 +161,18 @@ PROMPTS, GROUP, P, N = 4, 4, 64, 256
 SLOTS = 8                       # decode slots of the slot-backfill path
 LENIENCE = 0.99
 SEED = 0
+# the train path's float32 witness: two layers at full width, the first
+# WITNESS_ROWS rows (two GRPO groups) of the epoch-1 rollout cut to
+# WITNESS_COLS response columns; lr 1e-3 so that the update dominates
+WITNESS_LAYERS, WITNESS_ROWS, WITNESS_COLS, WITNESS_LR = 2, 8, 64, 1e-3
+# the witness's tolerances, those of tests/test_torch_train.py's optimize:
+# loss and grad norm within rtol 1e-4 (the loss also atol 1e-6); gradients
+# within GRAD_NOISE of each tensor's largest (card vs CPU, float32 sums in
+# another order: up to 8.4e-6 measured); parameters within 1e-6 of |p| + lr
+# plus what that gradient error does to AdamW's first step (update_tol);
+# the card's first-update ratio within 1e-5 of 1
+TRAIN_RTOL, TRAIN_ATOL, PARAM_RTOL, RATIO_TOL = 1e-4, 1e-6, 1e-6, 1e-5
+GRAD_NOISE = 5e-5
 
 
 def require(cond, msg: str) -> None:
@@ -1332,6 +1357,294 @@ def rwkv_consistency(torch, model, cfg, max_gap=None):
                 f"{gaps['kernel'][0]} > {CHAOS_FACTOR} x {floor}")
 
 
+def mixed_rewards(B: int, seed: int = SEED):
+    """0/1 per row from a seeded generator, every group of GROUP mixed (a
+    random model earns 0 everywhere from the verifier, and GRPO's
+    advantages, hence its gradient, are then 0)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed).integers(0, 2, B).astype(np.float32)
+    r[0::GROUP], r[1::GROUP] = 1.0, 0.0
+    return r
+
+
+class StageSpy:
+    """Counts the kernel launches and the peak memory of each trainer stage:
+    wraps the collector's ``collect`` and the trainer module's
+    ``_old_logprobs`` (the actor's scoring, then the reference's) and
+    ``_update_actor`` while it is active."""
+
+    def __init__(self, torch, tr, T):
+        self.torch, self.tr, self.T = torch, tr, T
+        self.stages = {}
+
+    def _wrap(self, fn, name_of):
+        from repro_torch.kernels import LAUNCHES
+
+        torch = self.torch
+
+        def run(*args, **kw):
+            name = name_of(args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(LAUNCHES)
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.stages[name] = {
+                "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                             if LAUNCHES[k] != before[k]},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            return out
+        return run
+
+    def __enter__(self):
+        T, tr = self.T, self.tr
+        self.saved = (T._old_logprobs, T._update_actor)
+        T._old_logprobs = self._wrap(
+            T._old_logprobs,
+            lambda a: "old_logprob" if a[0] is tr.model else "ref")
+        T._update_actor = self._wrap(T._update_actor,
+                                     lambda a: "update_actor")
+        tr.collector.collect = self._wrap(tr.collector.collect,
+                                          lambda a: "collect")
+        return self
+
+    def __exit__(self, *exc):
+        self.T._old_logprobs, self.T._update_actor = self.saved
+        del self.tr.collector.collect
+
+    def take(self):
+        out, self.stages = self.stages, {}
+        return out
+
+
+def check_scoring(label, stages, layers):
+    """The two no-grad scorings launch flash_attention once a layer and
+    nothing else; the actor update launches nothing."""
+    for name in ("old_logprob", "ref"):
+        got = stages[name]["launches"]
+        require(got == {"flash_attention": layers},
+                f"{label}: {name} launched {got}, want flash_attention "
+                f"{layers} times")
+    require(stages["update_actor"]["launches"] == {},
+            f"{label}: the actor update launched kernels: "
+            f"{stages['update_actor']['launches']}")
+
+
+def train_path(torch, model, cfg, batch):
+    """The GRPO train step on the full-depth model: two ``train_step``
+    calls with the real verifier, then ``optimize`` on the epoch-1 rollout
+    with seeded mixed rewards at the default lr and at 1e-3.  Returns the
+    launches and the epoch-1 rollout."""
+    import numpy as np
+    from dataclasses import replace
+
+    from repro_torch.core import SpecConfig
+    from repro_torch.data.dataset import PromptDataset
+    from repro_torch.engine.sampling import make_key
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
+    from repro_torch.rl import trainer as T
+
+    problems = generate_problems(MathTaskConfig(num_problems=PROMPTS,
+                                                seed=SEED))
+    ds = PromptDataset(problems, max_prompt_len=P)
+    rl = T.RLConfig(group_size=GROUP, prompts_per_batch=PROMPTS,
+                    max_new_tokens=N)
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    reset_launches()
+    tr = T.Trainer(cfg, rl, spec, ds, make_key(SEED), model=model)
+    layers = cfg.num_layers
+    with StageSpy(torch, tr, T) as spy:
+        for epoch in (0, 1):
+            m = tr.train_step(batch)
+            st = spy.take()
+            log("train " + json.dumps({
+                "step": epoch,
+                **{k: m[k] for k in (
+                    "collect_time", "old_logprob_time", "ref_time",
+                    "adv_time", "update_actor_time", "loss", "grad_norm",
+                    "reward_mean", "n_generated", "n_reused", "one_pass",
+                    "ratio_mean", "approx_kl", "clip_frac", "kl_ref")},
+                "launches": {k: v["launches"] for k, v in st.items()},
+                "peak_gib": {k: v["peak_gib"] for k, v in st.items()},
+                "step_peak_gib": max(v["peak_gib"] for v in st.values())}))
+            require(np.isfinite(m["loss"]), f"train step {epoch}: loss "
+                    f"{m['loss']}")
+            check_scoring(f"train step {epoch}", st, layers)
+            want = ({"decode_attention", "flash_attention"} if epoch == 0
+                    else {"decode_attention", "flash_attention",
+                          "spec_verify", "cache_roll"})
+            got = set(st["collect"]["launches"])
+            require(want <= got, f"train step {epoch}: the rollout "
+                    f"launched {sorted(got)}, want {sorted(want)}")
+            require(m["one_pass"] == float(epoch), f"train step {epoch}: "
+                    f"one_pass {m['one_pass']}")
+        rb1 = tr.last_rb
+        rewards = mixed_rewards(rb1.prompt.shape[0])
+        for lr in (rl.optim.lr, 1e-3):
+            tr.rl = replace(tr.rl, optim=AdamWConfig(lr=lr))
+            before = [p.detach().to("cpu", copy=True)
+                      for p in model.parameters()]
+            m = tr.optimize(rb1, rewards, {})
+            st = spy.take()
+            changed = sum(int((p.detach().to("cpu") != b).sum())
+                          for p, b in zip(model.parameters(), before))
+            total = sum(b.numel() for b in before)
+            del before
+            no_grad = [name for name, p in model.named_parameters()
+                       if p.grad is None or not bool((p.grad != 0).any())]
+            log("train optimize " + json.dumps({
+                "lr": lr, "rewards": rewards.tolist(),
+                **{k: m[k] for k in (
+                    "loss", "grad_norm", "ratio_mean", "approx_kl",
+                    "clip_frac", "kl_ref", "entropy", "old_logprob_time",
+                    "ref_time", "update_actor_time")},
+                "changed_fraction": changed / total,
+                "launches": {k: v["launches"] for k, v in st.items()},
+                "peak_gib": {k: v["peak_gib"] for k, v in st.items()}}))
+            require(np.isfinite(m["loss"]) and m["grad_norm"] > 0,
+                    f"train optimize: loss {m['loss']}, grad_norm "
+                    f"{m['grad_norm']}")
+            require(not no_grad, f"train optimize: no gradient in "
+                    f"{no_grad[:5]} ({len(no_grad)} parameters)")
+            check_scoring("train optimize", st, layers)
+    launches = dict(LAUNCHES)
+    log(f"train path launches: {launches}")
+    return launches, rb1
+
+
+def update_tol(p0, g, lr, scale, eps=1e-8):
+    """Tolerance of a parameter after AdamW's first step from a gradient
+    ``g`` known within δ = GRAD_NOISE · max|g·scale|: 1e-6 of the update's
+    operands (|p| + lr; p - lr·... cancels where p ≈ lr) plus at most
+    2δ·eps / (m + eps)² of g / (|g| + eps), m = |g·scale| - δ, and at most
+    2 (a sign); the same rule as tests/test_torch_train.py's."""
+    gs = g.abs() * scale
+    delta = GRAD_NOISE * float(gs.max())
+    m = (gs - delta).clamp_min(0.0)
+    return (PARAM_RTOL * (p0.abs() + lr)
+            + lr * (2 * delta * eps / (m + eps) ** 2).clamp_max(2.0))
+
+
+def train_witness(torch, rb):
+    """The update's numbers in float32: two layers at qwen3-1.7b's widths,
+    seeded weights, the first WITNESS_ROWS rows of the epoch-1 rollout cut
+    to WITNESS_COLS response columns, seeded mixed rewards.  The CPU runs
+    the whole ``Trainer.optimize``; the card runs the actor update on the
+    same weights with the CPU's old-policy and reference log-probs (its
+    own scoring would run the flash_attention kernel, which takes bfloat16
+    only).  Loss, grad norm, every gradient and every updated parameter
+    agree within the CPU parity test's tolerances, the card's ratio is
+    within RATIO_TOL of 1, and the card's update launches no kernel."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import SpecConfig
+    from repro_torch.core.spec_rollout import RolloutBatch
+    from repro_torch.data.dataset import PromptDataset
+    from repro_torch.engine.sampling import make_key
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
+    from repro_torch.rl import trainer as T
+    from repro_torch.rl.advantages import group_relative_advantages
+
+    cfg = get_config("qwen3-1.7b").replace(
+        num_layers=WITNESS_LAYERS, dtype="float32", param_dtype="float32")
+    r, c = WITNESS_ROWS, WITNESS_COLS
+    sub = RolloutBatch(
+        prompt=rb.prompt[:r], prompt_mask=rb.prompt_mask[:r],
+        response=rb.response[:r, :c], response_mask=rb.response_mask[:r, :c],
+        behaviour_logprobs=rb.behaviour_logprobs[:r, :c],
+        length=np.minimum(rb.length[:r], c), metrics={})
+    rewards = mixed_rewards(r)
+    problems = generate_problems(MathTaskConfig(num_problems=PROMPTS,
+                                                seed=SEED))
+    rl = T.RLConfig(group_size=GROUP, prompts_per_batch=r // GROUP,
+                    max_new_tokens=c, optim=AdamWConfig(lr=WITNESS_LR))
+    t0 = time.perf_counter()
+    cpu_model = M.init_lm(cfg, seed=SEED, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    cpu_tr = T.Trainer(cfg, rl, SpecConfig(lenience=LENIENCE),
+                       PromptDataset(problems, max_prompt_len=P),
+                       make_key(SEED, "cpu"), model=cpu_model)
+    prior = [p.detach().clone() for p in cpu_model.parameters()]
+    scored = []
+    score = T._old_logprobs
+    T._old_logprobs = lambda *a, **kw: scored.append(score(*a, **kw)) or \
+        scored[-1]
+    try:
+        want = cpu_tr.optimize(sub, rewards, {})
+    finally:
+        T._old_logprobs = score
+    cpu_s = time.perf_counter() - t0
+    (lp_old, _), (ref_lp, _) = scored
+
+    dev = torch.device("cuda")
+    Pw = sub.prompt.shape[1]
+    full_tokens = torch.as_tensor(np.concatenate([sub.prompt, sub.response],
+                                                 1), device=dev)
+    full_mask = torch.as_tensor(np.concatenate(
+        [sub.prompt_mask, sub.response_mask], 1), device=dev)
+    resp_mask = torch.as_tensor(sub.response_mask, device=dev)
+    adv = group_relative_advantages(
+        torch.as_tensor(rewards, device=dev), GROUP)[:, None] \
+        * resp_mask.float()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    info = T._update_actor(
+        gpu_model, adamw.init(T.trainable(gpu_model)), cfg, rl.policy_cfg(),
+        rl.optim, full_tokens, full_mask, Pw, lp_old.to(dev), adv, resp_mask,
+        ref_lp.to(dev), rl.temperature, rl.top_p)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    got = {k: float(v) for k, v in info.items()}
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                if LAUNCHES[k] != before[k]}
+
+    scale = min(1.0, 1.0 / (want["grad_norm"] + 1e-9))
+    worst, n_bad, grad_err = 0.0, 0, 0.0
+    for pg, pc, p0 in zip(gpu_model.parameters(), cpu_model.parameters(),
+                          prior):
+        g_cpu = pc.grad.detach().double()
+        g_err = float((pg.grad.detach().cpu().double() - g_cpu).abs().max())
+        grad_err = max(grad_err, g_err / float(g_cpu.abs().max()))
+        d = (pg.detach().cpu().double() - pc.detach().double()).abs()
+        tol = update_tol(p0.double(), g_cpu, WITNESS_LR, scale)
+        n_bad += int((d > tol).sum())
+        worst = max(worst, float((d / tol).max()))
+    log("train witness " + json.dumps({
+        "layers": WITNESS_LAYERS, "rows": r, "response_cols": c,
+        "lr": WITNESS_LR, "cpu": {k: want[k] for k in (
+            "loss", "grad_norm", "ratio_mean", "approx_kl", "clip_frac",
+            "kl_ref")},
+        "card": {k: got[k] for k in (
+            "loss", "grad_norm", "ratio_mean", "approx_kl", "clip_frac",
+            "kl_ref")},
+        "grad_err_of_max": grad_err, "params_off": n_bad,
+        "worst_param_err_over_tol": worst,
+        "card_update_launches": launched, "cpu_optimize_s": cpu_s,
+        "card_update_s": gpu_s}))
+    require(abs(got["loss"] - want["loss"])
+            <= TRAIN_ATOL + TRAIN_RTOL * abs(want["loss"]),
+            f"train witness: loss {got['loss']} vs CPU {want['loss']}")
+    require(abs(got["grad_norm"] - want["grad_norm"])
+            <= TRAIN_RTOL * want["grad_norm"] and want["grad_norm"] > 0,
+            f"train witness: grad_norm {got['grad_norm']} vs CPU "
+            f"{want['grad_norm']}")
+    require(abs(got["ratio_mean"] - 1.0) <= RATIO_TOL,
+            f"train witness: the card's ratio_mean {got['ratio_mean']}")
+    require(grad_err <= GRAD_NOISE, f"train witness: gradients off by "
+            f"{grad_err} of a tensor's largest > {GRAD_NOISE}")
+    require(n_bad == 0, f"train witness: {n_bad} parameter elements off "
+            f"(worst {worst} x the tolerance)")
+    require(not launched, f"train witness: the update launched {launched}")
+
+
 def serve_path(torch):
     """One run of the port's serve launcher on the card."""
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1486,7 +1799,10 @@ def main() -> int:
     paths = {"rollout": main_path(torch, model, cfg, batch, gen),
              "slots": slots_path(torch, model, cfg, batch, gen),
              "paged": paged_path(torch, model, cfg, batch, gen)}
+    paths["train"], rb1 = train_path(torch, model, cfg, batch)
     del model
+    torch.cuda.empty_cache()
+    train_witness(torch, rb1)
     torch.cuda.empty_cache()
     paths["serve"] = serve_path(torch)
     paths["rwkv"], records["wkv"]["launches_by_t"] = rwkv_path(torch)

@@ -6,21 +6,27 @@ prefix, decode the rest, and assemble ``y = draft[:n] ⊕ continuation``.
 A batch with no drafts (cold cache, or ``variant="off"``) is a vanilla
 ``generate``.  The continuation runs on one of two engine paths:
 
-* **one-pass** (attention trunks): the verify forward is a prefill, its
-  caches are compacted to the accepted region and decoding resumes from
-  them;
-* **two-pass** (recurrent trunks such as RWKV6, and ``one_pass="off"``):
-  score then re-prefill: ``verify_drafts`` scores prompt ⊕ draft,
-  ``left_align`` packs prompt ⊕ accepted prefix, and ``generate`` prefills
-  it again.
+* **one-pass** (attention trunks, ``spec`` and ``delayed``): the verify
+  forward is a prefill, its caches are compacted to the accepted region
+  and decoding resumes from them;
+* **two-pass** (recurrent trunks such as RWKV6, ``one_pass="off"``, and
+  the ``random`` and ``full`` ablations): ``left_align`` packs prompt ⊕
+  accepted prefix and ``generate`` prefills it again; ``spec`` and
+  ``delayed`` first score prompt ⊕ draft (``verify_drafts``).
+
+Variants (paper Table 2 / §4.3): ``spec`` (the method), ``delayed``
+(drafts from two visits ago, ``cache_lag`` 2), ``random`` (a uniform
+rejection position per row, the draft's stale behaviour log-probs, no
+verification pass), ``full`` (ℓ → ∞: reuse every draft whole) and ``off``
+(vanilla RLVR).
 
 ``backfill="slots"`` drains the batch through the serving slot engine
 instead (``serving/rl_adapter.py``: a row that finishes picks up the next
 prompt; drafts enter through speculative-prefix admission).  These raise
-``NotImplementedError`` and name the slice that brings them: the variants
-``random``, ``full`` and ``delayed`` with the GRPO update (ROADMAP Queue 1
-item 7); the draft engine (item 9); the mesh (item 15).  The port has no
-observatory yet (item 14): no tracer spans or ledger rows are emitted.
+``NotImplementedError`` and name the ROADMAP Queue 1 item that brings
+them: the draft engine (ROADMAP Queue 1 item 6) and the mesh (ROADMAP
+Queue 1 item 11).  The port has no observatory yet (ROADMAP Queue 1 item
+9, the observatory hooks): no tracer spans or ledger rows are emitted.
 
 ``key`` may be a scalar key (one stream for the batch) or a key batch (one
 key per row, ``engine/sampling.py``), which makes every row's tokens
@@ -50,7 +56,6 @@ from .cache import RolloutCache
 from .verify import verify_and_prefill, verify_drafts
 
 VARIANTS = ("off", "spec", "random", "delayed", "full")
-PORTED_VARIANTS = ("off", "spec")
 
 
 @dataclass(frozen=True)
@@ -62,6 +67,7 @@ class SpecConfig:
     backfill: str = "none"              # 'none' | 'slots' (slot engine)
     backfill_slots: int = 0             # decode slots for 'slots'
                                         # (0 -> half the prompt batch)
+    cache_max_prompts: Optional[int] = None  # RolloutCache LRU bound
     draft: Any = None                   # §9 draft engine config (None = off)
 
     @property
@@ -91,15 +97,18 @@ class RolloutBatch:
 
 
 def left_align(tokens, mask):
-    """Shift each row so its last valid token sits in the last column (one
-    gather with modular source indices, JAX's ``impl="gather"``).
+    """Shift each row so its last valid token sits in the last column.
 
     Requires the columns after the last valid one to be padding (true for
-    [left-padded prompt | right-padded prefix] layouts)."""
+    [left-padded prompt | right-padded prefix] layouts).  One gather with
+    modular source indices serves every variant: JAX's per-row
+    ``impl="roll"`` (kept there for the ``random``/``full`` ablations
+    because a dynamic roll lowers poorly on TPU) gives the same result."""
     W = tokens.shape[1]
     idx = torch.arange(W, dtype=torch.int64, device=tokens.device)[None, :]
     end = torch.where(mask, idx + 1, torch.zeros_like(idx)).amax(dim=1)
-    src = torch.remainder(idx - (W - end)[:, None], W)
+    shift = W - end
+    src = torch.remainder(idx - shift[:, None], W)
     return torch.gather(tokens, 1, src), torch.gather(mask, 1, src)
 
 
@@ -144,18 +153,14 @@ def use_one_pass(cfg: ModelConfig, spec: SpecConfig) -> bool:
 def _check_ported(spec: SpecConfig, mesh) -> None:
     if spec.variant not in VARIANTS:
         raise ValueError(f"unknown variant {spec.variant!r}")
-    if spec.variant not in PORTED_VARIANTS:
-        raise NotImplementedError(
-            f"variant={spec.variant!r} arrives with the GRPO-update slice "
-            "(ROADMAP Queue 1 item 7)")
     if spec.draft is not None:
         raise NotImplementedError("the draft engine arrives with ROADMAP "
-                                  "Queue 1 item 9")
+                                  "Queue 1 item 6 (the draft engine)")
     if spec.backfill not in ("none", "slots"):
         raise ValueError(f"unknown backfill {spec.backfill!r}")
     if mesh is not None:
         raise NotImplementedError("the mesh arrives with ROADMAP Queue 1 "
-                                  "item 15")
+                                  "item 11 (the mesh)")
 
 
 def _np(x) -> np.ndarray:
@@ -220,16 +225,36 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     one_pass = use_one_pass(cfg, spec)
 
     # ---- verify: one forward of the current policy over prompt ⊕ draft ---
-    # (one-pass: a prefill that fills the caches; two-pass: a score)
+    # (one-pass: a prefill that fills the caches; two-pass: a score); the
+    # random/full ablations take their prefix without one
     tv0 = time.perf_counter()
-    key, sub = split_key(key)
-    verify = verify_and_prefill if one_pass else verify_drafts
-    ver = verify(model, cfg, prompts, prompt_mask, draft_tokens, draft_lp,
-                 draft_len, sub, spec.log_lenience,
-                 temperature=gen.temperature, top_p=gen.top_p)
-    n = ver["n"]
-    prefix_lp = ver["lp_curr"]
-    accept_rate = float(ver["accept_rate"])
+    ver = None
+    if spec.variant in ("spec", "delayed"):
+        key, sub = split_key(key)
+        verify = verify_and_prefill if one_pass else verify_drafts
+        ver = verify(model, cfg, prompts, prompt_mask, draft_tokens, draft_lp,
+                     draft_len, sub, spec.log_lenience,
+                     temperature=gen.temperature, top_p=gen.top_p)
+        n = ver["n"]
+        prefix_lp = ver["lp_curr"]          # current-policy probs (exact)
+        accept_rate = float(ver["accept_rate"])
+        prefill_passes = 1.0 if one_pass else 2.0
+    elif spec.variant == "random":
+        # one uniform per row: a scalar key draws (B,) from one stream, a
+        # key batch one from each row's key (JAX's vmap'd uniform)
+        key, sub = split_key(key)
+        frac = sub.uniform((B,)).to(dev)
+        n = torch.floor(frac * (draft_len + 1)).to(torch.int32)
+        n = torch.minimum(n, draft_len.to(torch.int32))
+        prefix_lp = draft_lp                # stale behaviour probs (biased)
+        total = int(draft_len.sum())
+        accept_rate = float(n.sum().float() / max(total, 1)) if total else 0.0
+        prefill_passes = 1.0
+    else:  # full
+        n = draft_len.to(torch.int32)
+        prefix_lp = draft_lp
+        accept_rate = 1.0
+        prefill_passes = 1.0
     sync(dev)
     verify_time = time.perf_counter() - tv0
     full_reuse = (n == draft_len) & draft_eos
@@ -288,7 +313,7 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         verify_time=verify_time, rollout_time=rollout_time,
         assembly_time=assembly_time, compact_time=compact_time,
         decode_time=decode_time, one_pass=float(one_pass),
-        prefill_passes=1.0 if one_pass else 2.0, **_draft_metrics())
+        prefill_passes=prefill_passes, **_draft_metrics())
     return RolloutBatch(
         prompt=_np(prompts), prompt_mask=_np(prompt_mask),
         response=_np(resp), response_mask=_np(resp_mask),

@@ -5,6 +5,8 @@ adjusted distribution (SPEC-RL's acceptance ratio needs exactly that).
 Random keys are a small protocol instead of JAX's key arrays:
 
 * ``split_key(key) -> (key, sub)`` calls ``key.split()``;
+  ``key.split(num)`` returns ``num`` children (JAX's ``split(key, num)``,
+  which the trainer uses once, for its four streams);
 * ``key.gumbel(shape)`` and ``key.uniform(shape)`` draw float32 noise on the
   key's device.
 
@@ -62,9 +64,17 @@ class Key:
         self.seed = int(seed) & _MASK64
         self.device = torch.device(device)
 
-    def split(self) -> Tuple["Key", "Key"]:
-        return (Key(_splitmix64(2 * self.seed), self.device),
-                Key(_splitmix64(2 * self.seed + 1), self.device))
+    def split(self, num: int = 2) -> Tuple["Key", ...]:
+        """Children ``splitmix64(2 * seed + i)`` for two; for another count,
+        ``splitmix64`` of the count and index mixed into the seed's own
+        hash, so that no child of a ``num``-way split is a child of a
+        two-way one."""
+        if num == 2:
+            return (Key(_splitmix64(2 * self.seed), self.device),
+                    Key(_splitmix64(2 * self.seed + 1), self.device))
+        base = _splitmix64(self.seed ^ 0xD1B54A32D192ED03)
+        return tuple(Key(_splitmix64((base + (num << 32) + i) & _MASK64),
+                         self.device) for i in range(num))
 
     def _generator(self) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -149,9 +159,9 @@ class KeyBatch:
         dev = keys[0].device
         return cls(torch.cat([k.words.to(dev) for k in keys], dim=0))
 
-    def split(self) -> Tuple["KeyBatch", "KeyBatch"]:
-        children = _derive(self.words, (1, 2))
-        return KeyBatch(children[:, 0]), KeyBatch(children[:, 1])
+    def split(self, num: int = 2) -> Tuple["KeyBatch", ...]:
+        children = _derive(self.words, tuple(range(1, num + 1)))
+        return tuple(KeyBatch(children[:, i]) for i in range(num))
 
     def uniform(self, shape: Sequence[int]) -> torch.Tensor:
         """float32 in [0, 1), (B, ...): row b from key b alone."""

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.kernels._build import launch
 
 
@@ -51,6 +51,7 @@ def cache_roll(buf: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """buf: (R, S, D); shift: (R,) int in [0, S].  Returns a new (R, S, D)
     buffer.  CUDA tensors launch the kernel (or raise); CPU tensors take the
     plain version."""
+    refuse_grad("cache_roll", buf)
     if buf.ndim != 3:
         raise ValueError(f"cache_roll wants (R, S, D), got {tuple(buf.shape)}")
     shift = shift.to(torch.int32).contiguous()
@@ -92,6 +93,7 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """pool: (NB, X, D); table: (R, nb) int in [0, NB).  Returns a new
     (R, nb, X, D) tensor with out[r, i] = pool[table[r, i]].  CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
+    refuse_grad("paged_gather", pool)
     if pool.ndim != 3 or table.ndim != 2:
         raise ValueError(f"paged_gather wants pool (NB, X, D) and table "
                          f"(R, nb), got {tuple(pool.shape)}, "

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.kernels._build import launch
 
 
@@ -77,6 +77,7 @@ def cache_slot_write(dst: torch.Tensor, src: torch.Tensor,
     row winning on duplicates; every other row untouched.  Returns dst.
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    refuse_grad("cache_slot_write", dst, src)
     if dst.shape[1:] != src.shape[1:] or dst_rows.shape != (src.shape[0],):
         raise ValueError(f"cache_slot_write: dst {tuple(dst.shape)}, src "
                          f"{tuple(src.shape)}, dst_rows "

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.kernels._build import launch
 
 NEG_INF = -1e30
@@ -195,6 +195,7 @@ def decode_attention(q, k, v, q_pos, k_pos, lengths=None, starts=None, *,
     bounds (slot j live iff starts[b] <= j < lengths[b]).  Returns
     (B, Hq, T, D) float32.  CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version."""
+    refuse_grad("decode_attention", q, k, v)
     S = k.shape[2]
     q_pos, lengths, starts = _norm_inputs(q, q_pos, lengths, starts, S)
     if q.device.type == "cuda":
@@ -290,6 +291,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, q_pos, k_pos,
     logical width S <= nb * bs; q_pos, lengths, starts as in
     ``decode_attention``.  Returns (B, Hq, T, D) float32.  CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     S = k_pos.shape[1]
     bs, nb = k_pool.shape[2], table.shape[1]
     if S > nb * bs:

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.kernels._build import launch
 
 NEG_INF = -1e30
@@ -120,6 +120,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     """q: (B, Hq, T, D) with T > 1; k/v: (B, Hkv, S, D); q_pos: (B, T) and
     k_pos: (B, S) int.  Returns (B, Hq, T, D) float32.  CUDA tensors launch
     the kernel (or raise); CPU tensors take the plain version."""
+    refuse_grad("flash_attention", q, k, v)
     if q.shape[2] <= 1:
         raise ValueError("flash_attention is the prefill/verify kernel; "
                          "single-token decode goes to decode_attention")

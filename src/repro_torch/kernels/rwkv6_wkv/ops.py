@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, WKV_LAUNCHES_BY_T
+from repro_torch.kernels import LAUNCHES, WKV_LAUNCHES_BY_T, refuse_grad
 from repro_torch.kernels._build import launch
 
 HEAD_DIMS = (32, 64)
@@ -104,6 +104,7 @@ def wkv(r, k, v, w, u, s0, s_out: Optional[torch.Tensor] = None
     ``s0`` itself to update a cache in place).  Returns (y, s_out).  CUDA
     tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    refuse_grad("wkv", r, k, v, w, u, s0)
     if s_out is None:
         s_out = torch.empty_like(s0)
     if r.device.type == "cuda":

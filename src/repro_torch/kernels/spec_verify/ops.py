@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 from repro_torch.kernels._build import launch
 
 
@@ -66,6 +66,7 @@ def spec_verify(lp_curr, lp_prev, u, valid_len, log_lenience: float
     """lp_curr / lp_prev / u: (B, N) float32; valid_len: (B,) int32 or
     int64.  Returns (B,) int32.  CUDA tensors launch the kernel (or raise);
     CPU tensors take the plain version."""
+    refuse_grad("spec_verify", lp_curr, lp_prev, u)
     if lp_curr.device.type == "cuda":
         return spec_verify_cuda(lp_curr.contiguous(), lp_prev.contiguous(),
                                 u.contiguous(), valid_len.contiguous(),

@@ -13,9 +13,9 @@ always the architecture's ``.reduced(...)`` smoke variant, with random
 weights from ``--seed``; on the card it runs in bfloat16 (the port's
 kernels take bfloat16), on the CPU in float32 as JAX's.  ``--cache-layout
 paged`` serves through ``--engine fixed`` only: the paged slot engine
-arrives with ROADMAP Queue 1 item 11.  The §9 draft engine, §10 hardening,
-§11/§14 observatory and §8 mesh flags of the reference arrive with their
-slices.
+(the PagedSlotEngine) arrives with ROADMAP Queue 1 item 5.  The §9 draft
+engine, §10 hardening, §11/§14 observatory and §8 mesh flags of the
+reference arrive with their slices.
 """
 from __future__ import annotations
 

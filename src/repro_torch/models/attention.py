@@ -5,8 +5,9 @@ Masking is by position, as in JAX: a query at ``pq`` attends to a key at
 ``pk`` iff ``pk >= 0 and pk <= pq`` (and ``pq - pk < window`` when a
 sliding window is set); padding slots carry ``-1``.
 
-Routing (all through ``repro_torch.kernels``, which launch the Hopper
-kernels on CUDA tensors and run their plain versions on CPU tensors):
+Routing.  With grad off (every rollout and scoring forward) the
+attention runs through ``repro_torch.kernels``, which launch the Hopper
+kernels on CUDA tensors and run their plain versions on CPU tensors:
 
 * T == 1 with a dense cache (every decode token): ``decode_attention``.
 * T == 1 with a paged cache: ``paged_decode_attention``, which reads the
@@ -16,15 +17,20 @@ kernels on CUDA tensors and run their plain versions on CPU tensors):
   this path, as it does for ``flash_attention``.  Its plain version gathers
   the view and runs the dense plain version, so on the CPU the paged layout
   is bit-identical to the dense one.
-* Everything else (prefill, verify, score: T > 1): ``flash_attention``, over
-  the gathered logical view for a paged cache (``gather_paged_kv``, plain
+* T > 1 (prefill, verify, score): ``flash_attention``, over the gathered
+  logical view for a paged cache (``gather_paged_kv``, plain
   ``index_select`` as JAX's ``_paged_gather`` is ``jnp.take``).  Short
   draft blocks (T = k + 1) go there too until the draft engine's slice
   routes them to the decode kernel, which already takes T > 1.  The JAX
   package reaches its flash kernel only under ``use_pallas``; the port
-  always takes its own kernel on this path.  JAX's plain
-  ``dot_product_attention`` is ``flash_attention_plain`` here, which CPU
-  tensors take.
+  always takes its own kernel here.
+
+With grad on and an input that requires it (the actor's forward in the
+train step), every T goes to ``dot_product_attention``: the port of JAX's
+XLA function (``repro/models/attention.py:53``, ``impl="naive"``), which
+is what JAX's train forward runs (``M.forward`` has ``use_pallas=False``).
+The kernels are forward-only and their wrappers refuse an input that
+requires grad, so no gradient can silently come out zero.
 
 The cache is written in place (JAX returns new arrays; the caches the port
 hands back are the same objects it was given): ``_cache_write`` for dense
@@ -48,6 +54,45 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 
 from .config import ModelConfig
 from .layers import Dense, RMSNorm, apply_dense, apply_rmsnorm, apply_rope
+
+NEG_INF = -1e30
+
+
+def dot_product_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
+                          causal: bool = True) -> torch.Tensor:
+    """Grouped-query attention with position-based masking, differentiable
+    (port of JAX's ``dot_product_attention``, ``impl="naive"``): the
+    (T, S) scores materialised in float32, masked by position, softmax,
+    rows that see no key set to 0.
+
+    q: (B, Hq, T, D); k/v: (B, Hkv, S, D); q_pos: (B, T); k_pos: (B, S).
+    Returns (B, Hq, T, Dv) float32."""
+    B, Hq, T, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, T, D)
+    scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32,
+                                          device=q.device))
+    scores = torch.einsum("bhgtd,bhsd->bhgts", qg.float(), k.float()) * scale
+    kp = k_pos[:, None, None, None, :]
+    qp = q_pos[:, None, None, :, None]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & ((qp - kp) < window)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    # fully-masked rows: softmax of all -inf is uniform garbage; zero them
+    w = torch.where(mask.any(dim=-1, keepdim=True), w, torch.zeros_like(w))
+    out = torch.einsum("bhgts,bhsd->bhgtd", w, v.float())
+    return out.reshape(B, Hq, T, v.shape[-1])
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records an op on these tensors now: the model's
+    signal to take its differentiable route instead of a kernel."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class GQA(nn.Module):
@@ -210,7 +255,8 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
         k = apply_rmsnorm(p.k_norm, k, cfg.norm_eps)
     if cfg.pos_embed != "rope":
         raise NotImplementedError("learned positions arrive with the "
-                                  "whisper slice (ROADMAP Queue 1 item 13)")
+                                  "whisper encoder-decoder, one of the other "
+                                  "model families (ROADMAP Queue 1 item 10)")
     q = apply_rope(q, positions, cfg.rope_theta).contiguous()
     k = apply_rope(k, positions, cfg.rope_theta)
     kv_pos = positions
@@ -230,7 +276,11 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
             _cache_write(cache["v"], v.to(cache["v"].dtype), cache_start)
         k, v = cache["k"], cache["v"]
 
-    if cache is not None and T == 1:
+    if needs_grad(q, k, v):
+        out = dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
+                                    positions, kv_pos,
+                                    window=cfg.sliding_window)
+    elif cache is not None and T == 1:
         out = _decode_attention(q, k, v, positions, kv_pos,
                                 window=cfg.sliding_window,
                                 cache_start=cache_start, kv_length=kv_length,

@@ -53,12 +53,14 @@ def check_supported(cfg: ModelConfig) -> None:
         if sig not in SUPPORTED:
             raise NotImplementedError(
                 f"{cfg.name}: block {sig} needs the other model families "
-                "(ROADMAP Queue 1 item 13)")
+                "(ROADMAP Queue 1 item 10)")
     if cfg.attention_kind != "gqa":
-        raise NotImplementedError("MLA arrives with ROADMAP Queue 1 item 13")
+        raise NotImplementedError("MLA arrives with the other model "
+                                  "families, ROADMAP Queue 1 item 10")
     if cfg.encoder_layers or cfg.num_prefix_embeddings or cfg.mtp:
         raise NotImplementedError("encoder, vision prefix and MTP arrive "
-                                  "with ROADMAP Queue 1 item 13")
+                                  "with the other model families, ROADMAP "
+                                  "Queue 1 item 10")
 
 
 class Block(nn.Module):

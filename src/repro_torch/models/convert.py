@@ -5,6 +5,9 @@ stacked per signature run with a leading ``run_len`` axis (DESIGN.md §2).
 ``from_jax_params`` takes that tree with every leaf already a numpy array
 (``jax.tree.map(np.asarray, params)``; the port never imports JAX) and
 copies it into an ``LM`` whose ``layers[i]`` is global layer i.
+``to_jax_params`` is the inverse: an ``LM`` back to that tree, as numpy
+float32 leaves (a bfloat16 parameter widened exactly), so that a test can
+hold updated parameters against JAX's leaf by leaf.
 """
 from __future__ import annotations
 
@@ -71,3 +74,41 @@ def _index(tree, j: int):
     if isinstance(tree, Mapping):
         return {k: _index(v, j) for k, v in tree.items()}
     return np.asarray(tree)[j]
+
+
+def _array(p: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy (never a view of the parameter's memory)."""
+    return np.array(p.detach().float().cpu().numpy(), copy=True)
+
+
+def _tree(module: nn.Module) -> dict:
+    """A module's parameters as nested dicts of numpy float32 arrays, by
+    attribute name (``None`` children, such as an absent bias, skipped)."""
+    out = {name: _array(p) for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        out[name] = _tree(child)
+    return out
+
+
+def to_jax_params(model: LM) -> dict:
+    """The ``repro`` params tree of ``model``: ``embed``, ``final_norm``,
+    ``lm_head`` (untied heads) and ``trunk``, a list with one tree per
+    signature run whose leaves stack the run's layers on a leading axis."""
+    cfg = model.cfg
+    tree = {"embed": _array(model.embed),
+            "final_norm": _tree(model.final_norm)}
+    if model.lm_head is not None:
+        tree["lm_head"] = _tree(model.lm_head)
+    trunk, layer = [], 0
+    for _, run_len in signature_runs(cfg):
+        layers = [_tree(model.layers[layer + j]) for j in range(run_len)]
+        trunk.append(_stack(layers))
+        layer += run_len
+    tree["trunk"] = trunk
+    return tree
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

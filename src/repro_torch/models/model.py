@@ -50,6 +50,8 @@ class LM(nn.Module):
         dtype = torch_dtype(cfg.param_dtype)
         kw = dict(dtype=dtype, device=device)
         self.cfg = cfg
+        # every parameter is built frozen (the rollout is inference); the
+        # trainer turns grad on for the actor alone
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
                                   requires_grad=False)
         self.layers = nn.ModuleList(make_block(cfg, sig, **kw)
@@ -100,10 +102,15 @@ def _logits(model: LM, cfg: ModelConfig, x):
     return softcap(logits.float(), cfg.logit_softcap)
 
 
-@torch.no_grad()
 def forward(model: LM, cfg: ModelConfig, tokens, positions):
     """tokens: (B, T) int; positions: (B, T) int32 with -1 on padding.
-    Returns (logits (B, T, V) float32, aux dict)."""
+    Returns (logits (B, T, V) float32, aux dict).
+
+    Carries the graph when grad is enabled and the parameters require it
+    (the actor in the train step): the attention and the recurrence then
+    take their differentiable routes (``attention.dot_product_attention``,
+    ``rwkv.wkv_scan``).  Its no-grad callers (``score``, ``verify``, the
+    rollout) reach the kernels."""
     x = _embed(model, cfg, tokens, positions)
     x, _ = apply_trunk(model.layers, cfg, x, positions)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
@@ -139,14 +146,14 @@ def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
     depths).  kv_length: per-row live cache extent (int or (B,)), default
     ``cache_start + 1``; kv_start: per-row first live slot, only for
     contiguous layouts.  Both become (B,) int32 tensors once here, not once
-    per layer.  Draft blocks (T = k + 1) arrive with the draft engine's
-    slice (ROADMAP Queue 1 item 9).  An RWKV trunk ignores cache_start,
+    per layer.  Draft blocks (T = k + 1) arrive with the draft engine
+    (ROADMAP Queue 1 item 6).  An RWKV trunk ignores cache_start,
     kv_length and kv_start: its cache is a running state.
     Returns (logits (B, 1, V), caches)."""
     B, T = token.shape
     if T != 1:
         raise NotImplementedError("decode blocks of T > 1 arrive with the "
-                                  "draft engine (ROADMAP Queue 1 item 9)")
+                                  "draft engine (ROADMAP Queue 1 item 6)")
     dev = token.device
     if not isinstance(cache_start, int):
         cache_start = torch.as_tensor(cache_start, dtype=torch.int32,

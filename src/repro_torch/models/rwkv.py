@@ -7,8 +7,11 @@ Per head (k-dim = v-dim = head_dim), with data-dependent per-channel decay
     y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
 
-The recurrence goes through ``kernels.rwkv6_wkv`` for every T: the prompt
-at prefill, prompt ⊕ draft at the verify score, one token at a decode step.
+With grad off the recurrence goes through ``kernels.rwkv6_wkv`` for every
+T: the prompt at prefill, prompt ⊕ draft at the verify score, one token at
+a decode step.  With grad on and an input that requires it (the actor's
+forward in the train step) it goes through ``wkv_scan``, the port of JAX's
+differentiable recurrence, which is what JAX's train forward runs.
 Token shift uses the RWKV6 "ddlerp": a low-rank data-dependent
 interpolation between x_t and x_{t-1} per projection stream.
 
@@ -26,9 +29,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rwkv6_wkv.ops import wkv
 
+from .attention import needs_grad
 from .config import ModelConfig
 from .layers import Dense, apply_dense
 
@@ -145,6 +150,39 @@ def _group_norm(p: RWKVTimeMix, y, eps: float):
     return yn * p.ln_x_scale.to(y.dtype) + p.ln_x_bias.to(y.dtype)
 
 
+def _scan_steps(s, r, k, v, w, u):
+    """The recurrence step by step over (B, T, H, hd) inputs from state s
+    (B, H, hd, hd).  Returns (y (B, T, H, hd), final state)."""
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]           # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               s + u[None, :, :, None] * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+def wkv_scan(r, k, v, w, u, s0, chunk: int = 64):
+    """Differentiable recurrence (port of JAX's ``wkv_scan``).
+
+    r, k, v, w: (B, T, H, hd) float32; u: (H, hd); s0: (B, H, hd, hd).
+    Returns (y (B, T, H, hd), final state).  When T > chunk and chunk
+    divides T, each chunk runs under ``torch.utils.checkpoint``, as JAX
+    wraps its chunk in ``jax.checkpoint``: the backward keeps only the
+    states at chunk boundaries and recomputes the rest, instead of T states
+    of (B, H, hd, hd)."""
+    T = r.shape[1]
+    if not (T > chunk and T % chunk == 0):
+        return _scan_steps(s0, r, k, v, w, u)
+    s, ys = s0, []
+    for c0 in range(0, T, chunk):
+        sl = slice(c0, c0 + chunk)
+        y, s = checkpoint(_scan_steps, s, r[:, sl], k[:, sl], v[:, sl],
+                          w[:, sl], u, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s
+
+
 def apply_rwkv_time_mix(p: RWKVTimeMix, cfg: ModelConfig, x, positions, *,
                         cache=None):
     """x: (B, T, d); positions: (B, T) (-1 on pads); cache: one layer's
@@ -171,7 +209,11 @@ def apply_rwkv_time_mix(p: RWKVTimeMix, cfg: ModelConfig, x, positions, *,
 
     shp = (B, T, H, hd)
     u = p.u.float().reshape(H, hd)
-    if cache is not None:
+    if cache is None and needs_grad(r, k, v, w, u):
+        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+        y, _ = wkv_scan(r.reshape(shp), k.reshape(shp), v.reshape(shp),
+                        w.reshape(shp), u, s0, cfg.scan_chunk)
+    elif cache is not None:
         y, _ = wkv(r.reshape(shp), k.reshape(shp), v.reshape(shp),
                    w.reshape(shp), u, cache["wkv"], s_out=cache["wkv"])
         cache["shift_t"].copy_(x[:, -1, :])

@@ -1,0 +1,116 @@
+"""AdamW with global-norm clipping and learning-rate schedules (port of
+``repro/optim/adamw.py``; the paper trains the actor with AdamW lr 5e-7,
+wd 0.01, clip 1.0, Appendix A.1).  Not ``torch.optim.AdamW``: the step
+follows the reference's arithmetic op for op.
+
+* The gradients are clipped first: scaled by ``clip_norm / (gnorm +
+  1e-9)`` only when their global norm exceeds ``clip_norm``.
+* Then ``step + 1``, the schedule's learning rate at it, and the bias
+  corrections, all in float32.
+* The update runs in float32 with the decay inside the step,
+  ``p - lr * (m̂ / (√v̂ + eps) + wd * p)``, and is cast back to the
+  parameter's dtype.  There is no float32 master copy: a bfloat16 weight
+  keeps only what its 8-bit mantissa holds of the step, as in JAX.
+
+The moments are float32 from ``init`` on.  JAX's start in the parameter's
+dtype and turn float32 at the first update; they start at zero, which
+every dtype holds exactly, so the numbers are the same.
+
+Parameters, gradients and moments are lists of tensors in one order
+(``init(params)`` makes the moments in the order it is given); ``update``
+works in place under ``torch.no_grad()``, one parameter at a time so that
+its float32 temporaries stay the size of one tensor.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Sequence
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 5e-7
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    clip_norm: float = 1.0
+    schedule: str = "constant"       # constant|cosine|warmup_cosine
+    total_steps: int = 1000
+    warmup_steps: int = 0
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def lr_at(cfg: AdamWConfig, step, device=None) -> torch.Tensor:
+    """The learning rate at ``step`` (a 0-d float32 tensor)."""
+    step = _f32(step, device)
+    lr = _f32(cfg.lr, device)
+    if cfg.schedule == "constant":
+        return lr
+    if cfg.schedule not in ("cosine", "warmup_cosine"):
+        raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    one = _f32(1.0, device)
+    warm = (torch.minimum(one, step / max(cfg.warmup_steps, 1))
+            if cfg.warmup_steps > 0 else one)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * t))
+    if cfg.schedule == "cosine":
+        return lr * cos
+    return lr * warm * cos
+
+
+def init(params: Sequence[torch.Tensor]) -> Dict[str, object]:
+    """``{"mu", "nu": float32 zeros like each parameter, "step": 0}``."""
+    return {"mu": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in params],
+            "nu": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in params],
+            "step": 0}
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares, in float32, summed tensor by tensor in
+    the given order (as JAX's Python ``sum`` over the leaves)."""
+    total = None
+    for x in tensors:
+        s = torch.sum(torch.square(x.float()))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, params: List[torch.Tensor],
+           grads: List[torch.Tensor], state: Dict[str, object]
+           ) -> Dict[str, torch.Tensor]:
+    """One step, in place: ``params`` and ``state`` are updated.  Returns
+    ``{"grad_norm", "lr"}`` (0-d float32 tensors)."""
+    if not (len(params) == len(grads) == len(state["mu"])):
+        raise ValueError(f"{len(params)} parameters, {len(grads)} gradients "
+                         f"and {len(state['mu'])} moments")
+    dev = params[0].device
+    gnorm = global_norm(grads)
+    scale = torch.where(gnorm > cfg.clip_norm,
+                        cfg.clip_norm / (gnorm + 1e-9), _f32(1.0, dev))
+    step = int(state["step"]) + 1
+    lr = lr_at(cfg, step, dev)
+    step32 = _f32(step, dev)
+    b1c = 1.0 - torch.pow(_f32(cfg.b1, dev), step32)
+    b2c = 1.0 - torch.pow(_f32(cfg.b2, dev), step32)
+    for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
+        g32 = g.float() * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
+        del g32
+        p32 = p.float()
+        step_ = lr * (m / b1c / (torch.sqrt(v / b2c) + cfg.eps)
+                      + cfg.weight_decay * p32)
+        p.copy_((p32 - step_).to(p.dtype))
+    state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}

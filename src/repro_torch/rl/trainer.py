@@ -1,0 +1,464 @@
+"""RLVR trainer, GRPO (port of ``repro/rl/trainer.py``), with SPEC-RL as a
+drop-in rollout stage.
+
+Pipeline per step (veRL's stage order, Table 4 of the paper):
+  [verification] -> [rollout] -> [assembly]   (core.rollout)
+  -> reward -> old-log-probs -> (ref log-probs) -> adv -> update-actor
+
+SPEC-RL touches only the first three stages; everything downstream is the
+standard algorithm, and the rollout variant is a constructor argument the
+update never sees.
+
+The update is JAX's ``_update_actor`` in PyTorch idiom: the actor's
+parameters require grad only inside it, its forward takes the model's
+differentiable route (``attention.dot_product_attention``,
+``rwkv.wkv_scan``; no kernel launches), ``loss.backward()`` fills
+``.grad``, and ``optim.adamw.update`` steps the parameters in place.  The
+old-policy and reference log-probs are no-grad ``score`` forwards, which
+run the ``flash_attention`` kernel on the card.
+
+Keys follow JAX: the trainer's key splits four ways (``k1, k2, k3,
+coll_key``) and the collector splits its stream before every rollout, so
+with a key that draws as JAX does the collection is JAX's, token for
+token.  The trainer takes an optional ``model`` (else it draws one from
+``k1``) and a ``device`` (the card unless ``"cpu"``).
+
+Not ported yet, and raising with their ROADMAP Queue 1 item: PPO and DAPO
+(item 4, the critic and DAPO's dynamic sampling), the mesh (item 11), the
+draft engine (item 6), the watchdog (item 8) and the tracer and alerts
+(item 9, the observatory hooks).  With none of them passed there is
+nothing of theirs to do.
+"""
+from __future__ import annotations
+
+import copy
+import random
+import time
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import RolloutCache, SpecConfig, rollout
+from repro_torch.core.lenience import FixedLenience
+from repro_torch.core.spec_rollout import RolloutBatch
+from repro_torch.data.dataset import PromptBatch, PromptDataset
+from repro_torch.data.tokenizer import EOS_ID, PAD_ID
+from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.engine.generate import GenerateConfig, score, token_logprobs
+from repro_torch.engine.sampling import split_key
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+from repro_torch.rewards.verifier import batch_rewards
+
+from .advantages import group_relative_advantages
+from .losses import (PolicyLossConfig, entropy_bonus, kl_to_reference,
+                     masked_mean, policy_loss)
+
+
+@dataclass(frozen=True)
+class RLConfig:
+    algo: str = "grpo"                # grpo|ppo|dapo
+    group_size: int = 4
+    prompts_per_batch: int = 8
+    max_new_tokens: int = 32
+    temperature: float = 1.0
+    top_p: float = 1.0
+    optim: adamw.AdamWConfig = adamw.AdamWConfig(lr=5e-7)
+    critic_optim: adamw.AdamWConfig = adamw.AdamWConfig(lr=1e-5)
+    gamma: float = 1.0
+    gae_lambda: float = 0.95
+    whiten_adv: bool = False
+    dynamic_sampling: bool = True     # DAPO only
+    max_resample_rounds: int = 3
+    entropy_coef: float = 0.0
+
+    def policy_cfg(self) -> PolicyLossConfig:
+        if self.algo == "dapo":
+            return PolicyLossConfig(clip_low=0.2, clip_high=0.28, clip_c=10.0,
+                                    agg="token", kl_coef=0.0,
+                                    entropy_coef=self.entropy_coef)
+        if self.algo == "grpo":
+            return PolicyLossConfig(clip_low=0.2, clip_high=0.2, clip_c=3.0,
+                                    agg="seq", kl_coef=1e-4,
+                                    entropy_coef=self.entropy_coef)
+        return PolicyLossConfig(clip_low=0.2, clip_high=0.2, clip_c=3.0,
+                                agg="seq", kl_coef=0.0,
+                                entropy_coef=self.entropy_coef)
+
+
+def check_ported(rl: RLConfig) -> None:
+    if rl.algo not in ("grpo", "ppo", "dapo"):
+        raise ValueError(f"unknown algo {rl.algo!r}")
+    if rl.algo != "grpo":
+        raise NotImplementedError(
+            f"algo={rl.algo!r}: PPO's critic and DAPO's dynamic sampling "
+            "arrive with ROADMAP Queue 1 item 4 (PPO and DAPO)")
+
+
+def _unported(what: str, item: int, feature: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} arrives with ROADMAP Queue 1 item "
+                               f"{item} ({feature})")
+
+
+# ------------------------------------------------------------------ steps
+
+
+@torch.no_grad()
+def _old_logprobs(model: M.LM, cfg: ModelConfig, full_tokens, full_mask,
+                  resp_start: int, temperature: float, top_p: float):
+    """Log-probs and entropies of the response columns under ``model``,
+    no grad (the ``flash_attention`` kernel on the card)."""
+    sc = score(model, cfg, full_tokens, full_mask, temperature=temperature,
+               top_p=top_p, return_entropy=True)
+    return sc["logprobs"][:, resp_start:], sc["entropy"][:, resp_start:]
+
+
+def _actor_loss_fn(model: M.LM, cfg: ModelConfig, pcfg: PolicyLossConfig,
+                   full_tokens, full_mask, resp_start: int, lp_old,
+                   advantages, resp_mask, ref_lp, temperature: float,
+                   top_p: float):
+    """The GRPO actor loss with its graph, and its diagnostics (floats of
+    the graph's values, detached)."""
+    lp_all, ent_all = token_logprobs(model, cfg, full_tokens, full_mask,
+                                     temperature, top_p,
+                                     entropy_grad=pcfg.entropy_coef > 0.0)
+    lp_new = lp_all[:, resp_start:]
+    ent = ent_all[:, resp_start:]
+    loss, info = policy_loss(lp_new, lp_old, advantages, resp_mask, pcfg)
+    if pcfg.kl_coef > 0.0:
+        kl = kl_to_reference(lp_new, ref_lp, resp_mask)
+        loss = loss + pcfg.kl_coef * kl
+        info["kl_ref"] = kl.detach()
+    if pcfg.entropy_coef > 0.0:
+        loss = loss - pcfg.entropy_coef * entropy_bonus(ent, resp_mask)
+    info["entropy"] = masked_mean(ent, resp_mask).detach()
+    return loss, info
+
+
+def trainable(model: M.LM) -> List[torch.nn.Parameter]:
+    """The actor's parameters in the order the optimizer state holds."""
+    return list(model.parameters())
+
+
+def _update_actor(model: M.LM, opt_state, cfg: ModelConfig,
+                  pcfg: PolicyLossConfig, ocfg: adamw.AdamWConfig,
+                  full_tokens, full_mask, resp_start: int, lp_old,
+                  advantages, resp_mask, ref_lp, temperature: float,
+                  top_p: float) -> Dict[str, torch.Tensor]:
+    """One actor update: the loss's backward, then AdamW in place.  The
+    parameters require grad only inside; their ``.grad`` stays set after
+    it (the smoke reads it) and is dropped at the start of the next."""
+    params = trainable(model)
+    for p in params:
+        p.grad = None
+        p.requires_grad_(True)
+    try:
+        loss, info = _actor_loss_fn(model, cfg, pcfg, full_tokens, full_mask,
+                                    resp_start, lp_old, advantages,
+                                    resp_mask, ref_lp, temperature, top_p)
+        loss.backward()
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    info.update(adamw.update(ocfg, params, grads, opt_state))
+    info["loss"] = loss.detach()
+    return info
+
+
+# ------------------------------------------------------------------ collector
+
+
+class Collector:
+    """The collection half of the RL loop: dataset sampling, the SPEC-RL
+    rollout cache, the lenience schedule and the collection key stream,
+    everything ``train_step`` needs to turn the model into a rewarded
+    batch, and nothing it needs to update it.  (JAX's async rollout
+    service drives the same object; in the port it waits for ROADMAP
+    Queue 1 item 8, the async rollout, as does DAPO's resample loop for
+    item 4.)"""
+
+    def __init__(self, model_cfg: ModelConfig, rl: RLConfig, spec: SpecConfig,
+                 dataset: PromptDataset, key, lenience_schedule=None,
+                 mesh=None, tracer=None):
+        check_ported(rl)
+        if mesh is not None:
+            raise _unported("the mesh", 11, "the mesh")
+        if tracer is not None:
+            raise _unported("the tracer", 9, "the observatory hooks")
+        self.cfg = model_cfg
+        self.rl = rl
+        self.spec = spec
+        self.lenience_schedule = lenience_schedule or FixedLenience(
+            spec.lenience)
+        self.dataset = dataset
+        self.key = key
+        self.cache = RolloutCache(history=spec.cache_history,
+                                  max_prompts=spec.cache_max_prompts,
+                                  group_size=rl.group_size)
+        self.gen = GenerateConfig(max_new_tokens=rl.max_new_tokens,
+                                  temperature=rl.temperature, top_p=rl.top_p,
+                                  eos_id=EOS_ID, pad_id=PAD_ID)
+        self.gen_steps = 0
+        self.total_generated_tokens = 0
+        self._py_rng = random.Random(1234)
+
+    @staticmethod
+    def _stage(t0: float, times: Dict[str, float], key: str) -> float:
+        """Close a stage: record its duration under ``key``."""
+        t1 = time.perf_counter()
+        times[key] = t1 - t0
+        return t1
+
+    def sample(self, epoch: int,
+               batch: Optional[PromptBatch] = None) -> PromptBatch:
+        """Epoch-keyed batch draw from the shared Python RNG stream."""
+        if batch is not None:
+            return batch
+        return self.dataset.sample_batch(self._py_rng,
+                                         self.rl.prompts_per_batch,
+                                         self.rl.group_size, epoch=epoch)
+
+    def rollout_once(self, model: M.LM, batch: PromptBatch,
+                     epoch: int) -> RolloutBatch:
+        self.key, sub = split_key(self.key)
+        cur_l = float(self.lenience_schedule(epoch))
+        if cur_l != self.spec.lenience and self.spec.variant == "spec":
+            self.spec = replace(self.spec, lenience=cur_l)
+        rb = rollout(model, self.cfg, self.gen, self.spec, batch.tokens,
+                     batch.mask, batch.cache_keys, self.cache, sub, epoch)
+        self.gen_steps += 1
+        self.total_generated_tokens += rb.metrics["n_generated"]
+        return rb
+
+    def collect(self, model: M.LM, batch: PromptBatch, epoch: int
+                ) -> Tuple[PromptBatch, RolloutBatch, np.ndarray,
+                           Dict[str, float]]:
+        """Rollout + reward under ``model``."""
+        t0 = time.perf_counter()
+        rb = self.rollout_once(model, batch, epoch)
+        stage_times = dict(rb.metrics)
+        t_reward0 = time.perf_counter()
+        rewards = batch_rewards(rb.response, rb.length, batch.answers)
+        self._stage(t_reward0, stage_times, "reward_time")
+        self._stage(t0, stage_times, "collect_time")
+        return batch, rb, rewards, stage_times
+
+
+def _seed_from(key) -> int:
+    """A 48-bit integer seed drawn from a key (for ``init_lm``)."""
+    u = key.uniform((2,)).double().cpu()
+    return int(u[0] * 2 ** 24) << 24 | int(u[1] * 2 ** 24)
+
+
+# ------------------------------------------------------------------ trainer
+
+
+class Trainer:
+    def __init__(self, model_cfg: ModelConfig, rl: RLConfig, spec: SpecConfig,
+                 dataset: PromptDataset, key, *, model: Optional[M.LM] = None,
+                 device: DeviceLike = None, lenience_schedule=None,
+                 mesh=None, watchdog=None, tracer=None, alerts=None):
+        check_ported(rl)
+        if mesh is not None:
+            raise _unported("the mesh", 11, "the mesh")
+        if spec.draft is not None:
+            raise _unported("the draft engine", 6, "the draft engine")
+        if watchdog is not None:
+            raise _unported("the trainer watchdog", 8,
+                            "async rollout and watchdog")
+        if tracer is not None or alerts is not None:
+            raise _unported("the tracer and alerts", 9,
+                            "the observatory hooks")
+        self.cfg = model_cfg
+        self.rl = rl
+        k1, k2, k3, coll_key = key.split(4)
+        self.collector = Collector(model_cfg, rl, spec, dataset, coll_key,
+                                   lenience_schedule=lenience_schedule)
+        if model is None:
+            model = M.init_lm(model_cfg, seed=_seed_from(k1),
+                              device=resolve_device(device))
+        elif device is not None and model.device != resolve_device(device):
+            raise ValueError(f"model is on {model.device}, device={device!r}")
+        self.model = model
+        self.device = model.device
+        self.opt_state = adamw.init(trainable(model))
+        self.pcfg = rl.policy_cfg()
+        self.ref_model = None
+        if self.pcfg.kl_coef > 0:
+            self.ref_model = copy.deepcopy(model)
+            self.ref_model.requires_grad_(False)
+        self.step_idx = 0
+        self.history: List[Dict[str, float]] = []
+        self.last_rb: Optional[RolloutBatch] = None
+
+    # ------------------------------------------- collection-state delegation
+
+    @property
+    def spec(self) -> SpecConfig:
+        return self.collector.spec
+
+    @spec.setter
+    def spec(self, v) -> None:
+        self.collector.spec = v
+
+    @property
+    def dataset(self) -> PromptDataset:
+        return self.collector.dataset
+
+    @property
+    def gen(self) -> GenerateConfig:
+        return self.collector.gen
+
+    @property
+    def lenience_schedule(self):
+        return self.collector.lenience_schedule
+
+    @property
+    def cache(self) -> RolloutCache:
+        return self.collector.cache
+
+    @cache.setter
+    def cache(self, v) -> None:
+        self.collector.cache = v
+
+    @property
+    def key(self):
+        return self.collector.key
+
+    @key.setter
+    def key(self, v) -> None:
+        self.collector.key = v
+
+    @property
+    def gen_steps(self) -> int:
+        return self.collector.gen_steps
+
+    @gen_steps.setter
+    def gen_steps(self, v) -> None:
+        self.collector.gen_steps = v
+
+    @property
+    def total_generated_tokens(self):
+        return self.collector.total_generated_tokens
+
+    @total_generated_tokens.setter
+    def total_generated_tokens(self, v) -> None:
+        self.collector.total_generated_tokens = v
+
+    @property
+    def _py_rng(self) -> random.Random:
+        return self.collector._py_rng
+
+    # -------------------------------------------------------------- training
+
+    def _stage(self, t0: float, times: Dict[str, float], key: str) -> float:
+        """Close a trainer stage once the device is done with it."""
+        sync(self.device)
+        return Collector._stage(t0, times, key)
+
+    def _collect(self, batch: PromptBatch):
+        return self.collector.collect(self.model, batch, self.step_idx)
+
+    def train_step(self, batch: Optional[PromptBatch] = None
+                   ) -> Dict[str, float]:
+        batch = self.collector.sample(self.step_idx, batch)
+        t_step0 = time.perf_counter()
+        batch, rb, rewards, times = self._collect(batch)
+        return self.optimize(rb, rewards, times, t_step0=t_step0)
+
+    def optimize(self, rb: RolloutBatch, rewards: np.ndarray,
+                 times: Dict[str, float], *, behaviour_lp=None,
+                 is_clip: Optional[float] = None,
+                 t_step0: Optional[float] = None) -> Dict[str, float]:
+        """The optimization half of ``train_step``: old log-probs → ref →
+        advantages → actor update, on an already-collected and rewarded
+        rollout.  ``behaviour_lp`` (with cap ``is_clip``) switches on the
+        truncated importance weights of stale trajectories; ``None`` leaves
+        the update the synchronous one."""
+        if t_step0 is None:
+            t_step0 = time.perf_counter()
+        self.last_rb = rb
+        dev = self.device
+        P = rb.prompt.shape[1]
+        full_tokens = torch.as_tensor(
+            np.concatenate([rb.prompt, rb.response], 1), dtype=torch.int32,
+            device=dev)
+        full_mask = torch.as_tensor(
+            np.concatenate([rb.prompt_mask, rb.response_mask], 1),
+            dtype=torch.bool, device=dev)
+        resp_mask = torch.as_tensor(rb.response_mask, dtype=torch.bool,
+                                    device=dev)
+        rew = torch.as_tensor(np.asarray(rewards, np.float32), device=dev)
+
+        # ---- old log-probs (veRL stage; ratio == 1 at the first epoch) ----
+        t0 = time.perf_counter()
+        lp_old, _ = _old_logprobs(self.model, self.cfg, full_tokens,
+                                  full_mask, P, self.rl.temperature,
+                                  self.rl.top_p)
+        self._stage(t0, times, "old_logprob_time")
+
+        ref_lp = torch.zeros_like(lp_old)
+        if self.ref_model is not None:
+            t0 = time.perf_counter()
+            ref_lp, _ = _old_logprobs(self.ref_model, self.cfg, full_tokens,
+                                      full_mask, P, self.rl.temperature,
+                                      self.rl.top_p)
+            self._stage(t0, times, "ref_time")
+
+        # ---- advantages ----------------------------------------------------
+        t0 = time.perf_counter()
+        scalar_adv = group_relative_advantages(rew, self.rl.group_size)
+        adv = scalar_adv[:, None] * resp_mask.float()
+        if behaviour_lp is not None:
+            # truncated per-token importance weights w = min(cap,
+            # exp(lp_now - lp_behaviour)) fold into the advantages
+            blp = torch.as_tensor(np.asarray(behaviour_lp),
+                                  dtype=torch.float32, device=dev)
+            cap = float(is_clip) if is_clip is not None else 2.0
+            w = torch.clamp_max(torch.exp(lp_old - blp), cap) \
+                * resp_mask.float()
+            adv = adv * w
+            times["is_weight_mean"] = float(masked_mean(w, resp_mask))
+        self._stage(t0, times, "adv_time")
+
+        # ---- update --------------------------------------------------------
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            # the rollout's caches are gone: hand their blocks back, so the
+            # update's float32 (B, L, V) logits find room in one piece
+            torch.cuda.empty_cache()
+        info = _update_actor(self.model, self.opt_state, self.cfg, self.pcfg,
+                             self.rl.optim, full_tokens, full_mask, P, lp_old,
+                             adv, resp_mask, ref_lp, self.rl.temperature,
+                             self.rl.top_p)
+        self._stage(t0, times, "update_actor_time")
+
+        self.lenience_schedule.update(abs(float(info.get("approx_kl", 0.0))))
+        metrics = {
+            "step": self.step_idx,
+            "lenience": float(self.spec.lenience),
+            "reward_mean": float(np.asarray(rewards).mean()),
+            "response_len_mean": float(np.asarray(rb.length).mean()),
+            "total_generated_tokens": self.total_generated_tokens,
+            "gen_steps": self.gen_steps,
+            **{k: float(v) for k, v in info.items()},
+            **{k: float(v) for k, v in times.items()
+               if isinstance(v, (int, float))},
+        }
+        metrics = {k: float(v) for k, v in metrics.items()}
+        self.history.append(metrics)
+        self.step_idx += 1
+        return metrics
+
+    def train(self, num_steps: int, log_every: int = 10,
+              callback=None) -> List[Dict[str, float]]:
+        for _ in range(num_steps):
+            m = self.train_step()
+            if callback and (m["step"] % log_every == 0):
+                callback(m)
+        return self.history

@@ -33,9 +33,12 @@ wait with ``torch.cuda.synchronize()`` where JAX calls
 
 Left for later slices (a constructor argument that asks for one raises
 ``NotImplementedError`` naming its ROADMAP item): the §9 draft chunk
-(Queue 1 item 9); §10 faults, deadlines, retries, backoff, quarantine and
-``state_dict`` (item 10); the §11/§14 tracer, ledger and decision log
-(item 14); the §8 mesh (item 15); the paged engine (item 11).  The §10
+(ROADMAP Queue 1 item 6, the draft engine); §10 faults, deadlines,
+retries, backoff, quarantine and ``state_dict`` (ROADMAP Queue 1 item 7,
+§10 hardening); the §11/§14 tracer, ledger and decision log (ROADMAP
+Queue 1 item 9, the observatory hooks); the §8 mesh (ROADMAP Queue 1
+item 11, the mesh); the paged engine (ROADMAP Queue 1 item 5, the
+PagedSlotEngine).  The §10
 decode-implementation ladder (pallas → blocked → naive) is a silent
 fallback and is not ported.
 """
@@ -150,14 +153,17 @@ def _decode_chunk(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
 
 def _unported(**asked) -> None:
     """Raise for a constructor argument whose feature a later slice ports."""
-    items = {"draft": "the §9 draft chunk (ROADMAP Queue 1 item 9)",
-             "faults": "§10 fault injection (ROADMAP Queue 1 item 10)",
-             "deadline_steps": "§10 deadlines (ROADMAP Queue 1 item 10)",
-             "max_queue": "§10 backpressure (ROADMAP Queue 1 item 10)",
-             "retry_backoff": "§10 retry backoff (ROADMAP Queue 1 item 10)",
-             "tracer": "the §11 tracer (ROADMAP Queue 1 item 14)",
-             "ledger": "the §14 ledger (ROADMAP Queue 1 item 14)",
-             "mesh": "the §8 mesh (ROADMAP Queue 1 item 15)"}
+    items = {"draft": "the §9 draft chunk (ROADMAP Queue 1 item 6, the "
+                      "draft engine)",
+             "faults": "§10 fault injection (ROADMAP Queue 1 item 7)",
+             "deadline_steps": "§10 deadlines (ROADMAP Queue 1 item 7)",
+             "max_queue": "§10 backpressure (ROADMAP Queue 1 item 7)",
+             "retry_backoff": "§10 retry backoff (ROADMAP Queue 1 item 7)",
+             "tracer": "the §11 tracer (ROADMAP Queue 1 item 9, the "
+                       "observatory)",
+             "ledger": "the §14 ledger (ROADMAP Queue 1 item 9, the "
+                       "observatory)",
+             "mesh": "the §8 mesh (ROADMAP Queue 1 item 11)"}
     for name, value in asked.items():
         if value is not None:
             raise NotImplementedError(f"SlotEngine({name}=...): "
@@ -178,11 +184,11 @@ class SlotEngine:
                   retry_backoff=retry_backoff, tracer=tracer, ledger=ledger)
         if overflow != "reject":
             raise NotImplementedError("§10 backpressure (ROADMAP Queue 1 "
-                                      "item 10) is not ported yet")
+                                      "item 7) is not ported yet")
         if cfg.cache_layout == "paged":
             raise NotImplementedError("slot serving over a paged cache is "
                                       "the PagedSlotEngine (ROADMAP Queue 1 "
-                                      "item 11)")
+                                      "item 5)")
         if not M.supports_slot_serving(cfg):
             raise ValueError("slot serving needs an attention-only trunk "
                              "without modality extras; use fixed-batch "

@@ -5,8 +5,9 @@ The one dispatch point shared by ``serving/rl_adapter.py`` and
 ``launch/serve.py``.  This slice builds the dense ``SlotEngine``; the
 other two engines of the reference raise ``NotImplementedError`` and name
 their ROADMAP item: a paged ``cfg`` needs the ``PagedSlotEngine`` (block
-pool, copy-on-write GRPO prompt sharing; Queue 1 item 11) and a mesh needs
-the ``MeshSlotServer`` (Queue 1 item 15).
+pool, copy-on-write GRPO prompt sharing; ROADMAP Queue 1 item 5, the
+PagedSlotEngine) and a mesh needs the ``MeshSlotServer`` (ROADMAP Queue 1
+item 11, the mesh).
 """
 from __future__ import annotations
 
@@ -29,11 +30,11 @@ def make_slot_engine(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, *,
     if mesh is not None:
         raise NotImplementedError("the MeshSlotServer (one scheduler per "
                                   "data shard) arrives with the mesh, "
-                                  "ROADMAP Queue 1 item 15")
+                                  "ROADMAP Queue 1 item 11")
     if cfg.cache_layout == "paged":
         raise NotImplementedError("slot serving over a paged cache is the "
                                   "PagedSlotEngine with serving/"
-                                  "block_table.py, ROADMAP Queue 1 item 11")
+                                  "block_table.py, ROADMAP Queue 1 item 5")
     return SlotEngine(model, cfg, gen, num_slots=num_slots,
                       prompt_width=prompt_width, spec_prefix=spec_prefix,
                       log_lenience=log_lenience, chunk_steps=chunk_steps,

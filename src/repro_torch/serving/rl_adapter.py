@@ -1,5 +1,7 @@
 """RL-side adapter: drain a training prompt batch through the slot engine
-(port of ``repro/serving/rl_adapter.py``, variants ``off`` and ``spec``).
+(port of ``repro/serving/rl_adapter.py``, variants ``off``, ``spec`` and
+``delayed``; as in JAX, the ``random`` and ``full`` ablations have no slot
+path).
 
 ``core/spec_rollout.rollout`` with ``spec.backfill == 'slots'`` lands here:
 instead of one fixed decode batch that idles on its long tail, the batch's
@@ -45,10 +47,9 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                       ) -> RolloutBatch:
     """Slot-scheduled equivalent of ``rollout`` (same RolloutBatch
     contract, ``n`` included)."""
-    if spec.variant not in ("off", "spec"):
-        raise NotImplementedError(f"backfill='slots' with variant "
-                                  f"{spec.variant!r} arrives with the "
-                                  "GRPO-update slice (ROADMAP Queue 1 item 7)")
+    if spec.variant not in ("off", "spec", "delayed"):
+        raise ValueError(f"backfill='slots' supports variants off/spec/"
+                         f"delayed, not {spec.variant!r}")
     if not M.supports_slot_serving(cfg):
         raise ValueError("backfill='slots' needs an attention-only trunk")
     if spec.variant != "off" and spec.one_pass == "off":

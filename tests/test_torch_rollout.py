@@ -50,9 +50,8 @@ class JaxKey:
     def __init__(self, key):
         self.key = key
 
-    def split(self):
-        a, b = jax.random.split(self.key)
-        return JaxKey(a), JaxKey(b)
+    def split(self, num=2):
+        return tuple(JaxKey(k) for k in jax.random.split(self.key, num))
 
     def gumbel(self, shape):
         return torch.from_numpy(np.array(jax.random.gumbel(
@@ -222,17 +221,21 @@ def test_left_align_matches_jax():
     assert got_m[:, -1].all()
 
 
-def test_unported_branches_raise(models):
+@pytest.mark.parametrize("branch", ["draft", "mesh"])
+def test_unported_branches_raise(models, branch):
+    """The draft engine and the mesh still raise and name their ROADMAP
+    items (the variants random, full and delayed are ported: their parity
+    tests are in test_torch_train.py)."""
     _, cfg, _, model = models
     gen = GenerateConfig(max_new_tokens=4)
     toks = np.ones((2, 3), np.int32)
     mask = np.ones((2, 3), bool)
-    for spec in (SpecConfig(variant="random"), SpecConfig(variant="delayed"),
-                 SpecConfig(draft=object()),
-                 SpecConfig(variant="delayed", backfill="slots")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rollout(model, cfg, gen, spec, toks, mask, [0, 1], RolloutCache(),
-                    sampling.make_key(0, "cpu"), 0)
+    spec, mesh, item = {"draft": (SpecConfig(draft=object()), None, 6),
+                        "mesh": (SpecConfig(), object(), 11)}[branch]
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item} "):
+        rollout(model, cfg, gen, spec, toks, mask, [0, 1], RolloutCache(),
+                sampling.make_key(0, "cpu"), 0, mesh=mesh)
 
 
 # modules of each slice that the walk below must reach
@@ -245,7 +248,10 @@ SLICE_MODULES = (
     "repro_torch.serving.mesh_server", "repro_torch.serving.request",
     "repro_torch.serving.scheduler", "repro_torch.launch.serve",
     "repro_torch.models.rwkv", "repro_torch.kernels.rwkv6_wkv.ops",
-    "repro_torch.configs.rwkv6_3b")
+    "repro_torch.configs.rwkv6_3b", "repro_torch.optim.adamw",
+    "repro_torch.rl.losses", "repro_torch.rl.advantages",
+    "repro_torch.rl.trainer", "repro_torch.core.lenience",
+    "repro_torch.launch.train")
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -1,0 +1,864 @@
+"""The port's GRPO train step on the CPU against ``repro``: AdamW, the
+losses, the advantages, the lenience schedules, the rollout variants
+``random``, ``full`` and ``delayed``, the gradient routes, one
+``Trainer.optimize`` and two ``Trainer.train_step`` calls.
+
+Inputs are numpy arrays from a seed; parameters come from JAX's
+``init_lm`` through ``from_jax_params`` and go back through
+``to_jax_params``; random draws are shared through ``JaxKey``.  Float32
+throughout, except the bfloat16 AdamW cases.  Tolerances, stated where
+they are used:
+
+* AdamW: moments within rtol 1e-5; updated parameters exact in bfloat16,
+  in float32 within rtol 1e-6 plus 2·lr where |g| < 1e-6 (there
+  m̂ / √v̂ is ±1 of a sign that rounding may flip);
+* losses, advantages, lenience: within 1e-6;
+* one ``optimize``: loss and grad norm within rtol 1e-4 (float32 sums
+  over a forward and a backward in another order; the loss, 0 up to
+  rounding at ratio 1, also within atol 1e-6); ``clip_frac``,
+  ``approx_kl`` and ``kl_ref`` within 1e-6; ``ratio_mean`` within 1e-6 of
+  1; each gradient leaf against ``jax.grad`` of JAX's actor loss within
+  5e-5 of that leaf's largest; parameters within ``_update_tol``: 1e-6 of |p| + lr, plus what a
+  gradient error of 5e-5 of the tensor's largest gradient does to AdamW's
+  first step (wider than the AdamW test's, whose gradients are the same
+  on both sides).
+
+Rewards for ``optimize`` are 0/1 per row from a seeded generator, every
+group mixed: a random model earns reward 0 everywhere from the verifier,
+which makes every GRPO advantage 0 and the gradient 0, so real rewards
+would exercise nothing of the gradient route.
+"""
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+from hypothesis_compat import given, settings, st  # noqa: E402
+
+import repro.core.spec_rollout as jax_spec_rollout  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.core import RolloutCache as JaxRolloutCache  # noqa: E402
+from repro.core import SpecConfig as JaxSpecConfig  # noqa: E402
+from repro.core import lenience as jax_lenience  # noqa: E402
+from repro.data.dataset import PromptDataset as JaxPromptDataset  # noqa: E402
+from repro.engine.generate import GenerateConfig as JaxGenerateConfig  # noqa: E402
+from repro.models import attention as jax_attention  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models import rwkv as jax_rwkv  # noqa: E402
+from repro.optim import adamw as jax_adamw  # noqa: E402
+from repro.rewards.mathgen import MathTaskConfig as JaxMathTaskConfig  # noqa: E402
+from repro.rewards.mathgen import generate_problems as jax_problems  # noqa: E402
+from repro.rl import advantages as jax_adv  # noqa: E402
+from repro.rl import losses as jax_losses  # noqa: E402
+from repro.rl import trainer as jax_trainer  # noqa: E402
+from repro.rl.trainer import RLConfig as JaxRLConfig  # noqa: E402
+from repro.rl.trainer import Trainer as JaxTrainer  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import RolloutCache, SpecConfig, lenience, rollout  # noqa: E402
+from repro_torch.core.spec_rollout import RolloutBatch  # noqa: E402
+from repro_torch.data.dataset import PromptDataset  # noqa: E402
+from repro_torch.data.tokenizer import EOS_ID, PAD_ID, VOCAB_SIZE  # noqa: E402
+from repro_torch.engine.generate import (GenerateConfig,  # noqa: E402
+                                         positions_from_mask, score,
+                                         token_logprobs)
+from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather  # noqa: E402
+from repro_torch.kernels.cache_slot_write.ops import cache_slot_write  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention, paged_decode_attention)
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ops import wkv  # noqa: E402
+from repro_torch.kernels.spec_verify.ops import spec_verify  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models.attention import dot_product_attention  # noqa: E402
+from repro_torch.models.convert import from_jax_params, to_jax_params  # noqa: E402
+from repro_torch.models.rwkv import wkv_scan  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems  # noqa: E402
+from repro_torch.rl import advantages, losses  # noqa: E402
+from repro_torch.rl.trainer import RLConfig, Trainer  # noqa: E402
+from test_torch_rollout import JaxKey, JaxKeyBatch, row_keys  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = 1e-6          # losses, advantages, lenience, clip_frac, approx_kl, kl_ref
+MOMENT_RTOL = 1e-5
+PARAM_RTOL = 1e-6
+LOSS_RTOL = 1e-4    # loss and grad norm of a model's optimize
+GRAD_NOISE = 5e-5   # a model's gradient error budget, of the tensor's
+                    # largest (float32 sums in another order; card vs CPU
+                    # measured up to 8.4e-6 by chip_smoke.py's witness)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(got, want, what, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), rtol=0,
+                               atol=tol, err_msg=what)
+
+
+def _params_close(got, want, grads_small, lr, what):
+    """float32 parameters within rtol 1e-6, plus 2·lr where |g| < 1e-6."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    tol = PARAM_RTOL * np.abs(want) + np.where(grads_small, 2 * lr, 0.0)
+    bad = np.abs(got - want) > tol
+    assert not bad.any(), (f"{what}: {int(bad.sum())} of {bad.size} elements "
+                           f"off, max {np.abs(got - want).max()}")
+
+
+# ---------------------------------------------------------------- AdamW
+
+SCHEDULES = {"constant": {},
+             "cosine": {"total_steps": 5},
+             "warmup_cosine": {"total_steps": 6, "warmup_steps": 2}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("clip", ["above", "below"])
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_adamw_matches_jax(schedule, clip, dtype):
+    """Three steps, gradients with a global norm above or below clip_norm
+    (and a few below 1e-6), lr 1e-2 so that bfloat16 weights move."""
+    kw = dict(lr=1e-2, schedule=schedule, **SCHEDULES[schedule])
+    jcfg, cfg = jax_adamw.AdamWConfig(**kw), adamw.AdamWConfig(**kw)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    rng = np.random.default_rng(0)
+    shapes = [(7, 5), (13,), (3, 4, 2)]
+    jp = [jnp.asarray(rng.normal(0, 0.5, s).astype(np.float32), jdt)
+          for s in shapes]
+    tp = [_t(np.asarray(x.astype(jnp.float32))).to(tdt) for x in jp]
+    jstate, tstate = jax_adamw.init(jp), adamw.init(tp)
+    sigma = 1.0 if clip == "above" else 0.02
+    small = [np.ones(s, bool) for s in shapes]
+    for step in range(3):
+        g = [rng.normal(0, sigma, s).astype(np.float32) for s in shapes]
+        g[1][:3] = [0.0, 1e-8, -3e-7]
+        jg = [jnp.asarray(x, jdt) for x in g]
+        tg = [_t(np.asarray(x.astype(jnp.float32))).to(tdt) for x in jg]
+        small = [s & (np.abs(np.asarray(x.astype(jnp.float32))) < 1e-6)
+                 for s, x in zip(small, jg)]
+        jp, jstate, jinfo = jax_adamw.update(jcfg, jp, jg, jstate)
+        info = adamw.update(cfg, tp, tg, tstate)
+        assert (float(jinfo["grad_norm"]) > 1.0) == (clip == "above")
+        np.testing.assert_allclose(float(info["grad_norm"]),
+                                   float(jinfo["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(float(info["lr"]), float(jinfo["lr"]),
+                                   rtol=1e-6)
+        assert tstate["step"] == int(jstate["step"]) == step + 1
+        for name in ("mu", "nu"):
+            for got, want in zip(tstate[name], jstate[name]):
+                np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                           rtol=MOMENT_RTOL, atol=1e-30)
+        for i, (got, want) in enumerate(zip(tp, jp)):
+            assert got.dtype == tdt
+            want32 = np.asarray(want.astype(jnp.float32))
+            if dtype == "bfloat16":
+                np.testing.assert_array_equal(got.float().numpy(), want32)
+            else:
+                _params_close(got.numpy(), want32, small[i],
+                              float(info["lr"]), f"step {step} leaf {i}")
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_lr_at_matches_jax(schedule):
+    """Within rtol 1e-6: float32 cos differs by an ulp between the two."""
+    kw = dict(lr=3e-4, schedule=schedule, **SCHEDULES[schedule])
+    for step in range(9):
+        np.testing.assert_allclose(
+            float(adamw.lr_at(adamw.AdamWConfig(**kw), step)),
+            float(jax_adamw.lr_at(jax_adamw.AdamWConfig(**kw), step)),
+            rtol=1e-6, err_msg=f"step {step}")
+
+
+# ---------------------------------------------------------------- losses
+
+
+def _loss_inputs(seed, B=5, N=7):
+    rng = np.random.default_rng(seed)
+    lp_old = -rng.exponential(1.0, (B, N)).astype(np.float32)
+    lp_new = (lp_old + rng.normal(0, 0.3, (B, N))).astype(np.float32)
+    adv = rng.normal(size=(B, N)).astype(np.float32)
+    lp_new[0, :3] = lp_old[0, :3] + 1.5      # ratio e^1.5 > clip_c = 3 ...
+    adv[0] = -1.0                            # ... with A < 0: the dual clip
+    mask = rng.random((B, N)) < 0.8
+    mask[:, 0] = True
+    return lp_new, lp_old, adv, mask
+
+
+@settings(max_examples=10, deadline=None)
+@given(seed=st.integers(0, 1000), agg=st.sampled_from(["seq", "token"]))
+def test_policy_loss_matches_jax(seed, agg):
+    """Loss, diagnostics and the gradient in lp_new, with the dual clip
+    hit in row 0."""
+    lp_new, lp_old, adv, mask = _loss_inputs(seed)
+    kw = dict(agg=agg, clip_high=0.28 if agg == "token" else 0.2,
+              clip_c=3.0)
+    jcfg, cfg = jax_losses.PolicyLossConfig(**kw), losses.PolicyLossConfig(**kw)
+    (jloss, jinfo), jgrad = jax.value_and_grad(
+        lambda x: jax_losses.policy_loss(x, lp_old, adv, mask, jcfg),
+        has_aux=True)(jnp.asarray(lp_new))
+    x = _t(lp_new).requires_grad_(True)
+    loss, info = losses.policy_loss(x, _t(lp_old), _t(adv), _t(mask), cfg)
+    loss.backward()
+    _close(loss.item(), jloss, "loss")
+    for k in ("clip_frac", "approx_kl", "ratio_mean"):
+        _close(info[k].item(), jinfo[k], k)
+    _close(x.grad.numpy(), jgrad, "d loss / d lp_new")
+    # the dual clip's branch carries no gradient in lp_new
+    assert np.all(x.grad.numpy()[0, :3] == 0.0)
+
+
+def test_kl_value_entropy_and_masked_mean_match_jax():
+    lp_new, lp_old, adv, mask = _loss_inputs(1)
+    rng = np.random.default_rng(2)
+    vals, rets, old = (rng.normal(size=lp_new.shape).astype(np.float32)
+                       for _ in range(3))
+    _close(losses.kl_to_reference(_t(lp_new), _t(lp_old), _t(mask)),
+           jax_losses.kl_to_reference(lp_new, lp_old, mask), "k3 KL")
+    _close(losses.value_loss(_t(vals), _t(rets), _t(old), _t(mask)),
+           jax_losses.value_loss(vals, rets, old, mask), "value loss")
+    _close(losses.entropy_bonus(_t(adv), _t(mask)),
+           jax_losses.entropy_bonus(adv, mask), "entropy bonus")
+    for axis in (None, 0, 1):
+        _close(losses.masked_mean(_t(adv), _t(mask), axis=axis),
+               jax_losses.masked_mean(adv, mask, axis=axis),
+               f"masked_mean axis={axis}")
+    _close(losses.masked_mean(_t(adv), _t(np.zeros_like(mask))), 0.0,
+           "an empty mask")
+
+
+# ---------------------------------------------------------------- advantages
+
+
+@pytest.mark.parametrize("use_std", [True, False])
+def test_group_relative_advantages_match_jax(use_std):
+    rng = np.random.default_rng(3)
+    r = rng.integers(0, 2, 12).astype(np.float32)
+    r[4:8] = 1.0                                 # a degenerate group
+    r[8:] = rng.normal(size=4)
+    _close(advantages.group_relative_advantages(_t(r), 4, use_std=use_std),
+           jax_adv.group_relative_advantages(jnp.asarray(r), 4,
+                                             use_std=use_std), "GRPO adv")
+
+
+@settings(max_examples=10, deadline=None)
+@given(seed=st.integers(0, 1000), gamma=st.floats(0.9, 1.0),
+       lam=st.floats(0.8, 1.0))
+def test_gae_matches_jax(seed, gamma, lam):
+    rng = np.random.default_rng(seed)
+    B, N = 3, 9
+    rew = rng.normal(size=(B, N)).astype(np.float32)
+    vals = rng.normal(size=(B, N)).astype(np.float32)
+    mask = np.arange(N)[None, :] < rng.integers(1, N + 1, (B, 1))
+    got = advantages.gae_advantages(_t(rew), _t(vals), _t(mask), gamma=gamma,
+                                    lam=lam)
+    want = jax_adv.gae_advantages(jnp.asarray(rew), jnp.asarray(vals),
+                                  jnp.asarray(mask), gamma=gamma, lam=lam)
+    _close(got[0], want[0], "GAE advantages")
+    _close(got[1], want[1], "GAE returns")
+
+
+def test_terminal_reward_and_whiten_match_jax():
+    rng = np.random.default_rng(4)
+    r = rng.normal(size=4).astype(np.float32)
+    lens = np.array([3, 1, 0, 6], np.int32)
+    _close(advantages.terminal_reward_to_tokens(_t(r), _t(lens), 6),
+           jax_adv.terminal_reward_to_tokens(jnp.asarray(r), jnp.asarray(lens),
+                                             6), "terminal reward")
+    adv = rng.normal(size=(4, 6)).astype(np.float32)
+    mask = np.arange(6)[None, :] < lens[:, None]
+    _close(advantages.whiten(_t(adv), _t(mask)),
+           jax_adv.whiten(jnp.asarray(adv), jnp.asarray(mask)), "whiten")
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("fixed", {"lenience": math.e ** 0.5}),
+    ("warmup", {"target": math.e ** 0.5, "warmup_steps": 3}),
+    ("adaptive", {"init": 1.2, "budget": 0.05})])
+def test_lenience_schedules_match_jax(kind, kw):
+    got, want = lenience.make_schedule(kind, **kw), \
+        jax_lenience.make_schedule(kind, **kw)
+    for step, observed in enumerate([0.0, 0.3, 0.01, 0.2, 0.0, 1.0]):
+        _close(got(step), want(step), f"{kind} step {step}")
+        got.update(observed)
+        want.update(observed)
+
+
+# ---------------------------------------------------------------- routes
+
+
+def test_dot_product_attention_matches_jax_with_grads():
+    """Values and gradients of the differentiable attention against JAX's
+    naive one: GQA (G = 2), a window, left padding and a query row that
+    sees no key."""
+    rng = np.random.default_rng(5)
+    B, Hq, Hkv, T, D = 2, 4, 2, 6, 8
+    q, k, v = (rng.normal(size=(B, h, T, D)).astype(np.float32)
+               for h in (Hq, Hkv, Hkv))
+    pos = np.array([[-1, -1, 0, 1, 2, 3], [0, 1, 2, 3, 4, 5]], np.int32)
+    kpos = pos.copy()
+    kpos[0, 2] = -1                              # query 0 of row 0: no key
+    cot = rng.normal(size=(B, Hq, T, D)).astype(np.float32)
+    for window in (0, 3):
+        def f(q, k, v):
+            out = jax_attention.dot_product_attention(
+                q, k, v, jnp.asarray(pos), jnp.asarray(kpos), window=window)
+            return jnp.sum(out * cot), out
+        (_, want), jgrads = jax.value_and_grad(f, argnums=(0, 1, 2),
+                                               has_aux=True)(q, k, v)
+        tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+        out = dot_product_attention(tq, tk, tv, _t(pos), _t(kpos),
+                                    window=window)
+        (out * _t(cot)).sum().backward()
+        _close(out.detach(), want, f"attention window={window}", 1e-5)
+        assert np.all(out.detach().numpy()[0, :, 2] == 0.0)
+        for got, jg, name in zip((tq, tk, tv), jgrads, "qkv"):
+            _close(got.grad, jg, f"d/d{name} window={window}", 1e-5)
+
+
+@pytest.mark.parametrize("T,chunk", [(12, 4), (10, 64)])
+def test_wkv_scan_matches_jax_with_grads(T, chunk):
+    """The differentiable recurrence, chunked under checkpoint (T = 12 in
+    chunks of 4) and whole, values and gradients against JAX's."""
+    rng = np.random.default_rng(6)
+    B, H, hd = 2, 2, 4
+    r, k, v = (rng.normal(0, 0.5, (B, T, H, hd)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.normal(-1, 0.5, (B, T, H, hd)))).astype(np.float32)
+    u = rng.normal(0, 0.1, (H, hd)).astype(np.float32)
+    s0 = rng.normal(0, 0.1, (B, H, hd, hd)).astype(np.float32)
+    cot = rng.normal(size=(B, T, H, hd)).astype(np.float32)
+
+    def f(*xs):
+        y, s = jax_rwkv.wkv_scan(*xs, s0, chunk)
+        return jnp.sum(y * cot) + jnp.sum(s), (y, s)
+    (_, (jy, js)), jgrads = jax.value_and_grad(
+        f, argnums=(0, 1, 2, 3, 4), has_aux=True)(r, k, v, w, u)
+    ts = [_t(a).requires_grad_(True) for a in (r, k, v, w, u)]
+    y, s = wkv_scan(*ts, _t(s0), chunk)
+    ((y * _t(cot)).sum() + s.sum()).backward()
+    _close(y.detach(), jy, "wkv_scan y", 1e-5)
+    _close(s.detach(), js, "wkv_scan state", 1e-5)
+    for got, jg, name in zip(ts, jgrads, "rkvwu"):
+        _close(got.grad, jg, f"d/d{name}", 1e-5)
+
+
+def _kernel_calls():
+    """Each kernel wrapper's call on CPU tensors, the float inputs
+    requiring grad when ``rg``."""
+    f = dict(dtype=torch.float32)
+    i32 = dict(dtype=torch.int32)
+
+    def t(*shape, rg):
+        return torch.rand(shape, **f).requires_grad_(rg)
+    return {
+        "decode_attention": lambda rg: decode_attention(
+            t(1, 2, 1, 64, rg=rg), t(1, 1, 8, 64, rg=rg), t(1, 1, 8, 64, rg=rg),
+            torch.tensor([7], **i32), torch.arange(8, **i32)[None]),
+        "paged_decode_attention": lambda rg: paged_decode_attention(
+            t(1, 2, 1, 64, rg=rg), t(2, 1, 32, 64, rg=rg),
+            t(2, 1, 32, 64, rg=rg), torch.tensor([[1]], **i32),
+            torch.tensor([7], **i32), torch.arange(32, **i32)[None]),
+        "flash_attention": lambda rg: flash_attention(
+            t(1, 2, 4, 64, rg=rg), t(1, 1, 4, 64, rg=rg), t(1, 1, 4, 64, rg=rg),
+            torch.arange(4, **i32)[None], torch.arange(4, **i32)[None]),
+        "spec_verify": lambda rg: spec_verify(
+            -t(1, 4, rg=rg), -t(1, 4, rg=False), t(1, 4, rg=False),
+            torch.tensor([4], **i32), 0.0),
+        "cache_roll": lambda rg: cache_roll(t(2, 4, 3, rg=rg),
+                                            torch.tensor([1, 2], **i32)),
+        "paged_gather": lambda rg: paged_gather(t(4, 2, 3, rg=rg),
+                                                torch.tensor([[3, 0]], **i32)),
+        "cache_slot_write": lambda rg: cache_slot_write(
+            t(4, 2, 3, rg=False), t(1, 2, 3, rg=rg), torch.tensor([2])),
+        "wkv": lambda rg: wkv(*(t(1, 2, 1, 4, rg=rg) for _ in range(4)),
+                              t(1, 4, rg=rg), t(1, 1, 4, 4, rg=False)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_kernel_calls()))
+def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
+    """A forward-only kernel would hand back an output with no graph; each
+    wrapper refuses such an input before it dispatches, and takes it under
+    no_grad or without requires_grad."""
+    call = _kernel_calls()[name]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call(True)
+    with torch.no_grad():
+        call(True)
+    call(False)
+
+
+# ---------------------------------------------------------------- rollouts
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    jcfg = jax_get_config("qwen3-1.7b").reduced(num_kv_heads=2)
+    cfg = get_config("qwen3-1.7b").reduced(num_kv_heads=2)
+    params = JM.init_lm(jax.random.PRNGKey(0), jcfg)
+    return jcfg, cfg, params
+
+
+def _model(cfg, params):
+    return from_jax_params(jax.tree.map(np.asarray, params), cfg,
+                           device="cpu")
+
+
+@pytest.mark.parametrize("variant,keys", [("random", "scalar"),
+                                          ("random", "rows"),
+                                          ("full", "scalar"),
+                                          ("delayed", "scalar")])
+def test_variant_rollouts_match_jax(qwen, variant, keys):
+    """Epoch 0 vanilla, then the variant's reuse branch through one
+    RolloutCache each: two epochs for random and full; delayed reads
+    drafts from two visits ago, so it takes a third epoch to reuse (and
+    there the one-pass branch).  random draws one uniform per row from a
+    scalar key and from a key batch."""
+    jcfg, cfg, params = qwen
+    model = _model(cfg, params)
+    problems = generate_problems(MathTaskConfig(num_problems=2, seed=0))
+    batch = next(PromptDataset(problems, max_prompt_len=12).epochs(
+        2, 4, 1, shuffle=False))
+    B, N = batch.tokens.shape[0], 8
+    jgen = JaxGenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
+    gen = GenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
+    jspec = JaxSpecConfig(variant=variant, lenience=0.8,
+                          verify_impl="interpret", compact_impl="interpret")
+    spec = SpecConfig(variant=variant, lenience=0.8)
+    jcache, cache = JaxRolloutCache(group_size=4), RolloutCache(group_size=4)
+    epochs = 3 if variant == "delayed" else 2
+    key = jax.random.PRNGKey(7)
+    for epoch in range(epochs):
+        key, sub = jax.random.split(key)
+        jkey = row_keys(int(epoch) + 11, B) if keys == "rows" else sub
+        tkey = JaxKeyBatch(jkey) if keys == "rows" else JaxKey(sub)
+        want = jax_spec_rollout.rollout(
+            params, jcfg, jgen, jspec, jnp.asarray(batch.tokens),
+            jnp.asarray(batch.mask), batch.cache_keys, jcache, jkey, epoch)
+        got = rollout(model, cfg, gen, spec, batch.tokens, batch.mask,
+                      batch.cache_keys, cache, tkey, epoch)
+        np.testing.assert_array_equal(got.response, want.response)
+        np.testing.assert_array_equal(got.length, want.length)
+        np.testing.assert_array_equal(got.response_mask, want.response_mask)
+        np.testing.assert_allclose(got.behaviour_logprobs,
+                                   want.behaviour_logprobs, atol=1e-4)
+        assert set(got.metrics) == set(want.metrics)
+        for k in ("one_pass", "n_generated", "n_reused", "prefill_passes",
+                  "accept_rate", "full_reuse_ratio", "draft_coverage"):
+            _close(got.metrics[k], want.metrics[k], f"epoch {epoch} {k}")
+    assert got.metrics["n_reused"] > 0
+    assert got.metrics["one_pass"] == (1.0 if variant == "delayed" else 0.0)
+    if variant == "random":
+        assert 0 < got.metrics["n_reused"] < B * N
+
+
+def test_delayed_slot_rollouts_match_jax_and_fixed(qwen):
+    """Three epochs of ``delayed`` through the slot engine
+    (``backfill="slots"``, 2 slots) against JAX's ``rollout_via_slots``,
+    and against the port's fixed-batch ``delayed`` under the same per-row
+    keys: epoch 2 is the first with lag-2 drafts, admitted as speculative
+    prefixes."""
+    jcfg, cfg, params = qwen
+    model = _model(cfg, params)
+    problems = generate_problems(MathTaskConfig(num_problems=2, seed=0))
+    batch = next(PromptDataset(problems, max_prompt_len=12).epochs(
+        2, 4, 1, shuffle=False))
+    B, N = batch.tokens.shape[0], 8
+    jgen = JaxGenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
+    gen = GenerateConfig(max_new_tokens=N, eos_id=EOS_ID, pad_id=PAD_ID)
+    kw = dict(variant="delayed", lenience=0.8)
+    jspec = JaxSpecConfig(backfill="slots", backfill_slots=2, **kw)
+    spec = SpecConfig(backfill="slots", backfill_slots=2, **kw)
+    jcache = JaxRolloutCache(group_size=4)
+    cache, fcache = RolloutCache(group_size=4), RolloutCache(group_size=4)
+    for epoch in range(3):
+        keys = row_keys(31 + epoch, B)
+        want = jax_spec_rollout.rollout(
+            params, jcfg, jgen, jspec, jnp.asarray(batch.tokens),
+            jnp.asarray(batch.mask), batch.cache_keys, jcache, keys, epoch)
+        got = rollout(model, cfg, gen, spec, batch.tokens, batch.mask,
+                      batch.cache_keys, cache, JaxKeyBatch(keys), epoch)
+        fixed = rollout(model, cfg, gen, SpecConfig(**kw), batch.tokens,
+                        batch.mask, batch.cache_keys, fcache,
+                        JaxKeyBatch(keys), epoch)
+        for other, tol in ((want, 1e-4), (fixed, 1e-5)):
+            np.testing.assert_array_equal(got.response, other.response)
+            np.testing.assert_array_equal(got.length, other.length)
+            np.testing.assert_array_equal(got.response_mask,
+                                          other.response_mask)
+            np.testing.assert_allclose(got.behaviour_logprobs,
+                                       other.behaviour_logprobs, atol=tol)
+        assert set(got.metrics) == set(want.metrics)
+        for k in ("one_pass", "n_generated", "n_reused", "admissions",
+                  "engine_steps", "backfill_slots", "slot_occupancy"):
+            assert got.metrics[k] == want.metrics[k], f"epoch {epoch} {k}"
+        np.testing.assert_array_equal(got.n, fixed.n)
+        if epoch == 1:
+            assert got.metrics["n_reused"] == 0     # drafts lag two visits
+    assert got.metrics["one_pass"] == 1.0 and got.metrics["n_reused"] > 0
+
+
+@pytest.mark.parametrize("variant", ["random", "full"])
+def test_slot_rollouts_refuse_random_and_full(qwen, variant):
+    """As in JAX, the ablations have no slot path: ``ValueError``."""
+    _, cfg, params = qwen
+    with pytest.raises(ValueError, match=f"not {variant!r}"):
+        rollout(_model(cfg, params), cfg, GenerateConfig(max_new_tokens=4),
+                SpecConfig(variant=variant, backfill="slots"),
+                np.ones((2, 3), np.int32), np.ones((2, 3), bool), [0, 1],
+                RolloutCache(), JaxKey(jax.random.PRNGKey(0)), 0)
+
+
+# ---------------------------------------------------------------- trainer
+
+
+def _datasets():
+    kw = dict(num_problems=8, max_operand=4)
+    return (JaxPromptDataset(jax_problems(JaxMathTaskConfig(**kw)),
+                             max_prompt_len=10),
+            PromptDataset(generate_problems(MathTaskConfig(**kw)),
+                          max_prompt_len=10))
+
+
+def _trainers(arch, lr=1e-3, **overrides):
+    """JAX's Trainer and the port's from the same parameters and key."""
+    kw = dict(vocab_size=max(VOCAB_SIZE, 64), **overrides)
+    jcfg = jax_get_config(arch).reduced(**kw)
+    cfg = get_config(arch).reduced(**kw)
+    rl_kw = dict(group_size=4, prompts_per_batch=2, max_new_tokens=6)
+    jrl = JaxRLConfig(optim=jax_adamw.AdamWConfig(lr=lr), **rl_kw)
+    rl = RLConfig(optim=adamw.AdamWConfig(lr=lr), **rl_kw)
+    jds, ds = _datasets()
+    jtr = JaxTrainer(jcfg, jrl, JaxSpecConfig(), jds, jax.random.PRNGKey(0))
+    tr = Trainer(cfg, rl, SpecConfig(), ds, JaxKey(jax.random.PRNGKey(0)),
+                 model=_model(cfg, jtr.params), device="cpu")
+    return jtr, tr
+
+
+def _mixed_rewards(B, G, seed=0):
+    r = np.random.default_rng(seed).integers(0, 2, B).astype(np.float32)
+    r[0::G], r[1::G] = 1.0, 0.0                  # every group mixed
+    return r
+
+
+def _port_rb(jrb):
+    return RolloutBatch(**{k: np.array(getattr(jrb, k)) for k in (
+        "prompt", "prompt_mask", "response", "response_mask",
+        "behaviour_logprobs", "length")}, metrics=dict(jrb.metrics))
+
+
+def _update_tol(p0, g, lr, scale, noise=GRAD_NOISE, eps=1e-8):
+    """Tolerance of a parameter after AdamW's first step from gradients
+    that carry float32 summation noise: 1e-6 of the update's operands
+    (|p| + lr, since p - lr·... cancels where p ≈ lr), plus what a gradient
+    error of up to δ = noise · max|g·scale| (per tensor) does to
+    g / (|g| + eps): at most 2δ·eps / (m + eps)² with m = |g·scale| - δ the
+    least magnitude the gradient can have, and at most 2 (a sign)."""
+    gs = np.abs(np.asarray(g, np.float64)) * scale
+    delta = noise * gs.max()
+    m = np.maximum(gs - delta, 0.0)
+    return (PARAM_RTOL * (np.abs(p0) + lr)
+            + lr * np.minimum(2.0, 2 * delta * eps / (m + eps) ** 2))
+
+
+def _check_params(tr, jtr, before, lr, grad_norm, noise=GRAD_NOISE):
+    """Updated parameters through ``to_jax_params``, leaf by leaf, against
+    JAX's, within ``_update_tol`` of the port's gradients."""
+    got = to_jax_params(tr.model)
+    want = jax.tree.map(lambda a: np.asarray(a, np.float32), jtr.params)
+    prior = jax.tree.map(lambda a: np.asarray(a, np.float32), before)
+    grads = _grads_tree(tr)
+    scale = min(1.0, 1.0 / (grad_norm + 1e-9))
+    assert (jax.tree.structure(got) == jax.tree.structure(want)
+            == jax.tree.structure(grads))
+    paths = jax.tree_util.tree_flatten_with_path(want)[0]
+    for (path, w), g, p0, gr in zip(paths, jax.tree.leaves(got),
+                                    jax.tree.leaves(prior),
+                                    jax.tree.leaves(grads)):
+        d = np.abs(np.asarray(g, np.float64) - w)
+        bad = d > _update_tol(p0, gr, lr, scale, noise)
+        assert not bad.any(), (f"{jax.tree_util.keystr(path)}: "
+                               f"{int(bad.sum())} of {bad.size} elements "
+                               f"off, max {d.max()}")
+
+
+def _grads_tree(tr):
+    """Every parameter's ``.grad`` in the params tree's layout."""
+    saved = [p.detach().clone() for p in tr.model.parameters()]
+    with torch.no_grad():
+        for p in tr.model.parameters():
+            p.copy_(p.grad.float())
+    tree = to_jax_params(tr.model)
+    with torch.no_grad():
+        for p, s in zip(tr.model.parameters(), saved):
+            p.copy_(s)
+    return tree
+
+
+def _capture_jax_grads(monkeypatch):
+    """Wrap JAX's ``_update_actor`` so that the next ``optimize`` also
+    leaves ``jax.grad`` of its actor loss, on the same inputs, in the
+    returned list."""
+    out = []
+    update = jax_trainer._update_actor
+
+    def spy(params, opt_state, cfg, pcfg, ocfg, full_tokens, full_mask,
+            resp_start, lp_old, adv, resp_mask, ref_lp, temperature, top_p):
+        def loss(p, *arrays):
+            ft, fm, lo, a, rm, rl = arrays
+            return jax_trainer._actor_loss_fn(
+                p, cfg, pcfg, ft, fm, resp_start, lo, a, rm, rl, temperature,
+                top_p, cfg.router_aux_coef, cfg.router_z_coef)[0]
+        out.append(jax.jit(jax.grad(loss))(
+            params, full_tokens, full_mask, lp_old, adv, resp_mask, ref_lp))
+        return update(params, opt_state, cfg, pcfg, ocfg, full_tokens,
+                      full_mask, resp_start, lp_old, adv, resp_mask, ref_lp,
+                      temperature, top_p)
+
+    monkeypatch.setattr(jax_trainer, "_update_actor", spy)
+    return out
+
+
+def _check_grads(tr, want):
+    """The port's ``.grad``, leaf by leaf, against JAX's gradient within
+    GRAD_NOISE of the leaf's largest magnitude."""
+    got = _grads_tree(tr)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    paths = jax.tree_util.tree_flatten_with_path(want)[0]
+    for (path, w), g in zip(paths, jax.tree.leaves(got)):
+        w = np.asarray(w, np.float64)
+        d = np.abs(np.asarray(g, np.float64) - w).max()
+        assert np.abs(w).max() > 0, f"{jax.tree_util.keystr(path)}: zero"
+        assert d <= GRAD_NOISE * np.abs(w).max(), (
+            f"{jax.tree_util.keystr(path)}: max diff {d}, largest "
+            f"{np.abs(w).max()}")
+
+
+@pytest.mark.parametrize("arch,overrides,stale", [
+    ("qwen3-1.7b", {"num_kv_heads": 2}, False),
+    ("qwen3-1.7b", {"num_kv_heads": 2, "tie_embeddings": True}, False),
+    ("rwkv6-3b", {"scan_chunk": 4}, False),
+    ("qwen3-1.7b", {"num_kv_heads": 2}, True)],
+    ids=["qwen3-1.7b", "qwen3-1.7b-tied", "rwkv6-3b-chunked",
+         "qwen3-1.7b-behaviour-lp"])
+def test_one_grpo_optimize_matches_jax(arch, overrides, stale, monkeypatch):
+    """One ``optimize`` on one collected rollout with seeded mixed rewards:
+    loss, grad norm, diagnostics, every gradient leaf and every updated
+    parameter.  The reduced rwkv6-3b scans T = 16 in chunks of 4 under
+    checkpoint.  ``stale`` passes seeded behaviour log-probs and a cap of
+    1.5, which the truncated importance weights reach on some tokens."""
+    lr = 1e-3
+    jtr, tr = _trainers(arch, lr, **overrides)
+    batch = jtr.collector.sample(0)
+    _, jrb, _, jtimes = jtr._collect(batch)
+    B, G = jrb.prompt.shape[0], 4
+    rewards = _mixed_rewards(B, G)
+    kw = {}
+    if stale:
+        noise = np.random.default_rng(3).normal(
+            0.0, 0.5, jrb.behaviour_logprobs.shape)
+        kw = dict(behaviour_lp=(np.asarray(jrb.behaviour_logprobs)
+                                + noise).astype(np.float32), is_clip=1.5)
+    before = jtr.params
+    jgrads = _capture_jax_grads(monkeypatch)
+    want = jtr.optimize(jrb, rewards, dict(jtimes), **kw)
+    got = tr.optimize(_port_rb(jrb), rewards, dict(jtimes), **kw)
+    assert set(got) == set(want)
+    assert want["grad_norm"] > 0
+    # at ratio 1 the GRPO loss is minus the mean of z-scores within each
+    # group, 0 up to rounding: it is held within atol 1e-6 beside the rtol
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL,
+                               atol=TOL, err_msg="loss")
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                               rtol=LOSS_RTOL, err_msg="grad_norm")
+    for k in ("clip_frac", "approx_kl", "kl_ref"):
+        _close(got[k], want[k], k)
+    if stale:
+        assert 0 < want["is_weight_mean"] < 1.5
+        _close(got["is_weight_mean"], want["is_weight_mean"],
+               "is_weight_mean")
+    _close(got["ratio_mean"], 1.0, "ratio_mean at the first update")
+    assert got["lr"] == want["lr"]
+    assert all(p.grad is not None and bool((p.grad != 0).any())
+               for p in tr.model.parameters())
+    assert not any(p.requires_grad for p in tr.model.parameters())
+    _check_grads(tr, jgrads[0])
+    _check_params(tr, jtr, before, lr, want["grad_norm"])
+
+
+def test_two_train_steps_match_jax():
+    """Two full ``train_step`` calls (epoch 0 vanilla, epoch 1 one-pass
+    spec) with the collection key split as JAX's: the same batches,
+    tokens, rewards and per-step metrics.  The verifier gives the random
+    model reward 0 everywhere, so every advantage is 0 and the gradient is
+    the k3 term's at a reference equal to the actor up to rounding:
+    rounding noise on both sides, which AdamW normalises to steps of
+    about lr in directions that need not agree.  So the parameters are
+    held with the whole gradient as its own error budget (noise 1), which
+    allows 2·lr on every element: that check shows only that both sides
+    stepped by rounding noise and stayed within two steps of each other,
+    not that their updates agree (``test_one_grpo_optimize_matches_jax``
+    holds that).  Each leaf must also have moved on both sides."""
+    lr = 1e-3
+    jtr, tr = _trainers("qwen3-1.7b", lr, num_kv_heads=2)
+    start = jax.tree.map(lambda a: np.asarray(a, np.float32), jtr.params)
+    for step in range(2):
+        before = jtr.params
+        want = jtr.train_step()
+        got = tr.train_step()
+        jrb, rb = jtr.last_rb, tr.last_rb
+        np.testing.assert_array_equal(rb.prompt, np.asarray(jrb.prompt))
+        np.testing.assert_array_equal(rb.response, np.asarray(jrb.response))
+        np.testing.assert_array_equal(rb.length, np.asarray(jrb.length))
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if k.endswith("_time"):
+                continue
+            np.testing.assert_allclose(got[k], v, rtol=LOSS_RTOL, atol=TOL,
+                                       err_msg=f"step {step} {k}")
+        assert got["reward_mean"] == 0.0 and got["grad_norm"] < 1e-4
+    assert got["one_pass"] == 1.0 and got["n_reused"] > 0
+    assert tr.total_generated_tokens == jtr.total_generated_tokens
+    _check_params(tr, jtr, before, lr, want["grad_norm"], noise=1.0)
+    paths = jax.tree_util.tree_flatten_with_path(start)[0]
+    for (path, p0), g, w in zip(paths, jax.tree.leaves(to_jax_params(
+            tr.model)), jax.tree.leaves(jtr.params)):
+        assert (g != p0).any() and (np.asarray(w) != p0).any(), (
+            f"{jax.tree_util.keystr(path)} did not move")
+
+
+def test_score_and_token_logprobs_agree():
+    """The graph-carrying log-probs equal ``score``'s on valid columns, and
+    the entropy carries a graph only when asked."""
+    cfg = get_config("qwen3-1.7b").reduced(num_kv_heads=2)
+    params = JM.init_lm(jax.random.PRNGKey(1), jax_get_config(
+        "qwen3-1.7b").reduced(num_kv_heads=2))
+    model = _model(cfg, params)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(3, cfg.vocab_size, (3, 9)).astype(np.int32)
+    mask = np.ones((3, 9), bool)
+    mask[1, :4] = False
+    sc = score(model, cfg, toks, mask, return_entropy=True)
+    model.requires_grad_(True)
+    lp, ent = token_logprobs(model, cfg, toks, mask)
+    assert lp.requires_grad and not ent.requires_grad
+    valid = sc["valid"].numpy()
+    _close(lp.detach().numpy()[valid], sc["logprobs"].numpy()[valid],
+           "log-probs", 1e-5)
+    _close(ent.numpy()[valid], sc["entropy"].numpy()[valid], "entropy", 1e-5)
+    assert token_logprobs(model, cfg, toks, mask,
+                          entropy_grad=True)[1].requires_grad
+
+
+def test_to_jax_params_inverts_from_jax_params(qwen):
+    _, cfg, params = qwen
+    got = to_jax_params(_model(cfg, params))
+    want = jax.tree.map(np.asarray, params)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------- launcher
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--algo", "ppo"], 4), (["--algo", "dapo"], 4), (["--draft", "2"], 6),
+    (["--async"], 8), (["--watchdog-dir", "wd"], 8), (["--ledger"], 9),
+    (["--decision-log", "d"], 9), (["--alerts"], 9),
+    (["--trace-dir", "t"], 9), (["--metrics", "9100"], 9),
+    (["--mesh-data", "2"], 11), (["--mesh-model", "2"], 11),
+    (["--require-mesh"], 11), (["--draft-fixed"], 6),
+    (["--staleness-window", "2"], 8), (["--buffer-capacity", "4"], 8),
+    (["--publish-every", "2"], 8), (["--async-schedule", "ppcc"], 8),
+    (["--watchdog-every", "5"], 8),
+    (["--watchdog-max-collect-time", "60"], 8),
+    (["--trace-sample-rate", "0.5"], 9)],
+    ids=lambda x: " ".join(x) if isinstance(x, list) else str(x))
+def test_unported_launcher_flags_raise_and_name_their_item(argv, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item} "):
+        launch_train.main(["--device", "cpu", "--smoke", "--steps", "0"]
+                          + argv)
+
+
+@pytest.mark.parametrize("what,item", [
+    ("mesh", 11), ("watchdog", 8), ("tracer", 9), ("alerts", 9),
+    ("draft", 6), ("ppo", 4)])
+def test_unported_trainer_arguments_raise_and_name_their_item(what, item):
+    cfg = get_config("qwen3-1.7b").reduced()
+    _, ds = _datasets()
+    kw = {"mesh": {"mesh": object()}, "watchdog": {"watchdog": object()},
+          "tracer": {"tracer": object()}, "alerts": {"alerts": object()}
+          }.get(what, {})
+    spec = SpecConfig(draft=object()) if what == "draft" else SpecConfig()
+    rl = RLConfig(algo="ppo") if what == "ppo" else RLConfig()
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item} "):
+        Trainer(cfg, rl, spec, ds, JaxKey(jax.random.PRNGKey(0)),
+                device="cpu", **kw)
+
+
+def test_launcher_runs_on_the_cpu(capsys):
+    assert launch_train.main(["--device", "cpu", "--smoke", "--steps",
+                              "2"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=qwen3-1.7b-smoke")
+    assert [ln.split()[:2] for ln in lines[1:]] == [["step", "0"],
+                                                    ["step", "1"]]
+
+
+# ---------------------------------------------------------------- ROADMAP
+
+# the words a ROADMAP Queue 1 heading must contain for a message naming
+# that item, by the feature the message names
+FEATURES = {
+    "draft": "draft", "mesh": "mesh", "PPO": "PPO", "DAPO": "DAPO",
+    "observatory": "Observatory", "tracer": "Observatory",
+    "ledger": "Observatory", "alerts": "Observatory",
+    "watchdog": "watchdog", "async": "Async", "§10": "§10",
+    "PagedSlotEngine": "PagedSlotEngine", "famil": "model families",
+    "MLA": "model families", "whisper": "model families",
+    "variant": "GRPO train step",
+}
+
+
+def _queue1_headings():
+    text = (ROOT / "ROADMAP.md").read_text()
+    q1 = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    return {int(m.group(1)): m.group(2) for m in
+            re.finditer(r"^(\d+)\. \*\*(.+?)\*\*", q1, re.M | re.S)}
+
+
+def test_roadmap_items_named_in_the_port_match_their_features():
+    """Every "ROADMAP Queue 1 item n" in src/repro_torch names an item
+    whose ROADMAP heading is the feature the sentence around it names."""
+    headings = _queue1_headings()
+    pattern = re.compile(r"ROADMAP[\s\"'(]+Queue[\s\"']+1[\s\"']+items?"
+                         r"[\s\"']+(\d+)")
+    found = 0
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        src = path.read_text()
+        for m in pattern.finditer(src):
+            found += 1
+            n = int(m.group(1))
+            where = f"{path.name}:{src.count(chr(10), 0, m.start()) + 1}"
+            assert n in headings, f"{where}: no Queue 1 item {n}"
+            window = src[max(0, m.start() - 160):m.end() + 60]
+            named = [w for w in FEATURES if w in window]
+            assert named, f"{where}: no feature named near item {n}"
+            assert any(FEATURES[w].lower() in headings[n].lower()
+                       for w in named), (
+                f"{where}: item {n} is {headings[n]!r}, the text names "
+                f"{named}")
+    assert found >= 20, found
