@@ -55,7 +55,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs six paths (random weights from a seed), each with the launch
+5. runs eight paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs:
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
@@ -77,9 +77,28 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 launched by the actor update (its forward takes the
                 differentiable route), ``flash_attention`` launched once a
                 layer by the old-policy and by the reference scoring; then,
-                with the model freed, its float32 witness: two layers at
-                full width, the actor update on the card against the whole
-                ``optimize`` on the CPU from the same weights and rollout;
+                after ``ppo`` and ``dapo``, with the model freed, its
+                float32 witness: two layers at full width, the actor update
+                on the card against the whole ``optimize`` on the CPU from
+                the same weights and rollout, and the critic update on the
+                card against the CPU's from the same critic, values and
+                returns (and the card's bfloat16 values against the CPU's);
+   ``ppo``      the GRPO trainer freed, PPO on the same model with its own
+                full-width critic: one ``train_step`` (epoch 0, the
+                verifier's rewards) and ``optimize`` on the ``train``
+                path's epoch-1 rollout with mixed rewards (``train ppo``
+                lines: values and critic-update times, critic loss, the
+                actor's and the critic's grad norms, launches and peak
+                memory by stage): ``flash_attention`` once a layer in the
+                actor's scoring and in the values pass, no kernel in
+                either update, a nonzero gradient in every critic
+                parameter;
+   ``dapo``     one DAPO ``train_step`` with one resample round, its
+                rewards replaced for that step: groups 0 and 2 degenerate,
+                exactly their 8 rows re-rolled (the one-pass branch, from
+                the SPEC-RL cache the first round filled) and merged back,
+                the other rows untouched (``train dapo`` line: each
+                round's reuse, time and launches);
    ``serve``    one run of ``python -m repro_torch.launch.serve`` on the
                 card (its reduced config, ``--spec-prefix --arrival-every
                 2``);
@@ -113,6 +132,7 @@ either it exits nonzero before printing any result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import statistics
@@ -1368,15 +1388,58 @@ def mixed_rewards(B: int, seed: int = SEED):
     return r
 
 
+class GradSpy:
+    """Reads each update's gradients as AdamW receives them (``_grad_step``
+    drops ``.grad`` once AdamW has stepped): wraps
+    ``repro_torch.optim.adamw.update`` while active.  For each of
+    ``models`` (label to module; ``None`` entries ignored) it records the
+    names of the parameters whose gradient is zero everywhere (``zero``)
+    and, with ``keep``, the gradients themselves (``grads``: the witness's
+    two-layer models only, never a full-size one)."""
+
+    def __init__(self, torch, models, keep=False):
+        self.torch, self.keep = torch, keep
+        self.models = {k: m for k, m in models.items() if m is not None}
+        self.zero, self.grads = {}, {}
+
+    def __enter__(self):
+        from repro_torch.optim import adamw
+
+        label_of = {id(next(m.parameters())): k
+                    for k, m in self.models.items()}
+        update = adamw.update
+
+        def spy(cfg, params, grads, state):
+            label = label_of[id(params[0])]
+            names = [n for n, _ in self.models[label].named_parameters()]
+            nonzero = self.torch.stack([g.any() for g in grads]).tolist()
+            self.zero[label] = [n for n, ok in zip(names, nonzero) if not ok]
+            if self.keep:
+                self.grads[label] = list(grads)
+            return update(cfg, params, grads, state)
+
+        self.adamw, self.saved, adamw.update = adamw, update, spy
+        return self
+
+    def __exit__(self, *exc):
+        self.adamw.update = self.saved
+
+
 class StageSpy:
     """Counts the kernel launches and the peak memory of each trainer stage:
     wraps the collector's ``collect`` and the trainer module's
-    ``_old_logprobs`` (the actor's scoring, then the reference's) and
-    ``_update_actor`` while it is active."""
+    ``_old_logprobs`` (the actor's scoring, then the reference's),
+    ``_values``, ``_update_critic`` and ``_update_actor`` while it is
+    active, and keeps each stage's return value.  Its ``grads`` (a
+    ``GradSpy`` of the actor and the critic) lists, per model, the
+    parameters whose latest gradient is zero everywhere."""
+
+    NAMES = ("_old_logprobs", "_values", "_update_critic", "_update_actor")
 
     def __init__(self, torch, tr, T):
         self.torch, self.tr, self.T = torch, tr, T
-        self.stages = {}
+        self.stages, self.returns = {}, {}
+        self.grads = GradSpy(torch, {"actor": tr.model, "critic": tr.critic})
 
     def _wrap(self, fn, name_of):
         from repro_torch.kernels import LAUNCHES
@@ -1394,23 +1457,29 @@ class StageSpy:
                 "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                              if LAUNCHES[k] != before[k]},
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            self.returns[name] = out
             return out
         return run
 
     def __enter__(self):
         T, tr = self.T, self.tr
-        self.saved = (T._old_logprobs, T._update_actor)
-        T._old_logprobs = self._wrap(
-            T._old_logprobs,
-            lambda a: "old_logprob" if a[0] is tr.model else "ref")
-        T._update_actor = self._wrap(T._update_actor,
-                                     lambda a: "update_actor")
+        self.saved = {n: getattr(T, n) for n in self.NAMES}
+
+        def stage_of(n):
+            if n == "_old_logprobs":
+                return lambda a: "old_logprob" if a[0] is tr.model else "ref"
+            return lambda a: n.strip("_")
+        for n in self.NAMES:
+            setattr(T, n, self._wrap(self.saved[n], stage_of(n)))
         tr.collector.collect = self._wrap(tr.collector.collect,
                                           lambda a: "collect")
+        self.grads.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.T._old_logprobs, self.T._update_actor = self.saved
+        self.grads.__exit__(*exc)
+        for n, fn in self.saved.items():
+            setattr(self.T, n, fn)
         del self.tr.collector.collect
 
     def take(self):
@@ -1418,17 +1487,47 @@ class StageSpy:
         return out
 
 
-def check_scoring(label, stages, layers):
-    """The two no-grad scorings launch flash_attention once a layer and
-    nothing else; the actor update launches nothing."""
-    for name in ("old_logprob", "ref"):
+def check_scoring(label, stages, layers, scorings=("old_logprob", "ref"),
+                  updates=("update_actor",)):
+    """The no-grad forwards (the actor's and the reference's scoring, the
+    critic's values) launch flash_attention once a layer and nothing else;
+    the updates launch nothing."""
+    for name in scorings:
         got = stages[name]["launches"]
         require(got == {"flash_attention": layers},
                 f"{label}: {name} launched {got}, want flash_attention "
                 f"{layers} times")
-    require(stages["update_actor"]["launches"] == {},
-            f"{label}: the actor update launched kernels: "
-            f"{stages['update_actor']['launches']}")
+    for name in updates:
+        require(stages[name]["launches"] == {},
+                f"{label}: {name} launched kernels: "
+                f"{stages[name]['launches']}")
+
+
+def make_trainer(cfg, model, algo, **rl_kw):
+    """A ``Trainer`` of ``algo`` on ``model`` at the slice's traffic: the
+    smoke's prompts, spec with LENIENCE, key ``make_key(SEED)``."""
+    from repro_torch.core import SpecConfig
+    from repro_torch.data.dataset import PromptDataset
+    from repro_torch.engine.sampling import make_key
+    from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
+    from repro_torch.rl import trainer as T
+
+    problems = generate_problems(MathTaskConfig(num_problems=PROMPTS,
+                                                seed=SEED))
+    rl = T.RLConfig(algo=algo, group_size=GROUP, prompts_per_batch=PROMPTS,
+                    max_new_tokens=N, **rl_kw)
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    return T.Trainer(cfg, rl, spec, PromptDataset(problems, max_prompt_len=P),
+                     make_key(SEED), model=model)
+
+
+def stage_line(m, st, keys):
+    """A trainer line's fields: the step log's ``keys`` that it has, then
+    launches and peak GiB by stage."""
+    return {**{k: m[k] for k in keys if k in m},
+            "launches": {k: v["launches"] for k, v in st.items()},
+            "peak_gib": {k: v["peak_gib"] for k, v in st.items()},
+            "step_peak_gib": max(v["peak_gib"] for v in st.values())}
 
 
 def train_path(torch, model, cfg, batch):
@@ -1439,37 +1538,23 @@ def train_path(torch, model, cfg, batch):
     import numpy as np
     from dataclasses import replace
 
-    from repro_torch.core import SpecConfig
-    from repro_torch.data.dataset import PromptDataset
-    from repro_torch.engine.sampling import make_key
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
     from repro_torch.rl import trainer as T
 
-    problems = generate_problems(MathTaskConfig(num_problems=PROMPTS,
-                                                seed=SEED))
-    ds = PromptDataset(problems, max_prompt_len=P)
-    rl = T.RLConfig(group_size=GROUP, prompts_per_batch=PROMPTS,
-                    max_new_tokens=N)
-    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
     reset_launches()
-    tr = T.Trainer(cfg, rl, spec, ds, make_key(SEED), model=model)
+    tr = make_trainer(cfg, model, "grpo")
+    rl = tr.rl
     layers = cfg.num_layers
     with StageSpy(torch, tr, T) as spy:
         for epoch in (0, 1):
             m = tr.train_step(batch)
             st = spy.take()
-            log("train " + json.dumps({
-                "step": epoch,
-                **{k: m[k] for k in (
-                    "collect_time", "old_logprob_time", "ref_time",
-                    "adv_time", "update_actor_time", "loss", "grad_norm",
-                    "reward_mean", "n_generated", "n_reused", "one_pass",
-                    "ratio_mean", "approx_kl", "clip_frac", "kl_ref")},
-                "launches": {k: v["launches"] for k, v in st.items()},
-                "peak_gib": {k: v["peak_gib"] for k, v in st.items()},
-                "step_peak_gib": max(v["peak_gib"] for v in st.values())}))
+            log("train " + json.dumps({"step": epoch, **stage_line(m, st, (
+                "collect_time", "old_logprob_time", "ref_time", "adv_time",
+                "update_actor_time", "loss", "grad_norm", "reward_mean",
+                "n_generated", "n_reused", "one_pass", "ratio_mean",
+                "approx_kl", "clip_frac", "kl_ref"))}))
             require(np.isfinite(m["loss"]), f"train step {epoch}: loss "
                     f"{m['loss']}")
             check_scoring(f"train step {epoch}", st, layers)
@@ -1493,8 +1578,7 @@ def train_path(torch, model, cfg, batch):
                           for p, b in zip(model.parameters(), before))
             total = sum(b.numel() for b in before)
             del before
-            no_grad = [name for name, p in model.named_parameters()
-                       if p.grad is None or not bool((p.grad != 0).any())]
+            no_grad = spy.grads.zero["actor"]
             log("train optimize " + json.dumps({
                 "lr": lr, "rewards": rewards.tolist(),
                 **{k: m[k] for k in (
@@ -1515,6 +1599,188 @@ def train_path(torch, model, cfg, batch):
     return launches, rb1
 
 
+PPO_KEYS = ("collect_time", "old_logprob_time", "values_time", "adv_time",
+            "update_critic_time", "update_actor_time", "critic_loss",
+            "grad_norm", "lr", "loss", "reward_mean", "n_generated",
+            "n_reused", "one_pass", "ratio_mean", "approx_kl", "clip_frac",
+            "entropy")
+
+
+def ppo_path(torch, model, cfg, batch, rb1):
+    """PPO on the full-depth model with its own full-width critic: one
+    ``train_step`` (epoch 0 vanilla, the verifier's rewards), then
+    ``optimize`` on the GRPO path's epoch-1 rollout with seeded mixed
+    rewards, so that GAE sees nonzero returns.  Each values pass launches
+    flash_attention once a layer and nothing else, the two updates launch
+    nothing, every critic parameter gets a nonzero gradient in the
+    mixed-reward update.  Step-log ``grad_norm`` and ``lr`` are the
+    critic's (as in JAX's); the actor's grad norm is ``_update_actor``'s
+    own.  Returns the launches."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.rl import trainer as T
+
+    reset_launches()
+    t0 = time.perf_counter()
+    tr = make_trainer(cfg, model, "ppo")
+    torch.cuda.synchronize()
+    n_critic = M.count_params(tr.critic)
+    want = (M.count_params(model) - model.lm_head.kernel.numel()
+            + cfg.d_model + 1)
+    log(f"train ppo: critic {cfg.num_layers} layers, {n_critic} params in "
+        f"{cfg.param_dtype} (want {want}), trainer built in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    require(n_critic == want and tr.ref_model is None,
+            f"train ppo: critic of {n_critic} params, want {want}; "
+            f"reference model {tr.ref_model is not None}")
+    layers = cfg.num_layers
+    scorings, updates = ("old_logprob", "values"), ("update_critic",
+                                                     "update_actor")
+    with StageSpy(torch, tr, T) as spy:
+        m = tr.train_step(batch)
+        st = spy.take()
+        actor = spy.returns["update_actor"]
+        log("train ppo " + json.dumps({
+            "step": 0, **stage_line(m, st, PPO_KEYS),
+            "actor_grad_norm": float(actor["grad_norm"])}))
+        require(np.isfinite(m["loss"]) and np.isfinite(m["critic_loss"]),
+                f"train ppo: loss {m['loss']}, critic_loss "
+                f"{m['critic_loss']}")
+        check_scoring("train ppo", st, layers, scorings, updates)
+        require(m["one_pass"] == 0.0, f"train ppo: one_pass {m['one_pass']}")
+
+        rewards = mixed_rewards(rb1.prompt.shape[0])
+        before = [p.detach().to("cpu", copy=True)
+                  for p in tr.critic.parameters()]
+        m = tr.optimize(rb1, rewards, {})
+        st = spy.take()
+        changed = sum(int((p.detach().to("cpu") != b).sum())
+                      for p, b in zip(tr.critic.parameters(), before))
+        total = sum(b.numel() for b in before)
+        del before
+        actor = spy.returns["update_actor"]
+        log("train ppo optimize " + json.dumps({
+            "rewards": rewards.tolist(), **stage_line(m, st, PPO_KEYS),
+            "actor_grad_norm": float(actor["grad_norm"]),
+            "critic_grad_norm": m["grad_norm"],
+            "critic_changed_fraction": changed / total}))
+        require(np.isfinite(m["loss"]) and np.isfinite(m["critic_loss"])
+                and m["grad_norm"] > 0 and float(actor["grad_norm"]) > 0,
+                f"train ppo optimize: loss {m['loss']}, critic_loss "
+                f"{m['critic_loss']}, critic grad_norm {m['grad_norm']}, "
+                f"actor grad_norm {float(actor['grad_norm'])}")
+        for who, no_grad in spy.grads.zero.items():
+            require(not no_grad, f"train ppo optimize: no gradient in "
+                    f"{no_grad[:5]} ({len(no_grad)} {who} parameters)")
+        check_scoring("train ppo optimize", st, layers, scorings, updates)
+    launches = dict(LAUNCHES)
+    log(f"ppo path launches: {launches}")
+    return launches
+
+
+def dapo_path(torch, model, cfg, batch):
+    """DAPO on the full-depth model: one ``train_step`` with one resample
+    round, ``batch_rewards`` replaced for this step only: the first round
+    gives groups 0 and 2 all-zero rewards and groups 1 and 3 mixed ones, the
+    resample mixed ones.  Exactly the 8 rows of groups 0 and 2 are rolled
+    again (through the SPEC-RL cache the first round has just filled: the
+    one-pass branch) and merged back; the rows of groups 1 and 3 stay the
+    first round's.  Returns the launches."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.rl import trainer as T
+
+    B = batch.tokens.shape[0]
+    degenerate = [0, 2]
+    redo = np.concatenate([np.arange(g * GROUP, (g + 1) * GROUP)
+                           for g in degenerate])
+    kept = np.setdiff1d(np.arange(B), redo)
+    calls = []
+
+    def stub_rewards(responses, lengths, answers):
+        r = mixed_rewards(len(answers))
+        if not calls:
+            r[redo] = 0.0
+        calls.append(len(answers))
+        return r
+
+    reset_launches()
+    tr = make_trainer(cfg, model, "dapo", max_resample_rounds=1)
+    require(tr.ref_model is None and tr.critic is None,
+            "train dapo: a reference model or a critic was built")
+    rounds = []
+    once = tr.collector.rollout_once
+
+    def spy_once(mdl, sub_batch, epoch):
+        torch.cuda.synchronize()
+        before, t0 = dict(LAUNCHES), time.perf_counter()
+        rb = once(mdl, sub_batch, epoch)
+        torch.cuda.synchronize()
+        rounds.append({
+            "rb": rb, "keys": list(sub_batch.cache_keys),
+            "wall_s": time.perf_counter() - t0,
+            "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                         if LAUNCHES[k] != before[k]}})
+        return rb
+
+    tr.collector.rollout_once = spy_once
+    real_rewards = T.batch_rewards
+    T.batch_rewards = stub_rewards
+    try:
+        with StageSpy(torch, tr, T) as spy:
+            m = tr.train_step(batch)
+            st = spy.take()
+    finally:
+        T.batch_rewards = real_rewards
+        del tr.collector.rollout_once
+    first, again = (rounds + [None, None])[:2]
+    log("train dapo " + json.dumps({
+        "step": 0, **stage_line(m, st, (
+            "collect_time", "reward_time", "old_logprob_time", "adv_time",
+            "update_actor_time", "loss", "grad_norm", "reward_mean",
+            "n_generated", "n_reused", "gen_steps", "ratio_mean",
+            "approx_kl", "clip_frac")),
+        "rounds": [{"rows": len(r["keys"]), "wall_s": r["wall_s"],
+                    **{k: r["rb"].metrics[k] for k in (
+                        "n_generated", "n_reused", "one_pass",
+                        "verify_time", "compact_time", "decode_time")
+                       if k in r["rb"].metrics},
+                    "launches": r["launches"]} for r in rounds]}))
+    require(len(rounds) == 2 and calls == [B, len(redo)],
+            f"train dapo: {len(rounds)} rollout rounds, rewards for "
+            f"{calls} rows; want 2 rounds, {B} then {len(redo)} rows")
+    require(again["keys"] == [batch.cache_keys[i] for i in redo],
+            f"train dapo: the resample rolled {again['keys']}")
+    got, a, b = tr.last_rb, again["rb"], first["rb"]
+    for name in ("response", "response_mask", "behaviour_logprobs",
+                 "length"):
+        require(np.array_equal(getattr(got, name)[redo], getattr(a, name))
+                and np.array_equal(getattr(got, name)[kept],
+                                   getattr(b, name)[kept]),
+                f"train dapo: merged {name} is not the resample's rows "
+                f"{redo.tolist()} and the first round's rows "
+                f"{kept.tolist()}")
+    require(m["n_generated"] == b.metrics["n_generated"]
+            + a.metrics["n_generated"] and m["gen_steps"] == 2,
+            f"train dapo: n_generated {m['n_generated']}, gen_steps "
+            f"{m['gen_steps']}")
+    require(a.metrics["one_pass"] == 1.0
+            and again["launches"].get("spec_verify") == 1
+            and again["launches"].get("cache_roll", 0) > 0,
+            f"train dapo: the resample took one_pass "
+            f"{a.metrics['one_pass']}, launched {again['launches']}")
+    require(np.isfinite(m["loss"]) and m["grad_norm"] > 0,
+            f"train dapo: loss {m['loss']}, grad_norm {m['grad_norm']}")
+    check_scoring("train dapo", st, cfg.num_layers, ("old_logprob",))
+    launches = dict(LAUNCHES)
+    log(f"dapo path launches: {launches}")
+    return launches
+
+
 def update_tol(p0, g, lr, scale, eps=1e-8):
     """Tolerance of a parameter after AdamW's first step from a gradient
     ``g`` known within δ = GRAD_NOISE · max|g·scale|: 1e-6 of the update's
@@ -1528,16 +1794,42 @@ def update_tol(p0, g, lr, scale, eps=1e-8):
             + lr * (2 * delta * eps / (m + eps) ** 2).clamp_max(2.0))
 
 
+def compare_update(gpu_params, cpu_params, grads, prior, grad_norm):
+    """One AdamW step on the card against the same step on the CPU, with
+    ``grads`` a ``GradSpy`` that kept both ("card", "cpu"): (the largest
+    gradient error over a tensor's largest gradient, the parameter
+    elements outside ``update_tol``, the worst error over its
+    tolerance)."""
+    scale = min(1.0, 1.0 / (grad_norm + 1e-9))
+    worst, n_bad, grad_err = 0.0, 0, 0.0
+    for pg, pc, gg, gc, p0 in zip(gpu_params, cpu_params, grads.grads["card"],
+                                  grads.grads["cpu"], prior):
+        g_cpu = gc.detach().double()
+        g_err = float((gg.detach().cpu().double() - g_cpu).abs().max())
+        grad_err = max(grad_err, g_err / float(g_cpu.abs().max()))
+        d = (pg.detach().cpu().double() - pc.detach().double()).abs()
+        tol = update_tol(p0.double(), g_cpu, WITNESS_LR, scale)
+        n_bad += int((d > tol).sum())
+        worst = max(worst, float((d / tol).max()))
+    return grad_err, n_bad, worst
+
+
 def train_witness(torch, rb):
-    """The update's numbers in float32: two layers at qwen3-1.7b's widths,
+    """The updates' numbers in float32: two layers at qwen3-1.7b's widths,
     seeded weights, the first WITNESS_ROWS rows of the epoch-1 rollout cut
-    to WITNESS_COLS response columns, seeded mixed rewards.  The CPU runs
-    the whole ``Trainer.optimize``; the card runs the actor update on the
-    same weights with the CPU's old-policy and reference log-probs (its
-    own scoring would run the flash_attention kernel, which takes bfloat16
-    only).  Loss, grad norm, every gradient and every updated parameter
-    agree within the CPU parity test's tolerances, the card's ratio is
-    within RATIO_TOL of 1, and the card's update launches no kernel."""
+    to WITNESS_COLS response columns, seeded mixed rewards.  The actor: the
+    CPU runs the whole ``Trainer.optimize``; the card runs the actor update
+    on the same weights with the CPU's old-policy and reference log-probs
+    (its own scoring would run the flash_attention kernel, which takes
+    bfloat16 only).  The critic: the CPU's values (the old values) and the
+    GAE returns of the same rewards, then ``_update_critic`` on the CPU and
+    on the card from the same critic.  Losses, grad norms, every gradient
+    and every updated parameter agree within the CPU parity test's
+    tolerances, the card's ratio is within RATIO_TOL of 1, and neither
+    update launches a kernel on the card.  The card's bfloat16 values (the
+    values pass of the ``ppo`` path, through flash_attention) lie within
+    SMALL_TOL of the CPU's bfloat16 ones, and at most BF16_GAP times as far
+    from the float32 values as the CPU's."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1577,8 +1869,10 @@ def train_witness(torch, rb):
     score = T._old_logprobs
     T._old_logprobs = lambda *a, **kw: scored.append(score(*a, **kw)) or \
         scored[-1]
+    grads = GradSpy(torch, {"cpu": cpu_model, "card": gpu_model}, keep=True)
     try:
-        want = cpu_tr.optimize(sub, rewards, {})
+        with grads:
+            want = cpu_tr.optimize(sub, rewards, {})
     finally:
         T._old_logprobs = score
     cpu_s = time.perf_counter() - t0
@@ -1596,27 +1890,23 @@ def train_witness(torch, rb):
         * resp_mask.float()
     before = dict(LAUNCHES)
     t0 = time.perf_counter()
-    info = T._update_actor(
-        gpu_model, adamw.init(T.trainable(gpu_model)), cfg, rl.policy_cfg(),
-        rl.optim, full_tokens, full_mask, Pw, lp_old.to(dev), adv, resp_mask,
-        ref_lp.to(dev), rl.temperature, rl.top_p)
+    with grads:
+        info = T._update_actor(
+            gpu_model, adamw.init(T.trainable(gpu_model)), cfg,
+            rl.policy_cfg(), rl.optim, full_tokens, full_mask, Pw,
+            lp_old.to(dev), adv, resp_mask, ref_lp.to(dev), rl.temperature,
+            rl.top_p)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     got = {k: float(v) for k, v in info.items()}
     launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                 if LAUNCHES[k] != before[k]}
-
-    scale = min(1.0, 1.0 / (want["grad_norm"] + 1e-9))
-    worst, n_bad, grad_err = 0.0, 0, 0.0
-    for pg, pc, p0 in zip(gpu_model.parameters(), cpu_model.parameters(),
-                          prior):
-        g_cpu = pc.grad.detach().double()
-        g_err = float((pg.grad.detach().cpu().double() - g_cpu).abs().max())
-        grad_err = max(grad_err, g_err / float(g_cpu.abs().max()))
-        d = (pg.detach().cpu().double() - pc.detach().double()).abs()
-        tol = update_tol(p0.double(), g_cpu, WITNESS_LR, scale)
-        n_bad += int((d > tol).sum())
-        worst = max(worst, float((d / tol).max()))
+    grad_err, n_bad, worst = compare_update(
+        gpu_model.parameters(), cpu_model.parameters(), grads, prior,
+        want["grad_norm"])
+    del cpu_tr, cpu_model, gpu_model, prior, grads
+    critic = critic_witness(torch, cfg, sub, rewards, full_tokens, full_mask,
+                            resp_mask)
     log("train witness " + json.dumps({
         "layers": WITNESS_LAYERS, "rows": r, "response_cols": c,
         "lr": WITNESS_LR, "cpu": {k: want[k] for k in (
@@ -1628,7 +1918,7 @@ def train_witness(torch, rb):
         "grad_err_of_max": grad_err, "params_off": n_bad,
         "worst_param_err_over_tol": worst,
         "card_update_launches": launched, "cpu_optimize_s": cpu_s,
-        "card_update_s": gpu_s}))
+        "card_update_s": gpu_s, "critic": critic}))
     require(abs(got["loss"] - want["loss"])
             <= TRAIN_ATOL + TRAIN_RTOL * abs(want["loss"]),
             f"train witness: loss {got['loss']} vs CPU {want['loss']}")
@@ -1643,6 +1933,114 @@ def train_witness(torch, rb):
     require(n_bad == 0, f"train witness: {n_bad} parameter elements off "
             f"(worst {worst} x the tolerance)")
     require(not launched, f"train witness: the update launched {launched}")
+    cw, cc = critic["cpu"], critic["card"]
+    require(abs(cc["critic_loss"] - cw["critic_loss"])
+            <= TRAIN_ATOL + TRAIN_RTOL * abs(cw["critic_loss"]),
+            f"train witness: critic_loss {cc['critic_loss']} vs CPU "
+            f"{cw['critic_loss']}")
+    require(abs(cc["grad_norm"] - cw["grad_norm"])
+            <= TRAIN_RTOL * cw["grad_norm"] and cw["grad_norm"] > 0,
+            f"train witness: critic grad_norm {cc['grad_norm']} vs CPU "
+            f"{cw['grad_norm']}")
+    require(critic["grad_err_of_max"] <= GRAD_NOISE,
+            f"train witness: critic gradients off by "
+            f"{critic['grad_err_of_max']} of a tensor's largest")
+    require(critic["params_off"] == 0, f"train witness: "
+            f"{critic['params_off']} critic parameter elements off (worst "
+            f"{critic['worst_param_err_over_tol']} x the tolerance)")
+    require(not critic["card_update_launches"], f"train witness: the "
+            f"critic update launched {critic['card_update_launches']}")
+    tol = SMALL_TOL["qwen3-1.7b"]
+    require(critic["bf16_values_card_vs_cpu"] <= tol
+            and critic["bf16_values_card_gap"]
+            <= BF16_GAP * critic["bf16_values_cpu_gap"],
+            f"train witness: the card's bf16 values lie "
+            f"{critic['bf16_values_card_vs_cpu']} from the CPU's (tol "
+            f"{tol}) and {critic['bf16_values_card_gap']} from float32 "
+            f"(the CPU's {critic['bf16_values_cpu_gap']}, at most "
+            f"{BF16_GAP}x)")
+    require(critic["bf16_values_launches"]
+            == {"flash_attention": WITNESS_LAYERS},
+            f"train witness: the bf16 values pass launched "
+            f"{critic['bf16_values_launches']}")
+
+
+def critic_witness(torch, cfg, sub, rewards, full_tokens, full_mask,
+                   resp_mask):
+    """The critic's half of the float32 witness (see ``train_witness``):
+    returns its numbers; the caller holds them to the tolerances."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.rl import trainer as T
+    from repro_torch.rl.advantages import (gae_advantages,
+                                           terminal_reward_to_tokens)
+    from repro_torch.rl.critic import init_critic
+
+    cpu = torch.device("cpu")
+    Pw = sub.prompt.shape[1]
+    ocfg = AdamWConfig(lr=WITNESS_LR)
+    ft, fm, rm = (x.to(cpu) for x in (full_tokens, full_mask, resp_mask))
+    t0 = time.perf_counter()
+    cpu_critic = init_critic(cfg, seed=SEED + 1, device="cpu")
+    gpu_critic = copy.deepcopy(cpu_critic).to("cuda")
+    old_values = T._values(cpu_critic, cfg, ft, fm, Pw)
+    rew_tok = terminal_reward_to_tokens(torch.as_tensor(rewards),
+                                        torch.as_tensor(sub.length),
+                                        sub.response.shape[1])
+    _, returns = gae_advantages(rew_tok, old_values, rm)
+    prior = [p.detach().clone() for p in cpu_critic.parameters()]
+    grads = GradSpy(torch, {"cpu": cpu_critic, "card": gpu_critic},
+                    keep=True)
+    with grads:
+        want = T._update_critic(
+            cpu_critic, adamw.init(T.trainable(cpu_critic)), cfg, ocfg, ft,
+            fm, Pw, returns, old_values, rm)
+    cpu_s = time.perf_counter() - t0
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    with grads:
+        got = T._update_critic(
+            gpu_critic, adamw.init(T.trainable(gpu_critic)), cfg, ocfg,
+            full_tokens, full_mask, Pw, returns.to(full_tokens.device),
+            old_values.to(full_tokens.device), resp_mask)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                if LAUNCHES[k] != before[k]}
+    grad_err, n_bad, worst = compare_update(
+        gpu_critic.parameters(), cpu_critic.parameters(), grads, prior,
+        float(want["grad_norm"]))
+    del grads
+
+    # the values pass in bfloat16, as the ppo path runs it, from the
+    # critic before its update
+    cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    with torch.no_grad():
+        for p, p0 in zip(cpu_critic.parameters(), prior):
+            p.copy_(p0)
+    cpu16 = copy.deepcopy(cpu_critic).to(dtype=torch.bfloat16)
+    gpu16 = copy.deepcopy(cpu16).to("cuda")
+    v_cpu16 = T._values(cpu16, cfg16, ft, fm, Pw)
+    before = dict(LAUNCHES)
+    v_card16 = T._values(gpu16, cfg16, full_tokens, full_mask, Pw).to(cpu)
+    v_launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                  if LAUNCHES[k] != before[k]}
+
+    def gap(a, b):
+        return float((a - b)[rm].abs().max())
+
+    return {"cpu": {k: float(v) for k, v in want.items()},
+            "card": {k: float(v) for k, v in got.items()},
+            "grad_err_of_max": grad_err, "params_off": n_bad,
+            "worst_param_err_over_tol": worst,
+            "card_update_launches": launched, "cpu_update_s": cpu_s,
+            "card_update_s": gpu_s,
+            "old_values_abs_max": float(old_values[rm].abs().max()),
+            "bf16_values_card_vs_cpu": gap(v_card16, v_cpu16),
+            "bf16_values_card_gap": gap(v_card16, old_values),
+            "bf16_values_cpu_gap": gap(v_cpu16, old_values),
+            "bf16_values_launches": v_launched}
 
 
 def serve_path(torch):
@@ -1800,7 +2198,14 @@ def main() -> int:
              "slots": slots_path(torch, model, cfg, batch, gen),
              "paged": paged_path(torch, model, cfg, batch, gen)}
     paths["train"], rb1 = train_path(torch, model, cfg, batch)
+    gc.collect()                # the GRPO trainer's reference and moments
+    torch.cuda.empty_cache()
+    paths["ppo"] = ppo_path(torch, model, cfg, batch, rb1)
+    gc.collect()                # the PPO trainer's critic and moments
+    torch.cuda.empty_cache()
+    paths["dapo"] = dapo_path(torch, model, cfg, batch)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     train_witness(torch, rb1)
     torch.cuda.empty_cache()

@@ -1,8 +1,10 @@
 """Training launcher of the port (``repro/launch/train.py``'s flags): the
-GRPO trainer with the SPEC-RL rollout.
+GRPO, PPO or DAPO trainer (``--algo``) with the SPEC-RL rollout.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
         --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
+        --steps 2 --algo ppo
     PYTHONPATH=src python -m repro_torch.launch.train --steps 10
 
 Runs on the card unless ``--device cpu``.  ``--smoke`` selects the arch's
@@ -11,14 +13,13 @@ attention kernels take bfloat16), on the CPU the reduced config keeps
 JAX's float32.  The key is ``make_key(0)`` as JAX's is ``PRNGKey(0)``.
 
 Every flag of a feature the port does not have yet raises and names its
-ROADMAP Queue 1 item when it is set away from its default: ``--algo
-ppo|dapo`` (item 4), ``--draft`` and ``--draft-fixed`` (item 6),
-``--async``, ``--staleness-window``, ``--buffer-capacity``,
-``--publish-every``, ``--async-schedule`` and the ``--watchdog-*`` flags
-(item 8), ``--ledger``, ``--decision-log``, ``--alerts``, ``--trace-dir``,
-``--trace-sample-rate`` and ``--metrics`` (item 9), ``--mesh-data``,
-``--mesh-model`` and ``--require-mesh`` (item 11).  At their defaults they
-are accepted, as in JAX.
+ROADMAP Queue 1 item when it is set away from its default: ``--draft``
+and ``--draft-fixed`` (item 6), ``--async``, ``--staleness-window``,
+``--buffer-capacity``, ``--publish-every``, ``--async-schedule`` and the
+``--watchdog-*`` flags (item 8), ``--ledger``, ``--decision-log``,
+``--alerts``, ``--trace-dir``, ``--trace-sample-rate`` and ``--metrics``
+(item 9), ``--mesh-data``, ``--mesh-model`` and ``--require-mesh`` (item
+11).  At their defaults they are accepted, as in JAX.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.engine.sampling import make_key
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
-from repro_torch.rl.trainer import RLConfig, Trainer
+from repro_torch.rl.trainer import ALGOS, RLConfig, Trainer
 
 # flag -> (ROADMAP Queue 1 item, its feature) for flags that must stay at
 # their default until the item lands
@@ -66,7 +67,7 @@ UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", choices=sorted(ARCH_IDS), default="qwen3-1.7b")
-    p.add_argument("--algo", choices=["grpo", "ppo", "dapo"], default="grpo")
+    p.add_argument("--algo", choices=ALGOS, default="grpo")
     p.add_argument("--variant", default="spec",
                    choices=["spec", "off", "random", "delayed", "full"])
     p.add_argument("--lenience", type=float, default=math.e ** 0.5)

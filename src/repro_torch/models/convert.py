@@ -1,4 +1,6 @@
-"""Carry a JAX parameter pytree across into the port's ``LM``.
+"""Carry a JAX parameter pytree across into the port's ``LM`` (or any
+module of the same trunk: the PPO critic's converters in ``rl/critic.py``
+call ``load_params``/``params_tree`` with their own head).
 
 ``repro.models.model.init_lm`` returns nested dicts whose trunk leaves are
 stacked per signature run with a leading ``run_len`` axis (DESIGN.md §2).
@@ -56,18 +58,26 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig,
     """tree: ``repro`` params with numpy leaves.  Returns an ``LM`` on
     ``device`` (the card unless ``device="cpu"``)."""
     model = LM(cfg, device=resolve_device(device))
-    _copy_into(model.embed, tree["embed"], "embed")
-    _load(model.final_norm, tree["final_norm"], "final_norm")
-    if "lm_head" in tree:
-        _load(model.lm_head, tree["lm_head"], "lm_head")
+    load_params(model, tree, "lm_head")
+    return model
+
+
+def load_params(module: nn.Module, tree: Mapping[str, Any],
+                head: str) -> None:
+    """Copy ``embed``, ``final_norm``, the per-run stacked ``trunk`` and,
+    where the tree has it, the head named ``head`` into ``module`` (one
+    with ``embed``, ``layers``, ``final_norm``, that head and ``cfg``)."""
+    _copy_into(module.embed, tree["embed"], "embed")
+    _load(module.final_norm, tree["final_norm"], "final_norm")
+    if head in tree:
+        _load(getattr(module, head), tree[head], head)
     layer = 0
-    for run_idx, (_, run_len) in enumerate(signature_runs(cfg)):
+    for run_idx, (_, run_len) in enumerate(signature_runs(module.cfg)):
         stacked = tree["trunk"][run_idx]
         for j in range(run_len):
             one = _index(stacked, j)
-            _load(model.layers[layer], one, f"trunk[{run_idx}][{j}]")
+            _load(module.layers[layer], one, f"trunk[{run_idx}][{j}]")
             layer += 1
-    return model
 
 
 def _index(tree, j: int):
@@ -94,14 +104,19 @@ def to_jax_params(model: LM) -> dict:
     """The ``repro`` params tree of ``model``: ``embed``, ``final_norm``,
     ``lm_head`` (untied heads) and ``trunk``, a list with one tree per
     signature run whose leaves stack the run's layers on a leading axis."""
-    cfg = model.cfg
-    tree = {"embed": _array(model.embed),
-            "final_norm": _tree(model.final_norm)}
-    if model.lm_head is not None:
-        tree["lm_head"] = _tree(model.lm_head)
+    return params_tree(model, "lm_head")
+
+
+def params_tree(module: nn.Module, head: str) -> dict:
+    """The inverse of ``load_params``: ``module``'s tree, with the head
+    named ``head`` unless the module has none."""
+    tree = {"embed": _array(module.embed),
+            "final_norm": _tree(module.final_norm)}
+    if getattr(module, head) is not None:
+        tree[head] = _tree(getattr(module, head))
     trunk, layer = [], 0
-    for _, run_len in signature_runs(cfg):
-        layers = [_tree(model.layers[layer + j]) for j in range(run_len)]
+    for _, run_len in signature_runs(module.cfg):
+        layers = [_tree(module.layers[layer + j]) for j in range(run_len)]
         trunk.append(_stack(layers))
         layer += run_len
     tree["trunk"] = trunk

@@ -72,20 +72,30 @@ def init_lm(cfg: ModelConfig, *, seed: int, device: DeviceLike = None) -> LM:
     distributions as ``repro.models.model.init_lm``, not the same numbers:
     tests carry JAX's parameters across with ``convert.from_jax_params``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     model = LM(cfg, device=dev)
-    emb = torch.empty(model.embed.shape, dtype=torch.float32, device=dev)
-    emb.normal_(0.0, 1.0, generator=gen)
-    model.embed.copy_(emb * 0.02)
-    del emb
-    for mod in model.modules():       # each container draws its own leaves
-        if hasattr(mod, "reset"):
-            mod.reset(gen)
+    draw_parameters(model, seed)
     return model
 
 
-def count_params(model: LM) -> int:
+@torch.no_grad()
+def draw_parameters(module: nn.Module, seed: int) -> None:
+    """Fill a module holding ``embed`` and containers with ``reset`` (an
+    ``LM``, a critic) from a generator seeded with ``seed`` on its device:
+    the embedding normal with std 0.02, then each container its own
+    leaves."""
+    gen = torch.Generator(device=module.embed.device)
+    gen.manual_seed(seed)
+    emb = torch.empty(module.embed.shape, dtype=torch.float32,
+                      device=module.embed.device)
+    emb.normal_(0.0, 1.0, generator=gen)
+    module.embed.copy_(emb * 0.02)
+    del emb
+    for mod in module.modules():
+        if hasattr(mod, "reset"):
+            mod.reset(gen)
+
+
+def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 

@@ -1,1 +1,2 @@
-"""RL algorithms of the port: losses, advantages and the GRPO trainer."""
+"""RL algorithms of the port: losses, advantages, the PPO critic and the
+GRPO / PPO / DAPO trainer."""

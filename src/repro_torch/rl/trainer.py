@@ -1,9 +1,10 @@
-"""RLVR trainer, GRPO (port of ``repro/rl/trainer.py``), with SPEC-RL as a
-drop-in rollout stage.
+"""RLVR trainer, GRPO / PPO / DAPO (port of ``repro/rl/trainer.py``), with
+SPEC-RL as a drop-in rollout stage.
 
 Pipeline per step (veRL's stage order, Table 4 of the paper):
   [verification] -> [rollout] -> [assembly]   (core.rollout)
-  -> reward -> old-log-probs -> (ref log-probs) -> adv -> update-actor
+  -> reward (+ DAPO's resample rounds) -> old-log-probs -> (ref log-probs)
+  -> (values) -> adv -> (update-critic) -> update-actor
 
 SPEC-RL touches only the first three stages; everything downstream is the
 standard algorithm, and the rollout variant is a constructor argument the
@@ -14,20 +15,22 @@ parameters require grad only inside it, its forward takes the model's
 differentiable route (``attention.dot_product_attention``,
 ``rwkv.wkv_scan``; no kernel launches), ``loss.backward()`` fills
 ``.grad``, and ``optim.adamw.update`` steps the parameters in place.  The
-old-policy and reference log-probs are no-grad ``score`` forwards, which
-run the ``flash_attention`` kernel on the card.
+old-policy and reference log-probs and PPO's values are no-grad forwards,
+which run the ``flash_attention`` kernel on the card.  PPO's critic
+(``rl/critic.py``) is updated the same way, before the actor, as in JAX.
 
 Keys follow JAX: the trainer's key splits four ways (``k1, k2, k3,
 coll_key``) and the collector splits its stream before every rollout, so
 with a key that draws as JAX does the collection is JAX's, token for
-token.  The trainer takes an optional ``model`` (else it draws one from
-``k1``) and a ``device`` (the card unless ``"cpu"``).
+token; DAPO's resample rounds split it once a round, in JAX's order.  The
+trainer takes an optional ``model`` (else it draws one from ``k1``) and a
+``device`` (the card unless ``"cpu"``); PPO's critic, of the actor's
+config, is drawn from ``k2``.
 
-Not ported yet, and raising with their ROADMAP Queue 1 item: PPO and DAPO
-(item 4, the critic and DAPO's dynamic sampling), the mesh (item 11), the
-draft engine (item 6), the watchdog (item 8) and the tracer and alerts
-(item 9, the observatory hooks).  With none of them passed there is
-nothing of theirs to do.
+Not ported yet, and raising with their ROADMAP Queue 1 item: the mesh
+(item 11), the draft engine (item 6), the watchdog (item 8) and the tracer
+and alerts (item 9, the observatory hooks).  With none of them passed
+there is nothing of theirs to do.
 """
 from __future__ import annotations
 
@@ -53,14 +56,19 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.rewards.verifier import batch_rewards
 
-from .advantages import group_relative_advantages
+from .advantages import (gae_advantages, group_relative_advantages,
+                         terminal_reward_to_tokens, whiten)
+from .critic import Critic, forward_values, init_critic
 from .losses import (PolicyLossConfig, entropy_bonus, kl_to_reference,
-                     masked_mean, policy_loss)
+                     masked_mean, policy_loss, value_loss)
+
+
+ALGOS = ("grpo", "ppo", "dapo")
 
 
 @dataclass(frozen=True)
 class RLConfig:
-    algo: str = "grpo"                # grpo|ppo|dapo
+    algo: str = "grpo"                # one of ALGOS
     group_size: int = 4
     prompts_per_batch: int = 8
     max_new_tokens: int = 32
@@ -75,6 +83,10 @@ class RLConfig:
     max_resample_rounds: int = 3
     entropy_coef: float = 0.0
 
+    def __post_init__(self):
+        if self.algo not in ALGOS:
+            raise ValueError(f"unknown algo {self.algo!r}: one of {ALGOS}")
+
     def policy_cfg(self) -> PolicyLossConfig:
         if self.algo == "dapo":
             return PolicyLossConfig(clip_low=0.2, clip_high=0.28, clip_c=10.0,
@@ -87,15 +99,6 @@ class RLConfig:
         return PolicyLossConfig(clip_low=0.2, clip_high=0.2, clip_c=3.0,
                                 agg="seq", kl_coef=0.0,
                                 entropy_coef=self.entropy_coef)
-
-
-def check_ported(rl: RLConfig) -> None:
-    if rl.algo not in ("grpo", "ppo", "dapo"):
-        raise ValueError(f"unknown algo {rl.algo!r}")
-    if rl.algo != "grpo":
-        raise NotImplementedError(
-            f"algo={rl.algo!r}: PPO's critic and DAPO's dynamic sampling "
-            "arrive with ROADMAP Queue 1 item 4 (PPO and DAPO)")
 
 
 def _unported(what: str, item: int, feature: str) -> NotImplementedError:
@@ -138,9 +141,36 @@ def _actor_loss_fn(model: M.LM, cfg: ModelConfig, pcfg: PolicyLossConfig,
     return loss, info
 
 
-def trainable(model: M.LM) -> List[torch.nn.Parameter]:
-    """The actor's parameters in the order the optimizer state holds."""
+def trainable(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """A model's (actor's or critic's) parameters in the order the
+    optimizer state holds."""
     return list(model.parameters())
+
+
+def _grad_step(model: torch.nn.Module, opt_state, ocfg: adamw.AdamWConfig,
+               loss_fn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+    """One update of ``model``: ``loss_fn()`` (a loss with its graph and a
+    dict of diagnostics) with the parameters requiring grad only inside,
+    its backward, then AdamW in place.  ``.grad`` is dropped once AdamW
+    has stepped, so no model holds gradients between updates (a caller
+    that needs them reads what ``adamw.update`` receives).  Returns (the
+    loss, detached; the diagnostics; AdamW's ``{"grad_norm", "lr"}``)."""
+    params = trainable(model)
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        loss, info = loss_fn()
+        loss.backward()
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    oinfo = adamw.update(ocfg, params, grads, opt_state)
+    for p in params:
+        p.grad = None
+    return loss.detach(), info, oinfo
 
 
 def _update_actor(model: M.LM, opt_state, cfg: ModelConfig,
@@ -148,26 +178,34 @@ def _update_actor(model: M.LM, opt_state, cfg: ModelConfig,
                   full_tokens, full_mask, resp_start: int, lp_old,
                   advantages, resp_mask, ref_lp, temperature: float,
                   top_p: float) -> Dict[str, torch.Tensor]:
-    """One actor update: the loss's backward, then AdamW in place.  The
-    parameters require grad only inside; their ``.grad`` stays set after
-    it (the smoke reads it) and is dropped at the start of the next."""
-    params = trainable(model)
-    for p in params:
-        p.grad = None
-        p.requires_grad_(True)
-    try:
-        loss, info = _actor_loss_fn(model, cfg, pcfg, full_tokens, full_mask,
-                                    resp_start, lp_old, advantages,
-                                    resp_mask, ref_lp, temperature, top_p)
-        loss.backward()
-    finally:
-        for p in params:
-            p.requires_grad_(False)
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params]
-    info.update(adamw.update(ocfg, params, grads, opt_state))
-    info["loss"] = loss.detach()
-    return info
+    """One actor update (``_grad_step`` on the policy loss)."""
+    loss, info, oinfo = _grad_step(model, opt_state, ocfg, lambda: (
+        _actor_loss_fn(model, cfg, pcfg, full_tokens, full_mask, resp_start,
+                       lp_old, advantages, resp_mask, ref_lp, temperature,
+                       top_p)))
+    return {**info, **oinfo, "loss": loss}
+
+
+@torch.no_grad()
+def _values(critic: Critic, cfg: ModelConfig, full_tokens, full_mask,
+            resp_start: int):
+    """The critic's values of the response columns, no grad (the
+    ``flash_attention`` kernel on the card)."""
+    return forward_values(critic, cfg, full_tokens, full_mask)[:, resp_start:]
+
+
+def _update_critic(critic: Critic, opt_state, cfg: ModelConfig,
+                   ocfg: adamw.AdamWConfig, full_tokens, full_mask,
+                   resp_start: int, returns, old_values, resp_mask
+                   ) -> Dict[str, torch.Tensor]:
+    """One critic update (``_grad_step`` on the clipped value loss).
+    Returns ``{"critic_loss", "grad_norm", "lr"}``."""
+    def loss_fn():
+        v = forward_values(critic, cfg, full_tokens, full_mask)[:, resp_start:]
+        return value_loss(v, returns, old_values, resp_mask), {}
+
+    loss, _, oinfo = _grad_step(critic, opt_state, ocfg, loss_fn)
+    return {"critic_loss": loss, **oinfo}
 
 
 # ------------------------------------------------------------------ collector
@@ -177,15 +215,13 @@ class Collector:
     """The collection half of the RL loop: dataset sampling, the SPEC-RL
     rollout cache, the lenience schedule and the collection key stream,
     everything ``train_step`` needs to turn the model into a rewarded
-    batch, and nothing it needs to update it.  (JAX's async rollout
-    service drives the same object; in the port it waits for ROADMAP
-    Queue 1 item 8, the async rollout, as does DAPO's resample loop for
-    item 4.)"""
+    batch (DAPO's resample rounds included), and nothing it needs to
+    update it.  (JAX's async rollout service drives the same object; in
+    the port it waits for ROADMAP Queue 1 item 8, the async rollout.)"""
 
     def __init__(self, model_cfg: ModelConfig, rl: RLConfig, spec: SpecConfig,
                  dataset: PromptDataset, key, lenience_schedule=None,
                  mesh=None, tracer=None):
-        check_ported(rl)
         if mesh is not None:
             raise _unported("the mesh", 11, "the mesh")
         if tracer is not None:
@@ -238,15 +274,76 @@ class Collector:
     def collect(self, model: M.LM, batch: PromptBatch, epoch: int
                 ) -> Tuple[PromptBatch, RolloutBatch, np.ndarray,
                            Dict[str, float]]:
-        """Rollout + reward under ``model``."""
+        """Rollout + reward (+ DAPO's dynamic sampling) under ``model``.
+
+        DAPO re-rolls the prompt groups whose rewards have zero spread, up
+        to ``max_resample_rounds`` times, through ``rollout_once`` at the
+        same epoch (so through the SPEC-RL cache the first round has just
+        filled, as in JAX), and merges the new rows in.  ``n_generated``
+        and ``n_reused`` sum over the rounds; ``reward_time`` is the first
+        round's."""
         t0 = time.perf_counter()
         rb = self.rollout_once(model, batch, epoch)
-        stage_times = dict(rb.metrics)
         t_reward0 = time.perf_counter()
         rewards = batch_rewards(rb.response, rb.length, batch.answers)
-        self._stage(t_reward0, stage_times, "reward_time")
+        reward_time = time.perf_counter() - t_reward0
+
+        if self.rl.algo == "dapo" and self.rl.dynamic_sampling:
+            G = self.rl.group_size
+            for _ in range(self.rl.max_resample_rounds):
+                degenerate = rewards.reshape(-1, G).std(axis=1) == 0.0
+                if not degenerate.any():
+                    break
+                idxs = np.where(degenerate)[0]
+                sub_batch = _subset_batch(batch, idxs, G)
+                rb2 = self.rollout_once(model, sub_batch, epoch)
+                r2 = batch_rewards(rb2.response, rb2.length,
+                                   sub_batch.answers)
+                rb = _merge_rollouts(rb, rb2, idxs, G)
+                rewards = rewards.copy()
+                rewards[_group_rows(idxs, G)] = r2
+
+        stage_times = dict(rb.metrics)
+        stage_times["reward_time"] = reward_time
         self._stage(t0, stage_times, "collect_time")
         return batch, rb, rewards, stage_times
+
+
+def _group_rows(group_idxs: np.ndarray, G: int) -> np.ndarray:
+    """The batch rows of the given prompt groups, group by group."""
+    return np.concatenate([np.arange(g * G, (g + 1) * G) for g in group_idxs])
+
+
+def _subset_batch(batch: PromptBatch, group_idxs: np.ndarray, G: int
+                  ) -> PromptBatch:
+    rows = _group_rows(group_idxs, G)
+    return PromptBatch(
+        tokens=batch.tokens[rows], mask=batch.mask[rows],
+        cache_keys=[batch.cache_keys[r] for r in rows],
+        answers=[batch.answers[r] for r in rows],
+        problem_ids=[batch.problem_ids[r] for r in rows],
+        epoch=batch.epoch)
+
+
+def _merge_rollouts(rb: RolloutBatch, rb2: RolloutBatch,
+                    group_idxs: np.ndarray, G: int) -> RolloutBatch:
+    """``rb`` with the rows of the given groups taken from ``rb2`` (the
+    prompts stay ``rb``'s), and ``n_generated``/``n_reused`` summed; the
+    other metrics stay ``rb``'s."""
+    rows = _group_rows(group_idxs, G)
+    out = RolloutBatch(
+        prompt=rb.prompt.copy(), prompt_mask=rb.prompt_mask.copy(),
+        response=rb.response.copy(), response_mask=rb.response_mask.copy(),
+        behaviour_logprobs=rb.behaviour_logprobs.copy(),
+        length=rb.length.copy(), metrics=dict(rb.metrics), n=rb.n.copy())
+    out.response[rows] = rb2.response
+    out.response_mask[rows] = rb2.response_mask
+    out.behaviour_logprobs[rows] = rb2.behaviour_logprobs
+    out.length[rows] = rb2.length
+    out.n[rows] = rb2.n
+    for k in ("n_generated", "n_reused"):
+        out.metrics[k] = rb.metrics.get(k, 0) + rb2.metrics.get(k, 0)
+    return out
 
 
 def _seed_from(key) -> int:
@@ -260,10 +357,10 @@ def _seed_from(key) -> int:
 
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, rl: RLConfig, spec: SpecConfig,
-                 dataset: PromptDataset, key, *, model: Optional[M.LM] = None,
-                 device: DeviceLike = None, lenience_schedule=None,
-                 mesh=None, watchdog=None, tracer=None, alerts=None):
-        check_ported(rl)
+                 dataset: PromptDataset, key, *,
+                 model: Optional[M.LM] = None, device: DeviceLike = None,
+                 lenience_schedule=None, mesh=None, watchdog=None,
+                 tracer=None, alerts=None):
         if mesh is not None:
             raise _unported("the mesh", 11, "the mesh")
         if spec.draft is not None:
@@ -292,6 +389,11 @@ class Trainer:
         if self.pcfg.kl_coef > 0:
             self.ref_model = copy.deepcopy(model)
             self.ref_model.requires_grad_(False)
+        self.critic: Optional[Critic] = None
+        if rl.algo == "ppo":
+            self.critic = init_critic(model_cfg, seed=_seed_from(k2),
+                                      device=self.device)
+            self.critic_opt_state = adamw.init(trainable(self.critic))
         self.step_idx = 0
         self.history: List[Dict[str, float]] = []
         self.last_rb: Optional[RolloutBatch] = None
@@ -375,16 +477,17 @@ class Trainer:
                  times: Dict[str, float], *, behaviour_lp=None,
                  is_clip: Optional[float] = None,
                  t_step0: Optional[float] = None) -> Dict[str, float]:
-        """The optimization half of ``train_step``: old log-probs → ref →
-        advantages → actor update, on an already-collected and rewarded
-        rollout.  ``behaviour_lp`` (with cap ``is_clip``) switches on the
-        truncated importance weights of stale trajectories; ``None`` leaves
-        the update the synchronous one."""
+        """The optimization half of ``train_step``: old log-probs → (ref) →
+        (values) → advantages → (critic update) → actor update, on an
+        already-collected and rewarded rollout.  ``behaviour_lp`` (with cap
+        ``is_clip``) switches on the truncated importance weights of stale
+        trajectories; ``None`` leaves the update the synchronous one."""
         if t_step0 is None:
             t_step0 = time.perf_counter()
         self.last_rb = rb
         dev = self.device
         P = rb.prompt.shape[1]
+        N = rb.response.shape[1]
         full_tokens = torch.as_tensor(
             np.concatenate([rb.prompt, rb.response], 1), dtype=torch.int32,
             device=dev)
@@ -393,6 +496,7 @@ class Trainer:
             dtype=torch.bool, device=dev)
         resp_mask = torch.as_tensor(rb.response_mask, dtype=torch.bool,
                                     device=dev)
+        lengths = torch.as_tensor(rb.length, device=dev)
         rew = torch.as_tensor(np.asarray(rewards, np.float32), device=dev)
 
         # ---- old log-probs (veRL stage; ratio == 1 at the first epoch) ----
@@ -412,8 +516,22 @@ class Trainer:
 
         # ---- advantages ----------------------------------------------------
         t0 = time.perf_counter()
-        scalar_adv = group_relative_advantages(rew, self.rl.group_size)
-        adv = scalar_adv[:, None] * resp_mask.float()
+        old_values = returns = None
+        if self.rl.algo == "ppo":
+            tv = time.perf_counter()
+            values = _values(self.critic, self.cfg, full_tokens,
+                             full_mask, P)
+            self._stage(tv, times, "values_time")
+            rew_tok = terminal_reward_to_tokens(rew, lengths, N)
+            adv, returns = gae_advantages(rew_tok, values, resp_mask,
+                                          gamma=self.rl.gamma,
+                                          lam=self.rl.gae_lambda)
+            old_values = values
+            if self.rl.whiten_adv:
+                adv = whiten(adv, resp_mask)
+        else:
+            scalar_adv = group_relative_advantages(rew, self.rl.group_size)
+            adv = scalar_adv[:, None] * resp_mask.float()
         if behaviour_lp is not None:
             # truncated per-token importance weights w = min(cap,
             # exp(lp_now - lp_behaviour)) fold into the advantages
@@ -426,7 +544,16 @@ class Trainer:
             times["is_weight_mean"] = float(masked_mean(w, resp_mask))
         self._stage(t0, times, "adv_time")
 
-        # ---- update --------------------------------------------------------
+        # ---- updates -------------------------------------------------------
+        cinfo = {}
+        if self.rl.algo == "ppo":
+            t0 = time.perf_counter()
+            cinfo = _update_critic(self.critic, self.critic_opt_state,
+                                   self.cfg, self.rl.critic_optim,
+                                   full_tokens, full_mask, P, returns,
+                                   old_values, resp_mask)
+            self._stage(t0, times, "update_critic_time")
+
         t0 = time.perf_counter()
         if dev.type == "cuda":
             # the rollout's caches are gone: hand their blocks back, so the
@@ -447,6 +574,9 @@ class Trainer:
             "total_generated_tokens": self.total_generated_tokens,
             "gen_steps": self.gen_steps,
             **{k: float(v) for k, v in info.items()},
+            # PPO: the critic's grad_norm and lr replace the actor's, as in
+            # JAX's step log
+            **{k: float(v) for k, v in cinfo.items()},
             **{k: float(v) for k, v in times.items()
                if isinstance(v, (int, float))},
         }

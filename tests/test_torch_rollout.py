@@ -251,7 +251,7 @@ SLICE_MODULES = (
     "repro_torch.configs.rwkv6_3b", "repro_torch.optim.adamw",
     "repro_torch.rl.losses", "repro_torch.rl.advantages",
     "repro_torch.rl.trainer", "repro_torch.core.lenience",
-    "repro_torch.launch.train")
+    "repro_torch.launch.train", "repro_torch.rl.critic")
 
 
 def test_port_imports_no_jax_and_no_repro():

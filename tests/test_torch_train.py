@@ -571,13 +571,19 @@ def _update_tol(p0, g, lr, scale, noise=GRAD_NOISE, eps=1e-8):
             + lr * np.minimum(2.0, 2 * delta * eps / (m + eps) ** 2))
 
 
-def _check_params(tr, jtr, before, lr, grad_norm, noise=GRAD_NOISE):
+def _check_params(tr, jtr, grads, before, lr, grad_norm, noise=GRAD_NOISE):
     """Updated parameters through ``to_jax_params``, leaf by leaf, against
-    JAX's, within ``_update_tol`` of the port's gradients."""
-    got = to_jax_params(tr.model)
-    want = jax.tree.map(lambda a: np.asarray(a, np.float32), jtr.params)
+    JAX's, within ``_update_tol`` of the port's gradients (``grads``, from
+    ``_capture_port_grads``)."""
+    _check_tree(to_jax_params(tr.model), jtr.params, before,
+                _grads_tree(tr.model, grads), lr, grad_norm, noise)
+
+
+def _check_tree(got, want, before, grads, lr, grad_norm, noise=GRAD_NOISE):
+    """A params tree (numpy leaves) after one AdamW step from ``before``
+    against JAX's ``want``, within ``_update_tol`` of ``grads``."""
+    want = jax.tree.map(lambda a: np.asarray(a, np.float32), want)
     prior = jax.tree.map(lambda a: np.asarray(a, np.float32), before)
-    grads = _grads_tree(tr)
     scale = min(1.0, 1.0 / (grad_norm + 1e-9))
     assert (jax.tree.structure(got) == jax.tree.structure(want)
             == jax.tree.structure(grads))
@@ -592,15 +598,39 @@ def _check_params(tr, jtr, before, lr, grad_norm, noise=GRAD_NOISE):
                                f"off, max {d.max()}")
 
 
-def _grads_tree(tr):
-    """Every parameter's ``.grad`` in the params tree's layout."""
-    saved = [p.detach().clone() for p in tr.model.parameters()]
+def _capture_port_grads(monkeypatch):
+    """Wrap the port's ``adamw.update`` (``_grad_step`` drops ``.grad``
+    once AdamW has stepped): the returned dict maps the id of a model's
+    first parameter to the gradients of its latest update, as AdamW
+    received them."""
+    out = {}
+    update = adamw.update
+
+    def spy(cfg, params, grads, state):
+        out[id(params[0])] = list(grads)
+        return update(cfg, params, grads, state)
+
+    monkeypatch.setattr(adamw, "update", spy)
+    return out
+
+
+def _port_grads(module, grads):
+    """``module``'s gradients from ``_capture_port_grads``'s dict; the
+    module holds no ``.grad`` after its update."""
+    assert all(p.grad is None for p in module.parameters())
+    return grads[id(next(module.parameters()))]
+
+
+def _grads_tree(module, grads, to_tree=to_jax_params):
+    """``module``'s gradients (``_capture_port_grads``'s dict) in the
+    params tree's layout."""
+    saved = [p.detach().clone() for p in module.parameters()]
     with torch.no_grad():
-        for p in tr.model.parameters():
-            p.copy_(p.grad.float())
-    tree = to_jax_params(tr.model)
+        for p, g in zip(module.parameters(), _port_grads(module, grads)):
+            p.copy_(g.float())
+    tree = to_tree(module)
     with torch.no_grad():
-        for p, s in zip(tr.model.parameters(), saved):
+        for p, s in zip(module.parameters(), saved):
             p.copy_(s)
     return tree
 
@@ -629,10 +659,16 @@ def _capture_jax_grads(monkeypatch):
     return out
 
 
-def _check_grads(tr, want):
-    """The port's ``.grad``, leaf by leaf, against JAX's gradient within
-    GRAD_NOISE of the leaf's largest magnitude."""
-    got = _grads_tree(tr)
+def _check_grads(tr, grads, want):
+    """The port's actor gradients (``_capture_port_grads``'s dict), leaf by
+    leaf, against JAX's gradient within GRAD_NOISE of the leaf's largest
+    magnitude."""
+    _check_grad_tree(_grads_tree(tr.model, grads), want)
+
+
+def _check_grad_tree(got, want):
+    """A gradient tree (numpy leaves) against JAX's, leaf by leaf, within
+    GRAD_NOISE of the leaf's largest magnitude, which must be nonzero."""
     assert jax.tree.structure(got) == jax.tree.structure(want)
     paths = jax.tree_util.tree_flatten_with_path(want)[0]
     for (path, w), g in zip(paths, jax.tree.leaves(got)):
@@ -671,6 +707,7 @@ def test_one_grpo_optimize_matches_jax(arch, overrides, stale, monkeypatch):
                                 + noise).astype(np.float32), is_clip=1.5)
     before = jtr.params
     jgrads = _capture_jax_grads(monkeypatch)
+    grads = _capture_port_grads(monkeypatch)
     want = jtr.optimize(jrb, rewards, dict(jtimes), **kw)
     got = tr.optimize(_port_rb(jrb), rewards, dict(jtimes), **kw)
     assert set(got) == set(want)
@@ -689,14 +726,13 @@ def test_one_grpo_optimize_matches_jax(arch, overrides, stale, monkeypatch):
                "is_weight_mean")
     _close(got["ratio_mean"], 1.0, "ratio_mean at the first update")
     assert got["lr"] == want["lr"]
-    assert all(p.grad is not None and bool((p.grad != 0).any())
-               for p in tr.model.parameters())
+    assert all(bool((g != 0).any()) for g in _port_grads(tr.model, grads))
     assert not any(p.requires_grad for p in tr.model.parameters())
-    _check_grads(tr, jgrads[0])
-    _check_params(tr, jtr, before, lr, want["grad_norm"])
+    _check_grads(tr, grads, jgrads[0])
+    _check_params(tr, jtr, grads, before, lr, want["grad_norm"])
 
 
-def test_two_train_steps_match_jax():
+def test_two_train_steps_match_jax(monkeypatch):
     """Two full ``train_step`` calls (epoch 0 vanilla, epoch 1 one-pass
     spec) with the collection key split as JAX's: the same batches,
     tokens, rewards and per-step metrics.  The verifier gives the random
@@ -711,6 +747,7 @@ def test_two_train_steps_match_jax():
     holds that).  Each leaf must also have moved on both sides."""
     lr = 1e-3
     jtr, tr = _trainers("qwen3-1.7b", lr, num_kv_heads=2)
+    grads = _capture_port_grads(monkeypatch)
     start = jax.tree.map(lambda a: np.asarray(a, np.float32), jtr.params)
     for step in range(2):
         before = jtr.params
@@ -729,7 +766,7 @@ def test_two_train_steps_match_jax():
         assert got["reward_mean"] == 0.0 and got["grad_norm"] < 1e-4
     assert got["one_pass"] == 1.0 and got["n_reused"] > 0
     assert tr.total_generated_tokens == jtr.total_generated_tokens
-    _check_params(tr, jtr, before, lr, want["grad_norm"], noise=1.0)
+    _check_params(tr, jtr, grads, before, lr, want["grad_norm"], noise=1.0)
     paths = jax.tree_util.tree_flatten_with_path(start)[0]
     for (path, p0), g, w in zip(paths, jax.tree.leaves(to_jax_params(
             tr.model)), jax.tree.leaves(jtr.params)):
@@ -773,7 +810,7 @@ def test_to_jax_params_inverts_from_jax_params(qwen):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--algo", "ppo"], 4), (["--algo", "dapo"], 4), (["--draft", "2"], 6),
+    (["--draft", "2"], 6),
     (["--async"], 8), (["--watchdog-dir", "wd"], 8), (["--ledger"], 9),
     (["--decision-log", "d"], 9), (["--alerts"], 9),
     (["--trace-dir", "t"], 9), (["--metrics", "9100"], 9),
@@ -794,7 +831,7 @@ def test_unported_launcher_flags_raise_and_name_their_item(argv, item):
 
 @pytest.mark.parametrize("what,item", [
     ("mesh", 11), ("watchdog", 8), ("tracer", 9), ("alerts", 9),
-    ("draft", 6), ("ppo", 4)])
+    ("draft", 6)])
 def test_unported_trainer_arguments_raise_and_name_their_item(what, item):
     cfg = get_config("qwen3-1.7b").reduced()
     _, ds = _datasets()
@@ -802,10 +839,9 @@ def test_unported_trainer_arguments_raise_and_name_their_item(what, item):
           "tracer": {"tracer": object()}, "alerts": {"alerts": object()}
           }.get(what, {})
     spec = SpecConfig(draft=object()) if what == "draft" else SpecConfig()
-    rl = RLConfig(algo="ppo") if what == "ppo" else RLConfig()
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item} "):
-        Trainer(cfg, rl, spec, ds, JaxKey(jax.random.PRNGKey(0)),
+        Trainer(cfg, RLConfig(), spec, ds, JaxKey(jax.random.PRNGKey(0)),
                 device="cpu", **kw)
 
 
