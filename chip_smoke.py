@@ -55,7 +55,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs eight paths (random weights from a seed), each with the launch
+5. runs ten paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs:
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
@@ -67,6 +67,21 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    ``paged``    the fixed-batch two epochs over the paged KV layout
                 (``cache_layout="paged"``): decode through the paged kernel,
                 compaction through paged_gather and the slot write;
+   ``paged_slots`` the ``slots`` epochs over the paged layout, through the
+                ``PagedSlotEngine``: epoch 0 one prefill per GRPO group
+                (4 leaders, 12 followers mapping the leader's prompt
+                blocks copy-on-write), epoch 1 speculative-prefix
+                admission; peak blocks, bytes saved, no fork, the pool
+                empty after the drain, and every row equal to the
+                ``slots`` path's (tokens, lengths, ``n``);
+   ``faults``   a ``PagedSlotEngine`` used directly on the 16 prompts
+                (N = 64): a clean run, a run with a NaN on one follower
+                and a stall past its deadline on another (untargeted rows
+                identical to the clean run, the fault counters exact), and
+                a run killed at a chunk boundary, saved with
+                ``save_server_state``, loaded into a fresh engine and
+                drained (all rows identical, the bf16 pools reloaded bit
+                for bit; the snapshot is deleted after);
    ``train``    the GRPO train step on the same model: two
                 ``Trainer.train_step`` calls (epoch 0 vanilla, epoch 1
                 one-pass spec, the real verifier; a ``train`` line each with
@@ -1235,6 +1250,260 @@ def slots_path(torch, model, cfg, batch, gen):
         require(launches[name] > 0, f"kernel {name} was not launched on the "
                 "slots path")
     engine_breakdown(torch, model, cfg, gen, batch)
+    return launches, rbs
+
+
+class EngineSpy:
+    """Keeps every engine ``rollout(backfill="slots")`` builds (the
+    adapter's ``make_slot_engine`` wrapped for the duration of a ``with``),
+    so the paged path can read the engines' allocators and stats."""
+
+    def __init__(self):
+        from repro_torch.serving import rl_adapter
+        self.module, self.engines = rl_adapter, []
+
+    def __enter__(self):
+        self.make = self.module.make_slot_engine
+
+        def spy(*args, **kw):
+            self.engines.append(self.make(*args, **kw))
+            return self.engines[-1]
+
+        self.module.make_slot_engine = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_slot_engine = self.make
+
+
+def first_difference(a, b):
+    """(row, column) of the first element where two (B, N) arrays differ."""
+    import numpy as np
+    rows, cols = np.nonzero(np.asarray(a) != np.asarray(b))
+    if rows.size == 0:
+        return None
+    i = int(np.argmin(rows * np.asarray(a).shape[1] + cols))
+    return int(rows[i]), int(cols[i])
+
+
+def paged_slots_path(torch, model, cfg, batch, gen, slots_rbs):
+    """The ``slots`` path's two epochs over the paged layout: the batch
+    drained through the ``PagedSlotEngine`` (epoch 0 vanilla admission with
+    copy-on-write GRPO prompt sharing, epoch 1 speculative-prefix admission,
+    which never shares).  Its rows must equal the ``slots`` path's."""
+    import numpy as np
+
+    from repro_torch.core import SpecConfig
+    from repro_torch.serving import PagedSlotEngine
+
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
+                      backfill="slots", backfill_slots=SLOTS)
+    paged = cfg.replace(cache_layout="paged")
+    with EngineSpy() as spy:
+        launches, rbs = rollout_path(torch, "paged_slots", model, paged,
+                                     batch, gen, spec)
+    for name in ("paged_decode_attention", "cache_slot_write",
+                 "flash_attention", "spec_verify", "cache_roll"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "paged_slots path")
+    require(launches["decode_attention"] == 0, "the paged_slots path "
+            f"launched the dense decode kernel {launches['decode_attention']}"
+            " times")
+    B = PROMPTS * GROUP
+    require(len(spy.engines) == 2
+            and all(type(e) is PagedSlotEngine for e in spy.engines),
+            f"paged_slots: engines {[type(e).__name__ for e in spy.engines]}")
+    for epoch, (eng, rb, want) in enumerate(zip(spy.engines, rbs,
+                                                slots_rbs)):
+        st, a = eng.stats(), eng.allocator
+        a.check()
+        followers = st["paged_shared_prompt_bytes_saved"] // (
+            eng._pb * eng._block_bytes)
+        line = {"path": "paged_slots", "epoch": epoch,
+                "block_bytes": eng._block_bytes, "blocks_per_row": eng.nb,
+                "prompt_blocks": eng._pb, "pool_blocks": a.num_blocks,
+                "peak_blocks": a.peak_blocks_in_use,
+                "dense_blocks": SLOTS * eng.nb,
+                "peak_bytes": st["paged_peak_bytes_in_use"],
+                "shared_prompt_bytes_saved":
+                    st["paged_shared_prompt_bytes_saved"],
+                "leaders": int(st["admitted"] - followers),
+                "followers": int(followers), "cow_forks": a.cow_forks,
+                "blocks_in_use_after": a.blocks_in_use,
+                "admit_time": st["admit_time"],
+                "decode_time": st["decode_time"],
+                "max_logprob_gap_vs_slots": float(np.abs(
+                    rb.behaviour_logprobs - want.behaviour_logprobs).max())}
+        log("paged_slots " + json.dumps(line))
+        # the whole pool is back: rows freed, registry entries collected
+        require(a.blocks_in_use == 0 and not eng._groups,
+                f"paged_slots epoch {epoch}: {a.blocks_in_use} blocks in "
+                f"use and {len(eng._groups)} registrations after the drain")
+        require(a.cow_forks == 0 and a.alloc_failures == 0,
+                f"paged_slots epoch {epoch}: {a.cow_forks} forks, "
+                f"{a.alloc_failures} allocation failures (P = {P} fills "
+                "whole blocks)")
+        if epoch == 0:
+            saved = (B - PROMPTS) * eng._pb * eng._block_bytes
+            require(line["leaders"] == PROMPTS and followers == B - PROMPTS
+                    and st["paged_shared_prompt_bytes_saved"] == saved,
+                    f"paged_slots epoch 0: {line['leaders']} leaders, "
+                    f"{followers} followers, "
+                    f"{st['paged_shared_prompt_bytes_saved']} bytes saved "
+                    f"(want {PROMPTS}, {B - PROMPTS}, {saved})")
+        else:
+            require(st["paged_shared_prompt_bytes_saved"] == 0
+                    and a.peak_blocks_in_use == SLOTS * eng.nb,
+                    f"paged_slots epoch 1: {line}")
+        diff = (first_difference(rb.response, want.response)
+                or first_difference(rb.length[:, None], want.length[:, None])
+                or first_difference(rb.n[:, None], want.n[:, None]))
+        require(diff is None, f"paged_slots epoch {epoch}: row {diff and diff[0]}"
+                f" differs from the slots path's at column {diff and diff[1]}")
+    return launches
+
+
+FAULT_N = 64                    # the faults path's tokens per request
+FAULT_CHUNK = 8
+
+
+def faults_path(torch, model, cfg, batch, gen):
+    """The §10 layer on the ``PagedSlotEngine``, used directly: 16 requests
+    (the batch's 4 groups x 4 siblings), N = 64, 8 slots, three runs — a
+    clean one; one under a ``FaultPlan`` with a NaN on a follower and a
+    stall that trips its deadline on another (untargeted rows identical to
+    the clean run, targeted rows finished after their retries); one killed
+    at a chunk boundary, saved with ``save_server_state``, loaded into a
+    fresh engine and drained (all 16 responses identical to the clean
+    run's, the bf16 pools reloaded bit for bit)."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.checkpoint.io import load_server_state, save_server_state
+    from repro_torch.engine.sampling import make_key, request_keys
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import (EngineKilled, FaultEvent, FaultPlan,
+                                     PagedSlotEngine, Request)
+    from repro_torch.serving.request import (FINISH_BUDGET, FINISH_EOS,
+                                             FINISH_FULL_REUSE)
+
+    paged = cfg.replace(cache_layout="paged")
+    g = replace(gen, max_new_tokens=FAULT_N)
+    B = PROMPTS * GROUP
+    keys = request_keys(make_key(SEED + 2), B)
+    nan_row, stall_row = 1, 6           # followers of groups 0 and 1
+    deadline = 4 * FAULT_N              # a clean row stays FAULT_N + 8 steps
+
+    def engine(faults=None):
+        return PagedSlotEngine(model, paged, g, num_slots=SLOTS,
+                               prompt_width=P, chunk_steps=FAULT_CHUNK,
+                               faults=faults, deadline_steps=deadline)
+
+    def requests():
+        return [Request(request_id=i,
+                        prompt=batch.tokens[i, P - int(batch.mask[i].sum()):],
+                        key=keys[i], max_new_tokens=FAULT_N,
+                        group_id=batch.cache_keys[i] // GROUP, max_retries=2)
+                for i in range(B)]
+
+    def serve(eng, label):
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        log("faults " + json.dumps({
+            "run": label, "wall_s": wall, "engine_steps": st["engine_steps"],
+            "generated_tokens": st["generated_tokens"],
+            **{k: st[k] for k in st if k.startswith("fault_") and st[k]},
+            "retried_requests": st["retried_requests"],
+            "paged_peak_blocks": st["paged_peak_blocks_in_use"],
+            "paged_cow_forks": st["paged_cow_forks"]}))
+        return out, st
+
+    def same(a, b):
+        return (a.finish_reason == b.finish_reason and a.length == b.length
+                and np.array_equal(a.tokens, b.tokens)
+                and np.array_equal(a.logprobs, b.logprobs))
+
+    reset_launches()
+    clean_eng = engine()
+    for r in requests():
+        clean_eng.submit(r)
+    clean, _ = serve(clean_eng, "clean")
+    require(sorted(clean) == list(range(B)) and all(
+        clean[i].finish_reason in (FINISH_EOS, FINISH_BUDGET) for i in clean),
+        "faults: the clean run did not finish every request")
+
+    plan = FaultPlan([FaultEvent("nan", at_step=0, request_id=nan_row),
+                      FaultEvent("stall", at_step=0, request_id=stall_row,
+                                 count=10 ** 6)])
+    eng = engine(plan)
+    for r in requests():
+        eng.submit(r)
+    hit, st = serve(eng, "nan+stall")
+    success = (FINISH_EOS, FINISH_BUDGET, FINISH_FULL_REUSE)
+    for i in range(B):
+        if i in (nan_row, stall_row):
+            require(hit[i].finish_reason in success and hit[i].retries >= 1,
+                    f"faults: targeted row {i} ended {hit[i].finish_reason} "
+                    f"after {hit[i].retries} retries")
+        else:
+            require(same(hit[i], clean[i]) and hit[i].retries == 0,
+                    f"faults: untargeted row {i} differs from the clean run")
+    require((st["fault_nan_events"], st["fault_quarantines"],
+             st["fault_impl_fallbacks"]) == (1, 1, 0)
+            and st["fault_timeouts"] >= 1,
+            f"faults: counters {st}")
+    log("faults: targeted rows equal to the clean run: " + json.dumps(
+        {i: same(hit[i], clean[i]) for i in (nan_row, stall_row)}))
+
+    killed = engine(FaultPlan([FaultEvent("kill", at_step=2 * FAULT_CHUNK)]))
+    for r in requests():
+        killed.submit(r)
+    try:
+        killed.run()
+        raise AssertionError("faults: the kill did not fire")
+    except EngineKilled:
+        pass
+    require(killed.scheduler.num_active > 0 and killed.scheduler.queue,
+            "faults: the kill did not land mid-batch")
+    OUT_DIR.mkdir(exist_ok=True)
+    path = str(OUT_DIR / "faults_snapshot")
+    t0 = time.perf_counter()
+    save_server_state(path, killed, metadata={"requests": B})
+    t_save = time.perf_counter() - t0
+    size = sum(Path(path + ext).stat().st_size for ext in (".npz", ".json"))
+    resumed = engine()
+    t0 = time.perf_counter()
+    load_server_state(path, resumed)
+    t_load = time.perf_counter() - t0
+    for ext in (".npz", ".json"):
+        Path(path + ext).unlink()
+    words = {2: torch.int16, 4: torch.int32}
+    for a, b in zip(killed.caches, resumed.caches):
+        for name in ("k", "v"):
+            x, y = a["self"][name], b["self"][name]
+            require(y.dtype == x.dtype and str(x.dtype).endswith(cfg.dtype)
+                    and torch.equal(x.view(words[x.element_size()]),
+                                    y.view(words[y.element_size()])),
+                    f"faults: the snapshot's {name} pool ({x.dtype}) did "
+                    "not reload bit for bit")
+    log(f"faults: snapshot at step {killed.steps}: {size} bytes, save "
+        f"{t_save:.2f} s, load {t_load:.2f} s")
+    resumed_out, _ = serve(resumed, "resumed")
+    for i in range(B):
+        require(same(resumed_out[i], clean[i]),
+                f"faults: resumed row {i} differs from the clean run")
+    launches = dict(LAUNCHES)
+    log(f"faults path launches: {launches}")
+    for name in ("paged_decode_attention", "cache_slot_write",
+                 "flash_attention"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "faults path")
+    require(launches["decode_attention"] == 0, "the faults path launched "
+            "the dense decode kernel")
     return launches
 
 
@@ -2194,9 +2463,12 @@ def main() -> int:
     small_reference(torch, "rwkv6-3b", SMALL_TOL["rwkv6-3b"],
                     tol_f32=SMALL_TOL_F32)
     model, cfg, batch, gen = setup_model(torch)
-    paths = {"rollout": main_path(torch, model, cfg, batch, gen),
-             "slots": slots_path(torch, model, cfg, batch, gen),
-             "paged": paged_path(torch, model, cfg, batch, gen)}
+    paths = {"rollout": main_path(torch, model, cfg, batch, gen)}
+    paths["slots"], slots_rbs = slots_path(torch, model, cfg, batch, gen)
+    paths["paged"] = paged_path(torch, model, cfg, batch, gen)
+    paths["paged_slots"] = paged_slots_path(torch, model, cfg, batch, gen,
+                                            slots_rbs)
+    paths["faults"] = faults_path(torch, model, cfg, batch, gen)
     paths["train"], rb1 = train_path(torch, model, cfg, batch)
     gc.collect()                # the GRPO trainer's reference and moments
     torch.cuda.empty_cache()

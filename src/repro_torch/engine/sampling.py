@@ -159,6 +159,19 @@ class KeyBatch:
         dev = keys[0].device
         return cls(torch.cat([k.words.to(dev) for k in keys], dim=0))
 
+    def __array__(self, dtype=None, copy=None):
+        """The (B, 2) words as a numpy array: how a snapshot stores a key
+        batch (``Request.to_state``, the slot engine's ``state_dict``)."""
+        a = self.words.cpu().numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    @classmethod
+    def from_words(cls, words, device) -> "KeyBatch":
+        """The key batch whose words are ``words`` (any (B, 2) or (2,)
+        array of 32-bit values), on ``device``."""
+        return cls(torch.as_tensor(words, dtype=torch.int64,
+                                   device=device).reshape(-1, 2))
+
     def split(self, num: int = 2) -> Tuple["KeyBatch", ...]:
         children = _derive(self.words, tuple(range(1, num + 1)))
         return tuple(KeyBatch(children[:, i]) for i in range(num))

@@ -7,20 +7,28 @@ stream, speculative-prefix admission and latency/throughput stats
         --spec-prefix
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
         --arch qwen3-1.7b --requests 64 --slots 8 --spec-prefix
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
+        --cache-layout paged --kv-block-size 8 --deadline-steps 64 \\
+        --max-queue 16 --overflow shed-oldest --state-path /tmp/serve_state
 
 Runs on the card unless ``--device cpu``.  As in JAX the model config is
 always the architecture's ``.reduced(...)`` smoke variant, with random
 weights from ``--seed``; on the card it runs in bfloat16 (the port's
 kernels take bfloat16), on the CPU in float32 as JAX's.  ``--cache-layout
-paged`` serves through ``--engine fixed`` only: the paged slot engine
-(the PagedSlotEngine) arrives with ROADMAP Queue 1 item 5.  The §9 draft
-engine, §10 hardening, §11/§14 observatory and §8 mesh flags of the
-reference arrive with their slices.
+paged`` serves through the ``PagedSlotEngine`` (or the paged fixed batch
+with ``--engine fixed``).  §10 hardening: ``--deadline-steps``,
+``--max-queue``, ``--overflow``; with ``--state-path``, SIGTERM / Ctrl-C
+stops the serve at the next chunk boundary and snapshots the exact server
+state there
+(``checkpoint/io.save_server_state``; resume with ``load_server_state``
+into an engine built the same way).  The §9 draft engine, §11/§14
+observatory and §8 mesh flags of the reference arrive with their slices.
 """
 from __future__ import annotations
 
 import argparse
 import random
+import signal
 import time
 
 import numpy as np
@@ -34,7 +42,8 @@ from repro_torch.engine.generate import GenerateConfig, generate
 from repro_torch.engine.sampling import fold_in, make_key, stack_keys
 from repro_torch.models import model as M
 from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
-from repro_torch.serving import Request, make_slot_engine
+from repro_torch.serving import (EngineKilled, FaultEvent, FaultPlan,
+                                 Request, make_slot_engine)
 
 # long-tailed per-request budgets (fractions of --max-new-tokens): most
 # requests are short, a few run to the full budget — the regime where
@@ -102,9 +111,25 @@ def main(argv=None):
     p.add_argument("--spec-prefix", action="store_true",
                    help="serve every request twice: the first pass's output "
                         "becomes the second pass's speculative prefix")
+    p.add_argument("--deadline-steps", type=int, default=0,
+                   help="§10 per-request decode-step deadline (0 = none): "
+                        "expired requests are reclaimed and retried once")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help="§10 bounded admission queue (0 = unbounded)")
+    p.add_argument("--overflow", choices=["reject", "shed-oldest"],
+                   default="reject",
+                   help="backpressure policy when the queue is full")
+    p.add_argument("--state-path", default="",
+                   help="on SIGTERM/Ctrl-C, snapshot the exact server state "
+                        "here (checkpoint/io.save_server_state) for "
+                        "kill-and-resume; empty = drain without snapshot")
     p.add_argument("--cache-layout", choices=["dense", "paged"],
                    default="dense",
-                   help="§13 KV cache layout ('paged' with --engine fixed)")
+                   help="§13 KV cache layout: 'paged' serves over a block "
+                        "pool with CoW GRPO prompt sharing (token-identical "
+                        "to dense)")
+    p.add_argument("--kv-block-size", type=int, default=0,
+                   help="paged KV block size in tokens (0 = config default)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
@@ -121,13 +146,18 @@ def main(argv=None):
         cfg = cfg.replace(vocab_size=VOCAB_SIZE)
     if args.cache_layout != cfg.cache_layout:
         cfg = cfg.replace(cache_layout=args.cache_layout)
+    if args.kv_block_size > 0:
+        cfg = cfg.replace(kv_block_size=args.kv_block_size)
     model = M.init_lm(cfg, seed=args.seed, device=device)
     gen = GenerateConfig(max_new_tokens=max_new)
 
     def make_engine(spec_prefix: bool):
         return make_slot_engine(model, cfg, gen, num_slots=args.slots,
                                 prompt_width=args.prompt_len,
-                                spec_prefix=spec_prefix, log_lenience=0.0)
+                                spec_prefix=spec_prefix, log_lenience=0.0,
+                                deadline_steps=args.deadline_steps or None,
+                                max_queue=args.max_queue or None,
+                                overflow=args.overflow)
 
     rng = random.Random(args.seed)
     problems = generate_problems(MathTaskConfig(num_problems=n_requests))
@@ -175,18 +205,50 @@ def main(argv=None):
         t0 = time.time()
 
     engine = make_engine(spec_prefix=args.spec_prefix)
-    if args.arrival_every > 0:
-        resps = engine.run(arrivals=[(i * args.arrival_every, r)
-                                     for i, r in enumerate(reqs)])
-    else:
-        for r in reqs:
-            engine.submit(r)
-        resps = engine.run()
+
+    # §10 graceful shutdown: SIGTERM and Ctrl-C become a kill event in the
+    # engine's fault plan, so the serve stops at the next chunk boundary
+    # (where host state is consistent; an interrupt inside an admission or
+    # a chunk would leave the in-place caches ahead of the host vectors),
+    # snapshots the exact server state there, and still prints final stats
+    def _stop(signum, frame):
+        if engine.faults is None:
+            engine.faults = FaultPlan()
+        engine.faults.events.append(FaultEvent("kill", at_step=0))
+
+    previous = {sig: signal.signal(sig, _stop)
+                for sig in (signal.SIGINT, signal.SIGTERM)}
+    interrupted = False
+    try:
+        if args.arrival_every > 0:
+            resps = engine.run(arrivals=[(i * args.arrival_every, r)
+                                         for i, r in enumerate(reqs)])
+        else:
+            for r in reqs:
+                engine.submit(r)
+            resps = engine.run()
+    except EngineKilled:
+        interrupted = True
+        resps = engine.responses
+        if args.state_path:
+            from repro_torch.checkpoint.io import save_server_state
+            save_server_state(args.state_path, engine,
+                              metadata={"arch": cfg.name,
+                                        "requests": n_requests})
+            print(f"\ninterrupted: server state -> {args.state_path} "
+                  "(resume via checkpoint/io.load_server_state)")
+        else:
+            print("\ninterrupted: draining without snapshot "
+                  "(--state-path to keep serving state)")
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
     dt = time.time() - t0
     s = engine.stats()
     n_gen = int(s["generated_tokens"])
     print(f"arch={cfg.name} engine=slots(spec={args.spec_prefix}, "
-          f"shards=1): served {len(resps)}/{n_requests} requests, {n_gen} "
+          f"shards=1){' [interrupted]' if interrupted else ''}: served "
+          f"{len(resps)}/{n_requests} requests, {n_gen} "
           f"generated (+{int(s['reused_tokens'])} reused) tokens in "
           f"{dt:.2f}s "
           f"({(n_gen + int(s['reused_tokens'])) / max(dt, 1e-9):.0f} tok/s)")
@@ -194,8 +256,15 @@ def main(argv=None):
           f"admissions={int(s['admitted'])} "
           f"mean_queue_wait={s['mean_queue_wait'] * 1e3:.1f}ms "
           f"mean_serve={s['mean_serve_time'] * 1e3:.1f}ms")
+    recov = {k: int(s[k]) for k in ("timeouts", "retried_requests",
+                                    "shed_requests", "fault_quarantines",
+                                    "fault_impl_fallbacks") if s.get(k)}
+    if recov:
+        print(f"  recovery: {recov}")
     for i in range(min(n_requests, 4)):
-        r = resps[i]
+        r = resps.get(i)
+        if r is None:
+            continue
         full = np.concatenate([
             np.asarray(reqs[i].draft_tokens[:r.n_accepted], np.int32)
             if r.n_accepted else np.zeros(0, np.int32), r.tokens])

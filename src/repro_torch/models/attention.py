@@ -129,22 +129,30 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                        device) -> dict:
-    """Paged layer cache with identity-stripe tables: row b owns blocks
-    [b * nb, (b + 1) * nb) of the pool, nb = ceil(max_len / bs).  The
-    logical width stays ``max_len`` (``pos`` is the dense layout's), so
-    every gather slices back to it and paged outputs equal dense ones."""
+                        device, *, num_blocks=None, table=None) -> dict:
+    """Paged layer cache.  Without ``table``, identity-stripe tables: row b
+    owns blocks [b * nb, (b + 1) * nb) of the pool, nb = ceil(max_len /
+    bs).  The logical width stays ``max_len`` (``pos`` is the dense
+    layout's), so every gather slices back to it and paged outputs equal
+    dense ones.  ``num_blocks``/``table`` let the serving engine supply its
+    own pool size (with the block-0 sink) and allocator-issued tables."""
     bs = cfg.kv_block_size
     nb = -(-max_len // bs)
     hd = cfg.resolved_head_dim
-    shape = (batch * nb, cfg.num_kv_heads, bs, hd)
+    if table is None:
+        table = torch.arange(batch * nb, dtype=torch.int32,
+                             device=device).reshape(batch, nb)
+        num_blocks = batch * nb if num_blocks is None else num_blocks
+    elif tuple(table.shape) != (batch, nb) or num_blocks is None:
+        raise ValueError(f"a table of {tuple(table.shape)} for ({batch}, "
+                         f"{nb}) rows, num_blocks {num_blocks}")
+    shape = (num_blocks, cfg.num_kv_heads, bs, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
                           device=device),
-        "table": torch.arange(batch * nb, dtype=torch.int32,
-                              device=device).reshape(batch, nb),
+        "table": torch.as_tensor(table, dtype=torch.int32, device=device),
     }
 
 

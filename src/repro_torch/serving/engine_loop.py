@@ -1,17 +1,19 @@
 """Persistent continuous-batching decode loop over slot-replaced caches
-(port of ``repro/serving/engine_loop.py``, its clean path).
+(port of ``repro/serving/engine_loop.py``).
 
-The engine keeps ONE decode batch of ``num_slots`` rows alive over dense
-``(run, B, Hkv, S, D)`` cache slabs.  Whenever a row emits EOS or exhausts
-its per-slot budget, the next queued request is prefilled — through
-``verify_and_prefill`` when a cached SPEC-RL draft becomes its speculative
-prefix — and written into the freed slot by the ``cache_slot_write``
-kernel (``model.write_cache_slots``).  No other row notices: the decode
-batch never drains to its slowest member.
+The engine keeps ONE decode batch of ``num_slots`` rows alive — over dense
+``(run, B, Hkv, S, D)`` cache slabs, or over a paged block pool when built
+as the ``PagedSlotEngine`` subclass (serving/paged_engine.py, DESIGN.md
+§13).  Whenever a row emits EOS or exhausts its per-slot budget, the next
+queued request is prefilled — through ``verify_and_prefill`` when a cached
+SPEC-RL draft becomes its speculative prefix — and written into the freed
+slot by the ``cache_slot_write`` kernel (``model.write_cache_slots``).  No
+other row notices: the decode batch never drains to its slowest member.
 
 Three device programs, as in JAX:
 
-* ``_admit_vanilla``  — prefill an admission group + seed sample;
+* ``_admit_vanilla``  — prefill an admission group + seed sample (the seed
+  logits ride along for the paged engine's GRPO prompt sharing);
 * ``_admit_spec``     — fused verify+prefill over [prompt | draft], compact
   to the accepted prefix, seed sample at the last accepted token;
 * ``_decode_chunk``   — ``chunk_steps`` decode steps for all B slots with
@@ -29,35 +31,59 @@ row at admission.  Admission groups are padded to ``num_slots`` rows by
 repeating their row 0 (the duplicate slot writes carry identical bytes, and
 the slot-write kernel's inverted map keeps them deterministic).  Time edges
 wait with ``torch.cuda.synchronize()`` where JAX calls
-``block_until_ready``.
+``block_until_ready``.  The layout hooks (``_make_caches``, ``_admit_cfg``,
+``_register_groups``, ``_on_slot_freed``, ``_write_admitted``) are the
+identity here and overridden by the paged engine.
+
+Fault tolerance (DESIGN.md §10): a non-finite-logit guard inside
+``_decode_chunk`` quarantines the offending row in-chunk (its garbage
+token is never stored; every other row decodes on); it is a few
+elementwise ops a step on the device, read back once a chunk with the
+tokens, never a sync a step.  Per-request deadlines bound how long a
+straggler may hold a slot; a reclaimed request retries through
+speculative-prefix admission — its already-generated tokens become the
+retry's draft and are *verified*, not regenerated; a bounded queue sheds
+under backpressure (``max_queue``, ``overflow``); ``retry_backoff`` holds
+retries on the engine's step clock.  All of it is counted in ``stats()``,
+injected deterministically by a ``FaultPlan`` (serving/faults.py), and the
+whole engine state round-trips through ``state_dict``/``load_state_dict``
+for exact kill-and-resume (``checkpoint/io.save_server_state``).
+
+One divergence from JAX, on purpose: JAX's second quarantine of a request
+walks the decode-attention implementation down a ladder (pallas → blocked
+→ naive).  In the port the only other implementation is the plain
+version, and routing the card to it would hide the kernel; so the second
+strike is counted (``Request.nan_strikes``) and the request retries on the
+kernel, ``cfg.decode_impl`` unchanged and ``fault_impl_fallbacks`` 0
+(ROADMAP Queue 3).
 
 Left for later slices (a constructor argument that asks for one raises
 ``NotImplementedError`` naming its ROADMAP item): the §9 draft chunk
-(ROADMAP Queue 1 item 6, the draft engine); §10 faults, deadlines,
-retries, backoff, quarantine and ``state_dict`` (ROADMAP Queue 1 item 7,
-§10 hardening); the §11/§14 tracer, ledger and decision log (ROADMAP
-Queue 1 item 9, the observatory hooks); the §8 mesh (ROADMAP Queue 1
-item 11, the mesh); the paged engine (ROADMAP Queue 1 item 5, the
-PagedSlotEngine).  The §10
-decode-implementation ladder (pallas → blocked → naive) is a silent
-fallback and is not ported.
+(ROADMAP Queue 1 item 6, the draft engine); the §11/§14 tracer, ledger and
+decision log (ROADMAP Queue 1 item 9, the observatory hooks); the §8 mesh
+(ROADMAP Queue 1 item 11, the mesh).
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.backoff import BackoffConfig
+from repro_torch.core.metrics import FaultStats
 from repro_torch.core.verify import verify_and_prefill
 from repro_torch.device import sync
 from repro_torch.engine.generate import GenerateConfig, positions_from_mask
-from repro_torch.engine.sampling import sample, split_key, stack_keys
+from repro_torch.engine.sampling import KeyBatch, sample, split_key, stack_keys
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
+from .faults import EngineKilled, FaultPlan
 from .request import (DECODING, FINISH_BUDGET, FINISH_EOS, FINISH_FULL_REUSE,
+                      FINISH_QUARANTINE, FINISH_SHED, FINISH_TIMEOUT,
                       Request, Response)
 from .scheduler import SlotScheduler
 
@@ -69,15 +95,18 @@ def _admit_vanilla(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
 
     prompts: (R, P) left-padded; keys: R per-request decode keys.  Returns
     caches sized P + N per row (the layout fixed-batch ``generate``
-    builds), the seed token/logprob and the carry keys."""
+    builds), the seed token/logprob, the carry keys and the seed logits
+    (a paged follower re-samples from its leader's with its own key)."""
     R, P = prompts.shape
     caches = M.init_cache(cfg, R, P + gen.max_new_tokens, device=model.device)
     logits, caches = M.prefill(model, cfg, prompts, positions_from_mask(mask),
                                caches)
     keys, sub = split_key(keys)
-    tok0, lp0 = sample(sub, logits[:, -1], gen.temperature, gen.top_p)
+    seed_logits = logits[:, -1]
+    tok0, lp0 = sample(sub, seed_logits, gen.temperature, gen.top_p)
     return {"caches": caches, "tok0": tok0, "lp0": lp0,
-            "next_pos": mask.sum(dim=1, dtype=torch.int32), "keys": keys}
+            "next_pos": mask.sum(dim=1, dtype=torch.int32), "keys": keys,
+            "seed_logits": seed_logits}
 
 
 @torch.no_grad()
@@ -111,7 +140,7 @@ def _admit_spec(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, prompts,
 @torch.no_grad()
 def _decode_chunk(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
                   cur_tok, cur_lp, done, count, budget, next_pos, write_idx,
-                  keys, *, steps: int):
+                  keys, nan_inject=None, *, steps: int):
     """``steps`` decode steps over all slots; per-row write offsets/keys.
 
     Term-for-term the body of ``engine/generate._decode_loop`` (store →
@@ -119,12 +148,22 @@ def _decode_chunk(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
     cache write lands at the per-row ``write_idx`` and the loop never stops
     early: idle and done rows keep stepping with position -1 (masked
     everywhere; the slot is rewritten at its next admission).  The caches
-    are written in place."""
+    are written in place.
+
+    §10 non-finite guard: a row whose logits go NaN/inf is *quarantined*
+    in-chunk — its garbage sample is drawn from safe (zero) logits and
+    never stored, because quarantine sets ``done`` before the next store.
+    Every other row decodes on undisturbed.  ``nan_inject`` (B,) int32 is
+    the fault-injection hook: the step of this chunk at which a row's
+    logits are corrupted, -1 never (None: no row, and no ops for it).  The
+    guard is ``where``-selects on the device, so a clean run's values are
+    the pre-guard loop's; ``quarantined`` comes back with the tokens."""
     pad = torch.full_like(cur_tok, gen.pad_id)
     zero = torch.zeros_like(cur_lp)
     minus1 = torch.full_like(next_pos, -1)
+    quar = torch.zeros_like(done)
     toks, lps = [], []
-    for _ in range(steps):
+    for step_i in range(steps):
         tok_store = torch.where(done, pad, cur_tok)
         toks.append(tok_store)
         lps.append(torch.where(done, zero, cur_lp))
@@ -138,15 +177,22 @@ def _decode_chunk(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
             model, cfg, tok_store[:, None],
             torch.where(done, minus1, next_pos)[:, None], caches, write_idx,
             kv_length=write_idx + 1, kv_start=write_idx - next_pos)
-        keys, sub = split_key(keys)
-        cur_tok, cur_lp = sample(sub, logits[:, 0], gen.temperature,
-                                 gen.top_p)
+        lg = logits[:, 0]
+        if nan_inject is not None:
+            lg = lg.masked_fill((nan_inject == step_i)[:, None], float("nan"))
+        bad = ~torch.isfinite(lg).all(dim=-1)
+        newly = bad & ~done_next        # rows finishing anyway aren't pulled
+        quar = quar | newly
+        done_next = done_next | newly
+        lg = lg.masked_fill(bad[:, None], 0.0)  # sample something finite;
+        keys, sub = split_key(keys)             # done_next gates its store
+        cur_tok, cur_lp = sample(sub, lg, gen.temperature, gen.top_p)
         done = done_next
         next_pos = next_pos + 1
         write_idx = write_idx + 1
     return {"caches": caches, "cur_tok": cur_tok, "cur_lp": cur_lp,
             "done": done, "count": count, "next_pos": next_pos,
-            "write_idx": write_idx, "keys": keys,
+            "write_idx": write_idx, "keys": keys, "quarantined": quar,
             "tokens": torch.stack(toks, dim=1),
             "logprobs": torch.stack(lps, dim=1)}       # (B, steps)
 
@@ -155,10 +201,6 @@ def _unported(**asked) -> None:
     """Raise for a constructor argument whose feature a later slice ports."""
     items = {"draft": "the §9 draft chunk (ROADMAP Queue 1 item 6, the "
                       "draft engine)",
-             "faults": "§10 fault injection (ROADMAP Queue 1 item 7)",
-             "deadline_steps": "§10 deadlines (ROADMAP Queue 1 item 7)",
-             "max_queue": "§10 backpressure (ROADMAP Queue 1 item 7)",
-             "retry_backoff": "§10 retry backoff (ROADMAP Queue 1 item 7)",
              "tracer": "the §11 tracer (ROADMAP Queue 1 item 9, the "
                        "observatory)",
              "ledger": "the §14 ledger (ROADMAP Queue 1 item 9, the "
@@ -173,22 +215,20 @@ def _unported(**asked) -> None:
 class SlotEngine:
     """Continuous-batching generation engine with spec-prefix admission."""
 
+    # the key-batch class (engine/sampling.py) that snapshot words are
+    # rebuilt into: the slots' keys at load_state_dict, and the keys of
+    # restored requests at their admission (tests swap in JAX-drawing keys)
+    key_type = KeyBatch
+
     def __init__(self, model: M.LM, cfg: ModelConfig, gen: GenerateConfig, *,
                  num_slots: int, prompt_width: int, spec_prefix: bool = False,
                  log_lenience: float = 0.0, chunk_steps: int = 8,
-                 draft=None, mesh=None, faults=None, deadline_steps=None,
-                 max_queue=None, overflow: str = "reject",
-                 retry_backoff=None, tracer=None, ledger=None):
-        _unported(draft=draft, mesh=mesh, faults=faults,
-                  deadline_steps=deadline_steps, max_queue=max_queue,
-                  retry_backoff=retry_backoff, tracer=tracer, ledger=ledger)
-        if overflow != "reject":
-            raise NotImplementedError("§10 backpressure (ROADMAP Queue 1 "
-                                      "item 7) is not ported yet")
-        if cfg.cache_layout == "paged":
-            raise NotImplementedError("slot serving over a paged cache is "
-                                      "the PagedSlotEngine (ROADMAP Queue 1 "
-                                      "item 5)")
+                 draft=None, mesh=None, faults: Optional[FaultPlan] = None,
+                 deadline_steps: Optional[int] = None,
+                 max_queue: Optional[int] = None, overflow: str = "reject",
+                 retry_backoff: Optional[BackoffConfig] = None,
+                 tracer=None, ledger=None):
+        _unported(draft=draft, mesh=mesh, tracer=tracer, ledger=ledger)
         if not M.supports_slot_serving(cfg):
             raise ValueError("slot serving needs an attention-only trunk "
                              "without modality extras; use fixed-batch "
@@ -206,8 +246,23 @@ class SlotEngine:
         self.cache_len = self.write_base + self.N
 
         B = int(num_slots)
-        self.caches = M.init_cache(cfg, B, self.cache_len, device=self.device)
-        self.scheduler = SlotScheduler(B)
+        self.caches = self._make_caches(B)
+        self.scheduler = SlotScheduler(B, max_queue=max_queue,
+                                       overflow=overflow)
+        # §10 hardening state: engine-default deadline (a request's own
+        # deadline_steps wins), the injected fault schedule, and the
+        # pending targeted faults held until their request is in a slot
+        self.deadline_steps = deadline_steps
+        self.faults = faults
+        self.fault_stats = FaultStats()
+        # §12 backoff: with a BackoffConfig a reclaimed request is held
+        # until the engine step clock passes its due step; None keeps the
+        # immediate resubmit
+        self.retry_backoff = retry_backoff
+        self._retry_hold: List[Tuple[int, Request]] = []
+        self.slot_age = np.zeros(B, np.int64)   # engine steps spent DECODING
+        self._nan_due: set = set()              # request_ids awaiting nan
+        self._stall_due: Dict[int, int] = {}    # request_id -> phantom steps
         self.cur_tok = np.zeros(B, np.int32)
         self.cur_lp = np.zeros(B, np.float32)
         self.done = np.ones(B, bool)
@@ -239,7 +294,27 @@ class SlotEngine:
             raise ValueError(f"request {req.request_id}: prompt of "
                              f"{len(req.prompt)} (width {self.P}) or budget "
                              f"{req.max_new_tokens} (max {self.N}) too large")
-        self.scheduler.submit(req, now=self._now())
+        shed = self.scheduler.submit(req, now=self._now())
+        if shed is not None:
+            # backpressure acted: the shed request resolves immediately with
+            # an empty, explicitly-marked response (§10)
+            self.fault_stats.add(failed=1)
+            self.responses[shed.request_id] = Response(
+                request_id=shed.request_id, tokens=np.zeros(0, np.int32),
+                logprobs=np.zeros(0, np.float32), length=0,
+                finish_reason=FINISH_SHED, slot=-1, retries=shed.retries)
+
+    def _release_retries(self) -> None:
+        """Re-queue held backoff retries whose due step has passed (§12);
+        a retry bypasses backpressure, as an immediate resubmit does."""
+        if not self._retry_hold:
+            return
+        now = self._now()
+        due = [r for d, r in self._retry_hold if d <= self.steps]
+        self._retry_hold = [(d, r) for d, r in self._retry_hold
+                            if d > self.steps]
+        for req in due:
+            self.scheduler.resubmit(req, now=now)
 
     def run(self, arrivals: Optional[Iterable[Tuple[int, Request]]] = None,
             max_chunks: Optional[int] = None) -> Dict[int, Response]:
@@ -252,29 +327,45 @@ class SlotEngine:
         nxt = next(it, None) if it is not None else None
         chunks = 0
         while True:
+            self._apply_faults()       # may raise EngineKilled (kind 'kill')
+            self._release_retries()    # held backoff retries now due
             while nxt is not None and nxt[0] <= self.steps:
                 self.submit(nxt[1])
                 nxt = next(it, None)
             self._admit()
             if self.scheduler.idle:
+                if self._retry_hold:   # backoff holds are pending work
+                    due = min(d for d, _ in self._retry_hold)
+                    if nxt is not None:
+                        due = min(due, int(nxt[0]))
+                    self.steps = max(self.steps, due)      # idle fast-forward
+                    continue
                 if nxt is None:
                     break
                 self.steps = max(self.steps, int(nxt[0]))  # idle fast-forward
                 continue
             self._run_chunk()
             self._harvest()
+            self._enforce_deadlines()
             chunks += 1
             if max_chunks is not None and chunks >= max_chunks:
                 break
         return self.responses
 
     def stats(self) -> Dict[str, float]:
-        sch = self.scheduler.stats()
-        out = {k: float(sch[k]) for k in (
-            "num_slots", "submitted", "admitted", "completed", "pending",
-            "occupancy", "mean_queue_wait", "mean_serve_time")}
+        """The scheduler's lifecycle counters, the engine's throughput
+        counters, and the §10 recovery story under the ``fault_`` prefix
+        (JAX's ``FaultStats.as_dict`` with the scheduler's counters
+        mirrored in), as one plain dict."""
+        sch = self.scheduler
+        out = {k: float(v) for k, v in sch.stats().items()}
         out.update(
+            busy_slot_steps=float(sch.busy_slot_steps),
+            total_slot_steps=float(sch.total_slot_steps),
+            queue_wait_total=float(sch.queue_wait_total),
+            serve_time_total=float(sch.serve_time_total),
             engine_steps=float(self.steps),
+            wall_time=self._now(),
             generated_tokens=float(sum(r.length
                                        for r in self.responses.values())),
             reused_tokens=float(sum(r.n_accepted
@@ -282,6 +373,13 @@ class SlotEngine:
             admit_time=self.time_admit,
             slot_write_time=self.time_slot_write,
             decode_time=self.time_decode)
+        fs = FaultStats(**{k: getattr(self.fault_stats, k)
+                           for k in FaultStats.FIELDS})
+        fs.timeouts = sch.timeouts
+        fs.retries = sch.retries
+        fs.sheds = sch.sheds
+        fs.rejected = sch.rejected
+        out.update(fs.as_dict())
         return out
 
     # ------------------------------------------------------------ admission
@@ -293,6 +391,41 @@ class SlotEngine:
     def _tensor(self, rows: list, dtype) -> torch.Tensor:
         return torch.as_tensor(np.stack(self._pad_group(rows)), dtype=dtype,
                                device=self.device)
+
+    def _key(self, key):
+        """A request's key as a one-row key batch: as the caller gave it,
+        or rebuilt from the words a snapshot stored."""
+        if hasattr(key, "split"):
+            return key
+        return self.key_type.from_words(np.asarray(key), self.device)
+
+    def _stack_keys(self, keys: list):
+        return stack_keys(self._pad_group([self._key(k) for k in keys]))
+
+    # Layout hooks, overridden by PagedSlotEngine (DESIGN.md §13).  The
+    # dense engine's behaviour is the identity on all five.
+
+    def _make_caches(self, B: int):
+        """Build the persistent decode caches (dense slabs by default)."""
+        return M.init_cache(self.cfg, B, self.cache_len, device=self.device)
+
+    def _admit_cfg(self) -> ModelConfig:
+        """Config the admission programs build their throwaway caches with.
+        The paged engine admits DENSELY and re-pages at the slot write."""
+        return self.cfg
+
+    def _register_groups(self, group, out) -> None:
+        """Post-admission hook: the paged engine registers each new GRPO
+        group's prompt blocks + seed logits here for CoW sharing."""
+
+    def _on_slot_freed(self, slot: int) -> None:
+        """A request left ``slot`` (completed or reclaimed); the paged
+        engine releases its block-table row here."""
+
+    def _write_admitted(self, src_caches, slot_ids: np.ndarray):
+        """Scatter the admission caches into the persistent batch."""
+        return M.write_cache_slots(self.cfg, self.caches, src_caches,
+                                   slot_ids)
 
     def _admit(self) -> None:
         while True:
@@ -318,7 +451,7 @@ class SlotEngine:
         prom, mask = self._prep_prompts(reqs)
         prompts = self._tensor(list(prom), torch.int32)
         masks = self._tensor(list(mask), torch.bool)
-        keys = stack_keys(self._pad_group([r.key for r in reqs]))
+        keys = self._stack_keys([r.key for r in reqs])
 
         dn = np.zeros((len(group),), np.int32)
         if self.spec_prefix:
@@ -332,27 +465,27 @@ class SlotEngine:
                     dl[j, :L] = r.draft_logprobs[:L]
                     dn[j] = L
                     de[j] = r.draft_eos and L == len(r.draft_tokens)
-            vkeys = stack_keys(self._pad_group([r.verify_key for r in reqs]))
+            vkeys = self._stack_keys([r.verify_key for r in reqs])
             out = _admit_spec(
-                self.model, self.cfg, self.gen, prompts, masks,
+                self.model, self._admit_cfg(), self.gen, prompts, masks,
                 self._tensor(list(dt), torch.int32),
                 self._tensor(list(dl), torch.float32),
                 self._tensor(list(dn), torch.int32),
                 self._tensor(list(de), torch.bool), vkeys, keys,
                 self.log_lenience)
         else:
-            out = _admit_vanilla(self.model, self.cfg, self.gen, prompts,
-                                 masks, keys)
+            out = _admit_vanilla(self.model, self._admit_cfg(), self.gen,
+                                 prompts, masks, keys)
         sync(self.device)
         t1 = time.perf_counter()
         self.time_admit += t1 - t0
 
         slot_ids = np.array(slots + [slots[0]] * (B - len(slots)), np.int64)
-        self.caches = M.write_cache_slots(self.cfg, self.caches,
-                                          out["caches"], slot_ids)
-        del out["caches"]
+        self.caches = self._write_admitted(out.pop("caches"), slot_ids)
         sync(self.device)
         self.time_slot_write += time.perf_counter() - t1
+
+        self._register_groups(group, out)
 
         def host(name):
             return out[name].cpu().numpy()
@@ -369,9 +502,9 @@ class SlotEngine:
 
     def _apply_admission(self, group, tok0, lp0, npos, nkeys, n, fr,
                          lp_curr, dn) -> None:
-        """Per-request host bookkeeping after an admission: state vectors,
-        keys, activation.  Arrays are indexed by the request's position
-        ``j`` in ``group``."""
+        """Per-request host bookkeeping after an admission (any path):
+        state vectors, keys, activation.  Arrays are indexed by the
+        request's position ``j`` in ``group``."""
         if self.keys is None:
             self.keys = stack_keys([nkeys[0]] * self.scheduler.num_slots)
         for j, (slot, req) in enumerate(group):
@@ -384,6 +517,7 @@ class SlotEngine:
             self.next_pos[slot] = npos[j]
             self.write_idx[slot] = self.write_base
             self.keys[slot] = nkeys[j]
+            self.slot_age[slot] = 0     # deadline clock is per-occupancy
             self.done[slot] = bool(fr[j]) or budget <= 0
             self._acc_tok[slot] = []
             self._acc_lp[slot] = []
@@ -396,23 +530,34 @@ class SlotEngine:
 
     # ---------------------------------------------------------- decode loop
 
-    def _run_chunk(self) -> None:
-        steps = self.chunk_steps
+    def _run_chunk(self, steps: Optional[int] = None) -> None:
+        steps = steps or self.chunk_steps
         busy = sum(1 for s in self.scheduler.active if not self.done[s])
         dev = self.device
 
         def dev_t(a):
             return torch.as_tensor(a, device=dev)
 
+        # §10 fault hook: corrupt the logits of pending nan targets on the
+        # first step of this chunk (None: no target, the clean path)
+        inject = None
+        for slot, req in self.scheduler.active.items():
+            if req.request_id in self._nan_due and not self.done[slot]:
+                self._nan_due.discard(req.request_id)
+                if inject is None:
+                    inject = np.full(self.scheduler.num_slots, -1, np.int32)
+                inject[slot] = 0
         t0 = time.perf_counter()
         out = _decode_chunk(
             self.model, self.cfg, self.gen, self.caches,
             dev_t(self.cur_tok), dev_t(self.cur_lp), dev_t(self.done),
             dev_t(self.count), dev_t(self.budget), dev_t(self.next_pos),
-            dev_t(self.write_idx), self.keys, steps=steps)
+            dev_t(self.write_idx), self.keys,
+            None if inject is None else dev_t(inject), steps=steps)
         self.caches, self.keys = out["caches"], out["keys"]
         toks = out["tokens"].cpu().numpy()          # (B, steps); waits
         lps = out["logprobs"].cpu().numpy()
+        quar = out["quarantined"].cpu().numpy()
         for name in ("cur_tok", "cur_lp", "done", "count", "next_pos",
                      "write_idx"):
             setattr(self, name, out[name].cpu().numpy())
@@ -420,15 +565,131 @@ class SlotEngine:
         for slot in self.scheduler.active:
             self._acc_tok[slot].append(toks[slot])
             self._acc_lp[slot].append(lps[slot])
+            self.slot_age[slot] += steps
         self.steps += steps
         self.scheduler.tick(busy, steps)
+        # §10 quarantine: rows the in-chunk guard pulled out (their valid
+        # prefix is in _acc; the corrupted sample was never stored) leave
+        # the decode batch before harvest sees them as completions
+        for slot in [s for s in list(self.scheduler.active) if quar[s]]:
+            self.fault_stats.add(nan_events=1)
+            self._reclaim(slot, FINISH_QUARANTINE)
 
-    # -------------------------------------------------------------- harvest
+    # ------------------------------------------------- §10 fault tolerance
+
+    def _apply_faults(self) -> None:
+        """Consume due FaultPlan events at a chunk boundary (the only points
+        where host state is consistent).  Targeted events (nan / stall)
+        are held pending until their request occupies a slot; bursts
+        submit through the bounded queue; a kill raises out of ``run`` —
+        recovery is ``load_state_dict``.  (``draft_exc`` targets the draft
+        chunk, which arrives with the draft engine.)"""
+        if self.faults is None:
+            return
+        step = self.steps
+        for e in self.faults.due(step, "burst"):
+            self.fault_stats.add(injected=1)
+            for req in self.faults.next_burst_requests(e.count):
+                self.submit(req)
+        for e in self.faults.due(step, "nan"):
+            self.fault_stats.add(injected=1)
+            self._nan_due.add(e.request_id)
+        for e in self.faults.due(step, "stall"):
+            self.fault_stats.add(injected=1)
+            self._stall_due[e.request_id] = e.count
+        if self.faults.due(step, "kill"):
+            self.fault_stats.add(injected=1)
+            raise EngineKilled(f"injected kill at engine step {step}")
+
+    def _enforce_deadlines(self) -> None:
+        """Reclaim slots whose request outstayed its decode-step deadline."""
+        # pending stalls first: phantom aging lands the moment its target
+        # is in a slot, deterministically tripping the deadline below
+        for slot, req in self.scheduler.active.items():
+            if req.request_id in self._stall_due and not self.done[slot]:
+                self.slot_age[slot] += self._stall_due.pop(req.request_id)
+        for slot in list(self.scheduler.active):
+            req = self.scheduler.active[slot]
+            if self.done[slot]:
+                continue
+            ddl = req.deadline_steps if req.deadline_steps is not None \
+                else self.deadline_steps
+            if ddl is not None and self.slot_age[slot] >= ddl:
+                self._reclaim(slot, FINISH_TIMEOUT)
+
+    def _reclaim(self, slot: int, reason: str) -> None:
+        """Pull the request out of ``slot`` without finishing it (§10).
+
+        Its valid partial output is preserved: a retry re-enters through
+        the queue with that output grown onto its draft, so spec-prefix
+        admission re-VERIFIES the tokens instead of regenerating them.
+        Retries exhausted → a failure Response carrying the best-effort
+        partial output.  A quarantine turns the request's drafting off
+        (JAX's ladder rung 1); a second one is counted in its
+        ``nan_strikes`` and changes no route (the module's docstring)."""
+        req = self.scheduler.active[slot]
+        cnt = max(0, int(self.count[slot]))
+        toks = (np.concatenate(self._acc_tok[slot])[:cnt]
+                if self._acc_tok[slot] else
+                np.zeros(0, np.int32)).astype(np.int32)
+        lps = (np.concatenate(self._acc_lp[slot])[:cnt]
+               if self._acc_lp[slot] else
+               np.zeros(0, np.float32)).astype(np.float32)
+        n1 = int(self._slot_n[slot])
+        plp = self._slot_prefix_lp[slot]
+        if reason == FINISH_QUARANTINE:
+            req.nan_strikes += 1
+            self.fault_stats.add(quarantines=1)
+            req.draft_off = True            # ladder rung 1: stop speculating
+        now = self._now()
+        self.scheduler.reclaim(slot, now=now, reason=reason)
+        self._on_slot_freed(slot)
+        if req.retries < req.max_retries:
+            if self.spec_prefix:
+                # accepted prefix ⊕ partial output becomes the retry draft;
+                # lp_curr stands in for behaviour logprobs (both are this
+                # policy's own logprobs, so re-verification accepts them)
+                prev_t = (np.asarray(req.draft_tokens, np.int32)[:n1]
+                          if req.draft_tokens is not None
+                          else np.zeros(0, np.int32))
+                prev_l = (np.asarray(plp, np.float32)[:n1]
+                          if plp is not None else np.zeros(0, np.float32))
+                req.draft_tokens = np.concatenate([prev_t,
+                                                   toks]).astype(np.int32)
+                req.draft_logprobs = np.concatenate(
+                    [prev_l, lps]).astype(np.float32)
+                req.draft_eos = False
+            if self.retry_backoff is not None:
+                # §12: hold the retry until its backoff due step; it
+                # re-enters the queue via _release_retries
+                delay = self.retry_backoff.delay(req.retries)
+                self._retry_hold.append(
+                    (self.steps + max(0, math.ceil(delay)), req))
+            else:
+                self.scheduler.resubmit(req, now=now)
+        else:
+            toks2, lps2, orig = self._stitch(req, n1, plp, toks, lps)
+            self.fault_stats.add(failed=1)
+            self.responses[req.request_id] = Response(
+                request_id=req.request_id, tokens=toks2, logprobs=lps2,
+                length=len(toks2), finish_reason=reason, n_accepted=orig,
+                prefix_logprobs=plp,
+                draft_len=int(self._slot_draft_len[slot]), slot=slot,
+                queue_time=req.admitted_at - req.queued_at,
+                serve_time=now - req.admitted_at, retries=req.retries)
+        self.done[slot] = True
+        self._acc_tok[slot] = []
+        self._acc_lp[slot] = []
+        self._slot_prefix_lp[slot] = None
 
     def _stitch(self, req: Request, n1: int, plp, toks, lps):
-        """Split a serving session's output at the caller's draft boundary
-        (JAX's retry-blind split; the identity for a request that was never
-        retried, the only kind this slice serves)."""
+        """Split a serving session's output at the CALLER's draft boundary.
+
+        ``n1`` is the final admission's accepted-prefix length; past
+        ``base_draft_len`` it covers the request's own re-verified partial
+        output, which belongs in the *continuation* (the Response contract
+        is retry-blind).  For never-retried requests n1 <= base and this is
+        the identity."""
         base = max(0, int(req.base_draft_len))
         orig = min(n1, base)
         if n1 > orig:
@@ -437,9 +698,14 @@ class SlotEngine:
             lps = np.concatenate([np.asarray(plp, np.float32)[orig:n1], lps])
         return toks.astype(np.int32), lps.astype(np.float32), orig
 
+    # -------------------------------------------------------------- harvest
+
     def _harvest(self) -> List[Response]:
         eos = self.gen.eos_id
         finished = []
+        # a slot still PREFILLING belongs to a partially-admitted group (the
+        # paged engine admits leaders before CoW followers): its done flag
+        # is stale state from the previous occupant, not a finished request
         for slot in [s for s in self.scheduler.active
                      if self.done[s]
                      and self.scheduler.active[s].state == DECODING]:
@@ -456,6 +722,9 @@ class SlotEngine:
             else:
                 reason = FINISH_BUDGET
             now = self._now()
+            # retry-blind response split (§10): re-verified partial output
+            # from earlier attempts moves from the accepted prefix back
+            # into the continuation (identity for never-retried requests)
             toks, lps, orig = self._stitch(req, int(self._slot_n[slot]),
                                            self._slot_prefix_lp[slot],
                                            toks, lps)
@@ -468,8 +737,111 @@ class SlotEngine:
                 serve_time=now - req.admitted_at, retries=req.retries)
             self.responses[req.request_id] = resp
             self.scheduler.complete(slot, now=now)
+            self._on_slot_freed(slot)
             self._acc_tok[slot] = []
             self._acc_lp[slot] = []
             self._slot_prefix_lp[slot] = None
             finished.append(resp)
         return finished
+
+    # ----------------------------------------------- exact kill-and-resume
+
+    _VEC_FIELDS = ("cur_tok", "cur_lp", "done", "count", "budget",
+                   "next_pos", "write_idx", "slot_age", "_slot_n",
+                   "_slot_draft_len", "_slot_full_reuse")
+
+    def state_dict(self) -> Dict:
+        """Everything the decode loop's future depends on, as an all-array
+        pytree (``checkpoint/io.save_pytree``-compatible): the caches (CPU
+        copies of the tensors, bf16 included), every per-slot state vector,
+        the slots' key batch as its int64 words, the partial token
+        accumulators, the scheduler (queued + in-flight requests,
+        bit-exact), finished responses, held retries and all counters.  NOT
+        covered, by design: the model and config (the caller rebuilds the
+        engine the same way — asserted via meta) and the FaultPlan (a
+        restored engine resumes clean).  ``load_state_dict(state_dict())``
+        resumes token-identically."""
+        B = self.scheduler.num_slots
+        words = (np.zeros((B, 2), np.int64) if self.keys is None
+                 else np.asarray(self.keys).astype(np.int64))
+        st: Dict = {
+            "meta": {
+                "num_slots": np.int64(B),
+                "prompt_width": np.int64(self.P),
+                "max_new_tokens": np.int64(self.N),
+                "spec_prefix": np.bool_(self.spec_prefix),
+                "steps": np.int64(self.steps),
+                "elapsed": np.float64(self._now()),
+                "time_admit": np.float64(self.time_admit),
+                "time_slot_write": np.float64(self.time_slot_write),
+                "time_decode": np.float64(self.time_decode),
+            },
+            "caches": [{kind: {name: buf.to("cpu", copy=True)
+                               for name, buf in sc.items()}
+                        for kind, sc in run.items()} for run in self.caches],
+            "vec": {k: np.array(getattr(self, k)) for k in self._VEC_FIELDS},
+            "keys": words,
+            "acc_tok": {str(s): np.concatenate(a).astype(np.int32)
+                        for s, a in enumerate(self._acc_tok) if a},
+            "acc_lp": {str(s): np.concatenate(a).astype(np.float32)
+                       for s, a in enumerate(self._acc_lp) if a},
+            "prefix_lp": {str(s): np.asarray(p, np.float32)
+                          for s, p in enumerate(self._slot_prefix_lp)
+                          if p is not None},
+            "scheduler": self.scheduler.state_dict(),
+            "responses": {str(rid): r.to_state()
+                          for rid, r in self.responses.items()},
+            "fault_stats": {k: np.int64(getattr(self.fault_stats, k))
+                            for k in FaultStats.FIELDS},
+        }
+        if self._retry_hold:
+            # §12 backoff holds are in-flight work; written only when
+            # non-empty, so default snapshots keep their layout
+            st["retry_hold"] = {
+                str(i): {"due": np.int64(d), "req": r.to_state()}
+                for i, (d, r) in enumerate(self._retry_hold)}
+        return st
+
+    def load_state_dict(self, state: Dict) -> None:
+        meta = state["meta"]
+        if not (int(meta["num_slots"]) == self.scheduler.num_slots
+                and int(meta["prompt_width"]) == self.P
+                and int(meta["max_new_tokens"]) == self.N
+                and bool(meta["spec_prefix"]) == self.spec_prefix):
+            raise ValueError("engine was constructed with a different shape "
+                             "than the snapshot")
+        self.caches = [{kind: {name: torch.as_tensor(buf).to(
+                                   self.device, copy=True)
+                               for name, buf in sc.items()}
+                        for kind, sc in run.items()}
+                       for run in state["caches"]]
+        for k in self._VEC_FIELDS:
+            setattr(self, k, np.array(state["vec"][k]))
+        self._slot_full_reuse = self._slot_full_reuse.astype(bool)
+        self.done = self.done.astype(bool)
+        self.keys = self.key_type.from_words(np.asarray(state["keys"]),
+                                             self.device)
+        B = self.scheduler.num_slots
+        self._acc_tok = [[np.asarray(state["acc_tok"][str(s)], np.int32)]
+                         if str(s) in state["acc_tok"] else []
+                         for s in range(B)]
+        self._acc_lp = [[np.asarray(state["acc_lp"][str(s)], np.float32)]
+                        if str(s) in state["acc_lp"] else []
+                        for s in range(B)]
+        self._slot_prefix_lp = [
+            np.asarray(state["prefix_lp"][str(s)], np.float32)
+            if str(s) in state["prefix_lp"] else None for s in range(B)]
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.responses = {int(rid): Response.from_state(rs)
+                          for rid, rs in state["responses"].items()}
+        for k in FaultStats.FIELDS:
+            setattr(self.fault_stats, k, int(state["fault_stats"][k]))
+        hold = state.get("retry_hold", {})
+        self._retry_hold = [
+            (int(hold[str(i)]["due"]), Request.from_state(hold[str(i)]["req"]))
+            for i in range(len(hold))]
+        self.steps = int(meta["steps"])
+        self.time_admit = float(meta["time_admit"])
+        self.time_slot_write = float(meta["time_slot_write"])
+        self.time_decode = float(meta["time_decode"])
+        self._t0 = time.perf_counter() - float(meta["elapsed"])

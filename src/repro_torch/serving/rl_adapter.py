@@ -86,6 +86,11 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         p_len = int(mask_np[i].sum())
         req = Request(request_id=i, prompt=prompts_np[i, P - p_len:],
                       key=decode_keys[i], max_new_tokens=N)
+        if cache is not None and cache.group_size > 1:
+            # GRPO sibling handle (§13): the paged engine prefills each
+            # group's shared prompt once and CoW-shares its blocks; dense
+            # engines ignore the field
+            req.group_id = int(prompt_ids[i]) // cache.group_size
         if have_drafts:
             L = int(drafts["draft_len"][i])
             req.verify_key = verify_keys[i]

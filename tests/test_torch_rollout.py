@@ -87,6 +87,14 @@ class JaxKeyBatch:
     def stack(cls, keys):
         return cls(jnp.concatenate([k.keys for k in keys]))
 
+    def __array__(self, dtype=None, copy=None):
+        a = np.asarray(self.keys)
+        return a if dtype is None else a.astype(dtype)
+
+    @classmethod
+    def from_words(cls, words, device=None):
+        return cls(np.asarray(words).astype(np.uint32).reshape(-1, 2))
+
     def split(self):
         a, b = jax_sampling.split_key(self.keys)
         return JaxKeyBatch(a), JaxKeyBatch(b)
@@ -251,7 +259,10 @@ SLICE_MODULES = (
     "repro_torch.configs.rwkv6_3b", "repro_torch.optim.adamw",
     "repro_torch.rl.losses", "repro_torch.rl.advantages",
     "repro_torch.rl.trainer", "repro_torch.core.lenience",
-    "repro_torch.launch.train", "repro_torch.rl.critic")
+    "repro_torch.launch.train", "repro_torch.rl.critic",
+    "repro_torch.serving.paged_engine", "repro_torch.serving.block_table",
+    "repro_torch.serving.faults", "repro_torch.checkpoint.io",
+    "repro_torch.core.backoff", "repro_torch.core.metrics")
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -43,7 +43,8 @@ from repro_torch.engine.generate import (GenerateConfig, generate,  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
-from repro_torch.serving import Request, SlotEngine, make_slot_engine  # noqa: E402
+from repro_torch.serving import (FaultPlan, PagedSlotEngine,  # noqa: E402
+                                 Request, SlotEngine, make_slot_engine)
 from test_torch_rollout import JaxKey, JaxKeyBatch, row_keys  # noqa: E402
 
 ATOL = 1e-4
@@ -329,13 +330,19 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 def test_unported_engine_features_raise(models):
+    """The draft engine, the tracer and the mesh still raise, naming their
+    ROADMAP items; §10 faults, deadlines and a paged config now build their
+    engines."""
     _, cfg, _, model = models
     gen = GenerateConfig(max_new_tokens=4)
     kw = dict(num_slots=2, prompt_width=4)
-    for bad in (dict(draft=object()), dict(faults=object()),
-                dict(deadline_steps=8), dict(tracer=object()),
+    for bad in (dict(draft=object()), dict(tracer=object()),
                 dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_slot_engine(model, cfg, gen, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="PagedSlotEngine"):
-        make_slot_engine(model, cfg.replace(cache_layout="paged"), gen, **kw)
+    for ok in (dict(faults=FaultPlan()), dict(deadline_steps=8)):
+        eng = make_slot_engine(model, cfg, gen, **kw, **ok)
+        assert type(eng) is SlotEngine
+    eng = make_slot_engine(model, cfg.replace(cache_layout="paged"), gen,
+                           **kw)
+    assert type(eng) is PagedSlotEngine

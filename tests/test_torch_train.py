@@ -882,12 +882,12 @@ def test_roadmap_items_named_in_the_port_match_their_features():
     headings = _queue1_headings()
     pattern = re.compile(r"ROADMAP[\s\"'(]+Queue[\s\"']+1[\s\"']+items?"
                          r"[\s\"']+(\d+)")
-    found = 0
+    named_items = set()
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         src = path.read_text()
         for m in pattern.finditer(src):
-            found += 1
             n = int(m.group(1))
+            named_items.add(n)
             where = f"{path.name}:{src.count(chr(10), 0, m.start()) + 1}"
             assert n in headings, f"{where}: no Queue 1 item {n}"
             window = src[max(0, m.start() - 160):m.end() + 60]
@@ -897,4 +897,7 @@ def test_roadmap_items_named_in_the_port_match_their_features():
                        for w in named), (
                 f"{where}: item {n} is {headings[n]!r}, the text names "
                 f"{named}")
-    assert found >= 20, found
+    # every open Queue 1 item whose feature the port still refuses is
+    # named by at least one message
+    for item in (6, 8, 9, 10, 11):
+        assert item in named_items, (item, sorted(named_items))
