@@ -25,7 +25,13 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    paged (``decode_case``, NaN at every slot outside a live span): draft
    blocks of T = 4 and 8 at G = 2, a window of 16, D = 64 with 4 / 2
    heads, block size 64, live spans of one slot, of the whole cache, off
-   tile edges and past S, and the slot engine's B = 8 (timed).
+   tile edges and past S, and the slot engine's B = 8 (timed); and the
+   draft engine's verify blocks of T = 9, 16 and 64 at G = 2 (G * T up to
+   128, the kernels' query chunks; a done row and a row with no live slot
+   among them), with the blocks of T = 2, 3, 5 and 9 of the ``draft``
+   path's epoch 1 (B = 16, S = P + 2N + K, a draft length per row) timed
+   like T = 1: kernel, plain version and SDPA in turns, its bound from
+   that step's data, and at T = 9 ``device_ms`` and one launch a call.
    flash_attention runs a one-tile rehearsal first (B = 1, T = S = 64),
    then the epoch-1 verify, a D = 64 case at the reduced widths (4 / 2
    heads), a ragged one (T = 70, S = 130, rows of padding only) and a
@@ -55,7 +61,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs ten paths (random weights from a seed), each with the launch
+5. runs twelve paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs:
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
@@ -74,6 +80,22 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 admission; peak blocks, bytes saved, no fork, the pool
                 empty after the drain, and every row equal to the
                 ``slots`` path's (tokens, lengths, ``n``);
+   ``draft``    the ``rollout`` path's two epochs with the §9 draft engine
+                (``DraftConfig(kind="ngram", draft_k=8)``): epoch 0
+                through ``drafted_generate``, epoch 1 the one-pass branch
+                continued by ``drafted_resume``; each epoch line adds its
+                macro-steps, ``draft_accept_rate``, ``draft_mean_len``,
+                ``tokens_per_forward`` and the decode kernels' launches by
+                T; then, outside the paths' counts, the greedy witness:
+                B = 16, ``WITNESS_N`` tokens of greedy drafted decoding
+                against greedy vanilla decoding, every row equal up to its
+                first difference and, there, both tokens within the
+                measured block-vs-step logit gap of the step's largest
+                logit, the gap itself at most ``WITNESS_GAP_MAX``;
+   ``draft_slots`` the drafted paged slot engine: ``rollout(backfill=
+                "slots")`` over ``cache_layout="paged"`` with the draft
+                engine (``DRAFT_SLOTS_N`` tokens), ``paged_decode_attention``
+                at T > 1 and the dense decode kernel at 0;
    ``faults``   a ``PagedSlotEngine`` used directly on the 16 prompts
                 (N = 64): a clean run, a run with a NaN on one follower
                 and a stall past its deadline on another (untargeted rows
@@ -131,10 +153,14 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    after ``rollout``, ``slots``, ``paged`` and ``rwkv``, a ``breakdown``
    line shows where 16 decode steps of the path's decode loop spend their
    time (host wall time, device busy time, kernel launches, top kernels
-   and host ops from ``torch.profiler``);
-6. prints one ``{"kernels": [...]}`` JSON line (launches per path beside
-   their sum), the ``nvidia-smi`` line again, and last ``{"ok": true,
-   "device": {...}}``.
+   and host ops from ``torch.profiler``; the drafted loop's:
+   ``tools/draft_breakdown.py``);
+6. prints the decode kernels' launches by path and T, each path's read
+   in the same window as its launches (blocks of T > 1 on the draft paths
+   and nowhere else: no earlier prefill, verify or score moved off
+   ``flash_attention``), one ``{"kernels": [...]}`` JSON line (launches
+   per path beside their sum), the ``nvidia-smi`` line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 What is too long for the end of the output goes to ``chiprun_out/`` beside
 this script: the kernels' build log (``chip_smoke_build.log``, with the
@@ -183,6 +209,9 @@ CONSISTENCY_STEPS = 64
 REPS = 20
 SPIN_CYCLES = 1_000_000     # about 0.5 ms of the card's clock before each
                             # timed call (more than a wrapper's host time)
+PROFILE_SESSIONS = 3        # profiler sessions a device_ms may take for a
+                            # complete trace
+PROFILE_PAD_S = 0.01        # host time at both ends of a session's window
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
@@ -193,6 +222,21 @@ WKV_TOL = 1e-4      # wkv against its plain version, relative to the output's
 
 # the slice's traffic
 PROMPTS, GROUP, P, N = 4, 4, 64, 256
+# the draft engine's paths: n-gram drafts of up to DRAFT_K tokens, so
+# verify blocks of T = K + 1 in {2, 3, 5, 9}; the kernel phase checks the
+# decode kernels at DRAFT_TS (G * T up to 128), times the blocks of
+# DRAFT_TIMED_TS and profiles DRAFT_PROFILED_T's; the greedy witness
+# decodes WITNESS_N tokens and measures the block-vs-step logit gap at
+# WITNESS_TS, which may not pass WITNESS_GAP_MAX: 1.6 x the 0.078125 that
+# every run on the H100 has read (a bf16 rounding; a block route that
+# drifted would differ by whole logits)
+DRAFT_K = 8
+DRAFT_TS = (9, 16, 64)
+DRAFT_TIMED_TS = (2, 3, 5, 9)
+DRAFT_PROFILED_T = 9
+DRAFT_SLOTS_N = 64              # cut from N to keep the smoke in 15 min
+WITNESS_N, WITNESS_TS = 128, (2, 9)
+WITNESS_GAP_MAX = 0.125
 SLOTS = 8                       # decode slots of the slot-backfill path
 LENIENCE = 0.99
 SEED = 0
@@ -269,34 +313,72 @@ class Timer:
     def ms(self, fn, reps: int = REPS) -> float:
         return self.turns(fn, reps=reps)[0]
 
-    def device_ms(self, fn, kernel: str, reps: int = REPS):
-        """The mean device time (ms, CUPTI through ``torch.profiler``) of
-        the launches of ``kernel`` (a part of its name) over ``reps`` calls
-        of ``fn``, the L2 flushed before each; and per call, the launches
-        of ``kernel`` and of any other kernel (the flush aside)."""
+    def session(self, fn, kernel: str, reps: int = REPS,
+                pad_s: float = PROFILE_PAD_S) -> dict:
+        """One ``torch.profiler`` session of ``reps`` calls of ``fn``, each
+        after a marker kernel (``torch.cuda._sleep``'s ``spin_kernel``) and
+        the L2 flush, one more marker after the last, and ``pad_s`` of host
+        time at both ends of the window.  Returns the trace's counts: the
+        markers, the launches of ``kernel`` (a part of its name) and their
+        device time (us), any other kernel's launches (the flush aside) and
+        every device event."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
-        fn()
-        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
             for _ in range(reps):
+                torch.cuda._sleep(1)
                 self.flush.zero_()
                 fn()
+            torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        total = launches = others = 0
+            time.sleep(pad_s)
+        out = dict(markers=0, launches=0, us=0.0, others=0, events=0)
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
-            if kernel in e.key:
-                total += e.self_device_time_total
-                launches += e.count
+            out["events"] += e.count
+            if "spin_kernel" in e.key:
+                out["markers"] += e.count
+            elif kernel in e.key:
+                out["us"] += e.self_device_time_total
+                out["launches"] += e.count
             elif "FillFunctor" not in e.key and "Memset" not in e.key:
-                others += e.count
-        require(launches > 0, f"the profiler saw no launch of {kernel}")
-        return total / launches / 1e3, launches / reps, others / reps
+                out["others"] += e.count
+        return out
+
+    def device_ms(self, fn, kernel: str, reps: int = REPS):
+        """The mean device time (ms, CUPTI through ``torch.profiler``) of
+        the launches of ``kernel`` (a part of its name) over ``reps`` calls
+        of ``fn``, the L2 flushed before each; and per call, the launches
+        of ``kernel`` and of any other kernel (the flush aside).  Read from
+        a complete trace only: one that holds all ``reps + 1`` markers of
+        its session.  The profiler has dropped a session's device events
+        on the H100 (a whole smoke's check once saw no launch of a kernel
+        that every other run saw once a call), so a session with a marker
+        missing is logged and profiled again, up to ``PROFILE_SESSIONS``
+        times; what a complete trace shows is held as it stands."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(1, PROFILE_SESSIONS + 1):
+            got = self.session(fn, kernel, reps)
+            if got["markers"] == reps + 1:
+                break
+            log(f"profiler session {attempt} of {kernel}: a trace with "
+                f"{got['markers']} of {reps + 1} markers and "
+                f"{got['events']} device events lost device events")
+        require(got["markers"] == reps + 1,
+                f"the profiler lost device events in each of "
+                f"{PROFILE_SESSIONS} sessions of {kernel}: {got}")
+        require(got["launches"] > 0,
+                f"the profiler saw no launch of {kernel} in a complete "
+                f"trace: {got}")
+        return (got["us"] / got["launches"] / 1e3, got["launches"] / reps,
+                got["others"] / reps)
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -564,6 +646,13 @@ def kernel_checks(torch, timer):
          [(0, 1), (0, S), (31, 33), (33, 95), (S - 1, S), (17, S + 24),
           (64, 128), (5, 5)], [1] * 8, 0, (32, 64)),
     ]
+    # the draft engine's verify blocks (T = k + 1) at G = 2: G * T = 18,
+    # 32 and 128, two, two and eight query chunks of 16; row 2 is done
+    # (q_len 0), row 3 has no live slot
+    cases += [
+        (f"draft T={t}", Hq, Hkv, t, S, D,
+         [(100, 420), (0, S), (37, 291), (250, 250)], [t, t // 2 + 1, 0, t],
+         0, (32, 64)) for t in DRAFT_TS]
     errs = [decode_case(torch, gen, name, hq, hkv, t, s_, d, spans, q_lens,
                         window=w, block_sizes=bss)[0]
             for name, hq, hkv, t, s_, d, spans, q_lens, w, bss in cases]
@@ -866,9 +955,121 @@ def kernel_checks(torch, timer):
     log(f"kernel flash_attention at (T, S)=({P}, {S0}): max_abs_err={errf0} "
         f"ms={ms0} library_ms={lib0} (SDPA)")
     del k0, v0, fa0
+    for T in DRAFT_TIMED_TS:
+        draft_block_timing(torch, timer, gen, records, n, p_len, T)
     decode = wkv_check(torch, timer, gen, p_len, n, record)
     records["wkv"].update(decode)
     return records
+
+
+def draft_block_timing(torch, timer, gen, records, n, p_len, T):
+    """Both decode kernels at a draft-verify block of T = K + 1 of the
+    ``draft`` path's epoch 1 (B = 16, G = 2; T = 9 is two query chunks,
+    S = P + 2N + K), each row's block at its own write slot with its own
+    draft length (rows 0 and 1 done), against the plain version within
+    ``ATTN_TOL``, then timed like T = 1: kernel, plain version and SDPA in
+    turns, and its bound from this step's data; at ``DRAFT_PROFILED_T``
+    also its ``device_ms`` and one launch a call and nothing else.  The
+    paged kernel reads 32-slot pools behind a shuffled table, NaN at every
+    slot outside a live span.  Adds the T's entry to each kernel record's
+    ``draft_blocks``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    dev = gen.device
+    B, Hq, Hkv, D = PROMPTS * GROUP, 16, 8, 128
+    W, K = P + N, T - 1
+    S = W + N + K
+    step = N // 2
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    starts = (W - (p_len + n)).to(torch.int32)
+    write = torch.full((B,), W + step, dtype=torch.int32, device=dev)
+    lengths = write + 1 + K                        # kv_length of draft_step
+    eff = torch.randint(0, K + 1, (B,), generator=gen, device=dev)
+    t = torch.arange(T, device=dev)[None, :]
+    q_pos = torch.where(t <= eff[:, None], (write - starts)[:, None] + t,
+                        torch.full_like(t, -1)).to(torch.int32)
+    q_pos[:2] = -1                                   # done rows
+    j = torch.arange(S, device=dev)[None, :]
+    span = (j >= starts[:, None]) & (j < lengths[:, None])
+    k_pos = torch.where(span & (j < (write + 1 + eff)[:, None]),
+                        j - starts[:, None], torch.full_like(j, -1)
+                        ).to(torch.int32)
+    q = torch.randn((B, Hq, T, D), generator=gen, **bf)
+    k = torch.randn((B, Hkv, S, D), generator=gen, **bf)
+    v = torch.randn((B, Hkv, S, D), generator=gen, **bf)
+    kargs = (q, k, v, q_pos, k_pos, lengths, starts)
+    got = dec_ops.decode_attention(*kargs)
+    want = dec_ops.decode_attention_plain(*kargs)
+    # the paged pools: NaN at every slot outside a row's live span
+    bs = 32
+    nb = -(-S // bs)
+    NB = B * nb
+    table = torch.randperm(NB, generator=gen, device=dev).to(torch.int32
+                                                              ).reshape(B, nb)
+    pools = []
+    for x in (k, v):
+        pad = torch.full((B, Hkv, nb * bs, D), float("nan"), **bf)
+        pad[:, :, :S] = torch.where(span[:, None, :, None], x,
+                                    torch.tensor(float("nan"), **bf))
+        pool = torch.empty((NB, Hkv, bs, D), **bf)
+        pool[table.reshape(-1).long()] = pad.view(
+            B, Hkv, nb, bs, D).transpose(1, 2).reshape(NB, Hkv, bs, D)
+        pools.append(pool)
+    k_pos_p = F.pad(k_pos, (0, nb * bs - S), value=-1)
+    pargs = (q, pools[0], pools[1], table, q_pos, k_pos_p, lengths, starts)
+    got_p = dec_ops.paged_decode_attention(q, pools[0], pools[1], table,
+                                           q_pos, k_pos, lengths, starts)
+    torch.cuda.synchronize()
+    vis = (span[:, None, :] & (k_pos[:, None, :] >= 0)
+           & (k_pos[:, None, :] <= q_pos[:, :, None]))      # (B, T, S)
+    dead = ~vis.any(-1)
+    errs = {}
+    for what, out in (("decode_attention", got),
+                      ("paged_decode_attention", got_p)):
+        e = float((out - want).abs().max())
+        errs[what] = e
+        require(bool(torch.isfinite(out).all()) and e <= ATTN_TOL,
+                f"{what} draft block T={T}: max_abs_err {e} > {ATTN_TOL} or "
+                "non-finite")
+        require(bool((out.transpose(1, 2)[dead] == 0).all()),
+                f"{what} draft block T={T}: queries that see no key must be "
+                "exactly 0")
+    mask = vis[:, None].expand(B, Hq, T, S)
+    pairs = int(vis.sum())
+    n_seen = int(vis.any(1).sum())
+    row_span = span & (q_pos >= 0).any(1)[:, None]
+    nbytes = (int((q_pos >= 0).sum()) * Hq * D * 2 + n_seen * Hkv * D * 2 * 2
+              + int(row_span.sum()) * 4 + B * T * 4 + 2 * B * 4
+              + B * Hq * T * D * 4)
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * pairs)
+    ms, plain_ms, sdpa_ms = timer.turns(
+        lambda: dec_ops.decode_attention_cuda(*kargs),
+        lambda: dec_ops.decode_attention_plain(*kargs),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True))
+    pms, pplain_ms = timer.turns(
+        lambda: dec_ops.paged_decode_attention_cuda(*pargs),
+        lambda: dec_ops.paged_decode_attention_plain(*pargs))
+    for what, kern, fn, t_ms, t_plain in (
+            ("decode_attention", "dense_decode_kernel",
+             lambda: dec_ops.decode_attention_cuda(*kargs), ms, plain_ms),
+            ("paged_decode_attention", "paged_decode_kernel",
+             lambda: dec_ops.paged_decode_attention_cuda(*pargs), pms,
+             pplain_ms)):
+        rec = {"T": T, "B": B, "S": S, "max_abs_err": errs[what], "ms": t_ms,
+               "plain_ms": t_plain, "sdpa_ms": sdpa_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "query_chunks": dec_ops.query_chunks(2 * T)}
+        if T == DRAFT_PROFILED_T:
+            # the profiler's sessions are kept to one a kernel here
+            dev_ms, per_call, others = timer.device_ms(fn, kern)
+            require(per_call == 1 and others == 0,
+                    f"{what} draft block T={T}: {per_call} launches of its "
+                    f"kernel and {others} others a call, want one and "
+                    "nothing else")
+            rec["device_ms"] = dev_ms
+        records[what].setdefault("draft_blocks", {})[T] = rec
+        log(f"kernel {what} draft block: " + json.dumps(rec))
 
 
 def spec_verify_check(torch, sv_ops, args, cover=True):
@@ -1128,18 +1329,44 @@ def setup_model(torch, arch: str = "qwen3-1.7b", dtype=None):
     return model, cfg, batch, gen
 
 
+class Launches(dict):
+    """A path's launch counts by kernel, read at the end of the window its
+    ``reset_launches`` opened, with the two decode kernels' launches split
+    by query block T from the same window (``by_t``)."""
+
+    def blocks(self, name):
+        """Launches of decode kernel ``name`` at T > 1."""
+        return sum(c for T, c in self.by_t[name].items() if T > 1)
+
+
+def read_launches():
+    """The counts since the last ``reset_launches``, as ``Launches``."""
+    from repro_torch.kernels import DECODE_LAUNCHES_BY_T, LAUNCHES
+
+    out = Launches(LAUNCHES)
+    out.by_t = {name: dict(sorted(by_t.items()))
+                for name, by_t in DECODE_LAUNCHES_BY_T.items()}
+    return out
+
+
 def rollout_path(torch, label, model, cfg, batch, gen, spec):
     """Two rollout epochs (epoch 0 vanilla, epoch 1 speculative: the
     one-pass branch for an attention trunk, else the two-pass one) with the
     launch counts set to 0 just before and read just after; checks the
-    outputs and returns (launches, the two RolloutBatches)."""
+    outputs and returns (launches, the two RolloutBatches).  With the
+    draft engine on, each epoch line also carries its macro-steps, the
+    draft metrics and the decode kernels' launches by T."""
     import numpy as np
 
     from repro_torch.core import RolloutCache, rollout
     from repro_torch.core.spec_rollout import use_one_pass
     from repro_torch.engine.sampling import make_key, split_key
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import (DECODE_LAUNCHES_BY_T, LAUNCHES,
+                                     reset_launches)
     from repro_torch.rewards.verifier import batch_rewards
+
+    N = gen.max_new_tokens
+    drafting = spec.draft.enabled
 
     cache = RolloutCache(history=spec.cache_history, group_size=GROUP)
     key = make_key(SEED)
@@ -1149,9 +1376,11 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
     for epoch in (0, 1):
         key, sub = split_key(key)
         before = dict(LAUNCHES)
+        by_t = copy.deepcopy(DECODE_LAUNCHES_BY_T)
         te = time.perf_counter()
-        rb = rollout(model, cfg, gen, spec, batch.tokens, batch.mask,
-                     batch.cache_keys, cache, sub, epoch)
+        with StepSpy() as steps:
+            rb = rollout(model, cfg, gen, spec, batch.tokens, batch.mask,
+                         batch.cache_keys, cache, sub, epoch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - te
         rewards = batch_rewards(rb.response, rb.length, batch.answers)
@@ -1169,11 +1398,23 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
             line.update(engine_steps=m["engine_steps"],
                         slot_occupancy=m["slot_occupancy"],
                         admissions=m["admissions"])
+        if drafting:
+            line.update(
+                macro_steps=steps.calls,
+                draft_accept_rate=m["draft_accept_rate"],
+                draft_mean_len=m["draft_mean_len"],
+                tokens_per_forward=m["tokens_per_forward"],
+                decode_forwards=m["decode_forwards"],
+                decode_launches_by_t={
+                    name: {T: c - by_t[name].get(T, 0)
+                           for T, c in sorted(DECODE_LAUNCHES_BY_T[name].items())
+                           if c - by_t[name].get(T, 0)}
+                    for name in DECODE_LAUNCHES_BY_T})
         line.update(launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES},
                     n=rb.n.tolist())
         log("epoch " + json.dumps(line))
         rbs.append(rb)
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     log(f"{label} path launches: {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1363,6 +1604,203 @@ def paged_slots_path(torch, model, cfg, batch, gen, slots_rbs):
     return launches
 
 
+class StepSpy:
+    """Counts ``draft_step`` calls (the drafted loops' macro-steps) for the
+    duration of a ``with``: the fixed-batch loop's name and the module's
+    (the slot engine imports it at call time)."""
+
+    def __enter__(self):
+        from repro_torch.drafting import engine, step
+        self.modules, self.calls = (engine, step), 0
+        self.real = step.draft_step
+
+        def spy(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+
+        for mod in self.modules:
+            mod.draft_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.modules:
+            mod.draft_step = self.real
+
+
+def draft_path(torch, model, cfg, batch, gen):
+    """The ``rollout`` path's traffic with the draft engine: epoch 0
+    through ``drafted_generate``, epoch 1 the one-pass branch continued by
+    ``drafted_resume`` (contexts prompt ⊕ draft[:n], the sibling corpus)."""
+    from repro_torch.core import SpecConfig
+    from repro_torch.drafting import DraftConfig
+
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
+                      draft=DraftConfig(kind="ngram", draft_k=DRAFT_K))
+    launches, rbs = rollout_path(torch, "draft", model, cfg, batch, gen, spec)
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "draft path")
+    for rb in rbs:
+        require(rb.metrics["decode_forwards"] > 0,
+                f"draft: the drafted loop did not run: {rb.metrics}")
+    return launches
+
+
+def draft_slots_path(torch, model, cfg, batch, gen):
+    """The drafted paged slot engine: ``rollout(backfill="slots")`` over
+    ``cache_layout="paged"`` with the draft engine (``DRAFT_SLOTS_N``
+    tokens a row), so ``paged_decode_attention`` takes the draft blocks."""
+    from dataclasses import replace
+
+    from repro_torch.core import SpecConfig
+    from repro_torch.drafting import DraftConfig
+
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
+                      backfill="slots", backfill_slots=SLOTS,
+                      draft=DraftConfig(kind="ngram", draft_k=DRAFT_K))
+    paged = cfg.replace(cache_layout="paged")
+    launches, rbs = rollout_path(torch, "draft_slots", model, paged, batch,
+                                 replace(gen, max_new_tokens=DRAFT_SLOTS_N),
+                                 spec)
+    for name in ("paged_decode_attention", "cache_slot_write",
+                 "flash_attention", "spec_verify", "cache_roll"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "draft_slots path")
+    require(launches["decode_attention"] == 0, "the draft_slots path "
+            f"launched the dense decode kernel {launches['decode_attention']}"
+            " times")
+    for rb in rbs:
+        require(rb.metrics["decode_forwards"] > 0
+                and rb.metrics["admissions"] == PROMPTS * GROUP,
+                f"draft_slots: {rb.metrics}")
+    return launches
+
+
+def greedy_witness(torch, model, cfg, batch, gen):
+    """Greedy drafted decoding against greedy vanilla decoding at full size
+    (B = 16, ``WITNESS_N`` tokens, no eos).  On the CPU in float32 the two
+    streams are equal (tests/test_torch_drafting.py); in bf16 on the card
+    the block forward rounds otherwise than the T = 1 step, so a row may
+    part where two logits nearly tie.  The phase measures that rounding:
+    it teacher-forces the vanilla stream through T = 1 decode steps and
+    through blocks of each T in ``WITNESS_TS`` (explicit live bounds, so
+    the blocks take the decode kernels, as a draft block does), the gap
+    being the largest |block logit - step logit|; it may not pass
+    ``WITNESS_GAP_MAX``, so a block route that drifted cannot widen its
+    own bar.  Every row must equal the vanilla one up to its first
+    difference (``first_difference``); there, the vanilla and the drafted
+    token must both lie within the gap of the step's largest logit (so
+    the step's top-2 margin does too).  The same holds at every
+    teacher-forced position where a block's argmax is not the step's.
+    Any other divergence fails."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.drafting import DraftConfig, drafted_generate
+    from repro_torch.engine.generate import generate, positions_from_mask
+    from repro_torch.engine.sampling import make_key
+    from repro_torch.models import model as M
+
+    dev = model.device
+    g = replace(gen, max_new_tokens=WITNESS_N, temperature=0.0, eos_id=-1)
+    t0 = time.perf_counter()
+    van = generate(model, cfg, g, batch.tokens, batch.mask, make_key(SEED))
+    torch.cuda.synchronize()
+    t_van = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with StepSpy() as steps:
+        dr = drafted_generate(model, cfg, g, batch.tokens, batch.mask,
+                              make_key(SEED),
+                              DraftConfig(kind="ngram", draft_k=DRAFT_K))
+    torch.cuda.synchronize()
+    t_dr = time.perf_counter() - t0
+    vt, dt = van["tokens"].cpu().numpy(), dr["tokens"].cpu().numpy()
+
+    # teacher-forced logits of the vanilla stream: column c holds the
+    # logits that chose token c (c = 0: the prefill's last)
+    prompt = torch.as_tensor(batch.tokens, dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(batch.mask, dtype=torch.bool, device=dev)
+    B, Pw = prompt.shape
+    p_len = mask.sum(1, dtype=torch.int32)
+    stream = van["tokens"].to(torch.int32)
+
+    def forced(T):
+        caches = M.init_cache(cfg, B, Pw + WITNESS_N + T, device=dev)
+        logits, caches = M.prefill(model, cfg, prompt,
+                                   positions_from_mask(mask), caches)
+        out = [logits[:, -1:].float()]
+        del logits
+        for s0 in range(0, WITNESS_N - 1, T):
+            w = min(T, WITNESS_N - 1 - s0)
+            blk = stream[:, s0:s0 + w]
+            pos = (p_len[:, None] + s0
+                   + torch.arange(w, dtype=torch.int32, device=dev)[None, :])
+            start = torch.full((B,), Pw + s0, dtype=torch.int32, device=dev)
+            lg, caches = M.decode_step(model, cfg, blk, pos, caches, start,
+                                       kv_length=start + w,
+                                       kv_start=start - pos[:, 0])
+            out.append(lg.float())
+        return torch.cat(out, dim=1)                     # (B, N, V)
+
+    step_logits = forced(1)
+    top2 = step_logits.topk(2, dim=-1)
+    gaps, flips, flip_behind = {}, {}, {}
+    for T in WITNESS_TS:
+        blk = forced(T)
+        gaps[T] = float((blk - step_logits).abs().max())
+        # where the block's argmax is not the step's: how far the block's
+        # choice lies behind the step's largest logit
+        arg = blk.argmax(-1)
+        del blk
+        flip = arg != top2.indices[..., 0]
+        behind = top2.values[..., 0] - step_logits.gather(
+            -1, arg[..., None])[..., 0]
+        flips[T] = int(flip.sum())
+        flip_behind[T] = float(behind[flip].max()) if flips[T] else 0.0
+    gap = max(gaps.values())
+    require(gap <= WITNESS_GAP_MAX,
+            f"greedy witness: block-vs-step logit gap {gaps} passes "
+            f"{WITNESS_GAP_MAX}")
+    require(max(flip_behind.values()) <= gap,
+            f"greedy witness: a block's argmax lies {flip_behind} behind the "
+            f"step's largest logit, more than the gap {gap}")
+    margin = (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
+    rows = []
+    for b in range(B):
+        diff = first_difference(vt[b:b + 1], dt[b:b + 1])
+        if diff is None:
+            rows.append(None)
+            continue
+        c = diff[1]
+        lc = step_logits[b, c]
+        top = float(lc.max())
+        behind = {"vanilla": top - float(lc[int(vt[b, c])]),
+                  "drafted": top - float(lc[int(dt[b, c])])}
+        rows.append({"row": b, "col": c, "margin": float(margin[b, c]),
+                     "behind_largest": behind})
+        require(max(behind.values()) <= gap,
+                f"greedy witness: row {b} parts from the vanilla stream at "
+                f"column {c}, where the tokens' step logits lie {behind} "
+                f"behind the largest: more than the block-vs-step gap {gap}")
+    equal = sum(r is None for r in rows)
+    line = {"B": B, "N": WITNESS_N, "vanilla_s": t_van, "drafted_s": t_dr,
+            "macro_steps": steps.calls,
+            "tokens_per_forward": dr["stats"].tokens_per_forward,
+            "draft_accept_rate": dr["stats"].accept_rate,
+            "draft_mean_len": dr["stats"].mean_draft_len,
+            "gap_by_t": gaps, "gap": gap, "gap_max": WITNESS_GAP_MAX,
+            "forced_flips_by_t": flips, "flip_behind_by_t": flip_behind,
+            "margin_median": float(np.median(margin)),
+            "rows_equal": equal, "parted": [r for r in rows if r]}
+    log("greedy witness " + json.dumps(line))
+    require(dr["stats"].accepted > 0, "greedy witness: no draft was accepted "
+            "(a random model's greedy stream loops, so the n-gram source "
+            "should find it)")
+    del step_logits, top2
+
+
 FAULT_N = 64                    # the faults path's tokens per request
 FAULT_CHUNK = 8
 
@@ -1382,7 +1820,7 @@ def faults_path(torch, model, cfg, batch, gen):
 
     from repro_torch.checkpoint.io import load_server_state, save_server_state
     from repro_torch.engine.sampling import make_key, request_keys
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import reset_launches
     from repro_torch.serving import (EngineKilled, FaultEvent, FaultPlan,
                                      PagedSlotEngine, Request)
     from repro_torch.serving.request import (FINISH_BUDGET, FINISH_EOS,
@@ -1496,7 +1934,7 @@ def faults_path(torch, model, cfg, batch, gen):
     for i in range(B):
         require(same(resumed_out[i], clean[i]),
                 f"faults: resumed row {i} differs from the clean run")
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     log(f"faults path launches: {launches}")
     for name in ("paged_decode_attention", "cache_slot_write",
                  "flash_attention"):
@@ -1807,7 +2245,7 @@ def train_path(torch, model, cfg, batch):
     import numpy as np
     from dataclasses import replace
 
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import reset_launches
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.rl import trainer as T
 
@@ -1863,7 +2301,7 @@ def train_path(torch, model, cfg, batch):
             require(not no_grad, f"train optimize: no gradient in "
                     f"{no_grad[:5]} ({len(no_grad)} parameters)")
             check_scoring("train optimize", st, layers)
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     log(f"train path launches: {launches}")
     return launches, rb1
 
@@ -1887,7 +2325,7 @@ def ppo_path(torch, model, cfg, batch, rb1):
     own.  Returns the launches."""
     import numpy as np
 
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import reset_launches
     from repro_torch.models import model as M
     from repro_torch.rl import trainer as T
 
@@ -1945,7 +2383,7 @@ def ppo_path(torch, model, cfg, batch, rb1):
             require(not no_grad, f"train ppo optimize: no gradient in "
                     f"{no_grad[:5]} ({len(no_grad)} {who} parameters)")
         check_scoring("train ppo optimize", st, layers, scorings, updates)
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     log(f"ppo path launches: {launches}")
     return launches
 
@@ -2045,7 +2483,7 @@ def dapo_path(torch, model, cfg, batch):
     require(np.isfinite(m["loss"]) and m["grad_norm"] > 0,
             f"train dapo: loss {m['loss']}, grad_norm {m['grad_norm']}")
     check_scoring("train dapo", st, cfg.num_layers, ("old_logprob",))
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     log(f"dapo path launches: {launches}")
     return launches
 
@@ -2314,14 +2752,14 @@ def critic_witness(torch, cfg, sub, rewards, full_tokens, full_mask,
 
 def serve_path(torch):
     """One run of the port's serve launcher on the card."""
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import reset_launches
     from repro_torch.launch import serve
 
     reset_launches()
     t0 = time.perf_counter()
     rc = serve.main(["--spec-prefix", "--arrival-every", "2"])
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     log(f"serve path: rc={rc} in {time.perf_counter() - t0:.2f} s, "
         f"launches: {launches}")
     require(rc == 0, f"launch.serve exited {rc}")
@@ -2463,26 +2901,61 @@ def main() -> int:
     small_reference(torch, "rwkv6-3b", SMALL_TOL["rwkv6-3b"],
                     tol_f32=SMALL_TOL_F32)
     model, cfg, batch, gen = setup_model(torch)
-    paths = {"rollout": main_path(torch, model, cfg, batch, gen)}
-    paths["slots"], slots_rbs = slots_path(torch, model, cfg, batch, gen)
-    paths["paged"] = paged_path(torch, model, cfg, batch, gen)
-    paths["paged_slots"] = paged_slots_path(torch, model, cfg, batch, gen,
-                                            slots_rbs)
-    paths["faults"] = faults_path(torch, model, cfg, batch, gen)
-    paths["train"], rb1 = train_path(torch, model, cfg, batch)
+
+    def run(label, fn, *args):
+        log(f"phase {label} starts {time.perf_counter() - t_start:.1f} s "
+            "into the smoke")
+        return fn(*args)
+
+    paths = {"rollout": run("rollout", main_path, torch, model, cfg, batch,
+                            gen)}
+    paths["slots"], slots_rbs = run("slots", slots_path, torch, model, cfg,
+                                    batch, gen)
+    paths["paged"] = run("paged", paged_path, torch, model, cfg, batch, gen)
+    paths["paged_slots"] = run("paged_slots", paged_slots_path, torch, model,
+                               cfg, batch, gen, slots_rbs)
+    paths["draft"] = run("draft", draft_path, torch, model, cfg, batch, gen)
+    run("greedy witness", greedy_witness, torch, model, cfg, batch, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["draft_slots"] = run("draft_slots", draft_slots_path, torch, model,
+                               cfg, batch, gen)
+    paths["faults"] = run("faults", faults_path, torch, model, cfg, batch,
+                          gen)
+    paths["train"], rb1 = run("train", train_path, torch, model, cfg, batch)
     gc.collect()                # the GRPO trainer's reference and moments
     torch.cuda.empty_cache()
-    paths["ppo"] = ppo_path(torch, model, cfg, batch, rb1)
+    paths["ppo"] = run("ppo", ppo_path, torch, model, cfg, batch, rb1)
     gc.collect()                # the PPO trainer's critic and moments
     torch.cuda.empty_cache()
-    paths["dapo"] = dapo_path(torch, model, cfg, batch)
+    paths["dapo"] = run("dapo", dapo_path, torch, model, cfg, batch)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     train_witness(torch, rb1)
     torch.cuda.empty_cache()
-    paths["serve"] = serve_path(torch)
-    paths["rwkv"], records["wkv"]["launches_by_t"] = rwkv_path(torch)
+    paths["serve"] = run("serve", serve_path, torch)
+    paths["rwkv"], records["wkv"]["launches_by_t"] = run("rwkv", rwkv_path,
+                                                         torch)
+    # the decode kernels by path and T, each read with the path's launches:
+    # draft blocks (T > 1) on the two draft paths, dense and paged, and
+    # nowhere else (no prefill, verify or score moved off flash_attention)
+    log("decode launches by path and T: " + json.dumps(
+        {p: paths[p].by_t for p in paths}))
+    for p, launches in paths.items():
+        for name, by_t in launches.by_t.items():
+            require(sum(by_t.values()) == launches[name],
+                    f"{p}: {name} launches by T {by_t} do not sum to "
+                    f"{launches[name]}")
+            require(p in ("draft", "draft_slots") or not launches.blocks(name),
+                    f"{p}: {name} launched at T > 1 {by_t}")
+    require(paths["draft"].blocks("decode_attention") > 0,
+            "draft: no dense decode launch at T > 1")
+    require(paths["draft_slots"].blocks("paged_decode_attention") > 0,
+            "draft_slots: no paged decode launch at T > 1")
+    for name in ("decode_attention", "paged_decode_attention"):
+        records[name]["launches_by_path_and_t"] = {
+            p: paths[p].by_t[name] for p in paths}
     for name, rec in records.items():
         rec["launches_by_path"] = {p: paths[p][name] for p in paths}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -10,7 +10,8 @@ Rules of the package:
   even one that imports no JAX itself, because importing any ``repro.*``
   runs ``repro/__init__.py``, which imports JAX.  What it needs of such a
   module it keeps as its own copy: ``models/config.py``, ``configs/``,
-  ``core/cache.py``, ``data/`` and ``rewards/``.  ``RolloutBatch`` and
+  ``core/cache.py``, ``data/``, ``rewards/``, ``drafting/controller.py``
+  and ``drafting/ngram.py``.  ``RolloutBatch`` and
   ``PromptBatch`` are built here (``core/spec_rollout.py``,
   ``data/dataset.py``), never imported.
 * Paths and names mirror ``repro`` wherever that helps a reader find a
@@ -37,5 +38,8 @@ re-prefill and decode) for recurrent trunks and ``one_pass="off"``; with
 the fixed decode batch or, for attention trunks, drained through the
 serving slot engine (``backfill="slots"``, ``serving/``), over a dense or a
 paged KV cache (``cache_layout``), and the slot server (``python -m
-repro_torch.launch.serve``).
+repro_torch.launch.serve``); on attention trunks every decode loop can
+draft its continuation (the §9 draft engine, ``drafting/``,
+``SpecConfig(draft=DraftConfig(kind="ngram"))``), its (k+1)-token blocks
+through the decode kernels.
 """

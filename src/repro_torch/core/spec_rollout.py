@@ -22,11 +22,17 @@ verification pass), ``full`` (ℓ → ∞: reuse every draft whole) and ``off``
 
 ``backfill="slots"`` drains the batch through the serving slot engine
 instead (``serving/rl_adapter.py``: a row that finishes picks up the next
-prompt; drafts enter through speculative-prefix admission).  These raise
-``NotImplementedError`` and name the ROADMAP Queue 1 item that brings
-them: the draft engine (ROADMAP Queue 1 item 6) and the mesh (ROADMAP
-Queue 1 item 11).  The port has no observatory yet (ROADMAP Queue 1 item
-9, the observatory hooks): no tracer spans or ledger rows are emitted.
+prompt; drafts enter through speculative-prefix admission).
+
+``spec.draft`` (a ``DraftConfig``, off by default) turns on the §9 draft
+engine on an attention trunk (``use_drafting``): the vanilla branch decodes
+through ``drafted_generate`` with the rows' sibling corpus, the one-pass
+branch continues through ``drafted_resume`` from contexts prompt ⊕
+``draft[:n]``; the two-pass branch, an RWKV trunk and the ablations decode
+vanilla, as in JAX.  The mesh raises ``NotImplementedError`` and names
+its ROADMAP item (ROADMAP Queue 1 item 11, the mesh).  The port has no
+observatory yet (ROADMAP Queue 1 item 9, the observatory hooks): no tracer
+spans or ledger rows are emitted.
 
 ``key`` may be a scalar key (one stream for the batch) or a key batch (one
 key per row, ``engine/sampling.py``), which makes every row's tokens
@@ -40,12 +46,13 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.device import sync
+from repro_torch.drafting import DraftConfig
 from repro_torch.engine.generate import (GenerateConfig, generate,
                                          resume_from_cache)
 from repro_torch.engine.sampling import split_key
@@ -53,6 +60,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
 from .cache import RolloutCache
+from .metrics import DraftStats
 from .verify import verify_and_prefill, verify_drafts
 
 VARIANTS = ("off", "spec", "random", "delayed", "full")
@@ -68,7 +76,8 @@ class SpecConfig:
     backfill_slots: int = 0             # decode slots for 'slots'
                                         # (0 -> half the prompt batch)
     cache_max_prompts: Optional[int] = None  # RolloutCache LRU bound
-    draft: Any = None                   # §9 draft engine config (None = off)
+    draft: DraftConfig = DraftConfig()  # §9 continuation draft engine
+                                        # (kind='off' = vanilla decoding)
 
     @property
     def cache_lag(self) -> int:
@@ -133,11 +142,24 @@ def assemble(draft_tokens, prefix_lp, n, cont_tokens, cont_lp, cont_len, *,
     return tokens, lp, in_resp, total
 
 
-def _draft_metrics() -> Dict[str, float]:
-    """The draft-engine keys of JAX's metrics, as JAX reports them with the
-    draft engine off."""
-    return {"draft_accept_rate": 0.0, "draft_mean_len": 0.0,
-            "tokens_per_forward": 1.0, "decode_forwards": 0.0}
+def _draft_metrics(stats=None) -> Dict[str, float]:
+    """Rollout-metric view of a DraftStats (JAX's zeros when drafting is
+    off).  ``accept_rate`` is taken by the SPEC-RL prefix, so the draft
+    ratios carry a ``draft_`` prefix; ``tokens_per_forward`` is 1.0 for
+    vanilla decoding."""
+    st = stats or DraftStats()
+    return {"draft_accept_rate": st.accept_rate,
+            "draft_mean_len": st.mean_draft_len,
+            "tokens_per_forward": st.tokens_per_forward if st.forwards
+            else 1.0,
+            "decode_forwards": float(st.forwards)}
+
+
+def use_drafting(cfg: ModelConfig, spec: SpecConfig) -> bool:
+    """Whether the §9 drafted decode loop replaces the vanilla one: an
+    enabled ``spec.draft`` on a trunk whose cache can drop a rejected draft
+    (``model.supports_drafting``; an RWKV trunk decodes vanilla)."""
+    return spec.draft.enabled and M.supports_drafting(cfg)
 
 
 def use_one_pass(cfg: ModelConfig, spec: SpecConfig) -> bool:
@@ -153,9 +175,6 @@ def use_one_pass(cfg: ModelConfig, spec: SpecConfig) -> bool:
 def _check_ported(spec: SpecConfig, mesh) -> None:
     if spec.variant not in VARIANTS:
         raise ValueError(f"unknown variant {spec.variant!r}")
-    if spec.draft is not None:
-        raise NotImplementedError("the draft engine arrives with ROADMAP "
-                                  "Queue 1 item 6 (the draft engine)")
     if spec.backfill not in ("none", "slots"):
         raise ValueError(f"unknown backfill {spec.backfill!r}")
     if mesh is not None:
@@ -196,10 +215,18 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     use_cache = spec.variant != "off" and cache is not None
     drafts = cache.batch_get(prompt_ids, N, spec.cache_lag) if use_cache else None
     have_drafts = use_cache and int(drafts["draft_len"].sum()) > 0
+    drafting = use_drafting(cfg, spec)
 
     if not have_drafts:
         key, sub = split_key(key)
-        out = generate(model, cfg, gen, prompts, prompt_mask, sub)
+        if drafting:
+            from repro_torch.drafting import drafted_generate
+            corpus = (cache.batch_siblings(prompt_ids, spec.cache_lag)
+                      if use_cache else None)
+            out = drafted_generate(model, cfg, gen, prompts, prompt_mask,
+                                   sub, spec.draft, corpus=corpus)
+        else:
+            out = generate(model, cfg, gen, prompts, prompt_mask, sub)
         resp, lp, length = out["tokens"], out["logprobs"], out["length"]
         resp_mask = torch.arange(N, device=dev)[None, :] < length[:, None]
         n_generated = int(out["n_generated"])
@@ -210,7 +237,8 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
             accept_rate=0.0, draft_coverage=0.0,
             verify_time=0.0, rollout_time=rollout_time,
             assembly_time=0.0, compact_time=0.0, decode_time=rollout_time,
-            one_pass=0.0, prefill_passes=1.0, **_draft_metrics())
+            one_pass=0.0, prefill_passes=1.0,
+            **_draft_metrics(out.get("stats")))
         _update_cache(cache, prompt_ids, resp, lp, length, step, gen.eos_id)
         return RolloutBatch(
             prompt=_np(prompts), prompt_mask=_np(prompt_mask),
@@ -281,7 +309,22 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     # prefill); two-pass prefills the aligned prefix again ----------------
     td0 = time.perf_counter()
     key, sub = split_key(key)
-    if one_pass:
+    if one_pass and drafting:
+        # §9: draft the continuation too, the n-gram index seeded with
+        # prompt ⊕ accepted prefix and the sibling corpus
+        from repro_torch.drafting import drafted_resume
+        n_np, mask_np = _np(n), _np(prompt_mask)
+        prompts_np, dt_np = _np(prompts), _np(draft_tokens)
+        contexts = [np.concatenate([prompts_np[b][mask_np[b]],
+                                    dt_np[b, :int(n_np[b])]])
+                    for b in range(B)]
+        cont = drafted_resume(model, cfg, gen, caches, ver["seed_logits"],
+                              p_len + n, W, sub, spec.draft, contexts,
+                              corpus=cache.batch_siblings(prompt_ids,
+                                                          spec.cache_lag),
+                              initial_done=full_reuse, row_budget=N - n)
+        del caches
+    elif one_pass:
         cont = resume_from_cache(model, cfg, gen, caches, ver["seed_logits"],
                                  p_len + n, W, sub, initial_done=full_reuse,
                                  row_budget=N - n)
@@ -313,7 +356,7 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         verify_time=verify_time, rollout_time=rollout_time,
         assembly_time=assembly_time, compact_time=compact_time,
         decode_time=decode_time, one_pass=float(one_pass),
-        prefill_passes=prefill_passes, **_draft_metrics())
+        prefill_passes=prefill_passes, **_draft_metrics(cont.get("stats")))
     return RolloutBatch(
         prompt=_np(prompts), prompt_mask=_np(prompt_mask),
         response=_np(resp), response_mask=_np(resp_mask),

@@ -4,7 +4,7 @@
 // (decode_attention_pallas: body _decode_kernel :55, merge _combine :96).
 //
 // Contract (the Pallas kernel's): q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16,
-// D = 64 or 128, G * T <= 16 (G = Hq / Hkv); q_pos (B, T), k_pos (B, S),
+// D = 64 or 128, G * T <= 128 (G = Hq / Hkv); q_pos (B, T), k_pos (B, S),
 // lengths/starts (B,) int32.  Key slot j of row b feeds query t iff k_pos >=
 // 0, k_pos <= q_pos[b, t], (window > 0) q_pos - k_pos < window, and
 // starts[b] <= j < lengths[b].  A query with q_pos -1 (a done row), and
@@ -17,8 +17,9 @@
 // What bounds it on the H100: bytes, the live K/V of each (row, KV head)
 // read once (about one flop a byte); at decode shapes, latency on the way
 // there.  The design is in decode_attention.cuh, which the paged kernel
-// (paged_decode_attention.cu) shares: one launch of (C, Hkv, B) blocks in
-// clusters of C (the caller's `cluster`), a bulk-copy ring of TILE = 32
+// (paged_decode_attention.cu) shares: one launch of (C, Hkv * nq, B) blocks
+// in clusters of C (the caller's `cluster`; nq chunks of 16 packed queries
+// when G * T > 16, the draft-verify blocks), a bulk-copy ring of TILE = 32
 // contiguous slots of the row's (S, D) cache, fp32 online softmax on the
 // CUDA cores, and the cluster's partials merged through shared memory.
 #include "decode_attention.cuh"
@@ -37,20 +38,22 @@ __global__ void __launch_bounds__(decode_attn::THREADS,
   decode_attn::body<D, TILE, GTP, false>(p);
 }
 
-// The kernel for G * T queries padded to GTP (2, 4, 8 or 16).
+// The kernel for G * T queries padded to GTP (2, 4, 8 or 16), or cut into
+// chunks of 16 above 16.
 template <int D>
 cudaError_t run(const Params& p, int B, int C, cudaStream_t st) {
   const int GT = p.G * p.T;
   if (GT <= 2)
-    return decode_attn::launch(dense_decode_kernel<D, 2>,
+    return decode_attn::launch(dense_decode_kernel<D, 2>, 2,
                                Layout<D, TILE, 2>::BYTES, p, B, C, st);
   if (GT <= 4)
-    return decode_attn::launch(dense_decode_kernel<D, 4>,
+    return decode_attn::launch(dense_decode_kernel<D, 4>, 4,
                                Layout<D, TILE, 4>::BYTES, p, B, C, st);
   if (GT <= 8)
-    return decode_attn::launch(dense_decode_kernel<D, 8>,
+    return decode_attn::launch(dense_decode_kernel<D, 8>, 8,
                                Layout<D, TILE, 8>::BYTES, p, B, C, st);
-  return decode_attn::launch(dense_decode_kernel<D, 16>,
+  // G * T > 16: chunks of 16 queries, one more grid row each
+  return decode_attn::launch(dense_decode_kernel<D, 16>, 16,
                              Layout<D, TILE, 16>::BYTES, p, B, C, st);
 }
 

@@ -14,11 +14,21 @@
 // requests together and which land together near the end of the transfer;
 // the compute of the last tiles after they land; the merge.  The design:
 //
-//  * One launch.  The grid is (C, Hkv, B) in thread-block clusters of C
-//    blocks along x (C <= 4; 2 when G * T > 4): the C blocks of one (row,
-//    KV head) split its live tiles [starts / TILE, ceil(lengths / TILE))
-//    into equal shares of whole tiles (decode_work_ranges in ops.py is the
-//    Python twin).  No partial goes through device memory: each block
+//  * One launch.  The grid is (C, Hkv * nq, B) in thread-block clusters of
+//    C blocks along x (C <= 4; 2 when G * T > 4): the C blocks of one (row,
+//    KV head, query chunk) split its live tiles [starts / TILE,
+//    ceil(lengths / TILE)) into equal shares of whole tiles
+//    (decode_work_ranges in ops.py is the Python twin).  A KV head's G * T
+//    packed queries (query r = g * T + t) are cut into nq = ceil(G * T / 16)
+//    chunks of CHUNK = 16 consecutive queries, the last one short (G * T =
+//    18 is 16 + 2, not 9 + 9: a block computes all GTP = 16 padded rows
+//    whatever its real count, so an even split would save nothing and only
+//    cost the chunk's offset arithmetic); every chunk is padded to the same
+//    GTP bucket and runs the body below on its own q/out rows.  This takes
+//    the draft-verify blocks of DESIGN.md §9 (T = k + 1 <= 64, G * T <= 128,
+//    the blocks the Pallas kernel takes through its packed sublane dim) in
+//    one launch; a (row, KV head)'s live K/V is read once a chunk, from L2
+//    after the first.  No partial goes through device memory: each block
 //    merges its warps' softmax partials (m, l, acc) in shared memory,
 //    rank c > 0 stores its own into a slot of rank 0's shared memory
 //    (st.shared::cluster) and leaves after one cluster-barrier arrive, and
@@ -66,7 +76,8 @@ namespace decode_attn {
 constexpr int NW = 4;                      // consumer warps
 constexpr int THREADS = 32 * (NW + 1);     // + the producer warp
 constexpr int NS = NW;                     // K/V stages: one a consumer warp
-constexpr int MAX_GT = 16;                 // G * T queries per KV head
+constexpr int CHUNK = 16;                  // packed queries a block at most
+constexpr int MAX_GT = 128;                // G * T queries per KV head
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -112,7 +123,7 @@ struct Layout {
   static constexpr int BARS = PA + NW * GTP * 4;      // full[NS], empty[NS]
   static constexpr int BYTES = BARS + 16 * NS;
   static_assert(D == 64 || D == 128, "head_dim 64 or 128");
-  static_assert(TILE % 32 == 0 && GTP >= 2 && GTP <= MAX_GT, "shape");
+  static_assert(TILE % 32 == 0 && GTP >= 2 && GTP <= CHUNK, "shape");
   static_assert(PAIRS % NV == 0 && NV % GTP == 0, "whole rounds");
   static_assert(NW * GTP * D * 4 <= NS * STAGE, "warp partials fit the ring");
   static_assert(BARS % 8 == 0 && PEERS % 16 == 0, "alignment");
@@ -178,10 +189,14 @@ __device__ __forceinline__ void body(const Params& p) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* empty = full + NS;
 
-  const int C = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  // block (c, h * nq + chunk, b): rank c of the cluster of (row b, KV head
+  // h, query chunk), whose queries are the packed rows [q0, q0 + GTc)
+  const int GT = p.G * p.T, nq = (GT + GTP - 1) / GTP;
+  const int C = gridDim.x, h = blockIdx.y / nq, b = blockIdx.z;
+  const int q0 = (blockIdx.y % nq) * GTP, GTc = min(GTP, GT - q0);
   const int rank = (int)hopper::cluster_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int T = p.T, GT = p.G * p.T, S = p.S;
+  const int T = p.T, S = p.S;
   const int st = max(p.starts[b], 0), len = min(p.lengths[b], S);
 
   // this block's share of the row's live tiles (none if no query is live)
@@ -236,12 +251,13 @@ __device__ __forceinline__ void body(const Params& p) {
     }
   } else {
     // =========================================================== consumers
-    // lane's columns of each query row, in the exp2 domain (0 past G * T)
+    // lane's columns of each query row, in the exp2 domain (0 past the
+    // chunk's last query)
     float qr[GTP][DPL];
 #pragma unroll
     for (int r = 0; r < GTP; ++r) {
-      if (r < GT) {
-        load_bf16<DPL>(p.q + (head * GT + r) * D + lane * DPL, qr[r]);
+      if (r < GTc) {
+        load_bf16<DPL>(p.q + (head * GT + q0 + r) * D + lane * DPL, qr[r]);
 #pragma unroll
         for (int c = 0; c < DPL; ++c) qr[r][c] *= p.scale_log2;
       } else {
@@ -252,7 +268,7 @@ __device__ __forceinline__ void body(const Params& p) {
     // after the butterfly this lane holds the sum of pair (slot sl, query
     // rq) of each round of SPR slots; its query's position masks it
     const int rq = lane % GTP, sl = lane / GTP;
-    const int qp = rq < GT ? p.q_pos[(size_t)b * T + rq % T] : -1;
+    const int qp = rq < GTc ? p.q_pos[(size_t)b * T + (q0 + rq) % T] : -1;
     float m_run = NEG_INF, l_run = 0.f;     // l: this lane's slots only
     float acc[GTP][DPL];
 #pragma unroll
@@ -351,7 +367,7 @@ __device__ __forceinline__ void body(const Params& p) {
     }
     hopper::named_barrier(1, 32 * NW);
     // the block's partial: m[GTP], l[GTP], acc[GTP][D]
-    for (int e = tid; e < GT * D; e += 32 * NW) {
+    for (int e = tid; e < GTc * D; e += 32 * NW) {
       const int r = e / D;
       float mg = NEG_INF;
 #pragma unroll
@@ -390,8 +406,8 @@ __device__ __forceinline__ void body(const Params& p) {
   hopper::cluster_arrive();
   hopper::cluster_wait();                    // phase 2: every peer's partial
   if (warp < NW) {
-    float* o = p.out + head * GT * D;
-    for (int e = tid; e < GT * D; e += 32 * NW) {
+    float* o = p.out + (head * GT + q0) * D;
+    for (int e = tid; e < GTc * D; e += 32 * NW) {
       const int r = e / D;
       float mg = cpart[r];
 #pragma unroll
@@ -412,16 +428,17 @@ __device__ __forceinline__ void body(const Params& p) {
   }
 }
 
-// Launch `kernel` (a __global__ wrapper of body) with `bytes` of dynamic
-// shared memory as a (C, Hkv, B) grid of C-block clusters.  Returns the
-// launch's error: a refused cluster launch never runs.
-inline cudaError_t launch(void (*kernel)(Params), int bytes, const Params& p,
-                          int B, int C, cudaStream_t stream) {
+// Launch `kernel` (a __global__ wrapper of body for GTP padded queries a
+// chunk) with `bytes` of dynamic shared memory as a (C, Hkv * nq, B) grid
+// of C-block clusters, nq = ceil(G * T / GTP).  Returns the launch's
+// error: a refused cluster launch never runs.
+inline cudaError_t launch(void (*kernel)(Params), int gtp, int bytes,
+                          const Params& p, int B, int C, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, p.Hkv, B);
+  cfg.gridDim = dim3(C, p.Hkv * ((p.G * p.T + gtp - 1) / gtp), B);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;

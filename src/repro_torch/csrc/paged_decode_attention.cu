@@ -6,7 +6,7 @@
 // :96).
 //
 // Contract (the Pallas kernel's): q (B, Hq, T, D) bf16, D = 64 or 128,
-// G * T <= 16; k_pool/v_pool (NB, Hkv, bs, D) bf16 physical block pools,
+// G * T <= 128; k_pool/v_pool (NB, Hkv, bs, D) bf16 physical block pools,
 // bs = 32 or 64; table (B, nb) int32, logical slot j of row b lives at
 // pool[table[b, j / bs], :, j % bs]; k_pos (B, nb * bs) int32 (the wrapper
 // pads a short logical width with -1); q_pos (B, T), lengths/starts (B,)
@@ -34,20 +34,22 @@ __global__ void __launch_bounds__(decode_attn::THREADS,
   decode_attn::body<D, BS, GTP, true>(p);
 }
 
-// The kernel for G * T queries padded to GTP (2, 4, 8 or 16).
+// The kernel for G * T queries padded to GTP (2, 4, 8 or 16), or cut into
+// chunks of 16 above 16.
 template <int D, int BS>
 cudaError_t run(const Params& p, int B, int C, cudaStream_t st) {
   const int GT = p.G * p.T;
   if (GT <= 2)
-    return decode_attn::launch(paged_decode_kernel<D, BS, 2>,
+    return decode_attn::launch(paged_decode_kernel<D, BS, 2>, 2,
                                Layout<D, BS, 2>::BYTES, p, B, C, st);
   if (GT <= 4)
-    return decode_attn::launch(paged_decode_kernel<D, BS, 4>,
+    return decode_attn::launch(paged_decode_kernel<D, BS, 4>, 4,
                                Layout<D, BS, 4>::BYTES, p, B, C, st);
   if (GT <= 8)
-    return decode_attn::launch(paged_decode_kernel<D, BS, 8>,
+    return decode_attn::launch(paged_decode_kernel<D, BS, 8>, 8,
                                Layout<D, BS, 8>::BYTES, p, B, C, st);
-  return decode_attn::launch(paged_decode_kernel<D, BS, 16>,
+  // G * T > 16: chunks of 16 queries, one more grid row each
+  return decode_attn::launch(paged_decode_kernel<D, BS, 16>, 16,
                              Layout<D, BS, 16>::BYTES, p, B, C, st);
 }
 

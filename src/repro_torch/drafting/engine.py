@@ -1,0 +1,264 @@
+"""Host-driven drafted decode loops (port of ``repro/drafting/engine.py``):
+the §9 counterparts of ``engine/generate.generate`` and
+``resume_from_cache``.
+
+Drafting needs the host in the loop (the n-gram proposal is a hash-map
+lookup), so these run the vanilla loops' stages but step through
+``drafting.step.draft_step``, proposing between steps:
+
+    prefill  ->  [propose (host) -> draft_step (device)]*  ->  pack
+
+Contracts, as in JAX:
+
+* the same output dict (``tokens``/``logprobs``/``length``/
+  ``n_generated``, on the model's device) plus a ``stats`` DraftStats;
+* the same greedy token stream as the vanilla loops (acceptance under
+  temperature <= 0 is exactly "draft == argmax", correction is argmax);
+* the same per-token marginal under temperature / top-p (the rejection-
+  sampling guarantee); with keys that draw as JAX's do, JAX's drafted
+  stream token for token;
+* caches that end equal to the vanilla loop's over the live region
+  (rejected slots get pos -1 and are overwritten).
+
+Each macro-step reads back what the host needs (done flags, carry tokens,
+the kept tokens and their log-probs, emitted/accepted/proposed counts) in
+one device-to-host transfer.  JAX's §11/§14 tracer spans, registry
+observations, ledger rows and decision records wait for the observatory
+hooks (ROADMAP Queue 1 item 9, the observatory); the mesh argument waits
+for the mesh (ROADMAP Queue 1 item 11, the mesh).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.metrics import DraftStats
+from repro_torch.engine.generate import GenerateConfig, positions_from_mask
+from repro_torch.engine.sampling import sample, split_key
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+from .controller import DraftConfig, DraftController
+from .ngram import NGramDraftSource
+from .step import block_width, draft_step
+
+
+@torch.no_grad()
+def _prefill_seed(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, prompt,
+                  prompt_mask, key, *, extra: int):
+    """``generate``'s prefill stage with ``extra`` spare cache slots, plus
+    the seed sample, in ``_decode_loop``'s key-split order."""
+    B, P = prompt.shape
+    positions = positions_from_mask(prompt_mask)
+    caches = M.init_cache(cfg, B, P + gen.max_new_tokens + extra,
+                          device=model.device)
+    logits, caches = M.prefill(model, cfg, prompt, positions, caches)
+    seed_logits = logits[:, -1].clone()
+    del logits
+    key, sub = split_key(key)
+    tok0, lp0 = sample(sub, seed_logits, gen.temperature, gen.top_p)
+    next_pos = prompt_mask.sum(dim=1, dtype=torch.int32)
+    return {"caches": caches, "tok0": tok0, "lp0": lp0,
+            "next_pos": next_pos, "key": key}
+
+
+@torch.no_grad()
+def _pad_seed(cfg: ModelConfig, gen: GenerateConfig, caches, seed_logits,
+              key, *, extra: int):
+    """``resume_from_cache``'s entry: pad the compacted caches with draft
+    headroom and seed-sample in the vanilla key-split order."""
+    caches = M.pad_cache(cfg, caches, extra)
+    key, sub = split_key(key)
+    tok0, lp0 = sample(sub, seed_logits, gen.temperature, gen.top_p)
+    return {"caches": caches, "tok0": tok0, "lp0": lp0, "key": key}
+
+
+_ROW_INTS = ("emitted", "accepted", "proposed", "done", "cur_tok", "count",
+             "next_pos", "write_idx")
+
+
+def step_readback(out) -> Dict[str, np.ndarray]:
+    """The host's view of a ``draft_step`` result in one device-to-host
+    transfer: the kept tokens and log-probs (B, K+1), and per row the
+    emitted / accepted / proposed counts, the advanced state (done, carry
+    token and its log-prob, count, next_pos, write_idx), as numpy."""
+    W = out["tokens"].shape[1]
+    cols = [out[name].to(torch.int32) for name in _ROW_INTS]
+    ints = torch.cat([
+        out["tokens"].to(torch.int32),
+        out["logprobs"].float().view(torch.int32),
+        torch.stack(cols + [out["cur_lp"].float().view(torch.int32)], dim=1)],
+        dim=1).cpu().numpy()
+    h = {"tokens": ints[:, :W],
+         "logprobs": np.ascontiguousarray(ints[:, W:2 * W]).view(np.float32)}
+    for i, name in enumerate(_ROW_INTS):
+        h[name] = ints[:, 2 * W + i].copy()
+    h["done"] = h["done"].astype(bool)
+    h["cur_lp"] = np.ascontiguousarray(ints[:, -1]).view(np.float32)
+    return h
+
+
+class _DraftLoop:
+    """Shared host loop: device state vectors + propose/step/harvest."""
+
+    def __init__(self, model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
+                 draft: DraftConfig, caches, tok0, lp0, next_pos, key,
+                 write_idx, initial_done, row_budget, contexts, corpus):
+        dev = model.device
+        B = int(next_pos.shape[0])
+        N = gen.max_new_tokens
+        self.model, self.cfg, self.gen = model, cfg, gen
+        self.K = draft.draft_k
+        self.caches = caches
+        self.cur_tok = tok0
+        self.cur_lp = lp0
+        self.key = key
+        self.next_pos = torch.as_tensor(next_pos, dtype=torch.int32,
+                                        device=dev)
+        self.write_idx = torch.as_tensor(write_idx, dtype=torch.int32,
+                                         device=dev)
+        budget = (torch.full((B,), N, dtype=torch.int32, device=dev)
+                  if row_budget is None else
+                  torch.as_tensor(row_budget, dtype=torch.int32, device=dev))
+        done0 = (torch.zeros((B,), dtype=torch.bool, device=dev)
+                 if initial_done is None else
+                 torch.as_tensor(initial_done, dtype=torch.bool, device=dev))
+        self.done = done0 | (budget <= 0)
+        self.budget = budget
+        self.count = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.source = NGramDraftSource(draft, B)
+        self.controller = DraftController(draft, B)
+        for b in range(B):
+            self.source.reset(b, contexts[b],
+                              corpus[b] if corpus is not None else None)
+        self.acc_tok: List[List[np.ndarray]] = [[] for _ in range(B)]
+        self.acc_lp: List[List[np.ndarray]] = [[] for _ in range(B)]
+        self.stats = DraftStats()
+        self.B, self.N = B, N
+
+    def run(self) -> Dict[str, torch.Tensor]:
+        dev = self.model.device
+        host = torch.stack([self.done.to(torch.int32),
+                            self.cur_tok.to(torch.int32)]).cpu().numpy()
+        done_np, cur_np = host[0].astype(bool), host[1]
+        while not done_np.all():
+            dt = np.zeros((self.B, self.K), np.int32)
+            dl = np.zeros((self.B,), np.int32)
+            for b in range(self.B):
+                if done_np[b]:
+                    continue
+                d = self.source.propose(b, self.controller.draft_len(b),
+                                        pending=int(cur_np[b]))
+                dt[b, :len(d)] = d
+                dl[b] = len(d)
+            # the block at the power-of-two cover of the widest live
+            # proposal: adaptive lengths narrow the forward; the acceptance
+            # draws stay at u_width = draft_k, so streams do not depend on
+            # the bucket
+            K_step = block_width(int(dl.max()), self.K)
+            out = draft_step(
+                self.model, self.cfg, self.gen, self.caches, self.cur_tok,
+                self.cur_lp, self.done, self.count, self.budget,
+                self.next_pos, self.write_idx, self.key,
+                torch.as_tensor(dt[:, :K_step], device=dev),
+                torch.as_tensor(dl, device=dev), K=K_step, u_width=self.K)
+            self.caches = out["caches"]
+            for name in ("cur_tok", "cur_lp", "done", "count", "next_pos",
+                         "write_idx"):
+                setattr(self, name, out[name])
+            self.key = out["keys"]
+            h = step_readback(out)
+            emitted, accepted, proposed = (h["emitted"], h["accepted"],
+                                           h["proposed"])
+            for b in range(self.B):
+                mb = int(emitted[b])
+                if mb:
+                    self.acc_tok[b].append(h["tokens"][b, :mb])
+                    self.acc_lp[b].append(h["logprobs"][b, :mb])
+                    self.source.extend(b, h["tokens"][b, :mb])
+                self.controller.update(b, int(proposed[b]), int(accepted[b]))
+            # per-ROW forward counting: one batched forward serves the live
+            # rows, so tokens_per_forward is per row with 1.0 as the
+            # vanilla baseline
+            self.stats.add_step(forwards=int((~done_np).sum()),
+                                proposed=int(proposed.sum()),
+                                accepted=int(accepted.sum()),
+                                emitted=int(emitted.sum()),
+                                draft_forwards=int((dl > 0).sum()))
+            done_np, cur_np = h["done"], h["cur_tok"]
+        return self._pack()
+
+    def _pack(self) -> Dict[str, torch.Tensor]:
+        tokens = np.full((self.B, self.N), self.gen.pad_id, np.int32)
+        lps = np.zeros((self.B, self.N), np.float32)
+        length = np.zeros((self.B,), np.int32)
+        for b in range(self.B):
+            row = (np.concatenate(self.acc_tok[b]) if self.acc_tok[b]
+                   else np.zeros(0, np.int32))
+            lp_row = (np.concatenate(self.acc_lp[b]) if self.acc_lp[b]
+                      else np.zeros(0, np.float32))
+            L = min(len(row), self.N)
+            tokens[b, :L] = row[:L]
+            lps[b, :L] = lp_row[:L]
+            length[b] = L
+        dev = self.model.device
+        length_t = torch.as_tensor(length, device=dev)
+        return {"tokens": torch.as_tensor(tokens, device=dev),
+                "logprobs": torch.as_tensor(lps, device=dev),
+                "length": length_t, "n_generated": length_t.sum(),
+                "stats": self.stats}
+
+
+def _require_drafting(cfg: ModelConfig) -> None:
+    if not M.supports_drafting(cfg):
+        raise ValueError("drafting needs an attention-only trunk (a "
+                         "recurrent state cannot drop a rejected draft)")
+
+
+@torch.no_grad()
+def drafted_generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
+                     prompt, prompt_mask, key, draft: DraftConfig, *,
+                     corpus: Optional[Sequence[Sequence[np.ndarray]]] = None,
+                     initial_done=None, row_budget=None
+                     ) -> Dict[str, torch.Tensor]:
+    """``generate`` with the drafted decode loop (same output contract,
+    plus ``stats``).  ``corpus[b]`` optionally holds row b's sibling /
+    previous-rollout trajectories for the n-gram index."""
+    _require_drafting(cfg)
+    dev = model.device
+    prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
+    B, P = prompt.shape
+    pre = _prefill_seed(model, cfg, gen, prompt, prompt_mask, key,
+                        extra=draft.draft_k)
+    prompt_np = prompt.cpu().numpy()
+    mask_np = prompt_mask.cpu().numpy()
+    contexts = [prompt_np[b][mask_np[b]] for b in range(B)]
+    loop = _DraftLoop(model, cfg, gen, draft, pre["caches"], pre["tok0"],
+                      pre["lp0"], pre["next_pos"], pre["key"],
+                      np.full((B,), P, np.int32), initial_done, row_budget,
+                      contexts, corpus)
+    return loop.run()
+
+
+@torch.no_grad()
+def drafted_resume(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
+                   caches, seed_logits, next_pos, write_offset: int, key,
+                   draft: DraftConfig, contexts: Sequence[Sequence[int]], *,
+                   corpus: Optional[Sequence[Sequence[np.ndarray]]] = None,
+                   initial_done=None, row_budget=None
+                   ) -> Dict[str, torch.Tensor]:
+    """``resume_from_cache`` with the drafted decode loop: the one-pass
+    SPEC-RL continuation drafts past the verified prefix (DESIGN.md §9).
+    ``contexts[b]`` holds row b's prompt ⊕ accepted-prefix tokens (the
+    n-gram index needs the token values; the caches hold only K/V)."""
+    _require_drafting(cfg)
+    B = seed_logits.shape[0]
+    pre = _pad_seed(cfg, gen, caches, seed_logits, key, extra=draft.draft_k)
+    loop = _DraftLoop(model, cfg, gen, draft, pre["caches"], pre["tok0"],
+                      pre["lp0"], next_pos, pre["key"],
+                      np.full((B,), write_offset, np.int32), initial_done,
+                      row_budget, contexts, corpus)
+    return loop.run()

@@ -257,6 +257,39 @@ def sample(key, logits: torch.Tensor, temperature: float = 1.0,
     return tok.to(torch.int32), lp
 
 
+def residual_sample(key, logits: torch.Tensor, banned_tok: torch.Tensor,
+                    banned_mask: torch.Tensor, temperature: float = 1.0,
+                    top_p: float = 1.0):
+    """One token per row from the adjusted distribution with one token
+    excluded: the rejection-sampling correction of draft-verify decoding
+    (DESIGN.md §9).  An n-gram draft is a point mass q = δ(g), so the
+    residual norm(max(p - q, 0)) is p with g masked out and renormalised;
+    where ``banned_mask`` is False (the bonus token after a full accept)
+    this is ``sample``.
+
+    logits: (B, V); banned_tok: (B,) int; banned_mask: (B,) bool.  Returns
+    (token (B,) int32, logprob (B,) float32), the log-prob under the
+    UNMASKED adjusted distribution: the emitted token's marginal (accept
+    path and reject path together) is exactly p.  Drawn as
+    ``argmax(masked + gumbel)``, JAX's ``categorical``; temperature <= 0
+    is the argmax of the raw logits (a greedy rejection implies draft !=
+    argmax, so the ban never meets the argmax)."""
+    logp = adjust_logits(logits.float(), temperature, top_p)
+    if temperature <= 0.0:
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return tok, torch.zeros(tok.shape, dtype=torch.float32,
+                                device=tok.device)
+    V = logits.shape[-1]
+    ban = banned_mask[:, None] & (
+        torch.arange(V, device=logits.device)[None, :]
+        == banned_tok[:, None].long())
+    masked = torch.log_softmax(
+        torch.where(ban, torch.full_like(logp, NEG_INF), logp), dim=-1)
+    tok = torch.argmax(key.gumbel(masked.shape) + masked, dim=-1)
+    lp = torch.gather(logp, -1, tok[..., None])[..., 0]
+    return tok.to(torch.int32), lp
+
+
 def logprobs_of(logits: torch.Tensor, tokens: torch.Tensor,
                 temperature: float = 1.0, top_p: float = 1.0) -> torch.Tensor:
     """Log-prob of given tokens under the adjusted distribution.

@@ -7,7 +7,9 @@ tests), and counts its launches in ``LAUNCHES[<name>]``: one per call that
 launched the kernel, and nowhere else.  ``reset_launches`` sets every count
 to 0, so a caller can show that a run went through the kernels.
 ``WKV_LAUNCHES_BY_T`` splits the ``wkv`` count by the sequence length T of
-the call (its three regimes: decode steps, prefills, scores).
+the call (its three regimes: decode steps, prefills, scores);
+``DECODE_LAUNCHES_BY_T`` splits the two decode kernels' counts by their
+query block T (1 for a decode step, k + 1 for a draft-verify block).
 
 The kernels are forward-only: they write their outputs through raw
 pointers, so an output has no ``grad_fn``.  Every wrapper therefore starts
@@ -28,12 +30,16 @@ KERNELS = ("decode_attention", "flash_attention", "spec_verify", "cache_roll",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 WKV_LAUNCHES_BY_T: Dict[int, int] = {}
+DECODE_LAUNCHES_BY_T: Dict[str, Dict[int, int]] = {
+    "decode_attention": {}, "paged_decode_attention": {}}
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
     WKV_LAUNCHES_BY_T.clear()
+    for by_t in DECODE_LAUNCHES_BY_T.values():
+        by_t.clear()
 
 
 def refuse_grad(name: str, *inputs) -> None:

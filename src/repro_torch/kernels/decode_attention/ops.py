@@ -14,10 +14,15 @@ pool through a block table; it launches ``csrc/paged_decode_attention.cu``
 ``paged_decode_attention_plain`` (gather, then the dense plain version) on
 CPU tensors.  Every decode token of a paged cache comes here.
 
-Both kernels are one launch of (C, Hkv, B) blocks in clusters of C: the C
-blocks of a (row, KV head) share its live tiles (``decode_work_ranges``
-is their partition) and merge their softmax partials through shared
-memory; ``cluster_size`` picks C.  The wrappers allocate only the output.
+Both kernels are one launch of (C, Hkv * nq, B) blocks in clusters of C:
+a KV head's G * T packed queries go in nq = ceil(G * T / 16) chunks of at
+most ``QUERY_CHUNK`` = 16 (nq = 1 up to G * T = 16; a draft-verify block
+of T = k + 1 at G = 2 takes up to G * T = ``MAX_GT`` = 128, JAX's
+``DECODE_BLOCK_MAX_T`` = 64); the C blocks of a (row, KV head, chunk) share
+the row's live tiles (``decode_work_ranges`` is their partition, the same
+for every chunk) and merge their softmax partials through shared memory;
+``cluster_size`` picks C.  The wrappers allocate only the output, and count
+their launches by T in ``DECODE_LAUNCHES_BY_T`` beside ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -26,12 +31,13 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, refuse_grad
+from repro_torch.kernels import DECODE_LAUNCHES_BY_T, LAUNCHES, refuse_grad
 from repro_torch.kernels._build import launch
 
 NEG_INF = -1e30
 DENSE_TILE = 32       # cache slots a tile of the dense kernel (one bulk copy)
-MAX_GT = 16           # G * T queries per KV head the kernel packs
+QUERY_CHUNK = 16      # packed queries a block of the kernels takes
+MAX_GT = 128          # G * T queries per KV head the kernels take
 
 
 def cluster_cap(gt: int) -> int:
@@ -41,9 +47,16 @@ def cluster_cap(gt: int) -> int:
     return 4 if gt <= 4 else 2
 
 
+def query_chunks(gt: int) -> int:
+    """The chunks of ``QUERY_CHUNK`` packed queries a KV head's G * T
+    queries take (1 up to 16)."""
+    return -(-gt // QUERY_CHUNK)
+
+
 def cluster_size(rows: int, n_tiles: int, sms: int, gt: int) -> int:
-    """The blocks C that share one (row, KV head): the smallest C that puts
-    a block on every SM (``rows * C >= sms``, rows = B * Hkv), within
+    """The blocks C that share one (row, KV head, query chunk): the
+    smallest C that puts a block on every SM (``rows * C >= sms``, rows =
+    B * Hkv * ``query_chunks(gt)``), within
     ``cluster_cap(gt)`` and no more than a row has tiles.  More blocks than
     SMs only add merging (``tools/decode_attention_ab.py`` sweeps C).  From
     shapes only: it reads nothing on the device."""
@@ -132,13 +145,20 @@ def _check_common(q, q_pos, lengths, starts, G, D, name) -> None:
     if D not in (64, 128):
         raise ValueError(f"{name} kernel takes head_dim 64 or 128, got {D}")
     if G * T > MAX_GT:
-        raise ValueError(f"{name} kernel packs at most {MAX_GT} queries per "
+        raise ValueError(f"{name} kernel takes at most {MAX_GT} queries per "
                          f"KV head; got G={G}, T={T}")
     for what, t, shape in (("q_pos", q_pos, (B, T)), ("lengths", lengths, (B,)),
                            ("starts", starts, (B,))):
         if tuple(t.shape) != shape or t.dtype != torch.int32:
             raise ValueError(f"{name} kernel takes {what} {shape} int32, got "
                              f"{tuple(t.shape)} {t.dtype}")
+
+
+def _count(name: str, T: int) -> None:
+    """One launch of kernel ``name`` at a query block of T."""
+    LAUNCHES[name] += 1
+    by_t = DECODE_LAUNCHES_BY_T[name]
+    by_t[T] = by_t.get(T, 0) + 1
 
 
 def _check_tensors(name, q, tensors) -> None:
@@ -176,15 +196,16 @@ def decode_attention_cuda(q, k, v, q_pos, k_pos, lengths, starts, *,
     _check_kernel_inputs(q, k, v, q_pos, k_pos, lengths, starts)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    C = cluster_size(B * Hkv, -(-S // DENSE_TILE), _sm_count(q.device.index),
-                     (Hq // Hkv) * T)
+    gt = (Hq // Hkv) * T
+    C = cluster_size(B * Hkv * query_chunks(gt), -(-S // DENSE_TILE),
+                     _sm_count(q.device.index), gt)
     out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
     launch("repro_decode_attention", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
            k_pos.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
            out.data_ptr(), B, Hq, Hkv, T, S, D, C, int(window),
            1.0 / math.sqrt(D))
-    LAUNCHES["decode_attention"] += 1
+    _count("decode_attention", T)
     return out
 
 
@@ -271,14 +292,16 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, k_pos,
         ("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table),
         ("q_pos", q_pos), ("k_pos", k_pos), ("lengths", lengths),
         ("starts", starts)))
-    C = cluster_size(B * Hkv, nb, _sm_count(q.device.index), (Hq // Hkv) * T)
+    gt = (Hq // Hkv) * T
+    C = cluster_size(B * Hkv * query_chunks(gt), nb,
+                     _sm_count(q.device.index), gt)
     out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
     launch("repro_paged_decode_attention", q.device,
            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
            table.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
            lengths.data_ptr(), starts.data_ptr(), out.data_ptr(), B, Hq, Hkv,
            T, nb, bs, D, C, int(window), 1.0 / math.sqrt(D))
-    LAUNCHES["paged_decode_attention"] += 1
+    _count("paged_decode_attention", T)
     return out
 
 

@@ -21,8 +21,11 @@ with ``--engine fixed``).  §10 hardening: ``--deadline-steps``,
 stops the serve at the next chunk boundary and snapshots the exact server
 state there
 (``checkpoint/io.save_server_state``; resume with ``load_server_state``
-into an engine built the same way).  The §9 draft engine, §11/§14
-observatory and §8 mesh flags of the reference arrive with their slices.
+into an engine built the same way).  ``--draft K`` serves through the §9
+draft engine (n-gram drafts of up to K tokens a forward; with
+``--spec-prefix`` the first pass's output is each request's corpus) and
+prints a ``draft:`` stats line.  The §11/§14 observatory and §8 mesh flags
+of the reference arrive with their slices.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.core.cache import RolloutCache
 from repro_torch.data.dataset import PromptDataset
 from repro_torch.data.tokenizer import VOCAB_SIZE, decode
 from repro_torch.device import resolve_device, sync
+from repro_torch.drafting import DraftConfig
 from repro_torch.engine.generate import GenerateConfig, generate
 from repro_torch.engine.sampling import fold_in, make_key, stack_keys
 from repro_torch.models import model as M
@@ -111,6 +115,11 @@ def main(argv=None):
     p.add_argument("--spec-prefix", action="store_true",
                    help="serve every request twice: the first pass's output "
                         "becomes the second pass's speculative prefix")
+    p.add_argument("--draft", type=int, default=0, metavar="K",
+                   help="continuation draft engine (§9): draft up to K "
+                        "tokens per decode forward from n-gram matches over "
+                        "each request's own stream (and, with --spec-prefix, "
+                        "its first-pass trajectory as corpus); 0 = off")
     p.add_argument("--deadline-steps", type=int, default=0,
                    help="§10 per-request decode-step deadline (0 = none): "
                         "expired requests are reclaimed and retried once")
@@ -150,11 +159,14 @@ def main(argv=None):
         cfg = cfg.replace(kv_block_size=args.kv_block_size)
     model = M.init_lm(cfg, seed=args.seed, device=device)
     gen = GenerateConfig(max_new_tokens=max_new)
+    draft = (DraftConfig(kind="ngram", draft_k=args.draft) if args.draft > 0
+             else None)
 
     def make_engine(spec_prefix: bool):
         return make_slot_engine(model, cfg, gen, num_slots=args.slots,
                                 prompt_width=args.prompt_len,
                                 spec_prefix=spec_prefix, log_lenience=0.0,
+                                draft=draft,
                                 deadline_steps=args.deadline_steps or None,
                                 max_queue=args.max_queue or None,
                                 overflow=args.overflow)
@@ -168,9 +180,10 @@ def main(argv=None):
     engine_kind = args.engine
     if engine_kind == "auto":
         engine_kind = "slots" if M.supports_slot_serving(cfg) else "fixed"
-    if engine_kind == "fixed" and (args.spec_prefix or args.arrival_every):
-        raise SystemExit("--spec-prefix/--arrival-every need the slot "
-                         "engine; drop the flags or use --engine slots")
+    if engine_kind == "fixed" and (args.spec_prefix or args.arrival_every
+                                   or args.draft):
+        raise SystemExit("--spec-prefix/--arrival-every/--draft need the "
+                         "slot engine; drop the flags or use --engine slots")
 
     t0 = time.time()
     if engine_kind == "fixed":
@@ -202,6 +215,9 @@ def main(argv=None):
             r.verify_key = fold_in(vkey, i)
             r.draft_tokens, r.draft_logprobs = e.tokens, e.logprobs
             r.draft_eos = e.ends_with_eos
+            if draft is not None:
+                # the first-pass trajectory doubles as the §9 n-gram corpus
+                r.ngram_corpus = [e.tokens]
         t0 = time.time()
 
     engine = make_engine(spec_prefix=args.spec_prefix)
@@ -261,6 +277,11 @@ def main(argv=None):
                                     "fault_impl_fallbacks") if s.get(k)}
     if recov:
         print(f"  recovery: {recov}")
+    if draft is not None:
+        print(f"  draft: tok/fwd={s['tokens_per_forward']:.2f} "
+              f"accept={s['accept_rate']:.2f} "
+              f"mean_len={s['mean_draft_len']:.2f} "
+              f"forwards={int(s['decode_forwards'])}")
     for i in range(min(n_requests, 4)):
         r = resps.get(i)
         if r is None:

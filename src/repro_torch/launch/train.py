@@ -5,16 +5,21 @@ GRPO, PPO or DAPO trainer (``--algo``) with the SPEC-RL rollout.
         --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
         --steps 2 --algo ppo
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
+        --steps 2 --draft 2
     PYTHONPATH=src python -m repro_torch.launch.train --steps 10
 
 Runs on the card unless ``--device cpu``.  ``--smoke`` selects the arch's
 reduced config; on the card the model runs in bfloat16 (the port's
 attention kernels take bfloat16), on the CPU the reduced config keeps
 JAX's float32.  The key is ``make_key(0)`` as JAX's is ``PRNGKey(0)``.
+``--draft K`` turns on the §9 draft engine (n-gram drafts of up to K
+tokens; ``--draft-fixed`` keeps K instead of the adaptive length), and the
+step line then carries ``tok/fwd``, ``draft_acc`` and ``draft_len``.
 
 Every flag of a feature the port does not have yet raises and names its
-ROADMAP Queue 1 item when it is set away from its default: ``--draft``
-and ``--draft-fixed`` (item 6), ``--async``, ``--staleness-window``,
+ROADMAP Queue 1 item when it is set away from its default: ``--async``,
+``--staleness-window``,
 ``--buffer-capacity``, ``--publish-every``, ``--async-schedule`` and the
 ``--watchdog-*`` flags (item 8), ``--ledger``, ``--decision-log``,
 ``--alerts``, ``--trace-dir``, ``--trace-sample-rate`` and ``--metrics``
@@ -33,6 +38,7 @@ from repro_torch.core import SpecConfig
 from repro_torch.data.dataset import PromptDataset
 from repro_torch.data.tokenizer import VOCAB_SIZE
 from repro_torch.device import resolve_device
+from repro_torch.drafting import DraftConfig
 from repro_torch.engine.sampling import make_key
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig
@@ -42,8 +48,6 @@ from repro_torch.rl.trainer import ALGOS, RLConfig, Trainer
 # flag -> (ROADMAP Queue 1 item, its feature) for flags that must stay at
 # their default until the item lands
 UNPORTED_FLAGS = {
-    "draft": (6, "the draft engine"),
-    "draft_fixed": (6, "the draft engine"),
     "async_mode": (8, "async rollout and watchdog"),
     "staleness_window": (8, "async rollout and watchdog"),
     "buffer_capacity": (8, "async rollout and watchdog"),
@@ -88,9 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "item 11, the mesh)")
     p.add_argument("--require-mesh", action="store_true")
     p.add_argument("--draft", type=int, default=0, metavar="K",
-                   help="continuation draft engine (0 = off; ROADMAP Queue 1 "
-                        "item 6, the draft engine)")
-    p.add_argument("--draft-fixed", action="store_true")
+                   help="continuation draft engine (§9): draft up to K "
+                        "tokens per decode forward (0 = off)")
+    p.add_argument("--draft-fixed", action="store_true",
+                   help="draft K tokens every forward (no adaptive length)")
     p.add_argument("--async", dest="async_mode", action="store_true",
                    help="disaggregated rollout (ROADMAP Queue 1 item 8, "
                         "async rollout)")
@@ -155,16 +160,25 @@ def main(argv=None) -> int:
                   prompts_per_batch=args.prompts_per_batch,
                   max_new_tokens=args.max_new_tokens,
                   optim=AdamWConfig(lr=args.lr))
-    spec = SpecConfig(variant=args.variant, lenience=args.lenience)
+    draft = (DraftConfig(kind="ngram", draft_k=args.draft,
+                         adaptive=not args.draft_fixed) if args.draft > 0
+             else DraftConfig())
+    spec = SpecConfig(variant=args.variant, lenience=args.lenience,
+                      draft=draft)
     tr = Trainer(cfg, rl, spec, ds, make_key(0, device), device=device)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"arch={cfg.name} devices={n_dev} device={device.type} mesh=off "
           f"params={M.count_params(tr.model) / 1e6:.1f}M")
     for _ in range(args.steps):
         m = tr.train_step()
-        print(f"step {m['step']:3.0f} reward={m['reward_mean']:.3f} "
-              f"gen_tok={m.get('n_generated', 0):6.0f} "
-              f"reused={m.get('n_reused', 0):6.0f}", flush=True)
+        line = (f"step {m['step']:3.0f} reward={m['reward_mean']:.3f} "
+                f"gen_tok={m.get('n_generated', 0):6.0f} "
+                f"reused={m.get('n_reused', 0):6.0f}")
+        if args.draft > 0:
+            line += (f" tok/fwd={m.get('tokens_per_forward', 1.0):.2f} "
+                     f"draft_acc={m.get('draft_accept_rate', 0.0):.2f} "
+                     f"draft_len={m.get('draft_mean_len', 0.0):.2f}")
+        print(line, flush=True)
     return 0
 
 

@@ -9,21 +9,23 @@ Routing.  With grad off (every rollout and scoring forward) the
 attention runs through ``repro_torch.kernels``, which launch the Hopper
 kernels on CUDA tensors and run their plain versions on CPU tensors:
 
-* T == 1 with a dense cache (every decode token): ``decode_attention``.
-* T == 1 with a paged cache: ``paged_decode_attention``, which reads the
+* A decode-shaped call, JAX's ``_decode_shaped``: T == 1 with a cache
+  (every decode token), or a cached block of T <= ``DECODE_BLOCK_MAX_T``
+  (64) that comes with explicit per-row live bounds ``kv_length`` (the §9
+  draft-verify forward, T = k + 1).  With a dense cache:
+  ``decode_attention``.
+* The same with a paged cache: ``paged_decode_attention``, which reads the
   block pools directly.  JAX reaches its paged kernel only under
   ``decode_impl`` "pallas"/"interpret" (``attention.py:199``) and with
   "auto" decodes over the gathered view; the port takes its own kernel on
   this path, as it does for ``flash_attention``.  Its plain version gathers
   the view and runs the dense plain version, so on the CPU the paged layout
   is bit-identical to the dense one.
-* T > 1 (prefill, verify, score): ``flash_attention``, over the gathered
-  logical view for a paged cache (``gather_paged_kv``, plain
-  ``index_select`` as JAX's ``_paged_gather`` is ``jnp.take``).  Short
-  draft blocks (T = k + 1) go there too until the draft engine's slice
-  routes them to the decode kernel, which already takes T > 1.  The JAX
-  package reaches its flash kernel only under ``use_pallas``; the port
-  always takes its own kernel here.
+* Every other T > 1 (prefill, verify, score: none carries ``kv_length``):
+  ``flash_attention``, over the gathered logical view for a paged cache
+  (``gather_paged_kv``, plain ``index_select`` as JAX's ``_paged_gather``
+  is ``jnp.take``).  The JAX package reaches its flash kernel only under
+  ``use_pallas``; the port always takes its own kernel here.
 
 With grad on and an input that requires it (the actor's forward in the
 train step), every T goes to ``dot_product_attention``: the port of JAX's
@@ -34,9 +36,11 @@ requires grad, so no gradient can silently come out zero.
 
 The cache is written in place (JAX returns new arrays; the caches the port
 hands back are the same objects it was given): ``_cache_write`` for dense
-buffers and ``pos``, at one slot for the whole batch or at a slot per row
-(the slot engine's rows sit at their own depths); ``_paged_write`` through
-the block table for the pools.  Both are plain scatters, as in JAX.
+buffers and ``pos``, a T-token block at one slot for the whole batch or at
+a slot per row (the slot engine's and the drafted loops' rows sit at their
+own depths); ``_paged_write`` through the block table for the pools, a
+row's block crossing block boundaries where its slots do.  Both are plain
+scatters, as in JAX.
 
 Paged layer cache (DESIGN.md §13): ``{"k", "v": (NB, Hkv, bs, D) pools,
 "pos": (B, S) logical positions, "table": (B, nb) block ids}``; the logical
@@ -56,6 +60,9 @@ from .config import ModelConfig
 from .layers import Dense, RMSNorm, apply_dense, apply_rmsnorm, apply_rope
 
 NEG_INF = -1e30
+# the largest cached query block routed to the decode kernels when it comes
+# with explicit live bounds (k + 1 for a draft block): JAX's
+DECODE_BLOCK_MAX_T = 64
 
 
 def dot_product_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
@@ -194,17 +201,21 @@ def _paged_write(pool: torch.Tensor, update: torch.Tensor, start,
 
     A block-aligned prefill (one start, T >= bs) writes whole blocks,
     zero-padding a ragged tail (those slots keep pos -1 until a decode step
-    claims them); a short update (a decode step) writes token by token."""
+    claims them); a short update at one start writes token by token, and
+    a block at a slot per row (a decode step or a draft block of the slot
+    engine and the drafted loops) in one scatter of its (B, T) tokens."""
     update = update.to(pool.dtype)
     bs = pool.shape[-2]
     B = table.shape[0]
     T = update.shape[2]
     if isinstance(start, torch.Tensor):          # a slot per row
-        rows = torch.arange(B, device=pool.device)
-        s0 = _row_starts(start, B, s_logical, T, pool.device)
-        for t in range(T):
-            idx = s0 + t
-            pool[table[rows, idx // bs].long(), :, idx % bs] = update[:, :, t]
+        idx = (_row_starts(start, B, s_logical, T, pool.device)[:, None]
+               + torch.arange(T, device=pool.device)[None, :])    # (B, T)
+        rows = torch.arange(B, device=pool.device)[:, None]
+        # one scatter of the (B, T) tokens: indices on dims 0 and 2 put
+        # the (B, T) dims first, then the heads
+        pool[table[rows, idx // bs].long(), :, idx % bs] = \
+            update.transpose(1, 2)
         return
     s0 = min(max(int(start), 0), s_logical - T)
     if T < bs:
@@ -288,7 +299,8 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
         out = dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
                                     positions, kv_pos,
                                     window=cfg.sliding_window)
-    elif cache is not None and T == 1:
+    elif cache is not None and (T == 1 or (kv_length is not None
+                                           and T <= DECODE_BLOCK_MAX_T)):
         out = _decode_attention(q, k, v, positions, kv_pos,
                                 window=cfg.sliding_window,
                                 cache_start=cache_start, kv_length=kv_length,

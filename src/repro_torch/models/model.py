@@ -7,7 +7,8 @@ Entry points mirror JAX's, with the params pytree replaced by an ``LM``:
 
 ``forward``      full-sequence logits, no cache.
 ``prefill``      fills caches at slots [0, T) from a left-padded prompt.
-``decode_step``  a short token block against the caches.
+``decode_step``  a short token block against the caches: one token a row,
+                 or a (k+1)-token draft-verify block (DESIGN.md §9).
 
 Caches are updated in place and returned (see ``models/blocks.py`` for the
 dense and paged layouts).  ``realign_decode_cache`` returns new k/v buffers
@@ -148,30 +149,33 @@ def prefill(model: LM, cfg: ModelConfig, tokens, positions, caches):
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
                 cache_start, *, kv_length=None, kv_start=None):
-    """One decode step: one token per row.
+    """One decode step over a short token block.
 
-    token, position: (B, 1) (-1 marks done rows); cache_start: the slot the
-    token is written at, one int for the whole batch (lockstep decode) or
-    (B,) slots, one per row (the slot engine, whose rows sit at their own
-    depths).  kv_length: per-row live cache extent (int or (B,)), default
-    ``cache_start + 1``; kv_start: per-row first live slot, only for
-    contiguous layouts.  Both become (B,) int32 tensors once here, not once
-    per layer.  Draft blocks (T = k + 1) arrive with the draft engine
-    (ROADMAP Queue 1 item 6).  An RWKV trunk ignores cache_start,
-    kv_length and kv_start: its cache is a running state.
-    Returns (logits (B, 1, V), caches)."""
+    token, position: (B, T), T = 1 for a decode step or k + 1 for a §9
+    draft-verify block (-1 marks done rows and draft padding); cache_start:
+    the first slot the block is written at, one int for the whole batch
+    (lockstep decode) or (B,) slots, one per row (the slot engine and the
+    drafted loops, whose rows sit at their own depths).  The T tokens land
+    at slots [cache_start, cache_start + T) before attending, so causality
+    inside the block is ordinary position masking.  kv_length: per-row live
+    cache extent (int or (B,)); at T = 1 it defaults to ``cache_start +
+    1``, and a block of T > 1 reaches the decode kernels only with it given
+    (JAX's ``_decode_shaped``; without it the block takes
+    ``flash_attention`` over the whole cache).  kv_start: per-row first
+    live slot, only for contiguous layouts.  Both become (B,) int32
+    tensors once here, not once per layer.  An RWKV trunk ignores
+    cache_start, kv_length and kv_start: its cache is a running state.
+    Returns (logits (B, T, V), caches)."""
     B, T = token.shape
-    if T != 1:
-        raise NotImplementedError("decode blocks of T > 1 arrive with the "
-                                  "draft engine (ROADMAP Queue 1 item 6)")
     dev = token.device
     if not isinstance(cache_start, int):
         cache_start = torch.as_tensor(cache_start, dtype=torch.int32,
                                       device=dev).reshape(-1).expand(B)
-    if kv_length is None:
+    if kv_length is None and T == 1:
         kv_length = cache_start + T
-    kv_length = torch.as_tensor(kv_length, dtype=torch.int32, device=dev
-                                ).reshape(-1).expand(B).contiguous()
+    if kv_length is not None:
+        kv_length = torch.as_tensor(kv_length, dtype=torch.int32, device=dev
+                                    ).reshape(-1).expand(B).contiguous()
     if kv_start is not None:
         kv_start = torch.as_tensor(kv_start, dtype=torch.int32, device=dev
                                    ).reshape(-1).expand(B).contiguous()
@@ -186,6 +190,57 @@ def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
 def supports_cache_realign(cfg: ModelConfig) -> bool:
     """Compaction needs per-slot KV state in every trunk layer."""
     return all(kind == ATTN for kind, _ in cfg.layer_plan())
+
+
+def supports_drafting(cfg: ModelConfig, model_kwargs=None) -> bool:
+    """Whether the §9 draft-verify decode loop applies: a rejected draft
+    token must leave no trace, which an attention cache gives (its slot is
+    invalidated, pos -1, and overwritten by the next block) and a recurrent
+    state (RWKV6) cannot (every forwarded token is folded in).  The gate is
+    slot serving's."""
+    return supports_slot_serving(cfg, model_kwargs)
+
+
+@torch.no_grad()
+def pad_cache(cfg: ModelConfig, caches, extra: int):
+    """Append ``extra`` empty slots (pos -1, zero K/V) to every cache's
+    sequence axis: the drafted loop writes a static (k + 1)-token block at
+    each row's write offset, so its last step may touch up to ``draft_k``
+    slots past the last kept token.  A dense cache gets new buffers; a
+    paged one grows its logical width by ``extra`` and its pool only by
+    whole blocks (the rounding slack first; then fresh zero blocks at the
+    pool's end, one identity stripe of them a row, appended to the tables,
+    as JAX's ``_pad_paged_run``).  Returns new caches."""
+    if extra <= 0:
+        return caches
+    if not supports_cache_realign(cfg):
+        raise ValueError("pad_cache needs attention trunks")
+    F = torch.nn.functional
+    new_caches = []
+    for run in caches:
+        sc = run["self"]
+        new_sc = {"pos": F.pad(sc["pos"], (0, extra), value=-1)}
+        if "table" not in sc:
+            for name in ("k", "v"):
+                new_sc[name] = F.pad(sc[name], (0, 0, 0, extra))
+            new_caches.append({"self": new_sc})
+            continue
+        table = sc["table"]
+        run_len, B, nb = table.shape
+        NB, bs = sc["k"].shape[1], sc["k"].shape[-2]
+        add = -(-(sc["pos"].shape[-1] + extra) // bs) - nb
+        if add == 0:
+            new_sc.update(k=sc["k"], v=sc["v"], table=table)
+        else:
+            fresh = NB + torch.arange(B * add, dtype=torch.int32,
+                                      device=table.device).reshape(B, add)
+            new_sc["table"] = torch.cat(
+                [table, fresh[None].expand(run_len, B, add)], dim=-1)
+            for name in ("k", "v"):
+                new_sc[name] = F.pad(sc[name],
+                                     (0, 0, 0, 0, 0, 0, 0, B * add))
+        new_caches.append({"self": new_sc})
+    return new_caches
 
 
 def _roll_rows(buf, shift):

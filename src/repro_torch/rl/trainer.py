@@ -28,8 +28,9 @@ trainer takes an optional ``model`` (else it draws one from ``k1``) and a
 config, is drawn from ``k2``.
 
 Not ported yet, and raising with their ROADMAP Queue 1 item: the mesh
-(item 11), the draft engine (item 6), the watchdog (item 8) and the tracer
-and alerts (item 9, the observatory hooks).  With none of them passed
+(item 11), the watchdog (item 8) and the tracer and alerts (item 9, the
+observatory hooks).  ``spec.draft`` reaches the rollout (the §9 draft
+engine).  With none of them passed
 there is nothing of theirs to do.
 """
 from __future__ import annotations
@@ -363,8 +364,6 @@ class Trainer:
                  tracer=None, alerts=None):
         if mesh is not None:
             raise _unported("the mesh", 11, "the mesh")
-        if spec.draft is not None:
-            raise _unported("the draft engine", 6, "the draft engine")
         if watchdog is not None:
             raise _unported("the trainer watchdog", 8,
                             "async rollout and watchdog")

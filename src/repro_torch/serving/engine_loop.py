@@ -57,11 +57,22 @@ strike is counted (``Request.nan_strikes``) and the request retries on the
 kernel, ``cfg.decode_impl`` unchanged and ``fault_impl_fallbacks`` 0
 (ROADMAP Queue 3).
 
+§9 draft engine: with ``draft`` (an enabled ``DraftConfig``) a chunk is
+one draft-verify macro-step over all slots (``_run_draft_chunk``, the
+fixed-batch loops' ``drafting.step.draft_step``), with a per-slot n-gram
+source and length controller reset at each admission (prompt ⊕ accepted
+prefix, the request's ``ngram_corpus``) and ``draft_k`` slots of headroom
+in the cache.  A ``draft_exc`` fault, or a real proposal error, turns
+drafting off for that request (``fault_draft_errors``,
+``fault_draft_disabled``); such a row, like a quarantined one, decodes
+through a plain (B, 2) block.  The non-finite guard of a draft chunk runs
+on the host over the block's log-probs.  ``stats()`` carries the
+``DraftStats`` counters (zeros for an engine that does not draft).
+
 Left for later slices (a constructor argument that asks for one raises
-``NotImplementedError`` naming its ROADMAP item): the §9 draft chunk
-(ROADMAP Queue 1 item 6, the draft engine); the §11/§14 tracer, ledger and
-decision log (ROADMAP Queue 1 item 9, the observatory hooks); the §8 mesh
-(ROADMAP Queue 1 item 11, the mesh).
+``NotImplementedError`` naming its ROADMAP item): the §11/§14 tracer,
+ledger and decision log (ROADMAP Queue 1 item 9, the observatory hooks);
+the §8 mesh (ROADMAP Queue 1 item 11, the mesh).
 """
 from __future__ import annotations
 
@@ -73,7 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.backoff import BackoffConfig
-from repro_torch.core.metrics import FaultStats
+from repro_torch.core.metrics import DraftStats, FaultStats
 from repro_torch.core.verify import verify_and_prefill
 from repro_torch.device import sync
 from repro_torch.engine.generate import GenerateConfig, positions_from_mask
@@ -197,11 +208,13 @@ def _decode_chunk(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
             "logprobs": torch.stack(lps, dim=1)}       # (B, steps)
 
 
+_DRAFT_COUNTERS = ("forwards", "draft_forwards", "proposed", "accepted",
+                   "emitted")
+
+
 def _unported(**asked) -> None:
     """Raise for a constructor argument whose feature a later slice ports."""
-    items = {"draft": "the §9 draft chunk (ROADMAP Queue 1 item 6, the "
-                      "draft engine)",
-             "tracer": "the §11 tracer (ROADMAP Queue 1 item 9, the "
+    items = {"tracer": "the §11 tracer (ROADMAP Queue 1 item 9, the "
                        "observatory)",
              "ledger": "the §14 ledger (ROADMAP Queue 1 item 9, the "
                        "observatory)",
@@ -228,7 +241,7 @@ class SlotEngine:
                  max_queue: Optional[int] = None, overflow: str = "reject",
                  retry_backoff: Optional[BackoffConfig] = None,
                  tracer=None, ledger=None):
-        _unported(draft=draft, mesh=mesh, tracer=tracer, ledger=ledger)
+        _unported(mesh=mesh, tracer=tracer, ledger=ledger)
         if not M.supports_slot_serving(cfg):
             raise ValueError("slot serving needs an attention-only trunk "
                              "without modality extras; use fixed-batch "
@@ -240,12 +253,23 @@ class SlotEngine:
         self.spec_prefix = bool(spec_prefix)
         self.log_lenience = float(log_lenience)
         self.chunk_steps = max(1, int(chunk_steps))
+        # §9 continuation draft engine: a DraftConfig turns each chunk into
+        # one draft-verify block with per-slot n-gram sources and length
+        # controllers
+        self.draft = draft if (draft is not None and draft.enabled) else None
         # context ends at write_base; decode token t lands at write_base + t
-        # (vanilla: prefill layout [0, P); spec: compacted layout [0, P+N))
+        # (vanilla: prefill layout [0, P); spec: compacted layout [0, P+N));
+        # a drafted engine adds draft_k headroom for the block write
         self.write_base = self.P + (self.N if spec_prefix else 0)
-        self.cache_len = self.write_base + self.N
+        self.cache_len = self.write_base + self.N + \
+            (self.draft.draft_k if self.draft else 0)
 
         B = int(num_slots)
+        if self.draft:
+            from repro_torch.drafting import DraftController, NGramDraftSource
+            self._draft_source = NGramDraftSource(self.draft, B)
+            self._draft_ctrl = DraftController(self.draft, B)
+        self.draft_stats = DraftStats()
         self.caches = self._make_caches(B)
         self.scheduler = SlotScheduler(B, max_queue=max_queue,
                                        overflow=overflow)
@@ -263,6 +287,7 @@ class SlotEngine:
         self.slot_age = np.zeros(B, np.int64)   # engine steps spent DECODING
         self._nan_due: set = set()              # request_ids awaiting nan
         self._stall_due: Dict[int, int] = {}    # request_id -> phantom steps
+        self._draft_exc_due: set = set()        # request_ids awaiting exc
         self.cur_tok = np.zeros(B, np.int32)
         self.cur_lp = np.zeros(B, np.float32)
         self.done = np.ones(B, bool)
@@ -373,6 +398,8 @@ class SlotEngine:
             admit_time=self.time_admit,
             slot_write_time=self.time_slot_write,
             decode_time=self.time_decode)
+        # §9 draft telemetry (zeros for an engine that does not draft)
+        out.update(self.draft_stats.as_dict())
         fs = FaultStats(**{k: getattr(self.fault_stats, k)
                            for k in FaultStats.FIELDS})
         fs.timeouts = sch.timeouts
@@ -423,7 +450,11 @@ class SlotEngine:
         engine releases its block-table row here."""
 
     def _write_admitted(self, src_caches, slot_ids: np.ndarray):
-        """Scatter the admission caches into the persistent batch."""
+        """Scatter the admission caches into the persistent batch (padded
+        with a drafted engine's draft_k slots of headroom first)."""
+        if self.draft:
+            src_caches = M.pad_cache(self.cfg, src_caches,
+                                     self.draft.draft_k)
         return M.write_cache_slots(self.cfg, self.caches, src_caches,
                                    slot_ids)
 
@@ -503,8 +534,8 @@ class SlotEngine:
     def _apply_admission(self, group, tok0, lp0, npos, nkeys, n, fr,
                          lp_curr, dn) -> None:
         """Per-request host bookkeeping after an admission (any path):
-        state vectors, keys, activation.  Arrays are indexed by the
-        request's position ``j`` in ``group``."""
+        state vectors, keys, draft-source reset, activation.  Arrays are
+        indexed by the request's position ``j`` in ``group``."""
         if self.keys is None:
             self.keys = stack_keys([nkeys[0]] * self.scheduler.num_slots)
         for j, (slot, req) in enumerate(group):
@@ -526,17 +557,24 @@ class SlotEngine:
             self._slot_full_reuse[slot] = bool(fr[j])
             self._slot_prefix_lp[slot] = (lp_curr[j] if lp_curr is not None
                                           else None)
+            if self.draft:
+                # n-gram index over prompt ⊕ accepted prefix, shadowing the
+                # request's sibling corpus (DESIGN.md §9)
+                ctx = list(np.asarray(req.prompt, np.int32))
+                if self.spec_prefix and req.has_draft:
+                    ctx.extend(np.asarray(req.draft_tokens[:nj], np.int32))
+                self._draft_source.reset(slot, ctx, req.ngram_corpus)
+                self._draft_ctrl.reset(slot)
             self.scheduler.activate(slot)
 
     # ---------------------------------------------------------- decode loop
 
     def _run_chunk(self, steps: Optional[int] = None) -> None:
+        if self.draft:
+            return self._run_draft_chunk()
         steps = steps or self.chunk_steps
         busy = sum(1 for s in self.scheduler.active if not self.done[s])
-        dev = self.device
-
-        def dev_t(a):
-            return torch.as_tensor(a, device=dev)
+        dev_t = self._dev_t
 
         # §10 fault hook: corrupt the logits of pending nan targets on the
         # first step of this chunk (None: no target, the clean path)
@@ -575,15 +613,113 @@ class SlotEngine:
             self.fault_stats.add(nan_events=1)
             self._reclaim(slot, FINISH_QUARANTINE)
 
+    def _dev_t(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _run_draft_chunk(self) -> None:
+        """One §9 draft-verify macro-step over all slots: the fixed-batch
+        loops' ``draft_step``, whose per-row write offsets, budgets and key
+        streams are the machinery this engine already carries, so a slot
+        absorbs a variable-length accept as a fixed-batch row does.  The
+        step's host-side results come back in one transfer."""
+        from repro_torch.drafting.engine import step_readback
+        from repro_torch.drafting.step import block_width, draft_step
+        K = self.draft.draft_k
+        B = self.scheduler.num_slots
+        busy = sum(1 for s in self.scheduler.active if not self.done[s])
+        dt = np.zeros((B, K), np.int32)
+        dl = np.zeros((B,), np.int32)
+        for slot in self.scheduler.active:
+            if self.done[slot]:
+                continue
+            req = self.scheduler.active[slot]
+            if req.draft_off:
+                continue                # degraded row: plain (B, 2) decode
+            try:
+                # §10 fault hook: a targeted draft-source exception, then
+                # the guard any real proposal error falls into: drafting
+                # dies for this row, the request decodes on
+                if req.request_id in self._draft_exc_due:
+                    self._draft_exc_due.discard(req.request_id)
+                    raise RuntimeError("injected draft-source fault")
+                d = self._draft_source.propose(
+                    slot, self._draft_ctrl.draft_len(slot),
+                    pending=int(self.cur_tok[slot]))
+            except Exception:
+                self.fault_stats.add(draft_errors=1, draft_disabled=1)
+                req.draft_off = True
+                continue
+            dt[slot, :len(d)] = d
+            dl[slot] = len(d)
+        # the bucketed block width (drafting/step.py:block_width); u_width
+        # = draft_k keeps a request's stream independent of the bucket
+        K_step = block_width(int(dl.max()), K)
+        dev_t = self._dev_t
+        t0 = time.perf_counter()
+        out = draft_step(
+            self.model, self.cfg, self.gen, self.caches, dev_t(self.cur_tok),
+            dev_t(self.cur_lp), dev_t(self.done), dev_t(self.count),
+            dev_t(self.budget), dev_t(self.next_pos), dev_t(self.write_idx),
+            self.keys, dev_t(dt[:, :K_step]), dev_t(dl), K=K_step,
+            u_width=K)
+        self.caches, self.keys = out["caches"], out["keys"]
+        h = step_readback(out)                       # one transfer; waits
+        self.time_decode += time.perf_counter() - t0
+        for name in ("cur_tok", "cur_lp", "done", "count", "next_pos",
+                     "write_idx"):
+            setattr(self, name, h[name])
+        toks, lps = h["tokens"], h["logprobs"]
+        emitted, accepted, proposed = (h["emitted"], h["accepted"],
+                                       h["proposed"])
+        quarantined: List[int] = []
+        for slot in self.scheduler.active:
+            req = self.scheduler.active[slot]
+            m = int(emitted[slot])
+            # §10 non-finite guard, host-side for drafted chunks: from the
+            # first bad log-prob of the block on, the block is poisoned and
+            # rolled back (an injected nan poisons it at 0)
+            poison = m
+            if req.request_id in self._nan_due and m > 0:
+                self._nan_due.discard(req.request_id)
+                poison = 0
+            elif m > 0:
+                bad = ~np.isfinite(lps[slot, :m])
+                if bad.any():
+                    poison = int(np.argmax(bad))
+            if poison < m:
+                if poison:
+                    self._acc_tok[slot].append(toks[slot, :poison])
+                    self._acc_lp[slot].append(lps[slot, :poison])
+                self.count[slot] -= m - poison      # drop the poisoned tail
+                quarantined.append(slot)
+                continue
+            if m:
+                self._acc_tok[slot].append(toks[slot, :m])
+                self._acc_lp[slot].append(lps[slot, :m])
+                self._draft_source.extend(slot, toks[slot, :m])
+            self._draft_ctrl.update(slot, int(proposed[slot]),
+                                    int(accepted[slot]))
+        for slot in self.scheduler.active:
+            self.slot_age[slot] += 1
+        self.draft_stats.add_step(forwards=busy,
+                                  proposed=int(proposed.sum()),
+                                  accepted=int(accepted.sum()),
+                                  emitted=int(emitted.sum()),
+                                  draft_forwards=int((dl > 0).sum()))
+        self.steps += 1                     # one forward = one engine step
+        self.scheduler.tick(busy, 1)
+        for slot in quarantined:
+            self.fault_stats.add(nan_events=1)
+            self._reclaim(slot, FINISH_QUARANTINE)
+
     # ------------------------------------------------- §10 fault tolerance
 
     def _apply_faults(self) -> None:
         """Consume due FaultPlan events at a chunk boundary (the only points
-        where host state is consistent).  Targeted events (nan / stall)
-        are held pending until their request occupies a slot; bursts
-        submit through the bounded queue; a kill raises out of ``run`` —
-        recovery is ``load_state_dict``.  (``draft_exc`` targets the draft
-        chunk, which arrives with the draft engine.)"""
+        where host state is consistent).  Targeted events (nan / stall /
+        draft_exc) are held pending until their request occupies a slot;
+        bursts submit through the bounded queue; a kill raises out of
+        ``run`` — recovery is ``load_state_dict``."""
         if self.faults is None:
             return
         step = self.steps
@@ -597,6 +733,9 @@ class SlotEngine:
         for e in self.faults.due(step, "stall"):
             self.fault_stats.add(injected=1)
             self._stall_due[e.request_id] = e.count
+        for e in self.faults.due(step, "draft_exc"):
+            self.fault_stats.add(injected=1)
+            self._draft_exc_due.add(e.request_id)
         if self.faults.due(step, "kill"):
             self.fault_stats.add(injected=1)
             raise EngineKilled(f"injected kill at engine step {step}")
@@ -640,7 +779,10 @@ class SlotEngine:
         if reason == FINISH_QUARANTINE:
             req.nan_strikes += 1
             self.fault_stats.add(quarantines=1)
-            req.draft_off = True            # ladder rung 1: stop speculating
+            if not req.draft_off:
+                req.draft_off = True        # ladder rung 1: stop speculating
+                if self.draft:
+                    self.fault_stats.add(draft_disabled=1)
         now = self._now()
         self.scheduler.reclaim(slot, now=now, reason=reason)
         self._on_slot_freed(slot)
@@ -756,7 +898,9 @@ class SlotEngine:
         copies of the tensors, bf16 included), every per-slot state vector,
         the slots' key batch as its int64 words, the partial token
         accumulators, the scheduler (queued + in-flight requests,
-        bit-exact), finished responses, held retries and all counters.  NOT
+        bit-exact), finished responses, held retries, the §9 draft state
+        (controller EMAs, n-gram streams and corpora: the index is rebuilt
+        on load in the order that built it) and all counters.  NOT
         covered, by design: the model and config (the caller rebuilds the
         engine the same way — asserted via meta) and the FaultPlan (a
         restored engine resumes clean).  ``load_state_dict(state_dict())``
@@ -800,6 +944,18 @@ class SlotEngine:
             st["retry_hold"] = {
                 str(i): {"due": np.int64(d), "req": r.to_state()}
                 for i, (d, r) in enumerate(self._retry_hold)}
+        if self.draft:
+            st["draft"] = {
+                "rate": np.asarray(self._draft_ctrl.rate, np.float64),
+                "stream": {str(s): np.asarray(v, np.int64)
+                           for s, v in enumerate(self._draft_source._stream)},
+                "corpus": {str(s): {str(j): np.asarray(seq, np.int32)
+                                    for j, seq in enumerate(v)}
+                           for s, v in
+                           enumerate(self._draft_source._corpus)},
+                "stats": {k: np.int64(getattr(self.draft_stats, k))
+                          for k in _DRAFT_COUNTERS},
+            }
         return st
 
     def load_state_dict(self, state: Dict) -> None:
@@ -840,6 +996,20 @@ class SlotEngine:
         self._retry_hold = [
             (int(hold[str(i)]["due"]), Request.from_state(hold[str(i)]["req"]))
             for i in range(len(hold))]
+        if self.draft and "draft" in state:
+            d = state["draft"]
+            self._draft_ctrl.rate = np.array(d["rate"], np.float64)
+            for s in range(B):
+                stream = [int(t) for t in np.asarray(d["stream"][str(s)])]
+                corp = d["corpus"].get(str(s), {})
+                corpus = [np.asarray(corp[str(j)], np.int32)
+                          for j in range(len(corp))]
+                # reset() registers corpus then stream, the order the
+                # incremental indexing used: the same index, the same
+                # proposals
+                self._draft_source.reset(s, stream, corpus)
+            for k in _DRAFT_COUNTERS:
+                setattr(self.draft_stats, k, int(d["stats"][k]))
         self.steps = int(meta["steps"])
         self.time_admit = float(meta["time_admit"])
         self.time_slot_write = float(meta["time_slot_write"])

@@ -318,16 +318,20 @@ class PagedSlotEngine(SlotEngine):
     # --------------------------------------------------------- decode loop
 
     def _run_chunk(self, steps: Optional[int] = None) -> None:
-        self._cow_fork_walk(steps or self.chunk_steps)
+        # a drafted chunk writes one block of draft_k + 1 slots
+        span = (self.draft.draft_k + 1) if self.draft \
+            else (steps or self.chunk_steps)
+        self._cow_fork_walk(span)
         super()._run_chunk(steps)
 
     def _cow_fork_walk(self, span: int) -> None:
         """Fork every shared block a live row is about to write (§13 CoW).
 
         The write span of the coming chunk is [w, w + span) clamped to the
-        cache; only the prompt boundary block can ever be both shared and
-        in that span, so this walk is O(active rows) with at most one fork
-        per follower's first chunk.  A fork that finds the pool dry
+        cache (the drafted block write clamps the same way); only the
+        prompt boundary block can ever be both shared and in that span, so
+        this walk is O(active rows) with at most one fork per follower's
+        first chunk.  A fork that finds the pool dry
         reclaims the row through the §10 retry machinery (its blocks free
         on reclaim, so later rows in the same walk may succeed)."""
         bs = self.cfg.kv_block_size

@@ -27,10 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache import RolloutCache
-from repro_torch.core.spec_rollout import (RolloutBatch, SpecConfig,
-                                           _draft_metrics, _np,
+from repro_torch.core.spec_rollout import (RolloutBatch, SpecConfig, _np,
                                            _update_cache, assemble,
-                                           use_one_pass)
+                                           use_drafting, use_one_pass)
 from repro_torch.engine.generate import GenerateConfig
 from repro_torch.engine.sampling import request_keys, split_key
 from repro_torch.models import model as M
@@ -79,9 +78,13 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         keys, decode_keys = split_key(keys)
         verify_keys = None
 
+    drafting = use_drafting(cfg, spec)
     engine = make_slot_engine(model, cfg, gen, num_slots=num_slots,
                               prompt_width=P, spec_prefix=have_drafts,
-                              log_lenience=spec.log_lenience)
+                              log_lenience=spec.log_lenience,
+                              draft=spec.draft if drafting else None)
+    corpora = (cache.batch_siblings(prompt_ids, spec.cache_lag)
+               if drafting and use_cache else None)
     for i in range(B):
         p_len = int(mask_np[i].sum())
         req = Request(request_id=i, prompt=prompts_np[i, P - p_len:],
@@ -97,6 +100,8 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
             req.draft_tokens = drafts["draft_tokens"][i, :L]
             req.draft_logprobs = drafts["draft_logprobs"][i, :L]
             req.draft_eos = bool(drafts["draft_eos"][i])
+        if corpora is not None:
+            req.ngram_corpus = corpora[i]
         engine.submit(req)
     responses = engine.run()
     sched = engine.stats()
@@ -155,7 +160,11 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         engine_steps=sched["engine_steps"],
         slot_occupancy=sched["occupancy"],
         admissions=sched["admitted"],
-        **_draft_metrics())
+        # §9 draft telemetry, from the engine's DraftStats
+        draft_accept_rate=sched["accept_rate"],
+        draft_mean_len=sched["mean_draft_len"],
+        tokens_per_forward=sched["tokens_per_forward"] if drafting else 1.0,
+        decode_forwards=sched["decode_forwards"])
     return RolloutBatch(
         prompt=prompts_np, prompt_mask=mask_np, response=resp,
         response_mask=resp_mask, behaviour_logprobs=lp, length=length,

@@ -71,10 +71,15 @@ def _decode_case(T, S=48, B=5, seed=0):
     return q, k, v, q_pos, k_pos, lengths, starts
 
 
-@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("T", [1, 4, 9, 16, 64])
 @pytest.mark.parametrize("window", [0, 16])
 def test_decode_attention_plain_matches_jax(T, window):
-    q, k, v, q_pos, k_pos, lengths, starts = _decode_case(T, seed=T + window)
+    """T = 9, 16 and 64 are draft-verify blocks at G = 2 (G * T = 18, 32
+    and 128, the kernels' query chunks); their cache is wider than the
+    block."""
+    S = 48 if T <= 4 else 2 * T + 24
+    q, k, v, q_pos, k_pos, lengths, starts = _decode_case(T, S=S,
+                                                          seed=T + window)
     got = decode_attention(_t(q), _t(k), _t(v), _t(q_pos), _t(k_pos),
                            _t(lengths), _t(starts), window=window).numpy()
     args = tuple(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos, lengths,
@@ -364,18 +369,20 @@ def test_paged_gather_plain_matches_jax_exactly():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("T", [1, 3, 9, 16, 64])
 @pytest.mark.parametrize("window", [0, 8])
 def test_paged_decode_attention_plain_matches_jax(T, window):
     """Pools behind a shuffled block table; a logical width short of the
     block-rounded one (k_pos padded with -1 inside); row 0 done, row 3
     with no live slot.  Within 1e-5 of JAX's paged kernel in interpret
     mode, and exactly the port's dense plain version on the gathered
-    view."""
-    q, _, _, q_pos, k_pos, lengths, starts = _decode_case(T, S=45, B=5,
+    view.  T = 9, 16 and 64 are draft-verify blocks at G = 2, over a wider
+    logical cache (also short of its block-rounded width)."""
+    S = 45 if T <= 3 else 2 * T + 21
+    q, _, _, q_pos, k_pos, lengths, starts = _decode_case(T, S=S, B=5,
                                                           seed=29 + T)
     bs, B = 8, 5
-    nb = -(-45 // bs)                               # 6 blocks of 8 = 48 > 45
+    nb = -(-S // bs)                                # 6 blocks of 8 = 48 > 45
     rng = np.random.default_rng(T + window)
     NB = B * nb + 3
     k_pool = rng.standard_normal((NB, HKV, bs, D), dtype=np.float32)
@@ -390,8 +397,8 @@ def test_paged_decode_attention_plain_matches_jax(T, window):
                                    lengths, starts)),
         window=window, impl="interpret"))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
-    k = gather_paged_kv(_t(k_pool), _t(table), 45)
-    v = gather_paged_kv(_t(v_pool), _t(table), 45)
+    k = gather_paged_kv(_t(k_pool), _t(table), S)
+    v = gather_paged_kv(_t(v_pool), _t(table), S)
     dense = decode_attention_plain(_t(q), k, v, _t(q_pos), _t(k_pos),
                                    _t(lengths), _t(starts), window=window)
     np.testing.assert_array_equal(got, dense.numpy())
@@ -487,8 +494,8 @@ def test_decode_kernels_refuse_what_they_cannot_take():
 
     with pytest.raises(ValueError, match="head_dim"):
         dense(q=torch.empty(B, HQ, 1, 32, **bf))
-    with pytest.raises(ValueError, match="at most 16"):
-        dense(q=torch.empty(B, HQ, 9, D, **bf))            # G * T = 18
+    with pytest.raises(ValueError, match="at most 128"):
+        dense(q=torch.empty(B, HQ, 65, D, **bf))           # G * T = 130
     with pytest.raises(TypeError, match="bfloat16"):
         dense(q=torch.empty(B, HQ, 1, D, dtype=torch.float32, **meta))
     with pytest.raises(ValueError, match="q_pos"):
@@ -505,8 +512,8 @@ def test_decode_kernels_refuse_what_they_cannot_take():
         paged(bs=16)
     with pytest.raises(ValueError, match="head_dim"):
         paged(q=torch.empty(B, HQ, 1, 32, **bf))
-    with pytest.raises(ValueError, match="at most 16"):
-        paged(q=torch.empty(B, HQ, 12, D, **bf))
+    with pytest.raises(ValueError, match="at most 128"):
+        paged(q=torch.empty(B, HQ, 65, D, **bf))
     with pytest.raises(ValueError, match="table"):
         paged(table=torch.empty(B, 3, dtype=torch.int64, **meta))
 

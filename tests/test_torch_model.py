@@ -125,14 +125,46 @@ def test_prefill_and_decode_steps_match(models, inputs):
                                   np.asarray(jc[0]["self"]["pos"]))
 
 
-def test_decode_step_takes_one_token_per_row(models, inputs):
-    """Draft blocks (T > 1) are not routed yet; decode_step says so."""
-    _, cfg, _, model = models
-    _, _, nxt = inputs
-    tc = M.init_cache(cfg, B, P + STEPS, device="cpu")
-    pos = torch.arange(2, dtype=torch.int32).expand(B, 2)
-    with pytest.raises(NotImplementedError, match="draft engine"):
-        M.decode_step(model, cfg, torch.from_numpy(nxt[:, :2]), pos, tc, P)
+@pytest.mark.parametrize("bounds", ["explicit", "none"])
+def test_decode_step_routes_blocks_like_jax(models, inputs, monkeypatch,
+                                            bounds):
+    """A T = 3 block at a slot per row, after a prefill: with explicit
+    live bounds it takes the decode kernel's op (JAX's ``_decode_shaped``),
+    without them the flash op over the whole cache, as JAX takes its
+    full-S path; the logits match JAX's either way (the draft engine's
+    parity tests are in test_torch_drafting.py)."""
+    import repro_torch.models.attention as A
+    jcfg, cfg, params, model = models
+    tokens, mask, nxt = inputs
+    S, T = P + STEPS, 3
+    jc = JM.init_cache(jcfg, B, S)
+    _, jc = JM.prefill(params, jcfg, jnp.asarray(tokens),
+                       jax_positions(jnp.asarray(mask)), jc)
+    tc = M.init_cache(cfg, B, S, device="cpu")
+    M.prefill(model, cfg, torch.from_numpy(tokens),
+              positions_from_mask(torch.from_numpy(mask)), tc)
+    write = np.array([P, P + 1, P], np.int32)
+    p_len = mask.sum(1).astype(np.int32)
+    pos = (p_len + write - P)[:, None] + np.arange(T, dtype=np.int32)
+    pos[2, 1:] = -1                              # draft padding
+    kw = {}
+    if bounds == "explicit":
+        kw = dict(kv_length=write + T, kv_start=write - pos[:, 0])
+    routes = []
+    for name in ("_decode_attention", "flash_attention"):
+        fn = getattr(A, name)
+        monkeypatch.setattr(A, name, lambda *a, _f=fn, _n=name, **k: (
+            routes.append(_n), _f(*a, **k))[1])
+    jl, _ = JM.decode_step(params, jcfg, jnp.asarray(nxt[:, :T]),
+                           jnp.asarray(pos), jc, jnp.asarray(write),
+                           **{k: jnp.asarray(v) for k, v in kw.items()})
+    tl, _ = M.decode_step(model, cfg, torch.from_numpy(nxt[:, :T]),
+                          torch.from_numpy(pos), tc, torch.from_numpy(write),
+                          **{k: torch.from_numpy(v) for k, v in kw.items()})
+    live = pos >= 0
+    _close(tl.numpy()[live], np.asarray(jl)[live], "block logits")
+    want = "_decode_attention" if bounds == "explicit" else "flash_attention"
+    assert routes == [want] * cfg.num_layers, routes
 
 
 def test_realign_decode_cache_matches(models, inputs):

@@ -229,17 +229,17 @@ def test_left_align_matches_jax():
     assert got_m[:, -1].all()
 
 
-@pytest.mark.parametrize("branch", ["draft", "mesh"])
+@pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_raise(models, branch):
-    """The draft engine and the mesh still raise and name their ROADMAP
-    items (the variants random, full and delayed are ported: their parity
-    tests are in test_torch_train.py)."""
+    """The mesh still raises and names its ROADMAP item (the variants
+    random, full and delayed are ported: their parity tests are in
+    test_torch_train.py; the draft engine's, drafted rollouts included,
+    in test_torch_drafting.py and test_torch_draft_serving.py)."""
     _, cfg, _, model = models
     gen = GenerateConfig(max_new_tokens=4)
     toks = np.ones((2, 3), np.int32)
     mask = np.ones((2, 3), bool)
-    spec, mesh, item = {"draft": (SpecConfig(draft=object()), None, 6),
-                        "mesh": (SpecConfig(), object(), 11)}[branch]
+    spec, mesh, item = {"mesh": (SpecConfig(), object(), 11)}[branch]
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item} "):
         rollout(model, cfg, gen, spec, toks, mask, [0, 1], RolloutCache(),
@@ -262,7 +262,10 @@ SLICE_MODULES = (
     "repro_torch.launch.train", "repro_torch.rl.critic",
     "repro_torch.serving.paged_engine", "repro_torch.serving.block_table",
     "repro_torch.serving.faults", "repro_torch.checkpoint.io",
-    "repro_torch.core.backoff", "repro_torch.core.metrics")
+    "repro_torch.core.backoff", "repro_torch.core.metrics",
+    "repro_torch.drafting", "repro_torch.drafting.controller",
+    "repro_torch.drafting.ngram", "repro_torch.drafting.step",
+    "repro_torch.drafting.engine")
 
 
 def test_port_imports_no_jax_and_no_repro():

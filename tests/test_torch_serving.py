@@ -330,19 +330,26 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 def test_unported_engine_features_raise(models):
-    """The draft engine, the tracer and the mesh still raise, naming their
-    ROADMAP items; §10 faults, deadlines and a paged config now build their
-    engines."""
+    """The tracer and the mesh still raise, naming their ROADMAP items;
+    §10 faults, deadlines, a paged config and the §9 draft engine (an
+    enabled ``DraftConfig``: draft_k slots of headroom; a disabled one is
+    no draft) now build their engines."""
+    from repro_torch.drafting import DraftConfig
     _, cfg, _, model = models
     gen = GenerateConfig(max_new_tokens=4)
     kw = dict(num_slots=2, prompt_width=4)
-    for bad in (dict(draft=object()), dict(tracer=object()),
-                dict(mesh=object())):
+    for bad in (dict(tracer=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_slot_engine(model, cfg, gen, **kw, **bad)
     for ok in (dict(faults=FaultPlan()), dict(deadline_steps=8)):
         eng = make_slot_engine(model, cfg, gen, **kw, **ok)
         assert type(eng) is SlotEngine
+    eng = make_slot_engine(model, cfg, gen, **kw,
+                           draft=DraftConfig(kind="ngram", draft_k=3))
+    assert type(eng) is SlotEngine and eng.draft is not None
+    assert eng.cache_len == 4 + 4 + 3
+    eng = make_slot_engine(model, cfg, gen, **kw, draft=DraftConfig())
+    assert eng.draft is None and eng.cache_len == 8
     eng = make_slot_engine(model, cfg.replace(cache_layout="paged"), gen,
                            **kw)
     assert type(eng) is PagedSlotEngine

@@ -810,12 +810,11 @@ def test_to_jax_params_inverts_from_jax_params(qwen):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--draft", "2"], 6),
     (["--async"], 8), (["--watchdog-dir", "wd"], 8), (["--ledger"], 9),
     (["--decision-log", "d"], 9), (["--alerts"], 9),
     (["--trace-dir", "t"], 9), (["--metrics", "9100"], 9),
     (["--mesh-data", "2"], 11), (["--mesh-model", "2"], 11),
-    (["--require-mesh"], 11), (["--draft-fixed"], 6),
+    (["--require-mesh"], 11),
     (["--staleness-window", "2"], 8), (["--buffer-capacity", "4"], 8),
     (["--publish-every", "2"], 8), (["--async-schedule", "ppcc"], 8),
     (["--watchdog-every", "5"], 8),
@@ -829,20 +828,43 @@ def test_unported_launcher_flags_raise_and_name_their_item(argv, item):
                           + argv)
 
 
+@pytest.mark.parametrize("argv,want", [
+    (["--draft", "2"], dict(kind="ngram", draft_k=2)),
+    (["--draft-fixed"], {}),
+    (["--draft", "3", "--draft-fixed"],
+     dict(kind="ngram", draft_k=3, adaptive=False))],
+    ids=lambda x: " ".join(x) if isinstance(x, list) else "")
+def test_launcher_draft_flags_build_jax_draft_config(argv, want,
+                                                     monkeypatch):
+    """``--draft K`` / ``--draft-fixed`` reach the trainer as the
+    ``DraftConfig`` JAX's launcher builds (``--draft-fixed`` alone leaves
+    drafting off, as in JAX)."""
+    from repro_torch.drafting import DraftConfig
+    seen = []
+    real = launch_train.Trainer
+
+    def spy(cfg, rl, spec, *a, **kw):
+        seen.append(spec)
+        return real(cfg, rl, spec, *a, **kw)
+
+    monkeypatch.setattr(launch_train, "Trainer", spy)
+    assert launch_train.main(["--device", "cpu", "--smoke", "--steps", "0"]
+                             + argv) == 0
+    assert seen[0].draft == DraftConfig(**want)
+
+
 @pytest.mark.parametrize("what,item", [
-    ("mesh", 11), ("watchdog", 8), ("tracer", 9), ("alerts", 9),
-    ("draft", 6)])
+    ("mesh", 11), ("watchdog", 8), ("tracer", 9), ("alerts", 9)])
 def test_unported_trainer_arguments_raise_and_name_their_item(what, item):
     cfg = get_config("qwen3-1.7b").reduced()
     _, ds = _datasets()
     kw = {"mesh": {"mesh": object()}, "watchdog": {"watchdog": object()},
           "tracer": {"tracer": object()}, "alerts": {"alerts": object()}
-          }.get(what, {})
-    spec = SpecConfig(draft=object()) if what == "draft" else SpecConfig()
+          }[what]
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item} "):
-        Trainer(cfg, RLConfig(), spec, ds, JaxKey(jax.random.PRNGKey(0)),
-                device="cpu", **kw)
+        Trainer(cfg, RLConfig(), SpecConfig(), ds,
+                JaxKey(jax.random.PRNGKey(0)), device="cpu", **kw)
 
 
 def test_launcher_runs_on_the_cpu(capsys):
@@ -899,5 +921,5 @@ def test_roadmap_items_named_in_the_port_match_their_features():
                 f"{named}")
     # every open Queue 1 item whose feature the port still refuses is
     # named by at least one message
-    for item in (6, 8, 9, 10, 11):
+    for item in (8, 9, 10, 11):
         assert item in named_items, (item, sorted(named_items))

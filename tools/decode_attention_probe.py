@@ -74,8 +74,8 @@ extern "C" int probe_trace(void* dst) {
 namespace decode_attn {'''
 TRACE = [
     ("namespace decode_attn {", TRACE_HEAD),
-    ("  const int T = p.T, GT = p.G * p.T, S = p.S;\n",
-     "  const int T = p.T, GT = p.G * p.T, S = p.S;\n"
+    ("  const int T = p.T, S = p.S;\n",
+     "  const int T = p.T, S = p.S;\n"
      "  unsigned long long* TR = g_trace + ((size_t)(blockIdx.z * gridDim.y + "
      "blockIdx.y) * gridDim.x + blockIdx.x) * 32;\n"
      "  if (tid == 0) { for (int z = 2; z < 32; ++z) TR[z] = 0; TR[0] = gtime(); "
