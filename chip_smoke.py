@@ -53,7 +53,10 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    each, the three timed in turns), and each kernel's device time: the
    mean CUPTI duration of its own launches (``torch.profiler``) over
    ``REPS`` more L2-flushed calls, with the kernels a call launched (the
-   decode kernels must launch once a call and nothing else);
+   decode kernels must launch once a call and nothing else), read from a
+   complete trace only (``profile_window``: a lead-in of ``LEAD_IN``
+   markers that takes the first records a session may drop, host time at
+   the window's ends, a marker before each call and after the last);
 4. holds the port on the card against the port on the CPU at a small size
    (the reduced qwen3-1.7b and rwkv6-3b in bfloat16: forward, prefill,
    decode steps and, for qwen, the compaction roll, teacher-forced),
@@ -61,9 +64,12 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs twelve paths (random weights from a seed), each with the launch
+5. runs fourteen paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
-   outputs:
+   outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
+   ``draft_slots`` and ``faults`` run the model cut to ``CUT_LAYERS`` of
+   its layers (full width), which pays for ``async`` and ``watchdog``
+   inside the time limit:
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
                 full-depth qwen3-1.7b with the fixed decode batch (epoch 0
                 vanilla, epoch 1 the one-pass speculative branch);
@@ -136,6 +142,19 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 the SPEC-RL cache the first round filled) and merged back,
                 the other rows untouched (``train dapo`` line: each
                 round's reuse, time and launches);
+   ``async``    the §12 loop on the full-depth model: ``AsyncTrainer`` over
+                a fresh GRPO trainer, three collections under version 0,
+                then one exact, one importance-corrected and one
+                re-verified step (the one-pass branch under the current
+                weights); the served and the published weights equal the
+                trainer's bit for bit and share no storage with them;
+                ``async produce`` / ``async step`` lines with the stage
+                split and peak GiB by stage, then the loop's counters;
+   ``watchdog`` the trainer watchdog on the model cut to
+                ``WATCHDOG_LAYERS`` layers: a healthy step snapshots, NaN
+                in every parameter and moment and a NaN loss, the restore
+                bit-exact in place, ``step_idx`` kept, the next step
+                finite; the snapshot's bytes and save and load seconds;
    ``serve``    one run of ``python -m repro_torch.launch.serve`` on the
                 card (its reduced config, ``--spec-prefix --arrival-every
                 2``);
@@ -151,11 +170,13 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 nudged by 1e-7, at full depth (within ``CHAOS_FACTOR``) and
                 cut to one layer (within ``CONSISTENCY_TOL``);
    after ``rollout``, ``slots``, ``paged`` and ``rwkv``, a ``breakdown``
-   line shows where 16 decode steps of the path's decode loop spend their
-   time (host wall time, device busy time, kernel launches, top kernels
-   and host ops from ``torch.profiler``; the drafted loop's:
-   ``tools/draft_breakdown.py``);
-6. prints the decode kernels' launches by path and T, each path's read
+   line shows where 16 decode steps of the path's decode loop (at full
+   depth) spend their time (host wall time, device busy time, kernel
+   launches, top kernels and host ops from ``torch.profiler``, read from
+   a complete trace: a marker before and after the call; the drafted
+   loop's: ``tools/draft_breakdown.py``);
+6. prints each phase's start and seconds, the profiler lead-in's lost
+   records by session, the decode kernels' launches by path and T, each path's read
    in the same window as its launches (blocks of T > 1 on the draft paths
    and nowhere else: no earlier prefill, verify or score moved off
    ``flash_attention``), one ``{"kernels": [...]}`` JSON line (launches
@@ -176,6 +197,7 @@ import copy
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -212,6 +234,16 @@ SPIN_CYCLES = 1_000_000     # about 0.5 ms of the card's clock before each
 PROFILE_SESSIONS = 3        # profiler sessions a device_ms may take for a
                             # complete trace
 PROFILE_PAD_S = 0.01        # host time at both ends of a session's window
+# a profiler session can drop the first device records of its window, more
+# of them the more sessions the process has profiled (the smoke's
+# "profiler lead-in" line counts them).  So each window opens with LEAD_IN
+# marker kernels of one cycle, waited for, which take that loss; the
+# session's own markers spin MARK_CYCLES (about 50 us), and a marker is the
+# session's when its device time is at least MARK_MIN_US
+LEAD_IN = 256
+LEAD_IN_LOST = []           # the lead-in's records lost, session by session
+MARK_CYCLES = 100_000
+MARK_MIN_US = 20.0
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
@@ -238,6 +270,14 @@ DRAFT_SLOTS_N = 64              # cut from N to keep the smoke in 15 min
 WITNESS_N, WITNESS_TS = 128, (2, 9)
 WITNESS_GAP_MAX = 0.125
 SLOTS = 8                       # decode slots of the slot-backfill path
+# depth cuts that pay for the async and watchdog phases inside the 1,200 s
+# limit: these paths run the qwen3-1.7b model cut to CUT_LAYERS of its 28
+# layers at full width (``cut_depth``: its first layers, sharing its
+# tensors), so their launch counts follow the cut model; each check of
+# theirs is unchanged
+CUT_LAYERS = 14
+CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
+             "faults")
 LENIENCE = 0.99
 SEED = 0
 # the train path's float32 witness: two layers at full width, the first
@@ -323,27 +363,27 @@ class Timer:
         device time (us), any other kernel's launches (the flush aside) and
         every device event."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(pad_s)
+
+        def body():
             for _ in range(reps):
-                torch.cuda._sleep(1)
+                torch.cuda._sleep(MARK_CYCLES)
                 self.flush.zero_()
                 fn()
-            torch.cuda._sleep(1)
-            torch.cuda.synchronize()
-            time.sleep(pad_s)
-        out = dict(markers=0, launches=0, us=0.0, others=0, events=0)
-        for e in prof.key_averages():
+            torch.cuda._sleep(MARK_CYCLES)
+
+        events = profile_window(torch, body, pad_s)
+        markers, lead_in = marker_counts(events)
+        out = dict(markers=markers, lead_in_lost=LEAD_IN - lead_in,
+                   launches=0, us=0.0, others=0, events=0)
+        for e in events.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
             out["events"] += e.count
-            if "spin_kernel" in e.key:
-                out["markers"] += e.count
-            elif kernel in e.key:
+            if MARKER in e.key:
+                continue
+            if kernel in e.key:
                 out["us"] += e.self_device_time_total
                 out["launches"] += e.count
             elif "FillFunctor" not in e.key and "Memset" not in e.key:
@@ -370,7 +410,8 @@ class Timer:
                 break
             log(f"profiler session {attempt} of {kernel}: a trace with "
                 f"{got['markers']} of {reps + 1} markers and "
-                f"{got['events']} device events lost device events")
+                f"{got['events']} device events lost device events "
+                f"({got['lead_in_lost']} of the lead-in's {LEAD_IN})")
         require(got["markers"] == reps + 1,
                 f"the profiler lost device events in each of "
                 f"{PROFILE_SESSIONS} sessions of {kernel}: {got}")
@@ -379,6 +420,48 @@ class Timer:
                 f"trace: {got}")
         return (got["us"] / got["launches"] / 1e3, got["launches"] / reps,
                 got["others"] / reps)
+
+
+MARKER = "spin_kernel"       # torch.cuda._sleep's kernel, a session's marker
+
+
+def profile_window(torch, body, pad_s: float = PROFILE_PAD_S):
+    """The events (``prof.events()``) of one ``torch.profiler`` session
+    around ``body()``, which launches its own markers
+    (``torch.cuda._sleep(MARK_CYCLES)``).  The window opens with the
+    ``LEAD_IN`` one-cycle markers, waited for, and closes on a
+    synchronise, with ``pad_s`` of host time after the lead-in and at the
+    end: a window that closes on the card's last work is the case in which
+    the profiler has lost a session's device events
+    (``tools/profiler_probe.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+        body()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    return prof.events()
+
+
+def marker_counts(events):
+    """(the session's markers, the lead-in's markers) in a trace, told
+    apart by device time (``MARK_MIN_US``)."""
+    from torch.autograd import DeviceType
+
+    long = short = 0
+    for e in events:
+        if e.device_type == DeviceType.CUDA and MARKER in e.name:
+            if e.time_range.elapsed_us() >= MARK_MIN_US:
+                long += 1
+            else:
+                short += 1
+    LEAD_IN_LOST.append(LEAD_IN - short)
+    return long, short
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -1300,6 +1383,17 @@ def small_reference(torch, arch: str, tol: float, tol_f32=None,
 # ---------------------------------------------------------------- main paths
 
 
+def cut_depth(model, cfg, layers: int):
+    """``model`` cut to its first ``layers`` layers at full width, sharing
+    its tensors (no copy), with the config to run it by."""
+    cut_cfg = cfg.replace(num_layers=layers)
+    cut = copy.copy(model)
+    cut._modules = dict(model._modules)     # not the model's own dict
+    cut.layers = type(model.layers)(list(model.layers)[:layers])
+    cut.cfg = cut_cfg
+    return cut, cut_cfg
+
+
 def setup_model(torch, arch: str = "qwen3-1.7b", dtype=None):
     """A full-width, full-depth model with random weights from ``SEED``
     (in ``dtype`` for parameters and activations, if given, else the
@@ -1490,7 +1584,6 @@ def slots_path(torch, model, cfg, batch, gen):
                  "cache_roll", "cache_slot_write"):
         require(launches[name] > 0, f"kernel {name} was not launched on the "
                 "slots path")
-    engine_breakdown(torch, model, cfg, gen, batch)
     return launches, rbs
 
 
@@ -1958,7 +2051,6 @@ def paged_path(torch, model, cfg, batch, gen):
                 "paged path")
     require(launches["decode_attention"] == 0, "the paged path launched the "
             f"dense decode kernel {launches['decode_attention']} times")
-    generate_breakdown(torch, model, paged, gen, batch)
     return launches
 
 
@@ -2488,6 +2580,233 @@ def dapo_path(torch, model, cfg, batch):
     return launches
 
 
+# the async path (§12): ASYNC_SCHEDULE lets three collections land under
+# version 0 before the first consumer step, so the three steps consume
+# trajectories 0, 1 and 2 versions old: exact, IS-corrected (within the
+# window ASYNC_K) and re-verified (past it)
+ASYNC_SCHEDULE, ASYNC_K, ASYNC_CAPACITY, ASYNC_STEPS = "pppccc", 1, 4, 3
+ASYNC_KEYS = ("collect_time", "old_logprob_time", "ref_time", "adv_time",
+              "update_actor_time", "loss", "grad_norm", "reward_mean",
+              "n_generated", "n_reused", "one_pass", "is_weight_mean",
+              "reverified", "traj_version", "policy_version")
+
+
+def same_weights(torch, label, got, want):
+    """Every tensor of ``got`` (name → tensor) equal to ``want``'s bit for
+    bit, and none sharing storage with it."""
+    require(set(got) == set(want), f"{label}: parameter names differ")
+    shared = [n for n in want if got[n].data_ptr() == want[n].data_ptr()]
+    require(not shared, f"{label}: {len(shared)} tensors share storage "
+            f"with the trainer's, e.g. {shared[:3]}")
+    off = [n for n in want if not torch.equal(got[n].to(want[n].device),
+                                              want[n])]
+    require(not off, f"{label}: {len(off)} tensors differ from the "
+            f"trainer's, e.g. {off[:3]}")
+
+
+def async_path(torch, model, cfg, batch):
+    """The async rollout ↔ train seam on the full-depth model: a fresh GRPO
+    ``make_trainer`` under ``AsyncTrainer`` (``ASYNC_SCHEDULE``, window
+    ``ASYNC_K``) for ``ASYNC_STEPS`` consumer steps.  The rollout service
+    samples with its own copy of the weights: at the bootstrap install and
+    at each publish the served (or published) weights must equal the
+    trainer's bit for bit and share no storage with them.  One line per
+    producer tick and per consumer step (staleness, branch, work, stage
+    split, peak GiB by stage), then the loop's counters.  Returns the
+    launches."""
+    import numpy as np
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.rl import trainer as T
+    from repro_torch.rl.async_loop import AsyncConfig, AsyncTrainer
+
+    tr = make_trainer(cfg, model, "grpo")
+    trained = dict(tr.model.named_parameters())
+    with StageSpy(torch, tr, T) as spy:
+        at = AsyncTrainer(tr, AsyncConfig(
+            staleness_window=ASYNC_K, buffer_capacity=ASYNC_CAPACITY,
+            schedule=ASYNC_SCHEDULE))
+        same_weights(torch, "async bootstrap install",
+                     dict(at.service.model.named_parameters()), trained)
+        served = sum(p.numel() * p.element_size()
+                     for p in at.service.model.parameters())
+        log(f"async: the served copy holds {served} bytes")
+        publish, tick, consume = (at.sync.publish, at.producer_tick,
+                                  at.consumer_step)
+        at._reverify = spy._wrap(at._reverify, lambda a: "reverify")
+        published = []
+
+        def spy_publish(mdl, version):
+            ok = publish(mdl, version)
+            require(ok, f"async: publish of version {version} failed")
+            same_weights(torch, f"async publish v{version}",
+                         at.sync.poll()[1], trained)
+            published.append(version)
+            return ok
+
+        def spy_tick():
+            t0 = time.perf_counter()
+            ok = tick()
+            st = spy.take()
+            traj = at.buffer._q[-1] if ok else None
+            log("async produce " + json.dumps({
+                "tick": at.service.ticks - 1, "produced": ok,
+                "wall_s": time.perf_counter() - t0,
+                **({} if traj is None else {
+                    "version": traj.version,
+                    **{k: traj.rb.metrics[k] for k in (
+                        "n_generated", "n_reused", "one_pass",
+                        "collect_time") if k in traj.rb.metrics}}),
+                "launches": {k: v["launches"] for k, v in st.items()},
+                "peak_gib": {k: v["peak_gib"] for k, v in st.items()}}))
+            return ok
+
+        steps = []
+
+        def spy_consume():
+            m = consume()
+            if m is None:
+                return m
+            st = spy.take()
+            branch = ("reverify" if m.get("reverified") else
+                      "is" if m["staleness"] > 0 else "exact")
+            steps.append((branch, m, st))
+            log("async step " + json.dumps({
+                "step": len(steps) - 1, "staleness": m["staleness"],
+                "branch": branch, **stage_line(m, st, ASYNC_KEYS)}))
+            return m
+
+        at.sync.publish = spy_publish
+        at.producer_tick, at.consumer_step = spy_tick, spy_consume
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = at.run(ASYNC_STEPS)
+        launches = read_launches()
+    log("async counters " + json.dumps(at.counters()))
+    log(f"async path launches: {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require([b for b, _, _ in steps] == ["exact", "is", "reverify"]
+            and [m["staleness"] for m in out] == [0.0, 1.0, 2.0],
+            f"async: steps {[(b, m['staleness']) for b, m, _ in steps]}, "
+            "want one exact, one IS-corrected and one re-verified")
+    require((at.exact_steps, at.is_steps, at.reverified) == (1, 1, 1),
+            f"async: counters {at.counters()}")
+    require(all(np.isfinite(m["loss"]) for m in out),
+            f"async: losses {[m['loss'] for m in out]}")
+    require("is_weight_mean" in out[1] and "is_weight_mean" not in out[0],
+            "async: the IS step carries no is_weight_mean")
+    require(out[2]["one_pass"] == 1.0 and "reverify" in steps[2][2],
+            f"async: the re-verify took one_pass {out[2]['one_pass']}")
+    require(published == [1, 2, 3], f"async: published {published}")
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "async path")
+    check_scoring("async", {k: v for _, _, st in steps for k, v in
+                            st.items()}, cfg.num_layers)
+    return launches
+
+
+# the watchdog path (§10) cuts the depth to WATCHDOG_LAYERS at full width:
+# a full-size snapshot is 2,031,739,904 x (2 + 4 + 4) B, about 20.3 GB of
+# bf16 weights and float32 moments to write and read back (worked out from
+# the code, not measured); at 4 layers it is about 8.2 GB
+WATCHDOG_LAYERS = 4
+
+
+def watchdog_path(torch, cfg, batch):
+    """The trainer watchdog on the qwen3-1.7b model cut to
+    ``WATCHDOG_LAYERS`` layers (full width, weights from ``SEED``): one
+    healthy GRPO step under ``TrainWatchdog(snapshot_every=1)`` (it
+    snapshots), every parameter poisoned with NaN in place, ``after_step``
+    with a NaN loss; the restore must bring back every parameter and
+    moment bit for bit into the same tensors, leave ``step_idx`` where it
+    was, and the next ``train_step`` must have a finite loss.  The
+    snapshot lives in a temporary directory under ``chiprun_out/``,
+    removed after.  Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.rl.watchdog import TrainWatchdog, WatchdogConfig
+
+    cut = cfg.replace(num_layers=WATCHDOG_LAYERS)
+    model = M.init_lm(cut, seed=SEED, device="cuda")
+    reset_launches()
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR, prefix="watchdog_") as d:
+        wd = TrainWatchdog(WatchdogConfig(checkpoint_dir=d,
+                                          snapshot_every=1))
+        tr = make_trainer(cut, model, "grpo")
+        tr.watchdog = wd
+        saves, loads = [], []
+        snapshot, restore = wd.snapshot, wd.restore
+
+        def timed(fn, out):
+            def run(trainer):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(trainer)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+                return r
+            return run
+
+        wd.snapshot, wd.restore = timed(snapshot, saves), timed(restore,
+                                                                 loads)
+        m0 = tr.train_step(batch)
+        require(np.isfinite(m0["loss"]) and wd.snapshots == 1,
+                f"watchdog: healthy step loss {m0['loss']}, "
+                f"{wd.snapshots} snapshots")
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+        good = [p.detach().clone() for p in model.parameters()]
+        moments = [t.clone() for t in tr.opt_state["mu"]
+                   + tr.opt_state["nu"]]
+        ptrs = [p.data_ptr() for p in model.parameters()]
+        step_idx = tr.step_idx
+        with torch.no_grad():
+            for p in model.parameters():
+                p.fill_(float("nan"))
+            for t in tr.opt_state["mu"] + tr.opt_state["nu"]:
+                t.fill_(float("nan"))
+        verdict = {"loss": float("nan"), "reward_mean": 0.0}
+        wd.after_step(tr, verdict)
+        require(verdict.get("watchdog_restored") == 1.0
+                and wd.nonfinite_steps == 1,
+                f"watchdog: no restore after a NaN loss: {verdict}")
+        require(tr.model is model
+                and [p.data_ptr() for p in model.parameters()] == ptrs,
+                "watchdog: the restore did not write into the live model")
+        off = sum(not torch.equal(a, b) for a, b in zip(
+            model.parameters(), good))
+        off_m = sum(not torch.equal(a, b) for a, b in zip(
+            tr.opt_state["mu"] + tr.opt_state["nu"], moments))
+        require(off == 0 and off_m == 0,
+                f"watchdog: {off} parameters and {off_m} moments differ "
+                "from the snapshot after the restore")
+        require(tr.step_idx == step_idx, f"watchdog: step_idx rolled back "
+                f"to {tr.step_idx} from {step_idx}")
+        del good, moments
+        m1 = tr.train_step(batch)
+        require(np.isfinite(m1["loss"]), f"watchdog: the step after the "
+                f"restore has loss {m1['loss']}")
+        log("watchdog " + json.dumps({
+            "layers": WATCHDOG_LAYERS, "params": M.count_params(model),
+            "snapshot_bytes": nbytes, "save_s": saves, "load_s": loads,
+            "loss_before": m0["loss"], "loss_after": m1["loss"],
+            "step_idx": tr.step_idx,
+            **{k: v for k, v in m1.items() if k.startswith("watchdog_")}}))
+    launches = read_launches()
+    log(f"watchdog path launches: {launches}")
+    for name in ("decode_attention", "flash_attention"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "watchdog path")
+    return launches
+
+
 def update_tol(p0, g, lr, scale, eps=1e-8):
     """Tolerance of a parameter after AdamW's first step from a gradient
     ``g`` known within δ = GRAD_NOISE · max|g·scale|: 1e-6 of the update's
@@ -2777,33 +3096,54 @@ _PROFILE_ROWS = ["what\tside\tname\tcalls\tself_ms"]
 def time_breakdown(torch, what: str, run):
     """Where the time of ``run()`` goes: host wall time without the
     profiler, then device busy time, CUDA kernel launches and the top
-    kernels and host ops from ``torch.profiler`` over the same call."""
+    kernels and host ops from ``torch.profiler`` over the same call.  The
+    profiled call follows ``Timer.device_ms``'s rule: ``profile_window``'s
+    padded window, a marker kernel before the call and one after it, and
+    a trace read only when it holds both (else profiled again, up to
+    ``PROFILE_SESSIONS`` times, then a failure with the counts).  The
+    markers stay out of every figure: device busy time, launches, the top
+    kernels and the ``.tsv``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def timed():
         run()
         torch.cuda.synchronize()
 
+    def marked():
+        torch.cuda._sleep(MARK_CYCLES)
+        run()
+        torch.cuda._sleep(MARK_CYCLES)
+
     timed()
     t0 = time.perf_counter()
     timed()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        timed()
-    events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    for sessions in range(1, PROFILE_SESSIONS + 1):
+        trace = profile_window(torch, marked)
+        markers, lead_in = marker_counts(trace)
+        events = trace.key_averages()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        if markers == 2:
+            break
+        log(f"profiler session {sessions} of breakdown {what!r}: a trace "
+            f"with {markers} of 2 markers and "
+            f"{sum(e.count for e in device)} device events lost device "
+            f"events ({LEAD_IN - lead_in} of the lead-in's {LEAD_IN})")
+    require(markers == 2,
+            f"the profiler lost device events in each of {PROFILE_SESSIONS} "
+            f"sessions of breakdown {what!r}: {markers} of 2 markers")
+    kernels = sorted((e for e in device if MARKER not in e.key),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     launches = sum(e.count for e in host              # and ...KernelExC
-                   if e.key.startswith("cudaLaunchKernel"))
+                   if e.key.startswith("cudaLaunchKernel")) - LEAD_IN - 2
     log("breakdown " + json.dumps({
         "what": what, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "cuda_launches": launches,
+        "cuda_launches": launches, "profiler_sessions": sessions,
+        "lead_in_lost": LEAD_IN - lead_in,
         "top_kernels": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                         for e in kernels[:8]],
         "top_host_ops": [[e.key[:60], e.count, e.self_cpu_time_total / 1e3]
@@ -2892,36 +3232,48 @@ def main() -> int:
 
     high_seed = make_key(2 ** 64 - 1).uniform((4,)).tolist()
     log(f"make_key(2**64 - 1) on the card draws {high_seed}")
+
+    def run(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        log(f"phase {label} starts {t0 - t_start:.1f} s into the smoke")
+        out = fn(*args, **kw)
+        log(f"phase {label} took {time.perf_counter() - t0:.1f} s")
+        return out
+
     timer = Timer(torch)
-    records = kernel_checks(torch, timer)
+    records = run("kernels", kernel_checks, torch, timer)
     del timer
     torch.cuda.empty_cache()
-    small_reference(torch, "qwen3-1.7b", SMALL_TOL["qwen3-1.7b"],
-                    num_kv_heads=2)
-    small_reference(torch, "rwkv6-3b", SMALL_TOL["rwkv6-3b"],
-                    tol_f32=SMALL_TOL_F32)
+    run("small qwen", small_reference, torch, "qwen3-1.7b",
+        SMALL_TOL["qwen3-1.7b"], num_kv_heads=2)
+    run("small rwkv", small_reference, torch, "rwkv6-3b",
+        SMALL_TOL["rwkv6-3b"], tol_f32=SMALL_TOL_F32)
     model, cfg, batch, gen = setup_model(torch)
-
-    def run(label, fn, *args):
-        log(f"phase {label} starts {time.perf_counter() - t_start:.1f} s "
-            "into the smoke")
-        return fn(*args)
-
+    cut_model, cut_cfg = cut_depth(model, cfg, CUT_LAYERS)
+    log(f"paths {', '.join(CUT_PATHS)} run the model cut to {CUT_LAYERS} "
+        f"of its {cfg.num_layers} layers")
     paths = {"rollout": run("rollout", main_path, torch, model, cfg, batch,
                             gen)}
-    paths["slots"], slots_rbs = run("slots", slots_path, torch, model, cfg,
-                                    batch, gen)
-    paths["paged"] = run("paged", paged_path, torch, model, cfg, batch, gen)
-    paths["paged_slots"] = run("paged_slots", paged_slots_path, torch, model,
-                               cfg, batch, gen, slots_rbs)
-    paths["draft"] = run("draft", draft_path, torch, model, cfg, batch, gen)
+    paths["slots"], slots_rbs = run("slots", slots_path, torch, cut_model,
+                                    cut_cfg, batch, gen)
+    run("slot engine breakdown", engine_breakdown, torch, model, cfg, gen,
+        batch)
+    paths["paged"] = run("paged", paged_path, torch, cut_model, cut_cfg,
+                         batch, gen)
+    run("paged breakdown", generate_breakdown, torch, model,
+        cfg.replace(cache_layout="paged"), gen, batch)
+    paths["paged_slots"] = run("paged_slots", paged_slots_path, torch,
+                               cut_model, cut_cfg, batch, gen, slots_rbs)
+    paths["draft"] = run("draft", draft_path, torch, cut_model, cut_cfg,
+                         batch, gen)
     run("greedy witness", greedy_witness, torch, model, cfg, batch, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["draft_slots"] = run("draft_slots", draft_slots_path, torch, model,
-                               cfg, batch, gen)
-    paths["faults"] = run("faults", faults_path, torch, model, cfg, batch,
-                          gen)
+    paths["draft_slots"] = run("draft_slots", draft_slots_path, torch,
+                               cut_model, cut_cfg, batch, gen)
+    paths["faults"] = run("faults", faults_path, torch, cut_model, cut_cfg,
+                          batch, gen)
+    del cut_model
     paths["train"], rb1 = run("train", train_path, torch, model, cfg, batch)
     gc.collect()                # the GRPO trainer's reference and moments
     torch.cuda.empty_cache()
@@ -2929,10 +3281,16 @@ def main() -> int:
     gc.collect()                # the PPO trainer's critic and moments
     torch.cuda.empty_cache()
     paths["dapo"] = run("dapo", dapo_path, torch, model, cfg, batch)
+    gc.collect()                # the DAPO trainer
+    torch.cuda.empty_cache()
+    paths["async"] = run("async", async_path, torch, model, cfg, batch)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    train_witness(torch, rb1)
+    paths["watchdog"] = run("watchdog", watchdog_path, torch, cfg, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("train witness", train_witness, torch, rb1)
     torch.cuda.empty_cache()
     paths["serve"] = run("serve", serve_path, torch)
     paths["rwkv"], records["wkv"]["launches_by_t"] = run("rwkv", rwkv_path,
@@ -2960,6 +3318,8 @@ def main() -> int:
         rec["launches_by_path"] = {p: paths[p][name] for p in paths}
         rec["launches"] = sum(rec["launches_by_path"].values())
         require(rec["launches"] > 0, f"kernel {name} was launched on no path")
+    log(f"profiler lead-in: {len(LEAD_IN_LOST)} sessions, records lost of "
+        f"the lead-in's {LEAD_IN} by session {LEAD_IN_LOST}")
     log(f"chip smoke: all checks passed in {time.perf_counter() - t_start:.1f} s "
         f"(make_key(2**64 - 1) on the card drew {high_seed})")
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -3,13 +3,12 @@ of ``repro/core/backoff.py``, which imports no JAX).
 
 One retry policy for every layer that talks across a failure domain: in
 the port, the slot engine's reclaim→resubmit path
-(serving/engine_loop.py, ``retry_backoff=``); the async trainer's weight
-publication comes with the async rollout (ROADMAP Queue 1 item 8).  The
+(serving/engine_loop.py, ``retry_backoff=``) and the async trainer's
+weight publication (serving/rollout_service.py, ``WeightSync``).  The
 schedule is a pure function of (config, attempt) — no wall clock, no
 global RNG — so tests and the deterministic async scheduler can replay it
-exactly, and
-the same config can express delays in seconds (weight sync) or in
-engine steps (slot retries).
+exactly, and the same config can express delays in seconds (weight sync)
+or in engine steps (slot retries).
 
 ``retry`` takes an injectable ``sleep`` so production code sleeps for
 real while tests pass a recorder and pay nothing.

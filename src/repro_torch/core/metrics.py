@@ -202,16 +202,18 @@ def self_bleu(rollouts: List[np.ndarray], max_n: int = 4,
 
 def summarize(history: List[Dict[str, float]], keys: Sequence[str],
               percentiles: bool = False) -> Dict[str, float]:
-    """Per-key mean over a metrics history.  JAX's ``percentiles=True``
-    adds ``{k}_min/_max/_p50/_p95/_p99`` through the §11 histogram helper,
-    which arrives with the observatory (ROADMAP Queue 1 item 9)."""
-    if percentiles:
-        raise NotImplementedError("summarize(percentiles=True) needs the "
-                                  "§11 histogram helper of the observatory "
-                                  "(ROADMAP Queue 1 item 9)")
+    """Per-key mean over a metrics history; with ``percentiles=True`` each
+    key additionally reports ``{k}_min/_max/_p50/_p95/_p99`` via the §11
+    log-bucketed histogram helper (``obs.extend_summary``: the tail, not
+    just the mean; the watchdog's stall detector reads the same p95)."""
+    from repro_torch.obs import extend_summary
     out = {}
     for k in keys:
         vals = [h[k] for h in history if k in h]
-        if vals:
-            out[k] = float(np.mean(vals))
+        if not vals:
+            continue
+        out[k] = float(np.mean(vals))
+        if percentiles:
+            for suffix, v in extend_summary(vals).items():
+                out[f"{k}_{suffix}"] = v
     return out

@@ -7,6 +7,10 @@ GRPO, PPO or DAPO trainer (``--algo``) with the SPEC-RL rollout.
         --steps 2 --algo ppo
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
         --steps 2 --draft 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
+        --steps 2 --async --async-schedule ppcc --staleness-window 1
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
+        --steps 3 --watchdog-dir /tmp/wd --watchdog-every 1
     PYTHONPATH=src python -m repro_torch.launch.train --steps 10
 
 Runs on the card unless ``--device cpu``.  ``--smoke`` selects the arch's
@@ -16,15 +20,19 @@ JAX's float32.  The key is ``make_key(0)`` as JAX's is ``PRNGKey(0)``.
 ``--draft K`` turns on the §9 draft engine (n-gram drafts of up to K
 tokens; ``--draft-fixed`` keeps K instead of the adaptive length), and the
 step line then carries ``tok/fwd``, ``draft_acc`` and ``draft_len``.
+``--async`` runs the §12 disaggregated loop (``rl/async_loop.py``:
+``--staleness-window``, ``--buffer-capacity``, ``--publish-every``,
+``--async-schedule``); each step line then carries ``staleness=`` and
+``mode=`` and the run ends with the ``async k=v`` counter lines.
+``--watchdog-dir`` attaches the §10 trainer watchdog (``--watchdog-every``,
+``--watchdog-max-collect-time``).
 
 Every flag of a feature the port does not have yet raises and names its
-ROADMAP Queue 1 item when it is set away from its default: ``--async``,
-``--staleness-window``,
-``--buffer-capacity``, ``--publish-every``, ``--async-schedule`` and the
-``--watchdog-*`` flags (item 8), ``--ledger``, ``--decision-log``,
-``--alerts``, ``--trace-dir``, ``--trace-sample-rate`` and ``--metrics``
-(item 9), ``--mesh-data``, ``--mesh-model`` and ``--require-mesh`` (item
-11).  At their defaults they are accepted, as in JAX.
+ROADMAP Queue 1 item when it is set away from its default: ``--ledger``,
+``--decision-log``, ``--alerts``, ``--trace-dir``, ``--trace-sample-rate``
+and ``--metrics`` (item 9, the observatory hooks), ``--mesh-data``,
+``--mesh-model`` and ``--require-mesh`` (item 11, the mesh).  At their
+defaults they are accepted, as in JAX.
 """
 from __future__ import annotations
 
@@ -43,19 +51,13 @@ from repro_torch.engine.sampling import make_key
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
+from repro_torch.rl.async_loop import AsyncConfig, AsyncTrainer
 from repro_torch.rl.trainer import ALGOS, RLConfig, Trainer
+from repro_torch.rl.watchdog import TrainWatchdog, WatchdogConfig
 
 # flag -> (ROADMAP Queue 1 item, its feature) for flags that must stay at
 # their default until the item lands
 UNPORTED_FLAGS = {
-    "async_mode": (8, "async rollout and watchdog"),
-    "staleness_window": (8, "async rollout and watchdog"),
-    "buffer_capacity": (8, "async rollout and watchdog"),
-    "publish_every": (8, "async rollout and watchdog"),
-    "async_schedule": (8, "async rollout and watchdog"),
-    "watchdog_dir": (8, "async rollout and watchdog"),
-    "watchdog_every": (8, "async rollout and watchdog"),
-    "watchdog_max_collect_time": (8, "async rollout and watchdog"),
     "ledger": (9, "the observatory hooks"),
     "decision_log": (9, "the observatory hooks"),
     "alerts": (9, "the observatory hooks"),
@@ -97,18 +99,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft-fixed", action="store_true",
                    help="draft K tokens every forward (no adaptive length)")
     p.add_argument("--async", dest="async_mode", action="store_true",
-                   help="disaggregated rollout (ROADMAP Queue 1 item 8, "
-                        "async rollout)")
-    p.add_argument("--staleness-window", type=int, default=1, metavar="K")
-    p.add_argument("--buffer-capacity", type=int, default=8)
-    p.add_argument("--publish-every", type=int, default=1)
-    p.add_argument("--async-schedule", default="pc")
+                   help="§12 disaggregated mode: a rollout service feeding "
+                        "a bounded trajectory buffer, consumed by the "
+                        "trainer under a bounded staleness window")
+    p.add_argument("--staleness-window", type=int, default=1, metavar="K",
+                   help="async: trajectories <= K versions old are "
+                        "IS-corrected, older ones re-verified (K=0 is "
+                        "token-identical to the synchronous trainer)")
+    p.add_argument("--buffer-capacity", type=int, default=8,
+                   help="async: trajectory buffer bound (shed-oldest)")
+    p.add_argument("--publish-every", type=int, default=1,
+                   help="async: publish weights every N optimizer steps")
+    p.add_argument("--async-schedule", default="pc",
+                   help="async: producer/consumer interleave, e.g. 'ppcc'")
     p.add_argument("--watchdog-dir", default="",
-                   help="trainer watchdog (ROADMAP Queue 1 item 8, the "
-                        "watchdog)")
-    p.add_argument("--watchdog-every", type=int, default=10)
+                   help="§10 trainer watchdog: snapshot here on healthy "
+                        "steps, restore-last-good on a non-finite loss or "
+                        "a stalled rollout")
+    p.add_argument("--watchdog-every", type=int, default=10,
+                   help="healthy-step snapshot cadence (steps)")
     p.add_argument("--watchdog-max-collect-time", type=float,
-                   default=float("inf"))
+                   default=float("inf"),
+                   help="rollout stall threshold in seconds")
     p.add_argument("--ledger", action="store_true",
                    help="token-provenance ledger (ROADMAP Queue 1 item 9, "
                         "the observatory)")
@@ -165,12 +177,19 @@ def main(argv=None) -> int:
              else DraftConfig())
     spec = SpecConfig(variant=args.variant, lenience=args.lenience,
                       draft=draft)
-    tr = Trainer(cfg, rl, spec, ds, make_key(0, device), device=device)
+    watchdog = None
+    if args.watchdog_dir:
+        watchdog = TrainWatchdog(WatchdogConfig(
+            checkpoint_dir=args.watchdog_dir,
+            snapshot_every=args.watchdog_every,
+            max_collect_time=args.watchdog_max_collect_time))
+    tr = Trainer(cfg, rl, spec, ds, make_key(0, device), device=device,
+                 watchdog=watchdog)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"arch={cfg.name} devices={n_dev} device={device.type} mesh=off "
           f"params={M.count_params(tr.model) / 1e6:.1f}M")
-    for _ in range(args.steps):
-        m = tr.train_step()
+
+    def step_line(m):
         line = (f"step {m['step']:3.0f} reward={m['reward_mean']:.3f} "
                 f"gen_tok={m.get('n_generated', 0):6.0f} "
                 f"reused={m.get('n_reused', 0):6.0f}")
@@ -178,7 +197,34 @@ def main(argv=None) -> int:
             line += (f" tok/fwd={m.get('tokens_per_forward', 1.0):.2f} "
                      f"draft_acc={m.get('draft_accept_rate', 0.0):.2f} "
                      f"draft_len={m.get('draft_mean_len', 0.0):.2f}")
-        print(line, flush=True)
+        return line
+
+    if not args.async_mode:
+        for _ in range(args.steps):
+            print(step_line(tr.train_step()), flush=True)
+        return 0
+    at = AsyncTrainer(tr, AsyncConfig(
+        staleness_window=args.staleness_window,
+        buffer_capacity=args.buffer_capacity,
+        publish_every=args.publish_every, schedule=args.async_schedule))
+    print(f"async: K={args.staleness_window} buffer={args.buffer_capacity} "
+          f"schedule={args.async_schedule!r}")
+    sched, i, done, idle = args.async_schedule, 0, 0, 0
+    while done < args.steps and idle < 10000:
+        role = sched[i % len(sched)]
+        i += 1
+        if role == "p":
+            at.producer_tick()
+            continue
+        m = at.consumer_step()
+        if m is None:
+            idle += 1
+            continue
+        idle, done = 0, done + 1
+        print(step_line(m) + f" staleness={m.get('staleness', 0.0):.0f} "
+              f"mode={m.get('async_mode_level', 0.0):.0f}", flush=True)
+    for k, v in sorted(at.counters().items()):
+        print(f"async {k}={v:.0f}")
     return 0
 
 

@@ -27,11 +27,17 @@ trainer takes an optional ``model`` (else it draws one from ``k1``) and a
 ``device`` (the card unless ``"cpu"``); PPO's critic, of the actor's
 config, is drawn from ``k2``.
 
+``optimize`` is also the consumer half of the async loop
+(``rl/async_loop.py``), whose provenance (``extra_metrics``: staleness,
+buffer counters, mode) joins the step's metrics.  The step log goes
+through ``obs.MetricsRegistry.from_flat(...).as_dict()``, JAX's audited
+flat namespace, and an attached ``rl/watchdog.py:TrainWatchdog`` sees the
+step last (it may restore the last good snapshot in place and always adds
+its counters).  ``spec.draft`` reaches the rollout (the §9 draft engine).
+
 Not ported yet, and raising with their ROADMAP Queue 1 item: the mesh
-(item 11), the watchdog (item 8) and the tracer and alerts (item 9, the
-observatory hooks).  ``spec.draft`` reaches the rollout (the §9 draft
-engine).  With none of them passed
-there is nothing of theirs to do.
+(item 11) and the tracer and alerts (item 9, the observatory hooks).
+With neither passed there is nothing of theirs to do.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from repro_torch.engine.generate import GenerateConfig, score, token_logprobs
 from repro_torch.engine.sampling import split_key
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import MetricsRegistry
 from repro_torch.optim import adamw
 from repro_torch.rewards.verifier import batch_rewards
 
@@ -217,8 +224,11 @@ class Collector:
     rollout cache, the lenience schedule and the collection key stream,
     everything ``train_step`` needs to turn the model into a rewarded
     batch (DAPO's resample rounds included), and nothing it needs to
-    update it.  (JAX's async rollout service drives the same object; in
-    the port it waits for ROADMAP Queue 1 item 8, the async rollout.)"""
+    update it.  The synchronous ``Trainer`` drives it in-process; the
+    async rollout service (``serving/rollout_service.py``) drives the same
+    object from the producer side with its own copy of the weights, so
+    both share one sampling RNG, one key stream and one SPEC-RL cache (the
+    K = 0 identity of ``rl/async_loop.py``)."""
 
     def __init__(self, model_cfg: ModelConfig, rl: RLConfig, spec: SpecConfig,
                  dataset: PromptDataset, key, lenience_schedule=None,
@@ -364,9 +374,6 @@ class Trainer:
                  tracer=None, alerts=None):
         if mesh is not None:
             raise _unported("the mesh", 11, "the mesh")
-        if watchdog is not None:
-            raise _unported("the trainer watchdog", 8,
-                            "async rollout and watchdog")
         if tracer is not None or alerts is not None:
             raise _unported("the tracer and alerts", 9,
                             "the observatory hooks")
@@ -395,6 +402,10 @@ class Trainer:
             self.critic_opt_state = adamw.init(trainable(self.critic))
         self.step_idx = 0
         self.history: List[Dict[str, float]] = []
+        # §10 watchdog (rl/watchdog.py): snapshots on healthy steps,
+        # restore-last-good + skip-the-batch on a non-finite loss or a
+        # stalled rollout stage.  None = no monitoring (the default).
+        self.watchdog = watchdog
         self.last_rb: Optional[RolloutBatch] = None
 
     # ------------------------------------------- collection-state delegation
@@ -475,12 +486,15 @@ class Trainer:
     def optimize(self, rb: RolloutBatch, rewards: np.ndarray,
                  times: Dict[str, float], *, behaviour_lp=None,
                  is_clip: Optional[float] = None,
+                 extra_metrics: Optional[Dict[str, float]] = None,
                  t_step0: Optional[float] = None) -> Dict[str, float]:
         """The optimization half of ``train_step``: old log-probs → (ref) →
         (values) → advantages → (critic update) → actor update, on an
         already-collected and rewarded rollout.  ``behaviour_lp`` (with cap
         ``is_clip``) switches on the truncated importance weights of stale
-        trajectories; ``None`` leaves the update the synchronous one."""
+        trajectories; ``None`` leaves the update the synchronous one.
+        ``extra_metrics`` (the async loop's provenance) joins the step's
+        metrics before the watchdog sees them."""
         if t_step0 is None:
             t_step0 = time.perf_counter()
         self.last_rb = rb
@@ -579,7 +593,19 @@ class Trainer:
             **{k: float(v) for k, v in times.items()
                if isinstance(v, (int, float))},
         }
-        metrics = {k: float(v) for k, v in metrics.items()}
+        if extra_metrics:
+            # async-loop provenance (staleness, buffer counters, mode) joins
+            # the flat namespace BEFORE the watchdog sees the step
+            metrics.update({k: float(v) for k, v in extra_metrics.items()})
+        # §11: the step log goes through a MetricsRegistry, the audited
+        # flat-float namespace the trainer shares with the other surfaces
+        metrics = MetricsRegistry.from_flat(metrics).as_dict()
+        if self.watchdog is not None:
+            # may restore the weights, moments and cache to the last
+            # snapshot in place (the poisoned update is undone; step_idx
+            # still advances below, so the bad batch is skipped, not
+            # replayed) — and always folds its counters into the metrics
+            self.watchdog.after_step(self, metrics)
         self.history.append(metrics)
         self.step_idx += 1
         return metrics

@@ -18,6 +18,10 @@
 - mesh_server: ``make_slot_engine``, the engine factory
 - rl_adapter:  ``rollout(..., spec.backfill='slots')``: a training batch
                drained through the slot engine (straggler backfill)
+- rollout_service: the §12 async producer — drives the shared trainer
+               Collector with its own copy of the weights and feeds the
+               bounded trajectory buffer; WeightSync is its versioned,
+               retrying (core/backoff) weight-publication channel
 """
 from .block_table import BlockAllocator, PoolExhausted, identity_table
 from .engine_loop import SlotEngine
@@ -25,9 +29,11 @@ from .faults import EngineKilled, FaultEvent, FaultPlan, seeded_plan
 from .mesh_server import make_slot_engine
 from .paged_engine import PagedSlotEngine
 from .request import Request, Response
+from .rollout_service import RolloutService, SyncFailed, WeightSync
 from .scheduler import SlotScheduler
 
 __all__ = ["BlockAllocator", "EngineKilled", "FaultEvent", "FaultPlan",
            "PagedSlotEngine", "PoolExhausted", "Request", "Response",
-           "SlotEngine", "SlotScheduler", "identity_table",
+           "RolloutService", "SlotEngine", "SlotScheduler", "SyncFailed",
+           "WeightSync", "identity_table",
            "make_slot_engine", "seeded_plan"]

@@ -265,7 +265,10 @@ SLICE_MODULES = (
     "repro_torch.core.backoff", "repro_torch.core.metrics",
     "repro_torch.drafting", "repro_torch.drafting.controller",
     "repro_torch.drafting.ngram", "repro_torch.drafting.step",
-    "repro_torch.drafting.engine")
+    "repro_torch.drafting.engine", "repro_torch.obs",
+    "repro_torch.obs.registry", "repro_torch.obs.trace",
+    "repro_torch.rl.traj_buffer", "repro_torch.rl.watchdog",
+    "repro_torch.rl.async_loop", "repro_torch.serving.rollout_service")
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -7,15 +7,17 @@
 from ``Timer.device_ms``, one profiler session of 20 calls, and fails when
 the trace shows no launch of the kernel.  This script runs ``--sessions``
 such sessions of ``wkv`` at the smoke's decode shape (T = 1, B = 16,
-H = 40, hd = 64, one done row) through ``chip_smoke.Timer.session``: a
-marker kernel before each call and after the last, the L2 flushed before
-each call.  Sessions alternate between no host time at the window's ends
+H = 40, hd = 64, one done row) through ``chip_smoke.Timer.session``: the
+window's lead-in (``chip_smoke.LEAD_IN`` one-cycle markers), then a marker
+kernel before each call and after the last, the L2 flushed before each
+call.  Sessions alternate between no host time at the window's ends
 (``device_ms``'s windows before the markers came) and
 ``chip_smoke.PROFILE_PAD_S`` at both ends.  A session is complete when its
 trace holds every marker and one launch of the kernel a call.  Prints, and
 writes with the card's name and power limit to
 ``chiprun_out/profiler_probe.json``, the count of complete sessions for each
-pad and the counts of every incomplete one.
+pad, the counts of every incomplete one and the lead-in's lost records,
+session by session.
 """
 from __future__ import annotations
 
@@ -60,14 +62,15 @@ def main() -> int:
     fn()
     torch.cuda.synchronize()
     pads = (0.0, cs.PROFILE_PAD_S)
-    result = {str(p): {"sessions": 0, "complete": 0, "incomplete": []}
-              for p in pads}
+    result = {str(p): {"sessions": 0, "complete": 0, "incomplete": [],
+                       "lead_in_lost": []} for p in pads}
     t0 = time.perf_counter()
     for i in range(args.sessions):
         pad = pads[i % 2]
         got = timer.session(fn, "wkv_", cs.REPS, pad_s=pad)
         rec = result[str(pad)]
         rec["sessions"] += 1
+        rec["lead_in_lost"].append(got["lead_in_lost"])
         if got["markers"] == cs.REPS + 1 and got["launches"] == cs.REPS:
             rec["complete"] += 1
         else:
