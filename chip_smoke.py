@@ -64,12 +64,12 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs fourteen paths (random weights from a seed), each with the launch
+5. runs fifteen paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
-   ``draft_slots`` and ``faults`` run the model cut to ``CUT_LAYERS`` of
-   its layers (full width), which pays for ``async`` and ``watchdog``
-   inside the time limit:
+   ``draft_slots``, ``observatory``, ``faults``, ``ppo`` and ``dapo`` run
+   the model cut to ``CUT_LAYERS`` of its layers (full width), which pays
+   for ``async``, ``watchdog`` and the observatory inside the time limit:
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
                 full-depth qwen3-1.7b with the fixed decode batch (epoch 0
                 vanilla, epoch 1 the one-pass speculative branch);
@@ -102,6 +102,16 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 "slots")`` over ``cache_layout="paged"`` with the draft
                 engine (``DRAFT_SLOTS_N`` tokens), ``paged_decode_attention``
                 at T > 1 and the dense decode kernel at 0;
+   ``observatory`` the ``draft_slots`` traffic again, same model, inputs
+                and keys, with the §11/§14 observatory on (a ledger, a
+                tracer, a decision log): tokens, log-probs, ``n`` and every
+                kernel's launches equal to ``draft_slots``' bit for bit,
+                every ledger row conserved and each epoch split as its
+                metrics (``observatory ledger`` lines), the wall time on
+                and off, the attribution priced from ``serve.token_ms``,
+                no new call signature for the recompile sentinel, and the
+                exports under ``chiprun_out/observatory/`` parsed back with
+                ``launch.analysis attrib`` equal to the in-process report;
    ``faults``   a ``PagedSlotEngine`` used directly on the 16 prompts
                 (N = 64): a clean run, a run with a NaN on one follower
                 and a stall past its deadline on another (untargeted rows
@@ -114,8 +124,13 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 ``Trainer.train_step`` calls (epoch 0 vanilla, epoch 1
                 one-pass spec, the real verifier; a ``train`` line each with
                 the stage split, loss, grad norm, launches by stage and peak
-                memory), then ``Trainer.optimize`` on the epoch-1 rollout
-                with seeded mixed rewards, at the default lr and at 1e-3: a
+                memory) with the observatory on and ``AlertManager(
+                default_rules())`` (``observatory train`` lines: one span
+                a stage within 1 ms of its timer, the ledger growing by
+                ``n_reused`` and ``n_generated``, the registry's peak
+                device bytes equal to ``max_memory_allocated()``), then
+                ``Trainer.optimize`` on the epoch-1 rollout with seeded
+                mixed rewards, at the default lr and at 1e-3: a
                 finite loss, a nonzero gradient in every parameter, no kernel
                 launched by the actor update (its forward takes the
                 differentiable route), ``flash_attention`` launched once a
@@ -126,8 +141,8 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 the same weights and rollout, and the critic update on the
                 card against the CPU's from the same critic, values and
                 returns (and the card's bfloat16 values against the CPU's);
-   ``ppo``      the GRPO trainer freed, PPO on the same model with its own
-                full-width critic: one ``train_step`` (epoch 0, the
+   ``ppo``      the GRPO trainer freed, PPO on the same model (cut) with
+                its own full-width critic: one ``train_step`` (epoch 0, the
                 verifier's rewards) and ``optimize`` on the ``train``
                 path's epoch-1 rollout with mixed rewards (``train ppo``
                 lines: values and critic-update times, critic loss, the
@@ -157,7 +172,9 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 finite; the snapshot's bytes and save and load seconds;
    ``serve``    one run of ``python -m repro_torch.launch.serve`` on the
                 card (its reduced config, ``--spec-prefix --arrival-every
-                2``);
+                2 --ledger --trace-dir --decision-log
+                --assert-compile-stable``), ending with ``0 new on
+                identical replay``;
    ``rwkv``     two epochs of full-width, full-depth rwkv6-3b (the qwen
                 model freed first): epoch 1 the two-pass branch (verify
                 score, left-align, re-prefill), every recurrence through
@@ -270,14 +287,14 @@ DRAFT_SLOTS_N = 64              # cut from N to keep the smoke in 15 min
 WITNESS_N, WITNESS_TS = 128, (2, 9)
 WITNESS_GAP_MAX = 0.125
 SLOTS = 8                       # decode slots of the slot-backfill path
-# depth cuts that pay for the async and watchdog phases inside the 1,200 s
-# limit: these paths run the qwen3-1.7b model cut to CUT_LAYERS of its 28
-# layers at full width (``cut_depth``: its first layers, sharing its
+# depth cuts that pay for the async, watchdog and observatory phases inside
+# the 1,200 s limit: these paths run the qwen3-1.7b model cut to CUT_LAYERS
+# of its 28 layers at full width (``cut_depth``: its first layers, sharing its
 # tensors), so their launch counts follow the cut model; each check of
 # theirs is unchanged
 CUT_LAYERS = 14
 CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
-             "faults")
+             "observatory", "faults", "ppo", "dapo")
 LENIENCE = 0.99
 SEED = 0
 # the train path's float32 witness: two layers at full width, the first
@@ -1466,7 +1483,7 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
     key = make_key(SEED)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    rbs = []
+    rbs, walls = [], []
     for epoch in (0, 1):
         key, sub = split_key(key)
         before = dict(LAUNCHES)
@@ -1477,6 +1494,7 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
                          batch.cache_keys, cache, sub, epoch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - te
+        walls.append(wall)
         rewards = batch_rewards(rb.response, rb.length, batch.answers)
         m = rb.metrics
         line = {
@@ -1509,6 +1527,7 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
         log("epoch " + json.dumps(line))
         rbs.append(rb)
     launches = read_launches()
+    launches.wall_s = walls
     log(f"{label} path launches: {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1744,18 +1763,10 @@ def draft_slots_path(torch, model, cfg, batch, gen):
     """The drafted paged slot engine: ``rollout(backfill="slots")`` over
     ``cache_layout="paged"`` with the draft engine (``DRAFT_SLOTS_N``
     tokens a row), so ``paged_decode_attention`` takes the draft blocks."""
-    from dataclasses import replace
-
-    from repro_torch.core import SpecConfig
-    from repro_torch.drafting import DraftConfig
-
-    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
-                      backfill="slots", backfill_slots=SLOTS,
-                      draft=DraftConfig(kind="ngram", draft_k=DRAFT_K))
-    paged = cfg.replace(cache_layout="paged")
+    spec, shape = draft_slots_spec()
+    paged, gen = shape(cfg, gen)
     launches, rbs = rollout_path(torch, "draft_slots", model, paged, batch,
-                                 replace(gen, max_new_tokens=DRAFT_SLOTS_N),
-                                 spec)
+                                 gen, spec)
     for name in ("paged_decode_attention", "cache_slot_write",
                  "flash_attention", "spec_verify", "cache_roll"):
         require(launches[name] > 0, f"kernel {name} was not launched on the "
@@ -1767,7 +1778,271 @@ def draft_slots_path(torch, model, cfg, batch, gen):
         require(rb.metrics["decode_forwards"] > 0
                 and rb.metrics["admissions"] == PROMPTS * GROUP,
                 f"draft_slots: {rb.metrics}")
+    return launches, rbs
+
+
+def draft_slots_spec():
+    """The ``draft_slots`` path's spec, config and generation settings."""
+    from dataclasses import replace
+
+    from repro_torch.core import SpecConfig
+    from repro_torch.drafting import DraftConfig
+
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
+                      backfill="slots", backfill_slots=SLOTS,
+                      draft=DraftConfig(kind="ngram", draft_k=DRAFT_K))
+    return spec, lambda cfg, gen: (cfg.replace(cache_layout="paged"),
+                                   replace(gen, max_new_tokens=DRAFT_SLOTS_N))
+
+
+OBS_DIR = OUT_DIR / "observatory"
+
+
+def observatory_path(torch, model, cfg, batch, gen, off_launches, off_rbs):
+    """The ``draft_slots`` traffic again, on the same model, inputs and
+    keys, with the §11/§14 observatory on: a ledger, a tracer and a
+    decision log configured process-global.  The tokens, log-probs and
+    ``n`` must equal the observatory-off run's bit for bit, and every
+    kernel's launches too; the ledger must conserve every row and split
+    each epoch as its metrics do (``REUSED_PREFIX`` = n_reused; FRESH,
+    DRAFT_BONUS and DRAFT_ACCEPTED = n_generated; PROMPT and
+    SHARED_PROMPT_BLOCK = the prompts); the recompile sentinel must see
+    no new call signature (the obs-off run was the same request set); the
+    three export files are written under ``chiprun_out/observatory/`` and
+    parsed back, and ``launch.analysis attrib`` on the ``events.jsonl``
+    must rebuild the in-process attribution.  Returns the launches."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core import RolloutCache, rollout
+    from repro_torch.engine.sampling import make_key, split_key
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import analysis
+    from repro_torch.obs import export
+    from repro_torch.obs.alerts import compile_counts
+    from repro_torch.obs.attrib import build_report, measured_token_cost
+    from repro_torch.obs.ledger import CATEGORY_NAMES, DecisionLog, TokenLedger
+
+    spec, shape = draft_slots_spec()
+    cfg, gen = shape(cfg, gen)
+    B = PROMPTS * GROUP
+    led, tracer = TokenLedger(), obs.Tracer(enabled=True)
+    decisions, reg = DecisionLog(), obs.MetricsRegistry()
+    baseline = compile_counts()
+    require(any(baseline.values()), "observatory: the sentinel counted no "
+            f"call in the runs before it: {baseline}")
+    obs.configure(tracer=tracer, registry=reg, ledger=led,
+                  decisions=decisions)
+    try:
+        cache = RolloutCache(history=spec.cache_history, group_size=GROUP)
+        key = make_key(SEED)
+        reset_launches()
+        rbs, walls, finalized = [], [], 0
+        with EngineSpy() as spy:
+            for epoch in (0, 1):
+                key, sub = split_key(key)
+                te = time.perf_counter()
+                rb = rollout(model, cfg, gen, spec, batch.tokens, batch.mask,
+                             batch.cache_keys, cache, sub, epoch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - te)
+                rbs.append(rb)
+                # every row is begun again at its admission, so the live
+                # rows are this epoch's
+                c = led.counts_dict()
+                m = rb.metrics
+                log("observatory ledger " + json.dumps({
+                    "epoch": epoch, "counts": c,
+                    "finalized": led.finalized - finalized,
+                    "violations": led.violations,
+                    "n_reused": m["n_reused"],
+                    "n_generated": m["n_generated"]}))
+                done = led.finalized - finalized
+                require(led.violations == 0 and done == B,
+                        f"observatory epoch {epoch}: {done} rows finalized "
+                        f"of {B}, {led.violations} violations")
+                finalized = led.finalized
+                require(c["reused_prefix"] == m["n_reused"]
+                        and c["fresh"] + c["draft_bonus"]
+                        + c["draft_accepted"] == m["n_generated"]
+                        and c["prompt"] + c["shared_prompt_block"]
+                        == int(batch.mask.sum()) and c["unset"] == 0,
+                        f"observatory epoch {epoch}: ledger {c} against "
+                        f"n_reused {m['n_reused']}, n_generated "
+                        f"{m['n_generated']}")
+                if epoch == 0:
+                    require(c["shared_prompt_block"] > 0,
+                            f"observatory epoch 0: no shared prompt: {c}")
+        launches = read_launches()
+        engines = list(spy.engines)
+    finally:
+        obs.reset()
+    grew = {k: (baseline.get(k, 0), v) for k, v in compile_counts().items()
+            if v != baseline.get(k, 0)}
+    require(not grew, f"observatory: new call signatures on the replayed "
+            f"request set: {grew}")
+    for epoch, (rb, want) in enumerate(zip(rbs, off_rbs)):
+        for name in ("response", "behaviour_logprobs", "length", "n"):
+            got, ref = getattr(rb, name), getattr(want, name)
+            where = first_difference(np.reshape(got, (len(got), -1)),
+                                     np.reshape(ref, (len(ref), -1)))
+            require(np.array_equal(got, ref),
+                    f"observatory epoch {epoch}: {name} differs from the "
+                    f"observatory-off run at {where}")
+    require(dict(launches) == dict(off_launches)
+            and launches.by_t == off_launches.by_t,
+            f"observatory: launches {launches} {launches.by_t} against the "
+            f"observatory-off run's {off_launches} {off_launches.by_t}")
+    require(len(decisions) > 0, "observatory: no decision record")
+    log("observatory wall " + json.dumps({
+        "on_s": walls, "off_s": off_launches.wall_s,
+        "on_over_off": sum(walls) / sum(off_launches.wall_s)}))
+
+    # the engines' registries (serve.* histograms, ledger gauges) joined
+    # to the process-global one, priced as the analysis CLI prices them
+    merged = obs.MetricsRegistry.merged([e.metrics_registry()
+                                         for e in engines])
+    merged.merge(reg)
+    flat = merged.as_dict()
+    t_tok = measured_token_cost(flat)
+    require(t_tok is not None and t_tok > 0, "observatory: no serve.token_ms")
+    report = build_report(led, t_tok)
+    log("observatory attribution " + json.dumps({
+        "counts": report.counts, "saved_s": report.saved_s,
+        "t_token_s": t_tok,
+        "serve.draft_chunk_ms_mean": flat.get("serve.draft_chunk_ms_mean"),
+        "serve.decode_step_ms_mean": flat.get("serve.decode_step_ms_mean"),
+        "decision_records": len(decisions)}))
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    report.to_registry(merged)
+    export.write_chrome_trace(OBS_DIR / "trace.json", tracer,
+                              counters=report.counter_events(sum(walls)))
+    export.write_jsonl(OBS_DIR / "events.jsonl", tracer, merged)
+    export.write_prometheus(OBS_DIR / "metrics.prom", merged)
+    trace = json.loads((OBS_DIR / "trace.json").read_text())
+    lanes = {e["args"]["name"] for e in trace["traceEvents"]
+             if e["name"] == "thread_name"}
+    events = [json.loads(ln) for ln in
+              (OBS_DIR / "events.jsonl").read_text().splitlines()]
+    prom = {}
+    for ln in (OBS_DIR / "metrics.prom").read_text().splitlines():
+        if not ln.startswith("#"):
+            name, value = ln.rsplit(" ", 1)
+            prom[name] = float(value)
+    require({"engine", "attrib"} <= lanes
+            and any(t.startswith("req/") for t in lanes),
+            f"observatory: trace lanes {sorted(lanes)[:8]}")
+    require(events[-1]["type"] == "metrics" and len(events) > B,
+            f"observatory: {len(events)} events.jsonl records")
+    require(prom.get("repro_ledger_tokens_reused_prefix")
+            == report.counts["reused_prefix"],
+            "observatory: metrics.prom's ledger gauge")
+    out = OBS_DIR / "attrib.json"
+    analysis.main(["attrib", str(OBS_DIR / "events.jsonl"), "--json",
+                   str(out)])
+    offline = json.loads(out.read_text())
+    require(offline == report.as_dict(), "observatory: launch.analysis "
+            f"attrib {offline} against the in-process {report.as_dict()}")
+    log("observatory exports " + json.dumps({
+        "trace_events": len(trace["traceEvents"]),
+        "jsonl_records": len(events), "prom_series": len(prom),
+        "lanes": len(lanes), "bytes": {p.name: p.stat().st_size
+                                       for p in OBS_DIR.iterdir()}}))
+    log(f"observatory: {sum(v for k, v in report.counts.items())} tokens "
+        f"in {len(CATEGORY_NAMES)} categories, replay added 0 signatures "
+        f"to {sum(baseline.values())}")
     return launches
+
+
+TRAIN_STAGES = ("reward", "collect", "old_logprob", "ref", "adv",
+                "update_actor")
+
+
+class TrainObservatory:
+    """The §11/§14 observatory around the ``train`` path's two
+    ``train_step``s: a ledger, a tracer, a decision log and a registry
+    configured process-global, and ``AlertManager(default_rules())`` for
+    the trainer.  ``check_step`` holds each step to one span per stage and
+    an enclosing ``train_step`` on the trainer lane, each stage span
+    within 1 ms of its stage timer, and the ledger growing by the
+    rollout's ``n_reused`` (``REUSED_PREFIX``) and ``n_generated``
+    (``FRESH``) with every row finalized; ``close`` holds the registry's
+    ``device.peak_bytes_in_use`` to ``max_memory_allocated()`` read in the
+    same window and prints the attribution."""
+
+    def __init__(self, torch, batch):
+        from repro_torch import obs
+        from repro_torch.obs.alerts import AlertManager, default_rules
+        from repro_torch.obs.ledger import DecisionLog, TokenLedger
+
+        self.torch, self.batch, self.obs = torch, batch, obs
+        self.ledger, self.tracer = TokenLedger(), obs.Tracer(enabled=True)
+        self.registry = obs.MetricsRegistry()
+        obs.configure(tracer=self.tracer, registry=self.registry,
+                      ledger=self.ledger, decisions=DecisionLog())
+        self.alerts = AlertManager(default_rules(), tracer=self.tracer)
+        self.prev = {"reused_prefix": 0.0, "fresh": 0.0, "prompt": 0.0}
+        self.first = 0
+
+    def trainer_kw(self):
+        return {"tracer": self.tracer, "alerts": self.alerts}
+
+    def start_step(self):
+        self.first = len(self.tracer.spans)
+
+    def check_step(self, epoch, m):
+        B = PROMPTS * GROUP
+        spans = [sp for sp in list(self.tracer.spans)[self.first:]
+                 if sp.track == "trainer"]
+        names = [sp.name for sp in spans]
+        gaps = {sp.name: abs(sp.dur - m[f"{sp.name}_time"])
+                for sp in spans if sp.name != "train_step"}
+        step = [sp for sp in spans if sp.name == "train_step"]
+        grew = {k: m[f"ledger_tokens_{k}"] - v for k, v in self.prev.items()}
+        log("observatory train " + json.dumps({
+            "step": epoch, "spans": names,
+            "max_span_gap_s": max(gaps.values(), default=None),
+            "ledger": {k: m[k] for k in m if k.startswith("ledger_")},
+            "alerts": {k: m[k] for k in m if k.startswith("alerts_")},
+            "n_reused": m["n_reused"], "n_generated": m["n_generated"],
+            "train_step_s": step[0].dur if step else None}))
+        require(sorted(names) == sorted(TRAIN_STAGES + ("train_step",)),
+                f"observatory train {epoch}: trainer lane {names}")
+        require(max(gaps.values()) <= 1e-3, f"observatory train {epoch}: "
+                f"span vs stage timer gaps {gaps}")
+        require(all(step[0].t0 <= sp.t0 and sp.t1 <= step[0].t1
+                    for sp in spans), f"observatory train {epoch}: a stage "
+                "span outside train_step")
+        require(m["ledger_violations"] == 0.0
+                and m["ledger_finalized"] == B * (epoch + 1)
+                and grew["reused_prefix"] == m["n_reused"]
+                and grew["fresh"] == m["n_generated"]
+                and grew["prompt"] == int(self.batch.mask.sum()),
+                f"observatory train {epoch}: ledger grew {grew}, finalized "
+                f"{m['ledger_finalized']}, against n_reused {m['n_reused']} "
+                f"n_generated {m['n_generated']}")
+        self.prev = {k: m[f"ledger_tokens_{k}"] for k in self.prev}
+
+    def close(self):
+        from repro_torch.obs.alerts import record_device_memory
+        from repro_torch.obs.attrib import build_report, measured_token_cost
+
+        mem = self.obs.MetricsRegistry()
+        record_device_memory(mem)
+        peak = self.torch.cuda.max_memory_allocated()
+        got = mem.as_dict().get("device.peak_bytes_in_use")
+        require(got == peak, f"observatory train: device.peak_bytes_in_use "
+                f"{got} against max_memory_allocated {peak}")
+        led = self.ledger
+        require(led.finalized == len(led.rows()) == 2 * PROMPTS * GROUP,
+                f"observatory train: {led.finalized} finalized of "
+                f"{len(led.rows())} rows")
+        flat = self.registry.as_dict()
+        report = build_report(led, measured_token_cost(flat))
+        log("observatory train attribution " + json.dumps({
+            "counts": report.counts, "saved_s": report.saved_s,
+            "t_token_s": report.t_token_s, "device.peak_bytes_in_use": got,
+            "train.train_step_s_count": flat["train.train_step_s_count"]}))
 
 
 def greedy_witness(torch, model, cfg, batch, gen):
@@ -2302,9 +2577,10 @@ def check_scoring(label, stages, layers, scorings=("old_logprob", "ref"),
                 f"{stages[name]['launches']}")
 
 
-def make_trainer(cfg, model, algo, **rl_kw):
+def make_trainer(cfg, model, algo, trainer_kw=None, **rl_kw):
     """A ``Trainer`` of ``algo`` on ``model`` at the slice's traffic: the
-    smoke's prompts, spec with LENIENCE, key ``make_key(SEED)``."""
+    smoke's prompts, spec with LENIENCE, key ``make_key(SEED)``
+    (``trainer_kw``: further ``Trainer`` arguments)."""
     from repro_torch.core import SpecConfig
     from repro_torch.data.dataset import PromptDataset
     from repro_torch.engine.sampling import make_key
@@ -2317,7 +2593,7 @@ def make_trainer(cfg, model, algo, **rl_kw):
                     max_new_tokens=N, **rl_kw)
     spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
     return T.Trainer(cfg, rl, spec, PromptDataset(problems, max_prompt_len=P),
-                     make_key(SEED), model=model)
+                     make_key(SEED), model=model, **(trainer_kw or {}))
 
 
 def stage_line(m, st, keys):
@@ -2331,9 +2607,20 @@ def stage_line(m, st, keys):
 
 def train_path(torch, model, cfg, batch):
     """The GRPO train step on the full-depth model: two ``train_step``
-    calls with the real verifier, then ``optimize`` on the epoch-1 rollout
-    with seeded mixed rewards at the default lr and at 1e-3.  Returns the
+    calls with the real verifier and the §11/§14 observatory on
+    (``TrainObservatory``), then ``optimize`` on the epoch-1 rollout with
+    seeded mixed rewards at the default lr and at 1e-3.  Returns the
     launches and the epoch-1 rollout."""
+    from repro_torch import obs
+
+    try:
+        return _train_path(torch, model, cfg, batch,
+                           TrainObservatory(torch, batch))
+    finally:
+        obs.reset()
+
+
+def _train_path(torch, model, cfg, batch, watch):
     import numpy as np
     from dataclasses import replace
 
@@ -2342,12 +2629,14 @@ def train_path(torch, model, cfg, batch):
     from repro_torch.rl import trainer as T
 
     reset_launches()
-    tr = make_trainer(cfg, model, "grpo")
+    tr = make_trainer(cfg, model, "grpo", trainer_kw=watch.trainer_kw())
     rl = tr.rl
     layers = cfg.num_layers
     with StageSpy(torch, tr, T) as spy:
         for epoch in (0, 1):
+            watch.start_step()
             m = tr.train_step(batch)
+            watch.check_step(epoch, m)
             st = spy.take()
             log("train " + json.dumps({"step": epoch, **stage_line(m, st, (
                 "collect_time", "old_logprob_time", "ref_time", "adv_time",
@@ -2365,6 +2654,7 @@ def train_path(torch, model, cfg, batch):
                     f"launched {sorted(got)}, want {sorted(want)}")
             require(m["one_pass"] == float(epoch), f"train step {epoch}: "
                     f"one_pass {m['one_pass']}")
+        watch.close()
         rb1 = tr.last_rb
         rewards = mixed_rewards(rb1.prompt.shape[0])
         for lr in (rl.optim.lr, 1e-3):
@@ -2406,10 +2696,10 @@ PPO_KEYS = ("collect_time", "old_logprob_time", "values_time", "adv_time",
 
 
 def ppo_path(torch, model, cfg, batch, rb1):
-    """PPO on the full-depth model with its own full-width critic: one
-    ``train_step`` (epoch 0 vanilla, the verifier's rewards), then
-    ``optimize`` on the GRPO path's epoch-1 rollout with seeded mixed
-    rewards, so that GAE sees nonzero returns.  Each values pass launches
+    """PPO on the model cut to ``CUT_LAYERS``, with its own full-width
+    critic of the same depth: one ``train_step`` (epoch 0 vanilla, the
+    verifier's rewards), then ``optimize`` on the GRPO path's epoch-1
+    rollout with seeded mixed rewards, so that GAE sees nonzero returns.  Each values pass launches
     flash_attention once a layer and nothing else, the two updates launch
     nothing, every critic parameter gets a nonzero gradient in the
     mixed-reward update.  Step-log ``grad_norm`` and ``lr`` are the
@@ -2481,13 +2771,13 @@ def ppo_path(torch, model, cfg, batch, rb1):
 
 
 def dapo_path(torch, model, cfg, batch):
-    """DAPO on the full-depth model: one ``train_step`` with one resample
-    round, ``batch_rewards`` replaced for this step only: the first round
-    gives groups 0 and 2 all-zero rewards and groups 1 and 3 mixed ones, the
-    resample mixed ones.  Exactly the 8 rows of groups 0 and 2 are rolled
-    again (through the SPEC-RL cache the first round has just filled: the
-    one-pass branch) and merged back; the rows of groups 1 and 3 stay the
-    first round's.  Returns the launches."""
+    """DAPO on the model cut to ``CUT_LAYERS``: one ``train_step`` with one
+    resample round, ``batch_rewards`` replaced for this step only: the first
+    round gives groups 0 and 2 all-zero rewards and groups 1 and 3 mixed
+    ones, the resample mixed ones.  Exactly the 8 rows of groups 0 and 2
+    are rolled again (through the SPEC-RL cache the first round has just
+    filled: the one-pass branch) and merged back; the rows of groups 1 and
+    3 stay the first round's.  Returns the launches."""
     import numpy as np
 
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -3070,18 +3360,41 @@ def critic_witness(torch, cfg, sub, rewards, full_tokens, full_mask,
 
 
 def serve_path(torch):
-    """One run of the port's serve launcher on the card."""
+    """One run of the port's serve launcher on the card, with its §11/§14
+    flags: the ledger, a trace directory, a decision log and the
+    compile-stability replay, which must end the output."""
+    import contextlib
+    import io
+
+    from repro_torch import obs
     from repro_torch.kernels import reset_launches
     from repro_torch.launch import serve
 
     reset_launches()
     t0 = time.perf_counter()
-    rc = serve.main(["--spec-prefix", "--arrival-every", "2"])
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(["--spec-prefix", "--arrival-every", "2",
+                             "--ledger", "--trace-dir",
+                             str(OBS_DIR / "serve_trace"), "--decision-log",
+                             str(OBS_DIR / "serve_decisions"),
+                             "--assert-compile-stable"])
+    finally:
+        obs.reset()
     torch.cuda.synchronize()
     launches = read_launches()
+    text = out.getvalue()
+    for line in text.splitlines():
+        log("  serve: " + line)
     log(f"serve path: rc={rc} in {time.perf_counter() - t0:.2f} s, "
         f"launches: {launches}")
     require(rc == 0, f"launch.serve exited {rc}")
+    require(text.rstrip().endswith("0 new on identical replay"),
+            "launch.serve did not end with the compile-stability line")
+    require(all((OBS_DIR / "serve_trace" / f).is_file() for f in (
+        "trace.json", "events.jsonl", "metrics.prom")),
+        "launch.serve --trace-dir wrote no export files")
     for name in ("decode_attention", "flash_attention", "spec_verify",
                  "cache_roll", "cache_slot_write"):
         require(launches[name] > 0, f"kernel {name} was not launched on the "
@@ -3269,18 +3582,23 @@ def main() -> int:
     run("greedy witness", greedy_witness, torch, model, cfg, batch, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["draft_slots"] = run("draft_slots", draft_slots_path, torch,
-                               cut_model, cut_cfg, batch, gen)
+    paths["draft_slots"], off_rbs = run("draft_slots", draft_slots_path,
+                                        torch, cut_model, cut_cfg, batch, gen)
+    paths["observatory"] = run("observatory", observatory_path, torch,
+                               cut_model, cut_cfg, batch, gen,
+                               paths["draft_slots"], off_rbs)
     paths["faults"] = run("faults", faults_path, torch, cut_model, cut_cfg,
                           batch, gen)
     del cut_model
     paths["train"], rb1 = run("train", train_path, torch, model, cfg, batch)
     gc.collect()                # the GRPO trainer's reference and moments
     torch.cuda.empty_cache()
-    paths["ppo"] = run("ppo", ppo_path, torch, model, cfg, batch, rb1)
+    paths["ppo"] = run("ppo", ppo_path, torch,
+                       *cut_depth(model, cfg, CUT_LAYERS), batch, rb1)
     gc.collect()                # the PPO trainer's critic and moments
     torch.cuda.empty_cache()
-    paths["dapo"] = run("dapo", dapo_path, torch, model, cfg, batch)
+    paths["dapo"] = run("dapo", dapo_path, torch,
+                        *cut_depth(model, cfg, CUT_LAYERS), batch)
     gc.collect()                # the DAPO trainer
     torch.cuda.empty_cache()
     paths["async"] = run("async", async_path, torch, model, cfg, batch)
@@ -3305,7 +3623,8 @@ def main() -> int:
             require(sum(by_t.values()) == launches[name],
                     f"{p}: {name} launches by T {by_t} do not sum to "
                     f"{launches[name]}")
-            require(p in ("draft", "draft_slots") or not launches.blocks(name),
+            require(p in ("draft", "draft_slots", "observatory")
+                    or not launches.blocks(name),
                     f"{p}: {name} launched at T > 1 {by_t}")
     require(paths["draft"].blocks("decode_attention") > 0,
             "draft: no dense decode launch at T > 1")

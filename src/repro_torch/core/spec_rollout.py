@@ -30,9 +30,17 @@ through ``drafted_generate`` with the rows' sibling corpus, the one-pass
 branch continues through ``drafted_resume`` from contexts prompt ⊕
 ``draft[:n]``; the two-pass branch, an RWKV trunk and the ablations decode
 vanilla, as in JAX.  The mesh raises ``NotImplementedError`` and names
-its ROADMAP item (ROADMAP Queue 1 item 11, the mesh).  The port has no
-observatory yet (ROADMAP Queue 1 item 9, the observatory hooks): no tracer
-spans or ledger rows are emitted.
+its ROADMAP item (ROADMAP Queue 1 item 11, the mesh).
+
+§11/§14 observatory, as in JAX: each step draws its stage spans on the
+process-global tracer's ``rollout`` lane and feeds the ``rollout.*``
+histograms and counters of the process-global registry (the stage stamps
+are the timers' own), and, with a ledger configured, lays down one
+provenance row per batch row: the prompt, then ``REUSED_PREFIX`` for the
+verified prefix and ``FRESH`` for the continuation, finalized against the
+row's length.  A drafted continuation is bound to the same rows and
+extends them itself (``drafting/engine.py``).  The ledger reads only host
+values the step already has (the prompt mask, ``n``, the lengths).
 
 ``key`` may be a scalar key (one stream for the batch) or a key batch (one
 key per row, ``engine/sampling.py``), which makes every row's tokens
@@ -58,6 +66,8 @@ from repro_torch.engine.generate import (GenerateConfig, generate,
 from repro_torch.engine.sampling import split_key
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import get_ledger, get_registry, get_tracer
+from repro_torch.obs.ledger import FRESH, REUSED_PREFIX
 
 from .cache import RolloutCache
 from .metrics import DraftStats
@@ -94,7 +104,7 @@ class RolloutBatch:
 
     ``n`` is the per-row verified prefix length (zeros for a vanilla step);
     the JAX package reports it only through its observatory
-    (``rollout.reuse_len``), which the port does not have yet."""
+    (``rollout.reuse_len``)."""
     prompt: np.ndarray            # (B, P) left-padded
     prompt_mask: np.ndarray       # (B, P)
     response: np.ndarray          # (B, N) right-padded
@@ -155,6 +165,49 @@ def _draft_metrics(stats=None) -> Dict[str, float]:
             "decode_forwards": float(st.forwards)}
 
 
+def _emit_rollout_obs(spec, metrics, t0, stages, n=None):
+    """§11 per-step rollout telemetry: stage spans on the 'rollout' lane
+    plus registry histograms/counters for the paper's headline diagnostics
+    (reuse length, acceptance, lenience).  Host side only: the stage
+    endpoints are the perf_counter stamps the metrics already took after
+    each stage's device wait, so with the default NULL_TRACER and an idle
+    registry this adds no syncs and no clock reads."""
+    tr = get_tracer()
+    reg = get_registry()
+    step = int(metrics.get("step", 0))
+    t_end = max((ts + dur) for _, ts, dur in stages)
+    if tr.enabled:
+        tr.complete("rollout", "rollout", t0, t_end, cat="rollout",
+                    step=step, n_reused=metrics.get("n_reused", 0),
+                    accept_rate=metrics.get("accept_rate", 0.0))
+        for name, ts, dur in stages:
+            tr.complete(name, "rollout", ts, ts + dur, cat="rollout",
+                        step=step)
+    for name, ts, dur in stages:
+        reg.observe(f"rollout.{name}_s", dur)
+    reg.observe("rollout.step_s", t_end - t0)
+    reg.observe("rollout.accept_rate", metrics.get("accept_rate", 0.0))
+    reg.set("rollout.lenience", float(spec.lenience)
+            if math.isfinite(spec.lenience) else 0.0)
+    reg.set("rollout.step", float(step), agg="max")
+    reg.inc("rollout.generated_tokens", metrics.get("n_generated", 0))
+    reg.inc("rollout.reused_tokens", metrics.get("n_reused", 0))
+    if n is not None:
+        for v in np.asarray(n).reshape(-1):
+            reg.observe("rollout.reuse_len", float(v))
+
+
+def _ledger_rows(led, B: int, mask_np: np.ndarray):
+    """Reserve + begin one §14 provenance row per batch row from the host
+    prompt mask.  Returns (row_ids, prompt_lens)."""
+    p_np = mask_np.sum(axis=1).astype(np.int64)
+    base = led.reserve(B)
+    rows = [base + b for b in range(B)]
+    for b in range(B):
+        led.begin_row(rows[b], int(p_np[b]))
+    return rows, p_np
+
+
 def use_drafting(cfg: ModelConfig, spec: SpecConfig) -> bool:
     """Whether the §9 drafted decode loop replaces the vanilla one: an
     enabled ``spec.draft`` on a trunk whose cache can drop a rejected draft
@@ -205,12 +258,15 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         return rollout_via_slots(model, cfg, gen, spec, prompts, prompt_mask,
                                  prompt_ids, cache, key, step)
     dev = model.device
+    # the host copy of the mask serves the ledger and the returned batch
+    mask_np = _np(prompt_mask).astype(bool)
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
     B, P = prompts.shape
     N = gen.max_new_tokens
     t0 = time.perf_counter()
     metrics: Dict[str, float] = {"step": step}
+    led = get_ledger()
 
     use_cache = spec.variant != "off" and cache is not None
     drafts = cache.batch_get(prompt_ids, N, spec.cache_lag) if use_cache else None
@@ -219,12 +275,22 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
 
     if not have_drafts:
         key, sub = split_key(key)
+        rows = p_np = None
+        if led.enabled:
+            rows, p_np = _ledger_rows(led, B, mask_np)
         if drafting:
             from repro_torch.drafting import drafted_generate
             corpus = (cache.batch_siblings(prompt_ids, spec.cache_lag)
                       if use_cache else None)
-            out = drafted_generate(model, cfg, gen, prompts, prompt_mask,
-                                   sub, spec.draft, corpus=corpus)
+            # the drafted loop's provenance appends land on these rows
+            if rows is not None:
+                led.bind(rows)
+            try:
+                out = drafted_generate(model, cfg, gen, prompts, prompt_mask,
+                                       sub, spec.draft, corpus=corpus)
+            finally:
+                if rows is not None:
+                    led.unbind()
         else:
             out = generate(model, cfg, gen, prompts, prompt_mask, sub)
         resp, lp, length = out["tokens"], out["logprobs"], out["length"]
@@ -239,11 +305,19 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
             assembly_time=0.0, compact_time=0.0, decode_time=rollout_time,
             one_pass=0.0, prefill_passes=1.0,
             **_draft_metrics(out.get("stats")))
+        _emit_rollout_obs(spec, metrics, t0,
+                          [("generate", t0, rollout_time)])
         _update_cache(cache, prompt_ids, resp, lp, length, step, gen.eos_id)
+        length_np = _np(length)
+        if rows is not None:
+            for b in range(B):
+                if not drafting:   # drafted rows were filled by _DraftLoop
+                    led.append(rows[b], FRESH, int(length_np[b]))
+                led.finalize(rows[b], int(p_np[b]) + int(length_np[b]))
         return RolloutBatch(
-            prompt=_np(prompts), prompt_mask=_np(prompt_mask),
+            prompt=_np(prompts), prompt_mask=mask_np,
             response=_np(resp), response_mask=_np(resp_mask),
-            behaviour_logprobs=_np(lp), length=_np(length), metrics=metrics,
+            behaviour_logprobs=_np(lp), length=length_np, metrics=metrics,
             n=np.zeros((B,), np.int32))
 
     draft_tokens = torch.as_tensor(drafts["draft_tokens"], device=dev)
@@ -251,6 +325,9 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     draft_len = torch.as_tensor(drafts["draft_len"], device=dev)
     draft_eos = torch.as_tensor(drafts["draft_eos"], device=dev)
     one_pass = use_one_pass(cfg, spec)
+    led_rows = led_p = None
+    if led.enabled:
+        led_rows, led_p = _ledger_rows(led, B, mask_np)
 
     # ---- verify: one forward of the current policy over prompt ⊕ draft ---
     # (one-pass: a prefill that fills the caches; two-pass: a score); the
@@ -313,16 +390,27 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         # §9: draft the continuation too, the n-gram index seeded with
         # prompt ⊕ accepted prefix and the sibling corpus
         from repro_torch.drafting import drafted_resume
-        n_np, mask_np = _np(n), _np(prompt_mask)
+        n_np = _np(n)
         prompts_np, dt_np = _np(prompts), _np(draft_tokens)
         contexts = [np.concatenate([prompts_np[b][mask_np[b]],
                                     dt_np[b, :int(n_np[b])]])
                     for b in range(B)]
-        cont = drafted_resume(model, cfg, gen, caches, ver["seed_logits"],
-                              p_len + n, W, sub, spec.draft, contexts,
-                              corpus=cache.batch_siblings(prompt_ids,
-                                                          spec.cache_lag),
-                              initial_done=full_reuse, row_budget=N - n)
+        # §14: the verified prefix is reused provenance; the bound rows let
+        # the drafted continuation extend them in place
+        if led_rows is not None:
+            for b in range(B):
+                led.append(led_rows[b], REUSED_PREFIX, int(n_np[b]))
+            led.bind(led_rows)
+        try:
+            cont = drafted_resume(model, cfg, gen, caches,
+                                  ver["seed_logits"], p_len + n, W, sub,
+                                  spec.draft, contexts,
+                                  corpus=cache.batch_siblings(
+                                      prompt_ids, spec.cache_lag),
+                                  initial_done=full_reuse, row_budget=N - n)
+        finally:
+            if led_rows is not None:
+                led.unbind()
         del caches
     elif one_pass:
         cont = resume_from_cache(model, cfg, gen, caches, ver["seed_logits"],
@@ -346,6 +434,15 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     assembly_time = time.perf_counter() - ta0
 
     _update_cache(cache, prompt_ids, resp, lp, length, step, gen.eos_id)
+    n_fin, len_fin = _np(n), _np(length)
+    if led_rows is not None:
+        drafted_cont = one_pass and drafting
+        for b in range(B):
+            if not drafted_cont:   # drafted rows were extended by _DraftLoop
+                led.append(led_rows[b], REUSED_PREFIX, int(n_fin[b]))
+                led.append(led_rows[b], FRESH,
+                           int(len_fin[b]) - int(n_fin[b]))
+            led.finalize(led_rows[b], int(led_p[b]) + int(len_fin[b]))
     metrics.update(
         n_generated=int(cont["n_generated"]),
         n_reused=int(n.sum()),
@@ -357,11 +454,16 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         assembly_time=assembly_time, compact_time=compact_time,
         decode_time=decode_time, one_pass=float(one_pass),
         prefill_passes=prefill_passes, **_draft_metrics(cont.get("stats")))
+    _emit_rollout_obs(spec, metrics, t0,
+                      [("verify", tv0, verify_time),
+                       ("compact", tc0, compact_time),
+                       ("decode", td0, decode_time),
+                       ("assembly", ta0, assembly_time)], n=n_fin)
     return RolloutBatch(
-        prompt=_np(prompts), prompt_mask=_np(prompt_mask),
+        prompt=_np(prompts), prompt_mask=mask_np,
         response=_np(resp), response_mask=_np(resp_mask),
-        behaviour_logprobs=_np(lp), length=_np(length), metrics=metrics,
-        n=_np(n))
+        behaviour_logprobs=_np(lp), length=len_fin, metrics=metrics,
+        n=n_fin)
 
 
 def _update_cache(cache: Optional[RolloutCache], prompt_ids, resp, lp, length,

@@ -20,6 +20,7 @@ from repro_torch.engine.sampling import logprobs_of
 from repro_torch.kernels.spec_verify.ops import spec_verify
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.alerts import register_jit_entry
 
 
 def _accept_uniforms(key, B: int, N: int) -> torch.Tensor:
@@ -103,3 +104,14 @@ def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
     total = torch.clamp(draft_len.sum(), min=1)
     return {"n": n, "lp_curr": lp_curr, "accept_rate": n.sum() / total,
             "caches": caches, "seed_logits": seed_logits}
+
+
+# §14 recompile sentinel (obs/alerts.py): both verify entry points — the
+# two-pass scorer and the fused one-pass admission program — under the
+# reference's names and its jit's static arguments
+verify_drafts = register_jit_entry(
+    "verify_drafts", verify_drafts,
+    static=("cfg", "temperature", "top_p", "impl", "mesh"))
+verify_and_prefill = register_jit_entry(
+    "verify_and_prefill", verify_and_prefill,
+    static=("cfg", "temperature", "top_p", "impl", "mesh"))

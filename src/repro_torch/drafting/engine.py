@@ -20,15 +20,24 @@ Contracts, as in JAX:
 * caches that end equal to the vanilla loop's over the live region
   (rejected slots get pos -1 and are overwritten).
 
-Each macro-step reads back what the host needs (done flags, carry tokens,
-the kept tokens and their log-probs, emitted/accepted/proposed counts) in
-one device-to-host transfer.  JAX's §11/§14 tracer spans, registry
-observations, ledger rows and decision records wait for the observatory
-hooks (ROADMAP Queue 1 item 9, the observatory); the mesh argument waits
-for the mesh (ROADMAP Queue 1 item 11, the mesh).
+Each macro-step reads back what the host needs (done flags, carry tokens
+and their log-probs, positions, the kept tokens and their log-probs,
+emitted/accepted/proposed counts) in one device-to-host transfer.  The
+mesh argument waits for the mesh (ROADMAP Queue 1 item 11, the mesh).
+
+§11/§14 observatory, as in JAX, fed only from that readback and the
+host's own state: one span per macro-step on the process-global tracer's
+``draft`` lane, the ``draft.*_per_step`` histograms, ledger rows (the
+caller's rows when it bound them, as the one-pass rollout does; else rows
+of the loop's own with each context as the prompt plane) extended by
+``categorize_draft_block`` per step, and one decision record per live row
+and macro-step (surprisal ``-cur_lp`` of the pending token, position,
+acceptance EMA, draft length, source; the outcomes and the step's wall
+time).  Clock reads happen only when the tracer or the decision log is on.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -39,6 +48,9 @@ from repro_torch.engine.generate import GenerateConfig, positions_from_mask
 from repro_torch.engine.sampling import sample, split_key
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import (get_decision_log, get_ledger, get_registry,
+                             get_tracer)
+from repro_torch.obs.ledger import SOURCE_NGRAM, categorize_draft_block
 
 from .controller import DraftConfig, DraftController
 from .ngram import NGramDraftSource
@@ -137,15 +149,42 @@ class _DraftLoop:
         self.acc_lp: List[List[np.ndarray]] = [[] for _ in range(B)]
         self.stats = DraftStats()
         self.B, self.N = B, N
+        # §14 provenance: append to the rows the caller bound (the one-pass
+        # rollout's continuation extends the rollout's own rows); otherwise
+        # reserve rows and lay each row's context down as its prompt plane
+        self.ledger = led = get_ledger()
+        self._rows: List = [None] * B
+        self._carry_bonus = np.zeros(B, bool)
+        if led.enabled:
+            bound = [led.bound_row(b) for b in range(B)]
+            if all(r is not None for r in bound):
+                self._rows = bound
+            else:
+                base = led.reserve(B)
+                self._rows = [base + b for b in range(B)]
+                for b in range(B):
+                    led.begin_row(self._rows[b], len(contexts[b]))
 
     def run(self) -> Dict[str, torch.Tensor]:
         dev = self.model.device
+        tr, reg, led = get_tracer(), get_registry(), self.ledger
+        dec = get_decision_log()
+        # the entry readback carries the decision features' carry log-prob
+        # and position along with the done flags and carry tokens
         host = torch.stack([self.done.to(torch.int32),
-                            self.cur_tok.to(torch.int32)]).cpu().numpy()
+                            self.cur_tok.to(torch.int32),
+                            self.cur_lp.float().view(torch.int32),
+                            self.next_pos]).cpu().numpy()
         done_np, cur_np = host[0].astype(bool), host[1]
+        cur_lp_np = np.ascontiguousarray(host[2]).view(np.float32)
+        pos_np = host[3]
+        macro_step = 0
         while not done_np.all():
+            t0 = (tr.now() if tr.enabled else
+                  time.perf_counter() if dec.enabled else 0.0)
             dt = np.zeros((self.B, self.K), np.int32)
             dl = np.zeros((self.B,), np.int32)
+            feats: Dict[int, Dict[str, float]] = {}
             for b in range(self.B):
                 if done_np[b]:
                     continue
@@ -153,6 +192,17 @@ class _DraftLoop:
                                         pending=int(cur_np[b]))
                 dt[b, :len(d)] = d
                 dl[b] = len(d)
+                if dec.enabled:
+                    # §14 decision features, captured pre-step (the
+                    # fixed-batch loop has no queue or pool: those are 0)
+                    feats[b] = {
+                        "surprisal": -float(cur_lp_np[b]),
+                        "position": float(pos_np[b]),
+                        "accept_ema": float(self.controller.rate[b]),
+                        "draft_k": float(len(d)),
+                        "draft_source": SOURCE_NGRAM,
+                        "slot_age": float(macro_step),
+                    }
             # the block at the power-of-two cover of the widest live
             # proposal: adaptive lengths narrow the forward; the acceptance
             # draws stay at u_width = draft_k, so streams do not depend on
@@ -172,22 +222,49 @@ class _DraftLoop:
             h = step_readback(out)
             emitted, accepted, proposed = (h["emitted"], h["accepted"],
                                            h["proposed"])
+            t1 = (tr.now() if tr.enabled else
+                  time.perf_counter() if dec.enabled else 0.0)
             for b in range(self.B):
                 mb = int(emitted[b])
                 if mb:
                     self.acc_tok[b].append(h["tokens"][b, :mb])
                     self.acc_lp[b].append(h["logprobs"][b, :mb])
                     self.source.extend(b, h["tokens"][b, :mb])
+                    if led.enabled:
+                        for cat, nrun in categorize_draft_block(
+                                mb, bool(self._carry_bonus[b])):
+                            led.append(self._rows[b], cat, nrun)
+                self._carry_bonus[b] = bool(
+                    proposed[b] > 0 and accepted[b] == proposed[b])
                 self.controller.update(b, int(proposed[b]), int(accepted[b]))
+            if dec.enabled and feats:
+                step_ms = (t1 - t0) * 1e3
+                for b, f in feats.items():
+                    prop, acc = int(proposed[b]), int(accepted[b])
+                    mb = int(emitted[b])
+                    dec.record(self._rows[b] if self._rows[b] is not None
+                               else b, macro_step, f, {
+                                   "proposed": prop, "accepted": acc,
+                                   "bonus": 1.0 if (prop > 0 and acc == prop
+                                                    and mb > acc) else 0.0,
+                                   "emitted": mb, "step_ms": step_ms})
             # per-ROW forward counting: one batched forward serves the live
             # rows, so tokens_per_forward is per row with 1.0 as the
             # vanilla baseline
-            self.stats.add_step(forwards=int((~done_np).sum()),
-                                proposed=int(proposed.sum()),
-                                accepted=int(accepted.sum()),
-                                emitted=int(emitted.sum()),
+            n_prop, n_acc = int(proposed.sum()), int(accepted.sum())
+            n_live, n_em = int((~done_np).sum()), int(emitted.sum())
+            self.stats.add_step(forwards=n_live, proposed=n_prop,
+                                accepted=n_acc, emitted=n_em,
                                 draft_forwards=int((dl > 0).sum()))
+            reg.observe("draft.proposed_per_step", n_prop)
+            reg.observe("draft.accepted_per_step", n_acc)
+            if tr.enabled:
+                tr.complete("draft_step", "draft", t0, tr.now(), cat="draft",
+                            step=macro_step, live=n_live, proposed=n_prop,
+                            accepted=n_acc, emitted=n_em)
+            macro_step += 1
             done_np, cur_np = h["done"], h["cur_tok"]
+            cur_lp_np, pos_np = h["cur_lp"], h["next_pos"]
         return self._pack()
 
     def _pack(self) -> Dict[str, torch.Tensor]:

@@ -41,6 +41,7 @@ from repro_torch.engine.sampling import (logprobs_of, residual_sample,
 from repro_torch.kernels.spec_verify.ops import spec_verify
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.alerts import register_jit_entry
 
 NEG_INF = -1e30
 
@@ -186,3 +187,10 @@ def draft_step(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
         "accepted": torch.minimum(n, eff_len),
         "proposed": eff_len,
     }
+
+
+# §14 recompile sentinel (obs/alerts.py): draft_step is shared by every
+# drafted loop, so its signatures count for all of them
+draft_step = register_jit_entry(
+    "draft_step", draft_step,
+    static=("cfg", "gen", "K", "u_width", "verify_impl", "mesh"))

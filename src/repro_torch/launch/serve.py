@@ -10,6 +10,9 @@ stream, speculative-prefix admission and latency/throughput stats
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
         --cache-layout paged --kv-block-size 8 --deadline-steps 64 \\
         --max-queue 16 --overflow shed-oldest --state-path /tmp/serve_state
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
+        --spec-prefix --draft 4 --ledger --decision-log /tmp/d \\
+        --trace-dir /tmp/t --assert-compile-stable
 
 Runs on the card unless ``--device cpu``.  As in JAX the model config is
 always the architecture's ``.reduced(...)`` smoke variant, with random
@@ -24,12 +27,23 @@ state there
 into an engine built the same way).  ``--draft K`` serves through the §9
 draft engine (n-gram drafts of up to K tokens a forward; with
 ``--spec-prefix`` the first pass's output is each request's corpus) and
-prints a ``draft:`` stats line.  The §11/§14 observatory and §8 mesh flags
-of the reference arrive with their slices.
+prints a ``draft:`` stats line.
+
+The §11/§14 observatory, as in JAX, on the main (speculative) serve only:
+``--trace-dir DIR`` writes ``trace.json`` (Chrome trace), ``events.jsonl``
+and ``metrics.prom`` there (``--trace-sample-rate`` thins the request
+lanes); ``--ledger`` prints the savings-attribution table;
+``--decision-log DIR`` shards the draft decisions under DIR; ``--metrics
+PORT`` serves the engine's Prometheus text on ``localhost:PORT/metrics``
+while it runs; ``--assert-compile-stable`` replays the same request set on
+a fresh engine and fails if the recompile sentinel sees a new call
+signature, else ends with ``0 new on identical replay``.  The §8 mesh
+flags arrive with the mesh (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import random
 import signal
 import time
@@ -45,6 +59,11 @@ from repro_torch.drafting import DraftConfig
 from repro_torch.engine.generate import GenerateConfig, generate
 from repro_torch.engine.sampling import fold_in, make_key, stack_keys
 from repro_torch.models import model as M
+from repro_torch.obs import Tracer, configure, get_decision_log
+from repro_torch.obs import export as obs_export
+from repro_torch.obs.alerts import compile_counts
+from repro_torch.obs.attrib import build_report, measured_token_cost
+from repro_torch.obs.ledger import DecisionLog, TokenLedger
 from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
 from repro_torch.serving import (EngineKilled, FaultEvent, FaultPlan,
                                  Request, make_slot_engine)
@@ -128,6 +147,31 @@ def main(argv=None):
     p.add_argument("--overflow", choices=["reject", "shed-oldest"],
                    default="reject",
                    help="backpressure policy when the queue is full")
+    p.add_argument("--ledger", action="store_true",
+                   help="§14 token-provenance ledger: account every emitted "
+                        "token to its mechanism (reused prefix / accepted "
+                        "draft / bonus / fresh / retry / shared block) and "
+                        "print the savings-attribution report after the run")
+    p.add_argument("--decision-log", default="", metavar="DIR",
+                   help="§14 decision-record logging: one (features, "
+                        "outcomes) record per draft decision, sharded as "
+                        "JSONL + NPZ under DIR (obs.ledger.load_dataset "
+                        "reloads them as a training-ready bundle)")
+    p.add_argument("--assert-compile-stable", action="store_true",
+                   help="§14 recompile sentinel: replay the identical "
+                        "request set on a fresh engine after the run and "
+                        "fail if any enrolled device program sees a new "
+                        "call signature")
+    p.add_argument("--trace-dir", default="",
+                   help="§11 observatory: write trace.json (Chrome trace), "
+                        "events.jsonl and metrics.prom here after the run")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   help="fraction of requests given their own trace lane "
+                        "(deterministic per-request hash)")
+    p.add_argument("--metrics", type=int, default=0, metavar="PORT",
+                   help="serve Prometheus text exposition on "
+                        "http://localhost:PORT/metrics during the run "
+                        "(0 = off)")
     p.add_argument("--state-path", default="",
                    help="on SIGTERM/Ctrl-C, snapshot the exact server state "
                         "here (checkpoint/io.save_server_state) for "
@@ -162,14 +206,24 @@ def main(argv=None):
     draft = (DraftConfig(kind="ngram", draft_k=args.draft) if args.draft > 0
              else None)
 
-    def make_engine(spec_prefix: bool):
+    # §11/§14: the tracer and the ledger go to the MAIN serving engine
+    # only; the spec-prefix warm pass and the compile-stability replay run
+    # without them, so the trace and the attribution are about the
+    # speculative serve itself
+    tracer = (Tracer(enabled=True, sample_rate=args.trace_sample_rate)
+              if args.trace_dir else None)
+    ledger = TokenLedger(enabled=True) if args.ledger else None
+
+    def make_engine(spec_prefix: bool, traced: bool = False):
         return make_slot_engine(model, cfg, gen, num_slots=args.slots,
                                 prompt_width=args.prompt_len,
                                 spec_prefix=spec_prefix, log_lenience=0.0,
                                 draft=draft,
                                 deadline_steps=args.deadline_steps or None,
                                 max_queue=args.max_queue or None,
-                                overflow=args.overflow)
+                                overflow=args.overflow,
+                                tracer=tracer if traced else None,
+                                ledger=ledger if traced else None)
 
     rng = random.Random(args.seed)
     problems = generate_problems(MathTaskConfig(num_problems=n_requests))
@@ -196,6 +250,19 @@ def main(argv=None):
             print(f"  req{i}: {decode(outs[i])!r}")
         return 0
 
+    drafts = None
+
+    def attach_spec(reqs_):
+        vkey = make_key(args.seed + 11, device)
+        for i, r in enumerate(reqs_):
+            e = drafts.get(r.request_id)
+            r.verify_key = fold_in(vkey, i)
+            r.draft_tokens, r.draft_logprobs = e.tokens, e.logprobs
+            r.draft_eos = e.ends_with_eos
+            if draft is not None:
+                # the first-pass trajectory doubles as the §9 n-gram corpus
+                r.ngram_corpus = [e.tokens]
+
     if args.spec_prefix:
         # pass 1 (vanilla) builds the draft cache; pass 2 below serves with
         # speculative-prefix admission against the same policy
@@ -209,18 +276,20 @@ def main(argv=None):
             resp = warm_resp[r.request_id]
             drafts.put(r.request_id, resp.tokens, resp.logprobs, resp.length,
                        step=0, eos_id=gen.eos_id)
-        vkey = make_key(args.seed + 11, device)
-        for i, r in enumerate(reqs):
-            e = drafts.get(r.request_id)
-            r.verify_key = fold_in(vkey, i)
-            r.draft_tokens, r.draft_logprobs = e.tokens, e.logprobs
-            r.draft_eos = e.ends_with_eos
-            if draft is not None:
-                # the first-pass trajectory doubles as the §9 n-gram corpus
-                r.ngram_corpus = [e.tokens]
+        attach_spec(reqs)
         t0 = time.time()
 
-    engine = make_engine(spec_prefix=args.spec_prefix)
+    if args.decision_log:
+        # configured AFTER the warm pass, so the dataset holds only the
+        # speculative serve's decisions
+        configure(decisions=DecisionLog(args.decision_log, enabled=True))
+
+    engine = make_engine(spec_prefix=args.spec_prefix, traced=True)
+    metrics_srv = None
+    if args.metrics:
+        metrics_srv = obs_export.start_metrics_server(
+            engine.metrics_registry, args.metrics)
+        print(f"metrics: http://localhost:{args.metrics}/metrics")
 
     # §10 graceful shutdown: SIGTERM and Ctrl-C become a kill event in the
     # engine's fault plan, so the serve stops at the next chunk boundary
@@ -259,7 +328,40 @@ def main(argv=None):
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
+        if metrics_srv is not None:
+            metrics_srv.shutdown()
+            metrics_srv.server_close()
     dt = time.time() - t0
+    if args.decision_log:
+        dec = get_decision_log()
+        dec.flush()
+        print(f"decisions: {dec.records_total} records -> "
+              f"{args.decision_log} (obs.ledger.load_dataset to reload)")
+    report = None
+    if ledger is not None:
+        # §14: provenance counts x measured decode cost -> seconds saved
+        # per mechanism; the actual wall clock anchors the counterfactual
+        regd = engine.metrics_registry().as_dict()
+        n_all = max(1, int(ledger.category_counts().sum()))
+        t_tok = measured_token_cost(regd) or dt / n_all
+        report = build_report(ledger, t_tok, actual_s=dt)
+        print(report.summary())
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        reg = engine.metrics_registry()
+        counters = None
+        if report is not None:
+            report.to_registry(reg)    # attribution joins /metrics + prom
+            counters = report.counter_events(dt)
+        obs_export.write_chrome_trace(
+            os.path.join(args.trace_dir, "trace.json"), tracer,
+            counters=counters)
+        obs_export.write_jsonl(
+            os.path.join(args.trace_dir, "events.jsonl"), tracer, reg)
+        obs_export.write_prometheus(
+            os.path.join(args.trace_dir, "metrics.prom"), reg)
+        print(f"trace: {args.trace_dir}/trace.json (load at "
+              f"ui.perfetto.dev), events.jsonl, metrics.prom")
     s = engine.stats()
     n_gen = int(s["generated_tokens"])
     print(f"arch={cfg.name} engine=slots(spec={args.spec_prefix}, "
@@ -290,6 +392,35 @@ def main(argv=None):
             np.asarray(reqs[i].draft_tokens[:r.n_accepted], np.int32)
             if r.n_accepted else np.zeros(0, np.int32), r.tokens])
         print(f"  req{i} [{r.finish_reason}]: {decode(full)!r}")
+
+    if args.assert_compile_stable and not interrupted:
+        # §14 recompile sentinel: an identical request stream on a fresh
+        # engine must meet only call signatures already seen
+        baseline = compile_counts()
+        if not any(baseline.values()):
+            raise SystemExit("compile-stability: no enrolled device program "
+                             "counted a call; the sentinel cannot vouch for "
+                             "this run")
+        reqs2 = build_requests(ds, random.Random(args.seed), n_requests,
+                               max_new, make_key(args.seed + 3, device))
+        if args.spec_prefix:
+            attach_spec(reqs2)
+        replay = make_engine(spec_prefix=args.spec_prefix)
+        if args.arrival_every > 0:
+            replay.run(arrivals=[(i * args.arrival_every, r)
+                                 for i, r in enumerate(reqs2)])
+        else:
+            for r in reqs2:
+                replay.submit(r)
+            replay.run()
+        grew = {k: (baseline.get(k, 0), v)
+                for k, v in compile_counts().items()
+                if v != baseline.get(k, 0)}
+        if grew:
+            raise SystemExit("compile instability: new call signatures on "
+                             f"identical replay: {grew}")
+        print(f"compile-stability: {sum(baseline.values())} compiles total, "
+              "0 new on identical replay")
     return 0
 
 

@@ -11,6 +11,9 @@ GRPO, PPO or DAPO trainer (``--algo``) with the SPEC-RL rollout.
         --steps 2 --async --async-schedule ppcc --staleness-window 1
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
         --steps 3 --watchdog-dir /tmp/wd --watchdog-every 1
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
+        --steps 3 --draft 2 --ledger --alerts --decision-log /tmp/d \
+        --trace-dir /tmp/t
     PYTHONPATH=src python -m repro_torch.launch.train --steps 10
 
 Runs on the card unless ``--device cpu``.  ``--smoke`` selects the arch's
@@ -27,17 +30,27 @@ step line then carries ``tok/fwd``, ``draft_acc`` and ``draft_len``.
 ``--watchdog-dir`` attaches the §10 trainer watchdog (``--watchdog-every``,
 ``--watchdog-max-collect-time``).
 
-Every flag of a feature the port does not have yet raises and names its
-ROADMAP Queue 1 item when it is set away from its default: ``--ledger``,
-``--decision-log``, ``--alerts``, ``--trace-dir``, ``--trace-sample-rate``
-and ``--metrics`` (item 9, the observatory hooks), ``--mesh-data``,
-``--mesh-model`` and ``--require-mesh`` (item 11, the mesh).  At their
-defaults they are accepted, as in JAX.
+The §11/§14 observatory, as in JAX: ``--ledger`` accounts every rollout
+token to its mechanism and prints the savings-attribution table after the
+run; ``--decision-log DIR`` shards the drafted loops' decision records
+under DIR; ``--alerts`` evaluates the default alert rules on every step
+(an ``alerts:`` line at the end); ``--trace-dir DIR`` writes
+``trace.json`` (Chrome trace), ``events.jsonl`` and ``metrics.prom``
+there (``--trace-sample-rate`` thins the request lanes); ``--metrics
+PORT`` serves the Prometheus text on ``localhost:PORT/metrics`` while the
+run lasts.
+
+The flags of the mesh, ``--mesh-data``, ``--mesh-model`` and
+``--require-mesh`` (ROADMAP Queue 1 item 11, the mesh), raise and name
+their item when they are set away from their defaults; at their defaults
+they are accepted, as in JAX.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
+import time
 
 import torch
 
@@ -49,6 +62,12 @@ from repro_torch.device import resolve_device
 from repro_torch.drafting import DraftConfig
 from repro_torch.engine.sampling import make_key
 from repro_torch.models import model as M
+from repro_torch.obs import (MetricsRegistry, Tracer, configure,
+                             get_decision_log, get_registry, get_tracer)
+from repro_torch.obs import export as obs_export
+from repro_torch.obs.alerts import AlertManager
+from repro_torch.obs.attrib import build_report, measured_token_cost
+from repro_torch.obs.ledger import DecisionLog, TokenLedger
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
 from repro_torch.rl.async_loop import AsyncConfig, AsyncTrainer
@@ -58,12 +77,6 @@ from repro_torch.rl.watchdog import TrainWatchdog, WatchdogConfig
 # flag -> (ROADMAP Queue 1 item, its feature) for flags that must stay at
 # their default until the item lands
 UNPORTED_FLAGS = {
-    "ledger": (9, "the observatory hooks"),
-    "decision_log": (9, "the observatory hooks"),
-    "alerts": (9, "the observatory hooks"),
-    "trace_dir": (9, "the observatory hooks"),
-    "trace_sample_rate": (9, "the observatory hooks"),
-    "metrics": (9, "the observatory hooks"),
     "mesh_data": (11, "the mesh"),
     "mesh_model": (11, "the mesh"),
     "require_mesh": (11, "the mesh"),
@@ -122,21 +135,27 @@ def build_parser() -> argparse.ArgumentParser:
                    default=float("inf"),
                    help="rollout stall threshold in seconds")
     p.add_argument("--ledger", action="store_true",
-                   help="token-provenance ledger (ROADMAP Queue 1 item 9, "
-                        "the observatory)")
+                   help="§14 token-provenance ledger: account every rollout "
+                        "token to its mechanism and print the savings-"
+                        "attribution report after the run")
     p.add_argument("--decision-log", default="", metavar="DIR",
-                   help="decision records (ROADMAP Queue 1 item 9, the "
-                        "observatory)")
+                   help="§14 decision-record logging: shard draft-decision "
+                        "(features, outcomes) records under DIR")
     p.add_argument("--alerts", action="store_true",
-                   help="metric alerts (ROADMAP Queue 1 item 9, the "
-                        "observatory)")
+                   help="§14 metric alert rules: evaluate the default "
+                        "threshold/trend rules on every step's metrics; "
+                        "events trace on the 'alerts' lane and feed the "
+                        "watchdog counters when --watchdog-dir rides along")
     p.add_argument("--trace-dir", default="",
-                   help="Chrome trace and metrics dump (ROADMAP Queue 1 item "
-                        "9, the observatory)")
-    p.add_argument("--trace-sample-rate", type=float, default=1.0)
+                   help="§11 observatory: write trace.json (Chrome trace), "
+                        "events.jsonl and metrics.prom here after the run")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   help="fraction of slot-served requests given their own "
+                        "trace lane (deterministic per-request hash)")
     p.add_argument("--metrics", type=int, default=0, metavar="PORT",
-                   help="Prometheus exposition (0 = off; ROADMAP Queue 1 item "
-                        "9, the observatory)")
+                   help="serve Prometheus text exposition on "
+                        "http://localhost:PORT/metrics during the run "
+                        "(0 = off)")
     return p
 
 
@@ -156,6 +175,21 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     check_flags(args, parser)
     device = resolve_device(args.device)
+
+    # §11: install the process-global tracer/registry BEFORE the trainer is
+    # built, so the rollout, drafting and trainer stage hooks land in it;
+    # §14: the ledger and decision log are process-global likewise
+    tracer = None
+    if args.trace_dir or args.metrics:
+        tracer = Tracer(enabled=bool(args.trace_dir),
+                        sample_rate=args.trace_sample_rate)
+        configure(tracer=tracer, registry=MetricsRegistry())
+    ledger = None
+    if args.ledger:
+        ledger = TokenLedger(enabled=True)
+        configure(ledger=ledger)
+    if args.decision_log:
+        configure(decisions=DecisionLog(args.decision_log, enabled=True))
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -183,8 +217,17 @@ def main(argv=None) -> int:
             checkpoint_dir=args.watchdog_dir,
             snapshot_every=args.watchdog_every,
             max_collect_time=args.watchdog_max_collect_time))
+    alerts = None
+    if args.alerts:
+        alerts = AlertManager(tracer=tracer if tracer is not None
+                              else get_tracer())
     tr = Trainer(cfg, rl, spec, ds, make_key(0, device), device=device,
-                 watchdog=watchdog)
+                 watchdog=watchdog, alerts=alerts)
+    metrics_srv = None
+    if args.metrics:
+        metrics_srv = obs_export.start_metrics_server(get_registry,
+                                                      args.metrics)
+        print(f"metrics: http://localhost:{args.metrics}/metrics")
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"arch={cfg.name} devices={n_dev} device={device.type} mesh=off "
           f"params={M.count_params(tr.model) / 1e6:.1f}M")
@@ -199,10 +242,42 @@ def main(argv=None) -> int:
                      f"draft_len={m.get('draft_mean_len', 0.0):.2f}")
         return line
 
-    if not args.async_mode:
-        for _ in range(args.steps):
-            print(step_line(tr.train_step()), flush=True)
-        return 0
+    t_run0 = time.time()
+    try:
+        if args.async_mode:
+            run_async(tr, args, step_line)
+        else:
+            for _ in range(args.steps):
+                print(step_line(tr.train_step()), flush=True)
+    finally:
+        if metrics_srv is not None:
+            metrics_srv.shutdown()
+            metrics_srv.server_close()
+    t_run = time.time() - t_run0
+    if args.decision_log:
+        dec = get_decision_log()
+        dec.flush()
+        print(f"decisions: {dec.records_total} records -> "
+              f"{args.decision_log} (obs.ledger.load_dataset to reload)")
+    if alerts is not None:
+        fired = {k: v for k, v in alerts.as_dict().items() if v}
+        print(f"alerts: {fired or 'none fired'}")
+    report = None
+    if ledger is not None:
+        regd = get_registry().as_dict()
+        n_all = max(1, int(ledger.category_counts().sum()))
+        t_tok = measured_token_cost(regd) or t_run / n_all
+        report = build_report(ledger, t_tok, actual_s=t_run)
+        print(report.summary())
+    if args.trace_dir:
+        write_trace_dir(args.trace_dir, tracer, get_registry(), report,
+                        t_run)
+    return 0
+
+
+def run_async(tr: Trainer, args, step_line) -> None:
+    """The §12 disaggregated loop: producer ticks and consumer steps in the
+    ``--async-schedule`` pattern until ``--steps`` optimizer steps ran."""
     at = AsyncTrainer(tr, AsyncConfig(
         staleness_window=args.staleness_window,
         buffer_capacity=args.buffer_capacity,
@@ -225,7 +300,25 @@ def main(argv=None) -> int:
               f"mode={m.get('async_mode_level', 0.0):.0f}", flush=True)
     for k, v in sorted(at.counters().items()):
         print(f"async {k}={v:.0f}")
-    return 0
+
+
+def write_trace_dir(trace_dir: str, tracer, reg: MetricsRegistry, report,
+                    t_run: float) -> None:
+    """Write ``trace.json``, ``events.jsonl`` and ``metrics.prom`` under
+    ``trace_dir``; the attribution report, when there is one, joins the
+    registry and the trace's counter tracks."""
+    os.makedirs(trace_dir, exist_ok=True)
+    counters = None
+    if report is not None:
+        report.to_registry(reg)
+        counters = report.counter_events(t_run)
+    obs_export.write_chrome_trace(os.path.join(trace_dir, "trace.json"),
+                                  tracer, counters=counters)
+    obs_export.write_jsonl(os.path.join(trace_dir, "events.jsonl"), tracer,
+                           reg)
+    obs_export.write_prometheus(os.path.join(trace_dir, "metrics.prom"), reg)
+    print(f"trace: {trace_dir}/trace.json (load at ui.perfetto.dev), "
+          f"events.jsonl, metrics.prom")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 
 A ``Tracer`` records *completed* spans (named intervals on a named track)
 and typed instant events into bounded ring buffers.  Tracks become lanes
-in a Chrome-trace export (the exporter arrives with the observatory hooks,
-ROADMAP Queue 1 item 9).  In the port the async trainer emits its
+in the Chrome-trace export (obs/export.py): the serving engine emits one
+lane per engine plus one per sampled request; the trainer, the SPEC-RL
+rollout and the drafted loops emit stage lanes; the async trainer its
 degradation and producer-restart events and the trainer watchdog its
 restores.
 

@@ -35,9 +35,20 @@ flat namespace, and an attached ``rl/watchdog.py:TrainWatchdog`` sees the
 step last (it may restore the last good snapshot in place and always adds
 its counters).  ``spec.draft`` reaches the rollout (the §9 draft engine).
 
-Not ported yet, and raising with their ROADMAP Queue 1 item: the mesh
-(item 11) and the tracer and alerts (item 9, the observatory hooks).
-With neither passed there is nothing of theirs to do.
+§11/§14 observatory, as in JAX: ``tracer=`` (else the process-global
+tracer) draws each stage (reward, collect, old_logprob, ref, values, adv,
+update_critic, update_actor) and the enclosing ``train_step`` on the
+``trainer`` lane, from the stamps the stage timers take after their device
+wait, and the process-global registry gets the ``train.*_s`` histograms.
+With a ledger configured the step log carries its cumulative
+``ledger_tokens_*`` tallies, ``ledger_finalized`` and
+``ledger_violations`` (mirrored as ``ledger.tokens_*`` gauges into the
+registry); ``alerts=`` (an ``obs.alerts.AlertManager``) evaluates each
+step's flat metrics before the watchdog sees them and routes its events to
+an attached watchdog; a decision log is flushed once a step.
+
+Not ported yet, and raising with its ROADMAP Queue 1 item: the mesh
+(item 11).
 """
 from __future__ import annotations
 
@@ -60,7 +71,8 @@ from repro_torch.engine.generate import GenerateConfig, score, token_logprobs
 from repro_torch.engine.sampling import split_key
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import (MetricsRegistry, get_decision_log, get_ledger,
+                             get_registry, get_tracer)
 from repro_torch.optim import adamw
 from repro_torch.rewards.verifier import batch_rewards
 
@@ -235,8 +247,6 @@ class Collector:
                  mesh=None, tracer=None):
         if mesh is not None:
             raise _unported("the mesh", 11, "the mesh")
-        if tracer is not None:
-            raise _unported("the tracer", 9, "the observatory hooks")
         self.cfg = model_cfg
         self.rl = rl
         self.spec = spec
@@ -253,13 +263,13 @@ class Collector:
         self.gen_steps = 0
         self.total_generated_tokens = 0
         self._py_rng = random.Random(1234)
+        self.tracer = tracer if tracer is not None else get_tracer()
 
-    @staticmethod
-    def _stage(t0: float, times: Dict[str, float], key: str) -> float:
-        """Close a stage: record its duration under ``key``."""
-        t1 = time.perf_counter()
-        times[key] = t1 - t0
-        return t1
+    def _stage(self, name: str, t0: float, times: Dict[str, float], key: str,
+               step: int) -> float:
+        """Close a collect stage: record its duration under ``key``, emit a
+        'trainer'-lane span and a train.* histogram sample."""
+        return _close_stage(self.tracer, name, t0, times, key, step)
 
     def sample(self, epoch: int,
                batch: Optional[PromptBatch] = None) -> PromptBatch:
@@ -297,7 +307,9 @@ class Collector:
         rb = self.rollout_once(model, batch, epoch)
         t_reward0 = time.perf_counter()
         rewards = batch_rewards(rb.response, rb.length, batch.answers)
-        reward_time = time.perf_counter() - t_reward0
+        rtimes: Dict[str, float] = {}
+        self._stage("reward", t_reward0, rtimes, "reward_time", epoch)
+        reward_time = rtimes["reward_time"]
 
         if self.rl.algo == "dapo" and self.rl.dynamic_sampling:
             G = self.rl.group_size
@@ -316,8 +328,20 @@ class Collector:
 
         stage_times = dict(rb.metrics)
         stage_times["reward_time"] = reward_time
-        self._stage(t0, stage_times, "collect_time")
+        self._stage("collect", t0, stage_times, "collect_time", epoch)
         return batch, rb, rewards, stage_times
+
+
+def _close_stage(tracer, name: str, t0: float, times: Dict[str, float],
+                 key: str, step: int) -> float:
+    """Record a stage's duration under ``key``, draw its span on the
+    'trainer' lane and feed the train.* histogram; returns the end stamp."""
+    t1 = time.perf_counter()
+    times[key] = t1 - t0
+    if tracer.enabled:
+        tracer.complete(name, "trainer", t0, t1, cat="train", step=step)
+    get_registry().observe(f"train.{name}_s", t1 - t0)
+    return t1
 
 
 def _group_rows(group_idxs: np.ndarray, G: int) -> np.ndarray:
@@ -374,14 +398,12 @@ class Trainer:
                  tracer=None, alerts=None):
         if mesh is not None:
             raise _unported("the mesh", 11, "the mesh")
-        if tracer is not None or alerts is not None:
-            raise _unported("the tracer and alerts", 9,
-                            "the observatory hooks")
         self.cfg = model_cfg
         self.rl = rl
         k1, k2, k3, coll_key = key.split(4)
         self.collector = Collector(model_cfg, rl, spec, dataset, coll_key,
-                                   lenience_schedule=lenience_schedule)
+                                   lenience_schedule=lenience_schedule,
+                                   tracer=tracer)
         if model is None:
             model = M.init_lm(model_cfg, seed=_seed_from(k1),
                               device=resolve_device(device))
@@ -406,6 +428,13 @@ class Trainer:
         # restore-last-good + skip-the-batch on a non-finite loss or a
         # stalled rollout stage.  None = no monitoring (the default).
         self.watchdog = watchdog
+        # §14 alerts (obs/alerts.py): evaluated on every step's flat
+        # metrics; events trace on the 'alerts' lane and, with a watchdog
+        # attached, feed its degradation counters
+        self.alerts = alerts
+        if alerts is not None and alerts.watchdog is None:
+            alerts.watchdog = watchdog
+        self.tracer = tracer if tracer is not None else get_tracer()
         self.last_rb: Optional[RolloutBatch] = None
 
     # ------------------------------------------- collection-state delegation
@@ -468,10 +497,13 @@ class Trainer:
 
     # -------------------------------------------------------------- training
 
-    def _stage(self, t0: float, times: Dict[str, float], key: str) -> float:
-        """Close a trainer stage once the device is done with it."""
+    def _stage(self, name: str, t0: float, times: Dict[str, float],
+               key: str) -> float:
+        """Close a trainer stage once the device is done with it: its
+        duration under ``key``, a 'trainer'-lane span and a train.*
+        histogram sample.  Returns the end stamp."""
         sync(self.device)
-        return Collector._stage(t0, times, key)
+        return _close_stage(self.tracer, name, t0, times, key, self.step_idx)
 
     def _collect(self, batch: PromptBatch):
         return self.collector.collect(self.model, batch, self.step_idx)
@@ -517,7 +549,7 @@ class Trainer:
         lp_old, _ = _old_logprobs(self.model, self.cfg, full_tokens,
                                   full_mask, P, self.rl.temperature,
                                   self.rl.top_p)
-        self._stage(t0, times, "old_logprob_time")
+        self._stage("old_logprob", t0, times, "old_logprob_time")
 
         ref_lp = torch.zeros_like(lp_old)
         if self.ref_model is not None:
@@ -525,7 +557,7 @@ class Trainer:
             ref_lp, _ = _old_logprobs(self.ref_model, self.cfg, full_tokens,
                                       full_mask, P, self.rl.temperature,
                                       self.rl.top_p)
-            self._stage(t0, times, "ref_time")
+            self._stage("ref", t0, times, "ref_time")
 
         # ---- advantages ----------------------------------------------------
         t0 = time.perf_counter()
@@ -534,7 +566,7 @@ class Trainer:
             tv = time.perf_counter()
             values = _values(self.critic, self.cfg, full_tokens,
                              full_mask, P)
-            self._stage(tv, times, "values_time")
+            self._stage("values", tv, times, "values_time")
             rew_tok = terminal_reward_to_tokens(rew, lengths, N)
             adv, returns = gae_advantages(rew_tok, values, resp_mask,
                                           gamma=self.rl.gamma,
@@ -555,7 +587,7 @@ class Trainer:
                 * resp_mask.float()
             adv = adv * w
             times["is_weight_mean"] = float(masked_mean(w, resp_mask))
-        self._stage(t0, times, "adv_time")
+        self._stage("adv", t0, times, "adv_time")
 
         # ---- updates -------------------------------------------------------
         cinfo = {}
@@ -565,7 +597,7 @@ class Trainer:
                                    self.cfg, self.rl.critic_optim,
                                    full_tokens, full_mask, P, returns,
                                    old_values, resp_mask)
-            self._stage(t0, times, "update_critic_time")
+            self._stage("update_critic", t0, times, "update_critic_time")
 
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -576,7 +608,12 @@ class Trainer:
                              self.rl.optim, full_tokens, full_mask, P, lp_old,
                              adv, resp_mask, ref_lp, self.rl.temperature,
                              self.rl.top_p)
-        self._stage(t0, times, "update_actor_time")
+        t_end = self._stage("update_actor", t0, times, "update_actor_time")
+        get_registry().observe("train.train_step_s", t_end - t_step0)
+        if self.tracer.enabled:
+            # the whole-step span encloses the stage spans on the same lane
+            self.tracer.complete("train_step", "trainer", t_step0, t_end,
+                                 cat="train", step=self.step_idx)
 
         self.lenience_schedule.update(abs(float(info.get("approx_kl", 0.0))))
         metrics = {
@@ -597,15 +634,35 @@ class Trainer:
             # async-loop provenance (staleness, buffer counters, mode) joins
             # the flat namespace BEFORE the watchdog sees the step
             metrics.update({k: float(v) for k, v in extra_metrics.items()})
+        led = get_ledger()
+        if led.enabled:
+            # §14: cumulative provenance counts join the step log (the
+            # savings attribution divides exactly these) and mirror into the
+            # global registry, so an events.jsonl dump feeds
+            # `launch.analysis attrib` offline
+            greg = get_registry()
+            for cname, nv in led.counts_dict().items():
+                metrics[f"ledger_tokens_{cname}"] = float(nv)
+                greg.set(f"ledger.tokens_{cname}", float(nv), agg="max")
+            metrics["ledger_finalized"] = float(led.finalized)
+            metrics["ledger_violations"] = float(led.violations)
         # §11: the step log goes through a MetricsRegistry, the audited
         # flat-float namespace the trainer shares with the other surfaces
         metrics = MetricsRegistry.from_flat(metrics).as_dict()
+        if self.alerts is not None:
+            # evaluated BEFORE the watchdog, so a critical alert's counters
+            # show in the same step log
+            self.alerts.evaluate(metrics, self.step_idx)
+            metrics.update(self.alerts.as_dict())
         if self.watchdog is not None:
             # may restore the weights, moments and cache to the last
             # snapshot in place (the poisoned update is undone; step_idx
             # still advances below, so the bad batch is skipped, not
             # replayed) — and always folds its counters into the metrics
             self.watchdog.after_step(self, metrics)
+        dec = get_decision_log()
+        if dec.enabled:
+            dec.flush()      # decision shards hit disk once a step
         self.history.append(metrics)
         self.step_idx += 1
         return metrics

@@ -155,8 +155,8 @@ class TrainWatchdog:
     # ------------------------------------------------------------- plumbing
 
     def note_alert(self, event) -> None:
-        """§14 alert sink (the alert manager arrives with the observatory
-        hooks).  Alerts are advisory — they count toward the step log but
+        """§14 alert sink: ``obs.alerts.AlertManager`` routes its events
+        here (``Trainer(alerts=..., watchdog=...)``).  Alerts are advisory — they count toward the step log but
         do not by themselves trigger a restore; the poison checks stay the
         only rollback authority."""
         self.alert_events += 1

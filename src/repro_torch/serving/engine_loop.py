@@ -69,10 +69,33 @@ through a plain (B, 2) block.  The non-finite guard of a draft chunk runs
 on the host over the block's log-probs.  ``stats()`` carries the
 ``DraftStats`` counters (zeros for an engine that does not draft).
 
-Left for later slices (a constructor argument that asks for one raises
-``NotImplementedError`` naming its ROADMAP item): the §11/§14 tracer,
-ledger and decision log (ROADMAP Queue 1 item 9, the observatory hooks);
-the §8 mesh (ROADMAP Queue 1 item 11, the mesh).
+§11/§14 observatory, as in JAX: ``tracer=`` (else the process-global
+tracer) draws an ``engine`` lane (admit, slot_write, decode_chunk /
+draft_chunk spans) and one ``req/<id>`` lane per sampled request (queued,
+admit, decode chunks, fault and retry instants, the whole request); the
+engine's own registry holds the ``serve.*`` latency histograms (queue
+wait, TTFT, admit and slot-write time, chunk, step and token time, serve
+time, retries, reuse length) and travels in ``state_dict``;
+``metrics_registry()`` joins them to every counter, the sentinel's
+``compiles.*`` gauges, the CUDA allocator's ``device.*`` gauges and the
+ledger's ``ledger.tokens_*`` tallies, and ``stats()`` is its flat view.
+``ledger=`` (else the process-global one) keys provenance rows by
+``request_id``: the prompt, the accepted prefix split at the caller's
+draft boundary (``REUSED_PREFIX``, then ``RETRY_STITCHED`` /
+``QUARANTINE_CLAMPED`` for a retry's re-verified partial output), then
+``FRESH`` per chunk or ``categorize_draft_block`` runs per draft block
+clamped to what the guard kept; a row is finalized against prompt ⊕
+caller prefix ⊕ continuation when its response is written.  The ledger is
+not in ``state_dict`` (by design, as in JAX), so a restored engine neither
+extends nor finalizes a row it never saw begin; JAX's engine appends to
+such a row (``TokenLedger.append`` opens it) and then fails its
+conservation check (ROADMAP Queue 3).  A drafted engine writes one
+decision record per live slot and macro-step to the process-global
+decision log.  Every stamp is one the ``time_*`` accounting already
+takes, and every value comes from what a chunk already read back.
+
+The §8 mesh is left for a later slice (``mesh=`` raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 11, the mesh).
 """
 from __future__ import annotations
 
@@ -91,6 +114,12 @@ from repro_torch.engine.generate import GenerateConfig, positions_from_mask
 from repro_torch.engine.sampling import KeyBatch, sample, split_key, stack_keys
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import (MetricsRegistry, get_decision_log, get_ledger,
+                             get_tracer)
+from repro_torch.obs.alerts import (record_compile_gauges,
+                                    record_device_memory, register_jit_entry)
+from repro_torch.obs.ledger import (FRESH, PROMPT, REUSED_PREFIX,
+                                    SOURCE_NGRAM, categorize_draft_block)
 
 from .faults import EngineKilled, FaultPlan
 from .request import (DECODING, FINISH_BUDGET, FINISH_EOS, FINISH_FULL_REUSE,
@@ -208,21 +237,32 @@ def _decode_chunk(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
             "logprobs": torch.stack(lps, dim=1)}       # (B, steps)
 
 
+@torch.no_grad()
+def _write_slots(cfg: ModelConfig, dst_caches, src_caches, slots, *,
+                 pad_src: int = 0):
+    """Scatter the admission caches into the persistent batch (in place).
+    A drafted engine keeps draft_k spare slots per row (§9 block headroom),
+    so its admission caches are padded to the persistent width first."""
+    if pad_src:
+        src_caches = M.pad_cache(cfg, src_caches, pad_src)
+    return M.write_cache_slots(cfg, dst_caches, src_caches, slots)
+
+
+# §14 recompile sentinel (obs/alerts.py): the engine's device programs under
+# the reference's names and its jit's static arguments — their signature
+# counts are what the `recompile_steady_state` alert rule watches
+_admit_vanilla = register_jit_entry("admit_vanilla", _admit_vanilla,
+                                    static=("cfg", "gen", "mesh"))
+_admit_spec = register_jit_entry(
+    "admit_spec", _admit_spec,
+    static=("cfg", "gen", "verify_impl", "compact_impl", "mesh"))
+_write_slots = register_jit_entry("write_slots", _write_slots,
+                                  static=("cfg", "impl", "pad_src", "mesh"))
+_decode_chunk = register_jit_entry("decode_chunk", _decode_chunk,
+                                   static=("cfg", "gen", "steps", "mesh"))
+
 _DRAFT_COUNTERS = ("forwards", "draft_forwards", "proposed", "accepted",
                    "emitted")
-
-
-def _unported(**asked) -> None:
-    """Raise for a constructor argument whose feature a later slice ports."""
-    items = {"tracer": "the §11 tracer (ROADMAP Queue 1 item 9, the "
-                       "observatory)",
-             "ledger": "the §14 ledger (ROADMAP Queue 1 item 9, the "
-                       "observatory)",
-             "mesh": "the §8 mesh (ROADMAP Queue 1 item 11)"}
-    for name, value in asked.items():
-        if value is not None:
-            raise NotImplementedError(f"SlotEngine({name}=...): "
-                                      f"{items[name]} is not ported yet")
 
 
 class SlotEngine:
@@ -241,7 +281,10 @@ class SlotEngine:
                  max_queue: Optional[int] = None, overflow: str = "reject",
                  retry_backoff: Optional[BackoffConfig] = None,
                  tracer=None, ledger=None):
-        _unported(mesh=mesh, tracer=tracer, ledger=ledger)
+        if mesh is not None:
+            raise NotImplementedError("SlotEngine(mesh=...): the §8 mesh "
+                                      "(ROADMAP Queue 1 item 11) is not "
+                                      "ported yet")
         if not M.supports_slot_serving(cfg):
             raise ValueError("slot serving needs an attention-only trunk "
                              "without modality extras; use fixed-batch "
@@ -298,6 +341,10 @@ class SlotEngine:
         self.keys = None        # the slots' key batch, built at first admission
         self._acc_tok: List[List[np.ndarray]] = [[] for _ in range(B)]
         self._acc_lp: List[List[np.ndarray]] = [[] for _ in range(B)]
+        # §14: whether a slot's pending carry token is a free bonus sample
+        # (its previous draft block was fully accepted); ledger bookkeeping
+        # only, deliberately not in state_dict (the ledger is not either)
+        self._carry_bonus = np.zeros(B, bool)
         self._slot_n = np.zeros(B, np.int32)
         self._slot_draft_len = np.zeros(B, np.int32)
         self._slot_full_reuse = np.zeros(B, bool)
@@ -307,12 +354,24 @@ class SlotEngine:
         self.time_admit = 0.0
         self.time_slot_write = 0.0
         self.time_decode = 0.0
+        # §11/§14 observatory sinks, inert by default (NULL_TRACER,
+        # NULL_LEDGER and NULL_DECISION_LOG early-return everywhere); the
+        # engine-owned registry holds the latency histograms
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.ledger = ledger if ledger is not None else get_ledger()
+        self.decisions = get_decision_log()
+        self._etrack = "engine"
+        self.metrics = MetricsRegistry()
         self._t0 = time.perf_counter()
 
     # ------------------------------------------------------------- frontend
 
     def _now(self) -> float:
         return time.perf_counter() - self._t0
+
+    def _abs(self, rel: float) -> float:
+        """Engine-relative seconds → the tracer's perf_counter timeline."""
+        return self._t0 + rel
 
     def submit(self, req: Request) -> None:
         if len(req.prompt) > self.P or not 0 <= req.max_new_tokens <= self.N:
@@ -377,37 +436,79 @@ class SlotEngine:
                 break
         return self.responses
 
-    def stats(self) -> Dict[str, float]:
-        """The scheduler's lifecycle counters, the engine's throughput
-        counters, and the §10 recovery story under the ``fault_`` prefix
-        (JAX's ``FaultStats.as_dict`` with the scheduler's counters
-        mirrored in), as one plain dict."""
+    def metrics_registry(self) -> MetricsRegistry:
+        """The engine's full telemetry as ONE typed registry (§11): every
+        scheduler lifecycle counter, §9 draft counter and §10 fault counter
+        with its merge semantics attached (counters sum, peak gauges max,
+        ratios re-derive from summed parts), the §14 sentinels and ledger
+        tallies, and the engine's latency histograms."""
         sch = self.scheduler
-        out = {k: float(v) for k, v in sch.stats().items()}
-        out.update(
-            busy_slot_steps=float(sch.busy_slot_steps),
-            total_slot_steps=float(sch.total_slot_steps),
-            queue_wait_total=float(sch.queue_wait_total),
-            serve_time_total=float(sch.serve_time_total),
-            engine_steps=float(self.steps),
-            wall_time=self._now(),
-            generated_tokens=float(sum(r.length
-                                       for r in self.responses.values())),
-            reused_tokens=float(sum(r.n_accepted
-                                    for r in self.responses.values())),
-            admit_time=self.time_admit,
-            slot_write_time=self.time_slot_write,
-            decode_time=self.time_decode)
+        reg = MetricsRegistry()
+        # shape/config gauges (sum across shards where extensive)
+        reg.set("num_slots", float(sch.num_slots), agg="sum")
+        reg.set("num_shards", 1.0, agg="sum")
+        reg.set("pending", float(len(sch.queue)), agg="sum")
+        reg.set("max_queue", float(sch.max_queue or 0), agg="sum")
+        reg.set("engine_steps", float(self.steps), agg="max")
+        reg.set("wall_time", self._now(), agg="max")
+        # scheduler lifecycle counters
+        reg.inc("submitted", sch.submitted)
+        reg.inc("admitted", sch.admitted)
+        reg.inc("completed", sch.completed)
+        reg.inc("busy_slot_steps", sch.busy_slot_steps)
+        reg.inc("total_slot_steps", sch.total_slot_steps)
+        reg.inc("queue_wait_total", sch.queue_wait_total)
+        reg.inc("serve_time_total", sch.serve_time_total)
+        reg.inc("timeouts", sch.timeouts)
+        reg.inc("quarantined_requests", sch.quarantines)
+        reg.inc("retried_requests", sch.retries)
+        reg.inc("shed_requests", sch.sheds)
+        reg.inc("rejected_requests", sch.rejected)
+        reg.ratio("occupancy", "busy_slot_steps", "total_slot_steps")
+        reg.ratio("mean_queue_wait", "queue_wait_total", "completed")
+        reg.ratio("mean_serve_time", "serve_time_total", "completed")
+        # engine throughput counters
+        reg.inc("generated_tokens",
+                sum(r.length for r in self.responses.values()))
+        reg.inc("reused_tokens",
+                sum(r.n_accepted for r in self.responses.values()))
+        reg.inc("admit_time", self.time_admit)
+        reg.inc("slot_write_time", self.time_slot_write)
+        reg.inc("decode_time", self.time_decode)
         # §9 draft telemetry (zeros for an engine that does not draft)
-        out.update(self.draft_stats.as_dict())
+        ds = self.draft_stats
+        reg.inc("draft_proposed", ds.proposed)
+        reg.inc("draft_accepted", ds.accepted)
+        reg.inc("decode_forwards", ds.forwards)
+        reg.inc("decode_emitted", ds.emitted)
+        reg.inc("draft_forwards", ds.draft_forwards)
+        reg.ratio("accept_rate", "draft_accepted", "draft_proposed")
+        reg.ratio("mean_draft_len", "draft_proposed", "draft_forwards")
+        reg.ratio("tokens_per_forward", "decode_emitted", "decode_forwards")
+        # §10 recovery telemetry under the uniform fault_ schema: the
+        # engine-owned counters plus a mirror of the scheduler's
         fs = FaultStats(**{k: getattr(self.fault_stats, k)
                            for k in FaultStats.FIELDS})
         fs.timeouts = sch.timeouts
         fs.retries = sch.retries
         fs.sheds = sch.sheds
         fs.rejected = sch.rejected
-        out.update(fs.as_dict())
-        return out
+        for k, v in fs.as_dict().items():
+            reg.inc(k, v)
+        # §14 sentinels: per-entry signature counts and the CUDA
+        # allocator's gauges (process-global, so agg="max")
+        record_compile_gauges(reg)
+        record_device_memory(reg)
+        # §14 provenance tallies — the ledger may be process-global too
+        if self.ledger.enabled:
+            for cname, nv in self.ledger.counts_dict().items():
+                reg.set(f"ledger.tokens_{cname}", float(nv), agg="max")
+        # §11 latency histograms accumulated by the serving loop itself
+        reg.merge(self.metrics)
+        return reg
+
+    def stats(self) -> Dict[str, float]:
+        return self.metrics_registry().as_dict()
 
     # ------------------------------------------------------------ admission
 
@@ -450,13 +551,19 @@ class SlotEngine:
         engine releases its block-table row here."""
 
     def _write_admitted(self, src_caches, slot_ids: np.ndarray):
-        """Scatter the admission caches into the persistent batch (padded
-        with a drafted engine's draft_k slots of headroom first)."""
-        if self.draft:
-            src_caches = M.pad_cache(self.cfg, src_caches,
-                                     self.draft.draft_k)
-        return M.write_cache_slots(self.cfg, self.caches, src_caches,
-                                   slot_ids)
+        """Scatter the admission caches into the persistent batch."""
+        return _write_slots(self.cfg, self.caches, src_caches, slot_ids,
+                            pad_src=self.draft.draft_k if self.draft else 0)
+
+    def _prompt_category(self, req: Request) -> int:
+        """Provenance of the prompt plane: the paged engine overrides this
+        for CoW followers, whose prompt blocks are mapped, not prefilled."""
+        return PROMPT
+
+    def _pool_pressure(self) -> float:
+        """KV backing-store pressure in [0, 1]: 0 for dense slabs (they
+        cannot run dry); the paged engine reports block-pool occupancy."""
+        return 0.0
 
     def _admit(self) -> None:
         while True:
@@ -514,7 +621,18 @@ class SlotEngine:
         slot_ids = np.array(slots + [slots[0]] * (B - len(slots)), np.int64)
         self.caches = self._write_admitted(out.pop("caches"), slot_ids)
         sync(self.device)
-        self.time_slot_write += time.perf_counter() - t1
+        t2 = time.perf_counter()
+        self.time_slot_write += t2 - t1
+
+        # §11: admit/slot-write timings reuse t0/t1/t2, the stamps the
+        # time_* accounting above already took
+        self.metrics.observe("serve.admit_ms", (t1 - t0) * 1e3)
+        self.metrics.observe("serve.slot_write_ms", (t2 - t1) * 1e3)
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("admit", self._etrack, t0, t1, cat="admit",
+                        rows=len(group))
+            tr.complete("slot_write", self._etrack, t1, t2, cat="admit")
 
         self._register_groups(group, out)
 
@@ -526,21 +644,53 @@ class SlotEngine:
         lp_curr = host("lp_curr") if self.spec_prefix else None
         self._apply_admission(group, host("tok0"), host("lp0"),
                               host("next_pos"), out["keys"], n, fr, lp_curr,
-                              dn)
+                              dn, t0, t1)
         # full-reuse / zero-budget admissions finish without decoding;
         # harvesting them here lets the loop keep back-filling
         self._harvest()
 
     def _apply_admission(self, group, tok0, lp0, npos, nkeys, n, fr,
-                         lp_curr, dn) -> None:
+                         lp_curr, dn, t0: float, t1: float) -> None:
         """Per-request host bookkeeping after an admission (any path):
-        state vectors, keys, draft-source reset, activation.  Arrays are
-        indexed by the request's position ``j`` in ``group``."""
+        state vectors, keys, telemetry, draft-source reset, activation.
+        Arrays are indexed by the request's position ``j`` in ``group``;
+        t0/t1 are the admission's stamps."""
         if self.keys is None:
             self.keys = stack_keys([nkeys[0]] * self.scheduler.num_slots)
+        tr = self.tracer
+        led = self.ledger
         for j, (slot, req) in enumerate(group):
             nj = int(n[j])
             budget = max(0, req.max_new_tokens - nj)
+            if led.enabled:
+                # §14: (re)build the provenance plane.  The accepted prefix
+                # splits at the caller's draft boundary: up to it SPEC-RL
+                # reuse; past it the request's own re-verified partial
+                # output from an earlier occupancy (§10 retry)
+                base = max(0, int(req.base_draft_len))
+                led.begin_row(req.request_id, len(req.prompt),
+                              prompt_cat=self._prompt_category(req))
+                led.append(req.request_id, REUSED_PREFIX, min(nj, base))
+                led.append(req.request_id,
+                           led.retry_category(req.request_id),
+                           nj - min(nj, base))
+            # §11 per-request admission telemetry: queue wait, TTFT
+            # (queued → seed token, which admission just produced) and the
+            # SPEC-RL reuse length; span endpoints are the scheduler's
+            # engine-relative stamps
+            self.metrics.observe("serve.queue_wait_ms",
+                                 (req.admitted_at - req.queued_at) * 1e3)
+            self.metrics.observe("serve.ttft_ms",
+                                 ((t1 - self._t0) - req.queued_at) * 1e3)
+            if self.spec_prefix:
+                self.metrics.observe("serve.reuse_len", nj)
+            if tr.enabled and tr.sampled(req.request_id):
+                lane = f"req/{req.request_id}"
+                tr.complete("queued", lane, self._abs(req.queued_at),
+                            self._abs(req.admitted_at), cat="queue",
+                            retries=req.retries)
+                tr.complete("admit", lane, t0, t1, cat="admit",
+                            slot=slot, n_accepted=nj)
             self.cur_tok[slot] = tok0[j]
             self.cur_lp[slot] = lp0[j]
             self.count[slot] = 0
@@ -552,6 +702,7 @@ class SlotEngine:
             self.done[slot] = bool(fr[j]) or budget <= 0
             self._acc_tok[slot] = []
             self._acc_lp[slot] = []
+            self._carry_bonus[slot] = False   # the seed sample is fresh
             self._slot_n[slot] = nj
             self._slot_draft_len[slot] = int(dn[j]) if self.spec_prefix else 0
             self._slot_full_reuse[slot] = bool(fr[j])
@@ -573,7 +724,8 @@ class SlotEngine:
         if self.draft:
             return self._run_draft_chunk()
         steps = steps or self.chunk_steps
-        busy = sum(1 for s in self.scheduler.active if not self.done[s])
+        live = [s for s in self.scheduler.active if not self.done[s]]
+        busy = len(live)
         dev_t = self._dev_t
 
         # §10 fault hook: corrupt the logits of pending nan targets on the
@@ -596,14 +748,42 @@ class SlotEngine:
         toks = out["tokens"].cpu().numpy()          # (B, steps); waits
         lps = out["logprobs"].cpu().numpy()
         quar = out["quarantined"].cpu().numpy()
+        count0 = self.count
         for name in ("cur_tok", "cur_lp", "done", "count", "next_pos",
                      "write_idx"):
             setattr(self, name, out[name].cpu().numpy())
-        self.time_decode += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.time_decode += t1 - t0
+        # §11 chunk telemetry: t0/t1 are the time_decode stamps; the
+        # emitted count comes from the state just read back
+        emitted = int((self.count[live] - count0[live]).sum()) if live else 0
+        self.metrics.observe("serve.decode_chunk_ms", (t1 - t0) * 1e3)
+        self.metrics.observe("serve.decode_step_ms", (t1 - t0) / steps * 1e3)
+        if emitted > 0:
+            self.metrics.observe("serve.token_ms", (t1 - t0) / emitted * 1e3)
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("decode_chunk", self._etrack, t0, t1, cat="decode",
+                        steps=steps, busy=busy, emitted=emitted)
+            for slot in live:
+                req = self.scheduler.active[slot]
+                if tr.sampled(req.request_id):
+                    tr.complete("decode_chunk", f"req/{req.request_id}",
+                                t0, t1, cat="decode", slot=slot)
         for slot in self.scheduler.active:
             self._acc_tok[slot].append(toks[slot])
             self._acc_lp[slot].append(lps[slot])
             self.slot_age[slot] += steps
+        led = self.ledger
+        if led.enabled:
+            # §14: a slot's valid emission this chunk is its count delta
+            # (the accumulators keep whole chunk rows and trim at harvest);
+            # a row admitted before a kill-and-resume was never begun here
+            # and gets no bytes, so its finish skips it
+            for slot, req in self.scheduler.active.items():
+                if led.has_row(req.request_id):
+                    led.append(req.request_id, FRESH,
+                               int(self.count[slot]) - int(count0[slot]))
         self.steps += steps
         self.scheduler.tick(busy, steps)
         # §10 quarantine: rows the in-chunk guard pulled out (their valid
@@ -629,6 +809,8 @@ class SlotEngine:
         busy = sum(1 for s in self.scheduler.active if not self.done[s])
         dt = np.zeros((B, K), np.int32)
         dl = np.zeros((B,), np.int32)
+        dec = self.decisions
+        feats: Dict[int, Dict[str, float]] = {}
         for slot in self.scheduler.active:
             if self.done[slot]:
                 continue
@@ -651,6 +833,19 @@ class SlotEngine:
                 continue
             dt[slot, :len(d)] = d
             dl[slot] = len(d)
+            if dec.enabled:
+                # §14 decision record, feature half, from host state the
+                # loop already holds (surprisal: -logp of the pending token)
+                feats[slot] = {
+                    "surprisal": -float(self.cur_lp[slot]),
+                    "position": float(self.next_pos[slot]),
+                    "accept_ema": float(self._draft_ctrl.rate[slot]),
+                    "draft_k": float(len(d)),
+                    "draft_source": SOURCE_NGRAM,
+                    "queue_depth": float(len(self.scheduler.queue)),
+                    "slot_age": float(self.slot_age[slot]),
+                    "pool_pressure": self._pool_pressure(),
+                }
         # the bucketed block width (drafting/step.py:block_width); u_width
         # = draft_k keeps a request's stream independent of the bucket
         K_step = block_width(int(dl.max()), K)
@@ -664,14 +859,36 @@ class SlotEngine:
             u_width=K)
         self.caches, self.keys = out["caches"], out["keys"]
         h = step_readback(out)                       # one transfer; waits
-        self.time_decode += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.time_decode += t1 - t0
         for name in ("cur_tok", "cur_lp", "done", "count", "next_pos",
                      "write_idx"):
             setattr(self, name, h[name])
         toks, lps = h["tokens"], h["logprobs"]
         emitted, accepted, proposed = (h["emitted"], h["accepted"],
                                        h["proposed"])
+        # §11 draft macro-step telemetry (t0/t1 = the time_decode stamps)
+        n_em = int(emitted.sum())
+        self.metrics.observe("serve.draft_chunk_ms", (t1 - t0) * 1e3)
+        if n_em > 0:
+            self.metrics.observe("serve.token_ms", (t1 - t0) / n_em * 1e3)
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("draft_chunk", self._etrack, t0, t1, cat="draft",
+                        busy=busy, proposed=int(proposed.sum()),
+                        accepted=int(accepted.sum()), emitted=n_em)
+            for slot in self.scheduler.active:
+                if self.done[slot] and not emitted[slot]:
+                    continue
+                req = self.scheduler.active[slot]
+                if tr.sampled(req.request_id):
+                    tr.complete("draft_chunk", f"req/{req.request_id}",
+                                t0, t1, cat="draft", slot=slot,
+                                proposed=int(proposed[slot]),
+                                accepted=int(accepted[slot]),
+                                emitted=int(emitted[slot]))
         quarantined: List[int] = []
+        led = self.ledger
         for slot in self.scheduler.active:
             req = self.scheduler.active[slot]
             m = int(emitted[slot])
@@ -686,6 +903,20 @@ class SlotEngine:
                 bad = ~np.isfinite(lps[slot, :m])
                 if bad.any():
                     poison = int(np.argmax(bad))
+            if led.enabled and m and led.has_row(req.request_id):
+                # §14: carry (fresh/bonus) + accepted-draft runs for this
+                # block, clamped to what the guard kept
+                kept = min(poison, m)
+                for cat, nrun in categorize_draft_block(
+                        m, bool(self._carry_bonus[slot])):
+                    if kept <= 0:
+                        break
+                    led.append(req.request_id, cat, min(nrun, kept))
+                    kept -= nrun
+            # a fully accepted proposal makes the NEXT carry token a free
+            # bonus sample
+            self._carry_bonus[slot] = bool(
+                proposed[slot] > 0 and accepted[slot] == proposed[slot])
             if poison < m:
                 if poison:
                     self._acc_tok[slot].append(toks[slot, :poison])
@@ -699,6 +930,21 @@ class SlotEngine:
                 self._draft_source.extend(slot, toks[slot, :m])
             self._draft_ctrl.update(slot, int(proposed[slot]),
                                     int(accepted[slot]))
+        if dec.enabled and feats:
+            # §14 decision record, outcome half: the pre-step features
+            # joined to what the verify returned (step_ms from t0/t1)
+            step_ms = (t1 - t0) * 1e3
+            for slot, f in feats.items():
+                req = self.scheduler.active.get(slot)
+                if req is None:
+                    continue
+                prop, acc = int(proposed[slot]), int(accepted[slot])
+                m = int(emitted[slot])
+                dec.record(req.request_id, self.steps, f, {
+                    "proposed": prop, "accepted": acc,
+                    "bonus": 1.0 if (prop > 0 and acc == prop and m > acc)
+                    else 0.0,
+                    "emitted": m, "step_ms": step_ms})
         for slot in self.scheduler.active:
             self.slot_age[slot] += 1
         self.draft_stats.add_step(forwards=busy,
@@ -784,8 +1030,18 @@ class SlotEngine:
                 if self.draft:
                     self.fault_stats.add(draft_disabled=1)
         now = self._now()
+        # §14: remember WHY the slot was lost — the partial output that
+        # re-enters through spec-prefix verification on retry is
+        # RETRY_STITCHED (timeout/stall) or QUARANTINE_CLAMPED, not reuse
+        self.ledger.note_retry(req.request_id, reason)
         self.scheduler.reclaim(slot, now=now, reason=reason)
         self._on_slot_freed(slot)
+        tr = self.tracer
+        lane = f"req/{req.request_id}"
+        if tr.enabled and tr.sampled(req.request_id):
+            # fault instant on the request lane: quarantine / timeout
+            tr.event(reason, lane, cat="fault", ts=self._abs(now),
+                     slot=slot, retries=req.retries)
         if req.retries < req.max_retries:
             if self.spec_prefix:
                 # accepted prefix ⊕ partial output becomes the retry draft;
@@ -809,9 +1065,17 @@ class SlotEngine:
                     (self.steps + max(0, math.ceil(delay)), req))
             else:
                 self.scheduler.resubmit(req, now=now)
+            if tr.enabled and tr.sampled(req.request_id):
+                tr.event("retry", lane, cat="fault", ts=self._abs(now),
+                         retry=req.retries)
         else:
             toks2, lps2, orig = self._stitch(req, n1, plp, toks, lps)
             self.fault_stats.add(failed=1)
+            if self.ledger.enabled and self.ledger.has_row(req.request_id):
+                # conservation holds for failure responses too: the plane
+                # covers prompt + caller prefix + best-effort continuation
+                self.ledger.finalize(req.request_id,
+                                     len(req.prompt) + orig + len(toks2))
             self.responses[req.request_id] = Response(
                 request_id=req.request_id, tokens=toks2, logprobs=lps2,
                 length=len(toks2), finish_reason=reason, n_accepted=orig,
@@ -819,6 +1083,14 @@ class SlotEngine:
                 draft_len=int(self._slot_draft_len[slot]), slot=slot,
                 queue_time=req.admitted_at - req.queued_at,
                 serve_time=now - req.admitted_at, retries=req.retries)
+            self.metrics.observe("serve.serve_ms",
+                                 (now - req.admitted_at) * 1e3)
+            self.metrics.observe("serve.retries_per_request", req.retries)
+            if tr.enabled and tr.sampled(req.request_id):
+                # retroactive whole-lifecycle span: queued → failed
+                tr.complete("request", lane, self._abs(req.queued_at),
+                            self._abs(now), cat="request", reason=reason,
+                            tokens=len(toks2), retries=req.retries)
         self.done[slot] = True
         self._acc_tok[slot] = []
         self._acc_lp[slot] = []
@@ -870,6 +1142,12 @@ class SlotEngine:
             toks, lps, orig = self._stitch(req, int(self._slot_n[slot]),
                                            self._slot_prefix_lp[slot],
                                            toks, lps)
+            if self.ledger.enabled and self.ledger.has_row(req.request_id):
+                # §14 conservation invariant: the provenance plane exactly
+                # partitions prompt ⊕ caller prefix ⊕ continuation
+                self.ledger.finalize(req.request_id,
+                                     len(req.prompt) + orig + len(toks))
+                self.ledger.clear_retry(req.request_id)
             resp = Response(
                 request_id=req.request_id, tokens=toks, logprobs=lps,
                 length=len(toks), finish_reason=reason, n_accepted=orig,
@@ -880,6 +1158,15 @@ class SlotEngine:
             self.responses[req.request_id] = resp
             self.scheduler.complete(slot, now=now)
             self._on_slot_freed(slot)
+            self.metrics.observe("serve.serve_ms", resp.serve_time * 1e3)
+            self.metrics.observe("serve.retries_per_request", req.retries)
+            tr = self.tracer
+            if tr.enabled and tr.sampled(req.request_id):
+                # retroactive whole-lifecycle span: queued → finished
+                tr.complete("request", f"req/{req.request_id}",
+                            self._abs(req.queued_at), self._abs(now),
+                            cat="request", reason=reason, tokens=len(toks),
+                            n_accepted=orig, slot=slot, retries=req.retries)
             self._acc_tok[slot] = []
             self._acc_lp[slot] = []
             self._slot_prefix_lp[slot] = None
@@ -937,6 +1224,9 @@ class SlotEngine:
                           for rid, r in self.responses.items()},
             "fault_stats": {k: np.int64(getattr(self.fault_stats, k))
                             for k in FaultStats.FIELDS},
+            # §11: the latency histograms resume with the engine, so a
+            # kill-and-resume run keeps monotonic counters and percentiles
+            "obs": self.metrics.state_dict(),
         }
         if self._retry_hold:
             # §12 backoff holds are in-flight work; written only when
@@ -992,6 +1282,8 @@ class SlotEngine:
                           for rid, rs in state["responses"].items()}
         for k in FaultStats.FIELDS:
             setattr(self.fault_stats, k, int(state["fault_stats"][k]))
+        if "obs" in state:          # absent in snapshots without histograms
+            self.metrics.load_state_dict(state["obs"])
         hold = state.get("retry_hold", {})
         self._retry_hold = [
             (int(hold[str(i)]["due"]), Request.from_state(hold[str(i)]["req"]))

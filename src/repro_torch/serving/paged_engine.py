@@ -49,6 +49,12 @@ reclaimed through the §10 retry machinery, and a request that cannot be
 tabled even on an EMPTY batch is shed at once (FINISH_SHED).  Idle rows
 keep stepping: a freed row's table points at the sink block 0 and its pos
 row is -1, so its writes land in garbage that nothing reads as live.
+
+§11/§14 observatory, as in JAX: a follower admission draws an
+``admit_shared`` span on the engine lane and a ``serve.admit_ms`` sample,
+its prompt plane is ``SHARED_PROMPT_BLOCK`` (prefilled once by the leader,
+mapped here), and ``metrics_registry()`` adds the pool gauges and sharing
+counters.
 """
 from __future__ import annotations
 
@@ -64,6 +70,8 @@ from repro_torch.models import model as M
 from repro_torch.models.attention import init_paged_kv_cache
 from repro_torch.models.blocks import signature_runs
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import MetricsRegistry
+from repro_torch.obs.ledger import PROMPT, SHARED_PROMPT_BLOCK
 
 from .block_table import BlockAllocator, PoolExhausted
 from .engine_loop import SlotEngine
@@ -81,6 +89,10 @@ def _seed_from_logits(gen: GenerateConfig, seed_logits, keys):
 
 class PagedSlotEngine(SlotEngine):
     """SlotEngine over a paged block pool with CoW GRPO prompt sharing."""
+
+    # §14: raised around follower admission so the ledger tags those
+    # prompt planes SHARED_PROMPT_BLOCK instead of PROMPT
+    _admitting_followers = False
 
     def __init__(self, model: M.LM, cfg: ModelConfig, gen: GenerateConfig, *,
                  kv_pool_blocks: Optional[int] = None, **kw):
@@ -275,12 +287,24 @@ class PagedSlotEngine(SlotEngine):
         keys = self._stack_keys([r.key for _, r in ok])
         tok0, lp0, nkeys = _seed_from_logits(self.gen, seeds, keys)
         tok0, lp0 = tok0.cpu().numpy(), lp0.cpu().numpy()      # waits
-        self.time_admit += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.time_admit += t1 - t0
+        self.metrics.observe("serve.admit_ms", (t1 - t0) * 1e3)
+        if self.tracer.enabled:
+            self.tracer.complete("admit_shared", self._etrack, t0, t1,
+                                 cat="admit", rows=len(ok))
         B = self.scheduler.num_slots
         npos = np.zeros(B, np.int32)
         npos[:len(ok)] = [len(r.prompt) for _, r in ok]
         zi, zb = np.zeros(B, np.int32), np.zeros(B, bool)
-        self._apply_admission(ok, tok0, lp0, npos, nkeys, zi, zb, None, zi)
+        # §14: these rows' prompts exist in the pool because the leader
+        # prefilled them once, not because this admission paid for them
+        self._admitting_followers = True
+        try:
+            self._apply_admission(ok, tok0, lp0, npos, nkeys, zi, zb, None,
+                                  zi, t0, t1)
+        finally:
+            self._admitting_followers = False
         self._harvest()
 
     def _set_device_tables(self, slots, rows, pos_rows=None) -> None:
@@ -396,24 +420,29 @@ class PagedSlotEngine(SlotEngine):
 
     # ------------------------------------------------------------- metrics
 
-    def stats(self) -> Dict[str, float]:
-        out = super().stats()
+    def metrics_registry(self) -> MetricsRegistry:
+        reg = super().metrics_registry()
         a = self.allocator
-        # §13: pool occupancy gauges + sharing counters, and the byte view
-        # of live/peak pool usage (block bytes are known exactly)
-        out.update(
-            paged_num_blocks=float(a.num_blocks),
-            paged_blocks_in_use=float(a.blocks_in_use),
-            paged_peak_blocks_in_use=float(a.peak_blocks_in_use),
-            paged_cow_forks=float(a.cow_forks),
-            paged_alloc_failures=float(a.alloc_failures),
-            paged_shared_prompt_bytes_saved=float(
-                a.shared_prompt_bytes_saved),
-            paged_pool_pressure=self._pool_pressure(),
-            paged_bytes_in_use=float(a.blocks_in_use) * self._block_bytes,
-            paged_peak_bytes_in_use=(float(a.peak_blocks_in_use)
-                                     * self._block_bytes))
-        return out
+        # §13: pool occupancy gauges + sharing counters (extensive across
+        # engines: each owns its pool), and the byte view of live/peak pool
+        # usage (block bytes are known exactly)
+        reg.set("paged_num_blocks", float(a.num_blocks), agg="sum")
+        reg.set("paged_blocks_in_use", float(a.blocks_in_use), agg="sum")
+        reg.set("paged_peak_blocks_in_use", float(a.peak_blocks_in_use),
+                agg="sum")
+        reg.inc("paged_cow_forks", a.cow_forks)
+        reg.inc("paged_alloc_failures", a.alloc_failures)
+        reg.inc("paged_shared_prompt_bytes_saved",
+                a.shared_prompt_bytes_saved)
+        reg.set("paged_pool_pressure", self._pool_pressure())
+        reg.set("paged_bytes_in_use",
+                float(a.blocks_in_use) * self._block_bytes, agg="sum")
+        reg.set("paged_peak_bytes_in_use",
+                float(a.peak_blocks_in_use) * self._block_bytes, agg="sum")
+        return reg
+
+    def _prompt_category(self, req: Request) -> int:
+        return SHARED_PROMPT_BLOCK if self._admitting_followers else PROMPT
 
     def _pool_pressure(self) -> float:
         """KV pool pressure in [0, 1]: the share of blocks not free."""

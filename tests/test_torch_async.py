@@ -284,7 +284,8 @@ def _logged(optimize, log):
 def _same_run(jat, at, logs, want, got):
     """Per step: JAX's trajectory tokens, lengths and branch; the step's
     metrics (times aside) within LOSS_RTOL / TOL; the counters equal; the
-    async registry keys equal."""
+    async registry keys equal, and the registries' names and histogram
+    sample counts."""
     assert len(logs["torch"]) == len(logs["jax"]) == len(got) == len(want)
     for step, ((jr, jl, jis), (r, n, is_)) in enumerate(
             zip(logs["jax"], logs["torch"])):
@@ -300,9 +301,13 @@ def _same_run(jat, at, logs, want, got):
                                        err_msg=f"step {step} {k}")
     assert at.counters() == jat.counters()
     assert at.mode == jat.mode
-    jreg = {k: v for k, v in jobs.get_registry().as_dict().items()
-            if k.startswith("async.")}
-    assert obs.get_registry().as_dict() == jreg
+    reg, jreg = obs.get_registry().as_dict(), jobs.get_registry().as_dict()
+    assert {k: v for k, v in reg.items() if k.startswith("async.")} == \
+        {k: v for k, v in jreg.items() if k.startswith("async.")}
+    # the rollout's and the trainer's hooks sample the same histograms
+    assert set(reg) == set(jreg)
+    assert {k: v for k, v in reg.items() if k.endswith("_count")} == \
+        {k: v for k, v in jreg.items() if k.endswith("_count")}
 
 
 def test_k0_pc_is_identical_to_sync_and_matches_jax(pair):

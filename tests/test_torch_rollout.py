@@ -268,7 +268,10 @@ SLICE_MODULES = (
     "repro_torch.drafting.engine", "repro_torch.obs",
     "repro_torch.obs.registry", "repro_torch.obs.trace",
     "repro_torch.rl.traj_buffer", "repro_torch.rl.watchdog",
-    "repro_torch.rl.async_loop", "repro_torch.serving.rollout_service")
+    "repro_torch.rl.async_loop", "repro_torch.serving.rollout_service",
+    "repro_torch.obs.ledger", "repro_torch.obs.attrib",
+    "repro_torch.obs.alerts", "repro_torch.obs.export",
+    "repro_torch.launch.analysis")
 
 
 def test_port_imports_no_jax_and_no_repro():

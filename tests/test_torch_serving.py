@@ -330,15 +330,15 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 def test_unported_engine_features_raise(models):
-    """The tracer and the mesh still raise, naming their ROADMAP items;
-    §10 faults, deadlines, a paged config and the §9 draft engine (an
-    enabled ``DraftConfig``: draft_k slots of headroom; a disabled one is
-    no draft) now build their engines."""
+    """The mesh still raises, naming its ROADMAP item; §10 faults,
+    deadlines, a paged config and the §9 draft engine (an enabled
+    ``DraftConfig``: draft_k slots of headroom; a disabled one is no draft)
+    now build their engines."""
     from repro_torch.drafting import DraftConfig
     _, cfg, _, model = models
     gen = GenerateConfig(max_new_tokens=4)
     kw = dict(num_slots=2, prompt_width=4)
-    for bad in (dict(tracer=object()), dict(mesh=object())):
+    for bad in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_slot_engine(model, cfg, gen, **kw, **bad)
     for ok in (dict(faults=FaultPlan()), dict(deadline_steps=8)):
