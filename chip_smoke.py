@@ -56,15 +56,24 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    decode kernels must launch once a call and nothing else), read from a
    complete trace only (``profile_window``: a lead-in of ``LEAD_IN``
    markers that takes the first records a session may drop, host time at
-   the window's ends, a marker before each call and after the last);
+   the window's ends, a marker before each call and after the last).
+   ``arch_kernel_checks`` then holds the attention kernels at the head
+   layouts of the mixture-of-experts slice's configs (G = 1, 6, 8, 48;
+   granite-34b's draft blocks of G * T = 144 and 432; flash with a window
+   of 16, over S = T = 40,960 and 65,536 with mixtral-8x22b's window of
+   4,096 and over 32,768 without one, the plain version on sampled query
+   rows, all timed);
 4. holds the port on the card against the port on the CPU at a small size
-   (the reduced qwen3-1.7b and rwkv6-3b in bfloat16: forward, prefill,
-   decode steps and, for qwen, the compaction roll, teacher-forced),
+   (the reduced qwen3-1.7b, rwkv6-3b, deepseek-7b, qwen1.5-110b,
+   granite-34b and mixtral-8x22b, the last also with ``dispatch`` and a
+   window of 8, in bfloat16: forward, prefill, decode steps and, for an
+   attention trunk, the compaction roll, teacher-forced, a MoE trunk's
+   routing too: the other runs replay the CPU bf16 run's expert choices),
    within the arch's ``SMALL_TOL``, and the card's bfloat16 run no further
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs fifteen paths (random weights from a seed), each with the launch
+5. runs twenty paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
    ``draft_slots``, ``observatory``, ``faults``, ``ppo`` and ``dapo`` run
@@ -186,6 +195,16 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 the plain recurrence, and against the score of embeddings
                 nudged by 1e-7, at full depth (within ``CHAOS_FACTOR``) and
                 cut to one layer (within ``CONSISTENCY_TOL``);
+   ``archs``    each of deepseek-7b (8 of 30 layers), qwen1.5-110b (2 of
+                80), granite-34b (4 of 88) and mixtral-8x22b (4 of 56,
+                ``dispatch``) at full width, built at that depth: the
+                ``rollout`` path's two epochs at ``ARCHS_N`` tokens, the
+                four path kernels launched, an ``archs`` line (parameters,
+                peak GiB, times, counts; mixtral's ``moe_drop_frac`` over
+                epoch 1's verify input);
+   ``mixtral train`` one GRPO ``train_step`` of mixtral-8x22b at one
+                layer, full width: the scorings launch flash_attention
+                alone, the update no kernel, ``moe_lb_loss`` finite;
    after ``rollout``, ``slots``, ``paged`` and ``rwkv``, a ``breakdown``
    line shows where 16 decode steps of the path's decode loop (at full
    depth) spend their time (host wall time, device busy time, kernel
@@ -230,6 +249,10 @@ ATTN_TOL = 1e-3     # the attentions compute in float32 from the same bf16
 # from its float32 ones on the CPU (qwen3-1.7b's about 0.04); the card's lay
 # 0.0508 from the CPU's in four runs, qwen3-1.7b's 0.0313
 SMALL_TOL = {"qwen3-1.7b": 5e-2, "rwkv6-3b": 8e-2}
+# the MoE slice's configs, reduced: attention trunks like qwen3-1.7b's (G = 1
+# for deepseek, qwen1.5 and mixtral, 4 for granite), held to qwen's 5e-2
+SMALL_TOL.update({arch: 5e-2 for arch in ("deepseek-7b", "qwen1.5-110b",
+                                          "granite-34b", "mixtral-8x22b")})
 BF16_GAP = 1.5      # the card's bfloat16 run may lie at most this many times
                     # as far from the CPU's float32 run as the CPU's own
                     # bfloat16 run does
@@ -295,6 +318,16 @@ SLOTS = 8                       # decode slots of the slot-backfill path
 CUT_LAYERS = 14
 CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
              "observatory", "faults", "ppo", "dapo")
+# the new configs at their published widths, cut in depth to what one card
+# holds beside the paths' caches (ARCH_LAYERS), each through the rollout
+# traffic cut to ARCHS_N new tokens as draft_slots is; mixtral's GRPO step
+# at MIXTRAL_TRAIN_LAYERS layers (weights, reference, gradient and AdamW's
+# moments: 14 bytes a parameter); deepseek-7b runs 8 of its 30 layers,
+# the first cut when the smoke nears its 1,200 s limit on a slower host
+ARCH_LAYERS = {"deepseek-7b": 8, "qwen1.5-110b": 2, "granite-34b": 4,
+               "mixtral-8x22b": 4}
+ARCHS_N = 64
+MIXTRAL_TRAIN_LAYERS = 1
 LENIENCE = 0.99
 SEED = 0
 # the train path's float32 witness: two layers at full width, the first
@@ -492,14 +525,16 @@ def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # ---------------------------------------------------------------- kernels
 
 
-def flash_case(torch, gen, name, B, Hq, Hkv, T, S, D, spans, peak=None):
+def flash_case(torch, gen, name, B, Hq, Hkv, T, S, D, spans, peak=None,
+               window=0):
     """One flash_attention case through the public wrapper against the
     plain version: row b's queries ``spans[b] = (pad, valid)`` sit at
     positions 0.. after ``pad`` padded slots (q_pos -1, given as int64 for
     the wrapper to convert), its keys are the same slots (k_pos past T
     empty).  With ``peak``, each query is scaled so that its largest
     visible logit is about ``peak`` (where rounding the softmax weights
-    shows most).  Within ATTN_TOL; rows that see no key exactly 0."""
+    shows most); with ``window``, a sliding window of that many keys.
+    Within ATTN_TOL; rows that see no key exactly 0."""
     from repro_torch.kernels.flash_attention import ops as fl_ops
 
     dev = gen.device
@@ -514,6 +549,8 @@ def flash_case(torch, gen, name, B, Hq, Hkv, T, S, D, spans, peak=None):
     v = torch.randn((B, Hkv, S, D), generator=gen, **bf)
     vis = ((k_pos[:, None, :] >= 0)
            & (k_pos[:, None, :] <= q_pos[:, :, None]))          # (B, T, S)
+    if window > 0:
+        vis &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
     if peak is not None:
         kr = k.float().repeat_interleave(Hq // Hkv, dim=1)
         logits = torch.einsum("bhtd,bhsd->bhts", q.float(), kr) / math.sqrt(D)
@@ -522,14 +559,15 @@ def flash_case(torch, gen, name, B, Hq, Hkv, T, S, D, spans, peak=None):
                              torch.ones_like(top))
         q = (q.float() * factor[..., None]).to(torch.bfloat16)
         del kr, logits
-    got = fl_ops.flash_attention(q, k, v, q_pos, k_pos)
-    want = fl_ops.flash_attention_plain(q, k, v, q_pos.to(torch.int32), k_pos)
+    got = fl_ops.flash_attention(q, k, v, q_pos, k_pos, window=window)
+    want = fl_ops.flash_attention_plain(q, k, v, q_pos.to(torch.int32), k_pos,
+                                        window=window)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     dead = ~vis.any(-1)                                          # (B, T)
     log(f"kernel flash_attention {name} (B={B}, Hq={Hq}, Hkv={Hkv}, T={T}, "
-        f"S={S}, D={D}): max_abs_err={err}, {int(dead.sum())} query rows "
-        "see no key")
+        f"S={S}, D={D}, window={window}): max_abs_err={err}, "
+        f"{int(dead.sum())} query rows see no key")
     require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL,
             f"flash_attention {name}: max_abs_err {err} > {ATTN_TOL}")
     require(bool((got.transpose(1, 2)[dead] == 0).all())
@@ -1062,6 +1100,147 @@ def kernel_checks(torch, timer):
     return records
 
 
+def flash_long_case(torch, timer, gen, name, Hq, Hkv, S, D, window,
+                    n_rows=1024):
+    """flash_attention over one row of S contiguous positions (B = 1, T =
+    S), causal, with a sliding ``window`` (0: none), through the public
+    wrapper.  The plain version materialises (T, S) scores, so it runs on
+    a subset of the query rows (each query's output depends only on its
+    own q and the keys): the first and last query tiles, the tiles around
+    the window's edge and ``n_rows`` seeded others; within ATTN_TOL there.
+    Then the kernel is timed on its own.  Returns (err, ms, bound ms,
+    bound_by)."""
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+
+    dev = gen.device
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    q = torch.randn((1, Hq, S, D), generator=gen, **bf)
+    k = torch.randn((1, Hkv, S, D), generator=gen, **bf)
+    v = torch.randn((1, Hkv, S, D), generator=gen, **bf)
+    got = fl_ops.flash_attention(q, k, v, pos.long(), pos, window=window)
+    edge = window if window else S // 2
+    rows = torch.unique(torch.cat([
+        torch.arange(64, device=dev), torch.arange(edge - 64, edge + 64,
+                                                   device=dev),
+        torch.arange(S - 64, S, device=dev),
+        torch.randint(0, S, (n_rows,), generator=gen, device=dev)]))
+    want = fl_ops.flash_attention_plain(q[:, :, rows], k, v, pos[:, rows],
+                                        pos, window=window)
+    torch.cuda.synchronize()
+    err = float((got[:, :, rows] - want).abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL,
+            f"flash_attention {name}: max_abs_err {err} > {ATTN_TOL}")
+    del want
+    ms = timer.ms(lambda: fl_ops.flash_attention_cuda(q, k, v, pos, pos,
+                                                      window=window), reps=5)
+    t = torch.arange(S, dtype=torch.float64)
+    seen = torch.clamp(t + 1, max=window) if window else t + 1
+    pairs = float(seen.sum())
+    b_ms, b_by = bound(S * Hq * D * 2 + S * Hkv * D * 2 * 2 + 2 * S * 4
+                       + S * Hq * D * 4, 4 * D * Hq * pairs)
+    log(f"kernel flash_attention {name} (B=1, Hq={Hq}, Hkv={Hkv}, T=S={S}, "
+        f"D={D}, window={window}): max_abs_err={err} over {rows.numel()} "
+        f"query rows, ms={ms} bound_ms={b_ms} ({b_by})")
+    return err, ms, b_ms, b_by
+
+
+# (S, window) of the long flash cases: mixtral-8x22b's window of 4,096
+# past the unwindowed bound and at its max_seq_len (the windowed bound),
+# and the unwindowed bound itself
+LONG_CASES = ((40_960, 4_096), (65_536, 4_096), (32_768, 0))
+
+
+def decode_bound(torch, kargs, hkv: int):
+    """The least time of a decode call with no window on ``kargs`` (the
+    dense kernel's arguments): q of the live queries, the K/V slots some
+    query of the row sees, the live span's k_pos, the positions and
+    bounds, the float32 output; 4 D operations per visible (query head,
+    key) pair."""
+    q, _, _, q_pos, k_pos, lengths, starts = kargs
+    B, Hq, T, D = q.shape
+    j = torch.arange(k_pos.shape[1], device=q.device)
+    span = (j >= starts[:, None]) & (j < lengths[:, None])          # (B, S)
+    vis = (span[:, None, :] & (k_pos[:, None, :] >= 0)
+           & (k_pos[:, None, :] <= q_pos[:, :, None])
+           & (q_pos[:, :, None] >= 0))                              # (B, T, S)
+    nbytes = (int((q_pos >= 0).sum()) * Hq * D * 2
+              + int(vis.any(1).sum()) * hkv * D * 2 * 2
+              + int(span.sum()) * 4 + (B * T + 2 * B) * 4
+              + B * Hq * T * D * 4)
+    return bound(nbytes, 4 * D * Hq * int(vis.sum()))
+
+
+def arch_kernel_checks(torch, timer, records):
+    """The attention kernels at the head layouts of deepseek-7b (G = 1),
+    mixtral-8x22b (G = 6), qwen1.5-110b (G = 8) and granite-34b (G = 48),
+    each against its plain version: the decode kernels, dense and paged,
+    at T = 1 (a window of 16 at G = 6) and granite's draft blocks (T = 3
+    and 9: G * T = 144 and 432, 9 and 27 query chunks) and a deepseek one
+    (T = 9, G * T = 9); flash_attention at G = 1 (one query head a block),
+    6, 8 and 48, a window of 16 at the verify shape, and over S = T =
+    40,960 and 65,536 (past the 32,768 keys of an unwindowed call, up to
+    mixtral's max_seq_len) with mixtral's window of 4,096 and over 32,768
+    without one.  Adds each kernel's largest error over these
+    cases to its record, and the timed cases' times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    heads = {arch: (get_config(arch).num_heads, get_config(arch).num_kv_heads)
+             for arch in ARCH_LAYERS}                  # (Hq, Hkv), D = 128
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    D, S, W = 128, P + 2 * N, P + N
+    spans = [(100, 420), (0, S), (37, 291), (250, 250)]
+    errs, timed = [], {}
+    for arch, (hq, hkv) in heads.items():
+        g = hq // hkv
+        cases = [(f"G={g} {arch}", 1, [1, 1, 0, 1], 0)]
+        if arch == "mixtral-8x22b":
+            cases.append((f"G={g} {arch} window 16", 1, [1, 1, 1, 1], 16))
+        if arch == "granite-34b":
+            cases += [(f"G={g} {arch} draft T={t}", t, [t, t // 2 + 1, 0, t],
+                       0) for t in (3, 9)]
+        if arch == "deepseek-7b":
+            cases.append((f"G={g} {arch} draft T=9", 9, [9, 4, 0, 9], 0))
+        for name, t, q_lens, window in cases:
+            err, kargs = decode_case(torch, gen, name, hq, hkv, t, S, D,
+                                     spans, q_lens, window=window,
+                                     block_sizes=(32, 64))
+            errs.append(err)
+            if arch == "granite-34b" and window == 0:
+                ms, plain_ms = timer.turns(
+                    lambda: dec_ops.decode_attention_cuda(*kargs),
+                    lambda: dec_ops.decode_attention_plain(*kargs))
+                b_ms, b_by = decode_bound(torch, kargs, hkv)
+                timed[f"G={g} T={t}"] = {"ms": ms, "plain_ms": plain_ms,
+                                         "bound_ms": b_ms, "bound_by": b_by}
+    log(f"kernel decode_attention at granite-34b's G = 48 (B=4, S={S}): "
+        f"{json.dumps(timed)}")
+    for name in ("decode_attention", "paged_decode_attention"):
+        records[name]["archs_max_abs_err"] = max(errs)
+    records["decode_attention"]["granite_ms"] = timed
+    ferrs = [flash_case(torch, gen, f"G={hq // hkv} {arch}", 4, hq, hkv, W,
+                        S, D, [(3, 300), (0, W), (10, 120), (0, 64)])
+             for arch, (hq, hkv) in heads.items()]
+    hq, hkv = heads["mixtral-8x22b"]
+    ferrs.append(flash_case(torch, gen, "mixtral-8x22b window 16", 4, hq, hkv,
+                            W, S, D, [(3, 300), (0, W), (10, 120), (0, 64)],
+                            window=16))
+    long = {}
+    for s_long, window in LONG_CASES:
+        err, ms, b_ms, b_by = flash_long_case(
+            torch, timer, gen, f"S={s_long} window {window}", 6, 1, s_long,
+            D, window)
+        ferrs.append(err)
+        long[f"S={s_long} window {window}"] = {"ms": ms, "bound_ms": b_ms,
+                                               "bound_by": b_by}
+    records["flash_attention"]["archs_max_abs_err"] = max(ferrs)
+    records["flash_attention"]["long_s"] = long
+    torch.cuda.empty_cache()
+
+
 def draft_block_timing(torch, timer, gen, records, n, p_len, T):
     """Both decode kernels at a draft-verify block of T = K + 1 of the
     ``draft`` path's epoch 1 (B = 16, G = 2; T = 9 is two query chunks,
@@ -1319,7 +1498,7 @@ def wkv_check(torch, timer, gen, p_len, n, record):
 
 
 def small_reference(torch, arch: str, tol: float, tol_f32=None,
-                    **overrides):
+                    title=None, **overrides):
     """The port on the card against the port on the CPU, teacher-forced, at
     a reduced config in bfloat16: forward, prefill and decode steps (and,
     for an attention trunk, the compaction roll), within ``tol``.  Both are
@@ -1327,11 +1506,18 @@ def small_reference(torch, arch: str, tol: float, tol_f32=None,
     bfloat16 may lie at most ``BF16_GAP`` times as far from it as the CPU's
     does.  With ``tol_f32`` the card runs the float32 model too, held
     against the CPU's within it (only for trunks whose kernels take
-    float32)."""
+    float32).  A MoE trunk is teacher-forced in its routing too: the CPU's
+    bfloat16 run records every router call's expert choice (``RouteLog``)
+    and the other runs replay it, so a bf16 rounding that tips a near-tied
+    top-k choice another way on the card (or in float32) does not part
+    the runs; every row is compared, and the count of tokens whose own
+    choice the replay overrode is logged."""
     from repro_torch.configs import get_config
     from repro_torch.engine.generate import positions_from_mask
     from repro_torch.models import model as M
+    from repro_torch.models.moe import RouteLog
 
+    title = title or arch
     cfg = get_config(arch).reduced(dtype="bfloat16", param_dtype="bfloat16",
                                    **overrides)
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
@@ -1348,52 +1534,68 @@ def small_reference(torch, arch: str, tol: float, tol_f32=None,
                         dtype=torch.int32)
     shift = torch.tensor([0, 3, 5, 1], dtype=torch.int32)
 
-    def run(model, dev, cfg):
-        pos = positions_from_mask(mask.to(dev))
-        outs = [M.forward(model, cfg, prompt.to(dev), pos)[0]]
-        caches = M.init_cache(cfg, B, Pp + 2 * steps, device=dev)
-        logits, caches = M.prefill(model, cfg, prompt.to(dev), pos, caches)
-        outs.append(logits)
-        p_len = mask.sum(1).to(torch.int32).to(dev)
-        for s in range(steps):
-            logits, caches = M.decode_step(
-                model, cfg, nxt[:, s:s + 1].to(dev), (p_len + s)[:, None],
-                caches, Pp + s, kv_length=Pp + 1 + s, kv_start=Pp - p_len)
-            outs.append(logits)
-        if M.supports_cache_realign(cfg):
-            width = Pp + steps
-            caches = M.realign_decode_cache(cfg, caches, shift.to(dev),
-                                            p_len + steps - shift.to(dev),
-                                            width)
-            outs.append(caches[0]["self"]["k"].float())
-        return [o.float().cpu() for o in outs]
+    def run(model, dev, cfg, replay=None):
+        """[(output on the host, its batch axis)] and the router's log."""
+        with RouteLog(replay) as routes:
+            pos = positions_from_mask(mask.to(dev))
+            outs = [(M.forward(model, cfg, prompt.to(dev), pos)[0], 0)]
+            caches = M.init_cache(cfg, B, Pp + 2 * steps, device=dev)
+            logits, caches = M.prefill(model, cfg, prompt.to(dev), pos,
+                                       caches)
+            outs.append((logits, 0))
+            p_len = mask.sum(1).to(torch.int32).to(dev)
+            for s in range(steps):
+                logits, caches = M.decode_step(
+                    model, cfg, nxt[:, s:s + 1].to(dev),
+                    (p_len + s)[:, None], caches, Pp + s,
+                    kv_length=Pp + 1 + s, kv_start=Pp - p_len)
+                outs.append((logits, 0))
+            if M.supports_cache_realign(cfg):
+                width = Pp + steps
+                caches = M.realign_decode_cache(
+                    cfg, caches, shift.to(dev),
+                    p_len + steps - shift.to(dev), width)
+                outs.append((caches[0]["self"]["k"].float(), 1))
+        return [(o.float().cpu(), ax) for o, ax in outs], routes
+
+    want, r_cpu = run(cpu_model, torch.device("cpu"), cfg)
+    got, r_card = run(gpu_model, torch.device("cuda"), cfg, r_cpu.calls)
+    ref32, r_32 = run(cpu_model.float(), torch.device("cpu"), cfg32,
+                      r_cpu.calls)
+    require(bool(r_cpu.calls) == bool(cfg.num_experts),
+            f"{title}: {len(r_cpu.calls)} router calls logged for "
+            f"{cfg.num_experts} experts")
 
     def max_err(xs, ys):
-        return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
+        return max(float((a - b).abs().max())
+                   for (a, _), (b, _) in zip(xs, ys))
 
     def finite(xs):
-        return all(bool(torch.isfinite(a).all()) for a in xs)
+        return all(bool(torch.isfinite(a).all()) for a, _ in xs)
 
-    want = run(cpu_model, torch.device("cpu"), cfg)
-    got = run(gpu_model, torch.device("cuda"), cfg)
-    ref32 = run(cpu_model.float(), torch.device("cpu"), cfg32)
     err, cpu_gap, card_gap = (max_err(got, want), max_err(want, ref32),
                               max_err(got, ref32))
-    log(f"small reference (reduced {arch}, bf16, card vs CPU): "
+    routed = (f"; {len(r_cpu.calls)} router calls replayed, tokens "
+              f"rerouted: card {r_card.rerouted}, float32 {r_32.rerouted} "
+              f"of {sum(len(c) for c in r_cpu.calls)}"
+              if r_cpu.calls else "")
+    log(f"small reference (reduced {title}, bf16, card vs CPU): "
         f"max_abs_err={err} tol={tol}; from the CPU's float32: CPU bf16 "
-        f"{cpu_gap}, card bf16 {card_gap} (at most {BF16_GAP}x the CPU's)")
+        f"{cpu_gap}, card bf16 {card_gap} (at most {BF16_GAP}x the CPU's)"
+        f"{routed}")
     require(finite(got) and err <= tol,
-            f"{arch}: card vs CPU max_abs_err {err} > {tol} or non-finite")
+            f"{title}: card vs CPU max_abs_err {err} > {tol} or non-finite")
     require(card_gap <= BF16_GAP * cpu_gap,
-            f"{arch}: the card's bf16 lies {card_gap} from float32, more "
+            f"{title}: the card's bf16 lies {card_gap} from float32, more "
             f"than {BF16_GAP} x the CPU's {cpu_gap}")
     if tol_f32 is not None:
-        got32 = run(gpu_model.float(), torch.device("cuda"), cfg32)
+        got32, _ = run(gpu_model.float(), torch.device("cuda"), cfg32,
+                       r_cpu.calls)
         err32 = max_err(got32, ref32)
-        log(f"small reference (reduced {arch}, float32, card vs CPU): "
+        log(f"small reference (reduced {title}, float32, card vs CPU): "
             f"max_abs_err={err32} tol={tol_f32}")
         require(finite(got32) and err32 <= tol_f32,
-                f"{arch}: float32 card vs CPU max_abs_err {err32} > "
+                f"{title}: float32 card vs CPU max_abs_err {err32} > "
                 f"{tol_f32} or non-finite")
 
 
@@ -1411,33 +1613,44 @@ def cut_depth(model, cfg, layers: int):
     return cut, cut_cfg
 
 
-def setup_model(torch, arch: str = "qwen3-1.7b", dtype=None):
-    """A full-width, full-depth model with random weights from ``SEED``
-    (in ``dtype`` for parameters and activations, if given, else the
-    config's), the prompt batch and the generation config the rollout paths
-    share."""
+def setup_model(torch, arch: str = "qwen3-1.7b", dtype=None, layers=None,
+                n_new: int = N):
+    """A full-width model with random weights from ``SEED`` (in ``dtype``
+    for parameters and activations, if given, else the config's), built at
+    ``layers`` layers if given (never whole first: mixtral-8x22b's 140.6e9
+    parameters do not fit) else at full depth, the prompt batch and the
+    generation config (``n_new`` tokens) the rollout paths share."""
     from repro_torch.configs import get_config
-    from repro_torch.data.dataset import PromptDataset
     from repro_torch.data.tokenizer import EOS_ID, PAD_ID
     from repro_torch.engine.generate import GenerateConfig
     from repro_torch.models import model as M
-    from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
 
     cfg = get_config(arch)
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     model = M.init_lm(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     log(f"model {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{M.count_params(model)} params in {cfg.param_dtype}, init "
         f"{time.perf_counter() - t0:.2f} s")
-    problems = generate_problems(MathTaskConfig(num_problems=PROMPTS, seed=SEED))
-    batch = next(PromptDataset(problems, max_prompt_len=P).epochs(
-        PROMPTS, GROUP, 1, shuffle=False))
-    gen = GenerateConfig(max_new_tokens=N, temperature=1.0, top_p=1.0,
+    gen = GenerateConfig(max_new_tokens=n_new, temperature=1.0, top_p=1.0,
                          eos_id=EOS_ID, pad_id=PAD_ID)
-    return model, cfg, batch, gen
+    return model, cfg, prompt_batch(), gen
+
+
+def prompt_batch():
+    """The smoke's batch: PROMPTS prompts of at most P tokens, GROUP rows
+    each."""
+    from repro_torch.data.dataset import PromptDataset
+    from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
+
+    problems = generate_problems(MathTaskConfig(num_problems=PROMPTS,
+                                                seed=SEED))
+    return next(PromptDataset(problems, max_prompt_len=P).epochs(
+        PROMPTS, GROUP, 1, shuffle=False))
 
 
 class Launches(dict):
@@ -3359,6 +3572,107 @@ def critic_witness(torch, cfg, sub, rewards, full_tokens, full_mask,
             "bf16_values_launches": v_launched}
 
 
+def archs_path(torch, arch: str):
+    """Two rollout epochs of ``arch`` at full width and ``ARCH_LAYERS``
+    layers (``rollout_path``: epoch 0 vanilla, epoch 1 the one-pass
+    branch), all four of the path's kernels launched; an ``archs`` line
+    with the parameter count, peak GiB, each epoch's wall time and counts,
+    and for a MoE trunk the ``moe_drop_frac`` of one no-grad ``forward``
+    over epoch 1's verify input (prompt and epoch 0's response).  The
+    model is freed before returning its launches."""
+    import numpy as np
+
+    from repro_torch.core import SpecConfig
+    from repro_torch.engine.generate import positions_from_mask
+    from repro_torch.models import model as M
+
+    model, cfg, batch, gen = setup_model(torch, arch,
+                                         layers=ARCH_LAYERS[arch],
+                                         n_new=ARCHS_N)
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    launches, (rb0, rb1) = rollout_path(torch, f"archs {arch}", model, cfg,
+                                        batch, gen, spec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll"):
+        require(launches[name] > 0, f"archs {arch}: kernel {name} was not "
+                "launched")
+    line = {"arch": arch, "layers": cfg.num_layers,
+            "params": M.count_params(model), "peak_gib": peak,
+            "wall_s": launches.wall_s,
+            "n_generated": [rb.metrics["n_generated"] for rb in (rb0, rb1)],
+            "n_reused": [rb.metrics["n_reused"] for rb in (rb0, rb1)],
+            "one_pass": [rb.metrics["one_pass"] for rb in (rb0, rb1)],
+            "launches": dict(launches)}
+    if cfg.num_experts:
+        dev = model.device
+        tokens = torch.from_numpy(np.concatenate(
+            [batch.tokens, rb0.response], 1)).to(dev)
+        mask = torch.from_numpy(np.concatenate(
+            [batch.mask, rb0.response_mask], 1)).to(dev)
+        with torch.no_grad():
+            _, aux = M.forward(model, cfg, tokens, positions_from_mask(mask))
+        line.update({k: float(aux[k]) for k in ("moe_drop_frac",
+                                                "moe_lb_loss", "moe_z_loss")
+                     if k in aux},
+                    moe_expert_frac=aux["moe_expert_frac"].tolist(),
+                    moe_impl=cfg.moe_impl)
+        drop = line.get("moe_drop_frac", 0.0)      # "dense" drops nothing
+        require(0.0 <= drop < 1.0, f"archs {arch}: moe_drop_frac {drop}")
+    log("archs " + json.dumps(line))
+    del model, rb0, rb1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mixtral_train_path(torch):
+    """One GRPO ``train_step`` of mixtral-8x22b at full width and
+    ``MIXTRAL_TRAIN_LAYERS`` layers (epoch 0, the verifier's rewards: a
+    random model's are 0, so the router losses drive the update): the
+    scorings launch flash_attention once a layer and nothing else, the
+    update launches no kernel, the loss and ``moe_lb_loss`` are finite;
+    a ``mixtral train`` line with the stage split, peak GiB by stage and
+    the parameters whose gradient is zero everywhere."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.rl import trainer as T
+
+    cfg = get_config("mixtral-8x22b").replace(num_layers=MIXTRAL_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_lm(cfg, seed=SEED, device="cuda")
+    params = M.count_params(model)
+    reset_launches()
+    tr = make_trainer(cfg, model, "grpo")
+    with StageSpy(torch, tr, T) as spy:
+        m = tr.train_step(prompt_batch())
+        st = spy.take()
+    launches = read_launches()
+    zero = spy.grads.zero["actor"]
+    log("mixtral train " + json.dumps({
+        "layers": cfg.num_layers, "params": params, **stage_line(m, st, (
+            "collect_time", "old_logprob_time", "ref_time", "adv_time",
+            "update_actor_time", "loss", "moe_lb_loss", "grad_norm",
+            "reward_mean", "n_generated", "one_pass", "kl_ref")),
+        "zero_grad_params": zero}))
+    require(np.isfinite(m["loss"]) and np.isfinite(m["moe_lb_loss"])
+            and m["grad_norm"] > 0, f"mixtral train: loss {m['loss']}, "
+            f"moe_lb_loss {m.get('moe_lb_loss')}, grad_norm {m['grad_norm']}")
+    check_scoring("mixtral train", st, cfg.num_layers)
+    require({"decode_attention", "flash_attention"}
+            <= set(st["collect"]["launches"]),
+            f"mixtral train: the rollout launched {st['collect']['launches']}")
+    require(not any(n.startswith("layers.0.moe") for n in zero),
+            f"mixtral train: no gradient in {zero}")
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_path(torch):
     """One run of the port's serve launcher on the card, with its §11/§14
     flags: the ledger, a trace directory, a decision log and the
@@ -3555,12 +3869,19 @@ def main() -> int:
 
     timer = Timer(torch)
     records = run("kernels", kernel_checks, torch, timer)
+    run("arch kernels", arch_kernel_checks, torch, timer, records)
     del timer
     torch.cuda.empty_cache()
     run("small qwen", small_reference, torch, "qwen3-1.7b",
         SMALL_TOL["qwen3-1.7b"], num_kv_heads=2)
     run("small rwkv", small_reference, torch, "rwkv6-3b",
         SMALL_TOL["rwkv6-3b"], tol_f32=SMALL_TOL_F32)
+    for arch in ARCH_LAYERS:
+        run(f"small {arch}", small_reference, torch, arch, SMALL_TOL[arch])
+    run("small mixtral-8x22b dispatch", small_reference, torch,
+        "mixtral-8x22b", SMALL_TOL["mixtral-8x22b"],
+        title="mixtral-8x22b dispatch, window 8", moe_impl="dispatch",
+        sliding_window=8)
     model, cfg, batch, gen = setup_model(torch)
     cut_model, cut_cfg = cut_depth(model, cfg, CUT_LAYERS)
     log(f"paths {', '.join(CUT_PATHS)} run the model cut to {CUT_LAYERS} "
@@ -3613,6 +3934,11 @@ def main() -> int:
     paths["serve"] = run("serve", serve_path, torch)
     paths["rwkv"], records["wkv"]["launches_by_t"] = run("rwkv", rwkv_path,
                                                          torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ARCH_LAYERS:
+        paths[f"archs {arch}"] = run(f"archs {arch}", archs_path, torch, arch)
+    paths["mixtral train"] = run("mixtral train", mixtral_train_path, torch)
     # the decode kernels by path and T, each read with the path's launches:
     # draft blocks (T > 1) on the two draft paths, dense and paged, and
     # nowhere else (no prefill, verify or score moved off flash_attention)

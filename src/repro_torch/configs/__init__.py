@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the dense qwen3 configs and the
-RWKV6 trunk (rwkv6-3b) it runs.
+"""Architecture registry of the port: the dense GQA configs (qwen3,
+deepseek-7b, qwen1.5-110b, granite-34b), the mixture-of-experts
+mixtral-8x22b and the RWKV6 trunk (rwkv6-3b).
 
 The other architectures of ``repro.configs`` need model families the port
-does not have yet (MLA, MoE, Mamba, encoder-decoder, vision prefix).
+does not have yet (MLA, Mamba, encoder-decoder, vision prefix, MTP).
 """
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ ARCH_IDS = {
     "qwen3-0.6b": "qwen3_0p6b",
     "qwen3-1.7b": "qwen3_1p7b",
     "rwkv6-3b": "rwkv6_3b",
+    "deepseek-7b": "deepseek_7b",
+    "qwen1.5-110b": "qwen1p5_110b",
+    "granite-34b": "granite_34b",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
 
 

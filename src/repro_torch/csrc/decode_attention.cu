@@ -4,7 +4,7 @@
 // (decode_attention_pallas: body _decode_kernel :55, merge _combine :96).
 //
 // Contract (the Pallas kernel's): q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16,
-// D = 64 or 128, G * T <= 128 (G = Hq / Hkv); q_pos (B, T), k_pos (B, S),
+// D = 64 or 128, G * T <= 4096 (G = Hq / Hkv); q_pos (B, T), k_pos (B, S),
 // lengths/starts (B,) int32.  Key slot j of row b feeds query t iff k_pos >=
 // 0, k_pos <= q_pos[b, t], (window > 0) q_pos - k_pos < window, and
 // starts[b] <= j < lengths[b].  A query with q_pos -1 (a done row), and

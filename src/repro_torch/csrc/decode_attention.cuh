@@ -25,10 +25,13 @@
 //    whatever its real count, so an even split would save nothing and only
 //    cost the chunk's offset arithmetic); every chunk is padded to the same
 //    GTP bucket and runs the body below on its own q/out rows.  This takes
-//    the draft-verify blocks of DESIGN.md §9 (T = k + 1 <= 64, G * T <= 128,
-//    the blocks the Pallas kernel takes through its packed sublane dim) in
-//    one launch; a (row, KV head)'s live K/V is read once a chunk, from L2
-//    after the first.  No partial goes through device memory: each block
+//    the draft-verify blocks of DESIGN.md §9 (T = k + 1 <= 64 at any G up
+//    to 64, G * T <= MAX_GT = 4096: granite-34b's 48 query heads on one KV
+//    head take G * T = 432 at T = 9, 27 chunks; the Pallas kernel takes
+//    any G * T through its packed sublane dim) in one launch; a (row, KV
+//    head)'s live K/V is read once a chunk, from L2 after the first.
+//    MAX_GT bounds nothing inside a block (a block sees only its chunk of
+//    at most 16 queries): only the grid's y extent, Hkv * nq <= 65535.  No partial goes through device memory: each block
 //    merges its warps' softmax partials (m, l, acc) in shared memory,
 //    rank c > 0 stores its own into a slot of rank 0's shared memory
 //    (st.shared::cluster) and leaves after one cluster-barrier arrive, and
@@ -77,7 +80,7 @@ constexpr int NW = 4;                      // consumer warps
 constexpr int THREADS = 32 * (NW + 1);     // + the producer warp
 constexpr int NS = NW;                     // K/V stages: one a consumer warp
 constexpr int CHUNK = 16;                  // packed queries a block at most
-constexpr int MAX_GT = 128;                // G * T queries per KV head
+constexpr int MAX_GT = 4096;               // G * T queries per KV head
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -458,7 +461,8 @@ inline cudaError_t launch(void (*kernel)(Params), int gtp, int bytes,
 inline bool valid(int B, int Hq, int Hkv, int T, int S, int C) {
   if (B < 0 || Hkv <= 0 || Hq % Hkv != 0 || T <= 0 || S <= 0) return false;
   const int GT = (Hq / Hkv) * T;
-  return GT <= MAX_GT && C >= 1 && C <= cluster_cap(GT <= 2 ? 2 : GT);
+  return GT <= MAX_GT && Hkv * ((GT + CHUNK - 1) / CHUNK) <= 65535 &&
+         C >= 1 && C <= cluster_cap(GT <= 2 ? 2 : GT);
 }
 
 }  // namespace decode_attn

@@ -4,10 +4,11 @@
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/kernel.py:69
 // (flash_attention_pallas, body _flash_kernel :27).
 //
-// Contract: q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16, D = 64 or 128; q_pos
-// (B, T), k_pos (B, S) int32.  Key j feeds query t iff k_pos >= 0, (causal)
-// k_pos <= q_pos, and (window > 0) q_pos - k_pos < window.  Rows that see no
-// key give exactly 0.  Output (B, Hq, T, D) float32.  Query head hq reads KV
+// Contract: q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16, D = 64 or 128, S <=
+// 32,768 (65,536 with a window), B <= 65535; q_pos (B, T), k_pos (B, S)
+// int32.  Key j feeds query t iff k_pos >= 0, (causal) k_pos <= q_pos,
+// and (window > 0) q_pos - k_pos < window.  Rows that see no key give
+// exactly 0.  Output (B, Hq, T, D) float32.  Query head hq reads KV
 // head hq / G; no repeated heads are materialised.
 //
 // What bounds it on the H100: bytes.  At the verify shapes the fp32 output
@@ -29,8 +30,14 @@
 //  * the block first lists the K tiles that hold a key visible to some
 //    query of its tile (k_pos >= 0, <= the tile's largest q_pos when
 //    causal, inside the window of its smallest): producer and consumers
-//    walk that list, so empty cache slots, the causal upper triangle and
-//    query tiles that are all padding cost neither loads nor products;
+//    walk that list, so empty cache slots, the causal upper triangle, the
+//    keys behind a sliding window and query tiles that are all padding
+//    cost neither loads nor products.  The tiles are flagged in rounds of
+//    ROUND = 512 (one byte each, all warps) and compacted after each round
+//    into the list, which dynamic shared memory sizes to the call's tiles
+//    (4 bytes a tile).  The contract takes a windowed call up to 1,024
+//    tiles (mixtral-8x22b's S = 65,536, where a window of 4,096 lists at
+//    most 66) and an unwindowed one up to 512;
 //  * the output leaves in 16-byte stores after one shuffle per pair of
 //    8-column blocks, rows t >= T not written.
 #include <cuda.h>
@@ -48,7 +55,9 @@ using namespace hopper;
 constexpr int BQ = 64;           // queries per tile (one wgmma M)
 constexpr int BK = 64;           // keys per tile
 constexpr int NS = 3;            // K/V stages in the ring
-constexpr int MAX_TILES = 512;   // K tiles a block can list: S <= 32768
+constexpr int MAX_TILES = 512;   // K tiles of an unwindowed call: S <= 32,768
+constexpr int MAX_TILES_WINDOWED = 1024;  // with a window: S <= 65,536
+constexpr int ROUND = 512;       // K tiles flagged between two compactions
 constexpr int CHUNK = 64 * 64 * 2;  // one [64 rows][64 bf16] swizzled chunk
 constexpr float NEG_INF = -1e30f;
 
@@ -60,10 +69,11 @@ struct Smem {
   static constexpr int K = Q + CW * TILE;
   static constexpr int V = K + NS * TILE;
   static constexpr int BARS = V + NS * TILE;          // q_full, full, empty
-  static constexpr int LIST = BARS + 8 * (1 + 2 * NS);
-  static constexpr int FLAGS = LIST + 4 * MAX_TILES;
-  static constexpr int META = FLAGS + MAX_TILES;       // count, qmax, qmin
-  static constexpr int BYTES = META + 16 + 1024;       // + alignment slack
+  static constexpr int FLAGS = BARS + 8 * (1 + 2 * NS);
+  static constexpr int META = FLAGS + ROUND;           // count, qmax, qmin
+  static constexpr int LIST = META + 16;
+  // a call over nk K tiles; + alignment slack
+  static constexpr int bytes(int nk) { return LIST + 4 * nk + 1024; }
 };
 
 template <int D, int CW>
@@ -122,37 +132,41 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
   }
   __syncthreads();
 
-  // ---- the live K tiles: some key visible to some query of the tile
+  // ---- the live K tiles: some key visible to some query of the tile,
+  // flagged a round of ROUND tiles at a time, then appended to the list
   const int nk = (S + BK - 1) / BK;
   {
     const int qmax = meta[1], qmin = meta[2];
-    for (int tile = warp; tile < nk; tile += 4 * (CW + 1)) {
-      bool live = false;
-      for (int j = lane; j < BK; j += 32) {
-        const int slot = tile * BK + j;
-        if (slot < S) {
-          const int kp = k_pos[(size_t)b * S + slot];
-          live |= kp >= 0 && (!causal || kp <= qmax) &&
-                  (window <= 0 || (long long)kp > (long long)qmin - window);
+    int count = 0;                           // warp 0's running count
+    for (int base = 0; base < nk; base += ROUND) {
+      const int end = min(nk, base + ROUND);
+      for (int tile = base + warp; tile < end; tile += 4 * (CW + 1)) {
+        bool live = false;
+        for (int j = lane; j < BK; j += 32) {
+          const int slot = tile * BK + j;
+          if (slot < S) {
+            const int kp = k_pos[(size_t)b * S + slot];
+            live |= kp >= 0 && (!causal || kp <= qmax) &&
+                    (window <= 0 || (long long)kp > (long long)qmin - window);
+          }
         }
+        live = __any_sync(0xffffffffu, live);
+        if (lane == 0) flags[tile - base] = live;
       }
-      live = __any_sync(0xffffffffu, live);
-      if (lane == 0) flags[tile] = live;
+      __syncthreads();
+      if (warp == 0) {
+        for (int t = base; t < end; t += 32) {
+          const int tile = t + lane;
+          const bool live = tile < end && flags[tile - base];
+          const unsigned m = __ballot_sync(0xffffffffu, live);
+          if (live) list[count + __popc(m & ((1u << lane) - 1u))] = tile;
+          count += __popc(m);
+        }
+        if (lane == 0) meta[0] = count;
+      }
+      __syncthreads();                       // the flags are free again
     }
   }
-  __syncthreads();
-  if (warp == 0) {
-    int count = 0;
-    for (int base = 0; base < nk; base += 32) {
-      const int tile = base + lane;
-      const bool live = tile < nk && flags[tile];
-      const unsigned m = __ballot_sync(0xffffffffu, live);
-      if (live) list[count + __popc(m & ((1u << lane) - 1u))] = tile;
-      count += __popc(m);
-    }
-    if (lane == 0) meta[0] = count;
-  }
-  __syncthreads();
   const int n = meta[0];
 
   if (warp >= 4 * CW) {
@@ -376,7 +390,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* q_pos,
   if (!make_map(&qm, q, D, T, B * Hq) || !make_map(&km, k, D, S, B * Hkv) ||
       !make_map(&vm, v, D, S, B * Hkv))
     return cudaErrorInvalidValue;
-  constexpr int bytes = Smem<D, CW>::BYTES;
+  const int bytes = Smem<D, CW>::bytes((S + BK - 1) / BK);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -404,7 +418,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int S, int D, int causal, int window,
                                      float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || T < 1 || S < 1 ||
-      (S + BK - 1) / BK > MAX_TILES || B > 65535)
+      (S + BK - 1) / BK > (window > 0 ? MAX_TILES_WINDOWED : MAX_TILES) ||
+      B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* qp = static_cast<const int*>(q_pos);
   auto* kp = static_cast<const int*>(k_pos);

@@ -6,7 +6,7 @@
 // :96).
 //
 // Contract (the Pallas kernel's): q (B, Hq, T, D) bf16, D = 64 or 128,
-// G * T <= 128; k_pool/v_pool (NB, Hkv, bs, D) bf16 physical block pools,
+// G * T <= 4096; k_pool/v_pool (NB, Hkv, bs, D) bf16 physical block pools,
 // bs = 32 or 64; table (B, nb) int32, logical slot j of row b lives at
 // pool[table[b, j / bs], :, j % bs]; k_pos (B, nb * bs) int32 (the wrapper
 // pads a short logical width with -1); q_pos (B, T), lengths/starts (B,)

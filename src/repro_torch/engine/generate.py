@@ -169,15 +169,17 @@ def token_logprobs(model: M.LM, cfg: ModelConfig, tokens, mask,
     The entropy carries a graph only with ``entropy_grad`` (an entropy
     bonus in the loss); otherwise it is computed from detached logits, so
     its float32 (B, L, V) intermediates are not kept for a backward that
-    never reads them.  Returns (logprobs (B, L), entropy (B, L))."""
+    never reads them.  Returns (logprobs (B, L), entropy (B, L), aux): the
+    forward's aux dict (a MoE trunk's router losses, with their graph;
+    ``{}`` without MoE)."""
     tokens = _on(model, tokens, torch.int32)
     mask = _on(model, mask, torch.bool)
     positions = positions_from_mask(mask)
-    logits, _ = M.forward(model, cfg, tokens, positions)
+    logits, aux = M.forward(model, cfg, tokens, positions)
     lp_next = logprobs_of(logits[:, :-1], tokens[:, 1:], temperature, top_p)
     lp = torch.cat([torch.zeros_like(lp_next[:, :1]), lp_next], dim=1)
     with torch.set_grad_enabled(entropy_grad and torch.is_grad_enabled()):
         src = logits if entropy_grad else logits.detach()
         ent_next = entropy_of(src[:, :-1], temperature)
     ent = torch.cat([torch.zeros_like(ent_next[:, :1]), ent_next], dim=1)
-    return lp, ent
+    return lp, ent, aux

@@ -17,11 +17,12 @@ CPU tensors.  Every decode token of a paged cache comes here.
 Both kernels are one launch of (C, Hkv * nq, B) blocks in clusters of C:
 a KV head's G * T packed queries go in nq = ceil(G * T / 16) chunks of at
 most ``QUERY_CHUNK`` = 16 (nq = 1 up to G * T = 16; a draft-verify block
-of T = k + 1 at G = 2 takes up to G * T = ``MAX_GT`` = 128, JAX's
-``DECODE_BLOCK_MAX_T`` = 64); the C blocks of a (row, KV head, chunk) share
-the row's live tiles (``decode_work_ranges`` is their partition, the same
-for every chunk) and merge their softmax partials through shared memory;
-``cluster_size`` picks C.  The wrappers allocate only the output, and count
+of T = k + 1 <= JAX's ``DECODE_BLOCK_MAX_T`` = 64 at up to G = 64 query
+heads a KV head takes up to G * T = ``MAX_GT`` = 4096: granite-34b's G =
+48 at T = 9 is 432 queries, 27 chunks); the C blocks of a (row, KV head,
+chunk) share the row's live tiles (``decode_work_ranges`` is their
+partition, the same for every chunk) and merge their softmax partials
+through shared memory; ``cluster_size`` picks C.  The wrappers allocate only the output, and count
 their launches by T in ``DECODE_LAUNCHES_BY_T`` beside ``LAUNCHES``.
 """
 from __future__ import annotations
@@ -37,7 +38,7 @@ from repro_torch.kernels._build import launch
 NEG_INF = -1e30
 DENSE_TILE = 32       # cache slots a tile of the dense kernel (one bulk copy)
 QUERY_CHUNK = 16      # packed queries a block of the kernels takes
-MAX_GT = 128          # G * T queries per KV head the kernels take
+MAX_GT = 4096         # G * T queries per KV head the kernels take
 
 
 def cluster_cap(gt: int) -> int:

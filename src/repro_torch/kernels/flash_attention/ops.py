@@ -17,7 +17,8 @@ from repro_torch.kernels._build import launch
 
 NEG_INF = -1e30
 BQ = BK = 64            # the kernel's query and key tile
-MAX_KEYS = 512 * BK     # the kernel lists at most 512 key tiles per block
+MAX_KEYS = 512 * BK     # an unwindowed call's key tiles (ROADMAP Queue 2 K2)
+MAX_KEYS_WINDOWED = 1024 * BK   # a windowed call's: mixtral-8x22b's 65,536
 MAX_BATCH = 65535       # the grid's third dimension
 
 
@@ -50,7 +51,11 @@ def live_key_tiles(q_pos, k_pos, *, causal: bool = True, window: int = 0
     is loaded for query tile i iff one of its keys has k_pos >= 0, (causal)
     k_pos <= the largest q_pos of the query tile and (window > 0) k_pos >
     its smallest q_pos - window.  Every visible (query, key) pair lies in a
-    live tile; a query tile of padding only (causal) loads nothing."""
+    live tile; a query tile of padding only (causal) loads nothing.  The
+    kernel flags the tiles 512 at a time and lists the live ones in shared
+    memory sized to the call's S / 64 tiles; a window keeps a query tile's
+    list short (mixtral-8x22b's 4,096 at S = 65,536 lists at most 66 of
+    1,024)."""
     B, T = q_pos.shape
     S = k_pos.shape[1]
     nq, nk = -(-T // BQ), -(-S // BK)
@@ -72,7 +77,7 @@ def live_key_tiles(q_pos, k_pos, *, causal: bool = True, window: int = 0
     return live.any(-1)
 
 
-def _check_kernel_inputs(q, k, v, q_pos, k_pos) -> None:
+def _check_kernel_inputs(q, k, v, q_pos, k_pos, window: int = 0) -> None:
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -84,9 +89,12 @@ def _check_kernel_inputs(q, k, v, q_pos, k_pos) -> None:
     if D not in (64, 128):
         raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, "
                          f"got {D}")
-    if S > MAX_KEYS or B > MAX_BATCH:
-        raise ValueError(f"flash_attention kernel takes at most {MAX_KEYS} "
-                         f"keys and {MAX_BATCH} rows, got S={S}, B={B}")
+    max_keys = MAX_KEYS_WINDOWED if window > 0 else MAX_KEYS
+    if S > max_keys or B > MAX_BATCH:
+        raise ValueError(
+            f"flash_attention kernel takes at most {max_keys} keys "
+            f"{'with' if window > 0 else 'without'} a window (ROADMAP Queue 2 "
+            f"K2) and {MAX_BATCH} rows, got S={S}, B={B}")
     if q_pos.shape != (B, T) or k_pos.shape != (B, S) or \
             q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
         raise ValueError("q_pos (B, T) and k_pos (B, S) must be int32")
@@ -103,7 +111,7 @@ def _check_kernel_inputs(q, k, v, q_pos, k_pos) -> None:
 
 def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    _check_kernel_inputs(q, k, v, q_pos, k_pos)
+    _check_kernel_inputs(q, k, v, q_pos, k_pos, window)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)

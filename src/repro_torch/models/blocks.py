@@ -1,5 +1,6 @@
 """Decoder blocks and the layer stack (port of ``repro/models/blocks.py``):
-attention blocks with a dense FFN, and RWKV6 blocks.
+attention blocks with a dense FFN or a mixture-of-experts, and RWKV6
+blocks.
 
 Layers are an ``nn.ModuleList`` run by a Python loop (JAX scans stacked
 parameters).  The caches keep JAX's per-run stacked layout so that
@@ -14,14 +15,15 @@ buffers in place.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
+import torch
 from torch import nn
 
 from .attention import GQA, apply_gqa, init_kv_cache
 from .config import ATTN, RWKV, ModelConfig
 from .layers import LayerNorm, RMSNorm, apply_layernorm, apply_rmsnorm
-from .moe import apply_ffn, make_ffn
+from .moe import MoE, apply_ffn, apply_moe, make_ffn
 from .rwkv import (RWKVChannelMix, RWKVTimeMix, apply_rwkv_channel_mix,
                    apply_rwkv_time_mix, init_rwkv_cache)
 
@@ -43,12 +45,12 @@ def signature_runs(cfg: ModelConfig) -> List[Tuple[BlockSig, int]]:
     return runs
 
 
-SUPPORTED = ((ATTN, False, False), (RWKV, False, False))
+SUPPORTED = ((ATTN, False, False), (ATTN, True, False), (RWKV, False, False))
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense attention trunks over a dense or paged cache and
-    RWKV6 trunks."""
+    """The port runs attention trunks (dense FFN or MoE) over a dense or
+    paged cache and RWKV6 trunks."""
     for sig in block_signatures(cfg):
         if sig not in SUPPORTED:
             raise NotImplementedError(
@@ -64,15 +66,20 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """An attention block: ``{"norm1", "attn", "norm2", "mlp"}``."""
+    """An attention block: ``{"norm1", "attn", "norm2", "mlp"}``, or with
+    ``is_moe`` ``{"norm1", "attn", "norm2", "moe"}``."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device=None):
+    def __init__(self, cfg: ModelConfig, *, is_moe: bool = False, dtype,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm1 = RMSNorm(cfg.d_model, **kw)
         self.attn = GQA(cfg, **kw)
         self.norm2 = RMSNorm(cfg.d_model, **kw)
-        self.mlp = make_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind, **kw)
+        if is_moe:
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = make_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind, **kw)
 
 
 class RWKVBlock(nn.Module):
@@ -88,8 +95,9 @@ class RWKVBlock(nn.Module):
 
 
 def make_block(cfg: ModelConfig, sig: BlockSig, *, dtype, device=None):
-    return (RWKVBlock if sig[0] == RWKV else Block)(cfg, dtype=dtype,
-                                                    device=device)
+    if sig[0] == RWKV:
+        return RWKVBlock(cfg, dtype=dtype, device=device)
+    return Block(cfg, is_moe=sig[1], dtype=dtype, device=device)
 
 
 def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
@@ -105,13 +113,17 @@ def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
 
 def apply_block(p: Block, cfg: ModelConfig, x, positions, *, cache=None,
                 cache_start=None, kv_length=None, kv_start=None):
+    """Returns (x, aux): the MoE layer's aux dict, ``{}`` for a dense FFN."""
     h = apply_rmsnorm(p.norm1, x, cfg.norm_eps)
     out, _ = apply_gqa(p.attn, cfg, h, positions, cache=cache,
                        cache_start=cache_start, kv_length=kv_length,
                        kv_start=kv_start)
     x = x + out
     h = apply_rmsnorm(p.norm2, x, cfg.norm_eps)
-    return x + apply_ffn(p.mlp, h, cfg.act)
+    if hasattr(p, "moe"):
+        out, aux = apply_moe(p.moe, cfg, h)
+        return x + out, aux
+    return x + apply_ffn(p.mlp, h, cfg.act), {}
 
 
 def init_trunk_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -134,7 +146,10 @@ def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 kv_start=None):
     """Run all layers; the caches (if given) are updated in place and
     returned.  The attention arguments (cache_start, kv_length, kv_start)
-    go unused by RWKV layers."""
+    go unused by RWKV layers.  Returns (x, caches, aux_mean): each aux key
+    averaged over the layers that reported it (``{}`` without MoE)."""
+    aux_sums: Dict[str, torch.Tensor] = {}
+    aux_counts: Dict[str, int] = {}
     i = 0
     for run_idx, (sig, run_len) in enumerate(signature_runs(cfg)):
         rwkv = sig[0] == RWKV
@@ -147,8 +162,13 @@ def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 x = apply_rwkv_block(layers[i], cfg, x, positions,
                                      cache=layer_cache)
             else:
-                x = apply_block(layers[i], cfg, x, positions,
-                                cache=layer_cache, cache_start=cache_start,
-                                kv_length=kv_length, kv_start=kv_start)
+                x, aux = apply_block(layers[i], cfg, x, positions,
+                                     cache=layer_cache,
+                                     cache_start=cache_start,
+                                     kv_length=kv_length, kv_start=kv_start)
+                for k, v in aux.items():
+                    aux_sums[k] = aux_sums[k] + v if k in aux_sums else v
+                    aux_counts[k] = aux_counts.get(k, 0) + 1
             i += 1
-    return x, caches
+    aux_mean = {k: aux_sums[k] / aux_counts[k] for k in aux_sums}
+    return x, caches, aux_mean

@@ -6,7 +6,9 @@ call ``load_params``/``params_tree`` with their own head).
 stacked per signature run with a leading ``run_len`` axis (DESIGN.md §2).
 ``from_jax_params`` takes that tree with every leaf already a numpy array
 (``jax.tree.map(np.asarray, params)``; the port never imports JAX) and
-copies it into an ``LM`` whose ``layers[i]`` is global layer i.
+copies it into an ``LM`` whose ``layers[i]`` is global layer i (a MoE
+layer's ``moe.router``, stacked ``moe.w_gate`` / ``w_up`` / ``w_down`` and
+``moe.shared`` by the same names).
 ``to_jax_params`` is the inverse: an ``LM`` back to that tree, as numpy
 float32 leaves (a bfloat16 parameter widened exactly), so that a test can
 hold updated parameters against JAX's leaf by leaf.

@@ -1,5 +1,6 @@
-"""Top-level language model (port of ``repro/models/model.py``, dense GQA
-and RWKV6 trunks): embeddings, trunk, head, and the cache operations of the
+"""Top-level language model (port of ``repro/models/model.py``, GQA trunks
+with a dense FFN or mixture-of-experts, and RWKV6 trunks): embeddings,
+trunk, head, and the cache operations of the
 one-pass rollout (attention trunks only: a recurrent state cannot be
 compacted, so RWKV6 rollouts take the two-pass branch).
 
@@ -115,7 +116,10 @@ def _logits(model: LM, cfg: ModelConfig, x):
 
 def forward(model: LM, cfg: ModelConfig, tokens, positions):
     """tokens: (B, T) int; positions: (B, T) int32 with -1 on padding.
-    Returns (logits (B, T, V) float32, aux dict).
+    Returns (logits (B, T, V) float32, aux dict): a MoE trunk's
+    ``moe_lb_loss``, ``moe_z_loss``, ``moe_expert_frac`` and (``dispatch``
+    and ``sort``) ``moe_drop_frac``, each averaged over its layers as JAX
+    does; ``{}`` without MoE.  Prefill, decode and score ignore them.
 
     Carries the graph when grad is enabled and the parameters require it
     (the actor in the train step): the attention and the recurrence then
@@ -123,9 +127,9 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions):
     ``rwkv.wkv_scan``).  Its no-grad callers (``score``, ``verify``, the
     rollout) reach the kernels."""
     x = _embed(model, cfg, tokens, positions)
-    x, _ = apply_trunk(model.layers, cfg, x, positions)
+    x, _, aux = apply_trunk(model.layers, cfg, x, positions)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return _logits(model, cfg, x), {}
+    return _logits(model, cfg, x), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -140,8 +144,8 @@ def prefill(model: LM, cfg: ModelConfig, tokens, positions, caches):
 
     Returns (logits (B, T, V), caches)."""
     x = _embed(model, cfg, tokens, positions)
-    x, caches = apply_trunk(model.layers, cfg, x, positions, caches=caches,
-                            cache_start=0)
+    x, caches, _ = apply_trunk(model.layers, cfg, x, positions,
+                               caches=caches, cache_start=0)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
     return _logits(model, cfg, x), caches
 
@@ -180,9 +184,9 @@ def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
         kv_start = torch.as_tensor(kv_start, dtype=torch.int32, device=dev
                                    ).reshape(-1).expand(B).contiguous()
     x = _embed(model, cfg, token, position)
-    x, caches = apply_trunk(model.layers, cfg, x, position, caches=caches,
-                            cache_start=cache_start, kv_length=kv_length,
-                            kv_start=kv_start)
+    x, caches, _ = apply_trunk(model.layers, cfg, x, position, caches=caches,
+                               cache_start=cache_start, kv_length=kv_length,
+                               kv_start=kv_start)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
     return _logits(model, cfg, x), caches
 

@@ -84,7 +84,7 @@ def forward_values(critic: Critic, cfg: ModelConfig, tokens, mask):
     positions = positions_from_mask(mask)
     x = critic.embed[tokens.long()].to(M.torch_dtype(cfg.dtype))
     x = torch.where(mask[..., None], x, torch.zeros_like(x))
-    x, _ = apply_trunk(critic.layers, cfg, x, positions)
+    x, _, _ = apply_trunk(critic.layers, cfg, x, positions)
     x = apply_rmsnorm(critic.final_norm, x, cfg.norm_eps)
     v = apply_dense(critic.value_head, x)[..., 0].float()
     return torch.where(mask, v, torch.zeros_like(v))

@@ -144,10 +144,12 @@ def _actor_loss_fn(model: M.LM, cfg: ModelConfig, pcfg: PolicyLossConfig,
                    advantages, resp_mask, ref_lp, temperature: float,
                    top_p: float):
     """The GRPO actor loss with its graph, and its diagnostics (floats of
-    the graph's values, detached)."""
-    lp_all, ent_all = token_logprobs(model, cfg, full_tokens, full_mask,
-                                     temperature, top_p,
-                                     entropy_grad=pcfg.entropy_coef > 0.0)
+    the graph's values, detached).  A MoE trunk adds its router losses,
+    ``cfg.router_aux_coef`` times the load-balance loss and
+    ``cfg.router_z_coef`` times the z-loss, as JAX's does."""
+    lp_all, ent_all, aux = token_logprobs(
+        model, cfg, full_tokens, full_mask, temperature, top_p,
+        entropy_grad=pcfg.entropy_coef > 0.0)
     lp_new = lp_all[:, resp_start:]
     ent = ent_all[:, resp_start:]
     loss, info = policy_loss(lp_new, lp_old, advantages, resp_mask, pcfg)
@@ -157,6 +159,10 @@ def _actor_loss_fn(model: M.LM, cfg: ModelConfig, pcfg: PolicyLossConfig,
         info["kl_ref"] = kl.detach()
     if pcfg.entropy_coef > 0.0:
         loss = loss - pcfg.entropy_coef * entropy_bonus(ent, resp_mask)
+    if "moe_lb_loss" in aux:
+        loss = loss + cfg.router_aux_coef * aux["moe_lb_loss"] \
+            + cfg.router_z_coef * aux["moe_z_loss"]
+        info["moe_lb_loss"] = aux["moe_lb_loss"].detach()
     info["entropy"] = masked_mean(ent, resp_mask).detach()
     return loss, info
 

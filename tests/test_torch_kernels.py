@@ -200,6 +200,12 @@ def test_flash_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="at most"):
         flash_ops.flash_attention_cuda(q, kv, kv, torch.empty(2, 8, **i32),
                                        torch.empty(2, too_long, **i32))
+    too_long = flash_ops.MAX_KEYS_WINDOWED + 64
+    kv = torch.empty(2, HKV, too_long, D, **bf)
+    with pytest.raises(ValueError, match="at most .* with a window"):
+        flash_ops.flash_attention_cuda(q, kv, kv, torch.empty(2, 8, **i32),
+                                       torch.empty(2, too_long, **i32),
+                                       window=4096)
     kv = torch.empty(2, HKV, 16, D, **bf)
     with pytest.raises(ValueError, match="head_dim"):
         flash_ops.flash_attention_cuda(torch.empty(2, HQ, 8, 32, **bf),
@@ -494,8 +500,9 @@ def test_decode_kernels_refuse_what_they_cannot_take():
 
     with pytest.raises(ValueError, match="head_dim"):
         dense(q=torch.empty(B, HQ, 1, 32, **bf))
-    with pytest.raises(ValueError, match="at most 128"):
-        dense(q=torch.empty(B, HQ, 65, D, **bf))           # G * T = 130
+    too_many = dec_ops.MAX_GT // (HQ // HKV) + 1          # G * T > MAX_GT
+    with pytest.raises(ValueError, match=f"at most {dec_ops.MAX_GT}"):
+        dense(q=torch.empty(B, HQ, too_many, D, **bf))
     with pytest.raises(TypeError, match="bfloat16"):
         dense(q=torch.empty(B, HQ, 1, D, dtype=torch.float32, **meta))
     with pytest.raises(ValueError, match="q_pos"):
@@ -512,8 +519,8 @@ def test_decode_kernels_refuse_what_they_cannot_take():
         paged(bs=16)
     with pytest.raises(ValueError, match="head_dim"):
         paged(q=torch.empty(B, HQ, 1, 32, **bf))
-    with pytest.raises(ValueError, match="at most 128"):
-        paged(q=torch.empty(B, HQ, 65, D, **bf))
+    with pytest.raises(ValueError, match=f"at most {dec_ops.MAX_GT}"):
+        paged(q=torch.empty(B, HQ, too_many, D, **bf))
     with pytest.raises(ValueError, match="table"):
         paged(table=torch.empty(B, 3, dtype=torch.int64, **meta))
 

@@ -271,7 +271,9 @@ SLICE_MODULES = (
     "repro_torch.rl.async_loop", "repro_torch.serving.rollout_service",
     "repro_torch.obs.ledger", "repro_torch.obs.attrib",
     "repro_torch.obs.alerts", "repro_torch.obs.export",
-    "repro_torch.launch.analysis")
+    "repro_torch.launch.analysis", "repro_torch.models.moe",
+    "repro_torch.configs.deepseek_7b", "repro_torch.configs.qwen1p5_110b",
+    "repro_torch.configs.granite_34b", "repro_torch.configs.mixtral_8x22b")
 
 
 def test_port_imports_no_jax_and_no_repro():

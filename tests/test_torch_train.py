@@ -789,8 +789,8 @@ def test_score_and_token_logprobs_agree():
     mask[1, :4] = False
     sc = score(model, cfg, toks, mask, return_entropy=True)
     model.requires_grad_(True)
-    lp, ent = token_logprobs(model, cfg, toks, mask)
-    assert lp.requires_grad and not ent.requires_grad
+    lp, ent, aux = token_logprobs(model, cfg, toks, mask)
+    assert lp.requires_grad and not ent.requires_grad and aux == {}
     valid = sc["valid"].numpy()
     _close(lp.detach().numpy()[valid], sc["logprobs"].numpy()[valid],
            "log-probs", 1e-5)
