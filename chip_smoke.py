@@ -10,7 +10,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
 
 1. prints the card's name and power limit (``nvidia-smi``), and a draw of
    a key seeded above 2**63 on the card;
-2. builds the eight CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
+2. builds the nine CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
    (one ``nvcc`` per source, all started together) and prints the build
    time and ``ptxas`` register/spill lines;
 3. for each kernel, at the shapes its path gives it, calls the public
@@ -42,7 +42,13 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    prompts' left pads) and T = 1 (a decode step), and at the reduced
    config's hd = 32 (T = 37), from a nonzero state, its output new and
    written over its input, within ``WKV_TOL`` of the largest magnitude, one
-   launch a call at each of the three.  ``spec_verify`` runs with int32
+   launch a call at each of the three.  ``mamba_scan`` runs at
+   jamba-v0.1-52b's widths (B = 16, di = 8,192, ds = 16) in float32 at
+   T = P + N (the pads' dt = 0), P and 1, and at di = 200 (T = 37), from a
+   nonzero state, its final state written over its input, within
+   ``MAMBA_TOL`` of the largest magnitude; T = P + N also against P + N
+   chained T = 1 calls through the state; one launch a call at each of the
+   three.  ``spec_verify`` runs with int32
    lengths (as its callers hold them) and int64 ones (one launch a call
    with either), exactly equal to its plain version.  Then it times the
    kernel entry on
@@ -58,22 +64,23 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    markers that takes the first records a session may drop, host time at
    the window's ends, a marker before each call and after the last).
    ``arch_kernel_checks`` then holds the attention kernels at the head
-   layouts of the mixture-of-experts slice's configs (G = 1, 6, 8, 48;
+   layouts of the new configs (G = 1, 4, 6, 8, 48;
    granite-34b's draft blocks of G * T = 144 and 432; flash with a window
    of 16, over S = T = 40,960 and 65,536 with mixtral-8x22b's window of
    4,096 and over 32,768 without one, the plain version on sampled query
    rows, all timed);
 4. holds the port on the card against the port on the CPU at a small size
    (the reduced qwen3-1.7b, rwkv6-3b, deepseek-7b, qwen1.5-110b,
-   granite-34b and mixtral-8x22b, the last also with ``dispatch`` and a
-   window of 8, in bfloat16: forward, prefill, decode steps and, for an
+   granite-34b, mixtral-8x22b and jamba-v0.1-52b (one full period of 8
+   layers), mixtral also with ``dispatch`` and a window of 8, in
+   bfloat16: forward, prefill, decode steps and, for an
    attention trunk, the compaction roll, teacher-forced, a MoE trunk's
    routing too: the other runs replay the CPU bf16 run's expert choices),
    within the arch's ``SMALL_TOL``, and the card's bfloat16 run no further
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs twenty paths (random weights from a seed), each with the launch
+5. runs twenty-two paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
    ``draft_slots``, ``observatory``, ``faults``, ``ppo`` and ``dapo`` run
@@ -196,15 +203,22 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 nudged by 1e-7, at full depth (within ``CHAOS_FACTOR``) and
                 cut to one layer (within ``CONSISTENCY_TOL``);
    ``archs``    each of deepseek-7b (8 of 30 layers), qwen1.5-110b (2 of
-                80), granite-34b (4 of 88) and mixtral-8x22b (4 of 56,
+                80), granite-34b (4 of 88), mixtral-8x22b (4 of 56,
+                ``dispatch``) and jamba-v0.1-52b (8 of 32: one full period,
                 ``dispatch``) at full width, built at that depth: the
                 ``rollout`` path's two epochs at ``ARCHS_N`` tokens, the
-                four path kernels launched, an ``archs`` line (parameters,
-                peak GiB, times, counts; mixtral's ``moe_drop_frac`` over
-                epoch 1's verify input);
-   ``mixtral train`` one GRPO ``train_step`` of mixtral-8x22b at one
-                layer, full width: the scorings launch flash_attention
-                alone, the update no kernel, ``moe_lb_loss`` finite;
+                path kernels launched (jamba: the two-pass branch,
+                ``mamba_scan`` by T, no ``cache_roll``), an ``archs`` line
+                (parameters, peak GiB, times, counts; the MoE trunks'
+                ``moe_drop_frac`` over epoch 1's verify input);
+   ``mixtral train``, ``jamba train`` one GRPO ``train_step`` of each at
+                one layer, full width: the scorings launch flash_attention
+                (jamba's Mamba layer: mamba_scan) alone, the update no
+                kernel, ``moe_lb_loss`` finite, every MoE and Mamba
+                parameter with a gradient;
+   then, outside the paths, ``jamba consistency``: jamba cut to one layer
+   in float32 (``moe_impl="dense"``), its score against its prefill +
+   decode steps within ``CONSISTENCY_TOL``, as ``rwkv``'s witness;
    after ``rollout``, ``slots``, ``paged`` and ``rwkv``, a ``breakdown``
    line shows where 16 decode steps of the path's decode loop (at full
    depth) spend their time (host wall time, device busy time, kernel
@@ -250,16 +264,24 @@ ATTN_TOL = 1e-3     # the attentions compute in float32 from the same bf16
 # 0.0508 from the CPU's in four runs, qwen3-1.7b's 0.0313
 SMALL_TOL = {"qwen3-1.7b": 5e-2, "rwkv6-3b": 8e-2}
 # the MoE slice's configs, reduced: attention trunks like qwen3-1.7b's (G = 1
-# for deepseek, qwen1.5 and mixtral, 4 for granite), held to qwen's 5e-2
+# for deepseek, qwen1.5 and mixtral, 4 for granite), held to qwen's 5e-2.
+# The reduced jamba-v0.1-52b (eight layers, seven of them Mamba) barely
+# survives bfloat16: in JAX itself its bfloat16 logits lie 3.05 from its
+# float32 ones on the CPU (rwkv6-3b's 0.109), the port's 3.22; with the
+# routing replayed the CPU's bfloat16 lies 1.18 from float32 and the
+# card's 0.297 from the CPU's (on an H100; PERF.md). It is held to 0.5,
+# and by BF16_GAP to the CPU's own distance from float32
 SMALL_TOL.update({arch: 5e-2 for arch in ("deepseek-7b", "qwen1.5-110b",
                                           "granite-34b", "mixtral-8x22b")})
+SMALL_TOL["jamba-v0.1-52b"] = 0.5
 BF16_GAP = 1.5      # the card's bfloat16 run may lie at most this many times
                     # as far from the CPU's float32 run as the CPU's own
                     # bfloat16 run does
 SMALL_TOL_F32 = 1e-3    # card vs CPU logits in float32 (summation order
                         # only; logits of order 3)
 # the rwkv6-3b score (the verify's teacher-forced log-probs) against its
-# prefill + decode steps on the same tokens, in float32 at full width:
+# prefill + decode steps on the same tokens, in float32 at full width (and
+# jamba-v0.1-52b's at one layer, Mamba + MoE):
 CONSISTENCY_TOL = 1e-3  # cut to one layer, where rounding stays at 1e-6 and a
                         # fault of the cache hand-off or the kernel would not
 CHAOS_FACTOR = 3.0      # at full depth, where the random weights amplify
@@ -291,6 +313,10 @@ FP32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 WKV_TOL = 1e-4      # wkv against its plain version, relative to the output's
                     # largest magnitude: float32 both, the state summed over up
                     # to 320 steps and y over hd terms in another order
+MAMBA_TOL = 1e-4    # mamba_scan against its plain version, relative to the
+                    # output's largest magnitude: float32 both, fused
+                    # multiply-adds and the ds-term sum in another order,
+                    # carried over up to 320 steps
 
 # the slice's traffic
 PROMPTS, GROUP, P, N = 4, 4, 64, 256
@@ -321,13 +347,16 @@ CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
 # the new configs at their published widths, cut in depth to what one card
 # holds beside the paths' caches (ARCH_LAYERS), each through the rollout
 # traffic cut to ARCHS_N new tokens as draft_slots is; mixtral's GRPO step
-# at MIXTRAL_TRAIN_LAYERS layers (weights, reference, gradient and AdamW's
+# at TRAIN_LAYERS layers (weights, reference, gradient and AdamW's
 # moments: 14 bytes a parameter); deepseek-7b runs 8 of its 30 layers,
-# the first cut when the smoke nears its 1,200 s limit on a slower host
+# the first cut when the smoke nears its 1,200 s limit on a slower host;
+# jamba-v0.1-52b runs one full period of 8 layers (Mamba + MoE, Mamba +
+# FFN and attention + MoE; 13.3e9 of its 51.6e9 parameters), its GRPO
+# step at one layer (Mamba + MoE), as mixtral's (TRAIN_LAYERS)
 ARCH_LAYERS = {"deepseek-7b": 8, "qwen1.5-110b": 2, "granite-34b": 4,
-               "mixtral-8x22b": 4}
+               "mixtral-8x22b": 4, "jamba-v0.1-52b": 8}
 ARCHS_N = 64
-MIXTRAL_TRAIN_LAYERS = 1
+TRAIN_LAYERS = {"mixtral-8x22b": 1, "jamba-v0.1-52b": 1}
 LENIENCE = 0.99
 SEED = 0
 # the train path's float32 witness: two layers at full width, the first
@@ -1097,6 +1126,8 @@ def kernel_checks(torch, timer):
         draft_block_timing(torch, timer, gen, records, n, p_len, T)
     decode = wkv_check(torch, timer, gen, p_len, n, record)
     records["wkv"].update(decode)
+    steps = mamba_check(torch, timer, gen, p_len, n, record)
+    records["mamba_scan"].update(steps)
     return records
 
 
@@ -1173,12 +1204,13 @@ def decode_bound(torch, kargs, hkv: int):
 
 def arch_kernel_checks(torch, timer, records):
     """The attention kernels at the head layouts of deepseek-7b (G = 1),
-    mixtral-8x22b (G = 6), qwen1.5-110b (G = 8) and granite-34b (G = 48),
+    jamba-v0.1-52b (G = 4), mixtral-8x22b (G = 6), qwen1.5-110b (G = 8) and
+    granite-34b (G = 48),
     each against its plain version: the decode kernels, dense and paged,
     at T = 1 (a window of 16 at G = 6) and granite's draft blocks (T = 3
     and 9: G * T = 144 and 432, 9 and 27 query chunks) and a deepseek one
     (T = 9, G * T = 9); flash_attention at G = 1 (one query head a block),
-    6, 8 and 48, a window of 16 at the verify shape, and over S = T =
+    4, 6, 8 and 48, a window of 16 at the verify shape, and over S = T =
     40,960 and 65,536 (past the 32,768 keys of an unwindowed call, up to
     mixtral's max_seq_len) with mixtral's window of 4,096 and over 32,768
     without one.  Adds each kernel's largest error over these
@@ -1494,6 +1526,123 @@ def wkv_check(torch, timer, gen, p_len, n, record):
     return extra
 
 
+MAMBA_DI, MAMBA_DS = 8192, 16     # jamba-v0.1-52b's d_inner and d_state
+
+
+def mamba_inputs(torch, gen, T, valid, di=MAMBA_DI, ds=MAMBA_DS):
+    """dt, u (B, T, di), Bc, Cc (B, T, ds), A (di, ds), D (di,) and a
+    nonzero state s (B, di, ds), float32 on ``gen``'s device, B =
+    ``valid.shape[0]``: dt a softplus of a normal and 0 where ``valid``
+    (B, T) is False (the pad contract), A = -exp(A_log) from the init's
+    log(1..ds) jittered, D from a normal."""
+    B = valid.shape[0]
+    f32 = dict(dtype=torch.float32, device=gen.device)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, di), generator=gen, **f32) - 1.0)
+    dt = torch.where(valid[:, :, None], dt, torch.zeros_like(dt))
+    u = torch.randn((B, T, di), generator=gen, **f32)
+    Bc, Cc = (torch.randn((B, T, ds), generator=gen, **f32)
+              for _ in range(2))
+    A = -(torch.arange(1, ds + 1, **f32)[None, :]
+          * torch.exp(0.1 * torch.randn((di, ds), generator=gen, **f32)))
+    D = torch.randn((di,), generator=gen, **f32)
+    s = 0.5 * torch.randn((B, di, ds), generator=gen, **f32)
+    return dt, u, Bc, Cc, A, D, s
+
+
+def mamba_check(torch, timer, gen, p_len, n, record):
+    """The selective scan at jamba-v0.1-52b's widths (B = 16, di = 8,192,
+    ds = 16) in its three regimes: the verify score (T = P + N, the
+    prompt's left pads and the draft's right pads as dt = 0), the prefill
+    (T = P, left pads) and a decode step (T = 1, one done row), each from
+    a nonzero state, against the plain version: y, and the final state
+    written over the input in place; T = P + N also as one call against
+    P + N chained T = 1 calls through the state in place.  Each of the
+    three is timed and held to one launch a call and no other kernel.
+    Returns the record's extra keys."""
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+
+    dev = gen.device
+    B = PROMPTS * GROUP
+
+    def check(T, args, chained=False):
+        dt, u, Bc, Cc, A, D, s0 = args
+        s = s0.clone()
+        y = ms_ops.mamba_scan(dt, u, Bc, Cc, A, D, s)
+        want_y, want_s = ms_ops.mamba_scan_plain(dt, u, Bc, Cc, A, D, s0)
+        outs = [(y, want_y, "y"), (s, want_s, "state (in place)")]
+        if chained:
+            sc = s0.clone()
+            steps = torch.cat([ms_ops.mamba_scan(
+                dt[:, t:t + 1].contiguous(), u[:, t:t + 1].contiguous(),
+                Bc[:, t:t + 1].contiguous(), Cc[:, t:t + 1].contiguous(), A,
+                D, sc) for t in range(T)], dim=1)
+            outs += [(steps, want_y, f"y of {T} chained T=1 calls"),
+                     (sc, want_s, f"state after {T} chained T=1 calls")]
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, want, what in outs:
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            require(bool(torch.isfinite(got).all()) and e <= MAMBA_TOL * scale,
+                    f"mamba_scan T={T}: {what} max_abs_err {e} > "
+                    f"{MAMBA_TOL} x {scale}")
+            err = max(err, e)
+        log(f"kernel mamba_scan T={T}: max_abs_err={err} (scale "
+            f"{float(want_y.abs().max())}, tol {MAMBA_TOL} of it)")
+        # bytes: dt, u read and y written, B and C read, the state read and
+        # written, A and D read; operations the function needs: an
+        # exponential and 6 flops per state element a step (dt A, then
+        # exp, (dt u) B, the fused s update and the C sum), on the CUDA
+        # cores, the exponential counted as one
+        nbytes = (3 * dt.numel() + 2 * Bc.numel() + 2 * s0.numel()
+                  + A.numel() + D.numel()) * 4
+        flops = 7 * dt.numel() * A.shape[-1]
+        s_t = s0.clone()
+        return (err, lambda: ms_ops.mamba_scan_cuda(dt, u, Bc, Cc, A, D, s_t),
+                lambda: ms_ops.mamba_scan_plain(dt, u, Bc, Cc, A, D, s0),
+                nbytes, flops)
+
+    def one_launch(T, per_call, others):
+        require(per_call == 1 and others == 0,
+                f"mamba_scan T={T}: {per_call} launches of its kernel and "
+                f"{others} others a call, want one launch and nothing else")
+
+    # a width off the block's 128 channels and a last time tile part-filled
+    check(37, mamba_inputs(torch, gen, 37, torch.ones(
+        (2, 37), dtype=torch.bool, device=dev), di=200))
+    err, fn, plain, nbytes, flops = check(
+        P + N, mamba_inputs(torch, gen, P + N, score_valid(torch, p_len, n)),
+        chained=True)
+    rec = record("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
+                 "src/repro/models/mamba.py:101-128 (jax.lax.scan in XLA; "
+                 "no Pallas kernel)", err, fn, plain, None, nbytes=nbytes,
+                 flops=flops, kernel="mamba_scan_kernel",
+                 flop_rate=FP32_FLOP_PER_S)
+    one_launch(P + N, rec["kernels_per_call"], rec["other_kernels_per_call"])
+    del fn, plain
+    col = torch.arange(P, device=dev)[None, :]
+    valid = {P: col >= P - p_len[:, None],
+             1: torch.arange(B, device=dev)[:, None] > 0}    # row 0 done
+    extra = {}
+    for T, what in ((P, "prefill"), (1, "decode")):
+        err_t, fn_t, plain_t, nbytes_t, flops_t = check(
+            T, mamba_inputs(torch, gen, T, valid[T]))
+        ms_t, plain_ms_t = timer.turns(fn_t, plain_t)
+        dev_ms_t, per_call, others = timer.device_ms(fn_t, "mamba_scan_kernel")
+        one_launch(T, per_call, others)
+        b_t, by_t = bound(nbytes_t, flops_t, FP32_FLOP_PER_S)
+        log(f"kernel mamba_scan at T={T}: max_abs_err={err_t} ms={ms_t} "
+            f"device_ms={dev_ms_t} plain_ms={plain_ms_t} bound_ms={b_t} "
+            f"({by_t}); kernels a call: {per_call} of mamba_scan_kernel, "
+            f"{others} other")
+        extra.update({f"{what}_ms": ms_t, f"{what}_device_ms": dev_ms_t,
+                      f"{what}_plain_ms": plain_ms_t, f"{what}_bound_ms": b_t,
+                      f"{what}_max_abs_err": err_t})
+    torch.cuda.empty_cache()
+    return extra
+
+
 # ---------------------------------------------------------------- small ref
 
 
@@ -1656,7 +1805,8 @@ def prompt_batch():
 class Launches(dict):
     """A path's launch counts by kernel, read at the end of the window its
     ``reset_launches`` opened, with the two decode kernels' launches split
-    by query block T from the same window (``by_t``)."""
+    by query block T from the same window (``by_t``) and ``mamba_scan``'s
+    by sequence length T (``mamba_by_t``)."""
 
     def blocks(self, name):
         """Launches of decode kernel ``name`` at T > 1."""
@@ -1665,11 +1815,13 @@ class Launches(dict):
 
 def read_launches():
     """The counts since the last ``reset_launches``, as ``Launches``."""
-    from repro_torch.kernels import DECODE_LAUNCHES_BY_T, LAUNCHES
+    from repro_torch.kernels import (DECODE_LAUNCHES_BY_T, LAUNCHES,
+                                     MAMBA_LAUNCHES_BY_T)
 
     out = Launches(LAUNCHES)
     out.by_t = {name: dict(sorted(by_t.items()))
                 for name, by_t in DECODE_LAUNCHES_BY_T.items()}
+    out.mamba_by_t = dict(sorted(MAMBA_LAUNCHES_BY_T.items()))
     return out
 
 
@@ -2575,26 +2727,47 @@ def rwkv_path(torch):
     torch.cuda.empty_cache()
     model, cfg32, batch, gen = setup_model(torch, "rwkv6-3b", "float32")
     rollout_path(torch, "rwkv-float32", model, cfg32, batch, gen, spec)
-    rwkv_consistency(torch, model, cfg32)
+    recurrent_consistency(torch, model, cfg32)
     del model
     torch.cuda.empty_cache()
     one = cfg32.replace(num_layers=1)
-    rwkv_consistency(torch, M.init_lm(one, seed=SEED, device="cuda"), one,
-                     max_gap=CONSISTENCY_TOL)
+    recurrent_consistency(torch, M.init_lm(one, seed=SEED, device="cuda"),
+                          one, max_gap=CONSISTENCY_TOL)
     return launches, by_t
 
 
-def rwkv_consistency(torch, model, cfg, max_gap=None):
+def jamba_consistency(torch):
+    """``recurrent_consistency`` on jamba-v0.1-52b cut to one layer (Mamba
+    + MoE) at full width, in float32 with ``moe_impl="dense"`` (no
+    capacity, so no drop parts the score from the decode steps), within
+    ``CONSISTENCY_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    one = get_config("jamba-v0.1-52b").replace(
+        num_layers=1, dtype="float32", param_dtype="float32",
+        moe_impl="dense")
+    model = M.init_lm(one, seed=SEED, device="cuda")
+    recurrent_consistency(torch, model, one, max_gap=CONSISTENCY_TOL)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recurrent_consistency(torch, model, cfg, max_gap=None):
     """The score of prompt + continuation (the verify's log-probs) against
     the prefill + decode steps' log-probs of the same tokens, as the
     rollout's two epochs draw them; then both again with the plain
-    recurrence in place of the kernel, and the score with the embeddings
+    recurrence in place of the kernel (``wkv`` for an RWKV trunk,
+    ``mamba_scan`` for a Mamba one), and the score with the embeddings
     nudged by 1e-7.  With ``max_gap``: the kernel's largest gap within it;
     else its mean gap within ``CHAOS_FACTOR`` of the larger of the plain
     recurrence's and the nudge's."""
     from repro_torch.engine.generate import positions_from_mask, score
     from repro_torch.engine.sampling import logprobs_of
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.models import mamba as MB
     from repro_torch.models import model as M
     from repro_torch.models import rwkv as R
 
@@ -2622,21 +2795,31 @@ def rwkv_consistency(torch, model, cfg, max_gap=None):
             lps.append(logprobs_of(logits[:, 0], tokens[:, t + 1]))
         return lp_score, torch.stack(lps, 1)
 
-    def plain(r, k, v, w, u, s0, s_out=None):
+    def plain_wkv(r, k, v, w, u, s0, s_out=None):
         y, s = wkv_ops.wkv_plain(r, k, v, w, u, s0)
         s_out = torch.empty_like(s0) if s_out is None else s_out
         return y, s_out.copy_(s)
+
+    def plain_mamba(dt, u, Bc, Cc, A, D, s):
+        y, s_final = ms_ops.mamba_scan_plain(dt, u, Bc, Cc, A, D, s)
+        s.copy_(s_final)
+        return y
+
+    label, mod, name, plain = (("jamba", MB, "mamba_scan", plain_mamba)
+                               if cfg.block_kind == "mamba" else
+                               ("rwkv", R, "wkv", plain_wkv))
 
     def gap(a, b):
         d = (a - b).abs()
         return float(d.mean()), float(d.max())
 
     lp_score, lp_dec = both()
-    kernel_wkv, R.wkv = R.wkv, plain
+    kernel = getattr(mod, name)
+    setattr(mod, name, plain)
     try:
         plain_score, plain_dec = both()
     finally:
-        R.wkv = kernel_wkv
+        setattr(mod, name, kernel)
     embed = model.embed.detach().clone()
     nudge = torch.randn(embed.shape, generator=torch.Generator(
         device="cuda").manual_seed(SEED + 1), device="cuda")
@@ -2648,19 +2831,19 @@ def rwkv_consistency(torch, model, cfg, max_gap=None):
                                                           plain_dec),
             "score_kernel_vs_plain": gap(lp_score, plain_score),
             "score_nudged": gap(lp_score, nudged)}
-    log(f"rwkv consistency {cfg.param_dtype} L={cfg.num_layers} B={B} "
+    log(f"{label} consistency {cfg.param_dtype} L={cfg.num_layers} B={B} "
         f"P={P} steps={C} (mean, max |log-prob| gap): " + json.dumps(gaps))
     require(all(bool(torch.isfinite(x).all()) for x in
                 (lp_score, lp_dec, plain_score, plain_dec, nudged)),
-            "rwkv consistency: non-finite log-probs")
+            f"{label} consistency: non-finite log-probs")
     if max_gap is not None:
         require(gaps["kernel"][1] <= max_gap,
-                f"rwkv consistency L={cfg.num_layers}: score vs decode "
+                f"{label} consistency L={cfg.num_layers}: score vs decode "
                 f"{gaps['kernel'][1]} > {max_gap}")
     else:
         floor = max(gaps["plain"][0], gaps["score_nudged"][0])
         require(gaps["kernel"][0] <= CHAOS_FACTOR * floor,
-                f"rwkv consistency L={cfg.num_layers}: score vs decode "
+                f"{label} consistency L={cfg.num_layers}: score vs decode "
                 f"{gaps['kernel'][0]} > {CHAOS_FACTOR} x {floor}")
 
 
@@ -2775,15 +2958,15 @@ class StageSpy:
 
 
 def check_scoring(label, stages, layers, scorings=("old_logprob", "ref"),
-                  updates=("update_actor",)):
+                  updates=("update_actor",), kernel="flash_attention"):
     """The no-grad forwards (the actor's and the reference's scoring, the
-    critic's values) launch flash_attention once a layer and nothing else;
-    the updates launch nothing."""
+    critic's values) launch ``kernel`` (the trunk's T > 1 kernel) once a
+    layer and nothing else; the updates launch nothing."""
     for name in scorings:
         got = stages[name]["launches"]
-        require(got == {"flash_attention": layers},
-                f"{label}: {name} launched {got}, want flash_attention "
-                f"{layers} times")
+        require(got == {kernel: layers},
+                f"{label}: {name} launched {got}, want {kernel} {layers} "
+                "times")
     for name in updates:
         require(stages[name]["launches"] == {},
                 f"{label}: {name} launched kernels: "
@@ -3575,11 +3758,14 @@ def critic_witness(torch, cfg, sub, rewards, full_tokens, full_mask,
 def archs_path(torch, arch: str):
     """Two rollout epochs of ``arch`` at full width and ``ARCH_LAYERS``
     layers (``rollout_path``: epoch 0 vanilla, epoch 1 the one-pass
-    branch), all four of the path's kernels launched; an ``archs`` line
-    with the parameter count, peak GiB, each epoch's wall time and counts,
-    and for a MoE trunk the ``moe_drop_frac`` of one no-grad ``forward``
-    over epoch 1's verify input (prompt and epoch 0's response).  The
-    model is freed before returning its launches."""
+    branch, or for a trunk with Mamba layers (jamba) the two-pass one),
+    the path's kernels launched: the decode, flash and verify kernels,
+    then ``cache_roll`` for an attention trunk, or ``mamba_scan`` (its
+    launches by T summing to its count) and no ``cache_roll`` for jamba;
+    an ``archs`` line with the parameter count, peak GiB, each epoch's
+    wall time and counts, and for a MoE trunk the ``moe_drop_frac`` of
+    one no-grad ``forward`` over epoch 1's verify input (prompt and epoch
+    0's response).  The model is freed before returning its launches."""
     import numpy as np
 
     from repro_torch.core import SpecConfig
@@ -3593,10 +3779,16 @@ def archs_path(torch, arch: str):
     launches, (rb0, rb1) = rollout_path(torch, f"archs {arch}", model, cfg,
                                         batch, gen, spec)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    compacts = M.supports_cache_realign(cfg)
     for name in ("decode_attention", "flash_attention", "spec_verify",
-                 "cache_roll"):
+                 "cache_roll" if compacts else "mamba_scan"):
         require(launches[name] > 0, f"archs {arch}: kernel {name} was not "
                 "launched")
+    if not compacts:
+        require(launches["cache_roll"] == 0, f"archs {arch}: the two-pass "
+                f"branch launched cache_roll {launches['cache_roll']} times")
+        log(f"archs {arch} mamba_scan launches by T: "
+            f"{json.dumps(launches.mamba_by_t)}")
     line = {"arch": arch, "layers": cfg.num_layers,
             "params": M.count_params(model), "peak_gib": peak,
             "wall_s": launches.wall_s,
@@ -3626,14 +3818,17 @@ def archs_path(torch, arch: str):
     return launches
 
 
-def mixtral_train_path(torch):
-    """One GRPO ``train_step`` of mixtral-8x22b at full width and
-    ``MIXTRAL_TRAIN_LAYERS`` layers (epoch 0, the verifier's rewards: a
-    random model's are 0, so the router losses drive the update): the
-    scorings launch flash_attention once a layer and nothing else, the
-    update launches no kernel, the loss and ``moe_lb_loss`` are finite;
-    a ``mixtral train`` line with the stage split, peak GiB by stage and
-    the parameters whose gradient is zero everywhere."""
+def arch_train_path(torch, arch: str):
+    """One GRPO ``train_step`` of ``arch`` (mixtral-8x22b or
+    jamba-v0.1-52b) at full width and ``TRAIN_LAYERS[arch]`` layers (epoch
+    0, the verifier's rewards: a random model's are 0, so the router
+    losses drive the update): the scorings launch the trunk's T > 1
+    kernel once a layer (flash_attention for mixtral, mamba_scan for
+    jamba's Mamba layer) and nothing else, the update launches no kernel
+    (jamba's scan takes ``ssm_scan``), the loss and ``moe_lb_loss`` are
+    finite and every MoE (and Mamba) parameter has a gradient; a
+    ``<arch> train`` line with the stage split, peak GiB by stage and the
+    parameters whose gradient is zero everywhere."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -3641,7 +3836,10 @@ def mixtral_train_path(torch):
     from repro_torch.models import model as M
     from repro_torch.rl import trainer as T
 
-    cfg = get_config("mixtral-8x22b").replace(num_layers=MIXTRAL_TRAIN_LAYERS)
+    cfg = get_config(arch).replace(num_layers=TRAIN_LAYERS[arch])
+    label = f"{arch.split('-')[0]} train"
+    # one layer: jamba's layer 0 is Mamba + MoE, mixtral's attention + MoE
+    kernel = "mamba_scan" if cfg.block_kind == "mamba" else "flash_attention"
     torch.cuda.reset_peak_memory_stats()
     model = M.init_lm(cfg, seed=SEED, device="cuda")
     params = M.count_params(model)
@@ -3652,21 +3850,23 @@ def mixtral_train_path(torch):
         st = spy.take()
     launches = read_launches()
     zero = spy.grads.zero["actor"]
-    log("mixtral train " + json.dumps({
+    log(f"{label} " + json.dumps({
         "layers": cfg.num_layers, "params": params, **stage_line(m, st, (
             "collect_time", "old_logprob_time", "ref_time", "adv_time",
             "update_actor_time", "loss", "moe_lb_loss", "grad_norm",
             "reward_mean", "n_generated", "one_pass", "kl_ref")),
-        "zero_grad_params": zero}))
+        "zero_grad_params": zero,
+        "mamba_scan_launches_by_t": launches.mamba_by_t}))
     require(np.isfinite(m["loss"]) and np.isfinite(m["moe_lb_loss"])
-            and m["grad_norm"] > 0, f"mixtral train: loss {m['loss']}, "
+            and m["grad_norm"] > 0, f"{label}: loss {m['loss']}, "
             f"moe_lb_loss {m.get('moe_lb_loss')}, grad_norm {m['grad_norm']}")
-    check_scoring("mixtral train", st, cfg.num_layers)
-    require({"decode_attention", "flash_attention"}
-            <= set(st["collect"]["launches"]),
-            f"mixtral train: the rollout launched {st['collect']['launches']}")
-    require(not any(n.startswith("layers.0.moe") for n in zero),
-            f"mixtral train: no gradient in {zero}")
+    check_scoring(label, st, cfg.num_layers, kernel=kernel)
+    rollout_kernels = ({"mamba_scan"} if kernel == "mamba_scan" else
+                       {"decode_attention", "flash_attention"})
+    require(rollout_kernels <= set(st["collect"]["launches"]),
+            f"{label}: the rollout launched {st['collect']['launches']}")
+    require(not any(n.startswith(("layers.0.moe", "layers.0.mamba"))
+                    for n in zero), f"{label}: no gradient in {zero}")
     del tr, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3938,13 +4138,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     for arch in ARCH_LAYERS:
         paths[f"archs {arch}"] = run(f"archs {arch}", archs_path, torch, arch)
-    paths["mixtral train"] = run("mixtral train", mixtral_train_path, torch)
+    for arch in TRAIN_LAYERS:
+        label = f"{arch.split('-')[0]} train"
+        paths[label] = run(label, arch_train_path, torch, arch)
+    run("jamba consistency", jamba_consistency, torch)
     # the decode kernels by path and T, each read with the path's launches:
     # draft blocks (T > 1) on the two draft paths, dense and paged, and
     # nowhere else (no prefill, verify or score moved off flash_attention)
     log("decode launches by path and T: " + json.dumps(
         {p: paths[p].by_t for p in paths}))
     for p, launches in paths.items():
+        require(sum(launches.mamba_by_t.values()) == launches["mamba_scan"],
+                f"{p}: mamba_scan launches by T {launches.mamba_by_t} do not "
+                f"sum to {launches['mamba_scan']}")
         for name, by_t in launches.by_t.items():
             require(sum(by_t.values()) == launches[name],
                     f"{p}: {name} launches by T {by_t} do not sum to "
@@ -3959,6 +4165,8 @@ def main() -> int:
     for name in ("decode_attention", "paged_decode_attention"):
         records[name]["launches_by_path_and_t"] = {
             p: paths[p].by_t[name] for p in paths}
+    records["mamba_scan"]["launches_by_path_and_t"] = {
+        p: paths[p].mamba_by_t for p in paths if paths[p].mamba_by_t}
     for name, rec in records.items():
         rec["launches_by_path"] = {p: paths[p][name] for p in paths}
         rec["launches"] = sum(rec["launches_by_path"].values())

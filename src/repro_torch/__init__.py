@@ -30,8 +30,11 @@ Rules of the package:
   tensor that lies on the CPU.
 
 The port runs the speculative rollout (``core.rollout``) of dense GQA
-models such as qwen3-1.7b and of RWKV6 trunks such as rwkv6-3b
-(``models/rwkv.py``, the recurrence in ``csrc/wkv.cu``): the vanilla
+and mixture-of-experts models such as qwen3-1.7b and mixtral-8x22b, of
+RWKV6 trunks such as rwkv6-3b (``models/rwkv.py``, the recurrence in
+``csrc/wkv.cu``) and of attention + Mamba hybrids such as jamba-v0.1-52b
+(``models/mamba.py``, the selective scan in ``csrc/mamba_scan.cu``): the
+vanilla
 branch, the one-pass branch (verify+prefill, cache compaction, resumed
 decode) for attention trunks, and the two-pass branch (score, left-align,
 re-prefill and decode) for recurrent trunks and ``one_pass="off"``; with

@@ -1,9 +1,10 @@
 """Architecture registry of the port: the dense GQA configs (qwen3,
 deepseek-7b, qwen1.5-110b, granite-34b), the mixture-of-experts
-mixtral-8x22b and the RWKV6 trunk (rwkv6-3b).
+mixtral-8x22b, the RWKV6 trunk (rwkv6-3b) and the Mamba + attention +
+MoE hybrid jamba-v0.1-52b.
 
 The other architectures of ``repro.configs`` need model families the port
-does not have yet (MLA, Mamba, encoder-decoder, vision prefix, MTP).
+does not have yet (MLA, encoder-decoder, vision prefix, MTP).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ ARCH_IDS = {
     "qwen1.5-110b": "qwen1p5_110b",
     "granite-34b": "granite_34b",
     "mixtral-8x22b": "mixtral_8x22b",
+    "jamba-v0.1-52b": "jamba_v0p1_52b",
 }
 
 

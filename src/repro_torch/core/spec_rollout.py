@@ -9,7 +9,8 @@ A batch with no drafts (cold cache, or ``variant="off"``) is a vanilla
 * **one-pass** (attention trunks, ``spec`` and ``delayed``): the verify
   forward is a prefill, its caches are compacted to the accepted region
   and decoding resumes from them;
-* **two-pass** (recurrent trunks such as RWKV6, ``one_pass="off"``, and
+* **two-pass** (recurrent trunks such as RWKV6 and jamba's Mamba
+  layers, ``one_pass="off"``, and
   the ``random`` and ``full`` ablations): ``left_align`` packs prompt ⊕
   accepted prefix and ``generate`` prefills it again; ``spec`` and
   ``delayed`` first score prompt ⊕ draft (``verify_drafts``).
@@ -28,8 +29,8 @@ prompt; drafts enter through speculative-prefix admission).
 engine on an attention trunk (``use_drafting``): the vanilla branch decodes
 through ``drafted_generate`` with the rows' sibling corpus, the one-pass
 branch continues through ``drafted_resume`` from contexts prompt ⊕
-``draft[:n]``; the two-pass branch, an RWKV trunk and the ablations decode
-vanilla, as in JAX.  The mesh raises ``NotImplementedError`` and names
+``draft[:n]``; the two-pass branch, a recurrent trunk and the ablations
+decode vanilla, as in JAX.  The mesh raises ``NotImplementedError`` and names
 its ROADMAP item (ROADMAP Queue 1 item 11, the mesh).
 
 §11/§14 observatory, as in JAX: each step draws its stage spans on the
@@ -211,7 +212,7 @@ def _ledger_rows(led, B: int, mask_np: np.ndarray):
 def use_drafting(cfg: ModelConfig, spec: SpecConfig) -> bool:
     """Whether the §9 drafted decode loop replaces the vanilla one: an
     enabled ``spec.draft`` on a trunk whose cache can drop a rejected draft
-    (``model.supports_drafting``; an RWKV trunk decodes vanilla)."""
+    (``model.supports_drafting``; a recurrent trunk decodes vanilla)."""
     return spec.draft.enabled and M.supports_drafting(cfg)
 
 

@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "kernels"
 SOURCES = ("decode_attention", "flash_attention", "spec_verify", "cache_roll",
            "cache_slot_write", "paged_gather", "paged_decode_attention",
-           "wkv")
+           "wkv", "mamba_scan")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
          "-lineinfo"]
@@ -56,6 +56,8 @@ SIGNATURES = {
     "repro_paged_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     # r, k, v, w, u, s0, y, s_out, B, T, H, hd, stream
     "repro_wkv": [_P] * 8 + [_I] * 4 + [_P],
+    # dt, u, Bc, Cc, A, D, s, y, B, T, di, ds, stream
+    "repro_mamba_scan": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

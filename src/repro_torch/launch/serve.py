@@ -234,6 +234,9 @@ def main(argv=None):
     engine_kind = args.engine
     if engine_kind == "auto":
         engine_kind = "slots" if M.supports_slot_serving(cfg) else "fixed"
+    if engine_kind == "slots" and not M.supports_slot_serving(cfg):
+        raise SystemExit(f"--engine slots unsupported for arch {cfg.name} "
+                         "(recurrent trunk or modality extras)")
     if engine_kind == "fixed" and (args.spec_prefix or args.arrival_every
                                    or args.draft):
         raise SystemExit("--spec-prefix/--arrival-every/--draft need the "

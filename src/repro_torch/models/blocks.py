@@ -1,6 +1,7 @@
 """Decoder blocks and the layer stack (port of ``repro/models/blocks.py``):
-attention blocks with a dense FFN or a mixture-of-experts, and RWKV6
-blocks.
+attention and Mamba blocks, each with a dense FFN or a mixture-of-experts,
+and RWKV6 blocks.  A hybrid trunk (jamba) mixes attention and Mamba
+layers.
 
 Layers are an ``nn.ModuleList`` run by a Python loop (JAX scans stacked
 parameters).  The caches keep JAX's per-run stacked layout so that
@@ -9,9 +10,10 @@ for an attention run ``caches[run] = {"self": {"k", "v": (run_len, B, Hkv,
 S, D), "pos": (run_len, B, S)}}``, or with ``cfg.cache_layout == "paged"``
 ``{"k", "v": (run_len, NB, Hkv, bs, D) pools, "pos": (run_len, B, S),
 "table": (run_len, B, nb)}``; for an RWKV run ``caches[run] = {"rwkv":
-{"shift_t", "shift_c": (run_len, B, d), "wkv": (run_len, B, H, hd, hd)}}``.
-Layer ``i`` of a run reads and writes the views ``buf[i]`` of its run's
-buffers in place.
+{"shift_t", "shift_c": (run_len, B, d), "wkv": (run_len, B, H, hd, hd)}}``;
+for a Mamba run ``caches[run] = {"mamba": {"conv": (run_len, B, dc - 1,
+di), "ssm": (run_len, B, di, ds)}}``.  Layer ``i`` of a run reads and
+writes the views ``buf[i]`` of its run's buffers in place.
 """
 from __future__ import annotations
 
@@ -21,8 +23,9 @@ import torch
 from torch import nn
 
 from .attention import GQA, apply_gqa, init_kv_cache
-from .config import ATTN, RWKV, ModelConfig
+from .config import ATTN, MAMBA, RWKV, ModelConfig
 from .layers import LayerNorm, RMSNorm, apply_layernorm, apply_rmsnorm
+from .mamba import Mamba, apply_mamba, init_mamba_cache
 from .moe import MoE, apply_ffn, apply_moe, make_ffn
 from .rwkv import (RWKVChannelMix, RWKVTimeMix, apply_rwkv_channel_mix,
                    apply_rwkv_time_mix, init_rwkv_cache)
@@ -45,12 +48,15 @@ def signature_runs(cfg: ModelConfig) -> List[Tuple[BlockSig, int]]:
     return runs
 
 
-SUPPORTED = ((ATTN, False, False), (ATTN, True, False), (RWKV, False, False))
+SUPPORTED = ((ATTN, False, False), (ATTN, True, False), (MAMBA, False, False),
+             (MAMBA, True, False), (RWKV, False, False))
+# the cache entry of each block kind
+CACHE_KEYS = {ATTN: "self", MAMBA: "mamba", RWKV: "rwkv"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs attention trunks (dense FFN or MoE) over a dense or
-    paged cache and RWKV6 trunks."""
+    paged cache, attention + Mamba hybrids (jamba) and RWKV6 trunks."""
     for sig in block_signatures(cfg):
         if sig not in SUPPORTED:
             raise NotImplementedError(
@@ -65,6 +71,13 @@ def check_supported(cfg: ModelConfig) -> None:
                                   "Queue 1 item 10")
 
 
+def _add_ffn(block: nn.Module, cfg: ModelConfig, is_moe: bool, kw) -> None:
+    if is_moe:
+        block.moe = MoE(cfg, **kw)
+    else:
+        block.mlp = make_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind, **kw)
+
+
 class Block(nn.Module):
     """An attention block: ``{"norm1", "attn", "norm2", "mlp"}``, or with
     ``is_moe`` ``{"norm1", "attn", "norm2", "moe"}``."""
@@ -76,10 +89,21 @@ class Block(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, **kw)
         self.attn = GQA(cfg, **kw)
         self.norm2 = RMSNorm(cfg.d_model, **kw)
-        if is_moe:
-            self.moe = MoE(cfg, **kw)
-        else:
-            self.mlp = make_ffn(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind, **kw)
+        _add_ffn(self, cfg, is_moe, kw)
+
+
+class MambaBlock(nn.Module):
+    """``{"norm1", "mamba", "norm2", "mlp" | "moe"}``, RMSNorms; run by
+    ``apply_block`` as an attention block is."""
+
+    def __init__(self, cfg: ModelConfig, *, is_moe: bool = False, dtype,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.norm1 = RMSNorm(cfg.d_model, **kw)
+        self.mamba = Mamba(cfg, **kw)
+        self.norm2 = RMSNorm(cfg.d_model, **kw)
+        _add_ffn(self, cfg, is_moe, kw)
 
 
 class RWKVBlock(nn.Module):
@@ -97,7 +121,8 @@ class RWKVBlock(nn.Module):
 def make_block(cfg: ModelConfig, sig: BlockSig, *, dtype, device=None):
     if sig[0] == RWKV:
         return RWKVBlock(cfg, dtype=dtype, device=device)
-    return Block(cfg, is_moe=sig[1], dtype=dtype, device=device)
+    cls = MambaBlock if sig[0] == MAMBA else Block
+    return cls(cfg, is_moe=sig[1], dtype=dtype, device=device)
 
 
 def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
@@ -111,13 +136,18 @@ def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
                                       cache=cache)
 
 
-def apply_block(p: Block, cfg: ModelConfig, x, positions, *, cache=None,
-                cache_start=None, kv_length=None, kv_start=None):
-    """Returns (x, aux): the MoE layer's aux dict, ``{}`` for a dense FFN."""
+def apply_block(p: Block | MambaBlock, cfg: ModelConfig, x, positions, *,
+                cache=None, cache_start=None, kv_length=None, kv_start=None):
+    """RMSNorm -> attention or Mamba -> residual, then RMSNorm -> FFN or
+    MoE -> residual.  Returns (x, aux): the MoE layer's aux dict, ``{}``
+    for a dense FFN.  A Mamba block ignores the attention arguments."""
     h = apply_rmsnorm(p.norm1, x, cfg.norm_eps)
-    out, _ = apply_gqa(p.attn, cfg, h, positions, cache=cache,
-                       cache_start=cache_start, kv_length=kv_length,
-                       kv_start=kv_start)
+    if hasattr(p, "mamba"):
+        out = apply_mamba(p.mamba, cfg, h, positions, cache=cache)
+    else:
+        out, _ = apply_gqa(p.attn, cfg, h, positions, cache=cache,
+                           cache_start=cache_start, kv_length=kv_length,
+                           kv_start=kv_start)
     x = x + out
     h = apply_rmsnorm(p.norm2, x, cfg.norm_eps)
     if hasattr(p, "moe"):
@@ -131,11 +161,12 @@ def init_trunk_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     caches = []
     for sig, run_len in signature_runs(cfg):
         if sig[0] == RWKV:
-            kind, one = "rwkv", init_rwkv_cache(cfg, batch, dtype, device)
+            one = init_rwkv_cache(cfg, batch, dtype, device)
+        elif sig[0] == MAMBA:
+            one = init_mamba_cache(cfg, batch, dtype, device)
         else:
-            kind, one = "self", init_kv_cache(cfg, batch, max_len, dtype,
-                                              device)
-        caches.append({kind: {
+            one = init_kv_cache(cfg, batch, max_len, dtype, device)
+        caches.append({CACHE_KEYS[sig[0]]: {
             name: buf[None].repeat((run_len,) + (1,) * buf.ndim)
             for name, buf in one.items()}})
     return caches
@@ -146,15 +177,15 @@ def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 kv_start=None):
     """Run all layers; the caches (if given) are updated in place and
     returned.  The attention arguments (cache_start, kv_length, kv_start)
-    go unused by RWKV layers.  Returns (x, caches, aux_mean): each aux key
-    averaged over the layers that reported it (``{}`` without MoE)."""
+    go unused by RWKV and Mamba layers.  Returns (x, caches, aux_mean):
+    each aux key averaged over the layers that reported it (``{}`` without
+    MoE)."""
     aux_sums: Dict[str, torch.Tensor] = {}
     aux_counts: Dict[str, int] = {}
     i = 0
     for run_idx, (sig, run_len) in enumerate(signature_runs(cfg)):
         rwkv = sig[0] == RWKV
-        sc = (None if caches is None
-              else caches[run_idx]["rwkv" if rwkv else "self"])
+        sc = None if caches is None else caches[run_idx][CACHE_KEYS[sig[0]]]
         for j in range(run_len):
             layer_cache = None if sc is None else {
                 name: buf[j] for name, buf in sc.items()}

@@ -43,6 +43,22 @@ class Dense(nn.Module):
             self.bias.zero_()
 
 
+def raw_param(*shape, dtype, device, fill=None) -> nn.Parameter:
+    """A frozen parameter that is a raw array in the JAX tree (no
+    container), filled with ``fill`` if given."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    if fill is not None:
+        t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def normal_(p: nn.Parameter, std: float, generator: torch.Generator) -> None:
+    """``p`` from a float32 normal draw times ``std``, cast to its dtype."""
+    t = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    t.normal_(0.0, 1.0, generator=generator)
+    p.copy_(t * std)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, *, dtype=torch.float32, device=None):
         super().__init__()

@@ -1,8 +1,9 @@
 """Top-level language model (port of ``repro/models/model.py``, GQA trunks
-with a dense FFN or mixture-of-experts, and RWKV6 trunks): embeddings,
-trunk, head, and the cache operations of the
+with a dense FFN or mixture-of-experts, RWKV6 trunks and attention + Mamba
+hybrids): embeddings, trunk, head, and the cache operations of the
 one-pass rollout (attention trunks only: a recurrent state cannot be
-compacted, so RWKV6 rollouts take the two-pass branch).
+compacted, so a trunk with any RWKV6 or Mamba layer takes the two-pass
+branch).
 
 Entry points mirror JAX's, with the params pytree replaced by an ``LM``:
 
@@ -122,10 +123,10 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions):
     does; ``{}`` without MoE.  Prefill, decode and score ignore them.
 
     Carries the graph when grad is enabled and the parameters require it
-    (the actor in the train step): the attention and the recurrence then
+    (the actor in the train step): the attention and the recurrences then
     take their differentiable routes (``attention.dot_product_attention``,
-    ``rwkv.wkv_scan``).  Its no-grad callers (``score``, ``verify``, the
-    rollout) reach the kernels."""
+    ``rwkv.wkv_scan``, ``mamba.ssm_scan``).  Its no-grad callers
+    (``score``, ``verify``, the rollout) reach the kernels."""
     x = _embed(model, cfg, tokens, positions)
     x, _, aux = apply_trunk(model.layers, cfg, x, positions)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
@@ -167,8 +168,8 @@ def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
     (JAX's ``_decode_shaped``; without it the block takes
     ``flash_attention`` over the whole cache).  kv_start: per-row first
     live slot, only for contiguous layouts.  Both become (B,) int32
-    tensors once here, not once per layer.  An RWKV trunk ignores
-    cache_start, kv_length and kv_start: its cache is a running state.
+    tensors once here, not once per layer.  RWKV and Mamba layers ignore
+    cache_start, kv_length and kv_start: their cache is a running state.
     Returns (logits (B, T, V), caches)."""
     B, T = token.shape
     dev = token.device
@@ -200,7 +201,7 @@ def supports_drafting(cfg: ModelConfig, model_kwargs=None) -> bool:
     """Whether the §9 draft-verify decode loop applies: a rejected draft
     token must leave no trace, which an attention cache gives (its slot is
     invalidated, pos -1, and overwritten by the next block) and a recurrent
-    state (RWKV6) cannot (every forwarded token is folded in).  The gate is
+    state (RWKV6, Mamba) cannot (every forwarded token is folded in).  The gate is
     slot serving's."""
     return supports_slot_serving(cfg, model_kwargs)
 

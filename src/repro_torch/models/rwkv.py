@@ -35,22 +35,9 @@ from repro_torch.kernels.rwkv6_wkv.ops import wkv
 
 from .attention import needs_grad
 from .config import ModelConfig
-from .layers import Dense, apply_dense
+from .layers import Dense, apply_dense, normal_, raw_param
 
 STREAMS = ("r", "k", "v", "w", "g")
-
-
-def _param(*shape, dtype, device, fill=None) -> nn.Parameter:
-    t = torch.empty(shape, dtype=dtype, device=device)
-    if fill is not None:
-        t.fill_(fill)
-    return nn.Parameter(t, requires_grad=False)
-
-
-def _normal_(p: nn.Parameter, std: float, generator: torch.Generator):
-    t = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-    t.normal_(0.0, 1.0, generator=generator)
-    p.copy_(t * std)
 
 
 class RWKVTimeMix(nn.Module):
@@ -64,30 +51,30 @@ class RWKVTimeMix(nn.Module):
         d, rank = cfg.d_model, cfg.rwkv_lora_rank
         H, hd = cfg.rwkv_num_heads, cfg.rwkv_head_dim
         kw = dict(dtype=dtype, device=device)
-        self.mu_base = _param(d, **kw, fill=0.0)
-        self.mu = _param(len(STREAMS), d, **kw, fill=0.0)
+        self.mu_base = raw_param(d, **kw, fill=0.0)
+        self.mu = raw_param(len(STREAMS), d, **kw, fill=0.0)
         self.lora_a = Dense(d, len(STREAMS) * rank, **kw)
-        self.lora_b = _param(len(STREAMS), rank, d, **kw)
+        self.lora_b = raw_param(len(STREAMS), rank, d, **kw)
         self.wr = Dense(d, d, **kw)
         self.wk = Dense(d, d, **kw)
         self.wv = Dense(d, d, **kw)
         self.wg = Dense(d, d, **kw)
         self.wo = Dense(d, d, scale=1.0 / math.sqrt(d), **kw)
-        self.w0 = _param(d, **kw, fill=-6.0)
+        self.w0 = raw_param(d, **kw, fill=-6.0)
         self.w_lora_a = Dense(d, rank, **kw)
-        self.w_lora_b = _param(rank, d, **kw)
-        self.u = _param(d, **kw)
-        self.ln_x_scale = _param(H, hd, **kw, fill=1.0)
-        self.ln_x_bias = _param(H, hd, **kw, fill=0.0)
+        self.w_lora_b = raw_param(rank, d, **kw)
+        self.u = raw_param(d, **kw)
+        self.ln_x_scale = raw_param(H, hd, **kw, fill=1.0)
+        self.ln_x_bias = raw_param(H, hd, **kw, fill=0.0)
 
     def reset(self, generator: torch.Generator) -> None:
         """The raw leaves (the Dense children reset themselves)."""
         self.mu_base.zero_()
         self.mu.zero_()
         self.w0.fill_(-6.0)
-        _normal_(self.lora_b, 0.01, generator)
-        _normal_(self.w_lora_b, 0.01, generator)
-        _normal_(self.u, 0.1, generator)
+        normal_(self.lora_b, 0.01, generator)
+        normal_(self.w_lora_b, 0.01, generator)
+        normal_(self.u, 0.1, generator)
         self.ln_x_scale.fill_(1.0)
         self.ln_x_bias.zero_()
 
@@ -99,8 +86,8 @@ class RWKVChannelMix(nn.Module):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
         kw = dict(dtype=dtype, device=device)
-        self.mu_k = _param(d, **kw, fill=0.5)
-        self.mu_r = _param(d, **kw, fill=0.5)
+        self.mu_k = raw_param(d, **kw, fill=0.5)
+        self.mu_r = raw_param(d, **kw, fill=0.5)
         self.wk = Dense(d, ff, **kw)
         self.wv = Dense(ff, d, scale=1.0 / math.sqrt(ff), **kw)
         self.wr = Dense(d, d, **kw)

@@ -13,10 +13,11 @@ update never sees.
 The update is JAX's ``_update_actor`` in PyTorch idiom: the actor's
 parameters require grad only inside it, its forward takes the model's
 differentiable route (``attention.dot_product_attention``,
-``rwkv.wkv_scan``; no kernel launches), ``loss.backward()`` fills
-``.grad``, and ``optim.adamw.update`` steps the parameters in place.  The
-old-policy and reference log-probs and PPO's values are no-grad forwards,
-which run the ``flash_attention`` kernel on the card.  PPO's critic
+``rwkv.wkv_scan``, ``mamba.ssm_scan``; no kernel launches),
+``loss.backward()`` fills ``.grad``, and ``optim.adamw.update`` steps the
+parameters in place.  The old-policy and reference log-probs and PPO's
+values are no-grad forwards, which run the ``flash_attention`` kernel (and
+the recurrences' ``wkv`` or ``mamba_scan``) on the card.  PPO's critic
 (``rl/critic.py``) is updated the same way, before the actor, as in JAX.
 
 Keys follow JAX: the trainer's key splits four ways (``k1, k2, k3,

@@ -41,6 +41,19 @@ GOLDEN = Path(__file__).resolve().parent / "obs" / "golden"
 # ------------------------------------------------------------------ rules
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(rules_fn, series, **kw):
     """Feed ``series`` (a list of (metrics, step)) to a port and a JAX
     manager built from ``rules_fn(module)``; return both event lists as

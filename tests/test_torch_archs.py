@@ -9,10 +9,13 @@ Held: ``forward`` logits and aux, ``score``, prefill plus decode steps and
 the caches, ``realign_decode_cache``, and a two-epoch one-pass ``rollout``
 (tokens, lengths and counts equal to JAX's, keys through ``JaxKey``); then
 one GRPO ``optimize`` of reduced mixtral (dispatch) with the tolerances of
-``test_torch_train.py``'s optimize.  Inputs are numpy arrays from a seed;
-torch runs on one thread; JAX's model functions run under ``jax.jit`` (one
-compile each in place of one per operation).  Logits, caches and log-probs within atol 1e-4
-(float32 through two layers summed in another order)."""
+``test_torch_train.py``'s optimize.  jamba-v0.1-52b's config is checked
+here with the others (its model: ``test_torch_mamba.py``).  Inputs are
+numpy arrays from a seed; torch runs on one thread; JAX's model functions
+run under ``jax.jit`` (one compile each in place of one per operation),
+each case's model pair built once with JAX's forward and score from one
+jitted call.  Logits, caches and log-probs within atol 1e-4 (float32
+through two layers summed in another order)."""
 import functools
 
 import numpy as np
@@ -58,7 +61,8 @@ ARCHS = {
     "mixtral-dispatch-w5": ("mixtral-8x22b", {"moe_impl": "dispatch",
                                               "sliding_window": 5}),
 }
-NEW_ARCHS = ("deepseek-7b", "qwen1.5-110b", "granite-34b", "mixtral-8x22b")
+NEW_ARCHS = ("deepseek-7b", "qwen1.5-110b", "granite-34b", "mixtral-8x22b",
+             "jamba-v0.1-52b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,24 +71,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module")
-def built():
-    """(jcfg, cfg, params, model) per case id, built once."""
-    cache = {}
-
-    def get(case):
-        if case not in cache:
-            arch, kw = ARCHS[case]
-            jcfg = jax_get_config(arch).reduced(**kw)
-            cfg = get_config(arch).reduced(**kw)
-            params = JM.init_lm(jax.random.PRNGKey(0), jcfg)
-            model = from_jax_params(jax.tree.map(np.asarray, params), cfg,
-                                    device="cpu")
-            cache[case] = jcfg, cfg, params, model
-        return cache[case]
-    return get
 
 
 @pytest.fixture(scope="module")
@@ -98,14 +84,37 @@ def inputs():
     return tokens, mask, nxt
 
 
+@pytest.fixture(scope="module")
+def built(inputs):
+    """(jcfg, cfg, params, model, ref) per case id, built once and shared
+    by the forward, score, prefill and rollout tests: ``ref`` holds JAX's
+    forward (logits, aux) and score on ``inputs`` from one jitted call."""
+    tokens, mask, _ = inputs
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            arch, kw = ARCHS[case]
+            jcfg = jax_get_config(arch).reduced(**kw)
+            cfg = get_config(arch).reduced(**kw)
+            params = JM.init_lm(jax.random.PRNGKey(0), jcfg)
+            model = from_jax_params(jax.tree.map(np.asarray, params), cfg,
+                                    device="cpu")
+            jt, jm = jnp.asarray(tokens), jnp.asarray(mask)
+            fwd, sc = jax.jit(lambda p: (
+                JM.forward(p, jcfg, jt, jax_positions(jm)),
+                jax_score(p, jcfg, jt, jm, return_entropy=True)))(params)
+            cache[case] = jcfg, cfg, params, model, {"forward": fwd,
+                                                     "score": sc}
+        return cache[case]
+    return get
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_fns(jcfg):
-    """JAX's forward, score, prefill, decode step and realign for one
-    config, each under ``jax.jit``."""
+    """JAX's prefill, decode step and realign for one config, each under
+    ``jax.jit``."""
     return dict(
-        forward=jax.jit(lambda p, t, pos: JM.forward(p, jcfg, t, pos)),
-        score=jax.jit(lambda p, t, m: jax_score(p, jcfg, t, m,
-                                                return_entropy=True)),
         prefill=jax.jit(lambda p, t, pos, c: JM.prefill(p, jcfg, t, pos, c)),
         decode=jax.jit(lambda p, t, pos, c, start, length, kv_start:
                        JM.decode_step(p, jcfg, t, pos, c, start,
@@ -132,11 +141,11 @@ def test_arch_registered_with_jax_config(arch):
     check_supported(get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b",
-                                  "whisper-tiny", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny",
+                                  "pixtral-12b"])
 def test_other_families_still_refused(arch):
-    """Mamba, MLA and MTP, the encoder and the vision prefix stay refused,
-    each message naming ROADMAP Queue 1 item 10."""
+    """MLA and MTP, the encoder and the vision prefix stay refused, each
+    message naming ROADMAP Queue 1 item 10."""
     import dataclasses
     from repro_torch.models.config import ModelConfig
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
@@ -148,12 +157,11 @@ def test_other_families_still_refused(arch):
 
 @pytest.mark.parametrize("case", sorted(ARCHS))
 def test_forward_logits_and_aux_match(built, inputs, case):
-    jcfg, cfg, params, model = built(case)
+    jcfg, cfg, params, model, ref = built(case)
     assert M.count_params(model) == sum(
         x.size for x in jax.tree.leaves(params))
     tokens, mask, _ = inputs
-    want, want_aux = _jax_fns(jcfg)["forward"](
-        params, jnp.asarray(tokens), jax_positions(jnp.asarray(mask)))
+    want, want_aux = ref["forward"]
     got, got_aux = M.forward(model, cfg, torch.from_numpy(tokens),
                              positions_from_mask(torch.from_numpy(mask)))
     _near(got, want, "forward logits")
@@ -166,10 +174,9 @@ def test_forward_logits_and_aux_match(built, inputs, case):
 
 @pytest.mark.parametrize("case", sorted(ARCHS))
 def test_score_matches(built, inputs, case):
-    jcfg, cfg, params, model = built(case)
+    jcfg, cfg, params, model, ref = built(case)
     tokens, mask, _ = inputs
-    want = _jax_fns(jcfg)["score"](params, jnp.asarray(tokens),
-                                   jnp.asarray(mask))
+    want = ref["score"]
     got = score(model, cfg, tokens, mask, return_entropy=True)
     np.testing.assert_array_equal(got["valid"].numpy(),
                                   np.asarray(want["valid"]))
@@ -181,7 +188,7 @@ def test_score_matches(built, inputs, case):
 def test_prefill_decode_and_realign_match(built, inputs, case):
     """prefill, teacher-forced decode steps with live bounds (a done row
     in the last step), the caches, then ``realign_decode_cache``."""
-    jcfg, cfg, params, model = built(case)
+    jcfg, cfg, params, model, _ = built(case)
     tokens, mask, nxt = inputs
     S = P + STEPS
     fns = _jax_fns(jcfg)
@@ -229,7 +236,7 @@ def test_two_epoch_rollout_matches_jax(built, case):
     JAX's, behaviour log-probs within 1e-4.  Mixtral runs it with
     ``dispatch`` and a window of 5 (the ``dense`` strategy is held by the
     tests above and in ``test_torch_moe.py``), for the time it saves."""
-    jcfg, cfg, params, model = built(case)
+    jcfg, cfg, params, model, _ = built(case)
     problems = generate_problems(MathTaskConfig(num_problems=2, seed=0))
     batch = next(PromptDataset(problems, max_prompt_len=12).epochs(
         2, 4, 1, shuffle=False))

@@ -53,6 +53,19 @@ ATOL = 1e-4
 P, N, R = 8, 12, 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _no_tmp_files(d):
     return not glob.glob(os.path.join(str(d), "**", "*.tmp"), recursive=True)
 

@@ -53,6 +53,19 @@ FAULT_COUNTERS = ("fault_injected", "fault_draft_errors",
                   "fault_quarantines")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def jax_snapshot_keys(monkeypatch):
     """Snapshot key words come back as JAX-drawing key batches."""

@@ -31,6 +31,19 @@ from repro_torch.obs.ledger import (CATEGORY_NAMES, DECISION_FEATURES,  # noqa: 
 BOTH = (jledger, ledger)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_constants_match_jax():
     for name in ("UNSET", "PROMPT", "REUSED_PREFIX", "DRAFT_ACCEPTED",
                  "DRAFT_BONUS", "FRESH", "RETRY_STITCHED",

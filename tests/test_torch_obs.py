@@ -23,6 +23,19 @@ from repro_torch.core.metrics import summarize
 from repro_torch.obs import registry
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class FakeClock:
     """Monotonic fake clock: each read advances by ``tick``."""
 

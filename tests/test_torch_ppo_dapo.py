@@ -68,6 +68,19 @@ VALUE_TOL = 1e-5
 ARCHS = {"qwen3-1.7b": {"num_kv_heads": 2}, "rwkv6-3b": {"scan_chunk": 4}}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch, **extra):
     kw = dict(vocab_size=max(VOCAB_SIZE, 64), **ARCHS[arch], **extra)
     return jax_get_config(arch).reduced(**kw), get_config(arch).reduced(**kw)

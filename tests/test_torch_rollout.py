@@ -44,6 +44,19 @@ ATOL = 1e-4
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class JaxKey:
     """The port's key protocol over a JAX key (test side only)."""
 
@@ -273,7 +286,9 @@ SLICE_MODULES = (
     "repro_torch.obs.alerts", "repro_torch.obs.export",
     "repro_torch.launch.analysis", "repro_torch.models.moe",
     "repro_torch.configs.deepseek_7b", "repro_torch.configs.qwen1p5_110b",
-    "repro_torch.configs.granite_34b", "repro_torch.configs.mixtral_8x22b")
+    "repro_torch.configs.granite_34b", "repro_torch.configs.mixtral_8x22b",
+    "repro_torch.models.mamba", "repro_torch.kernels.mamba_scan.ops",
+    "repro_torch.configs.jamba_v0p1_52b")
 
 
 def test_port_imports_no_jax_and_no_repro():

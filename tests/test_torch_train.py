@@ -97,6 +97,19 @@ GRAD_NOISE = 5e-5   # a model's gradient error budget, of the tensor's
                     # measured up to 8.4e-6 by chip_smoke.py's witness)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for the module: the reduced models' small
+    ops gain nothing from more, while test processes sharing the cores
+    lose much to them (each process's threads would compete for the same
+    cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -661,23 +674,24 @@ def _capture_jax_grads(monkeypatch):
     return out
 
 
-def _check_grads(tr, grads, want):
+def _check_grads(tr, grads, want, noise=GRAD_NOISE):
     """The port's actor gradients (``_capture_port_grads``'s dict), leaf by
-    leaf, against JAX's gradient within GRAD_NOISE of the leaf's largest
+    leaf, against JAX's gradient within ``noise`` of the leaf's largest
     magnitude."""
-    _check_grad_tree(_grads_tree(tr.model, grads), want)
+    _check_grad_tree(_grads_tree(tr.model, grads), want, noise)
 
 
-def _check_grad_tree(got, want):
+def _check_grad_tree(got, want, noise=GRAD_NOISE):
     """A gradient tree (numpy leaves) against JAX's, leaf by leaf, within
-    GRAD_NOISE of the leaf's largest magnitude, which must be nonzero."""
+    ``noise`` (GRAD_NOISE unless a model's own rounding needs more) of the
+    leaf's largest magnitude, which must be nonzero."""
     assert jax.tree.structure(got) == jax.tree.structure(want)
     paths = jax.tree_util.tree_flatten_with_path(want)[0]
     for (path, w), g in zip(paths, jax.tree.leaves(got)):
         w = np.asarray(w, np.float64)
         d = np.abs(np.asarray(g, np.float64) - w).max()
         assert np.abs(w).max() > 0, f"{jax.tree_util.keystr(path)}: zero"
-        assert d <= GRAD_NOISE * np.abs(w).max(), (
+        assert d <= noise * np.abs(w).max(), (
             f"{jax.tree_util.keystr(path)}: max diff {d}, largest "
             f"{np.abs(w).max()}")
 
@@ -842,7 +856,7 @@ def _free_port():
                                   "--trace-dir", "--trace-sample-rate",
                                   "--metrics"])
 def test_observatory_launcher_flags_run_on_the_cpu(
-        flag, tmp_path, capsys, obs_reset, one_thread):
+        flag, tmp_path, capsys, obs_reset):
     """Each §11/§14 flag runs two drafted steps on the CPU and shows what
     JAX's launcher shows: the savings table (``--ledger``), decision
     shards that load back (``--decision-log``), an ``alerts:`` line, the
@@ -883,17 +897,6 @@ def test_observatory_launcher_flags_run_on_the_cpu(
         assert "metrics: http://localhost:" in text
 
 
-@pytest.fixture
-def one_thread():
-    """Torch on one CPU thread for the test: the reduced model's small ops
-    gain nothing from more, while test processes sharing the cores lose
-    much to them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _schema(lines):
     """Output lines with every number replaced by ``#`` (and the padding
     of each field to one space)."""
@@ -927,8 +930,7 @@ def jax_async_lines():
      "max_collect_time", 60.0)],
     ids=lambda x: " ".join(x) if isinstance(x, list) else None)
 def test_async_and_watchdog_flags_run_with_jax_lines(
-        argv, field, want, jax_async_lines, capsys, monkeypatch, tmp_path,
-        one_thread):
+        argv, field, want, jax_async_lines, capsys, monkeypatch, tmp_path):
     """The flags of the async loop and the watchdog run two steps on the
     CPU: each reaches its config, the step lines have JAX's schema (with
     ``--async`` also ``staleness=`` / ``mode=`` and JAX's ``async k=v``
@@ -999,7 +1001,7 @@ def test_unported_trainer_arguments_raise_and_name_their_item(what, item):
 
 
 @pytest.mark.parametrize("what", ["tracer", "alerts"])
-def test_trainer_takes_a_tracer_and_alerts(what, tmp_path, one_thread):
+def test_trainer_takes_a_tracer_and_alerts(what, tmp_path):
     """``Trainer(tracer=...)`` draws the stage spans and the step on the
     trainer lane; ``Trainer(alerts=...)`` evaluates every step and hands
     the attached watchdog to the manager, whose keys join the step log."""
@@ -1030,7 +1032,7 @@ def test_trainer_takes_a_tracer_and_alerts(what, tmp_path, one_thread):
         assert m["alerts_fired"] == 1.0 and wd.alert_events == 1
 
 
-def test_trainer_takes_a_watchdog(tmp_path, one_thread):
+def test_trainer_takes_a_watchdog(tmp_path):
     """``Trainer(watchdog=...)`` builds, its step snapshots (the first
     healthy step always) and the step log carries JAX's ``watchdog_*``
     keys."""
