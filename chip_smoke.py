@@ -68,19 +68,29 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    granite-34b's draft blocks of G * T = 144 and 432; flash with a window
    of 16, over S = T = 40,960 and 65,536 with mixtral-8x22b's window of
    4,096 and over 32,768 without one, the plain version on sampled query
-   rows, all timed);
+   rows, all timed); ``frontend_kernel_checks`` holds flash_attention at
+   the frontends' shapes, each timed beside SDPA with its device time and
+   bound: pixtral-12b's heads (32 / 8, D = 128) unwindowed over S = T =
+   65,536 and 131,072 (the kernel's largest S; the plain version on
+   sampled query rows; also with every key dead, which times the
+   per-block tile scan alone), and whisper-tiny's non-causal calls (B =
+   16, 6 heads of 64): the encoder over 1,500 frames, the cross-attention
+   of a prefill (T = 64, left pads) and of a decode step (T = 1, done
+   rows among them);
 4. holds the port on the card against the port on the CPU at a small size
    (the reduced qwen3-1.7b, rwkv6-3b, deepseek-7b, qwen1.5-110b,
-   granite-34b, mixtral-8x22b and jamba-v0.1-52b (one full period of 8
-   layers), mixtral also with ``dispatch`` and a window of 8, in
-   bfloat16: forward, prefill, decode steps and, for an
-   attention trunk, the compaction roll, teacher-forced, a MoE trunk's
+   granite-34b, mixtral-8x22b, jamba-v0.1-52b (one full period of 8
+   layers), pixtral-12b (16 stub patches in front) and whisper-tiny (its
+   encoder over 64 stub frames, its output compared too), mixtral also
+   with ``dispatch`` and a window of 8, in bfloat16: forward, prefill,
+   decode steps and, for an attention trunk without a prefix, the
+   compaction roll, teacher-forced, a MoE trunk's
    routing too: the other runs replay the CPU bf16 run's expert choices),
    within the arch's ``SMALL_TOL``, and the card's bfloat16 run no further
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs twenty-two paths (random weights from a seed), each with the launch
+5. runs twenty-five paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
    ``draft_slots``, ``observatory``, ``faults``, ``ppo`` and ``dapo`` run
@@ -219,6 +229,17 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    then, outside the paths, ``jamba consistency``: jamba cut to one layer
    in float32 (``moe_impl="dense"``), its score against its prefill +
    decode steps within ``CONSISTENCY_TOL``, as ``rwkv``'s witness;
+   ``archs`` of the modality frontends at full width and depth with their
+                stub conditioning from a seed, one draw a prompt
+                (``FRONTEND_LAYERS``): pixtral-12b (40 layers, 256 patch
+                embeddings a row; epoch 1 the two-pass branch, no
+                ``cache_roll``) and whisper-tiny (4 + 4 layers, 1,500
+                frames through ``encode`` once, the counts opened before
+                it; epoch 1 the one-pass branch, ``cache_roll`` launched;
+                flash_attention non-causal in the encoder and in every
+                cross-attention, T = 1 at decode);
+   ``serve frontends`` ``launch.serve --engine fixed`` of both (the
+                launcher's reduced configs), every request served;
    after ``rollout``, ``slots``, ``paged`` and ``rwkv``, a ``breakdown``
    line shows where 16 decode steps of the path's decode loop (at full
    depth) spend their time (host wall time, device busy time, kernel
@@ -274,6 +295,10 @@ SMALL_TOL = {"qwen3-1.7b": 5e-2, "rwkv6-3b": 8e-2}
 SMALL_TOL.update({arch: 5e-2 for arch in ("deepseek-7b", "qwen1.5-110b",
                                           "granite-34b", "mixtral-8x22b")})
 SMALL_TOL["jamba-v0.1-52b"] = 0.5
+# the reduced frontends: two-layer attention trunks like qwen3-1.7b's (G = 1),
+# pixtral behind 16 stub patches, whisper with a two-layer encoder over 64
+# stub frames: qwen's 5e-2
+SMALL_TOL.update({arch: 5e-2 for arch in ("pixtral-12b", "whisper-tiny")})
 BF16_GAP = 1.5      # the card's bfloat16 run may lie at most this many times
                     # as far from the CPU's float32 run as the CPU's own
                     # bfloat16 run does
@@ -356,6 +381,9 @@ CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
 ARCH_LAYERS = {"deepseek-7b": 8, "qwen1.5-110b": 2, "granite-34b": 4,
                "mixtral-8x22b": 4, "jamba-v0.1-52b": 8}
 ARCHS_N = 64
+# the modality frontends at full width and depth through the same traffic
+# (pixtral-12b: 40 layers, 12.2e9 parameters; whisper-tiny: 4 + 4 layers)
+FRONTEND_LAYERS = {"pixtral-12b": 40, "whisper-tiny": 4}
 TRAIN_LAYERS = {"mixtral-8x22b": 1, "jamba-v0.1-52b": 1}
 LENIENCE = 0.99
 SEED = 0
@@ -1273,6 +1301,163 @@ def arch_kernel_checks(torch, timer, records):
     torch.cuda.empty_cache()
 
 
+# the modality frontends' flash cases: pixtral-12b's heads unwindowed over
+# S = T = 65,536 and its max_seq_len 131,072 (causal, the plain version on
+# sampled query rows, REPS cut to what the time limit allows), and
+# whisper-tiny's non-causal calls: the encoder over its 1,500 frames, the
+# decoder's cross-attention at the prefill (T = P, left pads) and at a
+# decode step (T = 1)
+FRONTEND_LONG = ((65_536, 5), (131_072, 3))     # (S, reps)
+FRONTEND_ROWS = 256                             # sampled query rows
+
+
+def visible_pairs(torch, q_pos, k_pos, causal: bool) -> float:
+    """The (query, key) pairs a call computes on these positions: every
+    live key for every query row when non-causal (rows of padding too),
+    else the live keys at or below the query's position."""
+    live = k_pos >= 0
+    if not causal:
+        return float((live.sum(1) * q_pos.shape[1]).sum())
+    big = torch.iinfo(torch.int64).max
+    srt = torch.sort(torch.where(live, k_pos.long(),
+                                 torch.full_like(k_pos, big, dtype=torch.int64)),
+                     dim=1).values
+    return float(torch.searchsorted(srt, q_pos.long().contiguous(),
+                                    right=True).sum())
+
+
+def flash_frontend_case(torch, timer, name, q, k, v, q_pos, k_pos,
+                        causal, sdpa, rows=None, reps=REPS):
+    """flash_attention on (q, k, v, q_pos, k_pos) through the public wrapper
+    against the plain version (on the query ``rows`` only when given, 64
+    rows at a time: each query's output depends on its own q and the keys),
+    within ATTN_TOL; then the kernel entry and ``sdpa`` (one PyTorch call
+    computing the same function) timed in turns, the kernel's device time,
+    and its bound: q, k, v, the positions and the float32 output once; 4 D
+    operations per (query head, key) pair the call computes.  Returns the
+    case's record."""
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+
+    B, Hq, T, D = q.shape
+    got = fl_ops.flash_attention(q, k, v, q_pos.long(), k_pos,
+                                 causal=causal)
+    idx = (torch.arange(T, device=q.device) if rows is None else rows)
+    err = 0.0
+    for lo in range(0, idx.numel(), 64):
+        r = idx[lo:lo + 64]
+        want = fl_ops.flash_attention_plain(q[:, :, r], k, v, q_pos[:, r],
+                                            k_pos, causal=causal)
+        err = max(err, float((got[:, :, r] - want).abs().max()))
+        del want
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL,
+            f"flash_attention {name}: max_abs_err {err} > {ATTN_TOL}")
+    del got
+
+    def kernel():
+        return fl_ops.flash_attention_cuda(q, k, v, q_pos, k_pos,
+                                           causal=causal)
+
+    ms, sdpa_ms = timer.turns(kernel, sdpa, reps=reps)
+    dev_ms, per_call, _ = timer.device_ms(kernel, "flash_kernel", reps=reps)
+    require(per_call == 1, f"flash_attention {name}: {per_call} launches a "
+            "call")
+    pairs = visible_pairs(torch, q_pos, k_pos, causal)
+    nbytes = (q.numel() * 2 + (k.numel() + v.numel()) * 2
+              + (q_pos.numel() + k_pos.numel()) * 4 + q.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * pairs)
+    rec = {"B": B, "Hq": Hq, "Hkv": k.shape[1], "T": T, "S": k.shape[2],
+           "D": D, "causal": causal, "max_abs_err": err,
+           "rows_checked": int(idx.numel()), "ms": ms, "device_ms": dev_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
+           "library": "scaled_dot_product_attention"}
+    log(f"kernel flash_attention {name}: " + json.dumps(rec))
+    return rec
+
+
+def frontend_kernel_checks(torch, timer, records):
+    """flash_attention at the frontends' shapes (``FRONTEND_LONG``, and
+    whisper-tiny's non-causal encoder, cross-prefill and cross-decode
+    calls), each against its plain version and timed beside SDPA; adds
+    them to the flash record under ``frontends``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    out = {}
+    px = get_config("pixtral-12b")
+    Hq, Hkv, D = px.num_heads, px.num_kv_heads, px.head_dim
+    for S, reps in FRONTEND_LONG:
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        q = torch.randn((1, Hq, S, D), generator=gen, **bf)
+        k = torch.randn((1, Hkv, S, D), generator=gen, **bf)
+        v = torch.randn((1, Hkv, S, D), generator=gen, **bf)
+        rows = torch.unique(torch.cat([
+            torch.arange(64, device=dev),
+            torch.arange(S // 2 - 64, S // 2 + 64, device=dev),
+            torch.arange(S - 64, S, device=dev),
+            torch.randint(0, S, (FRONTEND_ROWS,), generator=gen,
+                          device=dev)]))
+        # SDPA's flash path takes equal head counts: K/V repeated outside
+        # the timed call
+        kr = k.repeat_interleave(Hq // Hkv, dim=1)
+        vr = v.repeat_interleave(Hq // Hkv, dim=1)
+        rec = flash_frontend_case(
+            torch, timer, f"pixtral-12b S=T={S}", q, k, v, pos, pos,
+            True, lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                         is_causal=True),
+            rows=rows, reps=reps)
+        # what the per-block scan of all S key positions costs: the same
+        # call with every key dead lists no tile, so it only flags the
+        # tiles and writes the zero output
+        dead = torch.full_like(pos, -1)
+        rec["no_live_key_ms"] = timer.ms(
+            lambda: fl_ops.flash_attention_cuda(q, k, v, pos, dead),
+            reps=reps)
+        log(f"kernel flash_attention pixtral-12b S=T={S} with no live key "
+            f"(the tile scan and the zero output): {rec['no_live_key_ms']} "
+            "ms")
+        out[f"pixtral-12b S=T={S}"] = rec
+        del q, k, v, kr, vr
+        torch.cuda.empty_cache()
+    wh = get_config("whisper-tiny")
+    Bw, Hw, Dw, Fw = PROMPTS * GROUP, wh.num_heads, wh.resolved_head_dim, \
+        wh.encoder_frames
+    enc_pos = torch.arange(Fw, dtype=torch.int32, device=dev)[None].expand(
+        Bw, Fw).contiguous()
+    kv = [torch.randn((Bw, Hw, Fw, Dw), generator=gen, **bf)
+          for _ in range(2)]
+    qe = torch.randn((Bw, Hw, Fw, Dw), generator=gen, **bf)
+    out["whisper-tiny encoder"] = flash_frontend_case(
+        torch, timer, "whisper-tiny encoder", qe, *kv, enc_pos, enc_pos,
+        False, lambda: F.scaled_dot_product_attention(qe, *kv))
+    pads = torch.randint(0, P // 2, (Bw,), generator=gen, device=dev)
+    col = torch.arange(P, device=dev)[None]
+    q_pos = torch.where(col >= pads[:, None], col - pads[:, None],
+                        torch.full_like(col, -1)).to(torch.int32)
+    qp = torch.randn((Bw, Hw, P, Dw), generator=gen, **bf)
+    out["whisper-tiny cross prefill"] = flash_frontend_case(
+        torch, timer, "whisper-tiny cross prefill", qp, *kv, q_pos,
+        enc_pos, False, lambda: F.scaled_dot_product_attention(qp, *kv))
+    q1 = torch.randn((Bw, Hw, 1, Dw), generator=gen, **bf)
+    pos1 = (P - pads[:, None]).to(torch.int32)
+    pos1[:2] = -1                                    # done rows
+    out["whisper-tiny cross decode"] = flash_frontend_case(
+        torch, timer, "whisper-tiny cross decode", q1, *kv, pos1,
+        enc_pos, False, lambda: F.scaled_dot_product_attention(q1, *kv))
+    records["flash_attention"]["frontends"] = out
+    records["flash_attention"]["archs_max_abs_err"] = max(
+        records["flash_attention"]["archs_max_abs_err"],
+        *(c["max_abs_err"] for c in out.values()))
+    del kv, qe, qp, q1
+    torch.cuda.empty_cache()
+
+
 def draft_block_timing(torch, timer, gen, records, n, p_len, T):
     """Both decode kernels at a draft-verify block of T = K + 1 of the
     ``draft`` path's epoch 1 (B = 16, G = 2; T = 9 is two query chunks,
@@ -1660,9 +1845,14 @@ def small_reference(torch, arch: str, tol: float, tol_f32=None,
     and the other runs replay it, so a bf16 rounding that tips a near-tied
     top-k choice another way on the card (or in float32) does not part
     the runs; every row is compared, and the count of tokens whose own
-    choice the replay overrode is logged."""
+    choice the replay overrode is logged.  A frontend is conditioned as
+    its path is: pixtral-12b's stub patches in front of the prompt (the
+    decode steps over the whole cache, no ``kv_start``; no compaction),
+    whisper-tiny's stub frames through ``encode`` on each side (its output
+    compared too), its memory at every call."""
     from repro_torch.configs import get_config
-    from repro_torch.engine.generate import positions_from_mask
+    from repro_torch.engine.generate import (positions_from_mask,
+                                             prefix_positions)
     from repro_torch.models import model as M
     from repro_torch.models.moe import RouteLog
 
@@ -1682,24 +1872,40 @@ def small_reference(torch, arch: str, tol: float, tol_f32=None,
     nxt = torch.randint(3, cfg.vocab_size, (B, steps), generator=g,
                         dtype=torch.int32)
     shift = torch.tensor([0, 3, 5, 1], dtype=torch.int32)
+    Pv = cfg.num_prefix_embeddings
+    stub = (torch.randn((B, Pv or cfg.encoder_frames, cfg.d_model),
+                        generator=g)
+            if Pv or cfg.encoder_layers else None)
 
     def run(model, dev, cfg, replay=None):
         """[(output on the host, its batch axis)] and the router's log."""
         with RouteLog(replay) as routes:
             pos = positions_from_mask(mask.to(dev))
-            outs = [(M.forward(model, cfg, prompt.to(dev), pos)[0], 0)]
-            caches = M.init_cache(cfg, B, Pp + 2 * steps, device=dev)
+            outs, step_kw, kw = [], {}, {}
+            if cfg.encoder_layers:
+                enc, enc_pos = M.encode(model, cfg, stub.to(dev))
+                outs.append((enc, 0))
+                step_kw = kw = {"encoder_out": enc,
+                                "encoder_positions": enc_pos}
+            if Pv:
+                pos = prefix_positions(pos, Pv)
+                kw = {"prefix_embeds": stub.to(dev)}
+            outs.append((M.forward(model, cfg, prompt.to(dev), pos, **kw)[0],
+                         0))
+            caches = M.init_cache(cfg, B, Pv + Pp + 2 * steps, device=dev)
             logits, caches = M.prefill(model, cfg, prompt.to(dev), pos,
-                                       caches)
+                                       caches, **kw)
             outs.append((logits, 0))
             p_len = mask.sum(1).to(torch.int32).to(dev)
+            W = Pv + Pp
             for s in range(steps):
                 logits, caches = M.decode_step(
                     model, cfg, nxt[:, s:s + 1].to(dev),
-                    (p_len + s)[:, None], caches, Pp + s,
-                    kv_length=Pp + 1 + s, kv_start=Pp - p_len)
+                    (p_len + Pv + s)[:, None], caches, W + s,
+                    kv_length=W + 1 + s,
+                    kv_start=None if Pv else Pp - p_len, **step_kw)
                 outs.append((logits, 0))
-            if M.supports_cache_realign(cfg):
+            if M.supports_cache_realign(cfg) and not Pv:
                 width = Pp + steps
                 caches = M.realign_decode_cache(
                     cfg, caches, shift.to(dev),
@@ -1825,13 +2031,18 @@ def read_launches():
     return out
 
 
-def rollout_path(torch, label, model, cfg, batch, gen, spec):
+def rollout_path(torch, label, model, cfg, batch, gen, spec,
+                 model_kwargs=None, reset=True):
     """Two rollout epochs (epoch 0 vanilla, epoch 1 speculative: the
-    one-pass branch for an attention trunk, else the two-pass one) with the
-    launch counts set to 0 just before and read just after; checks the
-    outputs and returns (launches, the two RolloutBatches).  With the
-    draft engine on, each epoch line also carries its macro-steps, the
-    draft metrics and the decode kernels' launches by T."""
+    one-pass branch for an attention trunk, else the two-pass one, as for
+    a vision prefix) with the launch counts set to 0 just before and read
+    just after; checks the outputs and returns (launches, the two
+    RolloutBatches).  ``model_kwargs``: the modality extras of every row,
+    passed to both epochs; ``reset=False`` keeps the counts (and the peak)
+    its caller opened before computing them.  With the draft engine on,
+    each epoch line also
+    carries its macro-steps, the draft metrics and the decode kernels'
+    launches by T."""
     import numpy as np
 
     from repro_torch.core import RolloutCache, rollout
@@ -1843,11 +2054,13 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
 
     N = gen.max_new_tokens
     drafting = spec.draft.enabled
+    model_kwargs = model_kwargs or {}
 
     cache = RolloutCache(history=spec.cache_history, group_size=GROUP)
     key = make_key(SEED)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
     rbs, walls = [], []
     for epoch in (0, 1):
         key, sub = split_key(key)
@@ -1856,7 +2069,7 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
         te = time.perf_counter()
         with StepSpy() as steps:
             rb = rollout(model, cfg, gen, spec, batch.tokens, batch.mask,
-                         batch.cache_keys, cache, sub, epoch)
+                         batch.cache_keys, cache, sub, epoch, **model_kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - te
         walls.append(wall)
@@ -1913,7 +2126,7 @@ def rollout_path(torch, label, model, cfg, batch, gen, spec):
                 f"{label}: token ids out of range")
     require(rb0.metrics["one_pass"] == 0.0 and rb0.metrics["n_generated"] > 0,
             f"{label}: epoch 0 was not a vanilla rollout: {rb0.metrics}")
-    one_pass = use_one_pass(cfg, spec)
+    one_pass = use_one_pass(cfg, spec, model_kwargs)
     want = (1.0, 1.0) if one_pass else (0.0, 2.0)
     require((rb1.metrics["one_pass"], rb1.metrics["prefill_passes"]) == want,
             f"{label}: epoch 1 did not take the "
@@ -3873,6 +4086,116 @@ def arch_train_path(torch, arch: str):
     return launches
 
 
+def frontend_extras(torch, model, cfg, batch: int):
+    """The frontend's stub conditioning on the card, from a generator
+    seeded with ``SEED``, one draw a prompt shared by its group's rows:
+    pixtral-12b's patch embeddings (B, 256, 5120), or whisper-tiny's frames
+    (B, 1,500, 384) through ``encode`` once."""
+    from repro_torch.models import model as M
+
+    g = torch.Generator(device=model.device)
+    g.manual_seed(SEED)
+    width = cfg.num_prefix_embeddings or cfg.encoder_frames
+    stub = torch.randn((batch // GROUP, width, cfg.d_model), generator=g,
+                       device=model.device).repeat_interleave(GROUP, dim=0)
+    if cfg.num_prefix_embeddings:
+        return {"prefix_embeds": stub.to(torch.bfloat16)}
+    enc, pos = M.encode(model, cfg, stub)
+    return {"encoder_out": enc, "encoder_positions": pos}
+
+
+def frontend_archs_path(torch, arch: str):
+    """Two rollout epochs of a frontend at full width and
+    ``FRONTEND_LAYERS`` layers with its stub conditioning (the ``archs``
+    traffic): pixtral-12b's epoch 1 the two-pass branch (verify score over
+    prefix ⊕ prompt ⊕ draft, re-prefill of prompt ⊕ accepted prefix behind
+    the prefix; ``cache_roll`` 0), whisper-tiny's the one-pass branch
+    (``cache_roll`` launched; the encoder run once, its memory read by the
+    cross-attention at every call, ``flash_attention`` non-causal at T = 1
+    too).  The flash, decode and verify kernels launch; an ``archs`` line
+    with parameters, peak GiB, each epoch's wall time, counts and launches.
+    The model is freed before returning its launches."""
+    from repro_torch.core import SpecConfig
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import model as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, cfg, batch, gen = setup_model(torch, arch,
+                                         layers=FRONTEND_LAYERS[arch],
+                                         n_new=ARCHS_N)
+    B = batch.tokens.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()            # the encoder's launches are the path's
+    t0 = time.perf_counter()
+    kw = frontend_extras(torch, model, cfg, B)
+    torch.cuda.synchronize()
+    extras_s = time.perf_counter() - t0
+    spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
+    launches, (rb0, rb1) = rollout_path(torch, f"archs {arch}", model, cfg,
+                                        batch, gen, spec, model_kwargs=kw,
+                                        reset=False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("decode_attention", "flash_attention", "spec_verify"):
+        require(launches[name] > 0, f"archs {arch}: kernel {name} was not "
+                "launched")
+    if cfg.num_prefix_embeddings:
+        require(launches["cache_roll"] == 0, f"archs {arch}: the two-pass "
+                f"branch launched cache_roll {launches['cache_roll']} times")
+    else:
+        require(launches["cache_roll"] > 0, f"archs {arch}: the one-pass "
+                "branch launched no cache_roll")
+    line = {"arch": arch, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers,
+            "params": M.count_params(model), "peak_gib": peak,
+            "extras": {k: list(v.shape) for k, v in kw.items()},
+            "extras_s": extras_s, "wall_s": launches.wall_s,
+            "n_generated": [rb.metrics["n_generated"] for rb in (rb0, rb1)],
+            "n_reused": [rb.metrics["n_reused"] for rb in (rb0, rb1)],
+            "one_pass": [rb.metrics["one_pass"] for rb in (rb0, rb1)],
+            "prefill_passes": [rb.metrics["prefill_passes"]
+                               for rb in (rb0, rb1)],
+            "launches": dict(launches)}
+    log("archs " + json.dumps(line))
+    del model, kw, rb0, rb1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_frontends_path(torch):
+    """``launch.serve --engine fixed`` of the two frontends (the launcher's
+    reduced configs in bfloat16 on the card, stub conditioning from
+    ``--seed``), in process: exit 0 and every request served; the flash and
+    decode kernels launched."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import serve
+
+    reset_launches()
+    t0 = time.perf_counter()
+    for arch in FRONTEND_LAYERS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(["--arch", arch, "--engine", "fixed",
+                             "--requests", "8"])
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"  serve {arch}: " + line)
+        require(rc == 0 and "served 8 requests" in text,
+                f"launch.serve --arch {arch} --engine fixed: rc={rc}")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"serve frontends path: in {time.perf_counter() - t0:.2f} s, "
+        f"launches: {launches}")
+    for name in ("decode_attention", "flash_attention"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "serve frontends path")
+    return launches
+
+
 def serve_path(torch):
     """One run of the port's serve launcher on the card, with its §11/§14
     flags: the ledger, a trace directory, a decision log and the
@@ -4052,7 +4375,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text(_build.build_log())
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "Compiling entry" in line):
             log("  ptxas: " + line.strip())
 
     from repro_torch.engine.sampling import make_key
@@ -4070,6 +4394,7 @@ def main() -> int:
     timer = Timer(torch)
     records = run("kernels", kernel_checks, torch, timer)
     run("arch kernels", arch_kernel_checks, torch, timer, records)
+    run("frontend kernels", frontend_kernel_checks, torch, timer, records)
     del timer
     torch.cuda.empty_cache()
     run("small qwen", small_reference, torch, "qwen3-1.7b",
@@ -4082,6 +4407,8 @@ def main() -> int:
         "mixtral-8x22b", SMALL_TOL["mixtral-8x22b"],
         title="mixtral-8x22b dispatch, window 8", moe_impl="dispatch",
         sliding_window=8)
+    for arch in FRONTEND_LAYERS:
+        run(f"small {arch}", small_reference, torch, arch, SMALL_TOL[arch])
     model, cfg, batch, gen = setup_model(torch)
     cut_model, cut_cfg = cut_depth(model, cfg, CUT_LAYERS)
     log(f"paths {', '.join(CUT_PATHS)} run the model cut to {CUT_LAYERS} "
@@ -4142,6 +4469,11 @@ def main() -> int:
         label = f"{arch.split('-')[0]} train"
         paths[label] = run(label, arch_train_path, torch, arch)
     run("jamba consistency", jamba_consistency, torch)
+    for arch in FRONTEND_LAYERS:
+        paths[f"archs {arch}"] = run(f"archs {arch}", frontend_archs_path,
+                                     torch, arch)
+    paths["serve frontends"] = run("serve frontends", serve_frontends_path,
+                                   torch)
     # the decode kernels by path and T, each read with the path's launches:
     # draft blocks (T > 1) on the two draft paths, dense and paged, and
     # nowhere else (no prefill, verify or score moved off flash_attention)

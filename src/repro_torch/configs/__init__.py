@@ -1,10 +1,11 @@
 """Architecture registry of the port: the dense GQA configs (qwen3,
 deepseek-7b, qwen1.5-110b, granite-34b), the mixture-of-experts
-mixtral-8x22b, the RWKV6 trunk (rwkv6-3b) and the Mamba + attention +
-MoE hybrid jamba-v0.1-52b.
+mixtral-8x22b, the RWKV6 trunk (rwkv6-3b), the Mamba + attention + MoE
+hybrid jamba-v0.1-52b, the vision-prefix pixtral-12b and the
+encoder-decoder whisper-tiny.
 
-The other architectures of ``repro.configs`` need model families the port
-does not have yet (MLA, encoder-decoder, vision prefix, MTP).
+deepseek-v3-671b, the last architecture of ``repro.configs``, needs MLA
+and MTP, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ ARCH_IDS = {
     "granite-34b": "granite_34b",
     "mixtral-8x22b": "mixtral_8x22b",
     "jamba-v0.1-52b": "jamba_v0p1_52b",
+    "pixtral-12b": "pixtral_12b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 

@@ -209,20 +209,27 @@ def _ledger_rows(led, B: int, mask_np: np.ndarray):
     return rows, p_np
 
 
-def use_drafting(cfg: ModelConfig, spec: SpecConfig) -> bool:
+def use_drafting(cfg: ModelConfig, spec: SpecConfig,
+                 model_kwargs=None) -> bool:
     """Whether the §9 drafted decode loop replaces the vanilla one: an
     enabled ``spec.draft`` on a trunk whose cache can drop a rejected draft
-    (``model.supports_drafting``; a recurrent trunk decodes vanilla)."""
-    return spec.draft.enabled and M.supports_drafting(cfg)
+    and no modality extras (``model.supports_drafting``; a recurrent or
+    conditioned trunk decodes vanilla)."""
+    return spec.draft.enabled and M.supports_drafting(cfg, model_kwargs)
 
 
-def use_one_pass(cfg: ModelConfig, spec: SpecConfig) -> bool:
-    """Whether the fused verify→compact→resume path applies."""
+def use_one_pass(cfg: ModelConfig, spec: SpecConfig,
+                 model_kwargs=None) -> bool:
+    """Whether the fused verify→compact→resume path applies: per-slot KV
+    state in every layer and no vision prefix (whose cache slots the
+    compaction does not model)."""
     if spec.variant not in ("spec", "delayed") or spec.one_pass == "off":
         return False
-    ok = M.supports_cache_realign(cfg)
+    ok = (M.supports_cache_realign(cfg)
+          and (model_kwargs or {}).get("prefix_embeds") is None)
     if spec.one_pass == "on" and not ok:
-        raise ValueError("one_pass='on' requires an attention-only trunk")
+        raise ValueError("one_pass='on' requires an attention-only trunk "
+                         "and no prefix_embeds")
     return ok
 
 
@@ -245,19 +252,23 @@ def _np(x) -> np.ndarray:
 @torch.no_grad()
 def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
             spec: SpecConfig, prompts, prompt_mask, prompt_ids: Sequence[int],
-            cache: Optional[RolloutCache], key, step: int, mesh=None
-            ) -> RolloutBatch:
+            cache: Optional[RolloutCache], key, step: int, mesh=None,
+            **model_kwargs) -> RolloutBatch:
     """One rollout step for a prompt batch, on the model's device.
 
     prompts: (B, P) left-padded, prompt_mask: (B, P) (arrays or tensors);
     prompt_ids: stable cache keys; cache: the host-side ``RolloutCache``
     (refreshed in place); key: a scalar key or a key batch
-    (``engine.sampling``)."""
+    (``engine.sampling``); ``model_kwargs``: the modality extras of every
+    row (``encoder_out`` and ``encoder_positions``, or ``prefix_embeds``),
+    passed to each forward as JAX's are.  A vision prefix takes the
+    two-pass branch: its continuation re-prefills prompt ⊕ accepted prefix
+    behind the same prefix."""
     _check_ported(spec, mesh)
     if spec.backfill == "slots":
         from repro_torch.serving.rl_adapter import rollout_via_slots
         return rollout_via_slots(model, cfg, gen, spec, prompts, prompt_mask,
-                                 prompt_ids, cache, key, step)
+                                 prompt_ids, cache, key, step, **model_kwargs)
     dev = model.device
     # the host copy of the mask serves the ledger and the returned batch
     mask_np = _np(prompt_mask).astype(bool)
@@ -272,7 +283,7 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     use_cache = spec.variant != "off" and cache is not None
     drafts = cache.batch_get(prompt_ids, N, spec.cache_lag) if use_cache else None
     have_drafts = use_cache and int(drafts["draft_len"].sum()) > 0
-    drafting = use_drafting(cfg, spec)
+    drafting = use_drafting(cfg, spec, model_kwargs)
 
     if not have_drafts:
         key, sub = split_key(key)
@@ -293,7 +304,8 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                 if rows is not None:
                     led.unbind()
         else:
-            out = generate(model, cfg, gen, prompts, prompt_mask, sub)
+            out = generate(model, cfg, gen, prompts, prompt_mask, sub,
+                           **model_kwargs)
         resp, lp, length = out["tokens"], out["logprobs"], out["length"]
         resp_mask = torch.arange(N, device=dev)[None, :] < length[:, None]
         n_generated = int(out["n_generated"])
@@ -325,7 +337,7 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     draft_lp = torch.as_tensor(drafts["draft_logprobs"], device=dev)
     draft_len = torch.as_tensor(drafts["draft_len"], device=dev)
     draft_eos = torch.as_tensor(drafts["draft_eos"], device=dev)
-    one_pass = use_one_pass(cfg, spec)
+    one_pass = use_one_pass(cfg, spec, model_kwargs)
     led_rows = led_p = None
     if led.enabled:
         led_rows, led_p = _ledger_rows(led, B, mask_np)
@@ -340,7 +352,8 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         verify = verify_and_prefill if one_pass else verify_drafts
         ver = verify(model, cfg, prompts, prompt_mask, draft_tokens, draft_lp,
                      draft_len, sub, spec.log_lenience,
-                     temperature=gen.temperature, top_p=gen.top_p)
+                     temperature=gen.temperature, top_p=gen.top_p,
+                     **model_kwargs)
         n = ver["n"]
         prefix_lp = ver["lp_curr"]          # current-policy probs (exact)
         accept_rate = float(ver["accept_rate"])
@@ -416,11 +429,12 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     elif one_pass:
         cont = resume_from_cache(model, cfg, gen, caches, ver["seed_logits"],
                                  p_len + n, W, sub, initial_done=full_reuse,
-                                 row_budget=N - n)
+                                 row_budget=N - n, **model_kwargs)
         del caches
     else:
         cont = generate(model, cfg, gen, aligned, aligned_mask, sub,
-                        initial_done=full_reuse, row_budget=N - n)
+                        initial_done=full_reuse, row_budget=N - n,
+                        **model_kwargs)
     del ver
     sync(dev)
     decode_time = time.perf_counter() - td0

@@ -8,6 +8,10 @@ yields the rejection position ``n`` per row.  Two flavours:
   (recurrent trunks and ``one_pass="off"``);
 * ``verify_and_prefill``: the same forward through ``M.prefill``, so the
   decode caches come out filled, for the one-pass branch.
+
+Both take the modality extras as ``**model_kwargs`` (JAX's): the encoder
+memory for either, a vision prefix for the scoring one only (the one-pass
+branch does not model its cache slots, ``spec_rollout.use_one_pass``).
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.engine.generate import positions_from_mask, score
+from repro_torch.engine.generate import (model_extras, positions_from_mask,
+                                         score)
 from repro_torch.engine.sampling import logprobs_of
 from repro_torch.kernels.spec_verify.ops import spec_verify
 from repro_torch.models import model as M
@@ -46,17 +51,19 @@ def _packed(prompt, prompt_mask, draft_tokens, draft_len):
 def verify_drafts(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
                   draft_tokens, draft_logprobs, draft_len, key,
                   log_lenience: float, *, temperature: float = 1.0,
-                  top_p: float = 1.0) -> Dict[str, torch.Tensor]:
+                  top_p: float = 1.0, **model_kwargs
+                  ) -> Dict[str, torch.Tensor]:
     """prompt: (B, P) left-padded; draft_*: (B, N) right-padded (tensors on
-    the model's device).  ``engine.score`` over [prompt | draft], then the
-    accept test.
+    the model's device).  ``engine.score`` over [prompt | draft] (with the
+    extras of ``model_kwargs``), then the accept test.
 
     Returns ``n`` (B,) int32 in [0, draft_len], ``lp_curr`` (B, N) (the
     current policy's log-probs of the draft tokens) and ``accept_rate``."""
     B, P = prompt.shape
     N = draft_tokens.shape[1]
     full, mask = _packed(prompt, prompt_mask, draft_tokens, draft_len)
-    sc = score(model, cfg, full, mask, temperature=temperature, top_p=top_p)
+    sc = score(model, cfg, full, mask, temperature=temperature, top_p=top_p,
+               **model_kwargs)
     lp_curr = sc["logprobs"][:, P:].contiguous()                 # (B, N)
     u = _accept_uniforms(key, B, N)
     n = spec_verify(lp_curr, draft_logprobs, u, draft_len, log_lenience)
@@ -68,9 +75,11 @@ def verify_drafts(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
 def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
                        draft_tokens, draft_logprobs, draft_len, key,
                        log_lenience: float, *, temperature: float = 1.0,
-                       top_p: float = 1.0) -> Dict[str, torch.Tensor]:
+                       top_p: float = 1.0, **model_kwargs
+                       ) -> Dict[str, torch.Tensor]:
     """prompt: (B, P) left-padded; draft_*: (B, N) right-padded (tensors on
-    the model's device).
+    the model's device); ``model_kwargs``: the encoder memory, if any (a
+    vision prefix raises: its cache slots are not compacted).
 
     Returns ``n`` (B,) int32 in [0, draft_len], ``lp_curr`` (B, N),
     ``accept_rate``, ``caches`` (slots [0, W) = [prompt | draft], width
@@ -80,6 +89,9 @@ def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
     Only the logits at [P - 1, W - 1) feed ``lp_curr``; the log-softmax is
     taken over those rows alone (the same values as JAX's full-width pass,
     without its extra (B, P, V) copy)."""
+    if model_kwargs.get("prefix_embeds") is not None:
+        raise ValueError("verify_and_prefill takes no prefix_embeds: the "
+                         "one-pass branch does not compact a vision prefix")
     B, P = prompt.shape
     N = draft_tokens.shape[1]
     W = P + N
@@ -87,7 +99,8 @@ def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
     full, mask = _packed(prompt, prompt_mask, draft_tokens, draft_len)
     positions = positions_from_mask(mask)
     caches = M.init_cache(cfg, B, W + N, device=dev)
-    logits, caches = M.prefill(model, cfg, full, positions, caches)
+    logits, caches = M.prefill(model, cfg, full, positions, caches,
+                               **model_extras(model, model_kwargs))
 
     # logits[t] predicts token t+1 (engine.score's extraction)
     lp = logprobs_of(logits[:, P - 1:W - 1], full[:, P:], temperature, top_p)

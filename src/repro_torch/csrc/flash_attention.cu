@@ -1,11 +1,11 @@
-// Causal GQA flash attention (forward, T > 1) for Hopper (sm_90a), on the
-// tensor cores.
+// GQA flash attention (forward; causal at T > 1, or non-causal at any T)
+// for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/kernel.py:69
 // (flash_attention_pallas, body _flash_kernel :27).
 //
 // Contract: q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16, D = 64 or 128, S <=
-// 32,768 (65,536 with a window), B <= 65535; q_pos (B, T), k_pos (B, S)
+// 131,072 (2,048 key tiles), B <= 65535; q_pos (B, T), k_pos (B, S)
 // int32.  Key j feeds query t iff k_pos >= 0, (causal) k_pos <= q_pos,
 // and (window > 0) q_pos - k_pos < window.  Rows that see no key give
 // exactly 0.  Output (B, Hq, T, D) float32.  Query head hq reads KV
@@ -35,9 +35,10 @@
 //    cost neither loads nor products.  The tiles are flagged in rounds of
 //    ROUND = 512 (one byte each, all warps) and compacted after each round
 //    into the list, which dynamic shared memory sizes to the call's tiles
-//    (4 bytes a tile).  The contract takes a windowed call up to 1,024
-//    tiles (mixtral-8x22b's S = 65,536, where a window of 4,096 lists at
-//    most 66) and an unwindowed one up to 512;
+//    (4 bytes a tile: 8 KB beside the 128 KB ring at 2,048 tiles, D =
+//    128, two consumer warpgroups).  A non-causal call (an encoder, a
+//    cross-attention) lists every tile with a live key, for query tiles
+//    of padding too, whose rows then attend like any other;
 //  * the output leaves in 16-byte stores after one shuffle per pair of
 //    8-column blocks, rows t >= T not written.
 #include <cuda.h>
@@ -55,8 +56,7 @@ using namespace hopper;
 constexpr int BQ = 64;           // queries per tile (one wgmma M)
 constexpr int BK = 64;           // keys per tile
 constexpr int NS = 3;            // K/V stages in the ring
-constexpr int MAX_TILES = 512;   // K tiles of an unwindowed call: S <= 32,768
-constexpr int MAX_TILES_WINDOWED = 1024;  // with a window: S <= 65,536
+constexpr int MAX_TILES = 2048;  // K tiles of a call: S <= 131,072
 constexpr int ROUND = 512;       // K tiles flagged between two compactions
 constexpr int CHUNK = 64 * 64 * 2;  // one [64 rows][64 bf16] swizzled chunk
 constexpr float NEG_INF = -1e30f;
@@ -418,7 +418,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int S, int D, int causal, int window,
                                      float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || T < 1 || S < 1 ||
-      (S + BK - 1) / BK > (window > 0 ? MAX_TILES_WINDOWED : MAX_TILES) ||
+      (S + BK - 1) / BK > MAX_TILES ||
       B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* qp = static_cast<const int*>(q_pos);

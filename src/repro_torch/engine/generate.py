@@ -12,6 +12,15 @@ row is done or N tokens were taken.
 ``key`` is a scalar key or a key batch (``engine/sampling.py``); with a key
 batch each row samples from its own stream, which is what makes the slot
 engine's rows equal a fixed batch's, row for row.
+
+Modality conditioning rides ``**model_kwargs``, as in JAX: ``encoder_out``
+and ``encoder_positions`` (``models/model.py:encode``) go to the prefill
+and to every decode step; ``prefix_embeds`` (B, Pv, d) goes in front of
+the prompt at the prefill only, at positions 0..Pv-1 with the tokens'
+shifted by Pv, so its Pv cache slots lie ahead of each row's left padding
+and the decode reads the cache from slot 0 (no ``kv_start``).  ``score``
+builds those full positions too: the reference's builds positions over
+the tokens alone and raises (ROADMAP Queue 3, "Kept on purpose").
 """
 from __future__ import annotations
 
@@ -47,30 +56,67 @@ def _on(model: M.LM, x, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=model.device)
 
 
+def model_extras(model: M.LM, model_kwargs) -> Dict[str, torch.Tensor]:
+    """The encoder memory of ``model_kwargs`` on the model's device (the
+    arguments every forward takes)."""
+    out = {}
+    for name, dtype in (("encoder_out", None),
+                        ("encoder_positions", torch.int32)):
+        x = model_kwargs.get(name)
+        out[name] = None if x is None else _on(model, x, dtype)
+    return out
+
+
+def _prefix(model: M.LM, model_kwargs):
+    x = model_kwargs.get("prefix_embeds")
+    return None if x is None else _on(model, x)
+
+
+def prefix_positions(positions: torch.Tensor, Pv: int) -> torch.Tensor:
+    """Positions over [vision prefix | tokens]: 0..Pv-1, then the tokens'
+    shifted by Pv (-1 stays -1).  (B, Pv + T)."""
+    B = positions.shape[0]
+    vis = torch.arange(Pv, dtype=torch.int32, device=positions.device
+                       )[None].expand(B, Pv)
+    return torch.cat([vis, torch.where(positions >= 0, positions + Pv,
+                                       torch.full_like(positions, -1))], dim=1)
+
+
 @torch.no_grad()
 def generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, prompt,
-             prompt_mask, key, initial_done=None, row_budget=None
-             ) -> Dict[str, torch.Tensor]:
+             prompt_mask, key, initial_done=None, row_budget=None,
+             **model_kwargs) -> Dict[str, torch.Tensor]:
     """prompt: (B, P) int left-padded; prompt_mask: (B, P) bool (arrays or
-    tensors; moved to the model's device).  Returns ``tokens`` (B, N),
-    ``logprobs`` (B, N), ``length`` (B,) and ``n_generated``."""
+    tensors; moved to the model's device); ``model_kwargs``: the modality
+    extras (module docstring).  Returns ``tokens`` (B, N), ``logprobs``
+    (B, N), ``length`` (B,) and ``n_generated``."""
     prompt = _on(model, prompt, torch.int32)
     prompt_mask = _on(model, prompt_mask, torch.bool)
     B, P = prompt.shape
     N = gen.max_new_tokens
     positions = positions_from_mask(prompt_mask)
-    caches = M.init_cache(cfg, B, P + N, device=model.device)
-    logits, caches = M.prefill(model, cfg, prompt, positions, caches)
+    extras = model_extras(model, model_kwargs)
+    prefix_embeds = _prefix(model, model_kwargs)
+    p_len = prompt_mask.sum(dim=1, dtype=torch.int32)
+    Pv = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    if Pv:
+        positions = prefix_positions(positions, Pv)
+    caches = M.init_cache(cfg, B, P + N + Pv, device=model.device)
+    logits, caches = M.prefill(model, cfg, prompt, positions, caches,
+                               prefix_embeds=prefix_embeds, **extras)
+    # the vision slots [0, Pv) are live ahead of the prompt's left padding:
+    # then the context is not contiguous from one start slot
+    kv_start = None if Pv else P - p_len
     seed_logits = logits[:, -1].clone()
     del logits
-    p_len = prompt_mask.sum(dim=1, dtype=torch.int32)
-    return _decode_loop(model, cfg, gen, caches, seed_logits, p_len, P, key,
-                        initial_done, row_budget, kv_start=P - p_len)
+    return _decode_loop(model, cfg, gen, caches, seed_logits, p_len + Pv,
+                        P + Pv, key, initial_done, row_budget, extras,
+                        kv_start=kv_start)
 
 
 def _decode_loop(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
                  seed_logits, next_pos, write_offset: int, key,
-                 initial_done, row_budget, kv_start=None
+                 initial_done, row_budget, extras, kv_start=None
                  ) -> Dict[str, torch.Tensor]:
     """Sample from ``seed_logits``, then decode until every row is done or N
     tokens were taken.  Key-split order is JAX's: one split before the first
@@ -108,7 +154,7 @@ def _decode_loop(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
             model, cfg, tok_store[:, None],
             torch.where(done, minus1, next_pos)[:, None],
             caches, write_offset + step,
-            kv_length=write_offset + 1 + step, kv_start=kv_start)
+            kv_length=write_offset + 1 + step, kv_start=kv_start, **extras)
         key, sub = split_key(key)
         cur_tok, cur_lp = sample(sub, logits[:, 0], gen.temperature, gen.top_p)
         done = done_next
@@ -121,28 +167,38 @@ def _decode_loop(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
 @torch.no_grad()
 def resume_from_cache(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                       caches, seed_logits, next_pos, write_offset: int, key,
-                      initial_done=None, row_budget=None
+                      initial_done=None, row_budget=None, **model_kwargs
                       ) -> Dict[str, torch.Tensor]:
     """Continue decoding from a compacted cache: slots [0, write_offset)
     hold [left-aligned prompt ⊕ accepted prefix]; seed_logits (B, V) are the
-    logits of the last accepted token; next_pos (B,) = prompt_len + n.
-    Returns the same dict as ``generate``."""
+    logits of the last accepted token; next_pos (B,) = prompt_len + n;
+    ``model_kwargs``: the encoder memory, if any.  Returns the same dict as
+    ``generate``."""
     next_pos = next_pos.to(torch.int32)
     return _decode_loop(model, cfg, gen, caches, seed_logits, next_pos,
                         write_offset, key, initial_done, row_budget,
+                        model_extras(model, model_kwargs),
                         kv_start=write_offset - next_pos)
 
 
 @torch.no_grad()
 def score(model: M.LM, cfg: ModelConfig, tokens, mask, *,
           temperature: float = 1.0, top_p: float = 1.0,
-          return_entropy: bool = False) -> Dict[str, torch.Tensor]:
-    """Teacher-forced log-prob of every token given its prefix.
+          return_entropy: bool = False, **model_kwargs
+          ) -> Dict[str, torch.Tensor]:
+    """Teacher-forced log-prob of every token given its prefix (and the
+    modality extras of ``model_kwargs``; with a vision prefix the
+    positions cover it, as ``generate``'s prefill does).
     tokens: (B, L) left-padded; mask: (B, L) bool."""
     tokens = _on(model, tokens, torch.int32)
     mask = _on(model, mask, torch.bool)
     positions = positions_from_mask(mask)
-    logits, _ = M.forward(model, cfg, tokens, positions)
+    prefix_embeds = _prefix(model, model_kwargs)
+    if prefix_embeds is not None:
+        positions = prefix_positions(positions, prefix_embeds.shape[1])
+    logits, _ = M.forward(model, cfg, tokens, positions,
+                          prefix_embeds=prefix_embeds,
+                          **model_extras(model, model_kwargs))
     lp_next = logprobs_of(logits[:, :-1], tokens[:, 1:], temperature, top_p)
     lp = torch.cat([torch.zeros_like(lp_next[:, :1]), lp_next], dim=1)
     valid = mask & torch.cat([torch.zeros_like(mask[:, :1]), mask[:, :-1]],

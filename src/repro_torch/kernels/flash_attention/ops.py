@@ -1,4 +1,5 @@
-"""Causal GQA attention for T > 1 (prefill, verify, score): port of
+"""GQA attention, causal for T > 1 (prefill, verify, score) and
+non-causal at any T (an encoder, a cross-attention): port of
 ``repro/kernels/flash_attention``.
 
 ``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``,
@@ -17,8 +18,8 @@ from repro_torch.kernels._build import launch
 
 NEG_INF = -1e30
 BQ = BK = 64            # the kernel's query and key tile
-MAX_KEYS = 512 * BK     # an unwindowed call's key tiles (ROADMAP Queue 2 K2)
-MAX_KEYS_WINDOWED = 1024 * BK   # a windowed call's: mixtral-8x22b's 65,536
+MAX_KEYS = 2048 * BK    # 131,072: pixtral-12b's max_seq_len, with or
+                        # without a window
 MAX_BATCH = 65535       # the grid's third dimension
 
 
@@ -51,11 +52,12 @@ def live_key_tiles(q_pos, k_pos, *, causal: bool = True, window: int = 0
     is loaded for query tile i iff one of its keys has k_pos >= 0, (causal)
     k_pos <= the largest q_pos of the query tile and (window > 0) k_pos >
     its smallest q_pos - window.  Every visible (query, key) pair lies in a
-    live tile; a query tile of padding only (causal) loads nothing.  The
-    kernel flags the tiles 512 at a time and lists the live ones in shared
-    memory sized to the call's S / 64 tiles; a window keeps a query tile's
-    list short (mixtral-8x22b's 4,096 at S = 65,536 lists at most 66 of
-    1,024)."""
+    live tile; a query tile of padding only loads nothing when the call is
+    causal, and every tile with a live key when it is not.  The kernel
+    flags the tiles 512 at a time and lists the live ones in shared memory
+    sized to the call's S / 64 tiles (up to 2,048); a window keeps a query
+    tile's list short (mixtral-8x22b's 4,096 at S = 65,536 lists at most
+    66 of 1,024)."""
     B, T = q_pos.shape
     S = k_pos.shape[1]
     nq, nk = -(-T // BQ), -(-S // BK)
@@ -89,12 +91,10 @@ def _check_kernel_inputs(q, k, v, q_pos, k_pos, window: int = 0) -> None:
     if D not in (64, 128):
         raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, "
                          f"got {D}")
-    max_keys = MAX_KEYS_WINDOWED if window > 0 else MAX_KEYS
-    if S > max_keys or B > MAX_BATCH:
+    if S > MAX_KEYS or B > MAX_BATCH:
         raise ValueError(
-            f"flash_attention kernel takes at most {max_keys} keys "
-            f"{'with' if window > 0 else 'without'} a window (ROADMAP Queue 2 "
-            f"K2) and {MAX_BATCH} rows, got S={S}, B={B}")
+            f"flash_attention kernel takes at most {MAX_KEYS} keys and "
+            f"{MAX_BATCH} rows, got S={S}, B={B}")
     if q_pos.shape != (B, T) or k_pos.shape != (B, S) or \
             q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
         raise ValueError("q_pos (B, T) and k_pos (B, S) must be int32")
@@ -125,12 +125,13 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
-    """q: (B, Hq, T, D) with T > 1; k/v: (B, Hkv, S, D); q_pos: (B, T) and
-    k_pos: (B, S) int.  Returns (B, Hq, T, D) float32.  CUDA tensors launch
-    the kernel (or raise); CPU tensors take the plain version."""
+    """q: (B, Hq, T, D), T > 1 when causal; k/v: (B, Hkv, S, D); q_pos:
+    (B, T) and k_pos: (B, S) int.  Returns (B, Hq, T, D) float32.  CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
     refuse_grad("flash_attention", q, k, v)
-    if q.shape[2] <= 1:
-        raise ValueError("flash_attention is the prefill/verify kernel; "
+    if q.shape[2] < 1 or (causal and q.shape[2] == 1):
+        raise ValueError("flash_attention takes a causal call at T > 1; "
                          "single-token decode goes to decode_attention")
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()

@@ -19,7 +19,11 @@ always the architecture's ``.reduced(...)`` smoke variant, with random
 weights from ``--seed``; on the card it runs in bfloat16 (the port's
 kernels take bfloat16), on the CPU in float32 as JAX's.  ``--cache-layout
 paged`` serves through the ``PagedSlotEngine`` (or the paged fixed batch
-with ``--engine fixed``).  §10 hardening: ``--deadline-steps``,
+with ``--engine fixed``).  An encoder-decoder (``--arch whisper-tiny``)
+or a vision prefix (``--arch pixtral-12b``) serves on the fixed batch
+only, with stub conditioning drawn from ``--seed`` as JAX's
+``_model_extras`` draws it: frames encoded once a batch, or patch
+embeddings in front of each prompt.  §10 hardening: ``--deadline-steps``,
 ``--max-queue``, ``--overflow``; with ``--state-path``, SIGTERM / Ctrl-C
 stops the serve at the next chunk boundary and snapshots the exact server
 state there
@@ -49,6 +53,7 @@ import signal
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.cache import RolloutCache
@@ -89,9 +94,32 @@ def build_requests(ds: PromptDataset, rng: random.Random, n_requests: int,
     return reqs
 
 
-def serve_fixed(model, cfg, gen, reqs, prompt_width, slots):
+def _model_extras(model, cfg, batch: int, seed: int) -> dict:
+    """Stub modality conditioning for an encoder or vision trunk, from a
+    generator on the model's device seeded with ``seed``: normal frames
+    (B, encoder_frames, d_model) through ``M.encode``, and normal patch
+    embeddings (B, num_prefix_embeddings, d_model)."""
+    kw = {}
+    if not (cfg.encoder_layers or cfg.num_prefix_embeddings):
+        return kw
+    g = torch.Generator(device=model.device)
+    g.manual_seed(seed)
+    normal = dict(generator=g, device=model.device)
+    if cfg.encoder_layers:
+        frames = torch.randn((batch, cfg.encoder_frames, cfg.d_model),
+                             **normal)
+        enc, pos = M.encode(model, cfg, frames)
+        kw = {"encoder_out": enc, "encoder_positions": pos}
+    if cfg.num_prefix_embeddings:
+        kw["prefix_embeds"] = torch.randn(
+            (batch, cfg.num_prefix_embeddings, cfg.d_model), **normal)
+    return kw
+
+
+def serve_fixed(model, cfg, gen, reqs, prompt_width, slots, seed: int = 0):
     """Fixed-batch baseline: decode ``slots``-sized batches to the slowest
-    row, each row on its own key and budget.  Returns (tokens dict,
+    row, each row on its own key and budget, with a batch's stub modality
+    conditioning (``_model_extras``, from ``seed``).  Returns (tokens dict,
     n_generated)."""
     outs, total = {}, 0
     for lo in range(0, len(reqs), slots):
@@ -104,7 +132,8 @@ def serve_fixed(model, cfg, gen, reqs, prompt_width, slots):
             mask[j, prompt_width - len(r.prompt):] = True
         keys = stack_keys([r.key for r in chunk])
         budget = np.asarray([r.max_new_tokens for r in chunk], np.int32)
-        out = generate(model, cfg, gen, toks, mask, keys, row_budget=budget)
+        out = generate(model, cfg, gen, toks, mask, keys, row_budget=budget,
+                       **_model_extras(model, cfg, B, seed))
         sync(model.device)
         length = out["length"].cpu().numpy()
         tokens = out["tokens"].cpu().numpy()
@@ -245,7 +274,7 @@ def main(argv=None):
     t0 = time.time()
     if engine_kind == "fixed":
         outs, n_gen = serve_fixed(model, cfg, gen, reqs, args.prompt_len,
-                                  args.slots)
+                                  args.slots, seed=args.seed)
         dt = time.time() - t0
         print(f"arch={cfg.name} engine=fixed: served {n_requests} requests, "
               f"{n_gen} tokens in {dt:.2f}s ({n_gen / max(dt, 1e-9):.0f} tok/s)")

@@ -40,6 +40,11 @@ there (``--trace-sample-rate`` thins the request lanes); ``--metrics
 PORT`` serves the Prometheus text on ``localhost:PORT/metrics`` while the
 run lasts.
 
+An encoder-decoder (``--arch whisper-tiny``) is refused before anything
+is built: the trainer passes no encoder memory (JAX's neither), and a
+cross-attention trunk without it would let each position attend the
+tokens after it (ROADMAP Queue 3, "Kept on purpose").
+
 The flags of the mesh, ``--mesh-data``, ``--mesh-model`` and
 ``--require-mesh`` (ROADMAP Queue 1 item 11, the mesh), raise and name
 their item when they are set away from their defaults; at their defaults
@@ -174,6 +179,11 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_flags(args, parser)
+    if get_config(args.arch).cross_attention:
+        raise SystemExit(f"--arch {args.arch}: a cross-attention trunk needs "
+                         "encoder_out, which the trainer does not pass; "
+                         "without it each position would attend the tokens "
+                         "after it")
     device = resolve_device(args.device)
 
     # §11: install the process-global tracer/registry BEFORE the trainer is

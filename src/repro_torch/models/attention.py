@@ -1,9 +1,13 @@
-"""GQA attention with qk-norm and RoPE over a dense or a paged KV cache
-(port of the GQA part of ``repro/models/attention.py``).
+"""GQA attention with qk-norm and RoPE over a dense or a paged KV cache,
+and cross-attention over an encoder's output (port of the GQA part of
+``repro/models/attention.py``).
 
 Masking is by position, as in JAX: a query at ``pq`` attends to a key at
 ``pk`` iff ``pk >= 0 and pk <= pq`` (and ``pq - pk < window`` when a
-sliding window is set); padding slots carry ``-1``.
+sliding window is set); padding slots carry ``-1``.  A non-causal call
+(the encoder's self-attention, every cross-attention) drops ``pk <= pq``.
+With learned positions (whisper) no RoPE is applied; a cross-attention
+applies none either, its keys come from the encoder.
 
 Routing.  With grad off (every rollout and scoring forward) the
 attention runs through ``repro_torch.kernels``, which launch the Hopper
@@ -26,6 +30,11 @@ kernels on CUDA tensors and run their plain versions on CPU tensors:
   (``gather_paged_kv``, plain ``index_select`` as JAX's ``_paged_gather``
   is ``jnp.take``).  The JAX package reaches its flash kernel only under
   ``use_pallas``; the port always takes its own kernel here.
+* Every non-causal call at any T, T = 1 included: ``flash_attention`` with
+  ``causal=False`` (the encoder at T = S = frames; the cross-attention's
+  queries over the encoder's frames, at prefill and at every decode
+  step).  The decode kernels mask ``k_pos <= q_pos``, which would hide the
+  frames past the decoder's position.
 
 With grad on and an input that requires it (the actor's forward in the
 train step), every T goes to ``dot_product_attention``: the port of JAX's
@@ -258,27 +267,37 @@ def _decode_attention(q, k, v, q_pos, kv_pos, *, window: int, cache_start,
 
 
 def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
-              cache_start=None, kv_length=None, kv_start=None):
-    """Causal self-attention.  x: (B, T, d); positions: (B, T) int32.  With
-    ``cache`` (a layer's ``{"k", "v": (B, Hkv, S, D), "pos": (B, S)}``
-    views, or its paged pools, ``pos`` and ``table``), writes K/V/pos at
-    ``cache_start`` (one slot, or (B,) slots) in place and attends over the
-    whole cache.  Returns (out (B, T, d), cache or None)."""
+              cache_start=None, kv_length=None, kv_start=None,
+              causal: bool = True, kv_x=None, kv_positions=None):
+    """Self-attention, causal unless ``causal=False`` (an encoder), or
+    with ``kv_x`` (B, S, d) and ``kv_positions`` (B, S) a cross-attention
+    over them (non-causal, no RoPE).  x: (B, T, d); positions: (B, T)
+    int32.  With ``cache`` (a layer's ``{"k", "v": (B, Hkv, S, D), "pos":
+    (B, S)}`` views, or its paged pools, ``pos`` and ``table``), writes
+    K/V/pos at ``cache_start`` (one slot, or (B,) slots) in place and
+    attends over the whole cache.  Returns (out (B, T, d), cache or
+    None)."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
+    src = x if kv_x is None else kv_x
+    S = src.shape[1]
     q = apply_dense(p.wq, x).view(B, T, cfg.num_heads, hd).transpose(1, 2)
-    k = apply_dense(p.wk, x).view(B, T, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = apply_dense(p.wv, x).view(B, T, cfg.num_kv_heads, hd).transpose(1, 2)
-    if cfg.qk_norm:
+    k = apply_dense(p.wk, src).view(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
+    v = apply_dense(p.wv, src).view(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
+    if p.q_norm is not None:
         q = apply_rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = apply_rmsnorm(p.k_norm, k, cfg.norm_eps)
-    if cfg.pos_embed != "rope":
-        raise NotImplementedError("learned positions arrive with the "
-                                  "whisper encoder-decoder, one of the other "
-                                  "model families (ROADMAP Queue 1 item 10)")
-    q = apply_rope(q, positions, cfg.rope_theta).contiguous()
-    k = apply_rope(k, positions, cfg.rope_theta)
-    kv_pos = positions
+    if kv_x is None:
+        kv_pos = positions
+        if cfg.pos_embed == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        if kv_positions is None or cache is not None:
+            raise ValueError("a cross-attention takes kv_positions and no "
+                             "cache")
+        kv_pos = kv_positions
+    q = q.contiguous()
 
     table = None
     if cache is not None:
@@ -298,9 +317,9 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
     if needs_grad(q, k, v):
         out = dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
                                     positions, kv_pos,
-                                    window=cfg.sliding_window)
-    elif cache is not None and (T == 1 or (kv_length is not None
-                                           and T <= DECODE_BLOCK_MAX_T)):
+                                    window=cfg.sliding_window, causal=causal)
+    elif causal and cache is not None and (
+            T == 1 or (kv_length is not None and T <= DECODE_BLOCK_MAX_T)):
         out = _decode_attention(q, k, v, positions, kv_pos,
                                 window=cfg.sliding_window,
                                 cache_start=cache_start, kv_length=kv_length,
@@ -312,6 +331,6 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
             v = gather_paged_kv(v, table, S_log)
         out = flash_attention(q, k.to(q.dtype).contiguous(),
                               v.to(q.dtype).contiguous(), positions, kv_pos,
-                              window=cfg.sliding_window)
+                              causal=causal, window=cfg.sliding_window)
     out = out.transpose(1, 2).reshape(B, T, cfg.num_heads * hd)
     return apply_dense(p.wo, out.to(x.dtype)), cache

@@ -1,7 +1,10 @@
 """Decoder blocks and the layer stack (port of ``repro/models/blocks.py``):
 attention and Mamba blocks, each with a dense FFN or a mixture-of-experts,
 and RWKV6 blocks.  A hybrid trunk (jamba) mixes attention and Mamba
-layers.
+layers.  An encoder-decoder's decoder blocks (whisper) add a
+cross-attention over the encoder's output after the self-attention; its
+K/V are recomputed from ``encoder_out`` at every call, so the cross
+attention has no cache entry.
 
 Layers are an ``nn.ModuleList`` run by a Python loop (JAX scans stacked
 parameters).  The caches keep JAX's per-run stacked layout so that
@@ -48,15 +51,17 @@ def signature_runs(cfg: ModelConfig) -> List[Tuple[BlockSig, int]]:
     return runs
 
 
-SUPPORTED = ((ATTN, False, False), (ATTN, True, False), (MAMBA, False, False),
-             (MAMBA, True, False), (RWKV, False, False))
+SUPPORTED = ((ATTN, False, False), (ATTN, True, False), (ATTN, False, True),
+             (MAMBA, False, False), (MAMBA, True, False), (RWKV, False, False))
 # the cache entry of each block kind
 CACHE_KEYS = {ATTN: "self", MAMBA: "mamba", RWKV: "rwkv"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs attention trunks (dense FFN or MoE) over a dense or
-    paged cache, attention + Mamba hybrids (jamba) and RWKV6 trunks."""
+    paged cache, attention + Mamba hybrids (jamba), RWKV6 trunks, a vision
+    prefix (pixtral) and an encoder-decoder with a cross-attention in
+    every decoder block (whisper)."""
     for sig in block_signatures(cfg):
         if sig not in SUPPORTED:
             raise NotImplementedError(
@@ -65,10 +70,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attention_kind != "gqa":
         raise NotImplementedError("MLA arrives with the other model "
                                   "families, ROADMAP Queue 1 item 10")
-    if cfg.encoder_layers or cfg.num_prefix_embeddings or cfg.mtp:
-        raise NotImplementedError("encoder, vision prefix and MTP arrive "
-                                  "with the other model families, ROADMAP "
-                                  "Queue 1 item 10")
+    if cfg.mtp:
+        raise NotImplementedError("MTP arrives with MLA, the last of the "
+                                  "other model families, ROADMAP Queue 1 "
+                                  "item 10")
 
 
 def _add_ffn(block: nn.Module, cfg: ModelConfig, is_moe: bool, kw) -> None:
@@ -80,15 +85,20 @@ def _add_ffn(block: nn.Module, cfg: ModelConfig, is_moe: bool, kw) -> None:
 
 class Block(nn.Module):
     """An attention block: ``{"norm1", "attn", "norm2", "mlp"}``, or with
-    ``is_moe`` ``{"norm1", "attn", "norm2", "moe"}``."""
+    ``is_moe`` ``{"norm1", "attn", "norm2", "moe"}``; with ``cross`` also
+    ``{"norm_ca", "cross_attn"}`` (a GQA without qk-norm, as JAX makes
+    it)."""
 
-    def __init__(self, cfg: ModelConfig, *, is_moe: bool = False, dtype,
-                 device=None):
+    def __init__(self, cfg: ModelConfig, *, is_moe: bool = False,
+                 cross: bool = False, dtype, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm1 = RMSNorm(cfg.d_model, **kw)
         self.attn = GQA(cfg, **kw)
         self.norm2 = RMSNorm(cfg.d_model, **kw)
+        if cross:
+            self.norm_ca = RMSNorm(cfg.d_model, **kw)
+            self.cross_attn = GQA(cfg.replace(qk_norm=False), **kw)
         _add_ffn(self, cfg, is_moe, kw)
 
 
@@ -121,8 +131,10 @@ class RWKVBlock(nn.Module):
 def make_block(cfg: ModelConfig, sig: BlockSig, *, dtype, device=None):
     if sig[0] == RWKV:
         return RWKVBlock(cfg, dtype=dtype, device=device)
-    cls = MambaBlock if sig[0] == MAMBA else Block
-    return cls(cfg, is_moe=sig[1], dtype=dtype, device=device)
+    if sig[0] == MAMBA:
+        return MambaBlock(cfg, is_moe=sig[1], dtype=dtype, device=device)
+    return Block(cfg, is_moe=sig[1], cross=sig[2], dtype=dtype,
+                 device=device)
 
 
 def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
@@ -137,18 +149,36 @@ def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
 
 
 def apply_block(p: Block | MambaBlock, cfg: ModelConfig, x, positions, *,
-                cache=None, cache_start=None, kv_length=None, kv_start=None):
-    """RMSNorm -> attention or Mamba -> residual, then RMSNorm -> FFN or
-    MoE -> residual.  Returns (x, aux): the MoE layer's aux dict, ``{}``
-    for a dense FFN.  A Mamba block ignores the attention arguments."""
+                cache=None, cache_start=None, kv_length=None, kv_start=None,
+                causal: bool = True, encoder_out=None,
+                encoder_positions=None):
+    """RMSNorm -> attention or Mamba -> residual, then (a cross block)
+    RMSNorm -> cross-attention over ``encoder_out`` -> residual, then
+    RMSNorm -> FFN or MoE -> residual.  Returns (x, aux): the MoE layer's
+    aux dict, ``{}`` for a dense FFN.  A Mamba block ignores the attention
+    arguments.
+
+    A cross block refuses to run without ``encoder_out``: JAX's then
+    attends the decoder's own tokens without a causal mask
+    (``repro/models/attention.py:407-423``), so position t would see the
+    tokens after it (ROADMAP Queue 3, "Kept on purpose")."""
     h = apply_rmsnorm(p.norm1, x, cfg.norm_eps)
     if hasattr(p, "mamba"):
         out = apply_mamba(p.mamba, cfg, h, positions, cache=cache)
     else:
         out, _ = apply_gqa(p.attn, cfg, h, positions, cache=cache,
                            cache_start=cache_start, kv_length=kv_length,
-                           kv_start=kv_start)
+                           kv_start=kv_start, causal=causal)
     x = x + out
+    if hasattr(p, "cross_attn"):
+        if encoder_out is None:
+            raise ValueError("a cross-attention trunk needs encoder_out: "
+                             "without it the cross-attention would attend "
+                             "the decoder's own later tokens")
+        h = apply_rmsnorm(p.norm_ca, x, cfg.norm_eps)
+        out, _ = apply_gqa(p.cross_attn, cfg, h, positions, causal=False,
+                           kv_x=encoder_out, kv_positions=encoder_positions)
+        x = x + out
     h = apply_rmsnorm(p.norm2, x, cfg.norm_eps)
     if hasattr(p, "moe"):
         out, aux = apply_moe(p.moe, cfg, h)
@@ -174,12 +204,14 @@ def init_trunk_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 caches=None, cache_start=None, kv_length=None,
-                kv_start=None):
+                kv_start=None, causal: bool = True, encoder_out=None,
+                encoder_positions=None):
     """Run all layers; the caches (if given) are updated in place and
-    returned.  The attention arguments (cache_start, kv_length, kv_start)
-    go unused by RWKV and Mamba layers.  Returns (x, caches, aux_mean):
-    each aux key averaged over the layers that reported it (``{}`` without
-    MoE)."""
+    returned.  The attention arguments (cache_start, kv_length, kv_start,
+    causal, the encoder's output and positions) go unused by RWKV and
+    Mamba layers; ``causal=False`` is the encoder's self-attention.
+    Returns (x, caches, aux_mean): each aux key averaged over the layers
+    that reported it (``{}`` without MoE)."""
     aux_sums: Dict[str, torch.Tensor] = {}
     aux_counts: Dict[str, int] = {}
     i = 0
@@ -196,7 +228,9 @@ def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 x, aux = apply_block(layers[i], cfg, x, positions,
                                      cache=layer_cache,
                                      cache_start=cache_start,
-                                     kv_length=kv_length, kv_start=kv_start)
+                                     kv_length=kv_length, kv_start=kv_start,
+                                     causal=causal, encoder_out=encoder_out,
+                                     encoder_positions=encoder_positions)
                 for k, v in aux.items():
                     aux_sums[k] = aux_sums[k] + v if k in aux_sums else v
                     aux_counts[k] = aux_counts.get(k, 0) + 1

@@ -8,7 +8,9 @@ stacked per signature run with a leading ``run_len`` axis (DESIGN.md §2).
 (``jax.tree.map(np.asarray, params)``; the port never imports JAX) and
 copies it into an ``LM`` whose ``layers[i]`` is global layer i (a MoE
 layer's ``moe.router``, stacked ``moe.w_gate`` / ``w_up`` / ``w_down`` and
-``moe.shared`` by the same names).
+``moe.shared`` by the same names; a decoder block's ``norm_ca`` and
+``cross_attn`` too).  An encoder-decoder's ``encoder`` (``trunk``, stacked
+the same way, and ``final_norm``) and a learned ``pos_table`` come along.
 ``to_jax_params`` is the inverse: an ``LM`` back to that tree, as numpy
 float32 leaves (a bfloat16 parameter widened exactly), so that a test can
 hold updated parameters against JAX's leaf by leaf.
@@ -67,18 +69,36 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig,
 def load_params(module: nn.Module, tree: Mapping[str, Any],
                 head: str) -> None:
     """Copy ``embed``, ``final_norm``, the per-run stacked ``trunk`` and,
-    where the tree has it, the head named ``head`` into ``module`` (one
-    with ``embed``, ``layers``, ``final_norm``, that head and ``cfg``)."""
+    where the tree has them, the head named ``head``, ``pos_table`` and
+    ``encoder`` into ``module`` (one with ``embed``, ``layers``,
+    ``final_norm``, that head and ``cfg``)."""
     _copy_into(module.embed, tree["embed"], "embed")
     _load(module.final_norm, tree["final_norm"], "final_norm")
     if head in tree:
         _load(getattr(module, head), tree[head], head)
+    for name in ("pos_table", "encoder"):
+        if (name in tree) != (getattr(module, name, None) is not None):
+            raise KeyError(f"{name}: in the tree {name in tree}, in the "
+                           "port's module the other way")
+    if "pos_table" in tree:
+        _copy_into(module.pos_table, tree["pos_table"], "pos_table")
+    if "encoder" in tree:
+        enc = module.encoder
+        _load(enc.final_norm, tree["encoder"]["final_norm"],
+              "encoder.final_norm")
+        _load_trunk(enc.trunk, enc.cfg, tree["encoder"]["trunk"],
+                    "encoder.trunk")
+    _load_trunk(module.layers, module.cfg, tree["trunk"], "trunk")
+
+
+def _load_trunk(layers: nn.ModuleList, cfg: ModelConfig, trunk,
+                where: str) -> None:
     layer = 0
-    for run_idx, (_, run_len) in enumerate(signature_runs(module.cfg)):
-        stacked = tree["trunk"][run_idx]
+    for run_idx, (_, run_len) in enumerate(signature_runs(cfg)):
+        stacked = trunk[run_idx]
         for j in range(run_len):
             one = _index(stacked, j)
-            _load(module.layers[layer], one, f"trunk[{run_idx}][{j}]")
+            _load(layers[layer], one, f"{where}[{run_idx}][{j}]")
             layer += 1
 
 
@@ -104,8 +124,9 @@ def _tree(module: nn.Module) -> dict:
 
 def to_jax_params(model: LM) -> dict:
     """The ``repro`` params tree of ``model``: ``embed``, ``final_norm``,
-    ``lm_head`` (untied heads) and ``trunk``, a list with one tree per
-    signature run whose leaves stack the run's layers on a leading axis."""
+    ``lm_head`` (untied heads), ``pos_table`` and ``encoder`` (where the
+    model has them) and ``trunk``, a list with one tree per signature run
+    whose leaves stack the run's layers on a leading axis."""
     return params_tree(model, "lm_head")
 
 
@@ -116,13 +137,23 @@ def params_tree(module: nn.Module, head: str) -> dict:
             "final_norm": _tree(module.final_norm)}
     if getattr(module, head) is not None:
         tree[head] = _tree(getattr(module, head))
-    trunk, layer = [], 0
-    for _, run_len in signature_runs(module.cfg):
-        layers = [_tree(module.layers[layer + j]) for j in range(run_len)]
-        trunk.append(_stack(layers))
-        layer += run_len
-    tree["trunk"] = trunk
+    if getattr(module, "pos_table", None) is not None:
+        tree["pos_table"] = _array(module.pos_table)
+    enc = getattr(module, "encoder", None)
+    if enc is not None:
+        tree["encoder"] = {"trunk": _trunk_tree(enc.trunk, enc.cfg),
+                           "final_norm": _tree(enc.final_norm)}
+    tree["trunk"] = _trunk_tree(module.layers, module.cfg)
     return tree
+
+
+def _trunk_tree(layers: nn.ModuleList, cfg: ModelConfig) -> list:
+    trunk, layer = [], 0
+    for _, run_len in signature_runs(cfg):
+        trunk.append(_stack([_tree(layers[layer + j])
+                             for j in range(run_len)]))
+        layer += run_len
+    return trunk
 
 
 def _stack(trees):

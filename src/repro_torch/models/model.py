@@ -1,9 +1,18 @@
 """Top-level language model (port of ``repro/models/model.py``, GQA trunks
 with a dense FFN or mixture-of-experts, RWKV6 trunks and attention + Mamba
-hybrids): embeddings, trunk, head, and the cache operations of the
-one-pass rollout (attention trunks only: a recurrent state cannot be
-compacted, so a trunk with any RWKV6 or Mamba layer takes the two-pass
-branch).
+hybrids): embeddings, trunk, head, the modality frontends, and the cache
+operations of the one-pass rollout (attention trunks only: a recurrent
+state cannot be compacted, so a trunk with any RWKV6 or Mamba layer takes
+the two-pass branch).
+
+Frontends are stubs, as in JAX: the caller supplies embeddings (B, P,
+d_model).  A vision prefix (pixtral, ``prefix_embeds``) goes in front of
+the token embeddings, its positions 0..Pv-1 ahead of the tokens', and
+comes off before the head.  Audio frames go through ``encode`` (whisper's
+encoder: non-causal attention blocks and a final RMSNorm), whose output
+and positions (``encoder_out``, ``encoder_positions``) every decoder
+block's cross-attention reads.  Learned positions (``pos_table``) are
+added to the token embeddings, clipped at ``max_seq_len - 1``.
 
 Entry points mirror JAX's, with the params pytree replaced by an ``LM``:
 
@@ -42,9 +51,29 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config an encoder's blocks run by (JAX's ``enc_cfg``)."""
+    return cfg.replace(num_layers=cfg.encoder_layers, cross_attention=False,
+                       num_experts=0, block_kind="attn", attn_period=0)
+
+
+class Encoder(nn.Module):
+    """``{"trunk", "final_norm"}``: the encoder's attention blocks, one
+    module a layer, and its final RMSNorm."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__()
+        enc_cfg = encoder_config(cfg)
+        self.cfg = enc_cfg
+        self.trunk = nn.ModuleList(make_block(enc_cfg, sig, **kw)
+                                   for sig in block_signatures(enc_cfg))
+        self.final_norm = RMSNorm(cfg.d_model, **kw)
+
+
 class LM(nn.Module):
-    """``{"embed", "layers", "final_norm"[, "lm_head"]}``; ``layers[i]`` is
-    global layer i (JAX stacks them per run under ``trunk``)."""
+    """``{"embed", "layers", "final_norm"[, "lm_head"][, "pos_table"][,
+    "encoder"]}``; ``layers[i]`` is global layer i (JAX stacks them per
+    run under ``trunk``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -62,6 +91,10 @@ class LM(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, **kw)
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.d_model, cfg.vocab_size, **kw))
+        self.pos_table = (nn.Parameter(
+            torch.empty(cfg.max_seq_len, cfg.d_model, **kw),
+            requires_grad=False) if cfg.pos_embed == "learned" else None)
+        self.encoder = Encoder(cfg, **kw) if cfg.encoder_layers else None
 
     @property
     def device(self) -> torch.device:
@@ -84,15 +117,19 @@ def init_lm(cfg: ModelConfig, *, seed: int, device: DeviceLike = None) -> LM:
 def draw_parameters(module: nn.Module, seed: int) -> None:
     """Fill a module holding ``embed`` and containers with ``reset`` (an
     ``LM``, a critic) from a generator seeded with ``seed`` on its device:
-    the embedding normal with std 0.02, then each container its own
-    leaves."""
+    the embedding normal with std 0.02 (and so a learned position table),
+    then each container its own leaves."""
     gen = torch.Generator(device=module.embed.device)
     gen.manual_seed(seed)
-    emb = torch.empty(module.embed.shape, dtype=torch.float32,
-                      device=module.embed.device)
-    emb.normal_(0.0, 1.0, generator=gen)
-    module.embed.copy_(emb * 0.02)
-    del emb
+    tables = [module.embed]
+    if getattr(module, "pos_table", None) is not None:
+        tables.append(module.pos_table)
+    for table in tables:
+        emb = torch.empty(table.shape, dtype=torch.float32,
+                          device=table.device)
+        emb.normal_(0.0, 1.0, generator=gen)
+        table.copy_(emb * 0.02)
+        del emb
     for mod in module.modules():
         if hasattr(mod, "reset"):
             mod.reset(gen)
@@ -104,7 +141,41 @@ def count_params(model: nn.Module) -> int:
 
 def _embed(model: LM, cfg: ModelConfig, tokens, positions):
     x = model.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+    if cfg.pos_embed == "learned":
+        pos = torch.clamp(positions, 0, cfg.max_seq_len - 1).long()
+        x = x + model.pos_table[pos].to(x.dtype)
     return torch.where((positions >= 0)[..., None], x, torch.zeros_like(x))
+
+
+def _embed_with_prefix(model: LM, cfg: ModelConfig, tokens, positions,
+                       prefix_embeds):
+    """Token embeddings, behind the vision prefix when there is one
+    (``positions`` then covers prefix and tokens, (B, Pv + T))."""
+    if prefix_embeds is None:
+        return _embed(model, cfg, tokens, positions)
+    Pv = prefix_embeds.shape[1]
+    x = _embed(model, cfg, tokens, positions[:, Pv:])
+    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+
+def _drop_prefix(x, prefix_embeds):
+    return x if prefix_embeds is None else x[:, prefix_embeds.shape[1]:]
+
+
+@torch.no_grad()
+def encode(model: LM, cfg: ModelConfig, frames):
+    """The whisper encoder over stub frame embeddings (B, F, d_model):
+    non-causal attention blocks at positions 0..F-1 (the encoder has no
+    positional embedding of its own, as in JAX), then its final RMSNorm.
+    Returns (encoder_out (B, F, d_model), encoder_positions (B, F))."""
+    frames = torch.as_tensor(frames, device=model.device)
+    B, F, _ = frames.shape
+    pos = torch.arange(F, dtype=torch.int32, device=model.device
+                       )[None].expand(B, F).contiguous()
+    x, _, _ = apply_trunk(model.encoder.trunk, model.encoder.cfg,
+                          frames.to(torch_dtype(cfg.dtype)), pos,
+                          causal=False)
+    return apply_rmsnorm(model.encoder.final_norm, x, cfg.norm_eps), pos
 
 
 def _logits(model: LM, cfg: ModelConfig, x):
@@ -115,9 +186,13 @@ def _logits(model: LM, cfg: ModelConfig, x):
     return softcap(logits.float(), cfg.logit_softcap)
 
 
-def forward(model: LM, cfg: ModelConfig, tokens, positions):
-    """tokens: (B, T) int; positions: (B, T) int32 with -1 on padding.
-    Returns (logits (B, T, V) float32, aux dict): a MoE trunk's
+def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
+            encoder_out=None, encoder_positions=None, prefix_embeds=None):
+    """tokens: (B, T) int; positions: (B, T) int32 with -1 on padding, or
+    with ``prefix_embeds`` (B, Pv, d) (B, Pv + T) over prefix and tokens;
+    ``encoder_out``/``encoder_positions``: ``encode``'s, for a
+    cross-attention trunk.  Returns (logits over the token slots (B, T, V)
+    float32, aux dict): a MoE trunk's
     ``moe_lb_loss``, ``moe_z_loss``, ``moe_expert_frac`` and (``dispatch``
     and ``sort``) ``moe_drop_frac``, each averaged over its layers as JAX
     does; ``{}`` without MoE.  Prefill, decode and score ignore them.
@@ -127,10 +202,12 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions):
     take their differentiable routes (``attention.dot_product_attention``,
     ``rwkv.wkv_scan``, ``mamba.ssm_scan``).  Its no-grad callers
     (``score``, ``verify``, the rollout) reach the kernels."""
-    x = _embed(model, cfg, tokens, positions)
-    x, _, aux = apply_trunk(model.layers, cfg, x, positions)
+    x = _embed_with_prefix(model, cfg, tokens, positions, prefix_embeds)
+    x, _, aux = apply_trunk(model.layers, cfg, x, positions,
+                            encoder_out=encoder_out,
+                            encoder_positions=encoder_positions)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return _logits(model, cfg, x), aux
+    return _logits(model, cfg, _drop_prefix(x, prefix_embeds)), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -140,20 +217,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 @torch.no_grad()
-def prefill(model: LM, cfg: ModelConfig, tokens, positions, caches):
-    """Run the prompt through the model, filling caches at slots [0, T).
+def prefill(model: LM, cfg: ModelConfig, tokens, positions, caches, *,
+            encoder_out=None, encoder_positions=None, prefix_embeds=None):
+    """Run the prompt through the model, filling caches at slots [0, T)
+    (with a vision prefix, [0, Pv + T): the prefix first, ``positions``
+    over both as in ``forward``).
 
-    Returns (logits (B, T, V), caches)."""
-    x = _embed(model, cfg, tokens, positions)
+    Returns (logits over the token slots (B, T, V), caches)."""
+    x = _embed_with_prefix(model, cfg, tokens, positions, prefix_embeds)
     x, caches, _ = apply_trunk(model.layers, cfg, x, positions,
-                               caches=caches, cache_start=0)
+                               caches=caches, cache_start=0,
+                               encoder_out=encoder_out,
+                               encoder_positions=encoder_positions)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return _logits(model, cfg, x), caches
+    return _logits(model, cfg, _drop_prefix(x, prefix_embeds)), caches
 
 
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
-                cache_start, *, kv_length=None, kv_start=None):
+                cache_start, *, kv_length=None, kv_start=None,
+                encoder_out=None, encoder_positions=None):
     """One decode step over a short token block.
 
     token, position: (B, T), T = 1 for a decode step or k + 1 for a §9
@@ -167,10 +250,12 @@ def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
     1``, and a block of T > 1 reaches the decode kernels only with it given
     (JAX's ``_decode_shaped``; without it the block takes
     ``flash_attention`` over the whole cache).  kv_start: per-row first
-    live slot, only for contiguous layouts.  Both become (B,) int32
-    tensors once here, not once per layer.  RWKV and Mamba layers ignore
-    cache_start, kv_length and kv_start: their cache is a running state.
-    Returns (logits (B, T, V), caches)."""
+    live slot, only for contiguous layouts (not behind a vision prefix).
+    Both become (B,) int32 tensors once here, not once per layer.  RWKV and
+    Mamba layers ignore cache_start, kv_length and kv_start: their cache
+    is a running state.  ``encoder_out``/``encoder_positions`` feed a
+    cross-attention trunk at every step.  Returns (logits (B, T, V),
+    caches)."""
     B, T = token.shape
     dev = token.device
     if not isinstance(cache_start, int):
@@ -187,7 +272,8 @@ def decode_step(model: LM, cfg: ModelConfig, token, position, caches,
     x = _embed(model, cfg, token, position)
     x, caches, _ = apply_trunk(model.layers, cfg, x, position, caches=caches,
                                cache_start=cache_start, kv_length=kv_length,
-                               kv_start=kv_start)
+                               kv_start=kv_start, encoder_out=encoder_out,
+                               encoder_positions=encoder_positions)
     x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
     return _logits(model, cfg, x), caches
 

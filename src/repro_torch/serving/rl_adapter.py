@@ -42,15 +42,17 @@ from .request import FINISH_FULL_REUSE, Request
 def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                       spec: SpecConfig, prompts, prompt_mask,
                       prompt_ids: Sequence[int],
-                      cache: Optional[RolloutCache], key, step: int
-                      ) -> RolloutBatch:
+                      cache: Optional[RolloutCache], key, step: int,
+                      **model_kwargs) -> RolloutBatch:
     """Slot-scheduled equivalent of ``rollout`` (same RolloutBatch
-    contract, ``n`` included)."""
+    contract, ``n`` included); the slot engine carries no modality
+    extras, so ``model_kwargs`` with any raises."""
     if spec.variant not in ("off", "spec", "delayed"):
         raise ValueError(f"backfill='slots' supports variants off/spec/"
                          f"delayed, not {spec.variant!r}")
-    if not M.supports_slot_serving(cfg):
-        raise ValueError("backfill='slots' needs an attention-only trunk")
+    if not M.supports_slot_serving(cfg, model_kwargs):
+        raise ValueError("backfill='slots' needs an attention-only trunk "
+                         "and no modality extras")
     if spec.variant != "off" and spec.one_pass == "off":
         raise ValueError("backfill='slots' is a one-pass engine path; "
                          "one_pass='off' contradicts it")

@@ -9,8 +9,11 @@ Held: ``forward`` logits and aux, ``score``, prefill plus decode steps and
 the caches, ``realign_decode_cache``, and a two-epoch one-pass ``rollout``
 (tokens, lengths and counts equal to JAX's, keys through ``JaxKey``); then
 one GRPO ``optimize`` of reduced mixtral (dispatch) with the tolerances of
-``test_torch_train.py``'s optimize.  jamba-v0.1-52b's config is checked
-here with the others (its model: ``test_torch_mamba.py``).  Inputs are
+``test_torch_train.py``'s optimize.  jamba-v0.1-52b's, pixtral-12b's and
+whisper-tiny's configs are checked here with the others (their models:
+``test_torch_mamba.py``, ``test_torch_frontends.py``), and the two
+frontends go through the port's twin of ``tests/test_archs_smoke.py``:
+forward shapes, one LM-loss train step and one serve step.  Inputs are
 numpy arrays from a seed; torch runs on one thread; JAX's model functions
 run under ``jax.jit`` (one compile each in place of one per operation),
 each case's model pair built once with JAX's forward and score from one
@@ -62,7 +65,8 @@ ARCHS = {
                                               "sliding_window": 5}),
 }
 NEW_ARCHS = ("deepseek-7b", "qwen1.5-110b", "granite-34b", "mixtral-8x22b",
-             "jamba-v0.1-52b")
+             "jamba-v0.1-52b", "pixtral-12b", "whisper-tiny")
+FRONTENDS = ("pixtral-12b", "whisper-tiny")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -141,18 +145,106 @@ def test_arch_registered_with_jax_config(arch):
     check_supported(get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny",
-                                  "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mla-only", "mtp-only"])
 def test_other_families_still_refused(arch):
-    """MLA and MTP, the encoder and the vision prefix stay refused, each
-    message naming ROADMAP Queue 1 item 10."""
+    """MLA and MTP stay refused, together (deepseek-v3-671b) and each
+    alone, every message naming ROADMAP Queue 1 item 10 (the encoder and
+    the vision prefix are ported: ``test_torch_frontends.py``)."""
     import dataclasses
     from repro_torch.models.config import ModelConfig
-    cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
-    assert arch not in ARCH_IDS
+    v3 = ModelConfig(**dataclasses.asdict(jax_get_config("deepseek-v3-671b")))
+    cfg = {"deepseek-v3-671b": v3, "mla-only": v3.replace(mtp=False),
+           "mtp-only": get_config("qwen3-1.7b").replace(mtp=True)}[arch]
+    assert "deepseek-v3-671b" not in ARCH_IDS
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1 item 10"):
         check_supported(cfg)
+
+
+def _frontend_inputs(cfg, Bs=2, T=12):
+    """JAX's smoke inputs, from numpy: row 0 left-padded by 3; a vision
+    prefix and the full positions over it, or encoder memory from stub
+    frames."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(3, cfg.vocab_size, (Bs, T)).astype(np.int32)
+    positions = np.stack([np.r_[np.full(3, -1), np.arange(T - 3)],
+                          np.arange(T)]).astype(np.int32)
+    tokens = np.where(positions >= 0, tokens, 0)
+    return torch.from_numpy(tokens), torch.from_numpy(positions), rng
+
+
+def _frontend_extras(model, cfg, rng, Bs=2):
+    if not cfg.encoder_layers:
+        return {}
+    frames = rng.normal(size=(Bs, cfg.encoder_frames, cfg.d_model))
+    enc, pos = M.encode(model, cfg, torch.from_numpy(frames.astype(np.float32)))
+    return {"encoder_out": enc, "encoder_positions": pos}
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_frontend_forward_shapes_no_nans(arch):
+    cfg = get_config(arch).reduced()
+    model = M.init_lm(cfg, seed=0, device="cpu")
+    tokens, positions, rng = _frontend_inputs(cfg)
+    kw = _frontend_extras(model, cfg, rng)
+    if cfg.num_prefix_embeddings:
+        Pv = cfg.num_prefix_embeddings
+        kw["prefix_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, Pv, cfg.d_model)).astype(np.float32))
+        vis = torch.arange(Pv, dtype=torch.int32)[None].expand(2, Pv)
+        positions = torch.cat([vis, torch.where(positions >= 0,
+                                                positions + Pv, -1)], 1)
+    logits, _ = M.forward(model, cfg, tokens, positions, **kw)
+    assert logits.shape == (2, tokens.shape[1], cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_frontend_one_train_step(arch):
+    """One LM-loss step, the encoder output passed to ``forward`` as JAX's
+    test does: a finite loss, a positive gradient norm, and AdamW moves
+    the parameters."""
+    from repro_torch.optim import adamw
+    cfg = get_config(arch).reduced()
+    model = M.init_lm(cfg, seed=0, device="cpu")
+    tokens, positions, rng = _frontend_inputs(cfg)
+    kw = _frontend_extras(model, cfg, rng)
+    params = [p for p in model.parameters()]
+    for p in params:
+        p.requires_grad_(True)
+    logits, _ = M.forward(model, cfg, tokens, positions, **kw)
+    logp = torch.log_softmax(logits[:, :-1].float(), -1)
+    nll = -logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
+    mask = (positions[:, 1:] >= 0).float()
+    loss = (nll * mask).sum() / mask.sum()
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    gnorm = adamw.global_norm(grads)
+    assert torch.isfinite(loss) and torch.isfinite(gnorm) and gnorm > 0
+    before = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        adamw.update(adamw.AdamWConfig(lr=1e-3), params, grads,
+                     adamw.init(params))
+    assert any(not torch.allclose(a, b) for a, b in zip(before, params))
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_frontend_one_serve_step(arch):
+    """Prefill and one decode step against the cache (the encoder memory
+    at both), no NaN, the right shape."""
+    cfg = get_config(arch).reduced()
+    model = M.init_lm(cfg, seed=0, device="cpu")
+    tokens, positions, rng = _frontend_inputs(cfg)
+    kw = _frontend_extras(model, cfg, rng)
+    Bs, T = tokens.shape
+    caches = M.init_cache(cfg, Bs, T + 2, device="cpu")
+    logits, caches = M.prefill(model, cfg, tokens, positions, caches, **kw)
+    nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+    dlogits, _ = M.decode_step(model, cfg, nxt, positions[:, -1:] + 1,
+                               caches, T, **kw)
+    assert dlogits.shape == (Bs, 1, cfg.vocab_size)
+    assert torch.isfinite(dlogits).all()
 
 
 @pytest.mark.parametrize("case", sorted(ARCHS))

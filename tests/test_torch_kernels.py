@@ -213,9 +213,9 @@ def test_flash_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="at most"):
         flash_ops.flash_attention_cuda(q, kv, kv, torch.empty(2, 8, **i32),
                                        torch.empty(2, too_long, **i32))
-    too_long = flash_ops.MAX_KEYS_WINDOWED + 64
-    kv = torch.empty(2, HKV, too_long, D, **bf)
-    with pytest.raises(ValueError, match="at most .* with a window"):
+    # one limit, 131,072 keys, with a window as without one
+    assert flash_ops.MAX_KEYS == 131_072
+    with pytest.raises(ValueError, match="at most 131072 keys"):
         flash_ops.flash_attention_cuda(q, kv, kv, torch.empty(2, 8, **i32),
                                        torch.empty(2, too_long, **i32),
                                        window=4096)
