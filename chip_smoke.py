@@ -76,13 +76,21 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    per-block tile scan alone), and whisper-tiny's non-causal calls (B =
    16, 6 heads of 64): the encoder over 1,500 frames, the cross-attention
    of a prefill (T = 64, left pads) and of a decode step (T = 1, done
-   rows among them);
+   rows among them); ``mla_kernel_checks`` holds both attention kernels
+   at deepseek-v3-671b's MLA shapes (G = 1, 128 heads, Dk = 192, Dv =
+   128), each timed beside SDPA with its device time and bound: the
+   decode kernel at B = 16, S = 576, T = 1, 2 and 9 (NaN outside the
+   live spans, done rows and a row with no live slot), flash at the
+   archs verify shape (T = S = 128, left pads) and at the config's
+   max_seq_len (T = S = 8,192, the plain version on sampled rows);
 4. holds the port on the card against the port on the CPU at a small size
    (the reduced qwen3-1.7b, rwkv6-3b, deepseek-7b, qwen1.5-110b,
    granite-34b, mixtral-8x22b, jamba-v0.1-52b (one full period of 8
-   layers), pixtral-12b (16 stub patches in front) and whisper-tiny (its
-   encoder over 64 stub frames, its output compared too), mixtral also
-   with ``dispatch`` and a window of 8, in bfloat16: forward, prefill,
+   layers), deepseek-v3-671b (at the published MLA head dims,
+   ``SMALL_OVERRIDES``, over a dense and over a paged latent cache),
+   pixtral-12b (16 stub patches in front) and whisper-tiny (its encoder
+   over 64 stub frames, its output compared too), mixtral also with
+   ``dispatch`` and a window of 8, in bfloat16: forward, prefill,
    decode steps and, for an attention trunk without a prefix, the
    compaction roll, teacher-forced, a MoE trunk's
    routing too: the other runs replay the CPU bf16 run's expert choices),
@@ -90,7 +98,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs twenty-five paths (random weights from a seed), each with the launch
+5. runs twenty-seven paths (random weights from a seed), each with the launch
    counts set to 0 just before it and read just after, and checks their
    outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
    ``draft_slots``, ``observatory``, ``faults``, ``ppo`` and ``dapo`` run
@@ -214,18 +222,24 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 cut to one layer (within ``CONSISTENCY_TOL``);
    ``archs``    each of deepseek-7b (8 of 30 layers), qwen1.5-110b (2 of
                 80), granite-34b (4 of 88), mixtral-8x22b (4 of 56,
-                ``dispatch``) and jamba-v0.1-52b (8 of 32: one full period,
-                ``dispatch``) at full width, built at that depth: the
-                ``rollout`` path's two epochs at ``ARCHS_N`` tokens, the
-                path kernels launched (jamba: the two-pass branch,
-                ``mamba_scan`` by T, no ``cache_roll``), an ``archs`` line
-                (parameters, peak GiB, times, counts; the MoE trunks'
-                ``moe_drop_frac`` over epoch 1's verify input);
-   ``mixtral train``, ``jamba train`` one GRPO ``train_step`` of each at
-                one layer, full width: the scorings launch flash_attention
-                (jamba's Mamba layer: mamba_scan) alone, the update no
-                kernel, ``moe_lb_loss`` finite, every MoE and Mamba
-                parameter with a gradient;
+                ``dispatch``), jamba-v0.1-52b (8 of 32: one full period,
+                ``dispatch``) and deepseek-v3-671b (4 of 61: three dense
+                MLA layers and the first MoE one) at full width, built at
+                that depth: the ``rollout`` path's two epochs at
+                ``ARCHS_N`` tokens, the path kernels launched (jamba: the
+                two-pass branch, ``mamba_scan`` by T, no ``cache_roll``),
+                an ``archs`` line (parameters, peak GiB, times, counts;
+                the MoE trunks' ``moe_drop_frac`` over epoch 1's verify
+                input; deepseek-v3's ``mtp_logits`` from the same forward,
+                finite and shaped like the logits);
+   ``mixtral train``, ``jamba train``, ``deepseek train`` one GRPO
+                ``train_step`` of each at one layer, full width: the
+                scorings launch flash_attention (jamba's Mamba layer:
+                mamba_scan) alone, the update no kernel, a MoE layer's
+                ``moe_lb_loss`` finite, every MoE, Mamba and attention
+                parameter of the layer with a gradient (deepseek-v3's MTP
+                head, which no trainer path reads, logged as expected
+                zeros);
    then, outside the paths, ``jamba consistency``: jamba cut to one layer
    in float32 (``moe_impl="dense"``), its score against its prefill +
    decode steps within ``CONSISTENCY_TOL``, as ``rwkv``'s witness;
@@ -299,6 +313,14 @@ SMALL_TOL["jamba-v0.1-52b"] = 0.5
 # pixtral behind 16 stub patches, whisper with a two-layer encoder over 64
 # stub frames: qwen's 5e-2
 SMALL_TOL.update({arch: 5e-2 for arch in ("pixtral-12b", "whisper-tiny")})
+# deepseek-v3-671b, reduced: two MLA layers (the second MoE with a shared
+# expert) like the other attention trunks, qwen's 5e-2, at the published
+# MLA head dims (SMALL_OVERRIDES): the reduced config's Dk = 48, Dv = 32
+# are no kernel shape, and the kernels raise for them on the card
+SMALL_TOL["deepseek-v3-671b"] = 5e-2
+SMALL_OVERRIDES = {"deepseek-v3-671b": dict(
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    kv_lora_rank=512)}
 BF16_GAP = 1.5      # the card's bfloat16 run may lie at most this many times
                     # as far from the CPU's float32 run as the CPU's own
                     # bfloat16 run does
@@ -377,14 +399,28 @@ CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
 # the first cut when the smoke nears its 1,200 s limit on a slower host;
 # jamba-v0.1-52b runs one full period of 8 layers (Mamba + MoE, Mamba +
 # FFN and attention + MoE; 13.3e9 of its 51.6e9 parameters), its GRPO
-# step at one layer (Mamba + MoE), as mixtral's (TRAIN_LAYERS)
+# step at one layer (Mamba + MoE), as mixtral's (TRAIN_LAYERS);
+# deepseek-v3-671b runs its three dense layers and its first MoE layer (4 of
+# 61: 15.8e9 parameters, 29.4 GiB in bf16) and its GRPO step at one dense
+# MLA layer (3.12e9 parameters, about 43.7 GB at 14 bytes a parameter: one
+# MoE layer's update alone would need about 158 GB)
 ARCH_LAYERS = {"deepseek-7b": 8, "qwen1.5-110b": 2, "granite-34b": 4,
-               "mixtral-8x22b": 4, "jamba-v0.1-52b": 8}
+               "mixtral-8x22b": 4, "jamba-v0.1-52b": 8,
+               "deepseek-v3-671b": 4}
 ARCHS_N = 64
 # the modality frontends at full width and depth through the same traffic
 # (pixtral-12b: 40 layers, 12.2e9 parameters; whisper-tiny: 4 + 4 layers)
 FRONTEND_LAYERS = {"pixtral-12b": 40, "whisper-tiny": 4}
-TRAIN_LAYERS = {"mixtral-8x22b": 1, "jamba-v0.1-52b": 1}
+TRAIN_LAYERS = {"mixtral-8x22b": 1, "jamba-v0.1-52b": 1,
+                "deepseek-v3-671b": 1}
+# deepseek-v3-671b's MLA attention after the latent's decompression: MHA
+# (G = 1) over 128 heads with Dk = nope 128 + rope 64 = 192 and Dv = 128.
+# The decode kernel runs at a decode step of the archs traffic (B = 16, S =
+# P + 2N) at T = 1 and at draft blocks of T = 2 and 9; flash_attention at
+# the archs verify shape (T = S = P + ARCHS_N) and at the config's
+# max_seq_len (B = 1, the plain version on sampled query rows, REPS cut)
+MLA_DECODE_TS = (1, 2, 9)
+MLA_LONG_REPS = 5
 LENIENCE = 0.99
 SEED = 0
 # the train path's float32 witness: two layers at full width, the first
@@ -1214,20 +1250,22 @@ def decode_bound(torch, kargs, hkv: int):
     """The least time of a decode call with no window on ``kargs`` (the
     dense kernel's arguments): q of the live queries, the K/V slots some
     query of the row sees, the live span's k_pos, the positions and
-    bounds, the float32 output; 4 D operations per visible (query head,
-    key) pair."""
-    q, _, _, q_pos, k_pos, lengths, starts = kargs
-    B, Hq, T, D = q.shape
+    bounds, the float32 output; 2 (Dk + Dv) operations per visible (query
+    head, key) pair.  Returns (ms, what bounds it, bytes, operations)."""
+    q, _, v, q_pos, k_pos, lengths, starts = kargs
+    B, Hq, T, Dk = q.shape
+    Dv = v.shape[-1]
     j = torch.arange(k_pos.shape[1], device=q.device)
     span = (j >= starts[:, None]) & (j < lengths[:, None])          # (B, S)
     vis = (span[:, None, :] & (k_pos[:, None, :] >= 0)
            & (k_pos[:, None, :] <= q_pos[:, :, None])
            & (q_pos[:, :, None] >= 0))                              # (B, T, S)
-    nbytes = (int((q_pos >= 0).sum()) * Hq * D * 2
-              + int(vis.any(1).sum()) * hkv * D * 2 * 2
+    nbytes = (int((q_pos >= 0).sum()) * Hq * Dk * 2
+              + int(vis.any(1).sum()) * hkv * (Dk + Dv) * 2
               + int(span.sum()) * 4 + (B * T + 2 * B) * 4
-              + B * Hq * T * D * 4)
-    return bound(nbytes, 4 * D * Hq * int(vis.sum()))
+              + B * Hq * T * Dv * 4)
+    flops = 2 * (Dk + Dv) * Hq * int(vis.sum())
+    return (*bound(nbytes, flops), nbytes, flops)
 
 
 def arch_kernel_checks(torch, timer, records):
@@ -1247,7 +1285,8 @@ def arch_kernel_checks(torch, timer, records):
     from repro_torch.kernels.decode_attention import ops as dec_ops
 
     heads = {arch: (get_config(arch).num_heads, get_config(arch).num_kv_heads)
-             for arch in ARCH_LAYERS}                  # (Hq, Hkv), D = 128
+             for arch in ARCH_LAYERS
+             if get_config(arch).attention_kind == "gqa"}  # (Hq, Hkv), D = 128
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
@@ -1273,7 +1312,7 @@ def arch_kernel_checks(torch, timer, records):
                 ms, plain_ms = timer.turns(
                     lambda: dec_ops.decode_attention_cuda(*kargs),
                     lambda: dec_ops.decode_attention_plain(*kargs))
-                b_ms, b_by = decode_bound(torch, kargs, hkv)
+                b_ms, b_by, _, _ = decode_bound(torch, kargs, hkv)
                 timed[f"G={g} T={t}"] = {"ms": ms, "plain_ms": plain_ms,
                                          "bound_ms": b_ms, "bound_by": b_by}
     log(f"kernel decode_attention at granite-34b's G = 48 (B=4, S={S}): "
@@ -1333,9 +1372,9 @@ def flash_frontend_case(torch, timer, name, q, k, v, q_pos, k_pos,
     rows at a time: each query's output depends on its own q and the keys),
     within ATTN_TOL; then the kernel entry and ``sdpa`` (one PyTorch call
     computing the same function) timed in turns, the kernel's device time,
-    and its bound: q, k, v, the positions and the float32 output once; 4 D
-    operations per (query head, key) pair the call computes.  Returns the
-    case's record."""
+    and its bound: q, k, v, the positions and the float32 output once; 2
+    (Dk + Dv) operations per (query head, key) pair the call computes.
+    Returns the case's record."""
     from repro_torch.kernels.flash_attention import ops as fl_ops
 
     B, Hq, T, D = q.shape
@@ -1363,13 +1402,16 @@ def flash_frontend_case(torch, timer, name, q, k, v, q_pos, k_pos,
     require(per_call == 1, f"flash_attention {name}: {per_call} launches a "
             "call")
     pairs = visible_pairs(torch, q_pos, k_pos, causal)
+    Dv = v.shape[-1]
     nbytes = (q.numel() * 2 + (k.numel() + v.numel()) * 2
-              + (q_pos.numel() + k_pos.numel()) * 4 + q.numel() * 4)
-    b_ms, b_by = bound(nbytes, 4 * D * Hq * pairs)
+              + (q_pos.numel() + k_pos.numel()) * 4 + B * Hq * T * Dv * 4)
+    flops = 2 * (D + Dv) * Hq * pairs
+    b_ms, b_by = bound(nbytes, flops)
     rec = {"B": B, "Hq": Hq, "Hkv": k.shape[1], "T": T, "S": k.shape[2],
-           "D": D, "causal": causal, "max_abs_err": err,
+           "D": D, "Dv": Dv, "causal": causal, "max_abs_err": err,
            "rows_checked": int(idx.numel()), "ms": ms, "device_ms": dev_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "operations": flops, "library_ms": sdpa_ms,
            "library": "scaled_dot_product_attention"}
     log(f"kernel flash_attention {name}: " + json.dumps(rec))
     return rec
@@ -1455,6 +1497,134 @@ def frontend_kernel_checks(torch, timer, records):
         records["flash_attention"]["archs_max_abs_err"],
         *(c["max_abs_err"] for c in out.values()))
     del kv, qe, qp, q1
+    torch.cuda.empty_cache()
+
+
+def mla_kernel_checks(torch, timer, records):
+    """The two attention kernels at deepseek-v3-671b's MLA shapes (G = 1,
+    128 heads, Dk = 192, Dv = 128), each through the public wrapper
+    against its plain version within ATTN_TOL, then the kernel entry, the
+    plain version and SDPA (one PyTorch call computing the same function,
+    over the same K and V with a boolean mask) timed in turns, the
+    kernel's device time with one launch a call and nothing else, and its
+    bound from the call's data (bytes and operations both recorded):
+    ``decode_attention`` at a decode step of the archs traffic (B = 16, S
+    = P + 2N; two done rows, a row with no live slot, NaN at every slot
+    outside a live span) at each T of ``MLA_DECODE_TS``;
+    ``flash_attention`` at the archs verify shape (B = 16, T = S = P +
+    ARCHS_N, left pads) and at max_seq_len (B = 1, T = S = 8,192, the
+    plain version on sampled query rows).  Adds them to the two kernels'
+    records under ``mla``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    cfg = get_config("deepseek-v3-671b")
+    H, dk, dv = (cfg.num_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                 cfg.v_head_dim)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    Bm, S = PROMPTS * GROUP, P + 2 * N
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, **bf)
+
+    decode = {}
+    for T in MLA_DECODE_TS:
+        starts = torch.randint(0, P, (Bm,), generator=gen, device=dev)
+        lengths = torch.randint(S // 2, S + 1, (Bm,), generator=gen,
+                                device=dev)
+        lengths[2] = starts[2]                       # no live slot
+        j = torch.arange(S, device=dev)[None]
+        live = (j >= starts[:, None]) & (j < lengths[:, None])
+        k_pos = torch.where(live, j - starts[:, None],
+                            torch.full_like(j, -1)).to(torch.int32)
+        q_pos = ((lengths - starts)[:, None] - T
+                 + torch.arange(T, device=dev)[None]).to(torch.int32)
+        q_pos[:2] = -1                               # done rows
+        q_pos[2] = torch.arange(T, device=dev)       # a query, no key
+        q, k, v = randn(Bm, H, T, dk), randn(Bm, H, S, dk), randn(Bm, H, S, dv)
+        lv = live[:, None, :, None]
+        nan = torch.tensor(float("nan"), **bf)
+        k_ok, v_ok = torch.where(lv, k, 0.0), torch.where(lv, v, 0.0)
+        kargs = (q, torch.where(lv, k, nan), torch.where(lv, v, nan), q_pos,
+                 k_pos, lengths.to(torch.int32), starts.to(torch.int32))
+        got = dec_ops.decode_attention(*kargs)
+        want = dec_ops.decode_attention_plain(q, k_ok, v_ok, *kargs[3:])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        vis = (live[:, None, :] & (k_pos[:, None, :] >= 0)
+               & (k_pos[:, None, :] <= q_pos[:, :, None]))   # (B, T, S)
+        dead = ~vis.any(-1)
+        require(tuple(got.shape) == (Bm, H, T, dv)
+                and bool(torch.isfinite(got).all()) and err <= ATTN_TOL,
+                f"decode_attention MLA T={T}: max_abs_err {err} > {ATTN_TOL} "
+                "or non-finite (a slot outside the live span was read)")
+        require(bool((got.transpose(1, 2)[dead] == 0).all()),
+                f"decode_attention MLA T={T}: queries that see no key must "
+                "be exactly 0")
+        mask = vis[:, None]
+
+        def kernel(a=kargs):
+            return dec_ops.decode_attention_cuda(*a)
+
+        ms, plain_ms, sdpa_ms = timer.turns(
+            kernel,
+            lambda: dec_ops.decode_attention_plain(q, k_ok, v_ok, *kargs[3:]),
+            lambda: F.scaled_dot_product_attention(q, k_ok, v_ok,
+                                                   attn_mask=mask))
+        dev_ms, per_call, others = timer.device_ms(kernel,
+                                                   "dense_decode_kernel")
+        require(per_call == 1 and others == 0,
+                f"decode_attention MLA T={T}: {per_call} launches and "
+                f"{others} other kernels a call")
+        b_ms, b_by, nbytes, flops = decode_bound(torch, kargs, H)
+        rec = {"B": Bm, "H": H, "T": T, "S": S, "Dk": dk, "Dv": dv,
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "operations": flops, "library_ms": sdpa_ms,
+               "library": "scaled_dot_product_attention"}
+        log(f"kernel decode_attention MLA T={T}: " + json.dumps(rec))
+        decode[f"T={T}"] = rec
+        del q, k, v, k_ok, v_ok, kargs, got, want
+    flash = {}
+    T = P + ARCHS_N
+    pads = torch.randint(0, P // 2, (Bm,), generator=gen, device=dev)
+    col = torch.arange(T, device=dev)[None]
+    pos = torch.where(col >= pads[:, None], col - pads[:, None],
+                      torch.full_like(col, -1)).to(torch.int32)
+    q, k, v = randn(Bm, H, T, dk), randn(Bm, H, T, dk), randn(Bm, H, T, dv)
+    vis = ((pos[:, None, :] >= 0)
+           & (pos[:, None, :] <= pos[:, :, None]))[:, None]   # (B, 1, T, S)
+    flash[f"verify T=S={T}"] = flash_frontend_case(
+        torch, timer, f"MLA verify T=S={T}", q, k, v, pos, pos, True,
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis))
+    del q, k, v
+    S_long = cfg.max_seq_len
+    pos = torch.arange(S_long, dtype=torch.int32, device=dev)[None]
+    q, k, v = (randn(1, H, S_long, dk), randn(1, H, S_long, dk),
+               randn(1, H, S_long, dv))
+    rows = torch.unique(torch.cat([
+        torch.arange(64, device=dev),
+        torch.arange(S_long // 2 - 64, S_long // 2 + 64, device=dev),
+        torch.arange(S_long - 64, S_long, device=dev),
+        torch.randint(0, S_long, (FRONTEND_ROWS,), generator=gen,
+                      device=dev)]))
+    flash[f"T=S={S_long}"] = flash_frontend_case(
+        torch, timer, f"MLA T=S={S_long}", q, k, v, pos, pos, True,
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        rows=rows, reps=MLA_LONG_REPS)
+    del q, k, v
+    records["decode_attention"]["mla"] = decode
+    records["flash_attention"]["mla"] = flash
+    for name, cases in (("decode_attention", decode),
+                        ("flash_attention", flash)):
+        records[name]["archs_max_abs_err"] = max(
+            records[name]["archs_max_abs_err"],
+            *(c["max_abs_err"] for c in cases.values()))
     torch.cuda.empty_cache()
 
 
@@ -1854,6 +2024,7 @@ def small_reference(torch, arch: str, tol: float, tol_f32=None,
     from repro_torch.engine.generate import (positions_from_mask,
                                              prefix_positions)
     from repro_torch.models import model as M
+    from repro_torch.models.attention import cache_leaves
     from repro_torch.models.moe import RouteLog
 
     title = title or arch
@@ -1910,7 +2081,8 @@ def small_reference(torch, arch: str, tol: float, tol_f32=None,
                 caches = M.realign_decode_cache(
                     cfg, caches, shift.to(dev),
                     p_len + steps - shift.to(dev), width)
-                outs.append((caches[0]["self"]["k"].float(), 1))
+                sc = caches[0]["self"]          # k, or MLA's latent ckv
+                outs.append((sc[cache_leaves(sc)[0]].float(), 1))
         return [(o.float().cpu(), ax) for o, ax in outs], routes
 
     want, r_cpu = run(cpu_model, torch.device("cpu"), cfg)
@@ -3978,7 +4150,9 @@ def archs_path(torch, arch: str):
     an ``archs`` line with the parameter count, peak GiB, each epoch's
     wall time and counts, and for a MoE trunk the ``moe_drop_frac`` of
     one no-grad ``forward`` over epoch 1's verify input (prompt and epoch
-    0's response).  The model is freed before returning its launches."""
+    0's response); with an MTP head (deepseek-v3-671b) that forward also
+    returns ``mtp_logits``, which must be finite and shaped like the
+    logits.  The model is freed before returning its launches."""
     import numpy as np
 
     from repro_torch.core import SpecConfig
@@ -4009,14 +4183,26 @@ def archs_path(torch, arch: str):
             "n_reused": [rb.metrics["n_reused"] for rb in (rb0, rb1)],
             "one_pass": [rb.metrics["one_pass"] for rb in (rb0, rb1)],
             "launches": dict(launches)}
-    if cfg.num_experts:
+    if cfg.num_experts or cfg.mtp:
         dev = model.device
         tokens = torch.from_numpy(np.concatenate(
             [batch.tokens, rb0.response], 1)).to(dev)
         mask = torch.from_numpy(np.concatenate(
             [batch.mask, rb0.response_mask], 1)).to(dev)
         with torch.no_grad():
-            _, aux = M.forward(model, cfg, tokens, positions_from_mask(mask))
+            logits, aux = M.forward(model, cfg, tokens,
+                                    positions_from_mask(mask),
+                                    return_mtp=cfg.mtp)
+    if cfg.mtp:
+        mtp = aux.pop("mtp_logits")
+        line["mtp_logits"] = {"shape": list(mtp.shape),
+                              "finite": bool(torch.isfinite(mtp).all()),
+                              "max_abs": float(mtp.abs().max())}
+        require(mtp.shape == logits.shape and line["mtp_logits"]["finite"],
+                f"archs {arch}: mtp_logits {line['mtp_logits']} against "
+                f"logits {tuple(logits.shape)}")
+        del mtp, logits
+    if cfg.num_experts:
         line.update({k: float(aux[k]) for k in ("moe_drop_frac",
                                                 "moe_lb_loss", "moe_z_loss")
                      if k in aux},
@@ -4032,16 +4218,19 @@ def archs_path(torch, arch: str):
 
 
 def arch_train_path(torch, arch: str):
-    """One GRPO ``train_step`` of ``arch`` (mixtral-8x22b or
-    jamba-v0.1-52b) at full width and ``TRAIN_LAYERS[arch]`` layers (epoch
-    0, the verifier's rewards: a random model's are 0, so the router
-    losses drive the update): the scorings launch the trunk's T > 1
-    kernel once a layer (flash_attention for mixtral, mamba_scan for
-    jamba's Mamba layer) and nothing else, the update launches no kernel
-    (jamba's scan takes ``ssm_scan``), the loss and ``moe_lb_loss`` are
-    finite and every MoE (and Mamba) parameter has a gradient; a
-    ``<arch> train`` line with the stage split, peak GiB by stage and the
-    parameters whose gradient is zero everywhere."""
+    """One GRPO ``train_step`` of ``arch`` (mixtral-8x22b, jamba-v0.1-52b
+    or deepseek-v3-671b) at full width and ``TRAIN_LAYERS[arch]`` layers
+    (epoch 0, the verifier's rewards: a random model's are 0, so the
+    router losses drive the update of a MoE layer): the scorings launch
+    the trunk's T > 1 kernel once a layer (flash_attention for mixtral and
+    deepseek-v3's MLA layer, mamba_scan for jamba's Mamba layer) and
+    nothing else, the update launches no kernel (jamba's scan takes
+    ``ssm_scan``), the loss (and a MoE layer's ``moe_lb_loss``) is finite
+    and every MoE, Mamba and attention parameter of layer 0 has a
+    gradient; a ``<arch> train`` line with the stage split, peak GiB by
+    stage and the parameters whose gradient is zero everywhere: only
+    deepseek-v3's MTP head, expected (no trainer path reads
+    ``mtp_logits``, in either package), may be among them."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -4051,8 +4240,10 @@ def arch_train_path(torch, arch: str):
 
     cfg = get_config(arch).replace(num_layers=TRAIN_LAYERS[arch])
     label = f"{arch.split('-')[0]} train"
-    # one layer: jamba's layer 0 is Mamba + MoE, mixtral's attention + MoE
+    # one layer: jamba's layer 0 is Mamba + MoE, mixtral's attention + MoE,
+    # deepseek-v3's MLA + a dense FFN
     kernel = "mamba_scan" if cfg.block_kind == "mamba" else "flash_attention"
+    moe = any(is_moe for _, is_moe in cfg.layer_plan())
     torch.cuda.reset_peak_memory_stats()
     model = M.init_lm(cfg, seed=SEED, device="cuda")
     params = M.count_params(model)
@@ -4063,14 +4254,17 @@ def arch_train_path(torch, arch: str):
         st = spy.take()
     launches = read_launches()
     zero = spy.grads.zero["actor"]
+    expected = [n for n in zero if n.startswith("mtp.")]
     log(f"{label} " + json.dumps({
         "layers": cfg.num_layers, "params": params, **stage_line(m, st, (
             "collect_time", "old_logprob_time", "ref_time", "adv_time",
             "update_actor_time", "loss", "moe_lb_loss", "grad_norm",
             "reward_mean", "n_generated", "one_pass", "kl_ref")),
-        "zero_grad_params": zero,
+        "zero_grad_params": [n for n in zero if n not in expected],
+        "zero_grad_params_expected": expected,
         "mamba_scan_launches_by_t": launches.mamba_by_t}))
-    require(np.isfinite(m["loss"]) and np.isfinite(m["moe_lb_loss"])
+    require(np.isfinite(m["loss"])
+            and (not moe or np.isfinite(m["moe_lb_loss"]))
             and m["grad_norm"] > 0, f"{label}: loss {m['loss']}, "
             f"moe_lb_loss {m.get('moe_lb_loss')}, grad_norm {m['grad_norm']}")
     check_scoring(label, st, cfg.num_layers, kernel=kernel)
@@ -4078,8 +4272,9 @@ def arch_train_path(torch, arch: str):
                        {"decode_attention", "flash_attention"})
     require(rollout_kernels <= set(st["collect"]["launches"]),
             f"{label}: the rollout launched {st['collect']['launches']}")
-    require(not any(n.startswith(("layers.0.moe", "layers.0.mamba"))
-                    for n in zero), f"{label}: no gradient in {zero}")
+    require(not any(n.startswith(("layers.0.moe", "layers.0.mamba",
+                                  "layers.0.attn")) for n in zero),
+            f"{label}: no gradient in {zero}")
     del tr, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4395,6 +4590,7 @@ def main() -> int:
     records = run("kernels", kernel_checks, torch, timer)
     run("arch kernels", arch_kernel_checks, torch, timer, records)
     run("frontend kernels", frontend_kernel_checks, torch, timer, records)
+    run("mla kernels", mla_kernel_checks, torch, timer, records)
     del timer
     torch.cuda.empty_cache()
     run("small qwen", small_reference, torch, "qwen3-1.7b",
@@ -4402,7 +4598,12 @@ def main() -> int:
     run("small rwkv", small_reference, torch, "rwkv6-3b",
         SMALL_TOL["rwkv6-3b"], tol_f32=SMALL_TOL_F32)
     for arch in ARCH_LAYERS:
-        run(f"small {arch}", small_reference, torch, arch, SMALL_TOL[arch])
+        run(f"small {arch}", small_reference, torch, arch, SMALL_TOL[arch],
+            **SMALL_OVERRIDES.get(arch, {}))
+    run("small deepseek-v3-671b paged", small_reference, torch,
+        "deepseek-v3-671b", SMALL_TOL["deepseek-v3-671b"],
+        title="deepseek-v3-671b paged", cache_layout="paged",
+        **SMALL_OVERRIDES["deepseek-v3-671b"])
     run("small mixtral-8x22b dispatch", small_reference, torch,
         "mixtral-8x22b", SMALL_TOL["mixtral-8x22b"],
         title="mixtral-8x22b dispatch, window 8", moe_impl="dispatch",

@@ -1,11 +1,9 @@
 """Architecture registry of the port: the dense GQA configs (qwen3,
 deepseek-7b, qwen1.5-110b, granite-34b), the mixture-of-experts
 mixtral-8x22b, the RWKV6 trunk (rwkv6-3b), the Mamba + attention + MoE
-hybrid jamba-v0.1-52b, the vision-prefix pixtral-12b and the
-encoder-decoder whisper-tiny.
-
-deepseek-v3-671b, the last architecture of ``repro.configs``, needs MLA
-and MTP, which the port does not have yet.
+hybrid jamba-v0.1-52b, the vision-prefix pixtral-12b, the encoder-decoder
+whisper-tiny and deepseek-v3-671b (MLA, MoE with a shared expert, an MTP
+head): every architecture of ``repro.configs``.
 """
 from __future__ import annotations
 
@@ -24,6 +22,7 @@ ARCH_IDS = {
     "jamba-v0.1-52b": "jamba_v0p1_52b",
     "pixtral-12b": "pixtral_12b",
     "whisper-tiny": "whisper_tiny",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

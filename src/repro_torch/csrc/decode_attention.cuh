@@ -63,6 +63,12 @@
 //    whatever the ring held before: their scores are selected to -inf and
 //    P.V walks the live rows only, so nothing there can leak, not even a
 //    NaN.
+//  * K and V may differ in width (DK, DV): (64, 64) and (128, 128) for GQA,
+//    (192, 128) for MLA's decompressed heads (nope 128 + rope 64 against a
+//    v of 128).  A stage holds the K tile (TILE rows of DK) and then the V
+//    tile (TILE rows of DV), each one bulk copy; the scores reduce over DK
+//    (DK / 32 columns a lane: 6 at 192, three 4-byte loads) and the
+//    accumulator, the partials and the output run over DV.
 //  * A block with no tile still reaches every barrier; its partial (m =
 //    -inf, l = 0, acc = 0) weighs nothing, and a query that sees no key
 //    comes out exactly 0.
@@ -91,29 +97,36 @@ __host__ __device__ constexpr int min_blocks(int gtp) { return gtp <= 4 ? 3 : 2;
 __host__ __device__ constexpr int cluster_cap(int gtp) { return gtp <= 4 ? 4 : 2; }
 
 struct Params {
-  const __nv_bfloat16* q;      // (B, Hkv * G, T, D)
-  const __nv_bfloat16* k;      // dense (B, Hkv, S, D); paged (NB, Hkv, TILE, D)
-  const __nv_bfloat16* v;
+  const __nv_bfloat16* q;      // (B, Hkv * G, T, DK)
+  const __nv_bfloat16* k;      // dense (B, Hkv, S, DK); paged (NB, Hkv, TILE, DK)
+  const __nv_bfloat16* v;      // the same with DV
   const int* table;            // paged: (B, nb) block ids
   const int* q_pos;            // (B, T)
   const int* k_pos;            // (B, S)
   const int* lengths;          // (B,)
   const int* starts;           // (B,)
-  float* out;                  // (B, Hkv * G, T, D)
+  float* out;                  // (B, Hkv * G, T, DV)
   int Hkv, G, T, S, nb, window;
   float scale_log2;            // softmax scale * log2(e)
 };
 
-template <int D, int TILE, int GTP>
+// The (DK, DV) pairs the kernels are built for.
+__host__ __device__ constexpr bool head_dims(int dk, int dv) {
+  return (dk == dv && (dk == 64 || dk == 128)) || (dk == 192 && dv == 128);
+}
+
+template <int DK, int DV, int TILE, int GTP>
 struct Layout {
-  static constexpr int DPL = D / 32;                  // columns a lane
+  static constexpr int DPLK = DK / 32;                // K columns a lane
+  static constexpr int DPLV = DV / 32;                // V columns a lane
   static constexpr int PAIRS = TILE * GTP;            // (slot, query) pairs
   static constexpr int NV = 32;                       // sums a butterfly
   static constexpr int ROUNDS = PAIRS / NV;
   static constexpr int SPR = NV / GTP;                // slots a round
-  static constexpr int ROW = D * 2;                   // bytes of a K/V slot
-  static constexpr int STAGE = 2 * TILE * ROW;        // K tile, then V tile
-  static constexpr int PART = 2 * GTP + GTP * D;      // floats: m, l, acc
+  static constexpr int ROWK = DK * 2;                 // bytes of a K slot
+  static constexpr int ROWV = DV * 2;                 // bytes of a V slot
+  static constexpr int STAGE = TILE * (ROWK + ROWV);  // K tile, then V tile
+  static constexpr int PART = 2 * GTP + GTP * DV;     // floats: m, l, acc
   // byte offsets into dynamic shared memory; the warps' acc partials go
   // over the ring once it is drained
   static constexpr int KPOS = NS * STAGE;             // a stage's k_pos
@@ -125,17 +138,25 @@ struct Layout {
   static constexpr int PA = PW + NW * PAIRS * 4;      // a warp's rescale
   static constexpr int BARS = PA + NW * GTP * 4;      // full[NS], empty[NS]
   static constexpr int BYTES = BARS + 16 * NS;
-  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(head_dims(DK, DV), "(DK, DV): (64, 64), (128, 128), (192, 128)");
   static_assert(TILE % 32 == 0 && GTP >= 2 && GTP <= CHUNK, "shape");
   static_assert(PAIRS % NV == 0 && NV % GTP == 0, "whole rounds");
-  static_assert(NW * GTP * D * 4 <= NS * STAGE, "warp partials fit the ring");
+  static_assert(NW * GTP * DV * 4 <= NS * STAGE, "warp partials fit the ring");
   static_assert(BARS % 8 == 0 && PEERS % 16 == 0, "alignment");
 };
 
-// DPL consecutive bf16 at p (4- or 8-byte aligned) as floats.
+// DPL consecutive bf16 at p (4-byte aligned; 8-byte at DPL = 4) as floats.
 template <int DPL>
 __device__ __forceinline__ void load_bf16(const void* p, float (&f)[DPL]) {
-  if constexpr (DPL == 4) {
+  if constexpr (DPL == 6) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const uint32_t raw = w[i];
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+      f[2 * i] = a.x; f[2 * i + 1] = a.y;
+    }
+  } else if constexpr (DPL == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
@@ -178,11 +199,12 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[NV], int lane) {
   return reduce_scatter_level<NV, 16>(v, lane);
 }
 
-template <int D, int TILE, int GTP, bool PAGED>
+template <int DK, int DV, int TILE, int GTP, bool PAGED>
 __device__ __forceinline__ void body(const Params& p) {
-  using L = Layout<D, TILE, GTP>;
-  constexpr int DPL = L::DPL, NV = L::NV, ROUNDS = L::ROUNDS, SPR = L::SPR;
-  constexpr int ROW = L::ROW, PART = L::PART;
+  using L = Layout<DK, DV, TILE, GTP>;
+  constexpr int DPLK = L::DPLK, DPLV = L::DPLV, NV = L::NV;
+  constexpr int ROUNDS = L::ROUNDS, SPR = L::SPR;
+  constexpr int ROWK = L::ROWK, ROWV = L::ROWV, PART = L::PART;
   static_assert(NS == NW, "consumer warp w owns stage w");
   extern __shared__ __align__(128) uint8_t smem[];
   float* cpart = reinterpret_cast<float*>(smem + L::CPART);
@@ -237,11 +259,13 @@ __device__ __forceinline__ void body(const Params& p) {
                                : head * S + lo;
       hopper::mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
       if (lane == 0) {
-        const uint32_t bytes = (uint32_t)(hi - lo) * ROW;
-        uint8_t* ks = smem + s * L::STAGE + (lo - j0) * ROW;
-        hopper::mbar_expect_tx(&full[s], 2 * bytes);
-        hopper::bulk_load(ks, p.k + row * D, bytes, &full[s]);
-        hopper::bulk_load(ks + TILE * ROW, p.v + row * D, bytes, &full[s]);
+        const uint32_t n = (uint32_t)(hi - lo);
+        uint8_t* ks = smem + s * L::STAGE;
+        hopper::mbar_expect_tx(&full[s], n * (ROWK + ROWV));
+        hopper::bulk_load(ks + (lo - j0) * ROWK, p.k + row * DK, n * ROWK,
+                          &full[s]);
+        hopper::bulk_load(ks + TILE * ROWK + (lo - j0) * ROWV, p.v + row * DV,
+                          n * ROWV, &full[s]);
       }
       // the live slots' positions, 4 bytes a lane and copy
       int* kps = reinterpret_cast<int*>(smem + L::KPOS) + s * TILE;
@@ -256,16 +280,16 @@ __device__ __forceinline__ void body(const Params& p) {
     // =========================================================== consumers
     // lane's columns of each query row, in the exp2 domain (0 past the
     // chunk's last query)
-    float qr[GTP][DPL];
+    float qr[GTP][DPLK];
 #pragma unroll
     for (int r = 0; r < GTP; ++r) {
       if (r < GTc) {
-        load_bf16<DPL>(p.q + (head * GT + q0 + r) * D + lane * DPL, qr[r]);
+        load_bf16<DPLK>(p.q + (head * GT + q0 + r) * DK + lane * DPLK, qr[r]);
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) qr[r][c] *= p.scale_log2;
+        for (int c = 0; c < DPLK; ++c) qr[r][c] *= p.scale_log2;
       } else {
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) qr[r][c] = 0.f;
+        for (int c = 0; c < DPLK; ++c) qr[r][c] = 0.f;
       }
     }
     // after the butterfly this lane holds the sum of pair (slot sl, query
@@ -273,16 +297,16 @@ __device__ __forceinline__ void body(const Params& p) {
     const int rq = lane % GTP, sl = lane / GTP;
     const int qp = rq < GTc ? p.q_pos[(size_t)b * T + (q0 + rq) % T] : -1;
     float m_run = NEG_INF, l_run = 0.f;     // l: this lane's slots only
-    float acc[GTP][DPL];
+    float acc[GTP][DPLV];
 #pragma unroll
     for (int r = 0; r < GTP; ++r)
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < DPLV; ++c) acc[r][c] = 0.f;
     const int s = warp;                      // this warp's stage
     float* pw = reinterpret_cast<float*>(smem + L::PW) + warp * L::PAIRS;
     float* pa = reinterpret_cast<float*>(smem + L::PA) + warp * GTP;
     const uint8_t* ks = smem + s * L::STAGE;
-    const uint8_t* vs = ks + TILE * ROW;
+    const uint8_t* vs = ks + TILE * ROWK;
     const int* kps = reinterpret_cast<const int*>(smem + L::KPOS) + s * TILE;
 
     for (int i = warp; i < ntiles; i += NW) {
@@ -296,13 +320,13 @@ __device__ __forceinline__ void body(const Params& p) {
         float dots[NV];
 #pragma unroll
         for (int e = 0; e < SPR; ++e) {
-          float kf[DPL];
-          load_bf16<DPL>(ks + (k * SPR + e) * ROW + lane * DPL * 2, kf);
+          float kf[DPLK];
+          load_bf16<DPLK>(ks + (k * SPR + e) * ROWK + lane * DPLK * 2, kf);
 #pragma unroll
           for (int r = 0; r < GTP; ++r) {
             float d = 0.f;
 #pragma unroll
-            for (int c = 0; c < DPL; ++c) d += qr[r][c] * kf[c];
+            for (int c = 0; c < DPLK; ++c) d += qr[r][c] * kf[c];
             dots[e * GTP + r] = d;
           }
         }
@@ -335,18 +359,18 @@ __device__ __forceinline__ void body(const Params& p) {
       for (int r = 0; r < GTP; ++r) {
         const float a = pa[r];
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] *= a;
+        for (int c = 0; c < DPLV; ++c) acc[r][c] *= a;
       }
 #pragma unroll 4
       for (int j = lo; j < hi; ++j) {
-        float vf[DPL];
-        load_bf16<DPL>(vs + j * ROW + lane * DPL * 2, vf);
+        float vf[DPLV];
+        load_bf16<DPLV>(vs + j * ROWV + lane * DPLV * 2, vf);
         const float* pj = pw + j * GTP;
 #pragma unroll
         for (int r = 0; r < GTP; ++r) {
           const float pr = pj[r];
 #pragma unroll
-          for (int c = 0; c < DPL; ++c) acc[r][c] += pr * vf[c];
+          for (int c = 0; c < DPLV; ++c) acc[r][c] += pr * vf[c];
         }
       }
       __syncwarp();
@@ -362,16 +386,16 @@ __device__ __forceinline__ void body(const Params& p) {
 #pragma unroll
     for (int r = 0; r < GTP; ++r)
 #pragma unroll
-      for (int c = 0; c < DPL; ++c)
-        wacc[(warp * GTP + r) * D + lane * DPL + c] = acc[r][c];
+      for (int c = 0; c < DPLV; ++c)
+        wacc[(warp * GTP + r) * DV + lane * DPLV + c] = acc[r][c];
     if (sl == 0) {
       wm[warp * GTP + rq] = m_run;
       wl[warp * GTP + rq] = l_run;
     }
     hopper::named_barrier(1, 32 * NW);
-    // the block's partial: m[GTP], l[GTP], acc[GTP][D]
-    for (int e = tid; e < GTc * D; e += 32 * NW) {
-      const int r = e / D;
+    // the block's partial: m[GTP], l[GTP], acc[GTP][DV]
+    for (int e = tid; e < GTc * DV; e += 32 * NW) {
+      const int r = e / DV;
       float mg = NEG_INF;
 #pragma unroll
       for (int w = 0; w < NW; ++w) mg = fmaxf(mg, wm[w * GTP + r]);
@@ -379,11 +403,11 @@ __device__ __forceinline__ void body(const Params& p) {
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
         const float f = exp2f(wm[w * GTP + r] - mg);
-        a += f * wacc[(w * GTP + r) * D + e % D];
+        a += f * wacc[(w * GTP + r) * DV + e % DV];
         l += f * wl[w * GTP + r];
       }
       cpart[2 * GTP + e] = a;
-      if (e % D == 0) {
+      if (e % DV == 0) {
         cpart[r] = mg;
         cpart[GTP + r] = l;
       }
@@ -409,9 +433,9 @@ __device__ __forceinline__ void body(const Params& p) {
   hopper::cluster_arrive();
   hopper::cluster_wait();                    // phase 2: every peer's partial
   if (warp < NW) {
-    float* o = p.out + (head * GT + q0) * D;
-    for (int e = tid; e < GTc * D; e += 32 * NW) {
-      const int r = e / D;
+    float* o = p.out + (head * GT + q0) * DV;
+    for (int e = tid; e < GTc * DV; e += 32 * NW) {
+      const int r = e / DV;
       float mg = cpart[r];
 #pragma unroll
       for (int c = 1; c < cluster_cap(GTP); ++c)

@@ -4,12 +4,14 @@
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/kernel.py:69
 // (flash_attention_pallas, body _flash_kernel :27).
 //
-// Contract: q (B, Hq, T, D), k/v (B, Hkv, S, D) bf16, D = 64 or 128, S <=
-// 131,072 (2,048 key tiles), B <= 65535; q_pos (B, T), k_pos (B, S)
-// int32.  Key j feeds query t iff k_pos >= 0, (causal) k_pos <= q_pos,
-// and (window > 0) q_pos - k_pos < window.  Rows that see no key give
-// exactly 0.  Output (B, Hq, T, D) float32.  Query head hq reads KV
-// head hq / G; no repeated heads are materialised.
+// Contract: q (B, Hq, T, DK), k (B, Hkv, S, DK), v (B, Hkv, S, DV) bf16,
+// (DK, DV) = (64, 64), (128, 128) or (192, 128) (MLA's decompressed heads:
+// nope 128 + rope 64 against a v of 128), S <= 131,072 (2,048 key tiles),
+// B <= 65535; q_pos (B, T), k_pos (B, S) int32.  Key j feeds query t iff
+// k_pos >= 0, (causal) k_pos <= q_pos, and (window > 0) q_pos - k_pos <
+// window.  Rows that see no key give exactly 0.  Output (B, Hq, T, DV)
+// float32, the scores scaled by the caller's 1 / sqrt(DK).  Query head hq
+// reads KV head hq / G; no repeated heads are materialised.
 //
 // What bounds it on the H100: bytes.  At the verify shapes the fp32 output
 // is most of them, then the K/V that some query sees; the operations (4 D
@@ -21,11 +23,17 @@
 //    once for all of them;
 //  * one producer warp keeps a ring of NS K/V stages in flight with TMA
 //    (3-D tensor maps (D, rows, heads), 128-byte swizzle, so a tile past S
-//    fills with zeros and never reads the next head), full/empty mbarriers;
-//  * S = Q K^T on wgmma (m64n64k16, Q and K K-major from shared memory);
+//    fills with zeros and never reads the next head), full/empty mbarriers.
+//    Under that swizzle a box is at most 128 bytes wide, so a 64-row tile
+//    loads as D / 64 boxes of 64 columns: 3 for a K or Q row of 192, each
+//    its own [64 rows][64 bf16] chunk of shared memory.  With DK = 192 and
+//    DV = 128 a stage is 24 KB of K and 16 KB of V, and each query head's
+//    Q tile 24 KB: 144 KB for one consumer warpgroup, 168 KB for two;
+//  * S = Q K^T on wgmma (m64n64k16, Q and K K-major from shared memory,
+//    DK / 16 k-steps);
 //    the online softmax in fp32 registers; O += P V on wgmma with P from
 //    registers (the S accumulator's fragment is the A fragment) and V
-//    MN-major (the transpose bit).  P is split into bf16 hi + lo halves,
+//    MN-major (the transpose bit), N = DV.  P is split into bf16 hi + lo halves,
 //    two wgmma each step, so the weights keep ~16 mantissa bits;
 //  * the block first lists the K tiles that hold a key visible to some
 //    query of its tile (k_pos >= 0, <= the tile's largest q_pos when
@@ -61,30 +69,35 @@ constexpr int ROUND = 512;       // K tiles flagged between two compactions
 constexpr int CHUNK = 64 * 64 * 2;  // one [64 rows][64 bf16] swizzled chunk
 constexpr float NEG_INF = -1e30f;
 
-template <int D, int CW>
+template <int DK, int DV, int CW>
 struct Smem {
-  static constexpr int NC = D / 64;          // 128-byte column chunks
-  static constexpr int TILE = NC * CHUNK;    // one 64-row tile of Q, K or V
+  static constexpr int NCK = DK / 64;        // 128-byte column chunks of Q, K
+  static constexpr int NCV = DV / 64;        // and of V
+  static constexpr int TILE_K = NCK * CHUNK; // one 64-row tile of Q or K
+  static constexpr int TILE_V = NCV * CHUNK; // one 64-row tile of V
   static constexpr int Q = 0;
-  static constexpr int K = Q + CW * TILE;
-  static constexpr int V = K + NS * TILE;
-  static constexpr int BARS = V + NS * TILE;          // q_full, full, empty
+  static constexpr int K = Q + CW * TILE_K;
+  static constexpr int V = K + NS * TILE_K;
+  static constexpr int BARS = V + NS * TILE_V;        // q_full, full, empty
   static constexpr int FLAGS = BARS + 8 * (1 + 2 * NS);
   static constexpr int META = FLAGS + ROUND;           // count, qmax, qmin
   static constexpr int LIST = META + 16;
   // a call over nk K tiles; + alignment slack
   static constexpr int bytes(int nk) { return LIST + 4 * nk + 1024; }
+  static_assert((DK == DV && (DK == 64 || DK == 128)) ||
+                    (DK == 192 && DV == 128),
+                "(DK, DV): (64, 64), (128, 128), (192, 128)");
 };
 
-template <int D, int CW>
+template <int DK, int DV, int CW>
 __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const int* __restrict__ q_pos,
     const int* __restrict__ k_pos, float* __restrict__ out, int Hq, int Hkv,
     int T, int S, int causal, int window, float scale_log2) {
-  using L = Smem<D, CW>;
-  constexpr int NC = L::NC;
+  using L = Smem<DK, DV, CW>;
+  constexpr int NCK = L::NCK, NCV = L::NCV;
   const int qt = blockIdx.x, hq0 = blockIdx.y * CW, b = blockIdx.z;
   const int h = hq0 / (Hq / Hkv);
   const int t0 = qt * BQ;
@@ -173,22 +186,22 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
     // ================================================= producer warpgroup
     if constexpr (CW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 128 * CW && n > 0) {
-      mbar_expect_tx(q_full, CW * L::TILE);
+      mbar_expect_tx(q_full, CW * L::TILE_K);
       for (int c = 0; c < CW; ++c)
-        for (int ch = 0; ch < NC; ++ch)
-          tma_load_3d(sq + c * L::TILE + ch * CHUNK, &q_map, q_full, ch * 64,
-                      t0, b * Hq + hq0 + c);
+        for (int ch = 0; ch < NCK; ++ch)
+          tma_load_3d(sq + c * L::TILE_K + ch * CHUNK, &q_map, q_full,
+                      ch * 64, t0, b * Hq + hq0 + c);
       for (int i = 0; i < n; ++i) {
         const int s = i % NS;
         mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * L::TILE);
+        mbar_expect_tx(&full[s], L::TILE_K + L::TILE_V);
         const int row = list[i] * BK, z = b * Hkv + h;
-        for (int ch = 0; ch < NC; ++ch) {
-          tma_load_3d(sk + s * L::TILE + ch * CHUNK, &k_map, &full[s],
+        for (int ch = 0; ch < NCK; ++ch)
+          tma_load_3d(sk + s * L::TILE_K + ch * CHUNK, &k_map, &full[s],
                       ch * 64, row, z);
-          tma_load_3d(sv + s * L::TILE + ch * CHUNK, &v_map, &full[s],
+        for (int ch = 0; ch < NCV; ++ch)
+          tma_load_3d(sv + s * L::TILE_V + ch * CHUNK, &v_map, &full[s],
                       ch * 64, row, z);
-        }
       }
     }
   } else {
@@ -205,13 +218,13 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
       const int t = t0 + r0 + 8 * e;
       qp[e] = t < T ? q_pos[(size_t)b * T + t] : -1;
     }
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
     if (n > 0) mbar_wait(q_full, 0);
-    const uint32_t q_addr = smem_u32(sq + wg * L::TILE);
+    const uint32_t q_addr = smem_u32(sq + wg * L::TILE_K);
     for (int i = 0; i < n; ++i) {
       const int s = i % NS;
       const int kbase = list[i] * BK;
@@ -226,13 +239,13 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
         }
       mbar_wait(&full[s], (i / NS) & 1);
 
-      // S = Q K^T: D / 16 steps of k16, 32 bytes apart inside a 128-byte
+      // S = Q K^T: DK / 16 steps of k16, 32 bytes apart inside a 128-byte
       // row, the next 64 columns a chunk further
       float sc[32];
-      const uint32_t k_addr = smem_u32(sk + s * L::TILE);
+      const uint32_t k_addr = smem_u32(sk + s * L::TILE_K);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const uint32_t off = (kk >> 2) * CHUNK + (kk & 3) * 32;
         wgmma_ss_n64(sc, desc_sw128(q_addr + off, 16, 1024),
                      desc_sw128(k_addr + off, 16, 1024), kk > 0);
@@ -288,7 +301,7 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
           pl[a] = *reinterpret_cast<const uint32_t*>(&lo);
         }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           o[4 * j + 2 * e] *= corr[e];
@@ -298,7 +311,7 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
       // O += P V: four k16 steps of 16 keys (2048 bytes of V rows each);
       // V is MN-major: 64-column chunks lie CHUNK apart (lbo), groups of 8
       // keys 1024 bytes apart (sbo)
-      const uint32_t v_addr = smem_u32(sv + s * L::TILE);
+      const uint32_t v_addr = smem_u32(sv + s * L::TILE_V);
       reg_fence(o);
       reg_fence(ph);
       reg_fence(pl);
@@ -306,7 +319,7 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         const uint64_t dv = desc_sw128(v_addr + ks * 2048, CHUNK, 1024);
-        if constexpr (D == 128) {
+        if constexpr (DV == 128) {
           wgmma_rs_n128(o, ph + 4 * ks, dv);
           wgmma_rs_n128(o, pl + 4 * ks, dv);
         } else {
@@ -333,9 +346,9 @@ __global__ void __launch_bounds__(128 * (CW + 1), 1) flash_kernel(
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int t = t0 + r0 + 8 * e;
-      float* row = out + (((size_t)b * Hq + hq) * T + t) * D;
+      float* row = out + (((size_t)b * Hq + hq) * T + t) * DV;
 #pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
+      for (int j = 0; j < DV / 8; j += 2) {
         const float a0 = o[4 * j + 2 * e] * inv[e];
         const float a1 = o[4 * j + 2 * e + 1] * inv[e];
         const float b0 = o[4 * (j + 1) + 2 * e] * inv[e];
@@ -382,32 +395,35 @@ bool make_map(CUtensorMap* map, const void* base, int D, int rows, int heads) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int CW>
+template <int DK, int DV, int CW>
 cudaError_t run(const void* q, const void* k, const void* v, const int* q_pos,
                 const int* k_pos, float* out, int B, int Hq, int Hkv, int T,
                 int S, int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, D, T, B * Hq) || !make_map(&km, k, D, S, B * Hkv) ||
-      !make_map(&vm, v, D, S, B * Hkv))
+  if (!make_map(&qm, q, DK, T, B * Hq) || !make_map(&km, k, DK, S, B * Hkv) ||
+      !make_map(&vm, v, DV, S, B * Hkv))
     return cudaErrorInvalidValue;
-  const int bytes = Smem<D, CW>::bytes((S + BK - 1) / BK);
+  const int bytes = Smem<DK, DV, CW>::bytes((S + BK - 1) / BK);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<DK, DV, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, Hq / CW, B);
-  flash_kernel<D, CW><<<grid, 128 * (CW + 1), bytes, stream>>>(
+  flash_kernel<DK, DV, CW><<<grid, 128 * (CW + 1), bytes, stream>>>(
       qm, km, vm, q_pos, k_pos, out, Hq, Hkv, T, S, causal, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t run_d(const void* q, const void* k, const void* v, const int* qp,
                   const int* kp, float* o, int B, int Hq, int Hkv, int T, int S,
                   int causal, int window, float scale, cudaStream_t st) {
   if ((Hq / Hkv) % 2 == 0)
-    return run<D, 2>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window, scale, st);
-  return run<D, 1>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window, scale, st);
+    return run<DK, DV, 2>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window,
+                          scale, st);
+  return run<DK, DV, 1>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window,
+                        scale, st);
 }
 
 }  // namespace
@@ -415,8 +431,8 @@ cudaError_t run_d(const void* q, const void* k, const void* v, const int* qp,
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      const void* q_pos, const void* k_pos,
                                      void* out, int B, int Hq, int Hkv, int T,
-                                     int S, int D, int causal, int window,
-                                     float scale, void* stream) {
+                                     int S, int Dk, int Dv, int causal,
+                                     int window, float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || T < 1 || S < 1 ||
       (S + BK - 1) / BK > MAX_TILES ||
       B > 65535)
@@ -426,10 +442,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (D == 128)
-    err = run_d<128>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window, scale, st);
-  else if (D == 64)
-    err = run_d<64>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window, scale, st);
+  if (Dk == 192 && Dv == 128)
+    err = run_d<192, 128>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window,
+                          scale, st);
+  else if (Dk == 128 && Dv == 128)
+    err = run_d<128, 128>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window,
+                          scale, st);
+  else if (Dk == 64 && Dv == 64)
+    err = run_d<64, 64>(q, k, v, qp, kp, o, B, Hq, Hkv, T, S, causal, window,
+                        scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

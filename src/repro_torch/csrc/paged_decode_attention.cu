@@ -5,8 +5,9 @@
 // (paged_decode_attention_pallas: body _paged_kernel :109, merge _combine
 // :96).
 //
-// Contract (the Pallas kernel's): q (B, Hq, T, D) bf16, D = 64 or 128,
-// G * T <= 4096; k_pool/v_pool (NB, Hkv, bs, D) bf16 physical block pools,
+// Contract (the Pallas kernel's, at Dk = Dv: MLA's paged reads go through
+// the dense gather and never reach this kernel): q (B, Hq, T, D) bf16, D =
+// 64 or 128, G * T <= 4096; k_pool/v_pool (NB, Hkv, bs, D) bf16 physical block pools,
 // bs = 32 or 64; table (B, nb) int32, logical slot j of row b lives at
 // pool[table[b, j / bs], :, j % bs]; k_pos (B, nb * bs) int32 (the wrapper
 // pads a short logical width with -1); q_pos (B, T), lengths/starts (B,)
@@ -31,7 +32,7 @@ template <int D, int BS, int GTP>
 __global__ void __launch_bounds__(decode_attn::THREADS,
                                   decode_attn::min_blocks(GTP))
     paged_decode_kernel(const Params p) {
-  decode_attn::body<D, BS, GTP, true>(p);
+  decode_attn::body<D, D, BS, GTP, true>(p);
 }
 
 // The kernel for G * T queries padded to GTP (2, 4, 8 or 16), or cut into
@@ -41,16 +42,16 @@ cudaError_t run(const Params& p, int B, int C, cudaStream_t st) {
   const int GT = p.G * p.T;
   if (GT <= 2)
     return decode_attn::launch(paged_decode_kernel<D, BS, 2>, 2,
-                               Layout<D, BS, 2>::BYTES, p, B, C, st);
+                               Layout<D, D, BS, 2>::BYTES, p, B, C, st);
   if (GT <= 4)
     return decode_attn::launch(paged_decode_kernel<D, BS, 4>, 4,
-                               Layout<D, BS, 4>::BYTES, p, B, C, st);
+                               Layout<D, D, BS, 4>::BYTES, p, B, C, st);
   if (GT <= 8)
     return decode_attn::launch(paged_decode_kernel<D, BS, 8>, 8,
-                               Layout<D, BS, 8>::BYTES, p, B, C, st);
+                               Layout<D, D, BS, 8>::BYTES, p, B, C, st);
   // G * T > 16: chunks of 16 queries, one more grid row each
   return decode_attn::launch(paged_decode_kernel<D, BS, 16>, 16,
-                             Layout<D, BS, 16>::BYTES, p, B, C, st);
+                             Layout<D, D, BS, 16>::BYTES, p, B, C, st);
 }
 
 }  // namespace

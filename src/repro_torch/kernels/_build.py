@@ -37,11 +37,11 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     # q, k, v, q_pos, k_pos, lengths, starts, out,
-    # B, Hq, Hkv, T, S, D, cluster, window, scale, stream
-    "repro_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
-    # q, k, v, q_pos, k_pos, out, B, Hq, Hkv, T, S, D, causal, window,
+    # B, Hq, Hkv, T, S, Dk, Dv, cluster, window, scale, stream
+    "repro_decode_attention": [_P] * 8 + [_I] * 9 + [_F, _P],
+    # q, k, v, q_pos, k_pos, out, B, Hq, Hkv, T, S, Dk, Dv, causal, window,
     # scale, stream
-    "repro_flash_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "repro_flash_attention": [_P] * 6 + [_I] * 9 + [_F, _P],
     # lp_curr, lp_prev, u, valid_len, valid_len is int64, out, B, N,
     # log_lenience, stream
     "repro_spec_verify": [_P] * 4 + [_I, _P, _I, _I, _F, _P],

@@ -96,10 +96,14 @@ def paged_slot_write(pool: torch.Tensor, src: torch.Tensor,
     physical block its table names (``repro`` ``paged_slot_write``).
 
     pool: (run, NB, Hkv, bs, D) block pool; src: (run, R, Hkv, S, D) with
-    S == nb * bs; tables: (run, R, nb) int block ids.  The pool's blocks
-    are viewed as (run * NB, Hkv * bs, D) rows, the block ids become
-    destination rows, and ``cache_slot_write`` scatters in place.  Returns
-    the pool."""
+    S == nb * bs; tables: (run, R, nb) int block ids.  An MLA latent pool
+    (run, NB, bs, r) with src (run, R, S, r) is written as one head.  The
+    pool's blocks are viewed as (run * NB, Hkv * bs, D) rows, the block ids
+    become destination rows, and ``cache_slot_write`` scatters in place.
+    Returns the pool."""
+    if pool.ndim == 4:
+        paged_slot_write(pool.unsqueeze(2), src.unsqueeze(2), tables)
+        return pool
     run_len, NB, Hkv, bs, D = pool.shape
     R, nb = tables.shape[1], tables.shape[2]
     if tables.shape != (run_len, R, nb) or src.shape != (run_len, R, Hkv,

@@ -5,14 +5,16 @@
 which replaces ``decode_attention_pallas``,
 ``repro/kernels/decode_attention/kernel.py:193``) on CUDA tensors and runs
 ``decode_attention_plain`` on CPU tensors.  Every decode token of every
-layer of a dense cache comes here.
+layer of a dense cache comes here, GQA's at Dk = Dv = 64 or 128 and MLA's
+decompressed heads at Dk = 192, Dv = 128 (``HEAD_DIMS``).
 
 ``paged_decode_attention`` is the same function with K/V read from a block
 pool through a block table; it launches ``csrc/paged_decode_attention.cu``
 (which replaces ``paged_decode_attention_pallas``,
 ``repro/kernels/decode_attention/kernel.py:120``) on CUDA tensors and runs
 ``paged_decode_attention_plain`` (gather, then the dense plain version) on
-CPU tensors.  Every decode token of a paged cache comes here.
+CPU tensors.  Every decode token of a paged GQA cache comes here, at Dk =
+Dv (``PAGED_HEAD_DIMS``: MLA's paged reads go through the dense gather).
 
 Both kernels are one launch of (C, Hkv * nq, B) blocks in clusters of C:
 a KV head's G * T packed queries go in nq = ceil(G * T / 16) chunks of at
@@ -39,6 +41,10 @@ NEG_INF = -1e30
 DENSE_TILE = 32       # cache slots a tile of the dense kernel (one bulk copy)
 QUERY_CHUNK = 16      # packed queries a block of the kernels takes
 MAX_GT = 4096         # G * T queries per KV head the kernels take
+# (Dk, Dv) the dense kernel is built for: GQA's heads, and MLA's
+# decompressed ones (nope 128 + rope 64 against a v of 128)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+PAGED_HEAD_DIMS = ((64, 64), (128, 128))
 
 
 def cluster_cap(gt: int) -> int:
@@ -140,11 +146,13 @@ def decode_attention_plain(q, k, v, q_pos, k_pos, lengths, starts, *,
     return out.reshape(B, Hq, T, v.shape[-1])
 
 
-def _check_common(q, q_pos, lengths, starts, G, D, name) -> None:
-    """What both kernels require of q and the per-row inputs."""
+def _check_common(q, q_pos, lengths, starts, G, dims, allowed, name) -> None:
+    """What both kernels require of q, the head dims (Dk, Dv) and the
+    per-row inputs."""
     B, _, T, _ = q.shape
-    if D not in (64, 128):
-        raise ValueError(f"{name} kernel takes head_dim 64 or 128, got {D}")
+    if dims not in allowed:
+        raise ValueError(f"{name} kernel takes head_dim pairs (Dk, Dv) in "
+                         f"{allowed}, got {dims}")
     if G * T > MAX_GT:
         raise ValueError(f"{name} kernel takes at most {MAX_GT} queries per "
                          f"KV head; got G={G}, T={T}")
@@ -173,16 +181,17 @@ def _check_tensors(name, q, tensors) -> None:
 
 
 def _check_kernel_inputs(q, k, v, q_pos, k_pos, lengths, starts) -> None:
-    B, Hq, T, D = q.shape
+    B, Hq, T, Dk = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError("decode_attention kernel takes bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or S < 1 \
-            or Hq % Hkv:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != Dk \
+            or S < 1 or Hq % Hkv:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    _check_common(q, q_pos, lengths, starts, Hq // Hkv, D, "decode_attention")
+    _check_common(q, q_pos, lengths, starts, Hq // Hkv, (Dk, v.shape[3]),
+                  HEAD_DIMS, "decode_attention")
     if k_pos.shape != (B, S) or k_pos.dtype != torch.int32:
         raise ValueError(f"k_pos must be (B, S) int32, got "
                          f"{tuple(k_pos.shape)} {k_pos.dtype}")
@@ -195,28 +204,30 @@ def decode_attention_cuda(q, k, v, q_pos, k_pos, lengths, starts, *,
                           window: int = 0) -> torch.Tensor:
     """Launch the kernel (inputs as ``_norm_inputs`` leaves them)."""
     _check_kernel_inputs(q, k, v, q_pos, k_pos, lengths, starts)
-    B, Hq, T, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
+    B, Hq, T, Dk = q.shape
+    Hkv, S, Dv = k.shape[1], k.shape[2], v.shape[3]
     gt = (Hq // Hkv) * T
     C = cluster_size(B * Hkv * query_chunks(gt), -(-S // DENSE_TILE),
                      _sm_count(q.device.index), gt)
-    out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, Hq, T, Dv), dtype=torch.float32, device=q.device)
     launch("repro_decode_attention", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
            k_pos.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-           out.data_ptr(), B, Hq, Hkv, T, S, D, C, int(window),
-           1.0 / math.sqrt(D))
+           out.data_ptr(), B, Hq, Hkv, T, S, Dk, Dv, C, int(window),
+           1.0 / math.sqrt(Dk))
     _count("decode_attention", T)
     return out
 
 
 def decode_attention(q, k, v, q_pos, k_pos, lengths=None, starts=None, *,
                      window: int = 0) -> torch.Tensor:
-    """q: (B, Hq, T, D); k/v: (B, Hkv, S, D); q_pos: (B,), (B, 1) or
-    (B, T); k_pos: (B, S) int32; lengths/starts: optional per-row live
-    bounds (slot j live iff starts[b] <= j < lengths[b]).  Returns
-    (B, Hq, T, D) float32.  CUDA tensors launch the kernel (or raise); CPU
-    tensors take the plain version."""
+    """q: (B, Hq, T, Dk); k: (B, Hkv, S, Dk); v: (B, Hkv, S, Dv); q_pos:
+    (B,), (B, 1) or (B, T); k_pos: (B, S) int32; lengths/starts: optional
+    per-row live bounds (slot j live iff starts[b] <= j < lengths[b]).
+    Scores are scaled by 1 / sqrt(Dk).  Returns (B, Hq, T, Dv) float32.
+    CUDA tensors launch the kernel (or raise: (Dk, Dv) outside
+    ``HEAD_DIMS``, float32, an input that requires grad); CPU tensors take
+    the plain version."""
     refuse_grad("decode_attention", q, k, v)
     S = k.shape[2]
     q_pos, lengths, starts = _norm_inputs(q, q_pos, lengths, starts, S)
@@ -282,8 +293,8 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, k_pos,
     if bs not in PAGED_BLOCK_SIZES:
         raise ValueError(f"paged_decode_attention kernel takes block size "
                          f"{PAGED_BLOCK_SIZES}, got {bs}")
-    _check_common(q, q_pos, lengths, starts, Hq // Hkv, D,
-                  "paged_decode_attention")
+    _check_common(q, q_pos, lengths, starts, Hq // Hkv, (D, D),
+                  PAGED_HEAD_DIMS, "paged_decode_attention")
     if table.shape != (B, nb) or table.dtype != torch.int32 or nb < 1 or \
             k_pos.shape != (B, nb * bs) or k_pos.dtype != torch.int32:
         raise ValueError(f"table must be (B, nb) int32 and k_pos (B, nb*bs) "

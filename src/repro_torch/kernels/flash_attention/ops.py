@@ -5,7 +5,9 @@ non-causal at any T (an encoder, a cross-attention): port of
 ``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``,
 which replaces ``flash_attention_pallas``,
 ``repro/kernels/flash_attention/kernel.py:69``) on CUDA tensors and runs
-``flash_attention_plain`` on CPU tensors.
+``flash_attention_plain`` on CPU tensors.  It takes GQA's heads at Dk = Dv
+= 64 or 128 and MLA's decompressed ones at Dk = 192, Dv = 128
+(``HEAD_DIMS``).
 """
 from __future__ import annotations
 
@@ -21,17 +23,22 @@ BQ = BK = 64            # the kernel's query and key tile
 MAX_KEYS = 2048 * BK    # 131,072: pixtral-12b's max_seq_len, with or
                         # without a window
 MAX_BATCH = 65535       # the grid's third dimension
+# (Dk, Dv) the kernel is built for: GQA's heads, and MLA's decompressed
+# ones (nope 128 + rope 64 against a v of 128)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def flash_attention_plain(q, k, v, q_pos, k_pos, *, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
     """Masked softmax attention in float32 (``repro/kernels/flash_attention/
-    ref.py``).  Returns (B, Hq, T, D)."""
-    B, Hq, T, D = q.shape
+    ref.py``; JAX's ``dot_product_attention`` at Dk != Dv), the scores
+    scaled by 1 / sqrt(Dk).  Returns (B, Hq, T, Dv), Dv from ``v``."""
+    B, Hq, T, Dk = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, T, D).float()
-    s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * (1.0 / math.sqrt(D))
+    qg = q.reshape(B, Hkv, G, T, Dk).float()
+    s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * (
+        1.0 / math.sqrt(Dk))
     kp = k_pos[:, None, None, None, :]
     qp = q_pos[:, None, None, :, None]
     mask = kp >= 0
@@ -43,7 +50,7 @@ def flash_attention_plain(q, k, v, q_pos, k_pos, *, causal: bool = True,
     w = torch.softmax(s, dim=-1)
     w = torch.where(mask.any(dim=-1, keepdim=True), w, torch.zeros_like(w))
     out = torch.einsum("bhgts,bhsd->bhgtd", w, v.float())
-    return out.reshape(B, Hq, T, D)
+    return out.reshape(B, Hq, T, v.shape[-1])
 
 
 def live_key_tiles(q_pos, k_pos, *, causal: bool = True, window: int = 0
@@ -80,17 +87,18 @@ def live_key_tiles(q_pos, k_pos, *, causal: bool = True, window: int = 0
 
 
 def _check_kernel_inputs(q, k, v, q_pos, k_pos, window: int = 0) -> None:
-    B, Hq, T, D = q.shape
+    B, Hq, T, Dk = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError("flash_attention kernel takes bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != Dk \
+            or Hq % Hkv:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, "
-                         f"got {D}")
+    if (Dk, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim pairs "
+                         f"(Dk, Dv) in {HEAD_DIMS}, got {(Dk, v.shape[3])}")
     if S > MAX_KEYS or B > MAX_BATCH:
         raise ValueError(
             f"flash_attention kernel takes at most {MAX_KEYS} keys and "
@@ -112,23 +120,24 @@ def _check_kernel_inputs(q, k, v, q_pos, k_pos, window: int = 0) -> None:
 def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     _check_kernel_inputs(q, k, v, q_pos, k_pos, window)
-    B, Hq, T, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
+    B, Hq, T, Dk = q.shape
+    Hkv, S, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, Hq, T, Dv), dtype=torch.float32, device=q.device)
     launch("repro_flash_attention", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-           k_pos.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, S, D,
-           int(causal), int(window), 1.0 / math.sqrt(D))
+           k_pos.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, S, Dk, Dv,
+           int(causal), int(window), 1.0 / math.sqrt(Dk))
     LAUNCHES["flash_attention"] += 1
     return out
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
-    """q: (B, Hq, T, D), T > 1 when causal; k/v: (B, Hkv, S, D); q_pos:
-    (B, T) and k_pos: (B, S) int.  Returns (B, Hq, T, D) float32.  CUDA
-    tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    """q: (B, Hq, T, Dk), T > 1 when causal; k: (B, Hkv, S, Dk); v: (B,
+    Hkv, S, Dv); q_pos: (B, T) and k_pos: (B, S) int.  Scores are scaled by
+    1 / sqrt(Dk).  Returns (B, Hq, T, Dv) float32.  CUDA tensors launch
+    the kernel (or raise: (Dk, Dv) outside ``HEAD_DIMS``, float32, an
+    input that requires grad); CPU tensors take the plain version."""
     refuse_grad("flash_attention", q, k, v)
     if q.shape[2] < 1 or (causal and q.shape[2] == 1):
         raise ValueError("flash_attention takes a causal call at T > 1; "

@@ -1,5 +1,6 @@
 """GQA attention with qk-norm and RoPE over a dense or a paged KV cache,
-and cross-attention over an encoder's output (port of the GQA part of
+cross-attention over an encoder's output, and DeepSeek-V3's multi-head
+latent attention (MLA) over a latent cache (port of
 ``repro/models/attention.py``).
 
 Masking is by position, as in JAX: a query at ``pq`` attends to a key at
@@ -54,6 +55,22 @@ scatters, as in JAX.
 Paged layer cache (DESIGN.md §13): ``{"k", "v": (NB, Hkv, bs, D) pools,
 "pos": (B, S) logical positions, "table": (B, nb) block ids}``; the logical
 width S is unrounded, only the pools are whole blocks.
+
+MLA (``apply_mla``).  The q path is d -> ``q_lora_rank`` -> RMSNorm -> H x
+(nope + rope) (or d -> H x (nope + rope) without a q LoRA); the kv path is
+d -> ``kv_lora_rank`` latent (RMSNorm) plus one RoPE key of ``rope`` shared
+by every head.  The cache holds the latent alone: ``{"ckv": (B, S, r),
+"krope": (B, S, rope), "pos"}``, or paged ``{"ckv": (NB, bs, r), "krope":
+(NB, bs, rope), "pos", "table"}``.  Every call decompresses the whole
+cache through ``wkv_b`` to H heads of K (nope ⊕ the shared rope key, Dk =
+nope + rope) and V (Dv), then attends as MHA (G = 1) with Dk != Dv (192
+and 128 at deepseek-v3-671b), routed as GQA is: the differentiable
+function with grad on, ``decode_attention`` for a decode-shaped call and
+``flash_attention`` for every other T > 1.  JAX sends MLA's decode to its
+jnp blocked path and its prefill to jnp (``use_pallas=False``); the port
+takes its own kernels, as it does for GQA's prefill.  A paged latent cache
+is read through the dense gather, as in JAX, so MLA never reaches
+``paged_decode_attention``.
 """
 from __future__ import annotations
 
@@ -72,6 +89,14 @@ NEG_INF = -1e30
 # the largest cached query block routed to the decode kernels when it comes
 # with explicit live bounds (k + 1 for a draft block): JAX's
 DECODE_BLOCK_MAX_T = 64
+# the per-slot leaves of a layer's cache by attention kind ("pos" and a
+# paged "table" aside): GQA's K and V, MLA's latent and shared RoPE key
+CACHE_LEAVES = {"gqa": ("k", "v"), "mla": ("ckv", "krope")}
+
+
+def cache_leaves(sc) -> tuple:
+    """The per-slot leaves of one layer's (or run's) cache dict."""
+    return CACHE_LEAVES["mla" if "ckv" in sc else "gqa"]
 
 
 def dot_product_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
@@ -130,18 +155,45 @@ class GQA(nn.Module):
             self.q_norm = self.k_norm = None
 
 
+class MLA(nn.Module):
+    """``{"wq_a", "q_norm", "wq_b" | "wq", "wkv_a", "kv_norm", "wkv_b",
+    "wo"}`` (JAX's ``make_mla``): ``wq`` only without a q LoRA."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device=None):
+        super().__init__()
+        H = cfg.num_heads
+        nd, rd, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        kw = dict(dtype=dtype, device=device)
+        d = cfg.d_model
+        if cfg.q_lora_rank:
+            self.wq_a = Dense(d, cfg.q_lora_rank, **kw)
+            self.q_norm = RMSNorm(cfg.q_lora_rank, **kw)
+            self.wq_b = Dense(cfg.q_lora_rank, H * (nd + rd), **kw)
+            self.wq = None
+        else:
+            self.wq = Dense(d, H * (nd + rd), **kw)
+        self.wkv_a = Dense(d, cfg.kv_lora_rank + rd, **kw)
+        self.kv_norm = RMSNorm(cfg.kv_lora_rank, **kw)
+        self.wkv_b = Dense(cfg.kv_lora_rank, H * (nd + vd), **kw)
+        self.wo = Dense(H * vd, d, **kw)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device) -> dict:
     if cfg.cache_layout == "paged":
         return init_paged_kv_cache(cfg, batch, max_len, dtype, device)
-    hd = cfg.resolved_head_dim
-    shape = (batch, cfg.num_kv_heads, max_len, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                          device=device),
-    }
+    if cfg.attention_kind == "mla":
+        shapes = {"ckv": (batch, max_len, cfg.kv_lora_rank),
+                  "krope": (batch, max_len, cfg.qk_rope_head_dim)}
+    else:
+        shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+        shapes = {"k": shape, "v": shape}
+    cache = {name: torch.zeros(shape, dtype=dtype, device=device)
+             for name, shape in shapes.items()}
+    cache["pos"] = torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device)
+    return cache
 
 
 def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -154,7 +206,6 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     own pool size (with the block-0 sink) and allocator-issued tables."""
     bs = cfg.kv_block_size
     nb = -(-max_len // bs)
-    hd = cfg.resolved_head_dim
     if table is None:
         table = torch.arange(batch * nb, dtype=torch.int32,
                              device=device).reshape(batch, nb)
@@ -162,14 +213,18 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     elif tuple(table.shape) != (batch, nb) or num_blocks is None:
         raise ValueError(f"a table of {tuple(table.shape)} for ({batch}, "
                          f"{nb}) rows, num_blocks {num_blocks}")
-    shape = (num_blocks, cfg.num_kv_heads, bs, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                          device=device),
-        "table": torch.as_tensor(table, dtype=torch.int32, device=device),
-    }
+    if cfg.attention_kind == "mla":
+        shapes = {"ckv": (num_blocks, bs, cfg.kv_lora_rank),
+                  "krope": (num_blocks, bs, cfg.qk_rope_head_dim)}
+    else:
+        shape = (num_blocks, cfg.num_kv_heads, bs, cfg.resolved_head_dim)
+        shapes = {"k": shape, "v": shape}
+    cache = {name: torch.zeros(shape, dtype=dtype, device=device)
+             for name, shape in shapes.items()}
+    cache["pos"] = torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device)
+    cache["table"] = torch.as_tensor(table, dtype=torch.int32, device=device)
+    return cache
 
 
 def _row_starts(start, B: int, S: int, T: int, device) -> torch.Tensor:
@@ -207,12 +262,16 @@ def _paged_write(pool: torch.Tensor, update: torch.Tensor, start,
     """In place: the T-token update (B, Hkv, T, D) lands at logical slots
     [start, start + T) of each row (clamped to the logical width like the
     dense write), token t at ``pool[table[b, (s+t) // bs], :, (s+t) % bs]``.
+    An MLA latent pool (NB, bs, r) takes a (B, T, r) update, written
+    through a view with one head.
 
     A block-aligned prefill (one start, T >= bs) writes whole blocks,
     zero-padding a ragged tail (those slots keep pos -1 until a decode step
     claims them); a short update at one start writes token by token, and
     a block at a slot per row (a decode step or a draft block of the slot
     engine and the drafted loops) in one scatter of its (B, T) tokens."""
+    if pool.ndim == 3:
+        pool, update = pool.unsqueeze(1), update.unsqueeze(1)
     update = update.to(pool.dtype)
     bs = pool.shape[-2]
     B = table.shape[0]
@@ -239,6 +298,13 @@ def _paged_write(pool: torch.Tensor, update: torch.Tensor, start,
     chunks = update.reshape(B, update.shape[1], nbw, bs, -1)
     for i in range(nbw):
         pool[table[:, s0 // bs + i].long()] = chunks[:, :, i]
+
+
+def _decode_shaped(cache, causal: bool, T: int, kv_length) -> bool:
+    """JAX's ``_decode_shaped``: a cached causal call of one token, or of a
+    block of T <= ``DECODE_BLOCK_MAX_T`` that carries its live bounds."""
+    return causal and cache is not None and (
+        T == 1 or (kv_length is not None and T <= DECODE_BLOCK_MAX_T))
 
 
 def _decode_attention(q, k, v, q_pos, kv_pos, *, window: int, cache_start,
@@ -318,8 +384,7 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
         out = dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
                                     positions, kv_pos,
                                     window=cfg.sliding_window, causal=causal)
-    elif causal and cache is not None and (
-            T == 1 or (kv_length is not None and T <= DECODE_BLOCK_MAX_T)):
+    elif _decode_shaped(cache, causal, T, kv_length):
         out = _decode_attention(q, k, v, positions, kv_pos,
                                 window=cfg.sliding_window,
                                 cache_start=cache_start, kv_length=kv_length,
@@ -334,3 +399,82 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
                               causal=causal, window=cfg.sliding_window)
     out = out.transpose(1, 2).reshape(B, T, cfg.num_heads * hd)
     return apply_dense(p.wo, out.to(x.dtype)), cache
+
+
+def _gather_latent(pool: torch.Tensor, table: torch.Tensor, width: int
+                   ) -> torch.Tensor:
+    """Dense logical view (B, width, r) of an MLA latent pool (NB, bs, r)."""
+    return gather_paged_kv(pool.unsqueeze(1), table, width)[:, 0]
+
+
+def apply_mla(p: MLA, cfg: ModelConfig, x, positions, *, cache=None,
+              cache_start=None, kv_length=None, kv_start=None,
+              causal: bool = True):
+    """Multi-head latent attention (JAX's ``apply_mla``).  x: (B, T, d);
+    positions: (B, T) int32.  With ``cache`` (a layer's ``{"ckv", "krope",
+    "pos"}`` views, or its paged pools, ``pos`` and ``table``), writes the
+    latent, the RoPE key and pos at ``cache_start`` (one slot, or (B,)
+    slots) in place and attends over the whole cache, decompressed.
+    Returns (out (B, T, d), cache or None)."""
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    if p.wq is None:
+        q = apply_dense(p.wq_b, apply_rmsnorm(
+            p.q_norm, apply_dense(p.wq_a, x), cfg.norm_eps))
+    else:
+        q = apply_dense(p.wq, x)
+    q = q.view(B, T, H, nd + rd).transpose(1, 2)
+    q = torch.cat([q[..., :nd], apply_rope(q[..., nd:], positions,
+                                           cfg.rope_theta)], dim=-1)
+    kv_a = apply_dense(p.wkv_a, x)
+    ckv = apply_rmsnorm(p.kv_norm, kv_a[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[:, None, :, r:], positions,
+                        cfg.rope_theta)[:, 0]                   # (B, T, rd)
+
+    kv_pos = positions
+    if cache is not None:
+        _cache_write(cache["pos"], positions.to(torch.int32), cache_start,
+                     dim=-1)
+        kv_pos = cache["pos"]
+        if "table" in cache:
+            # paged: the latents live in block pools and are read through
+            # the dense gather (decompression needs the whole view anyway)
+            table = cache["table"]
+            S_log = kv_pos.shape[-1]
+            _paged_write(cache["ckv"], ckv, cache_start, table, S_log)
+            _paged_write(cache["krope"], k_rope, cache_start, table, S_log)
+            ckv = _gather_latent(cache["ckv"], table, S_log)
+            k_rope = _gather_latent(cache["krope"], table, S_log)
+        else:
+            _cache_write(cache["ckv"], ckv, cache_start)
+            _cache_write(cache["krope"], k_rope, cache_start)
+            ckv, k_rope = cache["ckv"], cache["krope"]
+
+    # decompress the latent to H heads of K (nope ⊕ the shared rope key)
+    # and V
+    kv = apply_dense(p.wkv_b, ckv.to(x.dtype))
+    S = kv.shape[1]
+    kv = kv.view(B, S, H, nd + vd).transpose(1, 2)
+    k = torch.cat([kv[..., :nd], k_rope.to(x.dtype)[:, None].expand(
+        B, H, S, rd)], dim=-1)
+    v = kv[..., nd:].contiguous()
+
+    if needs_grad(q, k, v):
+        out = dot_product_attention(q, k, v, positions, kv_pos, causal=causal)
+    elif _decode_shaped(cache, causal, T, kv_length):
+        out = _decode_attention(q, k, v, positions, kv_pos, window=0,
+                                cache_start=cache_start, kv_length=kv_length,
+                                kv_start=kv_start)
+    else:
+        out = flash_attention(q, k, v, positions, kv_pos, causal=causal)
+    out = out.transpose(1, 2).reshape(B, T, H * vd)
+    return apply_dense(p.wo, out.to(x.dtype)), cache
+
+
+def apply_attention(p: GQA | MLA, cfg: ModelConfig, x, positions, **kw):
+    """A block's self-attention: MLA or GQA by the parameters' kind."""
+    if isinstance(p, MLA):
+        return apply_mla(p, cfg, x, positions, **kw)
+    return apply_gqa(p, cfg, x, positions, **kw)

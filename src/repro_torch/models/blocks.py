@@ -1,10 +1,10 @@
 """Decoder blocks and the layer stack (port of ``repro/models/blocks.py``):
-attention and Mamba blocks, each with a dense FFN or a mixture-of-experts,
-and RWKV6 blocks.  A hybrid trunk (jamba) mixes attention and Mamba
-layers.  An encoder-decoder's decoder blocks (whisper) add a
-cross-attention over the encoder's output after the self-attention; its
-K/V are recomputed from ``encoder_out`` at every call, so the cross
-attention has no cache entry.
+attention blocks (GQA, or MLA for deepseek-v3) and Mamba blocks, each with
+a dense FFN or a mixture-of-experts, and RWKV6 blocks.  A hybrid trunk
+(jamba) mixes attention and Mamba layers.  An encoder-decoder's decoder
+blocks (whisper) add a cross-attention over the encoder's output after
+the self-attention; its K/V are recomputed from ``encoder_out`` at every
+call, so the cross attention has no cache entry.
 
 Layers are an ``nn.ModuleList`` run by a Python loop (JAX scans stacked
 parameters).  The caches keep JAX's per-run stacked layout so that
@@ -12,7 +12,11 @@ parameters).  The caches keep JAX's per-run stacked layout so that
 for an attention run ``caches[run] = {"self": {"k", "v": (run_len, B, Hkv,
 S, D), "pos": (run_len, B, S)}}``, or with ``cfg.cache_layout == "paged"``
 ``{"k", "v": (run_len, NB, Hkv, bs, D) pools, "pos": (run_len, B, S),
-"table": (run_len, B, nb)}``; for an RWKV run ``caches[run] = {"rwkv":
+"table": (run_len, B, nb)}``; an MLA run holds the latent in place of K/V,
+``{"ckv": (run_len, B, S, r), "krope": (run_len, B, S, rope), "pos"}`` or
+paged ``{"ckv": (run_len, NB, bs, r), "krope": (run_len, NB, bs, rope),
+"pos", "table"}`` (``attention.CACHE_LEAVES`` names each kind's leaves);
+for an RWKV run ``caches[run] = {"rwkv":
 {"shift_t", "shift_c": (run_len, B, d), "wkv": (run_len, B, H, hd, hd)}}``;
 for a Mamba run ``caches[run] = {"mamba": {"conv": (run_len, B, dc - 1,
 di), "ssm": (run_len, B, di, ds)}}``.  Layer ``i`` of a run reads and
@@ -25,7 +29,7 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from .attention import GQA, apply_gqa, init_kv_cache
+from .attention import GQA, MLA, apply_attention, apply_gqa, init_kv_cache
 from .config import ATTN, MAMBA, RWKV, ModelConfig
 from .layers import LayerNorm, RMSNorm, apply_layernorm, apply_rmsnorm
 from .mamba import Mamba, apply_mamba, init_mamba_cache
@@ -58,22 +62,17 @@ CACHE_KEYS = {ATTN: "self", MAMBA: "mamba", RWKV: "rwkv"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs attention trunks (dense FFN or MoE) over a dense or
-    paged cache, attention + Mamba hybrids (jamba), RWKV6 trunks, a vision
-    prefix (pixtral) and an encoder-decoder with a cross-attention in
-    every decoder block (whisper)."""
+    """The port runs attention trunks (GQA or MLA, a dense FFN or MoE, an
+    MTP head) over a dense or paged cache, attention + Mamba hybrids
+    (jamba), RWKV6 trunks, a vision prefix (pixtral) and an encoder-decoder
+    with a cross-attention in every decoder block (whisper): every config
+    of the reference.  A block signature that none of them uses is
+    refused."""
     for sig in block_signatures(cfg):
         if sig not in SUPPORTED:
             raise NotImplementedError(
-                f"{cfg.name}: block {sig} needs the other model families "
-                "(ROADMAP Queue 1 item 10)")
-    if cfg.attention_kind != "gqa":
-        raise NotImplementedError("MLA arrives with the other model "
-                                  "families, ROADMAP Queue 1 item 10")
-    if cfg.mtp:
-        raise NotImplementedError("MTP arrives with MLA, the last of the "
-                                  "other model families, ROADMAP Queue 1 "
-                                  "item 10")
+                f"{cfg.name}: block {sig} is in no config of the reference, "
+                "and the port does not build it")
 
 
 def _add_ffn(block: nn.Module, cfg: ModelConfig, is_moe: bool, kw) -> None:
@@ -85,16 +84,18 @@ def _add_ffn(block: nn.Module, cfg: ModelConfig, is_moe: bool, kw) -> None:
 
 class Block(nn.Module):
     """An attention block: ``{"norm1", "attn", "norm2", "mlp"}``, or with
-    ``is_moe`` ``{"norm1", "attn", "norm2", "moe"}``; with ``cross`` also
-    ``{"norm_ca", "cross_attn"}`` (a GQA without qk-norm, as JAX makes
-    it)."""
+    ``is_moe`` ``{"norm1", "attn", "norm2", "moe"}``; ``attn`` is an
+    ``MLA`` when ``cfg.attention_kind == "mla"``, else a ``GQA``; with
+    ``cross`` also ``{"norm_ca", "cross_attn"}`` (a GQA without qk-norm,
+    as JAX makes it)."""
 
     def __init__(self, cfg: ModelConfig, *, is_moe: bool = False,
                  cross: bool = False, dtype, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm1 = RMSNorm(cfg.d_model, **kw)
-        self.attn = GQA(cfg, **kw)
+        self.attn = (MLA(cfg, **kw) if cfg.attention_kind == "mla" else
+                     GQA(cfg, **kw))
         self.norm2 = RMSNorm(cfg.d_model, **kw)
         if cross:
             self.norm_ca = RMSNorm(cfg.d_model, **kw)
@@ -166,9 +167,10 @@ def apply_block(p: Block | MambaBlock, cfg: ModelConfig, x, positions, *,
     if hasattr(p, "mamba"):
         out = apply_mamba(p.mamba, cfg, h, positions, cache=cache)
     else:
-        out, _ = apply_gqa(p.attn, cfg, h, positions, cache=cache,
-                           cache_start=cache_start, kv_length=kv_length,
-                           kv_start=kv_start, causal=causal)
+        out, _ = apply_attention(p.attn, cfg, h, positions, cache=cache,
+                                 cache_start=cache_start,
+                                 kv_length=kv_length, kv_start=kv_start,
+                                 causal=causal)
     x = x + out
     if hasattr(p, "cross_attn"):
         if encoder_out is None:

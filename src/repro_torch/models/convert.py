@@ -9,8 +9,11 @@ stacked per signature run with a leading ``run_len`` axis (DESIGN.md §2).
 copies it into an ``LM`` whose ``layers[i]`` is global layer i (a MoE
 layer's ``moe.router``, stacked ``moe.w_gate`` / ``w_up`` / ``w_down`` and
 ``moe.shared`` by the same names; a decoder block's ``norm_ca`` and
-``cross_attn`` too).  An encoder-decoder's ``encoder`` (``trunk``, stacked
-the same way, and ``final_norm``) and a learned ``pos_table`` come along.
+``cross_attn`` too; an MLA layer's ``attn`` holds ``wq_a``, ``q_norm``,
+``wq_b`` (or ``wq``), ``wkv_a``, ``kv_norm``, ``wkv_b`` and ``wo``).  An
+encoder-decoder's ``encoder`` (``trunk``, stacked the same way, and
+``final_norm``), a learned ``pos_table`` and deepseek-v3's ``mtp`` head
+(``proj``, ``norm`` and one unstacked ``block``) come along.
 ``to_jax_params`` is the inverse: an ``LM`` back to that tree, as numpy
 float32 leaves (a bfloat16 parameter widened exactly), so that a test can
 hold updated parameters against JAX's leaf by leaf.
@@ -69,19 +72,21 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig,
 def load_params(module: nn.Module, tree: Mapping[str, Any],
                 head: str) -> None:
     """Copy ``embed``, ``final_norm``, the per-run stacked ``trunk`` and,
-    where the tree has them, the head named ``head``, ``pos_table`` and
-    ``encoder`` into ``module`` (one with ``embed``, ``layers``,
-    ``final_norm``, that head and ``cfg``)."""
+    where the tree has them, the head named ``head``, ``pos_table``,
+    ``encoder`` and ``mtp`` into ``module`` (one with ``embed``,
+    ``layers``, ``final_norm``, that head and ``cfg``)."""
     _copy_into(module.embed, tree["embed"], "embed")
     _load(module.final_norm, tree["final_norm"], "final_norm")
     if head in tree:
         _load(getattr(module, head), tree[head], head)
-    for name in ("pos_table", "encoder"):
+    for name in ("pos_table", "encoder", "mtp"):
         if (name in tree) != (getattr(module, name, None) is not None):
             raise KeyError(f"{name}: in the tree {name in tree}, in the "
                            "port's module the other way")
     if "pos_table" in tree:
         _copy_into(module.pos_table, tree["pos_table"], "pos_table")
+    if "mtp" in tree:
+        _load(module.mtp, tree["mtp"], "mtp")
     if "encoder" in tree:
         enc = module.encoder
         _load(enc.final_norm, tree["encoder"]["final_norm"],
@@ -124,9 +129,9 @@ def _tree(module: nn.Module) -> dict:
 
 def to_jax_params(model: LM) -> dict:
     """The ``repro`` params tree of ``model``: ``embed``, ``final_norm``,
-    ``lm_head`` (untied heads), ``pos_table`` and ``encoder`` (where the
-    model has them) and ``trunk``, a list with one tree per signature run
-    whose leaves stack the run's layers on a leading axis."""
+    ``lm_head`` (untied heads), ``pos_table``, ``encoder`` and ``mtp``
+    (where the model has them) and ``trunk``, a list with one tree per
+    signature run whose leaves stack the run's layers on a leading axis."""
     return params_tree(model, "lm_head")
 
 
@@ -139,6 +144,8 @@ def params_tree(module: nn.Module, head: str) -> dict:
         tree[head] = _tree(getattr(module, head))
     if getattr(module, "pos_table", None) is not None:
         tree["pos_table"] = _array(module.pos_table)
+    if getattr(module, "mtp", None) is not None:
+        tree["mtp"] = _tree(module.mtp)
     enc = getattr(module, "encoder", None)
     if enc is not None:
         tree["encoder"] = {"trunk": _trunk_tree(enc.trunk, enc.cfg),

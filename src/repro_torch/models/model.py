@@ -1,9 +1,12 @@
-"""Top-level language model (port of ``repro/models/model.py``, GQA trunks
-with a dense FFN or mixture-of-experts, RWKV6 trunks and attention + Mamba
-hybrids): embeddings, trunk, head, the modality frontends, and the cache
+"""Top-level language model (port of ``repro/models/model.py``, GQA or
+MLA trunks with a dense FFN or mixture-of-experts, RWKV6 trunks and
+attention + Mamba hybrids): embeddings, trunk, head, the modality
+frontends, deepseek-v3's multi-token prediction head (MTP), and the cache
 operations of the one-pass rollout (attention trunks only: a recurrent
 state cannot be compacted, so a trunk with any RWKV6 or Mamba layer takes
-the two-pass branch).
+the two-pass branch).  The cache operations run over each run's own
+per-slot leaves (``attention.cache_leaves``: GQA's k and v, MLA's ckv and
+krope), through the same kernels.
 
 Frontends are stubs, as in JAX: the caller supplies embeddings (B, P,
 d_model).  A vision prefix (pixtral, ``prefix_embeds``) goes in front of
@@ -38,8 +41,9 @@ from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather
 from repro_torch.kernels.cache_slot_write.ops import (cache_slot_write,
                                                       paged_slot_write)
 
-from .blocks import (apply_trunk, block_signatures, check_supported,
-                     init_trunk_cache, make_block)
+from .attention import cache_leaves
+from .blocks import (Block, apply_block, apply_trunk, block_signatures,
+                     check_supported, init_trunk_cache, make_block)
 from .config import ATTN, ModelConfig
 from .layers import Dense, RMSNorm, apply_dense, apply_rmsnorm, softcap
 
@@ -70,10 +74,22 @@ class Encoder(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, **kw)
 
 
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token prediction head, ``{"proj", "block",
+    "norm"}``: ``proj`` (2 d -> d), one attention block with a dense FFN
+    (``d_ff``), and the RMSNorm of the trunk's hidden state."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__()
+        self.proj = Dense(2 * cfg.d_model, cfg.d_model, **kw)
+        self.block = Block(cfg, **kw)
+        self.norm = RMSNorm(cfg.d_model, **kw)
+
+
 class LM(nn.Module):
     """``{"embed", "layers", "final_norm"[, "lm_head"][, "pos_table"][,
-    "encoder"]}``; ``layers[i]`` is global layer i (JAX stacks them per
-    run under ``trunk``)."""
+    "encoder"][, "mtp"]}``; ``layers[i]`` is global layer i (JAX stacks
+    them per run under ``trunk``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -95,6 +111,7 @@ class LM(nn.Module):
             torch.empty(cfg.max_seq_len, cfg.d_model, **kw),
             requires_grad=False) if cfg.pos_embed == "learned" else None)
         self.encoder = Encoder(cfg, **kw) if cfg.encoder_layers else None
+        self.mtp = MTP(cfg, **kw) if cfg.mtp else None
 
     @property
     def device(self) -> torch.device:
@@ -187,7 +204,8 @@ def _logits(model: LM, cfg: ModelConfig, x):
 
 
 def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
-            encoder_out=None, encoder_positions=None, prefix_embeds=None):
+            encoder_out=None, encoder_positions=None, prefix_embeds=None,
+            return_mtp: bool = False):
     """tokens: (B, T) int; positions: (B, T) int32 with -1 on padding, or
     with ``prefix_embeds`` (B, Pv, d) (B, Pv + T) over prefix and tokens;
     ``encoder_out``/``encoder_positions``: ``encode``'s, for a
@@ -196,6 +214,8 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
     ``moe_lb_loss``, ``moe_z_loss``, ``moe_expert_frac`` and (``dispatch``
     and ``sort``) ``moe_drop_frac``, each averaged over its layers as JAX
     does; ``{}`` without MoE.  Prefill, decode and score ignore them.
+    With ``return_mtp`` and an MTP head, also ``mtp_logits`` (B, T, V)
+    float32 (``_mtp_logits``); no trainer path reads them.
 
     Carries the graph when grad is enabled and the parameters require it
     (the actor in the train step): the attention and the recurrences then
@@ -206,8 +226,29 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
     x, _, aux = apply_trunk(model.layers, cfg, x, positions,
                             encoder_out=encoder_out,
                             encoder_positions=encoder_positions)
-    x = apply_rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return _logits(model, cfg, _drop_prefix(x, prefix_embeds)), aux
+    x = _drop_prefix(apply_rmsnorm(model.final_norm, x, cfg.norm_eps),
+                     prefix_embeds)
+    if cfg.mtp and return_mtp:
+        aux["mtp_logits"] = _mtp_logits(model, cfg, x, tokens,
+                                        _drop_prefix(positions, prefix_embeds))
+    return _logits(model, cfg, x), aux
+
+
+def _mtp_logits(model: LM, cfg: ModelConfig, hidden, tokens, positions):
+    """Multi-token prediction (JAX's ``_mtp_logits``): the logits of token
+    t + 2 from the RMSNorm of h_t beside the embedding of token t + 1,
+    through ``proj`` and the MTP block (no cache), then the head.  The
+    last slot's next embedding is zero, and positions do not mask it, as
+    in JAX."""
+    emb = model.embed
+    nxt = tokens[:, 1:].long()
+    emb_next = torch.cat([emb[nxt], torch.zeros_like(emb[tokens[:, :1].long()])],
+                         dim=1).to(hidden.dtype)
+    h = apply_dense(model.mtp.proj, torch.cat(
+        [apply_rmsnorm(model.mtp.norm, hidden, cfg.norm_eps), emb_next],
+        dim=-1))
+    h, _ = apply_block(model.mtp.block, cfg, h, positions)
+    return _logits(model, cfg, h)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -310,33 +351,37 @@ def pad_cache(cfg: ModelConfig, caches, extra: int):
     new_caches = []
     for run in caches:
         sc = run["self"]
+        leaves = cache_leaves(sc)
         new_sc = {"pos": F.pad(sc["pos"], (0, extra), value=-1)}
         if "table" not in sc:
-            for name in ("k", "v"):
+            for name in leaves:
                 new_sc[name] = F.pad(sc[name], (0, 0, 0, extra))
             new_caches.append({"self": new_sc})
             continue
         table = sc["table"]
         run_len, B, nb = table.shape
-        NB, bs = sc["k"].shape[1], sc["k"].shape[-2]
+        ref = sc[leaves[0]]
+        NB, bs = ref.shape[1], ref.shape[-2]
         add = -(-(sc["pos"].shape[-1] + extra) // bs) - nb
         if add == 0:
-            new_sc.update(k=sc["k"], v=sc["v"], table=table)
+            new_sc.update({name: sc[name] for name in leaves}, table=table)
         else:
             fresh = NB + torch.arange(B * add, dtype=torch.int32,
                                       device=table.device).reshape(B, add)
             new_sc["table"] = torch.cat(
                 [table, fresh[None].expand(run_len, B, add)], dim=-1)
-            for name in ("k", "v"):
-                new_sc[name] = F.pad(sc[name],
-                                     (0, 0, 0, 0, 0, 0, 0, B * add))
+            for name in leaves:
+                # the pool axis (1) grows: pairs of pads from the last axis
+                new_sc[name] = F.pad(sc[name], (0, 0) * (sc[name].ndim - 2)
+                                     + (0, B * add))
         new_caches.append({"self": new_sc})
     return new_caches
 
 
 def _roll_rows(buf, shift):
-    """Right-rotate ``buf`` (run, B, H, S, D) along the S axis, per-batch
-    shift (B,) int32, over the flattened (run, B, H) rows as JAX does."""
+    """Right-rotate ``buf`` (run, B, H, S, D), or an MLA latent (run, B, S,
+    r), along the S axis, per-batch shift (B,) int32, over the flattened
+    (run, B[, H]) rows as JAX does."""
     lead = buf.shape[:-2]
     reps = 1
     for d in lead:
@@ -344,27 +389,31 @@ def _roll_rows(buf, shift):
     per_b = reps // (lead[0] * lead[1])          # heads folded after batch
     shift_r = (shift.to(torch.int32).repeat_interleave(per_b)
                .repeat(lead[0]).contiguous())
-    flat = buf.reshape((reps,) + tuple(buf.shape[-2:]))
+    # a gathered paged view sliced to its logical width is strided
+    flat = buf.reshape((reps,) + tuple(buf.shape[-2:])).contiguous()
     return cache_roll(flat, shift_r).reshape(buf.shape)
 
 
 def _paged_run_gather(sc):
-    """Dense logical K/V view of one paged cache run: {"k", "v": (run, B,
-    Hkv, S, D)} with S the logical (``pos``) width, through the
-    ``paged_gather`` kernel with heads folded into the block rows."""
+    """Dense logical view of one paged cache run's leaves: {"k", "v": (run,
+    B, Hkv, S, D)} or {"ckv", "krope": (run, B, S, r)} with S the logical
+    (``pos``) width, through the ``paged_gather`` kernel with heads folded
+    into the block rows."""
     table = sc["table"]
     run_len, B, nb = table.shape
     S_log = sc["pos"].shape[-1]
     out = {}
-    for name in ("k", "v"):
+    for name in cache_leaves(sc):
         pool = sc[name]
-        NB, Hkv, bs, D = pool.shape[1:]
+        NB, bs, D = pool.shape[1], pool.shape[-2], pool.shape[-1]
+        H = pool.shape[2] if pool.ndim == 5 else 1
         r0 = torch.arange(run_len, dtype=torch.int32,
                           device=pool.device)[:, None, None]
         tab = (r0 * NB + table.to(torch.int32)).reshape(run_len * B, nb)
-        g = paged_gather(pool.view(run_len * NB, Hkv * bs, D), tab)
-        out[name] = (g.view(run_len, B, nb, Hkv, bs, D).transpose(2, 3)
-                     .reshape(run_len, B, Hkv, nb * bs, D)[..., :S_log, :])
+        g = paged_gather(pool.view(run_len * NB, H * bs, D), tab)
+        g = (g.view(run_len, B, nb, H, bs, D).transpose(2, 3)
+             .reshape(run_len, B, H, nb * bs, D)[..., :S_log, :])
+        out[name] = g if pool.ndim == 5 else g[:, :, 0]
     return out
 
 
@@ -385,8 +434,9 @@ def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
     Row b's accepted context occupies slots [P - p_len, P + n) after the
     prefill over [prompt | draft]; rotating right by ``shift[b] = width -
     (P + n[b])`` lands it at [width - valid_len, width).  ``pos`` is
-    rewritten in closed form (-1 outside the valid range); only k and v are
-    rolled, so wrapped-in slots keep their stale K/V, as in JAX.
+    rewritten in closed form (-1 outside the valid range); only the per-slot
+    leaves (k and v, or MLA's ckv and krope) are rolled, so wrapped-in
+    slots keep their stale entries, as in JAX.
 
     A paged cache (§13, identity-stripe tables the rollout owns alone) is
     gathered to its dense logical view (``paged_gather``), rolled like the
@@ -407,13 +457,13 @@ def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
         new_sc = {"pos": pos_row[None].repeat(run_len, 1, 1)}
         if "table" in sc:
             nb = sc["table"].shape[-1]
-            bs = sc["k"].shape[-2]
+            bs = sc[cache_leaves(sc)[0]].shape[-2]
             for name, buf in _paged_run_gather(sc).items():
                 rolled = _pad_to_blocks(_roll_rows(buf, shift), nb, bs)
                 new_sc[name] = paged_slot_write(sc[name], rolled, sc["table"])
             new_sc["table"] = sc["table"]
         else:
-            for name in ("k", "v"):
+            for name in cache_leaves(sc):
                 new_sc[name] = _roll_rows(sc[name], shift)
         new_caches.append({"self": new_sc})
     return new_caches
@@ -437,9 +487,10 @@ def write_cache_slots(cfg: ModelConfig, dst_caches, src_caches, slots):
 
     dst_caches: trunk caches over B slots; src_caches: the same structure
     over R admitted rows (same sequence length); slots: (R,) destination
-    slot per source row.  Row ``slots[i]`` of every K/V buffer is replaced
-    by source row ``i`` through the ``cache_slot_write`` kernel on the
-    flattened (run, batch, head) rows, the layout ``cache_roll`` rolls; the
+    slot per source row.  Row ``slots[i]`` of every per-slot buffer (K/V,
+    or MLA's latent) is replaced by source row ``i`` through the
+    ``cache_slot_write`` kernel on the flattened (run, batch[, head]) rows,
+    the layout ``cache_roll`` rolls; the
     last source row wins on a duplicate slot (the admission path pads a
     group by repeating its row 0).  ``pos`` rides a plain scatter.  Every
     other slot is untouched.  Returns dst_caches."""
@@ -452,9 +503,10 @@ def write_cache_slots(cfg: ModelConfig, dst_caches, src_caches, slots):
         dev = dsc["pos"].device
         sl = torch.as_tensor(slots, dtype=torch.int64, device=dev)
         dsc["pos"][:, sl] = ssc["pos"]
-        for name in ("k", "v"):
+        for name in cache_leaves(dsc):
             d, s = dsc[name], ssc[name]
-            run_len, B, H = d.shape[:3]
+            run_len, B = d.shape[:2]
+            H = d.shape[2] if d.ndim == 5 else 1
             R = s.shape[1]
             r0 = torch.arange(run_len, device=dev)[:, None, None]
             h = torch.arange(H, device=dev)[None, None, :]
@@ -480,12 +532,13 @@ def _write_cache_slots_paged(dst_caches, src_caches, slots):
         if S_src > S_paged:
             raise ValueError(f"admitted rows ({S_src} slots) are wider than "
                              f"the paged cache ({S_paged})")
+        leaves = cache_leaves(dsc)
         nb = dsc["table"].shape[-1]
-        bs = dsc["k"].shape[-2]
+        bs = dsc[leaves[0]].shape[-2]
         dsc["pos"][:, sl] = torch.nn.functional.pad(
             ssc["pos"], (0, S_paged - S_src), value=-1)
         table = dsc["table"][:, sl]                      # (run, R, nb)
-        for name in ("k", "v"):
+        for name in leaves:
             paged_slot_write(dsc[name], _pad_to_blocks(ssc[name], nb, bs),
                              table)
     return dst_caches

@@ -67,7 +67,7 @@ import torch
 from repro_torch.engine.generate import GenerateConfig
 from repro_torch.engine.sampling import sample, split_key
 from repro_torch.models import model as M
-from repro_torch.models.attention import init_paged_kv_cache
+from repro_torch.models.attention import cache_leaves, init_paged_kv_cache
 from repro_torch.models.blocks import signature_runs
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import MetricsRegistry
@@ -130,7 +130,7 @@ class PagedSlotEngine(SlotEngine):
                 name: buf[None].repeat((run_len,) + (1,) * buf.ndim)
                 for name, buf in one.items()}})
             del one
-            for name in ("k", "v"):
+            for name in cache_leaves(caches[-1]["self"]):
                 buf = caches[-1]["self"][name]
                 blk_bytes += run_len * buf[0, 0].numel() * buf.element_size()
         # bytes ONE block holds across every layer of the trunk — the unit
@@ -398,7 +398,7 @@ class PagedSlotEngine(SlotEngine):
                              device=dev)
         for run in self.caches:
             sc = run["self"]
-            for name in ("k", "v"):
+            for name in cache_leaves(sc):
                 sc[name][:, d] = sc[name][:, s]
             sc["table"][:, sl, ix] = nv
 

@@ -1,9 +1,11 @@
-"""The four architectures of the port's mixture-of-experts slice on the CPU
-against the JAX model, with JAX's parameters carried across by
-``from_jax_params``: deepseek-7b (MHA, G = 1), qwen1.5-110b (QKV bias),
-granite-34b (MQA, a GELU MLP) and mixtral-8x22b (MoE, sliding window), each
-``reduced()`` in float32, mixtral also with ``moe_impl="dispatch"`` and a
-window of 5 (shorter than the sequences, so it masks).
+"""The four architectures of the port's mixture-of-experts slice and
+deepseek-v3-671b on the CPU against the JAX model, with JAX's parameters
+carried across by ``from_jax_params``: deepseek-7b (MHA, G = 1),
+qwen1.5-110b (QKV bias), granite-34b (MQA, a GELU MLP), mixtral-8x22b (MoE,
+sliding window) and deepseek-v3-671b (MLA over a latent cache, MoE with a
+shared expert after a dense layer, an MTP head), each ``reduced()`` in
+float32, mixtral also with ``moe_impl="dispatch"`` and a window of 5
+(shorter than the sequences, so it masks).
 
 Held: ``forward`` logits and aux, ``score``, prefill plus decode steps and
 the caches, ``realign_decode_cache``, and a two-epoch one-pass ``rollout``
@@ -11,7 +13,8 @@ the caches, ``realign_decode_cache``, and a two-epoch one-pass ``rollout``
 one GRPO ``optimize`` of reduced mixtral (dispatch) with the tolerances of
 ``test_torch_train.py``'s optimize.  jamba-v0.1-52b's, pixtral-12b's and
 whisper-tiny's configs are checked here with the others (their models:
-``test_torch_mamba.py``, ``test_torch_frontends.py``), and the two
+``test_torch_mamba.py``, ``test_torch_frontends.py``; deepseek-v3's MLA
+layer, MTP, slot engines and GRPO step: ``test_torch_mla.py``), and the two
 frontends go through the port's twin of ``tests/test_archs_smoke.py``:
 forward shapes, one LM-loss train step and one serve step.  Inputs are
 numpy arrays from a seed; torch runs on one thread; JAX's model functions
@@ -45,6 +48,7 @@ from repro_torch.data.tokenizer import EOS_ID, PAD_ID  # noqa: E402
 from repro_torch.engine.generate import (GenerateConfig,  # noqa: E402
                                          positions_from_mask, score)
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.attention import cache_leaves  # noqa: E402
 from repro_torch.models.blocks import check_supported  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
 from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems  # noqa: E402
@@ -63,9 +67,11 @@ ARCHS = {
     "mixtral-8x22b": ("mixtral-8x22b", {}),
     "mixtral-dispatch-w5": ("mixtral-8x22b", {"moe_impl": "dispatch",
                                               "sliding_window": 5}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {}),
 }
 NEW_ARCHS = ("deepseek-7b", "qwen1.5-110b", "granite-34b", "mixtral-8x22b",
-             "jamba-v0.1-52b", "pixtral-12b", "whisper-tiny")
+             "jamba-v0.1-52b", "pixtral-12b", "whisper-tiny",
+             "deepseek-v3-671b")
 FRONTENDS = ("pixtral-12b", "whisper-tiny")
 
 
@@ -136,29 +142,13 @@ def _near(got, want, what, atol=ATOL):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_arch_registered_with_jax_config(arch):
     """The port's config is JAX's, field for field; its model holds JAX's
-    parameter count (checked per case below) and passes the support
-    gate."""
+    parameter count (checked per case below; deepseek-v3-671b's whole
+    count in ``test_torch_mla.py``) and passes the support gate."""
     import dataclasses
     assert arch in ARCH_IDS
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
         jax_get_config(arch))
     check_supported(get_config(arch))
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mla-only", "mtp-only"])
-def test_other_families_still_refused(arch):
-    """MLA and MTP stay refused, together (deepseek-v3-671b) and each
-    alone, every message naming ROADMAP Queue 1 item 10 (the encoder and
-    the vision prefix are ported: ``test_torch_frontends.py``)."""
-    import dataclasses
-    from repro_torch.models.config import ModelConfig
-    v3 = ModelConfig(**dataclasses.asdict(jax_get_config("deepseek-v3-671b")))
-    cfg = {"deepseek-v3-671b": v3, "mla-only": v3.replace(mtp=False),
-           "mtp-only": get_config("qwen3-1.7b").replace(mtp=True)}[arch]
-    assert "deepseek-v3-671b" not in ARCH_IDS
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10"):
-        check_supported(cfg)
 
 
 def _frontend_inputs(cfg, Bs=2, T=12):
@@ -306,7 +296,9 @@ def test_prefill_decode_and_realign_match(built, inputs, case):
                                kv_length=kw["kv_length"],
                                kv_start=torch.from_numpy(kw["kv_start"]))
         _near(tl, jl, f"decode step {s} logits")
-    for name in ("k", "v"):
+    leaves = cache_leaves(tc[0]["self"])       # k, v; MLA's ckv, krope
+    assert set(tc[0]["self"]) == set(jc[0]["self"]) == {*leaves, "pos"}
+    for name in leaves:
         _near(tc[0]["self"][name], jc[0]["self"][name], f"cache {name}")
     np.testing.assert_array_equal(tc[0]["self"]["pos"].numpy(),
                                   np.asarray(jc[0]["self"]["pos"]))
@@ -317,7 +309,7 @@ def test_prefill_decode_and_realign_match(built, inputs, case):
                                 torch.from_numpy(valid), S)
     np.testing.assert_array_equal(tr[0]["self"]["pos"].numpy(),
                                   np.asarray(jr[0]["self"]["pos"]))
-    for name in ("k", "v"):
+    for name in leaves:
         _near(tr[0]["self"][name], jr[0]["self"][name], f"rolled {name}")
 
 

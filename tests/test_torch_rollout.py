@@ -289,7 +289,8 @@ SLICE_MODULES = (
     "repro_torch.configs.granite_34b", "repro_torch.configs.mixtral_8x22b",
     "repro_torch.models.mamba", "repro_torch.kernels.mamba_scan.ops",
     "repro_torch.configs.jamba_v0p1_52b", "repro_torch.configs.pixtral_12b",
-    "repro_torch.configs.whisper_tiny")
+    "repro_torch.configs.whisper_tiny",
+    "repro_torch.configs.deepseek_v3_671b")
 
 
 def test_port_imports_no_jax_and_no_repro():

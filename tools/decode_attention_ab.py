@@ -175,7 +175,7 @@ def main() -> int:
         _build.launch("repro_decode_attention", dev,
                       *(t.data_ptr() for t in (q, k, v, q_pos, k_pos,
                                                lengths, starts, out)),
-                      B, Hq, Hkv, 1, S, D, C, 0, scale)
+                      B, Hq, Hkv, 1, S, D, D, C, 0, scale)
         return out
 
     def compare(label, old_fn, new_fn, plain_fn, new_kernel):

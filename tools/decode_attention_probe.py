@@ -46,14 +46,16 @@ WORK = ROOT / "build" / "decode_attention_probe"
 WAIT = "      hopper::mbar_wait(&full[s], (i / NS) & 1);\n      float sc[ROUNDS];\n"
 RELEASE = ("      __syncwarp();\n      if (lane == 0) hopper::mbar_arrive(&empty[s]);"
            "\n    }\n")
-COPIES = ("        hopper::mbar_expect_tx(&full[s], 2 * bytes);\n"
-          "        hopper::bulk_load(ks, p.k + row * D, bytes, &full[s]);\n"
-          "        hopper::bulk_load(ks + TILE * ROW, p.v + row * D, bytes, &full[s]);\n")
+COPIES = ("        hopper::mbar_expect_tx(&full[s], n * (ROWK + ROWV));\n"
+          "        hopper::bulk_load(ks + (lo - j0) * ROWK, p.k + row * DK, n * ROWK,\n"
+          "                          &full[s]);\n"
+          "        hopper::bulk_load(ks + TILE * ROWK + (lo - j0) * ROWV, p.v + row * DV,\n"
+          "                          n * ROWV, &full[s]);\n")
 KPOS = "          hopper::cp_async_4(kps + j, p.k_pos + (size_t)b * S + j0 + j);\n"
 NO_COMPUTE = [(WAIT, WAIT.replace("      float sc", "      if (p.G < 0) {\n      float sc")),
               (RELEASE, "      }\n" + RELEASE)]
 NO_LOADS = [(COPIES, "        hopper::mbar_arrive(&full[s]);\n        (void)ks;\n"
-                     "        (void)bytes;\n        (void)row;\n"),
+                     "        (void)n;\n        (void)row;\n"),
             (KPOS, "          kps[j] = j0 + j;\n")]
 VARIANTS = {"kernel": [], "no compute": NO_COMPUTE, "no loads": NO_LOADS,
             "neither": NO_COMPUTE + NO_LOADS}
@@ -82,9 +84,9 @@ TRACE = [
      "TR[1] = clk(); }\n"),
     ("  const int ntiles = t_hi - t_lo;\n",
      "  const int ntiles = t_hi - t_lo;\n  if (tid == 0) TR[2] = clk();\n"),
-    ("      if (lane == 0) {\n        const uint32_t bytes",
+    ("      if (lane == 0) {\n        const uint32_t n",
      "      if (lane == 0 && i == 0) TR[5] = clk();\n"
-     "      if (lane == 0) {\n        const uint32_t bytes"),
+     "      if (lane == 0) {\n        const uint32_t n"),
     (WAIT, WAIT + "      if (lane == 0 && i < NW) TR[8 + 2 * i] = clk();\n"),
     (RELEASE, "      if (lane == 0 && i < NW) TR[9 + 2 * i] = clk();\n" + RELEASE),
     ("  // ---- rank c > 0 hands its partial to rank 0 and leaves\n",
@@ -179,7 +181,7 @@ def main() -> int:
         _build.check(lib.repro_decode_attention(
             *(t.data_ptr() for t in (q, k, v, q_pos, k_pos, lengths, starts,
                                      out)),
-            B, Hq, Hkv, 1, S, D, C, 0, 1.0 / math.sqrt(D),
+            B, Hq, Hkv, 1, S, D, D, C, 0, 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream), "probe")
         return out
 
