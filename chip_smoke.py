@@ -98,12 +98,36 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    than ``BF16_GAP`` times the CPU's from the CPU's float32 run; the
    reduced rwkv6-3b also in float32, card vs CPU within ``SMALL_TOL_F32``
    (the attention kernels take bfloat16 only);
-5. runs twenty-seven paths (random weights from a seed), each with the launch
-   counts set to 0 just before it and read just after, and checks their
+5. runs twenty-eight paths (random weights from a seed), each with the launch
+   counts set to 0 just before it and read just after (on the mesh's
+   ranks: each rank's, summed), and checks their
    outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
-   ``draft_slots``, ``observatory``, ``faults``, ``ppo`` and ``dapo`` run
-   the model cut to ``CUT_LAYERS`` of its layers (full width), which pays
-   for ``async``, ``watchdog`` and the observatory inside the time limit:
+   ``draft_slots``, ``observatory``, ``faults``, ``ppo``, ``dapo`` and
+   the slot engine's and paged breakdowns run the model cut to
+   ``CUT_LAYERS`` of its layers (full width), ``async`` to
+   ``ASYNC_LAYERS``, and ``rwkv`` ``RWKV_LAYERS`` of its 32, which pays for
+   ``watchdog``, the observatory and ``mesh`` inside the time limit:
+   ``mesh``     the §8 mesh (``mesh_path``): qwen3-1.7b at full width cut
+                to ``MESH_LAYERS`` layers, the single-process reference first
+                (its rows, its sampler records and its teacher-forced
+                scores kept in numpy, the model freed), then four ``gloo``
+                ranks sharing ``cuda:0`` as a (2, 2) mesh (``run_ranks``;
+                a rank: 8 of 16 query heads, 4 of 8 KV heads, half the
+                batch's rows), each running the two epochs of every
+                ``MESH_MODES`` mode (the fixed batch and
+                ``backfill="slots"``, dense and paged; per-row keys; epoch
+                1 one-pass, verifying the reference's epoch-0 rows) and
+                scoring the reference's rows: teacher-forced log-probs
+                within ``MESH_LP_TOL``; rows equal up to their first
+                parting, a parting at the accept test's position (the same
+                uniform on both sides, between their two thresholds; the
+                draft's log-probs within ``MESH_LP_TOL``) or at a
+                sampled token whose two candidates lie among both sides'
+                ``MESH_TOP_K`` best sampler scores, each score shifted by
+                at most ``MESH_LP_TOL`` (``SampleRecorder``; before the
+                partings every shared score too); every rank's rows equal;
+                kernels 1–7 launched on every rank; a ``mesh`` line with
+                times, each rank's peak GiB, the gap and the partings;
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
                 full-depth qwen3-1.7b with the fixed decode batch (epoch 0
                 vanilla, epoch 1 the one-pass speculative branch);
@@ -126,8 +150,8 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 continued by ``drafted_resume``; each epoch line adds its
                 macro-steps, ``draft_accept_rate``, ``draft_mean_len``,
                 ``tokens_per_forward`` and the decode kernels' launches by
-                T; then, outside the paths' counts, the greedy witness:
-                B = 16, ``WITNESS_N`` tokens of greedy drafted decoding
+                T; then, outside the paths' counts, the greedy witness at
+                full depth: B = 16, ``WITNESS_N`` tokens of greedy drafted decoding
                 against greedy vanilla decoding, every row equal up to its
                 first difference and, there, both tokens within the
                 measured block-vs-step logit gap of the step's largest
@@ -191,7 +215,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 the SPEC-RL cache the first round filled) and merged back,
                 the other rows untouched (``train dapo`` line: each
                 round's reuse, time and launches);
-   ``async``    the §12 loop on the full-depth model: ``AsyncTrainer`` over
+   ``async``    the §12 loop on the cut model: ``AsyncTrainer`` over
                 a fresh GRPO trainer, three collections under version 0,
                 then one exact, one importance-corrected and one
                 re-verified step (the one-pass branch under the current
@@ -209,7 +233,8 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 2 --ledger --trace-dir --decision-log
                 --assert-compile-stable``), ending with ``0 new on
                 identical replay``;
-   ``rwkv``     two epochs of full-width, full-depth rwkv6-3b (the qwen
+   ``rwkv``     two epochs of full-width rwkv6-3b at ``RWKV_LAYERS`` of 32
+                layers (the qwen
                 model freed first): epoch 1 the two-pass branch (verify
                 score, left-align, re-prefill), every recurrence through
                 ``wkv`` (its launches split by T), no attention or cache
@@ -218,7 +243,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 same two epochs (logged), and the score against prefill +
                 decode steps on the same tokens, with the kernel and with
                 the plain recurrence, and against the score of embeddings
-                nudged by 1e-7, at full depth (within ``CHAOS_FACTOR``) and
+                nudged by 1e-7, at ``RWKV_LAYERS`` (within ``CHAOS_FACTOR``) and
                 cut to one layer (within ``CONSISTENCY_TOL``);
    ``archs``    each of deepseek-7b (8 of 30 layers), qwen1.5-110b (2 of
                 80), granite-34b (4 of 88), mixtral-8x22b (4 of 56,
@@ -255,8 +280,10 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    ``serve frontends`` ``launch.serve --engine fixed`` of both (the
                 launcher's reduced configs), every request served;
    after ``rollout``, ``slots``, ``paged`` and ``rwkv``, a ``breakdown``
-   line shows where 16 decode steps of the path's decode loop (at full
-   depth) spend their time (host wall time, device busy time, kernel
+   line shows where 16 decode steps of the path's decode loop (the
+   rollout's at full depth, the slot engine's and the paged one's at
+   ``CUT_LAYERS``, rwkv's at ``RWKV_LAYERS``) spend their time (host wall
+   time, device busy time, kernel
    launches, top kernels and host ops from ``torch.profiler``, read from
    a complete trace: a marker before and after the call; the drafted
    loop's: ``tools/draft_breakdown.py``);
@@ -331,7 +358,7 @@ SMALL_TOL_F32 = 1e-3    # card vs CPU logits in float32 (summation order
 # jamba-v0.1-52b's at one layer, Mamba + MoE):
 CONSISTENCY_TOL = 1e-3  # cut to one layer, where rounding stays at 1e-6 and a
                         # fault of the cache hand-off or the kernel would not
-CHAOS_FACTOR = 3.0      # at full depth, where the random weights amplify
+CHAOS_FACTOR = 3.0      # at depth, where the random weights amplify
                         # rounding (a 1e-7 nudge of the embeddings moves the
                         # log-probs by about 0.03, as far as score and decode
                         # differ): the kernel's gap at most this many times
@@ -383,14 +410,22 @@ DRAFT_SLOTS_N = 64              # cut from N to keep the smoke in 15 min
 WITNESS_N, WITNESS_TS = 128, (2, 9)
 WITNESS_GAP_MAX = 0.125
 SLOTS = 8                       # decode slots of the slot-backfill path
-# depth cuts that pay for the async, watchdog and observatory phases inside
-# the 1,200 s limit: these paths run the qwen3-1.7b model cut to CUT_LAYERS
-# of its 28 layers at full width (``cut_depth``: its first layers, sharing its
-# tensors), so their launch counts follow the cut model; each check of
-# theirs is unchanged
-CUT_LAYERS = 14
+# depth cuts that pay for the watchdog, observatory and mesh phases inside
+# the smoke's 1,000 s target (and the 1,200 s limit on the slowest host
+# seen, 1.26x slower than the fastest): these paths run the qwen3-1.7b
+# model cut to CUT_LAYERS of its 28 layers at full width (``cut_depth``:
+# its first layers, sharing its tensors), so their launch counts follow the
+# cut model; each check of theirs is unchanged.  The slot engine's and the
+# paged breakdowns run the cut model too, async ASYNC_LAYERS layers, and
+# rwkv6-3b RWKV_LAYERS of its 32 layers; the greedy witness runs at full
+# depth, where WITNESS_GAP_MAX was read.  (Without these cuts the smoke
+# took 1,147 s on a host where the cut one took 829 s, and the cut one
+# 1,046 s on a slower host.)
+CUT_LAYERS = 8
 CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
              "observatory", "faults", "ppo", "dapo")
+ASYNC_LAYERS = 14
+RWKV_LAYERS = 16
 # the new configs at their published widths, cut in depth to what one card
 # holds beside the paths' caches (ARCH_LAYERS), each through the rollout
 # traffic cut to ARCHS_N new tokens as draft_slots is; mixtral's GRPO step
@@ -408,6 +443,25 @@ ARCH_LAYERS = {"deepseek-7b": 8, "qwen1.5-110b": 2, "granite-34b": 4,
                "mixtral-8x22b": 4, "jamba-v0.1-52b": 8,
                "deepseek-v3-671b": 4}
 ARCHS_N = 64
+# the §8 mesh: four gloo ranks sharing cuda:0 as a (data 2, model 2) mesh
+# (NCCL puts no two ranks on one card), qwen3-1.7b at full width (a rank:
+# 8 of 16 query heads, 4 of 8 KV heads) cut to MESH_LAYERS layers, the
+# rollout traffic at ARCHS_N tokens in each MESH_MODES mode; every
+# collective stages through the host, a few ms each, so the depth keeps
+# the phase near a minute.  MESH_TOP_K sampler scores are kept a sample.
+# MESH_LP_TOL bounds how far the mesh's log-probs (and sampler scores) lie
+# from the single-process reference's: the model axis sums two bf16
+# partial products where one process sums one.  0.0625 is twice the
+# largest gap the H100 has shown (a sampler-score shift of 0.0314, the
+# teacher-forced gap 0.0237; PERF.md §5)
+MESH_SHAPE = (2, 2)
+MESH_WORLD = MESH_SHAPE[0] * MESH_SHAPE[1]
+MESH_LAYERS = 2
+MESH_MODES = (("dense", "none"), ("dense", "slots"), ("paged", "none"),
+              ("paged", "slots"))
+MESH_TOP_K = 8
+MESH_LP_TOL = 0.0625
+MESH_TIMEOUT_S = 400
 # the modality frontends at full width and depth through the same traffic
 # (pixtral-12b: 40 layers, 12.2e9 parameters; whisper-tiny: 4 + 4 layers)
 FRONTEND_LAYERS = {"pixtral-12b": 40, "whisper-tiny": 4}
@@ -3080,18 +3134,20 @@ def paged_path(torch, model, cfg, batch, gen):
 
 
 def rwkv_path(torch):
-    """Two epochs of full-width, full-depth rwkv6-3b: epoch 0 vanilla,
-    epoch 1 the two-pass speculative branch (verify score, left-align,
-    re-prefill and decode), every T of the recurrence through ``wkv``;
-    then its time breakdown.  No attention or cache kernel may run.  Then
-    the witnesses in float32, outside the counts: the same two epochs, and
-    the consistency of score and decode at full depth and at one layer.
+    """Two epochs of full-width rwkv6-3b at ``RWKV_LAYERS`` layers: epoch 0
+    vanilla, epoch 1 the two-pass speculative branch (verify score,
+    left-align, re-prefill and decode), every T of the recurrence through
+    ``wkv``; then its time breakdown.  No attention or cache kernel may
+    run.  Then the witnesses in float32, outside the counts: the same two
+    epochs, and the consistency of score and decode at ``RWKV_LAYERS``
+    layers and at one layer.
     Returns the launches and the ``wkv`` launches by T."""
     from repro_torch.core import SpecConfig
     from repro_torch.kernels import WKV_LAUNCHES_BY_T
     from repro_torch.models import model as M
 
-    model, cfg, batch, gen = setup_model(torch, "rwkv6-3b")
+    model, cfg, batch, gen = setup_model(torch, "rwkv6-3b",
+                                         layers=RWKV_LAYERS)
     spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
     launches, rbs = rollout_path(torch, "rwkv", model, cfg, batch, gen, spec)
     by_t = dict(sorted(WKV_LAUNCHES_BY_T.items()))
@@ -3110,7 +3166,8 @@ def rwkv_path(torch):
     generate_breakdown(torch, model, cfg, gen, batch)
     del model
     torch.cuda.empty_cache()
-    model, cfg32, batch, gen = setup_model(torch, "rwkv6-3b", "float32")
+    model, cfg32, batch, gen = setup_model(torch, "rwkv6-3b", "float32",
+                                           layers=RWKV_LAYERS)
     rollout_path(torch, "rwkv-float32", model, cfg32, batch, gen, spec)
     recurrent_consistency(torch, model, cfg32)
     del model
@@ -3676,8 +3733,8 @@ def same_weights(torch, label, got, want):
 
 
 def async_path(torch, model, cfg, batch):
-    """The async rollout ↔ train seam on the full-depth model: a fresh GRPO
-    ``make_trainer`` under ``AsyncTrainer`` (``ASYNC_SCHEDULE``, window
+    """The async rollout ↔ train seam on the model cut to ``ASYNC_LAYERS``: a
+    fresh GRPO ``make_trainer`` under ``AsyncTrainer`` (``ASYNC_SCHEDULE``, window
     ``ASYNC_K``) for ``ASYNC_STEPS`` consumer steps.  The rollout service
     samples with its own copy of the weights: at the bootstrap install and
     at each publish the served (or published) weights must equal the
@@ -4434,6 +4491,490 @@ def serve_path(torch):
     return launches
 
 
+# ------------------------------------------------------------------ mesh
+
+
+class SampleRecorder:
+    """Records every ``sample`` call of the decode paths (``generate``'s
+    loop, the slot engine's admissions and chunks, the paged engine's
+    followers) for the duration of a ``with``: each row's key words and
+    its ``MESH_TOP_K`` best sampler scores (adjusted log-prob plus the
+    Gumbel noise) with their tokens.  The port's ``sample`` draws; the
+    recorder draws the same noise again from the same key batch (a
+    counter hash of the key's words: the same bits), and checks that its
+    best token is the one sampled.  It also records every accept test of
+    the one-pass verify (``core/verify.py``): each row's verify key words,
+    ``lp_curr``, ``lp_prev``, ``u``, ``valid_len`` and the log-lenience,
+    as ``spec_verify`` takes them."""
+
+    MODULES = ("repro_torch.engine.generate",
+               "repro_torch.serving.engine_loop",
+               "repro_torch.serving.paged_engine")
+
+    def __enter__(self):
+        import importlib
+
+        import numpy as np
+
+        from repro_torch.core import verify
+        from repro_torch.engine import sampling
+
+        self.mods = [importlib.import_module(m) for m in self.MODULES]
+        self.real = sampling.sample
+        self.verify = verify
+        self.real_uniforms = verify._accept_uniforms
+        self.real_verify = verify.spec_verify
+        self.calls = []
+        self.verifies = []
+        words = []
+
+        def uniforms(key, B, N):
+            words.append(key.words.cpu().numpy())
+            return self.real_uniforms(key, B, N)
+
+        def accept_test(lp_curr, lp_prev, u, valid_len, log_lenience):
+            self.verifies.append((words.pop(), *(
+                x.float().cpu().numpy() for x in (lp_curr, lp_prev, u)),
+                valid_len.cpu().numpy(), float(log_lenience)))
+            return self.real_verify(lp_curr, lp_prev, u, valid_len,
+                                    log_lenience)
+
+        verify._accept_uniforms = uniforms
+        verify.spec_verify = accept_test
+
+        def spy(key, logits, temperature=1.0, top_p=1.0):
+            tok, lp = self.real(key, logits, temperature, top_p)
+            scores = key.gumbel(logits.shape) + sampling.adjust_logits(
+                logits.float(), temperature, top_p)
+            top = scores.topk(MESH_TOP_K, dim=-1)
+            idx = top.indices.cpu().numpy()
+            vals = top.values.float().cpu().numpy()
+            sampled = tok.cpu().numpy()
+            for r in np.nonzero(idx[:, 0] != sampled)[0]:
+                # a tie at the top (a done row's logits are all equal, and
+                # its noise has 24 bits): the sampled token must hold the
+                # best score too; it goes first
+                at = np.nonzero(idx[r] == sampled[r])[0]
+                require(at.size and vals[r, at[0]] == vals[r, 0],
+                        f"mesh: the recorder's redraw ranks token "
+                        f"{sampled[r]} below {idx[r, 0]}")
+                idx[r, [0, at[0]]] = idx[r, [at[0], 0]]
+            self.calls.append((key.words.cpu().numpy(), idx, vals))
+            return tok, lp
+
+        for m in self.mods:
+            m.sample = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.sample = self.real
+        self.verify._accept_uniforms = self.real_uniforms
+        self.verify.spec_verify = self.real_verify
+
+
+
+def records_by_row(calls, chains):
+    """{(epoch, row, j): (tokens, scores)} of the recorded calls whose key
+    words are row ``row``'s j-th sample key of ``epoch`` (``chains``); the
+    first record of each (a padded admission group repeats its first
+    row; the ranks of a model group record the same rows)."""
+    out = {}
+    for words, idx, vals in calls:
+        for r in range(words.shape[0]):
+            at = chains.get(tuple(int(w) for w in words[r]))
+            if at is not None and at not in out:
+                out[at] = (idx[r], vals[r])
+    return out
+
+
+def accept_tests_by_row(verifies, epoch_words):
+    """{row: (lp_curr, lp_prev, u, valid_len, log_lenience)} of the
+    recorded accept tests of epoch 1, whose row b verifies with its epoch
+    key's second split (``rollout`` and ``rollout_via_slots`` split it so);
+    the first record of each row."""
+    from repro_torch.engine.sampling import KeyBatch, split_key
+
+    _, vkey = split_key(KeyBatch.from_words(epoch_words[1], "cuda"))
+    rows = {tuple(w): b for b, w in enumerate(vkey.words.cpu().tolist())}
+    out = {}
+    for words, lp_curr, lp_prev, u, valid_len, log_len in verifies:
+        for r in range(words.shape[0]):
+            b = rows.get(tuple(int(w) for w in words[r]))
+            if b is not None and b not in out:
+                out[b] = (lp_curr[r], lp_prev[r], u[r], int(valid_len[r]),
+                          log_len)
+    return out
+
+
+def sample_chains(torch, epoch_words):
+    """{key words: (epoch, row, j)}: the key each row's j-th sample draws
+    with, for j up to ``ARCHS_N``.  A row's decode stream is its epoch key
+    split once (the vanilla epoch 0) or twice (epoch 1: the verify's
+    stream, then the decode's), as ``rollout`` and ``rollout_via_slots``
+    split it, then split again before every sample; the streams follow
+    the keys alone, never the tokens, so the fixed batch and the slot
+    engine, the reference and the mesh draw row b's j-th token with the
+    same key."""
+    from repro_torch.engine.sampling import KeyBatch, split_key
+
+    out = {}
+    for epoch, words in enumerate(epoch_words):
+        key = KeyBatch.from_words(words, "cuda")
+        if epoch:
+            key, _ = split_key(key)
+        _, key = split_key(key)
+        for j in range(ARCHS_N + 1):
+            key, sub = split_key(key)
+            for b, w in enumerate(sub.words.cpu().tolist()):
+                out[tuple(w)] = (epoch, b, j)
+    return out
+
+
+def mesh_rollouts(torch, model, cfg, batch, gen, keys, *, mesh=None,
+                  drafts=None):
+    """Each ``MESH_MODES`` mode's two epochs (epoch 0 vanilla, epoch 1 the
+    one-pass branch) with per-row keys (``keys``: each epoch's (B, 2)
+    words), recorded (``SampleRecorder``).  ``drafts``: the reference's
+    epoch-0 batches, by mode: epoch 1 then verifies the reference's rows,
+    so that both sides verify the same drafts.  Returns {mode: (rb0, rb1,
+    recorder)}."""
+    from repro_torch.core import RolloutCache, SpecConfig, rollout
+    from repro_torch.engine.sampling import KeyBatch
+
+    out = {}
+    for layout, backfill in MESH_MODES:
+        mode = f"{layout}/{backfill}"
+        c = cfg.replace(cache_layout=layout)
+        spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
+                          backfill=backfill, backfill_slots=SLOTS)
+        rbs = []
+        with SampleRecorder() as rec:
+            for epoch in (0, 1):
+                cache = RolloutCache(history=spec.cache_history,
+                                     group_size=GROUP)
+                if epoch:
+                    src = drafts[mode] if drafts is not None else rbs[0]
+                    cache.batch_put(batch.cache_keys, src.response,
+                                    src.behaviour_logprobs, src.length, 0,
+                                    gen.eos_id)
+                rbs.append(rollout(model, c, gen, spec, batch.tokens,
+                                   batch.mask, batch.cache_keys, cache,
+                                   KeyBatch.from_words(keys[epoch], "cuda"),
+                                   epoch, mesh=mesh))
+        out[mode] = (rbs[0], rbs[1], rec)
+    return out
+
+
+def _rb_host(rb):
+    return {"response": rb.response, "length": rb.length, "n": rb.n,
+            "lp": rb.behaviour_logprobs,
+            "metrics": {k: v for k, v in rb.metrics.items()
+                        if not k.endswith("_time")}}
+
+
+def mesh_rank(rank, path):
+    """One rank of the ``mesh`` phase: the model cut over its model group,
+    every mode's two epochs over the mesh, the teacher-forced scores of
+    the reference's rows; returns what it saw, with its launches."""
+    import pickle
+
+    import torch
+
+    from repro_torch.distributed.mesh import MeshConfig, shard_params
+    from repro_torch.engine.generate import score
+    from repro_torch.kernels import _build, reset_launches
+
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    t0 = time.perf_counter()
+    _build.library()                  # the parent built it: loaded here
+    mesh = MeshConfig(*MESH_SHAPE, require=True).build("cuda")
+    model, cfg, batch, gen = setup_model(torch, layers=MESH_LAYERS,
+                                         n_new=ARCHS_N)
+    model = shard_params(mesh, cfg, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = mesh_rollouts(torch, model, cfg, batch, gen, data["keys"],
+                         mesh=mesh, drafts=data["drafts"])
+    forced = [score(model, cfg, toks, mask, mesh=mesh)["logprobs"].cpu()
+              .numpy() for toks, mask in data["forced"]]
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read_launches()
+    return {"rank": rank, "backend": torch.distributed.get_backend(),
+            "setup_s": t_setup, "run_s": t_run,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": dict(launches), "by_t": launches.by_t,
+            "mamba_by_t": launches.mamba_by_t,
+            "runs": {mode: ([_rb_host(rb0), _rb_host(rb1)], rec.calls,
+                            rec.verifies)
+                     for mode, (rb0, rb1, rec) in runs.items()},
+            "forced": forced}
+
+
+def mesh_path(torch):
+    """The §8 mesh on the card: the single-process reference first (the
+    model at full width, ``MESH_LAYERS`` layers, in bfloat16; its rows,
+    its sampler records and its teacher-forced scores kept in numpy, the
+    model then freed), then four ``gloo`` ranks on ``cuda:0`` as a (2, 2)
+    mesh (``run_ranks``; NCCL will not put two ranks on one card), each
+    running every mode's two epochs and the teacher-forced scores on its
+    shards.  Checks: the mesh's scores of the reference's rows within
+    ``MESH_LP_TOL`` of the reference's; every row equal to the reference's
+    up to its first parting, and at a parting either the accept test's
+    position (``n`` differs: the same uniform and draft log-prob on both
+    sides, the two thresholds straddling the uniform, and the current
+    log-probs of the draft within the tolerance: ``accept_parting``) or a
+    sampled token where both tokens lie among both sides'
+    best sampler scores, each score shifted by at most ``MESH_LP_TOL``
+    (before every parting, every shared token's shift too), the
+    reference's margin between them no more than their shifts' difference;
+    epoch 1 one-pass with ``n_reused > 0``; every rank's rows equal bit for
+    bit; and the seven attention-path kernels launched on the ranks (their
+    sum is the path's count).  Times mean nothing about NCCL or several
+    cards."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.distributed.mesh import run_ranks
+    from repro_torch.engine.generate import score
+    from repro_torch.engine.sampling import make_key, request_keys, split_key
+    from repro_torch.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    model, cfg, batch, gen = setup_model(torch, layers=MESH_LAYERS,
+                                         n_new=ARCHS_N)
+    B = PROMPTS * GROUP
+    key = make_key(SEED)
+    keys = []
+    for _ in (0, 1):
+        key, sub = split_key(key)
+        keys.append(request_keys(sub, B).words.cpu().numpy())
+    before = dict(LAUNCHES)
+    ref = mesh_rollouts(torch, model, cfg, batch, gen, keys)
+    dense = ref["dense/none"]
+    # [prompt | response] of each epoch, for the teacher-forced scores
+    forced = [(np.concatenate([batch.tokens, rb.response], 1),
+               np.concatenate([batch.mask, rb.response_mask], 1))
+              for rb in dense[:2]]
+    ref_forced = [score(model, cfg, toks, mask)["logprobs"].cpu().numpy()
+                  for toks, mask in forced]
+    require(dict(LAUNCHES) != before, "mesh: the reference launched nothing")
+    chains = sample_chains(torch, keys)
+    ref_rec = {mode: records_by_row(rec.calls, chains)
+               for mode, (_, _, rec) in ref.items()}
+    ref_acc = {mode: accept_tests_by_row(rec.verifies, keys)
+               for mode, (_, _, rec) in ref.items()}
+    ref_rbs = {mode: [_rb_host(rb0), _rb_host(rb1)]
+               for mode, (rb0, rb1, _) in ref.items()}
+    t_ref = time.perf_counter() - t0
+    drafts = {mode: rb0 for mode, (rb0, _, _) in ref.items()}
+    del model, ref, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh: reference ({MESH_LAYERS} layers, {len(MESH_MODES)} modes) "
+        f"in {t_ref:.1f} s; {len(MESH_MODES)} modes x 2 epochs on a "
+        f"{MESH_SHAPE} gloo mesh of {MESH_WORLD} ranks on cuda:0")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"keys": keys, "drafts": drafts, "forced": forced},
+                        f)
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, MESH_WORLD, (path,), device="cuda",
+                          timeout=MESH_TIMEOUT_S)
+        t_ranks = time.perf_counter() - t0
+
+    # the mesh's teacher-forced scores of the reference's rows
+    gaps = []
+    for (toks, mask), want, got in zip(forced, ref_forced,
+                                       ranks[0]["forced"]):
+        valid = mask & np.concatenate([np.zeros_like(mask[:, :1]),
+                                       mask[:, :-1]], 1)
+        gaps.append(float(np.abs(got - want)[valid].max()))
+    lp_gap = max(gaps)
+    require(lp_gap <= MESH_LP_TOL, f"mesh: teacher-forced log-prob gap "
+            f"{gaps} passes MESH_LP_TOL {MESH_LP_TOL}")
+    for r in ranks[1:]:
+        for a, b in zip(r["forced"], ranks[0]["forced"]):
+            require(np.array_equal(a, b), f"mesh: rank {r['rank']}'s scores "
+                    "differ from rank 0's")
+
+    summary = {}
+    for mode, want in ref_rbs.items():
+        got = ranks[0]["runs"][mode][0]
+        for r in ranks[1:]:
+            for e in (0, 1):
+                for k in ("response", "length", "n", "lp"):
+                    require(np.array_equal(r["runs"][mode][0][e][k],
+                                           got[e][k]),
+                            f"mesh {mode} epoch {e}: rank {r['rank']}'s "
+                            f"{k} differs from rank 0's")
+        mesh_rec = records_by_row(
+            [c for r in ranks for c in r["runs"][mode][1]], chains)
+        mesh_acc = accept_tests_by_row(
+            [v for r in ranks for v in r["runs"][mode][2]], keys)
+        summary[mode] = mesh_partings(mode, want, got, ref_rec[mode],
+                                      mesh_rec, ref_acc[mode], mesh_acc)
+        require(got[1]["metrics"]["one_pass"] == 1.0
+                and got[1]["metrics"]["n_reused"] > 0,
+                f"mesh {mode}: epoch 1 was not one-pass with reuse: "
+                f"{got[1]['metrics']}")
+
+    launches = Launches({k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]})
+    launches.by_t = {name: {} for name in ranks[0]["by_t"]}
+    for r in ranks:
+        for name, by_t in r["by_t"].items():
+            for T, c in by_t.items():
+                launches.by_t[name][T] = launches.by_t[name].get(T, 0) + c
+    launches.mamba_by_t = {}
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll", "cache_slot_write", "paged_decode_attention",
+                 "paged_gather"):
+        require(launches[name] > 0, f"mesh: kernel {name} was not launched "
+                "on the ranks")
+        require(all(r["launches"][name] > 0 for r in ranks),
+                f"mesh: a rank launched no {name}")
+    line = {"shape": list(MESH_SHAPE), "backend": ranks[0]["backend"],
+            "layers": MESH_LAYERS, "N": ARCHS_N,
+            "reference_s": t_ref, "ranks_s": t_ranks,
+            "rank_setup_s": [r["setup_s"] for r in ranks],
+            "rank_run_s": [r["run_s"] for r in ranks],
+            "rank_peak_gib": [r["peak_gib"] for r in ranks],
+            "forced_lp_gap_by_epoch": gaps, "lp_tol": MESH_LP_TOL,
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "modes": summary}
+    log("mesh " + json.dumps(line))
+    return launches
+
+
+def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc):
+    """Each epoch's rows of one mode, mesh against reference: equal up to
+    their first parting, every parting explained (``mesh_path``); the
+    sampler-score shifts before the partings within ``MESH_LP_TOL``.
+    ``ref_acc`` / ``mesh_acc``: each side's epoch-1 accept tests by row
+    (``accept_tests_by_row``).  Returns the mode's line."""
+    import numpy as np
+
+    out = {}
+    for e in (0, 1):
+        w, g = want[e], got[e]
+        rows_equal, n_parts, draw_parts, shift = 0, [], [], 0.0
+        for b in range(len(w["length"])):
+            diff = first_difference(w["response"][b:b + 1],
+                                    g["response"][b:b + 1])
+            if diff is None and w["length"][b] == g["length"][b]:
+                rows_equal += 1
+            n_b = int(w["n"][b])
+            if int(g["n"][b]) != n_b:
+                m = min(n_b, int(g["n"][b]))
+                require(diff is None or diff[1] >= m,
+                        f"mesh {mode} epoch {e} row {b}: parts at {diff} "
+                        f"before its shorter accepted prefix {m}")
+                n_parts.append(accept_parting(
+                    f"mesh {mode} epoch {e} row {b}", ref_acc.get(b),
+                    mesh_acc.get(b), n_b, int(g["n"][b])) | {"row": b})
+                continue
+            c = (diff[1] if diff is not None else
+                 min(int(w["length"][b]), int(g["length"][b])))
+            # the sampled tokens before the parting: same prefix, same key
+            for j in range(c - (n_b if e else 0)):
+                rr, mr = ref_rec.get((e, b, j)), mesh_rec.get((e, b, j))
+                require(rr is not None and mr is not None,
+                        f"mesh {mode} epoch {e} row {b}: no record of sample "
+                        f"{j}")
+                common = set(rr[0].tolist()) & set(mr[0].tolist())
+                for t in common:
+                    shift = max(shift, abs(
+                        float(mr[1][list(mr[0]).index(t)])
+                        - float(rr[1][list(rr[0]).index(t)])))
+            if diff is None:
+                continue
+            j = c - (n_b if e else 0)
+            require(j >= 0, f"mesh {mode} epoch {e} row {b}: parts inside "
+                    f"its accepted prefix ({c} < {n_b})")
+            rr, mr = ref_rec.get((e, b, j)), mesh_rec.get((e, b, j))
+            require(rr is not None and mr is not None,
+                    f"mesh {mode} epoch {e} row {b}: no record of the "
+                    f"parting sample {j}")
+            a, t = int(rr[0][0]), int(mr[0][0])
+            require(a == int(w["response"][b, c])
+                    and t == int(g["response"][b, c]),
+                    f"mesh {mode} epoch {e} row {b}: the records' tokens "
+                    f"({a}, {t}) are not the rows' at column {c}")
+            in_both = (t in rr[0].tolist() and a in mr[0].tolist())
+            require(in_both, f"mesh {mode} epoch {e} row {b} column {c}: "
+                    f"token {a} (reference) or {t} (mesh) is not among both "
+                    f"sides' {MESH_TOP_K} best sampler scores: {rr}, {mr}")
+
+            def s(rec, tok):
+                return float(rec[1][list(rec[0]).index(tok)])
+            d_a, d_t = s(mr, a) - s(rr, a), s(mr, t) - s(rr, t)
+            margin = s(rr, a) - s(rr, t)
+            require(max(abs(d_a), abs(d_t)) <= MESH_LP_TOL
+                    and margin <= d_t - d_a + 1e-6,
+                    f"mesh {mode} epoch {e} row {b} column {c}: tokens "
+                    f"{a} / {t}, score shifts {d_a} / {d_t}, reference "
+                    f"margin {margin} (MESH_LP_TOL {MESH_LP_TOL})")
+            draw_parts.append({"row": b, "col": c, "margin": margin,
+                               "shifts": [d_a, d_t]})
+        require(shift <= MESH_LP_TOL, f"mesh {mode} epoch {e}: a sampler "
+                f"score shifted {shift} before its row parted "
+                f"(MESH_LP_TOL {MESH_LP_TOL})")
+        out[e] = {"rows_equal": rows_equal, "n_parted": n_parts,
+                  "draw_parted": draw_parts, "shift_before": shift,
+                  "n_generated": g["metrics"]["n_generated"],
+                  "n_reused": g["metrics"]["n_reused"],
+                  "ref_n_reused": w["metrics"]["n_reused"]}
+    return out
+
+
+def accept_parting(what, ref, mesh, n_ref, n_mesh):
+    """The accept test parted a row at m = min(n): both sides verified the
+    reference's epoch-0 row with the same key, so they must hold the same
+    uniform u and draft log-prob at m, the side that accepted at m a
+    threshold min(1, l * p_curr / p_prev) of at least u and the other
+    one below it (the two thresholds straddle u), and the two current
+    log-probs of the row's draft tokens (m among them) within
+    ``MESH_LP_TOL``.  Returns the parting's line."""
+    import numpy as np
+
+    require(ref is not None and mesh is not None,
+            f"{what}: no record of its accept test on both sides")
+    (lc_r, lp_r, u_r, vl_r, ll), (lc_m, lp_m, u_m, vl_m, ll_m) = ref, mesh
+    m = min(n_ref, n_mesh)
+    require(vl_r == vl_m and m < vl_r and ll == ll_m
+            and np.array_equal(u_r, u_m) and np.array_equal(lp_r, lp_m),
+            f"{what}: the two accept tests did not take the same draft "
+            f"(valid {vl_r} / {vl_m}, parting at {m}), lenience ({ll} / "
+            f"{ll_m}) or uniforms")
+
+    def alpha(lc):
+        return float(np.exp(np.minimum(
+            np.float32(0), lc[m] - lp_r[m] + np.float32(ll))))
+    a_r, a_m = alpha(lc_r), alpha(lc_m)
+    a_acc, a_rej = (a_r, a_m) if n_ref > n_mesh else (a_m, a_r)
+    u = float(u_r[m])
+    gap = float(np.abs(lc_r[:vl_r] - lc_m[:vl_r]).max())
+    require(a_rej < u <= a_acc and gap <= MESH_LP_TOL,
+            f"{what}: accept test at {m}: u {u}, thresholds {a_acc} "
+            f"(accepting side) / {a_rej} (rejecting side), log-prob gap "
+            f"{gap} over the draft (MESH_LP_TOL {MESH_LP_TOL})")
+    return {"n": [n_ref, n_mesh], "u": u, "alpha": [a_r, a_m],
+            "lp_curr": [float(lc_r[m]), float(lc_m[m])],
+            "lp_prev": float(lp_r[m]), "lp_gap": gap}
+
+
 BREAKDOWN_STEPS = 16
 _PROFILE_ROWS = ["what\tside\tname\tcalls\tself_ms"]
 
@@ -4610,20 +5151,23 @@ def main() -> int:
         sliding_window=8)
     for arch in FRONTEND_LAYERS:
         run(f"small {arch}", small_reference, torch, arch, SMALL_TOL[arch])
+    paths = {"mesh": run("mesh", mesh_path, torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
     model, cfg, batch, gen = setup_model(torch)
     cut_model, cut_cfg = cut_depth(model, cfg, CUT_LAYERS)
     log(f"paths {', '.join(CUT_PATHS)} run the model cut to {CUT_LAYERS} "
         f"of its {cfg.num_layers} layers")
-    paths = {"rollout": run("rollout", main_path, torch, model, cfg, batch,
-                            gen)}
+    paths["rollout"] = run("rollout", main_path, torch, model, cfg, batch,
+                           gen)
     paths["slots"], slots_rbs = run("slots", slots_path, torch, cut_model,
                                     cut_cfg, batch, gen)
-    run("slot engine breakdown", engine_breakdown, torch, model, cfg, gen,
-        batch)
+    run("slot engine breakdown", engine_breakdown, torch, cut_model, cut_cfg,
+        gen, batch)
     paths["paged"] = run("paged", paged_path, torch, cut_model, cut_cfg,
                          batch, gen)
-    run("paged breakdown", generate_breakdown, torch, model,
-        cfg.replace(cache_layout="paged"), gen, batch)
+    run("paged breakdown", generate_breakdown, torch, cut_model,
+        cut_cfg.replace(cache_layout="paged"), gen, batch)
     paths["paged_slots"] = run("paged_slots", paged_slots_path, torch,
                                cut_model, cut_cfg, batch, gen, slots_rbs)
     paths["draft"] = run("draft", draft_path, torch, cut_model, cut_cfg,
@@ -4650,7 +5194,8 @@ def main() -> int:
                         *cut_depth(model, cfg, CUT_LAYERS), batch)
     gc.collect()                # the DAPO trainer
     torch.cuda.empty_cache()
-    paths["async"] = run("async", async_path, torch, model, cfg, batch)
+    paths["async"] = run("async", async_path, torch,
+                         *cut_depth(model, cfg, ASYNC_LAYERS), batch)
     del model
     gc.collect()
     torch.cuda.empty_cache()

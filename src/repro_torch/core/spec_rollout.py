@@ -30,8 +30,17 @@ engine on an attention trunk (``use_drafting``): the vanilla branch decodes
 through ``drafted_generate`` with the rows' sibling corpus, the one-pass
 branch continues through ``drafted_resume`` from contexts prompt ⊕
 ``draft[:n]``; the two-pass branch, a recurrent trunk and the ablations
-decode vanilla, as in JAX.  The mesh raises ``NotImplementedError`` and names
-its ROADMAP item (ROADMAP Queue 1 item 11, the mesh).
+decode vanilla, as in JAX.
+
+``mesh`` (DESIGN.md §8, ``distributed/mesh.py``): a ``DeviceMesh`` with a
+data and a model axis and a model cut by ``shard_params``.  The rollout
+stays whole on every rank (the ``RolloutBatch``, the ``RolloutCache`` and
+the metrics, as JAX's global arrays are); each stage hands the whole
+batch's prompts, keys and drafts to its entry point, which runs this data
+rank's rows (``generate``, ``verify_and_prefill``, ``realign_decode_cache``,
+``resume_from_cache``, the drafted loops) and gathers what they return.
+The dense GQA family runs on the mesh; the others come with part 3 of
+ROADMAP Queue 1 item 11 (the mesh).
 
 §11/§14 observatory, as in JAX: each step draws its stage spans on the
 process-global tracer's ``rollout`` lane and feeds the ``rollout.*``
@@ -61,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import sync
+from repro_torch.distributed.mesh import check_mesh_family
 from repro_torch.drafting import DraftConfig
 from repro_torch.engine.generate import (GenerateConfig, generate,
                                          resume_from_cache)
@@ -233,14 +243,13 @@ def use_one_pass(cfg: ModelConfig, spec: SpecConfig,
     return ok
 
 
-def _check_ported(spec: SpecConfig, mesh) -> None:
+def _check_ported(spec: SpecConfig, cfg: ModelConfig, mesh) -> None:
     if spec.variant not in VARIANTS:
         raise ValueError(f"unknown variant {spec.variant!r}")
     if spec.backfill not in ("none", "slots"):
         raise ValueError(f"unknown backfill {spec.backfill!r}")
     if mesh is not None:
-        raise NotImplementedError("the mesh arrives with ROADMAP Queue 1 "
-                                  "item 11 (the mesh)")
+        check_mesh_family(cfg)
 
 
 def _np(x) -> np.ndarray:
@@ -264,11 +273,12 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     passed to each forward as JAX's are.  A vision prefix takes the
     two-pass branch: its continuation re-prefills prompt ⊕ accepted prefix
     behind the same prefix."""
-    _check_ported(spec, mesh)
+    _check_ported(spec, cfg, mesh)
     if spec.backfill == "slots":
         from repro_torch.serving.rl_adapter import rollout_via_slots
         return rollout_via_slots(model, cfg, gen, spec, prompts, prompt_mask,
-                                 prompt_ids, cache, key, step, **model_kwargs)
+                                 prompt_ids, cache, key, step, mesh=mesh,
+                                 **model_kwargs)
     dev = model.device
     # the host copy of the mask serves the ledger and the returned batch
     mask_np = _np(prompt_mask).astype(bool)
@@ -299,13 +309,14 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                 led.bind(rows)
             try:
                 out = drafted_generate(model, cfg, gen, prompts, prompt_mask,
-                                       sub, spec.draft, corpus=corpus)
+                                       sub, spec.draft, corpus=corpus,
+                                       mesh=mesh)
             finally:
                 if rows is not None:
                     led.unbind()
         else:
             out = generate(model, cfg, gen, prompts, prompt_mask, sub,
-                           **model_kwargs)
+                           mesh=mesh, **model_kwargs)
         resp, lp, length = out["tokens"], out["logprobs"], out["length"]
         resp_mask = torch.arange(N, device=dev)[None, :] < length[:, None]
         n_generated = int(out["n_generated"])
@@ -353,7 +364,7 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         ver = verify(model, cfg, prompts, prompt_mask, draft_tokens, draft_lp,
                      draft_len, sub, spec.log_lenience,
                      temperature=gen.temperature, top_p=gen.top_p,
-                     **model_kwargs)
+                     mesh=mesh, **model_kwargs)
         n = ver["n"]
         prefix_lp = ver["lp_curr"]          # current-policy probs (exact)
         accept_rate = float(ver["accept_rate"])
@@ -385,7 +396,8 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     if one_pass:
         p_len = prompt_mask.sum(dim=1, dtype=torch.int32)
         caches = M.realign_decode_cache(cfg, ver.pop("caches"),
-                                        (N - n).to(torch.int32), p_len + n, W)
+                                        (N - n).to(torch.int32), p_len + n, W,
+                                        mesh=mesh)
     else:
         prefix_mask = torch.arange(N, device=dev)[None, :] < n[:, None]
         combined = torch.cat([prompts, torch.where(
@@ -421,7 +433,8 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                                   spec.draft, contexts,
                                   corpus=cache.batch_siblings(
                                       prompt_ids, spec.cache_lag),
-                                  initial_done=full_reuse, row_budget=N - n)
+                                  initial_done=full_reuse, row_budget=N - n,
+                                  mesh=mesh)
         finally:
             if led_rows is not None:
                 led.unbind()
@@ -429,12 +442,12 @@ def rollout(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     elif one_pass:
         cont = resume_from_cache(model, cfg, gen, caches, ver["seed_logits"],
                                  p_len + n, W, sub, initial_done=full_reuse,
-                                 row_budget=N - n, **model_kwargs)
+                                 row_budget=N - n, mesh=mesh, **model_kwargs)
         del caches
     else:
         cont = generate(model, cfg, gen, aligned, aligned_mask, sub,
                         initial_done=full_reuse, row_budget=N - n,
-                        **model_kwargs)
+                        mesh=mesh, **model_kwargs)
     del ver
     sync(dev)
     decode_time = time.perf_counter() - td0

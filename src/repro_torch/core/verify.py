@@ -19,6 +19,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.mesh import DataRows
+from repro_torch.distributed.shard_wrap import sharded_spec_verify
 from repro_torch.engine.generate import (model_extras, positions_from_mask,
                                          score)
 from repro_torch.engine.sampling import logprobs_of
@@ -51,22 +53,25 @@ def _packed(prompt, prompt_mask, draft_tokens, draft_len):
 def verify_drafts(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
                   draft_tokens, draft_logprobs, draft_len, key,
                   log_lenience: float, *, temperature: float = 1.0,
-                  top_p: float = 1.0, **model_kwargs
+                  top_p: float = 1.0, mesh=None, **model_kwargs
                   ) -> Dict[str, torch.Tensor]:
     """prompt: (B, P) left-padded; draft_*: (B, N) right-padded (tensors on
     the model's device).  ``engine.score`` over [prompt | draft] (with the
     extras of ``model_kwargs``), then the accept test.
 
     Returns ``n`` (B,) int32 in [0, draft_len], ``lp_curr`` (B, N) (the
-    current policy's log-probs of the draft tokens) and ``accept_rate``."""
+    current policy's log-probs of the draft tokens) and ``accept_rate``.
+    ``mesh``: the score and the accept test run on this data rank's rows
+    (JAX's order: the whole scores, then ``sharded_spec_verify``)."""
     B, P = prompt.shape
     N = draft_tokens.shape[1]
     full, mask = _packed(prompt, prompt_mask, draft_tokens, draft_len)
     sc = score(model, cfg, full, mask, temperature=temperature, top_p=top_p,
-               **model_kwargs)
+               mesh=mesh, **model_kwargs)
     lp_curr = sc["logprobs"][:, P:].contiguous()                 # (B, N)
     u = _accept_uniforms(key, B, N)
-    n = spec_verify(lp_curr, draft_logprobs, u, draft_len, log_lenience)
+    n = sharded_spec_verify(mesh, lp_curr, draft_logprobs, u, draft_len,
+                            log_lenience)
     total = torch.clamp(draft_len.sum(), min=1)
     return {"n": n, "lp_curr": lp_curr, "accept_rate": n.sum() / total}
 
@@ -75,7 +80,7 @@ def verify_drafts(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
 def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
                        draft_tokens, draft_logprobs, draft_len, key,
                        log_lenience: float, *, temperature: float = 1.0,
-                       top_p: float = 1.0, **model_kwargs
+                       top_p: float = 1.0, mesh=None, **model_kwargs
                        ) -> Dict[str, torch.Tensor]:
     """prompt: (B, P) left-padded; draft_*: (B, N) right-padded (tensors on
     the model's device); ``model_kwargs``: the encoder memory, if any (a
@@ -88,17 +93,33 @@ def verify_and_prefill(model: M.LM, cfg: ModelConfig, prompt, prompt_mask,
 
     Only the logits at [P - 1, W - 1) feed ``lp_curr``; the log-softmax is
     taken over those rows alone (the same values as JAX's full-width pass,
-    without its extra (B, P, V) copy)."""
+    without its extra (B, P, V) copy).
+
+    ``mesh``: this data rank prefills and verifies its rows (``spec_verify``
+    on local rows), so ``caches`` hold its rows alone; ``n``, ``lp_curr``
+    and ``seed_logits`` are gathered whole."""
     if model_kwargs.get("prefix_embeds") is not None:
         raise ValueError("verify_and_prefill takes no prefix_embeds: the "
                          "one-pass branch does not compact a vision prefix")
+    rows = DataRows(mesh, len(prompt))
+    if rows.sharded:
+        out = verify_and_prefill(
+            model, cfg, *(rows.take(x) for x in (
+                prompt, prompt_mask, draft_tokens, draft_logprobs,
+                draft_len, key)), log_lenience, temperature=temperature,
+            top_p=top_p, **{k: rows.take(v) for k, v in model_kwargs.items()})
+        for name in ("n", "lp_curr", "seed_logits"):
+            out[name] = rows.gather(out[name])
+        out["accept_rate"] = out["n"].sum() / torch.clamp(draft_len.sum(),
+                                                          min=1)
+        return out
     B, P = prompt.shape
     N = draft_tokens.shape[1]
     W = P + N
     dev = prompt.device
     full, mask = _packed(prompt, prompt_mask, draft_tokens, draft_len)
     positions = positions_from_mask(mask)
-    caches = M.init_cache(cfg, B, W + N, device=dev)
+    caches = M.init_cache(M.cache_config(model, cfg), B, W + N, device=dev)
     logits, caches = M.prefill(model, cfg, full, positions, caches,
                                **model_extras(model, model_kwargs))
 

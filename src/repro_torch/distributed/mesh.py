@@ -1,0 +1,562 @@
+"""The runtime mesh of the port (port of ``repro/distributed/mesh.py``):
+JAX's one-process GSPMD mesh becomes one process a rank over
+``torch.distributed``.
+
+* ``MeshConfig(data, model, require).build()`` returns a ``DeviceMesh``
+  with dims ``("data", "model")`` over the initialised process group, or
+  ``None`` where JAX's returns ``None``: a trivial (1, 1) mesh, or a world
+  smaller than ``data * model`` without ``require`` (with it, it raises).
+  Every helper takes ``mesh=None`` as the single-device path.
+* **Data axis.** A data rank holds its own rows of a batch
+  (``shard_batch``, ``DataRows``): the entry points that take ``mesh=``
+  (``engine/generate.py``, ``core/verify.py``, ``drafting/engine.py``)
+  take the whole batch, as JAX's global arrays are whole, run their rows
+  with caches of their rows alone, and gather the outputs over the data
+  group, so what they return is whole on every rank.  A batch the data
+  axes do not divide runs whole on every data rank (JAX replicates it).
+* **Model axis.** Megatron-style tensor parallelism over the model group,
+  laid out by JAX's ``param_spec`` rules (``distributed/sharding.py``):
+  ``shard_params`` keeps this rank's slice of every parameter and marks
+  the modules whose forward needs a collective (``distributed/comm.py``):
+  a row-parallel ``Dense`` (``wo``, ``w_down``) all-reduces its output, a
+  vocabulary-sharded ``embed`` looks up its rows and all-reduces (exact:
+  one rank holds each row), the logits are gathered along the vocabulary,
+  and a GQA whose KV heads the axis does not divide gathers its queries
+  (``distributed/shard_wrap.py``).  A rank's caches hold its KV heads
+  (``models/model.py:cache_config``), and every kernel runs on local
+  shards.  Every rank of a model group computes the same logits bit for
+  bit, so it samples the same tokens and makes the same host decisions.
+
+The dense GQA family runs on the mesh; the other families (MoE, MLA,
+Mamba, RWKV6, the frontends, MTP) arrive there with part 3 of ROADMAP
+Queue 1 item 11 (the mesh), and ``shard_params`` refuses them until then.
+
+Ranks start one process each: ``torchrun`` (``launch/serve.py``), or
+``run_ranks`` below (tests and ``chip_smoke.py``).  The backend is NCCL
+when every rank of a host has a card of its own, else ``gloo`` (ranks
+that share one card, or the CPU); ``pick_backend`` logs its choice.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Any, Callable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ATTN, ModelConfig
+
+from .comm import (all_gather_cat, all_gather_objects, broadcast_,
+                   group_ranks)
+from .sharding import axis_sizes, batch_spec, data_shards, params_pspecs
+
+log = logging.getLogger("repro_torch.distributed")
+
+AXES = ("data", "model")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Axis sizes of the runtime (data, model) mesh.  ``build`` lays it
+    over the ranks of the initialised process group, which must number
+    ``data * model`` (one process a rank: ``torchrun --nproc-per-node
+    data*model``, or ``run_ranks``)."""
+    data: int = 1
+    model: int = 1
+    require: bool = False
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    def build(self, device: DeviceLike = None):
+        if self.size <= 1:
+            return None
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world < self.size:
+            if self.require:
+                raise RuntimeError(
+                    f"MeshConfig({self.data}x{self.model}) needs {self.size} "
+                    f"ranks, found {world} (start one process a rank: "
+                    f"torchrun --nproc-per-node {self.size})")
+            return None
+        if world != self.size:
+            raise ValueError(f"MeshConfig({self.data}x{self.model}) covers "
+                             f"{self.size} ranks of a world of {world}")
+        from torch.distributed.device_mesh import init_device_mesh
+        return init_device_mesh(resolve_device(device).type,
+                                (self.data, self.model), mesh_dim_names=AXES)
+
+
+# ------------------------------------------------------------------ axis info
+
+
+def _sizes(mesh) -> dict:
+    return {} if mesh is None else axis_sizes(mesh)
+
+
+def data_size(mesh) -> int:
+    return 1 if mesh is None else data_shards(mesh)
+
+
+def model_size(mesh) -> int:
+    return _sizes(mesh).get("model", 1)
+
+
+def data_rank(mesh) -> int:
+    """This process's index along the data axis (0 without one)."""
+    if data_size(mesh) <= 1:
+        return 0
+    return mesh.get_local_rank("data")
+
+
+def model_rank(mesh) -> int:
+    if model_size(mesh) <= 1:
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def data_group(mesh):
+    return mesh.get_group("data")
+
+
+def model_group(mesh):
+    return mesh.get_group("model")
+
+
+@dataclass(frozen=True)
+class Submesh:
+    """One data shard's model group: its global ranks, and its one-axis
+    ``("model",)`` DeviceMesh where this process is one of them (``None``
+    elsewhere: a process holds only its own group)."""
+    ranks: Tuple[int, ...]
+    mesh: Any
+    axis_names: Tuple[str, ...] = ("model",)
+
+
+def data_submeshes(mesh) -> List[Submesh]:
+    """One model-only submesh per data shard (disjoint ranks): what each
+    shard's slot scheduler runs on (``serving/mesh_server.py``).  A mesh
+    without a data axis is its own (single) submesh."""
+    grid = mesh.mesh
+    if data_size(mesh) <= 1:
+        return [Submesh(tuple(grid.reshape(-1).tolist()), mesh,
+                        tuple(mesh.mesh_dim_names))]
+    mine = data_rank(mesh)
+    rows = grid.reshape(data_size(mesh), -1)
+    return [Submesh(tuple(rows[i].tolist()),
+                    mesh["model"] if i == mine else None)
+            for i in range(rows.shape[0])]
+
+
+def batch_pspec(mesh, ndim: int, batch: int):
+    """Leading-dimension partition over the data axes; a batch they do not
+    divide is replicated (JAX's ``batch_pspec``)."""
+    if data_size(mesh) <= 1:
+        return (None,) * ndim
+    return batch_spec(mesh, ndim, batch)
+
+
+def batch_shardable(mesh, batch: int) -> bool:
+    """Whether each data rank holds its own rows of a batch of ``batch``
+    rows (``DataRows``): the mesh has a data axis and it divides."""
+    return mesh is not None and batch_pspec(mesh, 1, batch)[0] is not None
+
+
+# ------------------------------------------------------------------ placement
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def replicate(mesh, tree):
+    """Every tensor of ``tree`` made equal to the mesh's first rank's, in
+    place (a broadcast over the model group, then over the data group)."""
+    if mesh is None:
+        return tree
+
+    def one(t):
+        if isinstance(t, torch.Tensor):
+            if model_size(mesh) > 1:
+                broadcast_(t, model_group(mesh))
+            if data_size(mesh) > 1:
+                broadcast_(t, data_group(mesh))
+        return t
+    return _map(one, tree)
+
+
+def host_fetch(tree):
+    """Every tensor of ``tree`` as a host numpy array (bfloat16 widened to
+    float32, exactly)."""
+    def one(t):
+        if isinstance(t, torch.Tensor):
+            t = t.detach()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            return t.cpu().numpy()
+        return t
+    return _map(one, tree)
+
+
+class _RowsOfKey:
+    """A scalar key seen from a data shard: it draws the whole batch's
+    noise, as the unsharded key does, and hands back its own rows, so a
+    row's tokens do not depend on the layout (JAX's
+    ``test_generate_identity_scalar_key``)."""
+
+    def __init__(self, key, lo: int, hi: int, batch: int):
+        self.key, self.lo, self.hi, self.batch = key, lo, hi, batch
+
+    def split(self, num: int = 2):
+        return tuple(_RowsOfKey(k, self.lo, self.hi, self.batch)
+                     for k in self.key.split(num))
+
+    def _rows(self, draw, shape):
+        shape = tuple(shape)
+        if shape[0] != self.hi - self.lo:
+            raise ValueError(f"a shard of rows [{self.lo}, {self.hi}) draws "
+                             f"{shape}")
+        return draw((self.batch,) + shape[1:])[self.lo:self.hi]
+
+    def uniform(self, shape):
+        return self._rows(self.key.uniform, shape)
+
+    def gumbel(self, shape):
+        return self._rows(self.key.gumbel, shape)
+
+
+class DataRows:
+    """This process's rows of a batch of ``batch`` rows on ``mesh``:
+    [lo, hi) when the data axes divide the batch (``batch_pspec``), else
+    the whole batch (every data rank runs every row).  ``take`` cuts an
+    argument to those rows; ``gather`` joins a per-row output of every
+    data rank back into the whole batch."""
+
+    def __init__(self, mesh, batch: int):
+        self.batch = int(batch)
+        self.sharded = batch_shardable(mesh, self.batch)
+        self.lo, self.hi = 0, self.batch
+        if self.sharded:
+            n = self.batch // data_size(mesh)
+            self.lo = data_rank(mesh) * n
+            self.hi = self.lo + n
+            self.group = data_group(mesh)
+
+    def take(self, x):
+        """Rows [lo, hi) of a tensor, an array, a sequence or a key (a key
+        batch is indexed; a scalar key draws the whole batch and keeps its
+        rows); ``None`` and scalars pass through."""
+        if not self.sharded or x is None or isinstance(x, (int, float)):
+            return x
+        if isinstance(x, (torch.Tensor, np.ndarray, list, tuple)):
+            if len(x) != self.batch:
+                raise ValueError(f"{len(x)} rows for a batch of "
+                                 f"{self.batch}")
+            return x[self.lo:self.hi]
+        if hasattr(x, "__len__"):                    # a key batch
+            return x[self.lo:self.hi]
+        return _RowsOfKey(x, self.lo, self.hi, self.batch)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather_cat(t, self.group) if self.sharded else t
+
+    def gather_objects(self, obj) -> list:
+        return all_gather_objects(obj, self.group) if self.sharded else [obj]
+
+
+def shard_batch(mesh, tree):
+    """This rank's rows of every leaf of ``tree`` (each leaf's leading
+    dimension over the data axes, by ``batch_pspec``)."""
+    if mesh is None:
+        return tree
+
+    def one(x):
+        if isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim:
+            return DataRows(mesh, x.shape[0]).take(x)
+        return x
+    return _map(one, tree)
+
+
+# ------------------------------------------------------- tensor parallelism
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """The mesh runs the dense GQA family (qwen3, deepseek-7b,
+    qwen1.5-110b, granite-34b); the other families come with part 3."""
+    dense_gqa = (cfg.attention_kind == "gqa"
+                 and all(kind == ATTN and not moe
+                         for kind, moe in cfg.layer_plan())
+                 and not cfg.cross_attention and not cfg.encoder_layers
+                 and not cfg.num_prefix_embeddings and not cfg.mtp)
+    if not dense_gqa:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, MLA, Mamba, RWKV6, the modality frontends "
+            "and MTP run on the mesh with part 3 of ROADMAP Queue 1 item 11 "
+            "(the mesh); part 1 runs the dense GQA family")
+
+
+def _slice(t: torch.Tensor, spec, size: int, rank: int) -> torch.Tensor:
+    for dim, ax in enumerate(spec):
+        if ax == "model":
+            t = t.chunk(size, dim=dim)[rank]
+    return t
+
+
+def _set_param(root: nn.Module, name: str, value: nn.Parameter) -> None:
+    *path, leaf = name.split(".")
+    mod = root
+    for part in path:
+        mod = getattr(mod, part)
+    setattr(mod, leaf, value)
+
+
+@torch.no_grad()
+def shard_params(mesh, cfg: ModelConfig, model):
+    """This rank's slice of ``model`` over the mesh's model axis, by the
+    ``param_spec`` rules: a new ``LM`` whose parameters are the local
+    slices (copies), marked for its collectives (module docstring).  The
+    model itself on a mesh without a model axis (parameters replicated
+    over data), and a model already cut for this model group as it is."""
+    if mesh is None:
+        return model
+    check_mesh_family(cfg)
+    m = model_size(mesh)
+    if m <= 1:
+        return model
+    group = model_group(mesh)
+    ranks = group_ranks(group)
+    if model.tp is not None:
+        if group_ranks(model.tp) != ranks:
+            raise ValueError(f"a model cut for ranks {group_ranks(model.tp)} "
+                             f"on a model group of ranks {ranks}")
+        return model
+    from repro_torch.models.model import LM
+    r = model_rank(mesh)
+    specs = params_pspecs(cfg, model, m)
+    out = LM(cfg, device="meta")
+    for name, p in model.named_parameters():
+        local = _slice(p.detach(), specs[name], m, r).clone()
+        _set_param(out, name, nn.Parameter(local,
+                                           requires_grad=p.requires_grad))
+    out.tp = group
+    if "model" in specs["embed"]:
+        V = cfg.vocab_size
+        out.vocab_shard = (r * V // m, (r + 1) * V // m)
+    head = "embed" if cfg.tie_embeddings else "lm_head.kernel"
+    out.logits_sharded = "model" in specs[head]
+    for li, layer in enumerate(out.layers):
+        attn = layer.attn
+        pre = f"layers.{li}.attn."
+        q_cut = "model" in specs[pre + "wq.kernel"]
+        kv_cut = "model" in specs[pre + "wk.kernel"]
+        # KV heads the axis does not divide are replicated: the queries
+        # are gathered whole and the attention runs over every head
+        attn.gather_q = q_cut and not kv_cut
+    for name, mod in out.named_modules():
+        kernel = getattr(mod, "kernel", None)
+        if kernel is not None and kernel.ndim == 2 and \
+                specs[f"{name}.kernel"] == ("model", None):
+            mod.reduce_group = group             # row-parallel: all-reduce
+    return out
+
+
+# ------------------------------------------------------------------ KV caches
+
+
+def _cache_leaf_pspec(shape, mesh, kv_heads: bool):
+    """Partition of one trunk-cache leaf (leading axis = scan run)."""
+    b_ax = batch_pspec(mesh, 1, shape[1])[0] if len(shape) >= 2 else None
+    spec = [None, b_ax] + [None] * (len(shape) - 2)
+    if kv_heads:
+        msz = model_size(mesh)
+        if msz > 1 and shape[2] % msz == 0 and shape[2] >= msz:
+            spec[2] = "model"
+    return tuple(spec)
+
+
+def decode_cache_pspecs(cfg: ModelConfig, caches, mesh, *,
+                        batch: bool = True):
+    """Same-structure specs for a trunk decode cache (JAX's): batch (axis
+    1, after the run axis) over ``data``; the KV head axis of attention
+    ``k``/``v`` over ``model`` when the head count divides it.  A paged
+    pool's axis 1 is the global block pool, where rows of different slots
+    interleave, so it is never sharded like a batch; only its head axis
+    is.  ``batch=False``: the slot engine's persistent batch, whole per
+    data shard."""
+    out = []
+    for run in caches:
+        new_run = {}
+        for group, sub in run.items():
+            paged = "table" in sub
+            new_sub = {}
+            for name, leaf in sub.items():
+                kv_heads = group == "self" and name in ("k", "v") \
+                    and leaf.ndim == 5
+                if paged:
+                    spec = [None] * leaf.ndim
+                    if kv_heads:
+                        msz = model_size(mesh)
+                        if msz > 1 and leaf.shape[2] % msz == 0:
+                            spec[2] = "model"
+                    new_sub[name] = tuple(spec)
+                    continue
+                spec = _cache_leaf_pspec(leaf.shape, mesh, kv_heads)
+                if not batch and len(spec) > 1:
+                    spec = (spec[0], None) + spec[2:]
+                new_sub[name] = spec
+            new_run[group] = new_sub
+        out.append(new_run)
+    return out
+
+
+def shard_caches(cfg: ModelConfig, caches, mesh, *, batch: bool = True):
+    """This rank's slice of a whole decode cache, by
+    ``decode_cache_pspecs`` (new tensors)."""
+    if mesh is None:
+        return caches
+    specs = decode_cache_pspecs(cfg, caches, mesh, batch=batch)
+    D, m = data_size(mesh), model_size(mesh)
+    dr, mr = data_rank(mesh), model_rank(mesh)
+
+    def cut(leaf, spec):
+        for dim, ax in enumerate(spec):
+            if ax == "model":
+                leaf = leaf.chunk(m, dim=dim)[mr]
+            elif ax is not None:
+                leaf = leaf.chunk(D, dim=dim)[dr]
+        return leaf.clone()
+    return [{g: {n: cut(leaf, specs[i][g][n]) for n, leaf in sub.items()}
+             for g, sub in run.items()} for i, run in enumerate(caches)]
+
+
+# ------------------------------------------------------------------ ranks
+
+
+def pick_backend(device: torch.device, ranks_per_host: int) -> str:
+    """NCCL when every rank of a host has a card of its own, else gloo
+    (ranks that share a card, or the CPU); chosen from the device count
+    and logged on one line."""
+    if device.type == "cuda" and torch.cuda.device_count() >= ranks_per_host:
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    log.info("mesh backend %s: %d ranks a host on %s with %d cards",
+             backend, ranks_per_host, device.type, cards)
+    return backend
+
+
+def rank_device(device: DeviceLike, local_rank: int,
+                ranks_per_host: int) -> torch.device:
+    """A rank's device: its own card where each rank has one, else the
+    first card (ranks share it), or the CPU."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    if torch.cuda.device_count() >= ranks_per_host:
+        return torch.device("cuda", local_rank)
+    return torch.device("cuda", 0)
+
+
+def init_from_env(device: DeviceLike = None) -> torch.device:
+    """Join the process group ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, the rendezvous
+    address); a process started without it stays a world of one.
+    Returns this rank's device."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return resolve_device(device)
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    dev = rank_device(device, local, per_host)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(pick_backend(dev, per_host))
+    return dev
+
+
+def _rank_main(fn, rank: int, world: int, tmp: str, device, timeout: float,
+               args) -> None:
+    dev = rank_device(device, rank, world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        pick_backend(dev, world),
+        store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world, timeout=timedelta(seconds=timeout))
+    try:
+        out = fn(rank, *args)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, world: int, args: Sequence = (), *,
+              device: DeviceLike = None, timeout: float = 600.0) -> list:
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes, one rank
+    each, joined in one process group through a ``FileStore`` in a
+    temporary directory (no port, so parallel runs never meet).  ``fn``
+    must be importable by name and its return value picklable.  Returns
+    each rank's value, in rank order.  A rank that fails stops every
+    other (its traceback is raised here); so does ``timeout``."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, world, tmp, device, timeout,
+                                   tuple(args)), daemon=True)
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        failed = None
+        try:
+            while any(p.is_alive() for p in procs):
+                bad = [r for r, p in enumerate(procs)
+                       if p.exitcode not in (None, 0)]
+                if bad:
+                    failed = bad[0]
+                    break
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks ran past {timeout} s")
+                time.sleep(0.05)
+            if failed is None:
+                bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+                failed = bad[0] if bad else None
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in procs:
+                p.join(timeout=30)
+        if failed is not None:
+            err = os.path.join(tmp, f"rank{failed}.err")
+            text = open(err).read() if os.path.exists(err) else \
+                f"exit code {procs[failed].exitcode}"
+            raise RuntimeError(f"rank {failed} of {world} failed:\n{text}")
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out

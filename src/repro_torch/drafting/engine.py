@@ -22,8 +22,16 @@ Contracts, as in JAX:
 
 Each macro-step reads back what the host needs (done flags, carry tokens
 and their log-probs, positions, the kept tokens and their log-probs,
-emitted/accepted/proposed counts) in one device-to-host transfer.  The
-mesh argument waits for the mesh (ROADMAP Queue 1 item 11, the mesh).
+emitted/accepted/proposed counts) in one device-to-host transfer.
+
+``mesh=`` (DESIGN.md §8): the whole batch in, the whole outputs out; each
+data rank runs the loop over its rows (their proposals, acceptances and
+key streams are per row, so nothing crosses rows), and the tokens, the
+log-probs, the lengths and the ``DraftStats`` (sums over rows) are
+gathered.  The ledger and the decision log are fed from the loop's rows,
+which on a data-sharded mesh are a rank's share: both refuse it until the
+observatory runs on the mesh (part 2 of ROADMAP Queue 1 item 11, the
+mesh).
 
 §11/§14 observatory, as in JAX, fed only from that readback and the
 host's own state: one span per macro-step on the process-global tracer's
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import DraftStats
+from repro_torch.distributed.mesh import DataRows
 from repro_torch.engine.generate import GenerateConfig, positions_from_mask
 from repro_torch.engine.sampling import sample, split_key
 from repro_torch.models import model as M
@@ -64,7 +73,8 @@ def _prefill_seed(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, prompt,
     the seed sample, in ``_decode_loop``'s key-split order."""
     B, P = prompt.shape
     positions = positions_from_mask(prompt_mask)
-    caches = M.init_cache(cfg, B, P + gen.max_new_tokens + extra,
+    caches = M.init_cache(M.cache_config(model, cfg), B,
+                          P + gen.max_new_tokens + extra,
                           device=model.device)
     logits, caches = M.prefill(model, cfg, prompt, positions, caches)
     seed_logits = logits[:, -1].clone()
@@ -294,16 +304,49 @@ def _require_drafting(cfg: ModelConfig) -> None:
                          "recurrent state cannot drop a rejected draft)")
 
 
+def _on_rows(rows: DataRows) -> None:
+    if rows.sharded and (get_ledger().enabled
+                         or get_decision_log().enabled):
+        raise NotImplementedError(
+            "the ledger and decision log of a drafted loop on a "
+            "data-sharded mesh come with part 2 of ROADMAP Queue 1 item 11 "
+            "(the mesh)")
+
+
+def _gather_loop(rows: DataRows, out: Dict) -> Dict:
+    """A data shard's drafted outputs joined into the whole batch's."""
+    if not rows.sharded:
+        return out
+    full = {name: rows.gather(out[name])
+            for name in ("tokens", "logprobs", "length")}
+    full["n_generated"] = full["length"].sum()
+    stats = DraftStats()
+    for st in rows.gather_objects(out["stats"]):
+        stats.add_step(forwards=st.forwards, proposed=st.proposed,
+                       accepted=st.accepted, emitted=st.emitted,
+                       draft_forwards=st.draft_forwards)
+    full["stats"] = stats
+    return full
+
+
 @torch.no_grad()
 def drafted_generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                      prompt, prompt_mask, key, draft: DraftConfig, *,
                      corpus: Optional[Sequence[Sequence[np.ndarray]]] = None,
-                     initial_done=None, row_budget=None
+                     initial_done=None, row_budget=None, mesh=None
                      ) -> Dict[str, torch.Tensor]:
     """``generate`` with the drafted decode loop (same output contract,
     plus ``stats``).  ``corpus[b]`` optionally holds row b's sibling /
     previous-rollout trajectories for the n-gram index."""
     _require_drafting(cfg)
+    rows = DataRows(mesh, len(prompt))
+    if rows.sharded:
+        _on_rows(rows)
+        return _gather_loop(rows, drafted_generate(
+            model, cfg, gen, rows.take(prompt), rows.take(prompt_mask),
+            rows.take(key), draft, corpus=rows.take(corpus),
+            initial_done=rows.take(initial_done),
+            row_budget=rows.take(row_budget)))
     dev = model.device
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
     prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
@@ -325,13 +368,24 @@ def drafted_resume(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                    caches, seed_logits, next_pos, write_offset: int, key,
                    draft: DraftConfig, contexts: Sequence[Sequence[int]], *,
                    corpus: Optional[Sequence[Sequence[np.ndarray]]] = None,
-                   initial_done=None, row_budget=None
+                   initial_done=None, row_budget=None, mesh=None
                    ) -> Dict[str, torch.Tensor]:
     """``resume_from_cache`` with the drafted decode loop: the one-pass
     SPEC-RL continuation drafts past the verified prefix (DESIGN.md §9).
     ``contexts[b]`` holds row b's prompt ⊕ accepted-prefix tokens (the
-    n-gram index needs the token values; the caches hold only K/V)."""
+    n-gram index needs the token values; the caches hold only K/V).
+    ``mesh``: ``caches`` hold this data rank's rows; the other per-row
+    arguments and the outputs are the whole batch's."""
     _require_drafting(cfg)
+    rows = DataRows(mesh, len(seed_logits))
+    if rows.sharded:
+        _on_rows(rows)
+        return _gather_loop(rows, drafted_resume(
+            model, cfg, gen, caches, rows.take(seed_logits),
+            rows.take(next_pos), write_offset, rows.take(key), draft,
+            rows.take(contexts), corpus=rows.take(corpus),
+            initial_done=rows.take(initial_done),
+            row_budget=rows.take(row_budget)))
     B = seed_logits.shape[0]
     pre = _pad_seed(cfg, gen, caches, seed_logits, key, extra=draft.draft_k)
     loop = _DraftLoop(model, cfg, gen, draft, pre["caches"], pre["tok0"],

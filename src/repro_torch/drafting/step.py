@@ -28,8 +28,10 @@ turns the drafts into kept output by rejection sampling:
 Per-row accepts advance per-row write offsets unevenly: the (write_idx,
 budget, count) machinery the slot engine already carries, which is why
 this one step serves ``drafted_generate``, ``drafted_resume`` and the slot
-engine's draft chunks.  JAX's ``mesh`` argument waits for the mesh
-(ROADMAP Queue 1 item 11, the mesh): the port's step has none.
+engine's draft chunks.  The step takes no ``mesh``, unlike JAX's: on the
+mesh it runs a data rank's rows (``drafting/engine.py`` cuts them) with
+the model's collectives inside the forward, so ``spec_verify`` runs on
+local rows as JAX's ``shard_map`` runs it.
 """
 from __future__ import annotations
 

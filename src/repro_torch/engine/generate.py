@@ -21,6 +21,13 @@ shifted by Pv, so its Pv cache slots lie ahead of each row's left padding
 and the decode reads the cache from slot 0 (no ``kv_start``).  ``score``
 builds those full positions too: the reference's builds positions over
 the tokens alone and raises (ROADMAP Queue 3, "Kept on purpose").
+
+``mesh=`` (DESIGN.md §8, ``distributed/mesh.py``): the whole batch goes in
+and the whole outputs come out on every rank, as JAX's global arrays;
+each data rank runs its own rows with its own caches, the model's
+collectives run inside the forward, and the outputs are gathered over the
+data group.  A scalar key draws the whole batch's noise on every data
+rank and each keeps its rows, so tokens do not depend on the layout.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.mesh import DataRows
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -82,14 +90,34 @@ def prefix_positions(positions: torch.Tensor, Pv: int) -> torch.Tensor:
                                        torch.full_like(positions, -1))], dim=1)
 
 
+def _gather_rows(rows: DataRows, out: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """A data shard's decode outputs joined into the whole batch's."""
+    if not rows.sharded:
+        return out
+    full = {name: rows.gather(out[name])
+            for name in ("tokens", "logprobs", "length")}
+    full["n_generated"] = full["length"].sum()
+    return full
+
+
 @torch.no_grad()
 def generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, prompt,
              prompt_mask, key, initial_done=None, row_budget=None,
-             **model_kwargs) -> Dict[str, torch.Tensor]:
+             mesh=None, **model_kwargs) -> Dict[str, torch.Tensor]:
     """prompt: (B, P) int left-padded; prompt_mask: (B, P) bool (arrays or
     tensors; moved to the model's device); ``model_kwargs``: the modality
     extras (module docstring).  Returns ``tokens`` (B, N), ``logprobs``
-    (B, N), ``length`` (B,) and ``n_generated``."""
+    (B, N), ``length`` (B,) and ``n_generated``.
+
+    ``mesh``: the whole batch in, the whole outputs out; this data rank
+    prefills and decodes its rows (``distributed/mesh.py:DataRows``)."""
+    rows = DataRows(mesh, len(prompt))
+    if rows.sharded:
+        return _gather_rows(rows, generate(
+            model, cfg, gen, rows.take(prompt), rows.take(prompt_mask),
+            rows.take(key), rows.take(initial_done), rows.take(row_budget),
+            **{k: rows.take(v) for k, v in model_kwargs.items()}))
     prompt = _on(model, prompt, torch.int32)
     prompt_mask = _on(model, prompt_mask, torch.bool)
     B, P = prompt.shape
@@ -101,7 +129,8 @@ def generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, prompt,
     Pv = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     if Pv:
         positions = prefix_positions(positions, Pv)
-    caches = M.init_cache(cfg, B, P + N + Pv, device=model.device)
+    caches = M.init_cache(M.cache_config(model, cfg), B, P + N + Pv,
+                          device=model.device)
     logits, caches = M.prefill(model, cfg, prompt, positions, caches,
                                prefix_embeds=prefix_embeds, **extras)
     # the vision slots [0, Pv) are live ahead of the prompt's left padding:
@@ -167,13 +196,24 @@ def _decode_loop(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, caches,
 @torch.no_grad()
 def resume_from_cache(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                       caches, seed_logits, next_pos, write_offset: int, key,
-                      initial_done=None, row_budget=None, **model_kwargs
-                      ) -> Dict[str, torch.Tensor]:
+                      initial_done=None, row_budget=None, mesh=None,
+                      **model_kwargs) -> Dict[str, torch.Tensor]:
     """Continue decoding from a compacted cache: slots [0, write_offset)
     hold [left-aligned prompt ⊕ accepted prefix]; seed_logits (B, V) are the
     logits of the last accepted token; next_pos (B,) = prompt_len + n;
     ``model_kwargs``: the encoder memory, if any.  Returns the same dict as
-    ``generate``."""
+    ``generate``.
+
+    ``mesh``: ``caches`` hold this data rank's rows (as
+    ``verify_and_prefill`` and ``realign_decode_cache`` leave them); every
+    other per-row argument is the whole batch's, and so are the outputs."""
+    rows = DataRows(mesh, len(seed_logits))
+    if rows.sharded:
+        return _gather_rows(rows, resume_from_cache(
+            model, cfg, gen, caches, rows.take(seed_logits),
+            rows.take(next_pos), write_offset, rows.take(key),
+            rows.take(initial_done), rows.take(row_budget),
+            **{k: rows.take(v) for k, v in model_kwargs.items()}))
     next_pos = next_pos.to(torch.int32)
     return _decode_loop(model, cfg, gen, caches, seed_logits, next_pos,
                         write_offset, key, initial_done, row_budget,
@@ -184,12 +224,20 @@ def resume_from_cache(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
 @torch.no_grad()
 def score(model: M.LM, cfg: ModelConfig, tokens, mask, *,
           temperature: float = 1.0, top_p: float = 1.0,
-          return_entropy: bool = False, **model_kwargs
+          return_entropy: bool = False, mesh=None, **model_kwargs
           ) -> Dict[str, torch.Tensor]:
     """Teacher-forced log-prob of every token given its prefix (and the
     modality extras of ``model_kwargs``; with a vision prefix the
     positions cover it, as ``generate``'s prefill does).
-    tokens: (B, L) left-padded; mask: (B, L) bool."""
+    tokens: (B, L) left-padded; mask: (B, L) bool.  ``mesh``: this data
+    rank scores its rows; the outputs are the whole batch's."""
+    rows = DataRows(mesh, len(tokens))
+    if rows.sharded:
+        out = score(model, cfg, rows.take(tokens), rows.take(mask),
+                    temperature=temperature, top_p=top_p,
+                    return_entropy=return_entropy,
+                    **{k: rows.take(v) for k, v in model_kwargs.items()})
+        return {name: rows.gather(t) for name, t in out.items()}
     tokens = _on(model, tokens, torch.int32)
     mask = _on(model, mask, torch.bool)
     positions = positions_from_mask(mask)

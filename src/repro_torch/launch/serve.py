@@ -41,12 +41,30 @@ lanes); ``--ledger`` prints the savings-attribution table;
 PORT`` serves the engine's Prometheus text on ``localhost:PORT/metrics``
 while it runs; ``--assert-compile-stable`` replays the same request set on
 a fresh engine and fails if the recompile sentinel sees a new call
-signature, else ends with ``0 new on identical replay``.  The §8 mesh
-flags arrive with the mesh (ROADMAP Queue 1 item 11).
+signature, else ends with ``0 new on identical replay``.
+
+The §8 mesh, one process a rank under ``torchrun``::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --device cpu --smoke \
+        --mesh-data 2 --mesh-model 2
+
+``--mesh-data D --mesh-model M`` lays the ranks out as a (D, M) mesh
+(``distributed/mesh.py``): the model is cut over each model group of M
+ranks and, with D > 1, the slots over D shards, one scheduler each
+(``MeshSlotServer``); ``--engine fixed`` decodes each data shard's rows.
+The ranks take ``gloo`` unless each has a card of its own (then NCCL).
+Without enough ranks the mesh is off, as in JAX, or with
+``--require-mesh`` the launcher raises.  Rank 0 prints.  On the mesh the
+flags whose sinks are per process or whose stop must be agreed by a
+model group (``--trace-dir``, ``--ledger``, ``--decision-log``,
+``--metrics``, ``--state-path``) come with part 2 of ROADMAP Queue 1
+item 11 (the mesh).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import random
 import signal
@@ -59,7 +77,9 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.cache import RolloutCache
 from repro_torch.data.dataset import PromptDataset
 from repro_torch.data.tokenizer import VOCAB_SIZE, decode
-from repro_torch.device import resolve_device, sync
+from repro_torch.device import sync
+from repro_torch.distributed.mesh import (MeshConfig, init_from_env,
+                                          shard_params)
 from repro_torch.drafting import DraftConfig
 from repro_torch.engine.generate import GenerateConfig, generate
 from repro_torch.engine.sampling import fold_in, make_key, stack_keys
@@ -116,11 +136,12 @@ def _model_extras(model, cfg, batch: int, seed: int) -> dict:
     return kw
 
 
-def serve_fixed(model, cfg, gen, reqs, prompt_width, slots, seed: int = 0):
+def serve_fixed(model, cfg, gen, reqs, prompt_width, slots, seed: int = 0,
+                mesh=None):
     """Fixed-batch baseline: decode ``slots``-sized batches to the slowest
     row, each row on its own key and budget, with a batch's stub modality
-    conditioning (``_model_extras``, from ``seed``).  Returns (tokens dict,
-    n_generated)."""
+    conditioning (``_model_extras``, from ``seed``); on a ``mesh`` each
+    data rank decodes its rows.  Returns (tokens dict, n_generated)."""
     outs, total = {}, 0
     for lo in range(0, len(reqs), slots):
         chunk = reqs[lo:lo + slots]
@@ -133,7 +154,7 @@ def serve_fixed(model, cfg, gen, reqs, prompt_width, slots, seed: int = 0):
         keys = stack_keys([r.key for r in chunk])
         budget = np.asarray([r.max_new_tokens for r in chunk], np.int32)
         out = generate(model, cfg, gen, toks, mask, keys, row_budget=budget,
-                       **_model_extras(model, cfg, B, seed))
+                       mesh=mesh, **_model_extras(model, cfg, B, seed))
         sync(model.device)
         length = out["length"].cpu().numpy()
         tokens = out["tokens"].cpu().numpy()
@@ -168,6 +189,13 @@ def main(argv=None):
                         "tokens per decode forward from n-gram matches over "
                         "each request's own stream (and, with --spec-prefix, "
                         "its first-pass trajectory as corpus); 0 = off")
+    p.add_argument("--mesh-data", type=int, default=1,
+                   help="data shards: one slot scheduler per shard (§8)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="model-parallel axis size per shard")
+    p.add_argument("--require-mesh", action="store_true",
+                   help="fail instead of serving on one rank when fewer "
+                        "ranks run than the mesh needs")
     p.add_argument("--deadline-steps", type=int, default=0,
                    help="§10 per-request decode-step deadline (0 = none): "
                         "expired requests are reclaimed and retried once")
@@ -217,7 +245,33 @@ def main(argv=None):
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    device = resolve_device(args.device)
+    joined = not torch.distributed.is_initialized()
+    device = init_from_env(args.device)
+    joined = joined and torch.distributed.is_initialized()
+    try:
+        mesh = MeshConfig(data=args.mesh_data, model=args.mesh_model,
+                          require=args.require_mesh).build(device)
+        if mesh is not None:
+            off = [flag for flag, on in (
+                ("--trace-dir", args.trace_dir), ("--ledger", args.ledger),
+                ("--decision-log", args.decision_log),
+                ("--metrics", args.metrics),
+                ("--state-path", args.state_path)) if on]
+            if off:
+                raise NotImplementedError(
+                    f"{', '.join(off)} on the mesh come with part 2 of "
+                    "ROADMAP Queue 1 item 11 (the mesh)")
+        with contextlib.ExitStack() as stack:
+            if mesh is not None and torch.distributed.get_rank() != 0:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _serve(args, device, mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _serve(args, device, mesh) -> int:
     n_requests = args.requests or (8 if args.smoke else 64)
     max_new = args.max_new_tokens or (12 if args.smoke else 64)
 
@@ -231,6 +285,11 @@ def main(argv=None):
     if args.kv_block_size > 0:
         cfg = cfg.replace(kv_block_size=args.kv_block_size)
     model = M.init_lm(cfg, seed=args.seed, device=device)
+    # every rank draws the same weights from the seed and keeps its slice
+    model = shard_params(mesh, cfg, model)
+    if mesh is not None:
+        print(f"mesh (data, model) = {tuple(mesh.shape)} over "
+              f"{torch.distributed.get_backend()} on {device.type}")
     gen = GenerateConfig(max_new_tokens=max_new)
     draft = (DraftConfig(kind="ngram", draft_k=args.draft) if args.draft > 0
              else None)
@@ -244,7 +303,8 @@ def main(argv=None):
     ledger = TokenLedger(enabled=True) if args.ledger else None
 
     def make_engine(spec_prefix: bool, traced: bool = False):
-        return make_slot_engine(model, cfg, gen, num_slots=args.slots,
+        return make_slot_engine(model, cfg, gen, mesh=mesh,
+                                num_slots=args.slots,
                                 prompt_width=args.prompt_len,
                                 spec_prefix=spec_prefix, log_lenience=0.0,
                                 draft=draft,
@@ -274,7 +334,7 @@ def main(argv=None):
     t0 = time.time()
     if engine_kind == "fixed":
         outs, n_gen = serve_fixed(model, cfg, gen, reqs, args.prompt_len,
-                                  args.slots, seed=args.seed)
+                                  args.slots, seed=args.seed, mesh=mesh)
         dt = time.time() - t0
         print(f"arch={cfg.name} engine=fixed: served {n_requests} requests, "
               f"{n_gen} tokens in {dt:.2f}s ({n_gen / max(dt, 1e-9):.0f} tok/s)")
@@ -333,8 +393,11 @@ def main(argv=None):
             engine.faults = FaultPlan()
         engine.faults.events.append(FaultEvent("kill", at_step=0))
 
-    previous = {sig: signal.signal(sig, _stop)
-                for sig in (signal.SIGINT, signal.SIGTERM)}
+    # on the mesh a rank's stop alone would strand its model group in a
+    # collective: the signals keep their default action there
+    previous = {} if mesh is not None else {
+        sig: signal.signal(sig, _stop) for sig in (signal.SIGINT,
+                                                   signal.SIGTERM)}
     interrupted = False
     try:
         if args.arrival_every > 0:
@@ -396,8 +459,9 @@ def main(argv=None):
               f"ui.perfetto.dev), events.jsonl, metrics.prom")
     s = engine.stats()
     n_gen = int(s["generated_tokens"])
+    shards = int(s.get("num_shards", 1))
     print(f"arch={cfg.name} engine=slots(spec={args.spec_prefix}, "
-          f"shards=1){' [interrupted]' if interrupted else ''}: served "
+          f"shards={shards}){' [interrupted]' if interrupted else ''}: served "
           f"{len(resps)}/{n_requests} requests, {n_gen} "
           f"generated (+{int(s['reused_tokens'])} reused) tokens in "
           f"{dt:.2f}s "

@@ -46,9 +46,10 @@ cross-attention trunk without it would let each position attend the
 tokens after it (ROADMAP Queue 3, "Kept on purpose").
 
 The flags of the mesh, ``--mesh-data``, ``--mesh-model`` and
-``--require-mesh`` (ROADMAP Queue 1 item 11, the mesh), raise and name
-their item when they are set away from their defaults; at their defaults
-they are accepted, as in JAX.
+``--require-mesh`` (the trainer on the mesh: part 2 of ROADMAP Queue 1
+item 11, the mesh), raise and name their item when they are set away
+from their defaults; at their defaults they are accepted, as in JAX.
+``launch/serve.py`` takes them (part 1).
 """
 from __future__ import annotations
 

@@ -37,6 +37,14 @@ kernels on CUDA tensors and run their plain versions on CPU tensors:
   step).  The decode kernels mask ``k_pos <= q_pos``, which would hide the
   frames past the decoder's position.
 
+On the mesh (``distributed/mesh.py``) a GQA runs its rank's heads: the
+head counts come from the projections' shapes, never from ``cfg``, the
+cache holds the rank's KV heads, and the row-parallel ``wo`` sums the
+heads' shares over the model group.  When the model axis does not divide
+the KV heads (replicated then, as JAX's rules replicate them), the rank's
+query columns are gathered whole, the kernel runs over every head, and
+the rank keeps its own columns of the output for ``wo``.
+
 With grad on and an input that requires it (the actor's forward in the
 train step), every T goes to ``dot_product_attention``: the port of JAX's
 XLA function (``repro/models/attention.py:53``, ``impl="naive"``), which
@@ -77,6 +85,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.shard_wrap import gather_heads, local_heads
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                      gather_paged_kv,
                                                      paged_decode_attention)
@@ -153,6 +162,9 @@ class GQA(nn.Module):
             self.k_norm = RMSNorm(hd, **kw)
         else:
             self.q_norm = self.k_norm = None
+        # on the mesh, with KV heads the model axis does not divide: the
+        # queries are gathered whole over wo's group (distributed/shard_wrap)
+        self.gather_q = False
 
 
 class MLA(nn.Module):
@@ -347,9 +359,16 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
     hd = cfg.resolved_head_dim
     src = x if kv_x is None else kv_x
     S = src.shape[1]
-    q = apply_dense(p.wq, x).view(B, T, cfg.num_heads, hd).transpose(1, 2)
-    k = apply_dense(p.wk, src).view(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = apply_dense(p.wv, src).view(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
+    # head counts from the projections: on the mesh a rank holds its heads
+    q = apply_dense(p.wq, x)
+    if p.gather_q:
+        q = gather_heads(q, p.wo.reduce_group)
+    Hq = q.shape[-1] // hd
+    q = q.view(B, T, Hq, hd).transpose(1, 2)
+    k = apply_dense(p.wk, src)
+    Hkv = k.shape[-1] // hd
+    k = k.view(B, S, Hkv, hd).transpose(1, 2)
+    v = apply_dense(p.wv, src).view(B, S, Hkv, hd).transpose(1, 2)
     if p.q_norm is not None:
         q = apply_rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = apply_rmsnorm(p.k_norm, k, cfg.norm_eps)
@@ -397,7 +416,9 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
         out = flash_attention(q, k.to(q.dtype).contiguous(),
                               v.to(q.dtype).contiguous(), positions, kv_pos,
                               causal=causal, window=cfg.sliding_window)
-    out = out.transpose(1, 2).reshape(B, T, cfg.num_heads * hd)
+    out = out.transpose(1, 2).reshape(B, T, Hq * hd)
+    if p.gather_q:
+        out = local_heads(out, p.wo.reduce_group)
     return apply_dense(p.wo, out.to(x.dtype)), cache
 
 

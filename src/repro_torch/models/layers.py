@@ -5,6 +5,11 @@ Parameters live in small ``nn.Module`` containers whose attribute names are
 the JAX pytree's keys (``kernel``, ``scale``), so ``models/convert.py`` maps
 one onto the other by name.  The math is in plain functions with the JAX
 names.  Dense kernels are stored ``(in, out)`` and applied as ``x @ kernel``.
+
+On the mesh (``distributed/mesh.py:shard_params``) a row-parallel
+``Dense`` holds its rank's rows of the kernel and a ``reduce_group``:
+``apply_dense`` then sums the partial products over that group before
+adding the bias.
 """
 from __future__ import annotations
 
@@ -13,6 +18,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.comm import all_reduce_
 
 
 class Dense(nn.Module):
@@ -33,6 +40,7 @@ class Dense(nn.Module):
                                      requires_grad=False)
         else:
             self.bias = None
+        self.reduce_group = None     # row-parallel on the mesh: sum over it
 
     def reset(self, generator: torch.Generator) -> None:
         w = torch.empty(self.kernel.shape, dtype=torch.float32,
@@ -86,6 +94,8 @@ class LayerNorm(nn.Module):
 
 def apply_dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
     y = x @ p.kernel.to(x.dtype)
+    if p.reduce_group is not None:
+        all_reduce_(y, p.reduce_group)
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y

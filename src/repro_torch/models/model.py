@@ -37,6 +37,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.comm import all_gather_cat, all_reduce_
+from repro_torch.distributed.mesh import DataRows
 from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather
 from repro_torch.kernels.cache_slot_write.ops import (cache_slot_write,
                                                       paged_slot_write)
@@ -112,6 +114,12 @@ class LM(nn.Module):
             requires_grad=False) if cfg.pos_embed == "learned" else None)
         self.encoder = Encoder(cfg, **kw) if cfg.encoder_layers else None
         self.mtp = MTP(cfg, **kw) if cfg.mtp else None
+        # the mesh's cut (distributed/mesh.py:shard_params): the model
+        # group, the vocabulary rows [lo, hi) of a sharded embed, and
+        # whether the head's logits are gathered along the vocabulary
+        self.tp = None
+        self.vocab_shard = None
+        self.logits_sharded = False
 
     @property
     def device(self) -> torch.device:
@@ -156,8 +164,23 @@ def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def _lookup(model: LM, tokens) -> torch.Tensor:
+    """Embedding rows of ``tokens``.  On the mesh a rank holds the rows
+    [lo, hi) of the vocabulary: it looks up the tokens it holds, zeroes
+    the others and sums over the model group (exact: one rank holds each
+    row)."""
+    if model.vocab_shard is None:
+        return model.embed[tokens.long()]
+    lo, hi = model.vocab_shard
+    t = tokens.long() - lo
+    mine = (t >= 0) & (t < hi - lo)
+    rows = model.embed[torch.where(mine, t, torch.zeros_like(t))]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return all_reduce_(rows, model.tp)
+
+
 def _embed(model: LM, cfg: ModelConfig, tokens, positions):
-    x = model.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+    x = _lookup(model, tokens).to(torch_dtype(cfg.dtype))
     if cfg.pos_embed == "learned":
         pos = torch.clamp(positions, 0, cfg.max_seq_len - 1).long()
         x = x + model.pos_table[pos].to(x.dtype)
@@ -200,6 +223,9 @@ def _logits(model: LM, cfg: ModelConfig, x):
         logits = x @ model.embed.to(x.dtype).T
     else:
         logits = apply_dense(model.lm_head, x)
+    if model.logits_sharded:
+        # the rank's vocabulary columns, gathered in the matmul's dtype
+        logits = all_gather_cat(logits, model.tp, dim=-1)
     return softcap(logits.float(), cfg.logit_softcap)
 
 
@@ -249,6 +275,18 @@ def _mtp_logits(model: LM, cfg: ModelConfig, hidden, tokens, positions):
         dim=-1))
     h, _ = apply_block(model.mtp.block, cfg, h, positions)
     return _logits(model, cfg, h)
+
+
+def cache_config(model: LM, cfg: ModelConfig) -> ModelConfig:
+    """The config a model's caches are built by: ``cfg``, with the KV
+    heads this rank holds on the mesh (the first attention layer's ``wk``
+    columns; every layer is cut alike)."""
+    if model.tp is None or cfg.attention_kind != "gqa":
+        return cfg
+    attn = next(layer.attn for layer in model.layers
+                if hasattr(layer, "attn"))
+    kv = attn.wk.kernel.shape[1] // cfg.resolved_head_dim
+    return cfg if kv == cfg.num_kv_heads else cfg.replace(num_kv_heads=kv)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -428,7 +466,7 @@ def _pad_to_blocks(buf, nb: int, bs: int):
 
 @torch.no_grad()
 def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
-                         width: int):
+                         width: int, mesh=None):
     """Compact verify-prefill caches to the left-aligned decode layout.
 
     Row b's accepted context occupies slots [P - p_len, P + n) after the
@@ -442,9 +480,15 @@ def realign_decode_cache(cfg: ModelConfig, caches, shift, valid_len,
     gathered to its dense logical view (``paged_gather``), rolled like the
     dense one, and re-paged in place through the unchanged tables
     (``paged_slot_write``).  Returns new caches (a dense cache's rolled
-    k/v are new tensors)."""
+    k/v are new tensors).
+
+    ``mesh``: ``caches`` hold this data rank's rows and its KV heads, and
+    ``shift`` and ``valid_len`` are the whole batch's; the roll runs on
+    the rank's rows."""
     if not supports_cache_realign(cfg):
         raise ValueError("realign needs attention-only trunks")
+    rows = DataRows(mesh, len(shift))
+    shift, valid_len = rows.take(shift), rows.take(valid_len)
     new_caches = []
     for run in caches:
         sc = run["self"]

@@ -35,6 +35,10 @@ counted in the obs registry (staleness histogram, buffer occupancy, sync
 retries, degradation level) and the whole pair checkpoints through
 ``checkpoint/io`` for exact kill-and-resume.
 
+The mesh: a trainer whose model is cut over it is refused, naming part 2
+of ROADMAP Queue 1 item 11 (the mesh); the trainer itself refuses a
+mesh.
+
 Keys: the re-verification stream is ``make_key(reverify_seed)`` on the
 trainer's device, split before each re-verification as JAX splits its
 ``PRNGKey(reverify_seed)``; it is saved as its 64-bit seed.
@@ -97,6 +101,10 @@ class AsyncTrainer:
                  faults: Optional[FaultPlan] = None,
                  sync: Optional[WeightSync] = None,
                  buffer: Optional[TrajBuffer] = None):
+        if getattr(trainer.model, "tp", None) is not None:
+            raise NotImplementedError(
+                "the async loop on a model cut over the mesh comes with "
+                "part 2 of ROADMAP Queue 1 item 11 (the mesh)")
         self.trainer = trainer
         self.acfg = acfg
         self.collector = trainer.collector       # SHARED with the trainer:

@@ -48,8 +48,9 @@ registry); ``alerts=`` (an ``obs.alerts.AlertManager``) evaluates each
 step's flat metrics before the watchdog sees them and routes its events to
 an attached watchdog; a decision log is flushed once a step.
 
-Not ported yet, and raising with its ROADMAP Queue 1 item: the mesh
-(item 11).
+Not ported yet, and raising with its ROADMAP Queue 1 item: the trainer on
+the mesh (part 2 of item 11; the rollout and serving path runs on the
+mesh since part 1).
 """
 from __future__ import annotations
 
@@ -253,7 +254,7 @@ class Collector:
                  dataset: PromptDataset, key, lenience_schedule=None,
                  mesh=None, tracer=None):
         if mesh is not None:
-            raise _unported("the mesh", 11, "the mesh")
+            raise _unported("the trainer on the mesh", 11, "the mesh")
         self.cfg = model_cfg
         self.rl = rl
         self.spec = spec
@@ -404,7 +405,7 @@ class Trainer:
                  lenience_schedule=None, mesh=None, watchdog=None,
                  tracer=None, alerts=None):
         if mesh is not None:
-            raise _unported("the mesh", 11, "the mesh")
+            raise _unported("the trainer on the mesh", 11, "the mesh")
         self.cfg = model_cfg
         self.rl = rl
         k1, k2, k3, coll_key = key.split(4)

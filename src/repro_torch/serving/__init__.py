@@ -15,7 +15,9 @@
                pool-pressure admission capping and load shedding
 - faults:      deterministic fault injection (§10), seeded FaultPlans the
                engine consults at chunk boundaries (own copy)
-- mesh_server: ``make_slot_engine``, the engine factory
+- mesh_server: ``make_slot_engine``, the engine factory, and
+               ``MeshSlotServer``, one slot scheduler per data shard of
+               the §8 mesh
 - rl_adapter:  ``rollout(..., spec.backfill='slots')``: a training batch
                drained through the slot engine (straggler backfill)
 - rollout_service: the §12 async producer — drives the shared trainer
@@ -26,14 +28,15 @@
 from .block_table import BlockAllocator, PoolExhausted, identity_table
 from .engine_loop import SlotEngine
 from .faults import EngineKilled, FaultEvent, FaultPlan, seeded_plan
-from .mesh_server import make_slot_engine
+from .mesh_server import MeshSlotServer, make_slot_engine
 from .paged_engine import PagedSlotEngine
 from .request import Request, Response
 from .rollout_service import RolloutService, SyncFailed, WeightSync
 from .scheduler import SlotScheduler
 
 __all__ = ["BlockAllocator", "EngineKilled", "FaultEvent", "FaultPlan",
-           "PagedSlotEngine", "PoolExhausted", "Request", "Response",
+           "MeshSlotServer", "PagedSlotEngine", "PoolExhausted", "Request",
+           "Response",
            "RolloutService", "SlotEngine", "SlotScheduler", "SyncFailed",
            "WeightSync", "identity_table",
            "make_slot_engine", "seeded_plan"]

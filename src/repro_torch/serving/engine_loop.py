@@ -94,8 +94,14 @@ decision record per live slot and macro-step to the process-global
 decision log.  Every stamp is one the ``time_*`` accounting already
 takes, and every value comes from what a chunk already read back.
 
-The §8 mesh is left for a later slice (``mesh=`` raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 11, the mesh).
+§8 mesh: ``mesh=`` takes a model-only (sub)mesh, such as one data
+shard's of ``distributed/mesh.py:data_submeshes``.  The engine runs the
+model cut over that group (``shard_params``; a model cut for it already
+is kept), so its persistent caches hold the rank's KV heads and every
+slot (JAX's ``shard_caches(batch=False)``): the persistent batch stays
+whole on the shard, and data parallelism lives one level up, in
+``MeshSlotServer``.  Every rank of the group makes the same host
+decisions, because every rank computes the same logits.
 """
 from __future__ import annotations
 
@@ -110,6 +116,7 @@ from repro_torch.core.backoff import BackoffConfig
 from repro_torch.core.metrics import DraftStats, FaultStats
 from repro_torch.core.verify import verify_and_prefill
 from repro_torch.device import sync
+from repro_torch.distributed.mesh import data_size, shard_params
 from repro_torch.engine.generate import GenerateConfig, positions_from_mask
 from repro_torch.engine.sampling import KeyBatch, sample, split_key, stack_keys
 from repro_torch.models import model as M
@@ -138,7 +145,8 @@ def _admit_vanilla(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     builds), the seed token/logprob, the carry keys and the seed logits
     (a paged follower re-samples from its leader's with its own key)."""
     R, P = prompts.shape
-    caches = M.init_cache(cfg, R, P + gen.max_new_tokens, device=model.device)
+    caches = M.init_cache(M.cache_config(model, cfg), R, P + gen.max_new_tokens,
+                          device=model.device)
     logits, caches = M.prefill(model, cfg, prompts, positions_from_mask(mask),
                                caches)
     keys, sub = split_key(keys)
@@ -282,9 +290,11 @@ class SlotEngine:
                  retry_backoff: Optional[BackoffConfig] = None,
                  tracer=None, ledger=None):
         if mesh is not None:
-            raise NotImplementedError("SlotEngine(mesh=...): the §8 mesh "
-                                      "(ROADMAP Queue 1 item 11) is not "
-                                      "ported yet")
+            if data_size(mesh) > 1:
+                raise ValueError("a SlotEngine runs one data shard: a mesh "
+                                 "with a data axis takes MeshSlotServer")
+            model = shard_params(mesh, cfg, model)
+        self.mesh = mesh
         if not M.supports_slot_serving(cfg):
             raise ValueError("slot serving needs an attention-only trunk "
                              "without modality extras; use fixed-batch "
@@ -535,7 +545,8 @@ class SlotEngine:
 
     def _make_caches(self, B: int):
         """Build the persistent decode caches (dense slabs by default)."""
-        return M.init_cache(self.cfg, B, self.cache_len, device=self.device)
+        return M.init_cache(M.cache_config(self.model, self.cfg), B,
+                            self.cache_len, device=self.device)
 
     def _admit_cfg(self) -> ModelConfig:
         """Config the admission programs build their throwaway caches with.

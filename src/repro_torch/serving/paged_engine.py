@@ -124,7 +124,8 @@ class PagedSlotEngine(SlotEngine):
         caches = []
         blk_bytes = 0
         for _, run_len in signature_runs(cfg):
-            one = init_paged_kv_cache(cfg, B, self.cache_len, dtype, dev,
+            one = init_paged_kv_cache(M.cache_config(self.model, cfg), B,
+                                      self.cache_len, dtype, dev,
                                       num_blocks=self.NB, table=table)
             caches.append({"self": {
                 name: buf[None].repeat((run_len,) + (1,) * buf.ndim)

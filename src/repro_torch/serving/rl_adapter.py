@@ -43,10 +43,17 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                       spec: SpecConfig, prompts, prompt_mask,
                       prompt_ids: Sequence[int],
                       cache: Optional[RolloutCache], key, step: int,
-                      **model_kwargs) -> RolloutBatch:
+                      mesh=None, **model_kwargs) -> RolloutBatch:
     """Slot-scheduled equivalent of ``rollout`` (same RolloutBatch
     contract, ``n`` included); the slot engine carries no modality
-    extras, so ``model_kwargs`` with any raises."""
+    extras, so ``model_kwargs`` with any raises.
+
+    Under a ``mesh`` with a data axis the batch drains through the
+    ``MeshSlotServer`` (one scheduler per data shard, shard-local
+    admission, DESIGN.md §8); a model-only mesh runs one engine over the
+    model group.  Either way the per-request key streams keep the output
+    token for token the fixed batch's, and the batch is whole on every
+    rank."""
     if spec.variant not in ("off", "spec", "delayed"):
         raise ValueError(f"backfill='slots' supports variants off/spec/"
                          f"delayed, not {spec.variant!r}")
@@ -81,7 +88,8 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         verify_keys = None
 
     drafting = use_drafting(cfg, spec)
-    engine = make_slot_engine(model, cfg, gen, num_slots=num_slots,
+    engine = make_slot_engine(model, cfg, gen, mesh=mesh,
+                              num_slots=num_slots,
                               prompt_width=P, spec_prefix=have_drafts,
                               log_lenience=spec.log_lenience,
                               draft=spec.draft if drafting else None)
@@ -158,7 +166,7 @@ def rollout_via_slots(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
         decode_time=sched["decode_time"],
         one_pass=1.0 if have_drafts else 0.0,
         prefill_passes=1.0,
-        backfill_slots=float(num_slots),
+        backfill_slots=sched["num_slots"],
         engine_steps=sched["engine_steps"],
         slot_occupancy=sched["occupancy"],
         admissions=sched["admitted"],

@@ -36,6 +36,10 @@ A copy is exact, so K = 0 stays bit-identical to the synchronous trainer,
 and at most two copies of the weights live beside the trainer's: the
 published snapshot and the service's model.
 
+The mesh: a model cut over it (``distributed/mesh.py:shard_params``) is
+not published: the async loop on the mesh is part 2 of ROADMAP Queue 1
+item 11 (the mesh).
+
 Failure-domain isolation: producer-side faults ride the same seeded
 ``FaultPlan`` as the slot engine — ``kill`` raises ``EngineKilled`` at a
 tick boundary (the consumer catches, counts and restarts the producer;
@@ -113,6 +117,10 @@ class WeightSync:
     # ------------------------------------------------------------- publish
 
     def _copy_in(self, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+        if getattr(model, "tp", None) is not None:
+            raise NotImplementedError(
+                "publishing weights cut over the mesh comes with part 2 of "
+                "ROADMAP Queue 1 item 11 (the mesh)")
         params = dict(model.named_parameters())
         if self._snapshot is None:
             dev = torch.device("cpu") if self._copy else None

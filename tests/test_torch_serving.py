@@ -343,17 +343,22 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 def test_unported_engine_features_raise(models):
-    """The mesh still raises, naming its ROADMAP item; §10 faults,
-    deadlines, a paged config and the §9 draft engine (an enabled
-    ``DraftConfig``: draft_k slots of headroom; a disabled one is no draft)
-    now build their engines."""
+    """The mesh still raises for the families its part 3 carries (MLA
+    here), naming its ROADMAP item, before it reads the mesh (the dense
+    GQA family's MeshSlotServer is held against JAX in
+    test_torch_mesh.py); §10 faults, deadlines, a paged config and the §9
+    draft engine (an enabled ``DraftConfig``: draft_k slots of headroom; a
+    disabled one is no draft) now build their engines."""
+    from repro_torch.configs import get_config
     from repro_torch.drafting import DraftConfig
     _, cfg, _, model = models
     gen = GenerateConfig(max_new_tokens=4)
     kw = dict(num_slots=2, prompt_width=4)
+    mla = get_config("deepseek-v3-671b").reduced()
     for bad in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_slot_engine(model, cfg, gen, **kw, **bad)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 11 "):
+            make_slot_engine(model, mla, gen, **kw, **bad)
     for ok in (dict(faults=FaultPlan()), dict(deadline_steps=8)):
         eng = make_slot_engine(model, cfg, gen, **kw, **ok)
         assert type(eng) is SlotEngine
