@@ -102,8 +102,8 @@ What it does, failing (nonzero exit, no result line) at the first fault:
    counts set to 0 just before it and read just after (on the mesh's
    ranks: each rank's, summed), and checks their
    outputs; ``slots``, ``paged``, ``paged_slots``, ``draft``,
-   ``draft_slots``, ``observatory``, ``faults``, ``ppo``, ``dapo`` and
-   the slot engine's and paged breakdowns run the model cut to
+   ``draft_slots``, ``observatory``, ``faults``, ``train``, ``ppo``,
+   ``dapo`` and the slot engine's and paged breakdowns run the model cut to
    ``CUT_LAYERS`` of its layers (full width), ``async`` to
    ``ASYNC_LAYERS``, and ``rwkv`` ``RWKV_LAYERS`` of its 32, which pays for
    ``watchdog``, the observatory and ``mesh`` inside the time limit:
@@ -128,6 +128,24 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 partings every shared score too); every rank's rows equal;
                 kernels 1–7 launched on every rank; a ``mesh`` line with
                 times, each rank's peak GiB, the gap and the partings;
+                then the trainer in the same spawn (``mesh_rank_train``):
+                the reference's GRPO (with a KL reference) and PPO
+                ``optimize`` of its epoch-0 rows at ``MESH_LR``, the same
+                on the ranks, each rank's gradients within
+                ``MESH_GRAD_GAP`` of the matching slices of the
+                reference's and its updated shards (actor and critic)
+                within ``update_tol`` of the reference's update (that
+                limit as the gradient's noise, plus one bf16 rounding),
+                the step log's loss, grad_norm, kl_ref and critic_loss
+                within ``MESH_METRIC_RTOL``/``ATOL`` of the reference's,
+                the old log-probs within ``MESH_LP_TOL``, no kernel in
+                any update; one
+                ``train_step`` whose rows part only where the recorded
+                sampler scores explain it; two async steps (``"ppcc"``,
+                K = 1: one exact, one importance-corrected; the published
+                and served shards the trainer's, in storage of their
+                own); a watchdog snapshot (whole trees, rank 0 writes)
+                and its restore, bit for bit; a ``mesh train`` line;
    ``rollout``  two epochs of ``repro_torch.core.rollout`` of full-width,
                 full-depth qwen3-1.7b with the fixed decode batch (epoch 0
                 vanilla, epoch 1 the one-pass speculative branch);
@@ -178,7 +196,7 @@ What it does, failing (nonzero exit, no result line) at the first fault:
                 ``save_server_state``, loaded into a fresh engine and
                 drained (all rows identical, the bf16 pools reloaded bit
                 for bit; the snapshot is deleted after);
-   ``train``    the GRPO train step on the same model: two
+   ``train``    the GRPO train step on the model cut to ``CUT_LAYERS``: two
                 ``Trainer.train_step`` calls (epoch 0 vanilla, epoch 1
                 one-pass spec, the real verifier; a ``train`` line each with
                 the stage split, loss, grad norm, launches by stage and peak
@@ -418,14 +436,18 @@ SLOTS = 8                       # decode slots of the slot-backfill path
 # cut model; each check of theirs is unchanged.  The slot engine's and the
 # paged breakdowns run the cut model too, async ASYNC_LAYERS layers, and
 # rwkv6-3b RWKV_LAYERS of its 32 layers; the greedy witness runs at full
-# depth, where WITNESS_GAP_MAX was read.  (Without these cuts the smoke
+# depth, where WITNESS_GAP_MAX was read.  (The trainer on the mesh added
+# about 105 s to ``mesh``: ``train`` went from full depth to CUT_LAYERS,
+# async from 14 layers to 8, rwkv from 16 to 8 and the watchdog from 4 to
+# 2; the train witness compares on the card.)  (Without the earlier cuts
+# the smoke
 # took 1,147 s on a host where the cut one took 829 s, and the cut one
 # 1,046 s on a slower host.)
 CUT_LAYERS = 8
 CUT_PATHS = ("slots", "paged", "paged_slots", "draft", "draft_slots",
-             "observatory", "faults", "ppo", "dapo")
-ASYNC_LAYERS = 14
-RWKV_LAYERS = 16
+             "observatory", "faults", "train", "ppo", "dapo")
+ASYNC_LAYERS = 8
+RWKV_LAYERS = 8
 # the new configs at their published widths, cut in depth to what one card
 # holds beside the paths' caches (ARCH_LAYERS), each through the rollout
 # traffic cut to ARCHS_N new tokens as draft_slots is; mixtral's GRPO step
@@ -462,6 +484,29 @@ MESH_MODES = (("dense", "none"), ("dense", "slots"), ("paged", "none"),
 MESH_TOP_K = 8
 MESH_LP_TOL = 0.0625
 MESH_TIMEOUT_S = 400
+# the trainer on the mesh (the same spawn): GRPO with a KL reference, then
+# one PPO update, each an ``optimize`` of the reference's epoch-0 dense rows
+# with seeded mixed rewards at MESH_LR (at the default 5e-7 a bf16 weight
+# would not move), then one ``train_step``, two async steps ("ppcc", K = 1:
+# one exact, one importance-corrected) and a watchdog snapshot and restore.
+# A rank's gradients (as AdamW receives them) must lie within
+# MESH_GRAD_GAP of each tensor's largest from the matching slices of the
+# reference's: bf16 partial sums put them 0.0246-0.0308 apart on the H100
+# (PERF.md §5), while a gradient off by the data axis's factor, or one
+# that misses its model-group sum, is off by half of its largest.  Its
+# updated shards must lie within ``update_tol`` of the reference's with
+# that limit as the gradient's noise, plus one bfloat16 rounding of the
+# result (MESH_BF16_ULP of |p|: both sides round p - lr * ... once, and
+# may land on the two sides of a rounding boundary).  AdamW's first step
+# is blind to a gradient's scale, so the step log's loss, grad_norm
+# (GRPO's the actor's, PPO's the critic's), kl_ref and critic_loss must
+# lie within MESH_METRIC_RTOL of the reference's, plus MESH_METRIC_ATOL
+# for GRPO's first-step loss and KL, which are bf16 noise about 0 (the
+# gaps seen: 2.4e-5 and 3.6e-6; the relative ones 0.0018 at most)
+MESH_LR = 1e-3
+MESH_BF16_ULP = 2.0 ** -7
+MESH_GRAD_GAP = 0.1
+MESH_METRIC_RTOL, MESH_METRIC_ATOL = 0.02, 1e-3
 # the modality frontends at full width and depth through the same traffic
 # (pixtral-12b: 40 layers, 12.2e9 parameters; whisper-tiny: 4 + 4 layers)
 FRONTEND_LAYERS = {"pixtral-12b": 40, "whisper-tiny": 4}
@@ -3321,14 +3366,14 @@ class GradSpy:
                     for k, m in self.models.items()}
         update = adamw.update
 
-        def spy(cfg, params, grads, state):
+        def spy(cfg, params, grads, state, **kw):
             label = label_of[id(params[0])]
             names = [n for n, _ in self.models[label].named_parameters()]
             nonzero = self.torch.stack([g.any() for g in grads]).tolist()
             self.zero[label] = [n for n, ok in zip(names, nonzero) if not ok]
             if self.keep:
                 self.grads[label] = list(grads)
-            return update(cfg, params, grads, state)
+            return update(cfg, params, grads, state, **kw)
 
         self.adamw, self.saved, adamw.update = adamw, update, spy
         return self
@@ -3348,10 +3393,11 @@ class StageSpy:
 
     NAMES = ("_old_logprobs", "_values", "_update_critic", "_update_actor")
 
-    def __init__(self, torch, tr, T):
+    def __init__(self, torch, tr, T, keep=False):
         self.torch, self.tr, self.T = torch, tr, T
         self.stages, self.returns = {}, {}
-        self.grads = GradSpy(torch, {"actor": tr.model, "critic": tr.critic})
+        self.grads = GradSpy(torch, {"actor": tr.model, "critic": tr.critic},
+                             keep=keep)
 
     def _wrap(self, fn, name_of):
         from repro_torch.kernels import LAUNCHES
@@ -3427,8 +3473,9 @@ def make_trainer(cfg, model, algo, trainer_kw=None, **rl_kw):
 
     problems = generate_problems(MathTaskConfig(num_problems=PROMPTS,
                                                 seed=SEED))
-    rl = T.RLConfig(algo=algo, group_size=GROUP, prompts_per_batch=PROMPTS,
-                    max_new_tokens=N, **rl_kw)
+    rl = T.RLConfig(**{**dict(algo=algo, group_size=GROUP,
+                              prompts_per_batch=PROMPTS, max_new_tokens=N),
+                       **rl_kw})
     spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE)
     return T.Trainer(cfg, rl, spec, PromptDataset(problems, max_prompt_len=P),
                      make_key(SEED), model=model, **(trainer_kw or {}))
@@ -3838,7 +3885,8 @@ def async_path(torch, model, cfg, batch):
 # the watchdog path (§10) cuts the depth to WATCHDOG_LAYERS at full width:
 # a full-size snapshot is 2,031,739,904 x (2 + 4 + 4) B, about 20.3 GB of
 # bf16 weights and float32 moments to write and read back (worked out from
-# the code, not measured); at 4 layers it is about 8.2 GB
+# the code, not measured); at 4 layers it is about 8.2 GB (the
+# vocabulary's tables are most of it)
 WATCHDOG_LAYERS = 4
 
 
@@ -3935,14 +3983,15 @@ def watchdog_path(torch, cfg, batch):
     return launches
 
 
-def update_tol(p0, g, lr, scale, eps=1e-8):
+def update_tol(p0, g, lr, scale, eps=1e-8, noise=GRAD_NOISE):
     """Tolerance of a parameter after AdamW's first step from a gradient
-    ``g`` known within δ = GRAD_NOISE · max|g·scale|: 1e-6 of the update's
-    operands (|p| + lr; p - lr·... cancels where p ≈ lr) plus at most
-    2δ·eps / (m + eps)² of g / (|g| + eps), m = |g·scale| - δ, and at most
-    2 (a sign); the same rule as tests/test_torch_train.py's."""
+    ``g`` known within δ = noise · max|g·scale| (GRAD_NOISE unless a
+    caller bounds the gradient otherwise): 1e-6 of the update's operands
+    (|p| + lr; p - lr·... cancels where p ≈ lr) plus at most 2δ·eps / (m + eps)² of g / (|g| +
+    eps), m = |g·scale| - δ, and at most 2 (a sign); the same rule as
+    tests/test_torch_train.py's."""
     gs = g.abs() * scale
-    delta = GRAD_NOISE * float(gs.max())
+    delta = noise * float(gs.max())
     m = (gs - delta).clamp_min(0.0)
     return (PARAM_RTOL * (p0.abs() + lr)
             + lr * (2 * delta * eps / (m + eps) ** 2).clamp_max(2.0))
@@ -3953,16 +4002,19 @@ def compare_update(gpu_params, cpu_params, grads, prior, grad_norm):
     ``grads`` a ``GradSpy`` that kept both ("card", "cpu"): (the largest
     gradient error over a tensor's largest gradient, the parameter
     elements outside ``update_tol``, the worst error over its
-    tolerance)."""
+    tolerance).  The float64 arithmetic runs on the card (the CPU's
+    tensors copied there): the same numbers, without the CPU's minutes
+    over the vocabulary's tables."""
     scale = min(1.0, 1.0 / (grad_norm + 1e-9))
     worst, n_bad, grad_err = 0.0, 0, 0.0
     for pg, pc, gg, gc, p0 in zip(gpu_params, cpu_params, grads.grads["card"],
                                   grads.grads["cpu"], prior):
-        g_cpu = gc.detach().double()
-        g_err = float((gg.detach().cpu().double() - g_cpu).abs().max())
+        dev = pg.device
+        g_cpu = gc.detach().to(dev).double()
+        g_err = float((gg.detach().double() - g_cpu).abs().max())
         grad_err = max(grad_err, g_err / float(g_cpu.abs().max()))
-        d = (pg.detach().cpu().double() - pc.detach().double()).abs()
-        tol = update_tol(p0.double(), g_cpu, WITNESS_LR, scale)
+        d = (pg.detach().double() - pc.detach().to(dev).double()).abs()
+        tol = update_tol(p0.to(dev).double(), g_cpu, WITNESS_LR, scale)
         n_bad += int((d > tol).sum())
         worst = max(worst, float((d / tol).max()))
     return grad_err, n_bad, worst
@@ -4543,6 +4595,11 @@ class SampleRecorder:
         verify.spec_verify = accept_test
 
         def spy(key, logits, temperature=1.0, top_p=1.0):
+            # a key batch records its rows' words; a scalar key (the
+            # trainer's stream: on the mesh a data rank's rows of it,
+            # from ``lo``) records None and its first row
+            words = getattr(key, "words", None)
+            lo = getattr(key, "lo", 0)
             tok, lp = self.real(key, logits, temperature, top_p)
             scores = key.gumbel(logits.shape) + sampling.adjust_logits(
                 logits.float(), temperature, top_p)
@@ -4559,7 +4616,8 @@ class SampleRecorder:
                         f"mesh: the recorder's redraw ranks token "
                         f"{sampled[r]} below {idx[r, 0]}")
                 idx[r, [0, at[0]]] = idx[r, [at[0], 0]]
-            self.calls.append((key.words.cpu().numpy(), idx, vals))
+            self.calls.append((None if words is None else
+                               words.cpu().numpy(), idx, vals, lo))
             return tok, lp
 
         for m in self.mods:
@@ -4580,11 +4638,25 @@ def records_by_row(calls, chains):
     first record of each (a padded admission group repeats its first
     row; the ranks of a model group record the same rows)."""
     out = {}
-    for words, idx, vals in calls:
+    for words, idx, vals, _ in calls:
+        if words is None:
+            continue
         for r in range(words.shape[0]):
             at = chains.get(tuple(int(w) for w in words[r]))
             if at is not None and at not in out:
                 out[at] = (idx[r], vals[r])
+    return out
+
+
+def records_by_call(calls):
+    """{(0, row, j): (tokens, scores)} of a scalar key's recorded calls (a
+    trainer's rollout): its j-th call draws every row's j-th sample (on
+    the mesh, of the rows from its ``lo``)."""
+    out = {}
+    for j, (words, idx, vals, lo) in enumerate(calls):
+        if words is None:
+            for r in range(idx.shape[0]):
+                out.setdefault((0, lo + r, j), (idx[r], vals[r]))
     return out
 
 
@@ -4673,10 +4745,289 @@ def _rb_host(rb):
                         if not k.endswith("_time")}}
 
 
+def mesh_trainer(torch, cfg, model, algo, mesh=None):
+    """A trainer of ``algo`` on ``model`` (cut over ``mesh`` when given)
+    at the mesh phase's traffic (ARCHS_N new tokens) and MESH_LR."""
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return make_trainer(cfg, model, algo,
+                        trainer_kw=None if mesh is None else {"mesh": mesh},
+                        max_new_tokens=ARCHS_N,
+                        optim=AdamWConfig(lr=MESH_LR),
+                        critic_optim=AdamWConfig(lr=MESH_LR))
+
+
+def _host_named(module, tensors=None):
+    """A module's parameters (or ``tensors`` laid out like them) as CPU
+    copies, by name."""
+    names = [n for n, _ in module.named_parameters()]
+    if tensors is None:
+        tensors = [p for _, p in module.named_parameters()]
+    return {n: t.detach().to("cpu", copy=True) for n, t in zip(names,
+                                                                tensors)}
+
+
+def _load_named(torch, module, named):
+    with torch.no_grad():
+        for n, p in module.named_parameters():
+            p.copy_(named[n])
+
+
+def mesh_optimize(torch, tr, rb):
+    """``tr.optimize`` of ``rb`` with seeded mixed rewards under a
+    ``StageSpy`` that keeps the gradients: (the step log, its stages'
+    launches and peak GiB, the gradients by model, the old log-probs in
+    numpy)."""
+    from repro_torch.rl import trainer as T
+
+    with StageSpy(torch, tr, T, keep=True) as spy:
+        m = tr.optimize(rb, mixed_rewards(rb.prompt.shape[0]), {})
+        torch.cuda.synchronize()
+    st = spy.take()
+    lp_old = spy.returns["old_logprob"][0].float().cpu().numpy()
+    return m, st, spy.grads.grads, lp_old
+
+
+def mesh_train_reference(torch, model, cfg, batch, rb0, tmp):
+    """The trainer's single-process reference of the ``mesh`` phase: each
+    of MESH_TRAIN_ALGOS' ``optimize`` on ``rb0`` from the same weights
+    (the prior weights, the updated ones and the gradients written to
+    ``tmp/<algo>.pt`` in bfloat16 for the ranks to read in place), then
+    one ``train_step`` of a fresh GRPO trainer with its sampler recorded.
+    The model's weights are put back after each."""
+    prior = _host_named(model)
+    out = {}
+    for algo in ("grpo", "ppo"):
+        tr = mesh_trainer(torch, cfg, model, algo)
+        blob = {"actor": {"prior": prior}}
+        if tr.critic is not None:
+            blob["critic"] = {"prior": _host_named(tr.critic)}
+        t0 = time.perf_counter()
+        m, st, grads, lp_old = mesh_optimize(torch, tr, rb0)
+        t_opt = time.perf_counter() - t0
+        for label, mod in (("actor", tr.model), ("critic", tr.critic)):
+            if mod is None:
+                continue
+            g = _host_named(mod, grads[label])
+            blob[label].update(updated=_host_named(mod), grads=g,
+                               norm=math.sqrt(sum(
+                                   float(x.double().square().sum())
+                                   for x in g.values())))
+        torch.save(blob, os.path.join(tmp, f"{algo}.pt"))
+        out[algo] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "lp_old": lp_old, "optimize_s": t_opt,
+                     "launches": {k: v["launches"] for k, v in st.items()}}
+        check_scoring(f"mesh reference {algo}", st, cfg.num_layers,
+                      scorings=(("old_logprob", "ref") if algo == "grpo"
+                                else ("old_logprob", "values")),
+                      updates=(("update_actor",) if algo == "grpo" else
+                               ("update_actor", "update_critic")))
+        _load_named(torch, model, prior)
+        del tr, blob, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    tr = mesh_trainer(torch, cfg, model, "grpo")
+    with SampleRecorder() as rec:
+        m = tr.train_step(batch)
+    out["train_step"] = {"rb": _rb_host(tr.last_rb), "calls": rec.calls,
+                         "metrics": {k: float(v) for k, v in m.items()}}
+    _load_named(torch, model, prior)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_shards(torch, label, model, grads, ref, scale, r, m):
+    """A rank's updated shards of ``model`` (and its ``grads``) against the
+    matching slices of the reference's (``ref``: a ``.pt`` blob's model
+    entry, read in place): (the gradient gap, the largest gradient error
+    over its tensor's largest, which must stay within MESH_GRAD_GAP; the
+    elements outside ``update_tol`` with MESH_GRAD_GAP as its noise plus
+    MESH_BF16_ULP of |p|; the worst error over its tolerance)."""
+    from repro_torch.distributed.mesh import _slice, param_specs
+
+    specs = param_specs(model)
+    dev = next(model.parameters()).device
+
+    def mine(name, what):
+        return _slice(ref[what][name], specs.get(name, ()), m, r).to(
+            dev).float()
+
+    names = [n for n, _ in model.named_parameters()]
+    gap = 0.0
+    for n, g in zip(names, grads):
+        g_ref = mine(n, "grads")
+        top = float(g_ref.abs().max())
+        if top > 0:
+            gap = max(gap, float((g.float() - g_ref).abs().max()) / top)
+    require(gap <= MESH_GRAD_GAP, f"mesh {label}: gradients off by {gap} of "
+            f"a tensor's largest > MESH_GRAD_GAP {MESH_GRAD_GAP}")
+    n_bad, worst = 0, 0.0
+    for n, p in model.named_parameters():
+        want, got = mine(n, "updated"), p.detach().float()
+        tol = update_tol(mine(n, "prior"), mine(n, "grads"), MESH_LR, scale,
+                         noise=MESH_GRAD_GAP) \
+            + MESH_BF16_ULP * torch.maximum(want.abs(), got.abs())
+        d = (got - want).abs()
+        n_bad += int((d > tol).sum())
+        worst = max(worst, float((d / tol).max()))
+    require(n_bad == 0, f"mesh {label}: {n_bad} updated elements outside "
+            f"the tolerance (worst {worst} x; gradient gap {gap})")
+    return gap, n_bad, worst
+
+
+def _digest(torch, t, chunk: int = 1 << 24) -> int:
+    """A position-weighted sum of a tensor's raw bits, on its device, a
+    chunk at a time: equal tensors have equal digests, and one changed
+    element changes it."""
+    x = t.detach().contiguous().view(-1)
+    x = x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    total = 0
+    for lo in range(0, x.numel(), chunk):
+        part = x[lo:lo + chunk].long()
+        w = torch.arange(lo + 1, lo + 1 + part.numel(), device=x.device,
+                         dtype=torch.long) % 65521 + 1
+        total += int((part * w).sum())
+    return total
+
+
+def log_rank(msg: str) -> None:
+    """A progress line from the mesh's first rank."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_rank() == 0:
+        log(f"mesh rank 0: {msg}")
+
+
+def mesh_rank_train(torch, mesh, model, cfg, batch, data, tmp):
+    """The trainer on this rank (after the rollouts): each algorithm's
+    ``optimize`` of the reference's epoch-0 rows, held against the
+    reference's update; one ``train_step`` (recorded); two async steps;
+    a watchdog snapshot and restore.  Returns what it saw."""
+    import numpy as np
+
+    from repro_torch.distributed import mesh as MS
+    from repro_torch.distributed.mesh import model_rank, model_size
+    from repro_torch.rl.async_loop import AsyncConfig, AsyncTrainer
+    from repro_torch.rl.watchdog import TrainWatchdog, WatchdogConfig
+
+    r, m_size = model_rank(mesh), model_size(mesh)
+    prior = _host_named(model)
+    sums = []
+    finish = MS.finish_grads
+
+    def timed_finish(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finish(*a, **kw)
+        torch.cuda.synchronize()
+        sums.append(time.perf_counter() - t0)
+    MS.finish_grads = timed_finish
+    out = {}
+    try:
+        for algo in ("grpo", "ppo"):
+            log_rank(f"{algo} optimize")
+            sums.clear()
+            tr = mesh_trainer(torch, cfg, model, algo, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m, st, grads, lp_old = mesh_optimize(torch, tr, data["rb0"])
+            t_opt = time.perf_counter() - t0
+            ref = torch.load(os.path.join(tmp, f"{algo}.pt"), mmap=True,
+                             weights_only=True)
+            cmp = {}
+            for label, mod in (("actor", tr.model), ("critic", tr.critic)):
+                if mod is None:
+                    continue
+                scale = min(1.0, 1.0 / (ref[label]["norm"] + 1e-9))
+                cmp[label] = compare_shards(
+                    torch, f"{algo} {label}", mod, grads[label], ref[label],
+                    scale, r, m_size)
+            del ref
+            out[algo] = {
+                "metrics": {k: float(v) for k, v in m.items()},
+                "lp_old": lp_old, "optimize_s": t_opt,
+                "grad_sum_s": list(sums), "compare": cmp,
+                "launches": {k: v["launches"] for k, v in st.items()},
+                "peak_gib": {k: v["peak_gib"] for k, v in st.items()}}
+            _load_named(torch, model, prior)
+            del tr, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        log_rank("train_step")
+        tr = mesh_trainer(torch, cfg, model, "grpo", mesh)
+        with SampleRecorder() as rec:
+            t0 = time.perf_counter()
+            m = tr.train_step(batch)
+            t_step = time.perf_counter() - t0
+        out["train_step"] = {"rb": _rb_host(tr.last_rb), "calls": rec.calls,
+                             "metrics": {k: float(v) for k, v in m.items()},
+                             "step_s": t_step}
+        # the async loop over the mesh trainer: "ppcc" at K = 1
+        log_rank("async")
+        at = AsyncTrainer(tr, AsyncConfig(staleness_window=1,
+                                          buffer_capacity=4,
+                                          schedule="ppcc"))
+        t0 = time.perf_counter()
+        ms = at.run(2)
+        t_async = time.perf_counter() - t0
+        # the published snapshot, then the service's model once it has
+        # polled it, hold the trainer's shards bit for bit, in their own
+        # storage
+        version, published = at.sync.poll()
+        at.service._maybe_sync()
+        served = at.service.model
+        mine = dict(tr.model.named_parameters())
+        same = version == at.version and at.service.version == version \
+            and all(torch.equal(published[n], p) for n, p in mine.items()) \
+            and all(torch.equal(a, b) for a, b in zip(
+                served.parameters(), tr.model.parameters()))
+        shared = any(a.data_ptr() == b.data_ptr() for a, b in zip(
+            list(served.parameters()) + list(published.values()),
+            list(tr.model.parameters()) * 2))
+        out["async"] = {"counters": at.counters(), "async_s": t_async,
+                        "staleness": [x["staleness"] for x in ms],
+                        "is_weight_mean": [x.get("is_weight_mean", 0.0)
+                                           for x in ms],
+                        "loss": [x["loss"] for x in ms],
+                        "served_equal": same, "shared_storage": shared}
+        del at, served
+        gc.collect()
+        # the watchdog: a snapshot of the whole trees (rank 0 writes), the
+        # weights and moments poisoned, the restore cutting them back
+        wd = TrainWatchdog(WatchdogConfig(checkpoint_dir=data["wd_dir"]))
+        state = list(tr.model.parameters()) + tr.opt_state["mu"] \
+            + tr.opt_state["nu"]
+        keep = [_digest(torch, t) for t in state]
+        log_rank(f"watchdog snapshot of {sum(t.numel() for t in state)} "
+                 "local elements")
+        t0 = time.perf_counter()
+        wd.snapshot(tr)
+        t_snap = time.perf_counter() - t0
+        with torch.no_grad():
+            for t in state:
+                t.fill_(float("nan"))
+        t0 = time.perf_counter()
+        ok = wd.restore(tr)
+        t_restore = time.perf_counter() - t0
+        exact = ok and [_digest(torch, t) for t in state] == keep
+        out["watchdog"] = {"snapshot_s": t_snap, "restore_s": t_restore,
+                           "exact": exact}
+        del tr, keep
+        _load_named(torch, model, prior)
+    finally:
+        MS.finish_grads = finish
+    require(np.isfinite(out["train_step"]["metrics"]["loss"]),
+            "mesh train_step: the loss is not finite")
+    return out
+
+
 def mesh_rank(rank, path):
     """One rank of the ``mesh`` phase: the model cut over its model group,
     every mode's two epochs over the mesh, the teacher-forced scores of
-    the reference's rows; returns what it saw, with its launches."""
+    the reference's rows, then the trainer (``mesh_rank_train``); returns
+    what it saw, with its launches."""
     import pickle
 
     import torch
@@ -4706,10 +5057,15 @@ def mesh_rank(rank, path):
               .numpy() for toks, mask in data["forced"]]
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    train = mesh_rank_train(torch, mesh, model, cfg, batch, data,
+                            os.path.dirname(path))
+    t_train = time.perf_counter() - t0
     launches = read_launches()
     return {"rank": rank, "backend": torch.distributed.get_backend(),
-            "setup_s": t_setup, "run_s": t_run,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "setup_s": t_setup, "run_s": t_run, "train_s": t_train,
+            "train": train, "peak_gib": peak,
             "launches": dict(launches), "by_t": launches.by_t,
             "mamba_by_t": launches.mamba_by_t,
             "runs": {mode: ([_rb_host(rb0), _rb_host(rb1)], rec.calls,
@@ -4777,18 +5133,26 @@ def mesh_path(torch):
                for mode, (rb0, rb1, _) in ref.items()}
     t_ref = time.perf_counter() - t0
     drafts = {mode: rb0 for mode, (rb0, _, _) in ref.items()}
-    del model, ref, dense
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"mesh: reference ({MESH_LAYERS} layers, {len(MESH_MODES)} modes) "
-        f"in {t_ref:.1f} s; {len(MESH_MODES)} modes x 2 epochs on a "
-        f"{MESH_SHAPE} gloo mesh of {MESH_WORLD} ranks on cuda:0")
-
-    with tempfile.TemporaryDirectory() as tmp:
+    rb0 = dense[0]
+    del ref, dense
+    # the reference's update blobs and the watchdog's snapshot (several GB)
+    # go to disk under chiprun_out/, removed after
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        t0 = time.perf_counter()
+        ref_train = mesh_train_reference(torch, model, cfg, batch, rb0, tmp)
+        t_ref_train = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"mesh: reference ({MESH_LAYERS} layers, {len(MESH_MODES)} "
+            f"modes) in {t_ref:.1f} s, its trainer in {t_ref_train:.1f} s; "
+            f"{len(MESH_MODES)} modes x 2 epochs and the trainer on a "
+            f"{MESH_SHAPE} gloo mesh of {MESH_WORLD} ranks on cuda:0")
         path = os.path.join(tmp, "mesh.pkl")
         with open(path, "wb") as f:
-            pickle.dump({"keys": keys, "drafts": drafts, "forced": forced},
-                        f)
+            pickle.dump({"keys": keys, "drafts": drafts, "forced": forced,
+                         "rb0": rb0, "wd_dir": os.path.join(tmp, "wd")}, f)
         t0 = time.perf_counter()
         ranks = run_ranks(mesh_rank, MESH_WORLD, (path,), device="cuda",
                           timeout=MESH_TIMEOUT_S)
@@ -4830,6 +5194,8 @@ def mesh_path(torch):
                 f"mesh {mode}: epoch 1 was not one-pass with reuse: "
                 f"{got[1]['metrics']}")
 
+    train = mesh_train_checks(cfg, ranks, ref_train, rb0)
+
     launches = Launches({k: sum(r["launches"][k] for r in ranks)
                          for k in ranks[0]["launches"]})
     launches.by_t = {name: {} for name in ranks[0]["by_t"]}
@@ -4855,7 +5221,121 @@ def mesh_path(torch):
             "launches_by_rank": [r["launches"] for r in ranks],
             "modes": summary}
     log("mesh " + json.dumps(line))
+    log("mesh train " + json.dumps({
+        "reference_s": t_ref_train,
+        "rank_train_s": [r["train_s"] for r in ranks], **train}))
     return launches
+
+
+def _untimed(m):
+    return {k: v for k, v in m.items() if not k.endswith("_time")}
+
+
+def mesh_train_checks(cfg, ranks, ref, rb0):
+    """The trainer's checks of the ``mesh`` phase (``mesh_rank_train``
+    held the gradients and update shards on each rank): the old log-probs
+    within MESH_LP_TOL of the reference's; the step log's loss,
+    grad_norm, kl_ref and critic_loss within MESH_METRIC_RTOL (plus
+    MESH_METRIC_ATOL) of the reference's; no kernel in any update, the
+    scorings one flash_attention a layer; every rank's step log the same;
+    the ``train_step``'s rows equal to the reference's up to partings
+    that its recorded sampler scores explain (``mesh_partings``); the
+    async steps one exact and one importance-corrected, the served
+    weights the trainer's with no shared storage; the watchdog's restore
+    exact.
+    Returns the ``mesh train`` line's fields."""
+    import numpy as np
+
+    out = {}
+    valid = np.asarray(rb0.response_mask, bool)
+    for algo in ("grpo", "ppo"):
+        gap = max(float(np.abs(r["train"][algo]["lp_old"]
+                               - ref[algo]["lp_old"])[valid].max())
+                  for r in ranks)
+        require(gap <= MESH_LP_TOL, f"mesh {algo}: old log-probs {gap} from "
+                f"the reference's (MESH_LP_TOL {MESH_LP_TOL})")
+        for r in ranks:
+            check_scoring(f"mesh rank {r['rank']} {algo}",
+                          {k: {"launches": v}
+                           for k, v in r["train"][algo]["launches"].items()},
+                          cfg.num_layers,
+                          scorings=(("old_logprob", "ref") if algo == "grpo"
+                                    else ("old_logprob", "values")),
+                          updates=(("update_actor",) if algo == "grpo" else
+                                   ("update_actor", "update_critic")))
+            require(_untimed(r["train"][algo]["metrics"])
+                    == _untimed(ranks[0]["train"][algo]["metrics"]),
+                    f"mesh {algo}: rank {r['rank']}'s step log differs")
+        mine, theirs = ranks[0]["train"][algo], ref[algo]
+        keys = ("loss", "grad_norm", "kl_ref", "critic_loss", "approx_kl",
+                "clip_frac", "ratio_mean")
+        require(all(np.isfinite(mine["metrics"][k]) for k in keys
+                    if k in mine["metrics"]), f"mesh {algo}: not finite")
+        for k in ("loss", "grad_norm", "kl_ref", "critic_loss"):
+            if k in theirs["metrics"]:
+                a, b = mine["metrics"][k], theirs["metrics"][k]
+                require(abs(a - b) <= MESH_METRIC_RTOL * abs(b)
+                        + MESH_METRIC_ATOL, f"mesh {algo}: {k} {a} against "
+                        f"the reference's {b} (rtol {MESH_METRIC_RTOL}, "
+                        f"atol {MESH_METRIC_ATOL})")
+        out[algo] = {
+            "mesh": {k: mine["metrics"][k] for k in keys
+                     if k in mine["metrics"]},
+            "reference": {k: theirs["metrics"][k] for k in keys
+                          if k in theirs["metrics"]},
+            "old_lp_gap": gap,
+            "grad_gap": {lab: max(r["train"][algo]["compare"][lab][0]
+                                  for r in ranks)
+                         for lab in mine["compare"]},
+            "worst_param_err_over_tol": {
+                lab: max(r["train"][algo]["compare"][lab][2] for r in ranks)
+                for lab in mine["compare"]},
+            "reference_optimize_s": theirs["optimize_s"],
+            "rank_optimize_s": [r["train"][algo]["optimize_s"]
+                                for r in ranks],
+            "rank_grad_sum_s": [r["train"][algo]["grad_sum_s"]
+                                for r in ranks],
+            "rank_update_s": [r["train"][algo]["metrics"].get(
+                "update_actor_time") for r in ranks],
+            "rank_peak_gib": [max(r["train"][algo]["peak_gib"].values())
+                              for r in ranks],
+            "launches": mine["launches"]}
+    # the train step: rows against the reference's, partings explained
+    got = ranks[0]["train"]["train_step"]
+    for r in ranks[1:]:
+        for k in ("response", "length"):
+            require(np.array_equal(r["train"]["train_step"]["rb"][k],
+                                   got["rb"][k]),
+                    f"mesh train_step: rank {r['rank']}'s {k} differs")
+    mesh_rec = {}
+    for r in ranks:
+        for k, v in records_by_call(r["train"]["train_step"]["calls"]
+                                    ).items():
+            mesh_rec.setdefault(k, v)
+    parts = mesh_partings("train_step", [ref["train_step"]["rb"]],
+                          [got["rb"]], records_by_call(
+                              ref["train_step"]["calls"]), mesh_rec, {}, {})
+    out["train_step"] = {"rows": parts, "step_s": [
+        r["train"]["train_step"]["step_s"] for r in ranks],
+        "loss": got["metrics"]["loss"],
+        "reference_loss": ref["train_step"]["metrics"]["loss"]}
+    a = ranks[0]["train"]["async"]
+    c = a["counters"]
+    require(c["async_exact_steps"] == 1 and c["async_is_steps"] == 1
+            and a["staleness"] == [0.0, 1.0],
+            f"mesh async: {c}, staleness {a['staleness']}")
+    for r in ranks:
+        ra = r["train"]["async"]
+        require(ra["served_equal"] and not ra["shared_storage"],
+                f"mesh async: rank {r['rank']}'s served weights "
+                f"{'differ' if not ra['served_equal'] else 'share storage'}")
+        require(r["train"]["watchdog"]["exact"],
+                f"mesh watchdog: rank {r['rank']}'s restore is not exact")
+    out["async"] = {k: a[k] for k in ("staleness", "is_weight_mean", "loss",
+                                      "async_s")}
+    out["watchdog"] = {k: [r["train"]["watchdog"][k] for r in ranks]
+                       for k in ("snapshot_s", "restore_s")}
+    return out
 
 
 def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc):
@@ -4867,7 +5347,7 @@ def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc):
     import numpy as np
 
     out = {}
-    for e in (0, 1):
+    for e in range(len(want)):
         w, g = want[e], got[e]
         rows_equal, n_parts, draw_parts, shift = 0, [], [], 0.0
         for b in range(len(w["length"])):
@@ -5183,7 +5663,8 @@ def main() -> int:
     paths["faults"] = run("faults", faults_path, torch, cut_model, cut_cfg,
                           batch, gen)
     del cut_model
-    paths["train"], rb1 = run("train", train_path, torch, model, cfg, batch)
+    paths["train"], rb1 = run("train", train_path, torch,
+                              *cut_depth(model, cfg, CUT_LAYERS), batch)
     gc.collect()                # the GRPO trainer's reference and moments
     torch.cuda.empty_cache()
     paths["ppo"] = run("ppo", ppo_path, torch,

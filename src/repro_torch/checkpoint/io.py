@@ -27,7 +27,7 @@ from __future__ import annotations
 import json
 import os
 from collections import deque
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,19 +73,23 @@ def _structure(tree):
     return {"__kind__": "leaf"}
 
 
-def _rebuild(struct, flat, prefix=""):
+def _rebuild(struct, flat, prefix="", leaf=None):
     kind = struct["__kind__"]
     if kind == "dict":
-        return {k: _rebuild(v, flat, f"{prefix}/{k}")
+        return {k: _rebuild(v, flat, f"{prefix}/{k}", leaf)
                 for k, v in struct["items"].items()}
     if kind in ("list", "tuple"):
-        seq = [_rebuild(v, flat, f"{prefix}/#{i}")
+        seq = [_rebuild(v, flat, f"{prefix}/#{i}", leaf)
                for i, v in enumerate(struct["items"])]
         return seq if kind == "list" else tuple(seq)
-    arr = np.array(flat[prefix])            # own, writable memory
+    arr = flat[prefix]                      # read from the file here
+    if not arr.flags.writeable:
+        arr = arr.copy()                    # own, writable memory
     if struct.get("dtype") == _BF16:
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t if leaf is None else leaf(prefix, t)
 
 
 # ------------------------------------------------------------ atomic writes
@@ -173,13 +177,18 @@ def save_pytree(path: str, tree, metadata: Optional[Dict[str, Any]] = None) -> N
         {"structure": _structure(tree), "metadata": metadata or {}}))
 
 
-def load_pytree(path: str) -> Tuple[Any, Dict[str, Any]]:
-    """The tree (leaves as CPU torch tensors) and its metadata."""
+def load_pytree(path: str, leaf: Optional[Callable[[str, torch.Tensor],
+                                                   torch.Tensor]] = None
+                ) -> Tuple[Any, Dict[str, Any]]:
+    """The tree (leaves as CPU torch tensors) and its metadata.  The leaves
+    are read one at a time, and ``leaf(path, tensor)``, when given, turns
+    each into what the tree keeps as it is read (``path`` its ``/key/#index``
+    path: ``distributed/mesh.py:cut_on_read`` keeps a rank's slice)."""
     with open(path + ".json") as f:
         meta = json.load(f)
     with np.load(path + ".npz") as z:
-        flat = {k: z[k] for k in z.files}
-    return _rebuild(meta["structure"], flat), meta["metadata"]
+        tree = _rebuild(meta["structure"], z, leaf=leaf)
+    return tree, meta["metadata"]
 
 
 # ----------------------------------------------------------- rollout cache

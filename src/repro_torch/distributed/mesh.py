@@ -27,17 +27,38 @@ JAX's one-process GSPMD mesh becomes one process a rank over
   shards.  Every rank of a model group computes the same logits bit for
   bit, so it samples the same tokens and makes the same host decisions.
 
+* **Training.**  The collectives carry the gradient
+  (``distributed/comm.py``), so a rank's backward gives the full gradient
+  of each of its parameter shards except two sums, which
+  ``finish_grads`` adds: a replicated parameter used inside a
+  model-parallel region (qk-norm scales, KV projections the axis does not
+  divide: ``region_params``, derived from the partition rules and the
+  module that uses each parameter) holds only its rank's heads' share and
+  is summed over the model group; then every gradient is summed over the
+  data group (averaged when the batch is replicated there, as every data
+  rank then computed the whole loss).  The AdamW moments take the
+  parameters' layout and ``step`` is replicated (JAX's
+  ``shard_opt_state``; ``zero_shard_spec`` is the dry run's, not the
+  trainer's).  A snapshot gathers a cut model's parameters (and its
+  moments) whole to the writing rank's host (``gather_params``), and a
+  restore cuts each tensor onto its rank as it is read (``cut_on_read``).
+  ``LossRows`` holds the rule of a loss on the mesh (a rank's rows, the
+  whole batch's counts, ``finish_grads`` and the data-group sum of the
+  loss and diagnostics), for the trainer and ``launch/steps.py``.
+
 The dense GQA family runs on the mesh; the other families (MoE, MLA,
 Mamba, RWKV6, the frontends, MTP) arrive there with part 3 of ROADMAP
 Queue 1 item 11 (the mesh), and ``shard_params`` refuses them until then.
 
-Ranks start one process each: ``torchrun`` (``launch/serve.py``), or
+Ranks start one process each: ``torchrun`` (``launch/serve.py``,
+``launch/train.py``), or
 ``run_ranks`` below (tests and ``chip_smoke.py``).  The backend is NCCL
 when every rank of a host has a card of its own, else ``gloo`` (ranks
 that share one card, or the CPU); ``pick_backend`` logs its choice.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import pickle
@@ -46,7 +67,7 @@ import time
 import traceback
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,8 +77,9 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ATTN, ModelConfig
 
-from .comm import (all_gather_cat, all_gather_objects, broadcast_,
-                   group_ranks)
+from .comm import (all_gather_cat, all_gather_objects, all_reduce_,
+                   broadcast_, gather_cat_to_host, group_rank, group_ranks,
+                   group_size)
 from .sharding import axis_sizes, batch_spec, data_shards, params_pspecs
 
 log = logging.getLogger("repro_torch.distributed")
@@ -279,6 +301,44 @@ class DataRows:
         return all_gather_objects(obj, self.group) if self.sharded else [obj]
 
 
+class LossRows(DataRows):
+    """``DataRows`` of a loss's batch, with the mesh's rule for a loss and
+    its gradients.  Where the data ranks hold rows of their own, a rank's
+    loss divides by the whole batch's counts (``count``, ``whole_rows``),
+    so its loss, diagnostics and gradients are its share of the whole
+    batch's: ``finish`` sums the gradients (``finish_grads``) and ``sum``
+    the loss and diagnostics over the data group.  Where a rank holds the
+    whole batch (off the mesh, or a batch the data axes do not divide)
+    the counts are its own (``count`` and ``whole_rows`` None), ``sum`` is
+    the identity and ``finish`` averages over the data group."""
+
+    def __init__(self, mesh, batch: int):
+        super().__init__(mesh, batch)
+        self.mesh = mesh
+        self.whole_rows = self.batch if self.sharded else None
+
+    def count(self, mask: torch.Tensor):
+        """The whole batch's count of ``mask`` (given whole), or None where
+        the rank's own count is the whole batch's."""
+        return mask.float().sum() if self.sharded else None
+
+    def finish(self, model, grads: Sequence[torch.Tensor]) -> None:
+        """A rank's gradients of ``model`` finished on the mesh, in place
+        (``finish_grads``)."""
+        finish_grads(self.mesh, model, grads, rows_sharded=self.sharded)
+
+    def sum(self, info: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each rank's share of the loss and diagnostics summed over the
+        data group: the whole batch's values, on every rank."""
+        if not self.sharded or not info:
+            return info
+        names = sorted(info)
+        flat = torch.stack([info[k].detach().float().reshape(())
+                            for k in names])
+        all_reduce_(flat, self.group)
+        return dict(zip(names, flat.unbind()))
+
+
 def shard_batch(mesh, tree):
     """This rank's rows of every leaf of ``tree`` (each leaf's leading
     dimension over the data axes, by ``batch_pspec``)."""
@@ -327,11 +387,13 @@ def _set_param(root: nn.Module, name: str, value: nn.Parameter) -> None:
 
 @torch.no_grad()
 def shard_params(mesh, cfg: ModelConfig, model):
-    """This rank's slice of ``model`` over the mesh's model axis, by the
-    ``param_spec`` rules: a new ``LM`` whose parameters are the local
-    slices (copies), marked for its collectives (module docstring).  The
-    model itself on a mesh without a model axis (parameters replicated
-    over data), and a model already cut for this model group as it is."""
+    """This rank's slice of ``model`` (an ``LM`` or a critic) over the
+    mesh's model axis, by the ``param_spec`` rules: a new module of its
+    type whose parameters are the local slices (copies), marked for its
+    collectives (module docstring), with each parameter's spec in
+    ``param_specs``.  The model itself on a mesh without a model axis
+    (parameters replicated over data), and a model already cut for this
+    model group as it is."""
     if mesh is None:
         return model
     check_mesh_family(cfg)
@@ -340,25 +402,25 @@ def shard_params(mesh, cfg: ModelConfig, model):
         return model
     group = model_group(mesh)
     ranks = group_ranks(group)
-    if model.tp is not None:
+    if getattr(model, "tp", None) is not None:
         if group_ranks(model.tp) != ranks:
             raise ValueError(f"a model cut for ranks {group_ranks(model.tp)} "
                              f"on a model group of ranks {ranks}")
         return model
-    from repro_torch.models.model import LM
     r = model_rank(mesh)
     specs = params_pspecs(cfg, model, m)
-    out = LM(cfg, device="meta")
+    out = type(model)(cfg, device="meta")
     for name, p in model.named_parameters():
         local = _slice(p.detach(), specs[name], m, r).clone()
         _set_param(out, name, nn.Parameter(local,
                                            requires_grad=p.requires_grad))
     out.tp = group
+    out.param_specs = specs
     if "model" in specs["embed"]:
         V = cfg.vocab_size
         out.vocab_shard = (r * V // m, (r + 1) * V // m)
     head = "embed" if cfg.tie_embeddings else "lm_head.kernel"
-    out.logits_sharded = "model" in specs[head]
+    out.logits_sharded = head in specs and "model" in specs[head]
     for li, layer in enumerate(out.layers):
         attn = layer.attn
         pre = f"layers.{li}.attn."
@@ -373,6 +435,171 @@ def shard_params(mesh, cfg: ModelConfig, model):
                 specs[f"{name}.kernel"] == ("model", None):
             mod.reduce_group = group             # row-parallel: all-reduce
     return out
+
+
+# ------------------------------------------------------------------ training
+
+
+def param_specs(model) -> Dict[str, tuple]:
+    """Each parameter's spec on a cut model (``{}`` on an uncut one: every
+    parameter whole)."""
+    return getattr(model, "param_specs", None) or {}
+
+
+def _model_dim(spec):
+    return spec.index("model") if "model" in spec else None
+
+
+def cut_flags(model) -> List[bool]:
+    """For each parameter (in ``named_parameters`` order), whether it is
+    cut over the model axis."""
+    specs = param_specs(model)
+    return [_model_dim(specs.get(n, ())) is not None
+            for n, _ in model.named_parameters()]
+
+
+def clone_module(module):
+    """A deep copy of a (possibly cut) module that shares its process
+    groups (a KL reference, an async service's model)."""
+    memo = {}
+    for mod in module.modules():
+        for attr in ("tp", "reduce_group"):
+            g = getattr(mod, attr, None)
+            if g is not None:
+                memo[id(g)] = g
+    return copy.deepcopy(module, memo)
+
+
+def region_params(model) -> set:
+    """The replicated parameters that a cut model uses inside a
+    model-parallel region: those of a module whose output is a
+    row-parallel ``Dense`` (``reduce_group`` set: the attention's ``wo``,
+    the FFN's ``w_down``), but for that output's bias, which is added
+    after the sum.  Each rank's gradient of such a parameter is its own
+    heads' share."""
+    specs = param_specs(model)
+    out = set()
+    for name, mod in model.named_modules():
+        outs = [c for c in mod.children()
+                if getattr(c, "reduce_group", None) is not None]
+        if not outs:
+            continue
+        after = {id(c.bias) for c in outs if c.bias is not None}
+        for pname, p in mod.named_parameters(prefix=name):
+            if id(p) not in after and \
+                    _model_dim(specs.get(pname, ())) is None:
+                out.add(pname)
+    return out
+
+
+# elements of one float32 bucket a gradient sum sends at once (256 MB)
+GRAD_BUCKET = 1 << 26
+
+
+@torch.no_grad()
+def _sum_over(tensors: Sequence[torch.Tensor], group, scale: float = 1.0
+              ) -> None:
+    """Sum every tensor over ``group`` in place (times ``scale``), in
+    float32 buckets of up to ``GRAD_BUCKET`` elements."""
+    bucket: List[torch.Tensor] = []
+
+    def flush():
+        flat = torch.cat([t.reshape(-1).float() for t in bucket])
+        all_reduce_(flat, group)
+        if scale != 1.0:
+            flat.mul_(scale)
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        bucket.clear()
+
+    n = 0
+    for t in tensors:
+        bucket.append(t)
+        n += t.numel()
+        if n >= GRAD_BUCKET:
+            flush()
+            n = 0
+    if bucket:
+        flush()
+
+
+def finish_grads(mesh, model, grads: Sequence[torch.Tensor], *,
+                 rows_sharded: bool) -> None:
+    """Finish a rank's gradients of ``model`` (in ``named_parameters``
+    order) on the mesh, in place: the model-group sum of the
+    ``region_params``, then the data-group sum, or the mean when the batch
+    was replicated over the data axis (``rows_sharded`` False)."""
+    if mesh is None:
+        return
+    if getattr(model, "tp", None) is not None:
+        inside = region_params(model)
+        _sum_over([g for (n, _), g in zip(model.named_parameters(), grads)
+                   if n in inside], model.tp)
+    D = data_size(mesh)
+    if D > 1:
+        _sum_over(grads, data_group(mesh),
+                  scale=1.0 if rows_sharded else 1.0 / D)
+
+
+# the mesh's rank that writes a snapshot (``rl/watchdog.py:write_once``)
+WRITER = 0
+
+
+def gather_params(model, tensors=None) -> Dict[str, torch.Tensor]:
+    """The whole tensors of a model, for a snapshot: its parameters, or
+    ``tensors`` laid out like them (a list in ``named_parameters`` order:
+    AdamW's moments).  An uncut model's as they are.  A cut model's are
+    gathered a tensor at a time to the host of the mesh's ``WRITER`` (a
+    collective of its model group; the other groups send nothing), and
+    are ``{}`` on every other rank: no rank holds a whole tree on its
+    card, and only the writer holds one at all."""
+    named = list(model.named_parameters())
+    if tensors is None:
+        tensors = [p for _, p in named]
+    if getattr(model, "tp", None) is None:
+        return {n: t.detach() for (n, _), t in zip(named, tensors)}
+    if group_ranks(model.tp)[0] != WRITER:
+        return {}
+    lead = dist.get_rank() == WRITER
+    specs = param_specs(model)
+    out = {}
+    for (n, _), t in zip(named, tensors):
+        d = _model_dim(specs.get(n, ()))
+        if d is not None:
+            whole = gather_cat_to_host(t, model.tp, dim=d)
+        else:
+            whole = t.detach().cpu() if lead else None
+        if whole is not None:
+            out[n] = whole
+    return out
+
+
+def cut_on_read(models: Mapping[str, Any]
+                ) -> Callable[[str, torch.Tensor], torch.Tensor]:
+    """A leaf transform for ``checkpoint/io.load_pytree`` that cuts each
+    whole tensor of a snapshot onto this rank as it is read, so a rank
+    holds its own slices alone (the inverse of ``gather_params``).
+    ``models`` maps the path of a subtree in the file to the model whose
+    tensors it holds, by name (``"/params"``) or in ``named_parameters``
+    order (``"/opt_state/mu"``: AdamW's moments take the parameters'
+    layout and ``step`` is replicated, as JAX's ``shard_opt_state`` lays
+    them); every other leaf is as it was written."""
+    def cut(path: str, t: torch.Tensor) -> torch.Tensor:
+        head, _, leaf = path.rpartition("/")
+        model = models.get(head)
+        if model is None or getattr(model, "tp", None) is None:
+            return t
+        if leaf.startswith("#"):
+            leaf = [n for n, _ in model.named_parameters()][int(leaf[1:])]
+        spec = param_specs(model).get(leaf, ())
+        if _model_dim(spec) is None:
+            return t
+        # a copy: the whole tensor's memory goes with it
+        return _slice(t, spec, group_size(model.tp),
+                      group_rank(model.tp)).clone()
+    return cut
 
 
 # ------------------------------------------------------------------ KV caches

@@ -26,7 +26,8 @@ import torch
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.spec_verify.ops import spec_verify
 
-from .comm import all_gather_cat, group_rank, group_size
+from .comm import (all_gather_cat, gather_from_model, group_rank,
+                   group_size)
 from .mesh import DataRows, model_group, model_rank, model_size
 from .mesh import batch_shardable  # noqa: F401  (JAX's rule, kept here too)
 
@@ -43,12 +44,14 @@ def model_axis(mesh, *dims: int):
 
 
 def gather_heads(x: torch.Tensor, group) -> torch.Tensor:
-    """A rank's query columns (..., C / m) gathered whole (..., C)."""
-    return all_gather_cat(x, group, dim=-1)
+    """A rank's query columns (..., C / m) gathered whole (..., C); the
+    gradient keeps this rank's columns (only its heads reach ``wo``)."""
+    return gather_from_model(x, group, dim=-1)
 
 
 def local_heads(x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's columns (..., C / m) of a whole (..., C) output."""
+    """This rank's columns (..., C / m) of a whole (..., C) output (a
+    slice: its gradient is zero in the other ranks' columns)."""
     n = x.shape[-1] // group_size(group)
     r = group_rank(group)
     return x[..., r * n:(r + 1) * n]

@@ -17,9 +17,11 @@ Key decisions, as in JAX:
   axis; MQA or GQA with few KV heads replicates them.
 - MoE experts are expert-parallel when ``num_experts % model == 0``, else
   each expert is tensor-parallel.
-- Optimizer moments are further sharded over ``data`` on their first
-  dimension that the parameter's spec leaves free and that divides
-  (``zero_shard_spec``, ZeRO-style).
+- ``zero_shard_spec`` (ZeRO-style: moments further sharded over ``data``
+  on their first dimension that the parameter's spec leaves free and that
+  divides) is the dry run's layout, as in JAX; the trainer's moments take
+  the parameters' layout, as JAX's ``shard_opt_state`` lays them
+  (``adamw.init`` of the cut parameters).
 
 The mesh runs the dense GQA family's rules (``distributed/mesh.py``); the
 MoE, MLA, Mamba and RWKV rules are here and held against JAX's, and run on

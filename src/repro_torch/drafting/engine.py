@@ -29,9 +29,11 @@ data rank runs the loop over its rows (their proposals, acceptances and
 key streams are per row, so nothing crosses rows), and the tokens, the
 log-probs, the lengths and the ``DraftStats`` (sums over rows) are
 gathered.  The ledger and the decision log are fed from the loop's rows,
-which on a data-sharded mesh are a rank's share: both refuse it until the
-observatory runs on the mesh (part 2 of ROADMAP Queue 1 item 11, the
-mesh).
+which on a data-sharded mesh are a rank's share: the loop writes into
+``_ShardSinks``, whose events the data group gathers and replays into the
+process's sinks by whole-batch row, in the single process's order (a
+row's macro-steps do not depend on the other rows: the acceptance draws
+stay at ``u_width``), so every rank holds the single process's records.
 
 §11/§14 observatory, as in JAX, fed only from that readback and the
 host's own state: one span per macro-step on the process-global tracer's
@@ -127,7 +129,8 @@ class _DraftLoop:
 
     def __init__(self, model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                  draft: DraftConfig, caches, tok0, lp0, next_pos, key,
-                 write_idx, initial_done, row_budget, contexts, corpus):
+                 write_idx, initial_done, row_budget, contexts, corpus,
+                 sinks=None):
         dev = model.device
         B = int(next_pos.shape[0])
         N = gen.max_new_tokens
@@ -162,7 +165,8 @@ class _DraftLoop:
         # §14 provenance: append to the rows the caller bound (the one-pass
         # rollout's continuation extends the rollout's own rows); otherwise
         # reserve rows and lay each row's context down as its prompt plane
-        self.ledger = led = get_ledger()
+        self.ledger = led = sinks.ledger if sinks else get_ledger()
+        self.decisions = sinks.decisions if sinks else get_decision_log()
         self._rows: List = [None] * B
         self._carry_bonus = np.zeros(B, bool)
         if led.enabled:
@@ -178,7 +182,7 @@ class _DraftLoop:
     def run(self) -> Dict[str, torch.Tensor]:
         dev = self.model.device
         tr, reg, led = get_tracer(), get_registry(), self.ledger
-        dec = get_decision_log()
+        dec = self.decisions
         # the entry readback carries the decision features' carry log-prob
         # and position along with the done flags and carry tokens
         host = torch.stack([self.done.to(torch.int32),
@@ -304,13 +308,100 @@ def _require_drafting(cfg: ModelConfig) -> None:
                          "recurrent state cannot drop a rejected draft)")
 
 
-def _on_rows(rows: DataRows) -> None:
-    if rows.sharded and (get_ledger().enabled
-                         or get_decision_log().enabled):
-        raise NotImplementedError(
-            "the ledger and decision log of a drafted loop on a "
-            "data-sharded mesh come with part 2 of ROADMAP Queue 1 item 11 "
-            "(the mesh)")
+class _LocalBase:
+    """The base of the rows a data shard's loop reserves: ``base + b`` is
+    the local row ``("local", lo + b)``, given its ledger id at replay."""
+
+    def __init__(self, lo: int):
+        self.lo = lo
+
+    def __add__(self, b: int):
+        return ("local", self.lo + int(b))
+
+
+class _ShardLedger:
+    """The ledger protocol of ``_DraftLoop`` over a data shard's rows: the
+    bound rows are the caller's whole-batch rows from ``lo``; reserved
+    rows are local until replayed; ``begin_row`` and ``append`` are
+    recorded."""
+
+    def __init__(self, led, lo: int):
+        self.enabled = led.enabled
+        self.lo = lo
+        self.bound = led._bound[-1] if led.enabled and led._bound else None
+        self.reserved = False
+        self.events: List = []
+
+    def bound_row(self, b: int):
+        return None if self.bound is None else self.bound[self.lo + b]
+
+    def reserve(self, n: int) -> _LocalBase:
+        self.reserved = True
+        return _LocalBase(self.lo)
+
+    def begin_row(self, rid, prompt_len: int = 0) -> None:
+        self.events.append(("begin", rid, int(prompt_len)))
+
+    def append(self, rid, cat: int, n: int = 1) -> None:
+        self.events.append(("append", rid, int(cat), int(n)))
+
+
+class _ShardDecisions:
+    def __init__(self, dec):
+        self.enabled = dec.enabled
+        self.recs: List = []
+
+    def record(self, row, step, features, outcomes) -> None:
+        self.recs.append((row, int(step), dict(features), dict(outcomes)))
+
+
+class _ShardSinks:
+    """Where a data shard's drafted loop writes its ledger appends and
+    decision records on the mesh; ``replay`` (a collective of the data
+    group) gathers every shard's and writes them into the process's
+    ledger and decision log as the single process's loop over the whole
+    batch would: rows by their whole-batch ids (a loop that reserved its
+    rows reserves the whole batch's once), decision records by (macro-step,
+    whole-batch row)."""
+
+    def __init__(self, rows: DataRows):
+        self.rows = rows
+        self.ledger = _ShardLedger(get_ledger(), rows.lo)
+        self.decisions = _ShardDecisions(get_decision_log())
+
+    def replay(self) -> None:
+        led, dec = get_ledger(), get_decision_log()
+        if not (led.enabled or dec.enabled):
+            return
+        parts = self.rows.gather_objects((self.ledger.events,
+                                          self.ledger.reserved,
+                                          self.decisions.recs))
+        base = (led.reserve(self.rows.batch)
+                if any(p[1] for p in parts) else 0)
+        pos_of = {rid: i for i, rid in enumerate(self.ledger.bound or ())}
+
+        def rid_of(r):
+            return base + r[1] if isinstance(r, tuple) else r
+
+        for events, _, _ in parts:
+            for ev in events:
+                if ev[0] == "begin":
+                    led.begin_row(rid_of(ev[1]), ev[2])
+                else:
+                    led.append(rid_of(ev[1]), ev[2], ev[3])
+        recs = []
+        for d, (_, _, shard_recs) in enumerate(parts):
+            lo = d * (self.rows.batch // len(parts))
+            for row, step, f, o in shard_recs:
+                if isinstance(row, tuple):
+                    pos, rid = row[1], rid_of(row)
+                elif not led.enabled:
+                    pos = rid = lo + row            # the loop's own index
+                else:
+                    pos, rid = pos_of[row], row
+                recs.append((step, pos, rid, f, o))
+        for step, _, rid, f, o in sorted(recs, key=lambda r: r[:2]):
+            dec.record(rid, step, f, o)
 
 
 def _gather_loop(rows: DataRows, out: Dict) -> Dict:
@@ -333,20 +424,23 @@ def _gather_loop(rows: DataRows, out: Dict) -> Dict:
 def drafted_generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                      prompt, prompt_mask, key, draft: DraftConfig, *,
                      corpus: Optional[Sequence[Sequence[np.ndarray]]] = None,
-                     initial_done=None, row_budget=None, mesh=None
-                     ) -> Dict[str, torch.Tensor]:
+                     initial_done=None, row_budget=None, mesh=None,
+                     _sinks=None) -> Dict[str, torch.Tensor]:
     """``generate`` with the drafted decode loop (same output contract,
     plus ``stats``).  ``corpus[b]`` optionally holds row b's sibling /
-    previous-rollout trajectories for the n-gram index."""
+    previous-rollout trajectories for the n-gram index.  (``_sinks``: a
+    data shard's, from the mesh's own call.)"""
     _require_drafting(cfg)
     rows = DataRows(mesh, len(prompt))
     if rows.sharded:
-        _on_rows(rows)
-        return _gather_loop(rows, drafted_generate(
+        sinks = _ShardSinks(rows)
+        out = drafted_generate(
             model, cfg, gen, rows.take(prompt), rows.take(prompt_mask),
             rows.take(key), draft, corpus=rows.take(corpus),
             initial_done=rows.take(initial_done),
-            row_budget=rows.take(row_budget)))
+            row_budget=rows.take(row_budget), _sinks=sinks)
+        sinks.replay()
+        return _gather_loop(rows, out)
     dev = model.device
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
     prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
@@ -359,7 +453,7 @@ def drafted_generate(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     loop = _DraftLoop(model, cfg, gen, draft, pre["caches"], pre["tok0"],
                       pre["lp0"], pre["next_pos"], pre["key"],
                       np.full((B,), P, np.int32), initial_done, row_budget,
-                      contexts, corpus)
+                      contexts, corpus, sinks=_sinks)
     return loop.run()
 
 
@@ -368,8 +462,8 @@ def drafted_resume(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
                    caches, seed_logits, next_pos, write_offset: int, key,
                    draft: DraftConfig, contexts: Sequence[Sequence[int]], *,
                    corpus: Optional[Sequence[Sequence[np.ndarray]]] = None,
-                   initial_done=None, row_budget=None, mesh=None
-                   ) -> Dict[str, torch.Tensor]:
+                   initial_done=None, row_budget=None, mesh=None,
+                   _sinks=None) -> Dict[str, torch.Tensor]:
     """``resume_from_cache`` with the drafted decode loop: the one-pass
     SPEC-RL continuation drafts past the verified prefix (DESIGN.md §9).
     ``contexts[b]`` holds row b's prompt ⊕ accepted-prefix tokens (the
@@ -379,17 +473,19 @@ def drafted_resume(model: M.LM, cfg: ModelConfig, gen: GenerateConfig,
     _require_drafting(cfg)
     rows = DataRows(mesh, len(seed_logits))
     if rows.sharded:
-        _on_rows(rows)
-        return _gather_loop(rows, drafted_resume(
+        sinks = _ShardSinks(rows)
+        out = drafted_resume(
             model, cfg, gen, caches, rows.take(seed_logits),
             rows.take(next_pos), write_offset, rows.take(key), draft,
             rows.take(contexts), corpus=rows.take(corpus),
             initial_done=rows.take(initial_done),
-            row_budget=rows.take(row_budget)))
+            row_budget=rows.take(row_budget), _sinks=sinks)
+        sinks.replay()
+        return _gather_loop(rows, out)
     B = seed_logits.shape[0]
     pre = _pad_seed(cfg, gen, caches, seed_logits, key, extra=draft.draft_k)
     loop = _DraftLoop(model, cfg, gen, draft, pre["caches"], pre["tok0"],
                       pre["lp0"], next_pos, pre["key"],
                       np.full((B,), write_offset, np.int32), initial_done,
-                      row_budget, contexts, corpus)
+                      row_budget, contexts, corpus, sinks=_sinks)
     return loop.run()

@@ -55,11 +55,19 @@ ranks and, with D > 1, the slots over D shards, one scheduler each
 (``MeshSlotServer``); ``--engine fixed`` decodes each data shard's rows.
 The ranks take ``gloo`` unless each has a card of its own (then NCCL).
 Without enough ranks the mesh is off, as in JAX, or with
-``--require-mesh`` the launcher raises.  Rank 0 prints.  On the mesh the
-flags whose sinks are per process or whose stop must be agreed by a
-model group (``--trace-dir``, ``--ledger``, ``--decision-log``,
-``--metrics``, ``--state-path``) come with part 2 of ROADMAP Queue 1
-item 11 (the mesh).
+``--require-mesh`` the launcher raises.  Rank 0 prints.  The sinks are
+per process on the mesh (the model ranks of a shard hold the same):
+``--ledger``'s report sums every shard's provenance counts and
+``--trace-dir`` every shard's spans and events, gathered over the data
+group, and rank 0 writes them; with ``--decision-log`` each data shard's
+first model rank writes its shard's records, rotating as one process
+does, into files of its own (``decisions-s<shard>-NNNNN``, which
+``load_dataset`` reads together); ``--metrics`` on rank 0 serves every
+shard's registry merged, as the shards last published it
+(``serving/mesh_server.py:MetricsBoard``).  ``--state-path``: SIGTERM /
+Ctrl-C stops a model group at a chunk boundary its ranks agree on (an
+all-reduce of the stop flag at each boundary), every rank snapshots its
+shard, and rank 0 writes the whole server's state.
 """
 from __future__ import annotations
 
@@ -67,18 +75,24 @@ import argparse
 import contextlib
 import os
 import random
+import shutil
 import signal
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.cache import RolloutCache
 from repro_torch.data.dataset import PromptDataset
 from repro_torch.data.tokenizer import VOCAB_SIZE, decode
 from repro_torch.device import sync
-from repro_torch.distributed.mesh import (MeshConfig, init_from_env,
+from repro_torch.distributed.comm import all_gather_objects, all_reduce_
+from repro_torch.distributed.mesh import (MeshConfig, data_group, data_rank,
+                                          data_size, init_from_env,
+                                          model_group, model_rank, model_size,
                                           shard_params)
 from repro_torch.drafting import DraftConfig
 from repro_torch.engine.generate import GenerateConfig, generate
@@ -92,6 +106,7 @@ from repro_torch.obs.ledger import DecisionLog, TokenLedger
 from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
 from repro_torch.serving import (EngineKilled, FaultEvent, FaultPlan,
                                  Request, make_slot_engine)
+from repro_torch.serving.mesh_server import MeshSlotServer, MetricsBoard
 
 # long-tailed per-request budgets (fractions of --max-new-tokens): most
 # requests are short, a few run to the full budget — the regime where
@@ -251,16 +266,6 @@ def main(argv=None):
     try:
         mesh = MeshConfig(data=args.mesh_data, model=args.mesh_model,
                           require=args.require_mesh).build(device)
-        if mesh is not None:
-            off = [flag for flag, on in (
-                ("--trace-dir", args.trace_dir), ("--ledger", args.ledger),
-                ("--decision-log", args.decision_log),
-                ("--metrics", args.metrics),
-                ("--state-path", args.state_path)) if on]
-            if off:
-                raise NotImplementedError(
-                    f"{', '.join(off)} on the mesh come with part 2 of "
-                    "ROADMAP Queue 1 item 11 (the mesh)")
         with contextlib.ExitStack() as stack:
             if mesh is not None and torch.distributed.get_rank() != 0:
                 stack.enter_context(contextlib.redirect_stdout(
@@ -269,6 +274,53 @@ def main(argv=None):
     finally:
         if joined:
             torch.distributed.destroy_process_group()
+
+
+class AgreedStop(FaultPlan):
+    """The stop of a server on the mesh: a kill (SIGTERM / Ctrl-C, on any
+    rank of a model group) fires at the first chunk boundary after it
+    where the group's ranks, which run in lockstep, all see it (an
+    all-reduce of the flag over the group)."""
+
+    def __init__(self, group, device):
+        super().__init__()
+        self.group, self.device = group, device
+
+    def due(self, step: int, kind: str):
+        out = super().due(step, kind)
+        if kind != "kill" or self.group is None:
+            return out
+        flag = torch.tensor([float(bool(out))], device=self.device)
+        if float(all_reduce_(flag, self.group)) > 0:
+            return out or [FaultEvent("kill", at_step=step)]
+        return []
+
+
+def _shard_engine(engine):
+    """The engine this rank runs (a ``MeshSlotServer``'s shard, else the
+    engine itself)."""
+    return getattr(engine, "engine", engine)
+
+
+def _gather(mesh, obj) -> list:
+    """Every data shard's ``obj`` (the shards' own sinks), in shard order;
+    ``[obj]`` without a data axis."""
+    if mesh is None or data_size(mesh) <= 1:
+        return [obj]
+    return all_gather_objects(obj, data_group(mesh))
+
+
+def _merged_tracer(tracer: Tracer, mesh) -> Tracer:
+    """A tracer holding every shard's spans and events."""
+    parts = _gather(mesh, (list(tracer.spans), list(tracer.events)))
+    if len(parts) == 1:
+        return tracer
+    out = Tracer(enabled=True, capacity=tracer.capacity,
+                 sample_rate=tracer.sample_rate)
+    for spans, events in parts:
+        out.spans.extend(spans)
+        out.events.extend(events)
+    return out
 
 
 def _serve(args, device, mesh) -> int:
@@ -301,6 +353,7 @@ def _serve(args, device, mesh) -> int:
     tracer = (Tracer(enabled=True, sample_rate=args.trace_sample_rate)
               if args.trace_dir else None)
     ledger = TokenLedger(enabled=True) if args.ledger else None
+    lead = mesh is None or dist.get_rank() == 0
 
     def make_engine(spec_prefix: bool, traced: bool = False):
         return make_slot_engine(model, cfg, gen, mesh=mesh,
@@ -373,15 +426,33 @@ def _serve(args, device, mesh) -> int:
 
     if args.decision_log:
         # configured AFTER the warm pass, so the dataset holds only the
-        # speculative serve's decisions
-        configure(decisions=DecisionLog(args.decision_log, enabled=True))
+        # speculative serve's decisions; on the mesh each data shard's
+        # first model rank writes its shard's records, rotating as the
+        # single process does, into files of its own (the shards keep no
+        # common clock at which to gather them)
+        writer = mesh is None or model_rank(mesh) == 0
+        configure(decisions=DecisionLog(
+            args.decision_log, enabled=writer,
+            part="" if mesh is None else f"s{data_rank(mesh)}-"))
 
     engine = make_engine(spec_prefix=args.spec_prefix, traced=True)
-    metrics_srv = None
+    if mesh is not None and args.state_path:
+        _shard_engine(engine).faults = AgreedStop(
+            model_group(mesh) if model_size(mesh) > 1 else None, device)
+    metrics_srv = board = None
     if args.metrics:
-        metrics_srv = obs_export.start_metrics_server(
-            engine.metrics_registry, args.metrics)
-        print(f"metrics: http://localhost:{args.metrics}/metrics")
+        registry = _shard_engine(engine).metrics_registry
+        if isinstance(engine, MeshSlotServer):
+            # the merged registry is a collective, which a scrape cannot
+            # run: the shards publish theirs to a directory of rank 0's
+            where = [tempfile.mkdtemp(prefix="metrics_") if lead else None]
+            dist.broadcast_object_list(where, src=0)
+            board = MetricsBoard(engine, mesh, where[0])
+            registry = board.registry
+        if lead:
+            metrics_srv = obs_export.start_metrics_server(registry,
+                                                          args.metrics)
+            print(f"metrics: http://localhost:{args.metrics}/metrics")
 
     # §10 graceful shutdown: SIGTERM and Ctrl-C become a kill event in the
     # engine's fault plan, so the serve stops at the next chunk boundary
@@ -394,8 +465,9 @@ def _serve(args, device, mesh) -> int:
         engine.faults.events.append(FaultEvent("kill", at_step=0))
 
     # on the mesh a rank's stop alone would strand its model group in a
-    # collective: the signals keep their default action there
-    previous = {} if mesh is not None else {
+    # collective: without --state-path the signals keep their default
+    # action there; with it the stop is agreed (AgreedStop)
+    previous = {} if mesh is not None and not args.state_path else {
         sig: signal.signal(sig, _stop) for sig in (signal.SIGINT,
                                                    signal.SIGTERM)}
     interrupted = False
@@ -409,52 +481,70 @@ def _serve(args, device, mesh) -> int:
             resps = engine.run()
     except EngineKilled:
         interrupted = True
-        resps = engine.responses
-        if args.state_path:
-            from repro_torch.checkpoint.io import save_server_state
-            save_server_state(args.state_path, engine,
-                              metadata={"arch": cfg.name,
-                                        "requests": n_requests})
-            print(f"\ninterrupted: server state -> {args.state_path} "
-                  "(resume via checkpoint/io.load_server_state)")
-        else:
-            print("\ninterrupted: draining without snapshot "
-                  "(--state-path to keep serving state)")
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
         if metrics_srv is not None:
             metrics_srv.shutdown()
             metrics_srv.server_close()
+    if mesh is not None:
+        # a shard that finished before the stop snapshots with the rest
+        flag = torch.tensor([float(interrupted)], device=device)
+        interrupted = float(all_reduce_(flag, None)) > 0
+        if board is not None and lead:          # every shard has stopped
+            shutil.rmtree(board.dir, ignore_errors=True)
+    if interrupted:
+        resps = engine.responses
+        if args.state_path:
+            from repro_torch.checkpoint.io import (save_pytree,
+                                                   save_server_state)
+            meta = {"arch": cfg.name, "requests": n_requests}
+            if mesh is None:
+                save_server_state(args.state_path, engine, metadata=meta)
+            else:
+                # every rank gathers the snapshot; rank 0 writes it
+                state = engine.state_dict()
+                if lead:
+                    save_pytree(args.state_path, state,
+                                metadata={**meta, "kind": "server_state"})
+            print(f"\ninterrupted: server state -> {args.state_path} "
+                  "(resume via checkpoint/io.load_server_state)")
+        else:
+            print("\ninterrupted: draining without snapshot "
+                  "(--state-path to keep serving state)")
     dt = time.time() - t0
+    reg = engine.metrics_registry()
     if args.decision_log:
         dec = get_decision_log()
         dec.flush()
-        print(f"decisions: {dec.records_total} records -> "
+        n_dec = sum(_gather(mesh, dec.records_total))
+        print(f"decisions: {n_dec} records -> "
               f"{args.decision_log} (obs.ledger.load_dataset to reload)")
     report = None
     if ledger is not None:
         # §14: provenance counts x measured decode cost -> seconds saved
         # per mechanism; the actual wall clock anchors the counterfactual
-        regd = engine.metrics_registry().as_dict()
-        n_all = max(1, int(ledger.category_counts().sum()))
-        t_tok = measured_token_cost(regd) or dt / n_all
-        report = build_report(ledger, t_tok, actual_s=dt)
+        counts = sum(_gather(mesh, ledger.category_counts()))
+        n_all = max(1, int(counts.sum()))
+        t_tok = measured_token_cost(reg.as_dict()) or dt / n_all
+        report = build_report(counts, t_tok, actual_s=dt)
         print(report.summary())
     if args.trace_dir:
-        os.makedirs(args.trace_dir, exist_ok=True)
-        reg = engine.metrics_registry()
+        all_spans = _merged_tracer(tracer, mesh)
         counters = None
         if report is not None:
             report.to_registry(reg)    # attribution joins /metrics + prom
             counters = report.counter_events(dt)
-        obs_export.write_chrome_trace(
-            os.path.join(args.trace_dir, "trace.json"), tracer,
-            counters=counters)
-        obs_export.write_jsonl(
-            os.path.join(args.trace_dir, "events.jsonl"), tracer, reg)
-        obs_export.write_prometheus(
-            os.path.join(args.trace_dir, "metrics.prom"), reg)
+        if lead:
+            os.makedirs(args.trace_dir, exist_ok=True)
+            obs_export.write_chrome_trace(
+                os.path.join(args.trace_dir, "trace.json"), all_spans,
+                counters=counters)
+            obs_export.write_jsonl(
+                os.path.join(args.trace_dir, "events.jsonl"), all_spans,
+                reg)
+            obs_export.write_prometheus(
+                os.path.join(args.trace_dir, "metrics.prom"), reg)
         print(f"trace: {args.trace_dir}/trace.json (load at "
               f"ui.perfetto.dev), events.jsonl, metrics.prom")
     s = engine.stats()

@@ -45,26 +45,37 @@ is built: the trainer passes no encoder memory (JAX's neither), and a
 cross-attention trunk without it would let each position attend the
 tokens after it (ROADMAP Queue 3, "Kept on purpose").
 
-The flags of the mesh, ``--mesh-data``, ``--mesh-model`` and
-``--require-mesh`` (the trainer on the mesh: part 2 of ROADMAP Queue 1
-item 11, the mesh), raise and name their item when they are set away
-from their defaults; at their defaults they are accepted, as in JAX.
-``launch/serve.py`` takes them (part 1).
+The §8 mesh, one process a rank under ``torchrun``::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --device cpu --smoke --steps 2 \
+        --mesh-data 2 --mesh-model 2
+
+``--mesh-data D --mesh-model M`` lays the ranks out as a (D, M) mesh
+(``distributed/mesh.py``) and the trainer runs on it (``rl/trainer.py``:
+the model cut over each model group, the rows over the data groups).
+The ranks take ``gloo`` unless each has a card of its own (then NCCL).
+Without enough ranks the mesh is off and the single process trains, as
+in JAX, or with ``--require-mesh`` the launcher raises.  Rank 0 prints,
+and it alone writes the watchdog's snapshots and the trace directory
+(every rank's step log is the same).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import SpecConfig
 from repro_torch.data.dataset import PromptDataset
 from repro_torch.data.tokenizer import VOCAB_SIZE
-from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import MeshConfig, init_from_env
 from repro_torch.drafting import DraftConfig
 from repro_torch.engine.sampling import make_key
 from repro_torch.models import model as M
@@ -79,15 +90,6 @@ from repro_torch.rewards.mathgen import MathTaskConfig, generate_problems
 from repro_torch.rl.async_loop import AsyncConfig, AsyncTrainer
 from repro_torch.rl.trainer import ALGOS, RLConfig, Trainer
 from repro_torch.rl.watchdog import TrainWatchdog, WatchdogConfig
-
-# flag -> (ROADMAP Queue 1 item, its feature) for flags that must stay at
-# their default until the item lands
-UNPORTED_FLAGS = {
-    "mesh_data": (11, "the mesh"),
-    "mesh_model": (11, "the mesh"),
-    "require_mesh": (11, "the mesh"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
@@ -106,12 +108,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--mesh-data", type=int, default=1,
-                   help="data-parallel axis size (1 = off; ROADMAP Queue 1 "
-                        "item 11, the mesh)")
+                   help="data-parallel axis size (1 = off)")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="model-parallel axis size (1 = off; ROADMAP Queue 1 "
-                        "item 11, the mesh)")
-    p.add_argument("--require-mesh", action="store_true")
+                   help="model-parallel axis size (1 = off)")
+    p.add_argument("--require-mesh", action="store_true",
+                   help="fail instead of falling back when fewer ranks run "
+                        "than the mesh needs")
     p.add_argument("--draft", type=int, default=0, metavar="K",
                    help="continuation draft engine (§9): draft up to K "
                         "tokens per decode forward (0 = off)")
@@ -165,27 +167,31 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_flags(args, parser: argparse.ArgumentParser) -> None:
-    """Raise for a flag of an unported feature set away from its default."""
-    for name, (item, feature) in UNPORTED_FLAGS.items():
-        if getattr(args, name) != parser.get_default(name):
-            flag = "--" + ("async" if name == "async_mode"
-                           else name.replace("_", "-"))
-            raise NotImplementedError(
-                f"{flag} arrives with ROADMAP Queue 1 item {item} "
-                f"({feature})")
-
-
 def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    check_flags(args, parser)
+    args = build_parser().parse_args(argv)
     if get_config(args.arch).cross_attention:
         raise SystemExit(f"--arch {args.arch}: a cross-attention trunk needs "
                          "encoder_out, which the trainer does not pass; "
                          "without it each position would attend the tokens "
                          "after it")
-    device = resolve_device(args.device)
+    joined = not dist.is_initialized()
+    device = init_from_env(args.device)
+    joined = joined and dist.is_initialized()
+    try:
+        mesh = MeshConfig(data=args.mesh_data, model=args.mesh_model,
+                          require=args.require_mesh).build(device)
+        with contextlib.ExitStack() as stack:
+            if mesh is not None and dist.get_rank() != 0:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _train(args, device, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh) -> int:
+    lead = mesh is None or dist.get_rank() == 0
 
     # §11: install the process-global tracer/registry BEFORE the trainer is
     # built, so the rollout, drafting and trainer stage hooks land in it;
@@ -233,15 +239,20 @@ def main(argv=None) -> int:
         alerts = AlertManager(tracer=tracer if tracer is not None
                               else get_tracer())
     tr = Trainer(cfg, rl, spec, ds, make_key(0, device), device=device,
-                 watchdog=watchdog, alerts=alerts)
+                 mesh=mesh, watchdog=watchdog, alerts=alerts)
     metrics_srv = None
-    if args.metrics:
+    if args.metrics and lead:
         metrics_srv = obs_export.start_metrics_server(get_registry,
                                                       args.metrics)
         print(f"metrics: http://localhost:{args.metrics}/metrics")
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    print(f"arch={cfg.name} devices={n_dev} device={device.type} mesh=off "
-          f"params={M.count_params(tr.model) / 1e6:.1f}M")
+    mesh_desc = (f"{args.mesh_data}x{args.mesh_model}" if mesh is not None
+                 else "off")
+    if mesh is not None:
+        print(f"mesh (data, model) = {tuple(mesh.shape)} over "
+              f"{dist.get_backend()} on {device.type}")
+    print(f"arch={cfg.name} devices={n_dev} device={device.type} "
+          f"mesh={mesh_desc} params={M.count_params(cfg_model(cfg)) / 1e6:.1f}M")
 
     def step_line(m):
         line = (f"step {m['step']:3.0f} reward={m['reward_mean']:.3f} "
@@ -280,10 +291,16 @@ def main(argv=None) -> int:
         t_tok = measured_token_cost(regd) or t_run / n_all
         report = build_report(ledger, t_tok, actual_s=t_run)
         print(report.summary())
-    if args.trace_dir:
+    if args.trace_dir and lead:
         write_trace_dir(args.trace_dir, tracer, get_registry(), report,
                         t_run)
     return 0
+
+
+def cfg_model(cfg):
+    """The whole model of ``cfg`` on the ``meta`` device (its parameter
+    count, whatever the mesh cut)."""
+    return M.LM(cfg, device="meta")
 
 
 def run_async(tr: Trainer, args, step_line) -> None:

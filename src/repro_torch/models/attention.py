@@ -43,7 +43,10 @@ cache holds the rank's KV heads, and the row-parallel ``wo`` sums the
 heads' shares over the model group.  When the model axis does not divide
 the KV heads (replicated then, as JAX's rules replicate them), the rank's
 query columns are gathered whole, the kernel runs over every head, and
-the rank keeps its own columns of the output for ``wo``.
+the rank keeps its own columns of the output for ``wo``.  The collectives
+carry the gradient (``distributed/comm.py``): the block's input enters
+through ``copy_to_model``, the gathered queries leave their gradient's
+own columns to each rank, and ``local_heads`` is a slice.
 
 With grad on and an input that requires it (the actor's forward in the
 train step), every T goes to ``dot_product_attention``: the port of JAX's
@@ -85,6 +88,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.comm import copy_to_model
 from repro_torch.distributed.shard_wrap import gather_heads, local_heads
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                      gather_paged_kv,
@@ -357,9 +361,15 @@ def apply_gqa(p: GQA, cfg: ModelConfig, x, positions, *, cache=None,
     None)."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
+    S = (x if kv_x is None else kv_x).shape[1]
+    # head counts from the projections: on the mesh a rank holds its heads,
+    # and the block's input enters the model-parallel region (its gradient
+    # is summed over the model group: every rank's heads read all of it)
+    if p.wo.reduce_group is not None:
+        x = copy_to_model(x, p.wo.reduce_group)
+        if kv_x is not None:
+            kv_x = copy_to_model(kv_x, p.wo.reduce_group)
     src = x if kv_x is None else kv_x
-    S = src.shape[1]
-    # head counts from the projections: on the mesh a rank holds its heads
     q = apply_dense(p.wq, x)
     if p.gather_q:
         q = gather_heads(q, p.wo.reduce_group)

@@ -9,7 +9,8 @@ names.  Dense kernels are stored ``(in, out)`` and applied as ``x @ kernel``.
 On the mesh (``distributed/mesh.py:shard_params``) a row-parallel
 ``Dense`` holds its rank's rows of the kernel and a ``reduce_group``:
 ``apply_dense`` then sums the partial products over that group before
-adding the bias.
+adding the bias (``comm.reduce_from_model``: the gradient passes through
+to every rank's rows).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.distributed.comm import all_reduce_
+from repro_torch.distributed.comm import reduce_from_model
 
 
 class Dense(nn.Module):
@@ -95,7 +96,7 @@ class LayerNorm(nn.Module):
 def apply_dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
     y = x @ p.kernel.to(x.dtype)
     if p.reduce_group is not None:
-        all_reduce_(y, p.reduce_group)
+        y = reduce_from_model(y, p.reduce_group)
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y

@@ -37,7 +37,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.comm import all_gather_cat, all_reduce_
+from repro_torch.distributed.comm import (copy_to_model, gather_from_model,
+                                          reduce_from_model)
 from repro_torch.distributed.mesh import DataRows
 from repro_torch.kernels.cache_gather.ops import cache_roll, paged_gather
 from repro_torch.kernels.cache_slot_write.ops import (cache_slot_write,
@@ -164,19 +165,20 @@ def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _lookup(model: LM, tokens) -> torch.Tensor:
-    """Embedding rows of ``tokens``.  On the mesh a rank holds the rows
-    [lo, hi) of the vocabulary: it looks up the tokens it holds, zeroes
-    the others and sums over the model group (exact: one rank holds each
-    row)."""
-    if model.vocab_shard is None:
+def _lookup(model, tokens) -> torch.Tensor:
+    """Embedding rows of ``tokens`` (of an ``LM`` or a critic).  On the
+    mesh a rank holds the rows [lo, hi) of the vocabulary: it looks up the
+    tokens it holds, zeroes the others and sums over the model group
+    (exact: one rank holds each row; the gradient reaches each rank's rows
+    whole)."""
+    if getattr(model, "vocab_shard", None) is None:
         return model.embed[tokens.long()]
     lo, hi = model.vocab_shard
     t = tokens.long() - lo
     mine = (t >= 0) & (t < hi - lo)
     rows = model.embed[torch.where(mine, t, torch.zeros_like(t))]
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return all_reduce_(rows, model.tp)
+    return reduce_from_model(rows, model.tp)
 
 
 def _embed(model: LM, cfg: ModelConfig, tokens, positions):
@@ -219,13 +221,18 @@ def encode(model: LM, cfg: ModelConfig, frames):
 
 
 def _logits(model: LM, cfg: ModelConfig, x):
+    """The head.  A vocabulary-sharded head takes ``x`` into the
+    model-parallel region (its gradient summed over the model group) and
+    gathers its columns of the logits."""
+    if model.logits_sharded:
+        x = copy_to_model(x, model.tp)
     if cfg.tie_embeddings:
         logits = x @ model.embed.to(x.dtype).T
     else:
         logits = apply_dense(model.lm_head, x)
     if model.logits_sharded:
         # the rank's vocabulary columns, gathered in the matmul's dtype
-        logits = all_gather_cat(logits, model.tp, dim=-1)
+        logits = gather_from_model(logits, model.tp, dim=-1)
     return softcap(logits.float(), cfg.logit_softcap)
 
 
@@ -248,16 +255,29 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
     take their differentiable routes (``attention.dot_product_attention``,
     ``rwkv.wkv_scan``, ``mamba.ssm_scan``).  Its no-grad callers
     (``score``, ``verify``, the rollout) reach the kernels."""
+    x, aux = hidden_states(model, cfg, tokens, positions,
+                           encoder_out=encoder_out,
+                           encoder_positions=encoder_positions,
+                           prefix_embeds=prefix_embeds)
+    if cfg.mtp and return_mtp:
+        aux["mtp_logits"] = _mtp_logits(model, cfg, x, tokens,
+                                        _drop_prefix(positions, prefix_embeds))
+    return _logits(model, cfg, x), aux
+
+
+def hidden_states(model: LM, cfg: ModelConfig, tokens, positions, *,
+                  encoder_out=None, encoder_positions=None,
+                  prefix_embeds=None):
+    """``forward`` without the head (JAX's ``return_hidden=True,
+    compute_logits=False``): the final norm's output over the token slots
+    (B, T, d) and the aux dict."""
     x = _embed_with_prefix(model, cfg, tokens, positions, prefix_embeds)
     x, _, aux = apply_trunk(model.layers, cfg, x, positions,
                             encoder_out=encoder_out,
                             encoder_positions=encoder_positions)
     x = _drop_prefix(apply_rmsnorm(model.final_norm, x, cfg.norm_eps),
                      prefix_embeds)
-    if cfg.mtp and return_mtp:
-        aux["mtp_logits"] = _mtp_logits(model, cfg, x, tokens,
-                                        _drop_prefix(positions, prefix_embeds))
-    return _logits(model, cfg, x), aux
+    return x, aux
 
 
 def _mtp_logits(model: LM, cfg: ModelConfig, hidden, tokens, positions):

@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.comm import copy_to_model
+
 from .config import ModelConfig
 from .layers import Dense, apply_dense
 
@@ -64,7 +66,11 @@ def make_ffn(d: int, ff: int, *, kind: str = "swiglu", dtype=torch.float32,
 
 def apply_ffn(p: FFN, x: torch.Tensor, act_name: str = "silu"
               ) -> torch.Tensor:
+    """The dense FFN.  On the mesh (a row-parallel ``w_down``) its input
+    enters the model-parallel region through ``comm.copy_to_model``."""
     act = ACTIVATIONS[act_name]
+    if p.w_down.reduce_group is not None:
+        x = copy_to_model(x, p.w_down.reduce_group)
     if p.w_gate is not None:   # swiglu
         return apply_dense(p.w_down,
                            act(apply_dense(p.w_gate, x)) * apply_dense(p.w_up, x))

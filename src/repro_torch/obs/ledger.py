@@ -279,14 +279,17 @@ class DecisionLog:
     twice from the same records: ``decisions-NNNNN.jsonl`` (one JSON object
     per record, human-greppable) and ``decisions-NNNNN.npz`` (the
     training-ready arrays).  ``load_dataset`` reassembles every NPZ shard
-    in a directory into one aligned feature/outcome bundle.
+    in a directory into one aligned feature/outcome bundle.  ``part``
+    joins the file names (``decisions-<part>NNNNN``), so several writers
+    (the data shards of a mesh) can share a directory.
     """
 
     def __init__(self, out_dir: Optional[str] = None, enabled: bool = True,
-                 shard_rows: int = 4096):
+                 shard_rows: int = 4096, part: str = ""):
         self.enabled = bool(enabled)
         self.out_dir = out_dir
         self.shard_rows = int(shard_rows)
+        self.part = part
         self._recs: List[Tuple[Any, int, Tuple[float, ...],
                                Tuple[float, ...]]] = []
         self.shards_written = 0
@@ -313,7 +316,7 @@ class DecisionLog:
 
     def _write_shard(self) -> None:
         recs, self._recs = self._recs, []
-        tag = f"decisions-{self.shards_written:05d}"
+        tag = f"decisions-{self.part}{self.shards_written:05d}"
         os.makedirs(self.out_dir, exist_ok=True)
         with open(os.path.join(self.out_dir, tag + ".jsonl"), "w") as fh:
             for row, step, f, o in recs:

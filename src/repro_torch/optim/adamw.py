@@ -20,14 +20,24 @@ Parameters, gradients and moments are lists of tensors in one order
 (``init(params)`` makes the moments in the order it is given); ``update``
 works in place under ``torch.no_grad()``, one parameter at a time so that
 its float32 temporaries stay the size of one tensor.
+
+On the mesh (``mesh=``, with ``sharded`` flagging the tensors cut over
+the model axis) the norm is the global one: the cut tensors' squares are
+summed over the model group and each replicated tensor counts once, so
+every rank clips by the same scale.  The gradients come finished
+(``distributed/mesh.py:finish_grads``), so a rank's moments and
+parameters step like the matching slices of one device's.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from repro_torch.distributed.comm import all_reduce_
+from repro_torch.distributed.mesh import model_group, model_size
 
 
 @dataclass(frozen=True)
@@ -75,27 +85,42 @@ def init(params: Sequence[torch.Tensor]) -> Dict[str, object]:
             "step": 0}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares, in float32, summed tensor by tensor in
-    the given order (as JAX's Python ``sum`` over the leaves)."""
+def _square_sum(tensors: Sequence[torch.Tensor]):
     total = None
     for x in tensors:
         s = torch.sum(torch.square(x.float()))
         total = s if total is None else total + s
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tensors: Sequence[torch.Tensor], mesh=None,
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares, in float32, summed tensor by tensor in
+    the given order (as JAX's Python ``sum`` over the leaves).  On a mesh
+    with a model axis, the tensors flagged in ``sharded`` are this rank's
+    slices: their squares are summed over the model group, and every other
+    tensor (replicated) counts once."""
+    if mesh is None or model_size(mesh) <= 1 or not any(sharded or ()):
+        return torch.sqrt(_square_sum(tensors))
+    cut = _square_sum([x for x, c in zip(tensors, sharded) if c])
+    whole = _square_sum([x for x, c in zip(tensors, sharded) if not c])
+    all_reduce_(cut, model_group(mesh))
+    return torch.sqrt(cut if whole is None else cut + whole)
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, params: List[torch.Tensor],
-           grads: List[torch.Tensor], state: Dict[str, object]
+           grads: List[torch.Tensor], state: Dict[str, object], *,
+           mesh=None, sharded: Optional[Sequence[bool]] = None
            ) -> Dict[str, torch.Tensor]:
     """One step, in place: ``params`` and ``state`` are updated.  Returns
-    ``{"grad_norm", "lr"}`` (0-d float32 tensors)."""
+    ``{"grad_norm", "lr"}`` (0-d float32 tensors).  ``mesh``/``sharded``:
+    the clip scale from the global norm (``global_norm``)."""
     if not (len(params) == len(grads) == len(state["mu"])):
         raise ValueError(f"{len(params)} parameters, {len(grads)} gradients "
                          f"and {len(state['mu'])} moments")
     dev = params[0].device
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, sharded)
     scale = torch.where(gnorm > cfg.clip_norm,
                         cfg.clip_norm / (gnorm + 1e-9), _f32(1.0, dev))
     step = int(state["step"]) + 1

@@ -3,7 +3,9 @@
 
 All return token-level advantages (B, N) masked by the response mask.
 The task is bandit-like (single terminal verifiable reward), mirroring the
-paper's RLVR setting.
+paper's RLVR setting.  On the mesh every data rank holds the whole rolled-out
+batch, so the trainer takes the advantages (GRPO's groups, GAE, ``whiten``'s
+mean and variance) over the whole batch and only then its rows.
 """
 from __future__ import annotations
 

@@ -35,9 +35,13 @@ counted in the obs registry (staleness histogram, buffer occupancy, sync
 retries, degradation level) and the whole pair checkpoints through
 ``checkpoint/io`` for exact kill-and-resume.
 
-The mesh: a trainer whose model is cut over it is refused, naming part 2
-of ROADMAP Queue 1 item 11 (the mesh); the trainer itself refuses a
-mesh.
+The mesh: over a ``Trainer(mesh=...)`` the service samples with a model
+cut as the trainer's (its rank's shards, published shard by shard), the
+collection and the re-verification run on the mesh, and the consumer's
+``optimize`` is the mesh trainer's.  A checkpoint gathers the whole trees
+to the mesh's first rank, which writes it (``rl/watchdog.py:trainer_state``),
+and a restore cuts each tensor onto its rank as it is read
+(``distributed/mesh.py:cut_on_read``).
 
 Keys: the re-verification stream is ``make_key(reverify_seed)`` on the
 trainer's device, split before each re-verification as JAX splits its
@@ -63,6 +67,7 @@ from repro_torch.checkpoint.io import (load_pytree, load_rollout_cache,
                                        save_rollout_cache, write_latest)
 from repro_torch.core import RolloutCache, rollout
 from repro_torch.core.spec_rollout import RolloutBatch
+from repro_torch.distributed.mesh import cut_on_read
 from repro_torch.engine.sampling import make_key, split_key
 from repro_torch.obs import get_registry, get_tracer
 from repro_torch.rewards.verifier import batch_rewards
@@ -71,7 +76,7 @@ from repro_torch.serving.rollout_service import RolloutService, WeightSync
 
 from .traj_buffer import TrajBuffer, Trajectory
 from .watchdog import (key_from_state, key_state, load_trainer_state,
-                       trainer_state)
+                       state_models, trainer_state, write_once)
 
 # one-way degradation ladder (§10 pattern): async consumption → re-verify
 # every trajectory → fully synchronous in-process collection
@@ -101,10 +106,6 @@ class AsyncTrainer:
                  faults: Optional[FaultPlan] = None,
                  sync: Optional[WeightSync] = None,
                  buffer: Optional[TrajBuffer] = None):
-        if getattr(trainer.model, "tp", None) is not None:
-            raise NotImplementedError(
-                "the async loop on a model cut over the mesh comes with "
-                "part 2 of ROADMAP Queue 1 item 11 (the mesh)")
         self.trainer = trainer
         self.acfg = acfg
         self.collector = trainer.collector       # SHARED with the trainer:
@@ -196,7 +197,8 @@ class AsyncTrainer:
         t0 = time.perf_counter()
         rb = rollout(self.trainer.model, c.cfg, c.gen, c.spec,
                      traj.batch.tokens, traj.batch.mask,
-                     traj.batch.cache_keys, tmp, sub, self.version)
+                     traj.batch.cache_keys, tmp, sub, self.version,
+                     mesh=c.mesh)
         rewards = batch_rewards(rb.response, rb.length, traj.batch.answers)
         times = dict(rb.metrics)
         times["collect_time"] = time.perf_counter() - t0
@@ -370,11 +372,12 @@ class AsyncTrainer:
         pointer flip, exactly like the watchdog's snapshots."""
         name = name or f"async_{self.trainer.step_idx:06d}"
         path = os.path.join(ckpt_dir, name)
-        save_pytree(path, self.state_dict(),
-                    metadata={"step": self.trainer.step_idx,
-                              "kind": "async_pair"})
-        save_rollout_cache(path, self.collector.cache)
-        write_latest(ckpt_dir, name)
+        st = self.state_dict()
+        write_once(self.trainer, lambda: (
+            save_pytree(path, st, metadata={"step": self.trainer.step_idx,
+                                            "kind": "async_pair"}),
+            save_rollout_cache(path, self.collector.cache)),
+            lambda: write_latest(ckpt_dir, name))
         return name
 
     def restore(self, ckpt_dir: str) -> bool:
@@ -384,7 +387,9 @@ class AsyncTrainer:
         if name is None:
             return False
         path = os.path.join(ckpt_dir, name)
-        tree, _meta = load_pytree(path)
+        tree, _meta = load_pytree(path, leaf=cut_on_read({
+            **state_models(self.trainer, "/trainer"),
+            "/service/params": self.trainer.model}))
         self.load_state_dict(tree)
         self.collector.cache = load_rollout_cache(path)
         return True

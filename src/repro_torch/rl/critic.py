@@ -9,7 +9,10 @@ runs ``models.blocks.apply_trunk``, so a no-grad call on the card reaches
 the ``flash_attention`` (or ``wkv``) kernel, and a call with grad on takes
 the differentiable route, as ``models.model.forward`` does.
 ``critic_from_jax_params``/``critic_to_jax_params`` carry JAX's critic
-tree across and back, as ``models.convert`` does the policy's.
+tree across and back, as ``models.convert`` does the policy's.  On the
+mesh a critic is cut as the policy is (``distributed/mesh.py:
+shard_params``: the embedding over the vocabulary, the trunk over heads;
+the value head replicated), and its lookup is the policy's.
 """
 from __future__ import annotations
 
@@ -42,6 +45,9 @@ class Critic(nn.Module):
                                     for sig in block_signatures(cfg))
         self.final_norm = RMSNorm(cfg.d_model, **kw)
         self.value_head = Dense(cfg.d_model, 1, bias=True, **kw)
+        # the mesh's cut (distributed/mesh.py:shard_params), as an LM's
+        self.tp = None
+        self.vocab_shard = None
 
     @property
     def device(self) -> torch.device:
@@ -82,7 +88,7 @@ def forward_values(critic: Critic, cfg: ModelConfig, tokens, mask):
     value estimates, 0 off the mask.  The head's output is cast to float32
     after the dense, as JAX's is (a bfloat16 head rounds the values)."""
     positions = positions_from_mask(mask)
-    x = critic.embed[tokens.long()].to(M.torch_dtype(cfg.dtype))
+    x = M._lookup(critic, tokens).to(M.torch_dtype(cfg.dtype))
     x = torch.where(mask[..., None], x, torch.zeros_like(x))
     x, _, _ = apply_trunk(critic.layers, cfg, x, positions)
     x = apply_rmsnorm(critic.final_norm, x, cfg.norm_eps)

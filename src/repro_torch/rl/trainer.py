@@ -48,13 +48,22 @@ registry); ``alerts=`` (an ``obs.alerts.AlertManager``) evaluates each
 step's flat metrics before the watchdog sees them and routes its events to
 an attached watchdog; a decision log is flushed once a step.
 
-Not ported yet, and raising with its ROADMAP Queue 1 item: the trainer on
-the mesh (part 2 of item 11; the rollout and serving path runs on the
-mesh since part 1).
+The mesh (``mesh=``: a ``MeshConfig`` or a built mesh, as in JAX): the
+parameters, the KL reference, the PPO critic and both sets of AdamW
+moments are cut by the partition rules (``distributed/mesh.py``), and the
+collection runs on the mesh (part 1).  ``optimize`` takes the whole batch
+on every rank: the old and reference log-probs and the values are scored
+over each data rank's rows and gathered (the kernels on local shards),
+the advantages are the whole batch's, and then each rank takes its rows
+(``mesh.LossRows``).  Its loss divides by the whole batch's token and row
+counts (``rl/losses.py``), so after the backward the gradients need only
+the sums of ``LossRows.finish``, and AdamW clips by the global norm.  The
+loss and diagnostics are summed over the data group (``LossRows.sum``),
+so the step log is the same on every rank and equals one device's.  The other model
+families on the mesh are part 3 of ROADMAP Queue 1 item 11 (the mesh).
 """
 from __future__ import annotations
 
-import copy
 import random
 import time
 from dataclasses import dataclass, replace
@@ -69,6 +78,9 @@ from repro_torch.core.spec_rollout import RolloutBatch
 from repro_torch.data.dataset import PromptBatch, PromptDataset
 from repro_torch.data.tokenizer import EOS_ID, PAD_ID
 from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.distributed.mesh import (DataRows, LossRows, MeshConfig,
+                                          check_mesh_family, clone_module,
+                                          cut_flags, shard_params)
 from repro_torch.engine.generate import GenerateConfig, score, token_logprobs
 from repro_torch.engine.sampling import split_key
 from repro_torch.models import model as M
@@ -123,49 +135,49 @@ class RLConfig:
                                 entropy_coef=self.entropy_coef)
 
 
-def _unported(what: str, item: int, feature: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} arrives with ROADMAP Queue 1 item "
-                               f"{item} ({feature})")
-
-
 # ------------------------------------------------------------------ steps
 
 
 @torch.no_grad()
 def _old_logprobs(model: M.LM, cfg: ModelConfig, full_tokens, full_mask,
-                  resp_start: int, temperature: float, top_p: float):
+                  resp_start: int, temperature: float, top_p: float,
+                  mesh=None):
     """Log-probs and entropies of the response columns under ``model``,
-    no grad (the ``flash_attention`` kernel on the card)."""
+    no grad (the ``flash_attention`` kernel on the card; on the mesh over
+    each data rank's rows, gathered whole)."""
     sc = score(model, cfg, full_tokens, full_mask, temperature=temperature,
-               top_p=top_p, return_entropy=True)
+               top_p=top_p, return_entropy=True, mesh=mesh)
     return sc["logprobs"][:, resp_start:], sc["entropy"][:, resp_start:]
 
 
 def _actor_loss_fn(model: M.LM, cfg: ModelConfig, pcfg: PolicyLossConfig,
                    full_tokens, full_mask, resp_start: int, lp_old,
                    advantages, resp_mask, ref_lp, temperature: float,
-                   top_p: float):
+                   top_p: float, count=None, rows=None):
     """The GRPO actor loss with its graph, and its diagnostics (floats of
     the graph's values, detached).  A MoE trunk adds its router losses,
     ``cfg.router_aux_coef`` times the load-balance loss and
-    ``cfg.router_z_coef`` times the z-loss, as JAX's does."""
+    ``cfg.router_z_coef`` times the z-loss, as JAX's does.  ``count``/
+    ``rows``: the whole batch's, when these are one data rank's rows."""
     lp_all, ent_all, aux = token_logprobs(
         model, cfg, full_tokens, full_mask, temperature, top_p,
         entropy_grad=pcfg.entropy_coef > 0.0)
     lp_new = lp_all[:, resp_start:]
     ent = ent_all[:, resp_start:]
-    loss, info = policy_loss(lp_new, lp_old, advantages, resp_mask, pcfg)
+    loss, info = policy_loss(lp_new, lp_old, advantages, resp_mask, pcfg,
+                             count=count, rows=rows)
     if pcfg.kl_coef > 0.0:
-        kl = kl_to_reference(lp_new, ref_lp, resp_mask)
+        kl = kl_to_reference(lp_new, ref_lp, resp_mask, count=count)
         loss = loss + pcfg.kl_coef * kl
         info["kl_ref"] = kl.detach()
     if pcfg.entropy_coef > 0.0:
-        loss = loss - pcfg.entropy_coef * entropy_bonus(ent, resp_mask)
+        loss = loss - pcfg.entropy_coef * entropy_bonus(ent, resp_mask,
+                                                        count=count)
     if "moe_lb_loss" in aux:
         loss = loss + cfg.router_aux_coef * aux["moe_lb_loss"] \
             + cfg.router_z_coef * aux["moe_z_loss"]
         info["moe_lb_loss"] = aux["moe_lb_loss"].detach()
-    info["entropy"] = masked_mean(ent, resp_mask).detach()
+    info["entropy"] = masked_mean(ent, resp_mask, count=count).detach()
     return loss, info
 
 
@@ -176,14 +188,17 @@ def trainable(model: torch.nn.Module) -> List[torch.nn.Parameter]:
 
 
 def _grad_step(model: torch.nn.Module, opt_state, ocfg: adamw.AdamWConfig,
-               loss_fn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
-                                 Dict[str, torch.Tensor]]:
+               loss_fn, rows: LossRows
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                          Dict[str, torch.Tensor]]:
     """One update of ``model``: ``loss_fn()`` (a loss with its graph and a
     dict of diagnostics) with the parameters requiring grad only inside,
-    its backward, then AdamW in place.  ``.grad`` is dropped once AdamW
-    has stepped, so no model holds gradients between updates (a caller
-    that needs them reads what ``adamw.update`` receives).  Returns (the
-    loss, detached; the diagnostics; AdamW's ``{"grad_norm", "lr"}``)."""
+    its backward, the gradients finished on the mesh (``rows.finish``),
+    then AdamW in place, clipping by the global norm.  ``.grad`` is
+    dropped once AdamW has stepped, so no model holds gradients between
+    updates (a caller that needs them reads what ``adamw.update``
+    receives).  Returns (the loss, detached; the diagnostics; AdamW's
+    ``{"grad_norm", "lr"}``)."""
     params = trainable(model)
     for p in params:
         p.requires_grad_(True)
@@ -195,7 +210,9 @@ def _grad_step(model: torch.nn.Module, opt_state, ocfg: adamw.AdamWConfig,
             p.requires_grad_(False)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
-    oinfo = adamw.update(ocfg, params, grads, opt_state)
+    rows.finish(model, grads)
+    oinfo = adamw.update(ocfg, params, grads, opt_state, mesh=rows.mesh,
+                         sharded=cut_flags(model))
     for p in params:
         p.grad = None
     return loss.detach(), info, oinfo
@@ -205,35 +222,51 @@ def _update_actor(model: M.LM, opt_state, cfg: ModelConfig,
                   pcfg: PolicyLossConfig, ocfg: adamw.AdamWConfig,
                   full_tokens, full_mask, resp_start: int, lp_old,
                   advantages, resp_mask, ref_lp, temperature: float,
-                  top_p: float) -> Dict[str, torch.Tensor]:
-    """One actor update (``_grad_step`` on the policy loss)."""
+                  top_p: float, rows: Optional[LossRows] = None,
+                  count=None) -> Dict[str, torch.Tensor]:
+    """One actor update (``_grad_step`` on the policy loss) of this data
+    rank's ``rows`` of the batch arguments (one device's whole batch when
+    None); ``count``: the whole batch's response tokens
+    (``LossRows.count``)."""
+    if rows is None:
+        rows = LossRows(None, full_tokens.shape[0])
     loss, info, oinfo = _grad_step(model, opt_state, ocfg, lambda: (
         _actor_loss_fn(model, cfg, pcfg, full_tokens, full_mask, resp_start,
                        lp_old, advantages, resp_mask, ref_lp, temperature,
-                       top_p)))
-    return {**info, **oinfo, "loss": loss}
+                       top_p, count=count, rows=rows.whole_rows)), rows)
+    return {**rows.sum({**info, "loss": loss}), **oinfo}
 
 
 @torch.no_grad()
 def _values(critic: Critic, cfg: ModelConfig, full_tokens, full_mask,
-            resp_start: int):
+            resp_start: int, mesh=None):
     """The critic's values of the response columns, no grad (the
-    ``flash_attention`` kernel on the card)."""
-    return forward_values(critic, cfg, full_tokens, full_mask)[:, resp_start:]
+    ``flash_attention`` kernel on the card; on the mesh over each data
+    rank's rows, gathered whole)."""
+    rows = DataRows(mesh, full_tokens.shape[0])
+    v = forward_values(critic, cfg, rows.take(full_tokens),
+                       rows.take(full_mask))[:, resp_start:]
+    return rows.gather(v.contiguous())
 
 
 def _update_critic(critic: Critic, opt_state, cfg: ModelConfig,
                    ocfg: adamw.AdamWConfig, full_tokens, full_mask,
-                   resp_start: int, returns, old_values, resp_mask
+                   resp_start: int, returns, old_values, resp_mask,
+                   rows: Optional[LossRows] = None, count=None
                    ) -> Dict[str, torch.Tensor]:
-    """One critic update (``_grad_step`` on the clipped value loss).
-    Returns ``{"critic_loss", "grad_norm", "lr"}``."""
+    """One critic update (``_grad_step`` on the clipped value loss) of
+    this data rank's ``rows`` (as ``_update_actor``).  Returns
+    ``{"critic_loss", "grad_norm", "lr"}``."""
+    if rows is None:
+        rows = LossRows(None, full_tokens.shape[0])
+
     def loss_fn():
         v = forward_values(critic, cfg, full_tokens, full_mask)[:, resp_start:]
-        return value_loss(v, returns, old_values, resp_mask), {}
+        return value_loss(v, returns, old_values, resp_mask,
+                          count=count), {}
 
-    loss, _, oinfo = _grad_step(critic, opt_state, ocfg, loss_fn)
-    return {"critic_loss": loss, **oinfo}
+    loss, _, oinfo = _grad_step(critic, opt_state, ocfg, loss_fn, rows)
+    return {**rows.sum({"critic_loss": loss}), **oinfo}
 
 
 # ------------------------------------------------------------------ collector
@@ -254,7 +287,8 @@ class Collector:
                  dataset: PromptDataset, key, lenience_schedule=None,
                  mesh=None, tracer=None):
         if mesh is not None:
-            raise _unported("the trainer on the mesh", 11, "the mesh")
+            check_mesh_family(model_cfg)
+        self.mesh = mesh          # the rollout runs on it (whole batch out)
         self.cfg = model_cfg
         self.rl = rl
         self.spec = spec
@@ -295,7 +329,8 @@ class Collector:
         if cur_l != self.spec.lenience and self.spec.variant == "spec":
             self.spec = replace(self.spec, lenience=cur_l)
         rb = rollout(model, self.cfg, self.gen, self.spec, batch.tokens,
-                     batch.mask, batch.cache_keys, self.cache, sub, epoch)
+                     batch.mask, batch.cache_keys, self.cache, sub, epoch,
+                     mesh=self.mesh)
         self.gen_steps += 1
         self.total_generated_tokens += rb.metrics["n_generated"]
         return rb
@@ -404,31 +439,39 @@ class Trainer:
                  model: Optional[M.LM] = None, device: DeviceLike = None,
                  lenience_schedule=None, mesh=None, watchdog=None,
                  tracer=None, alerts=None):
+        if isinstance(mesh, MeshConfig):
+            mesh = mesh.build(model.device if model is not None else device)
         if mesh is not None:
-            raise _unported("the trainer on the mesh", 11, "the mesh")
+            check_mesh_family(model_cfg)
+        # the §8 mesh: None (or a MeshConfig that found too few ranks) is
+        # the single-device path
+        self.mesh = mesh
         self.cfg = model_cfg
         self.rl = rl
         k1, k2, k3, coll_key = key.split(4)
         self.collector = Collector(model_cfg, rl, spec, dataset, coll_key,
                                    lenience_schedule=lenience_schedule,
-                                   tracer=tracer)
+                                   mesh=mesh, tracer=tracer)
         if model is None:
             model = M.init_lm(model_cfg, seed=_seed_from(k1),
                               device=resolve_device(device))
         elif device is not None and model.device != resolve_device(device):
             raise ValueError(f"model is on {model.device}, device={device!r}")
+        # every rank draws (or is handed) the whole model and keeps its cut
+        model = shard_params(mesh, model_cfg, model)
         self.model = model
         self.device = model.device
+        # the moments in the parameters' layout (JAX's shard_opt_state)
         self.opt_state = adamw.init(trainable(model))
         self.pcfg = rl.policy_cfg()
         self.ref_model = None
         if self.pcfg.kl_coef > 0:
-            self.ref_model = copy.deepcopy(model)
+            self.ref_model = clone_module(model)
             self.ref_model.requires_grad_(False)
         self.critic: Optional[Critic] = None
         if rl.algo == "ppo":
-            self.critic = init_critic(model_cfg, seed=_seed_from(k2),
-                                      device=self.device)
+            self.critic = shard_params(mesh, model_cfg, init_critic(
+                model_cfg, seed=_seed_from(k2), device=self.device))
             self.critic_opt_state = adamw.init(trainable(self.critic))
         self.step_idx = 0
         self.history: List[Dict[str, float]] = []
@@ -534,7 +577,8 @@ class Trainer:
         ``is_clip``) switches on the truncated importance weights of stale
         trajectories; ``None`` leaves the update the synchronous one.
         ``extra_metrics`` (the async loop's provenance) joins the step's
-        metrics before the watchdog sees them."""
+        metrics before the watchdog sees them.  On the mesh the batch is
+        the whole one on every rank (module docstring)."""
         if t_step0 is None:
             t_step0 = time.perf_counter()
         self.last_rb = rb
@@ -554,9 +598,10 @@ class Trainer:
 
         # ---- old log-probs (veRL stage; ratio == 1 at the first epoch) ----
         t0 = time.perf_counter()
+        mesh = self.mesh
         lp_old, _ = _old_logprobs(self.model, self.cfg, full_tokens,
                                   full_mask, P, self.rl.temperature,
-                                  self.rl.top_p)
+                                  self.rl.top_p, mesh=mesh)
         self._stage("old_logprob", t0, times, "old_logprob_time")
 
         ref_lp = torch.zeros_like(lp_old)
@@ -564,7 +609,7 @@ class Trainer:
             t0 = time.perf_counter()
             ref_lp, _ = _old_logprobs(self.ref_model, self.cfg, full_tokens,
                                       full_mask, P, self.rl.temperature,
-                                      self.rl.top_p)
+                                      self.rl.top_p, mesh=mesh)
             self._stage("ref", t0, times, "ref_time")
 
         # ---- advantages ----------------------------------------------------
@@ -573,7 +618,7 @@ class Trainer:
         if self.rl.algo == "ppo":
             tv = time.perf_counter()
             values = _values(self.critic, self.cfg, full_tokens,
-                             full_mask, P)
+                             full_mask, P, mesh=mesh)
             self._stage("values", tv, times, "values_time")
             rew_tok = terminal_reward_to_tokens(rew, lengths, N)
             adv, returns = gae_advantages(rew_tok, values, resp_mask,
@@ -597,14 +642,22 @@ class Trainer:
             times["is_weight_mean"] = float(masked_mean(w, resp_mask))
         self._stage("adv", t0, times, "adv_time")
 
-        # ---- updates -------------------------------------------------------
+        # ---- updates: on the mesh this data rank's rows, the whole
+        # batch's counts ---------------------------------------------------
+        rows = LossRows(mesh, resp_mask.shape[0])
+        count = rows.count(resp_mask)
+        take = rows.take
+        full_tokens, full_mask, resp_mask, lp_old, adv, ref_lp = (
+            take(x) for x in (full_tokens, full_mask, resp_mask, lp_old, adv,
+                              ref_lp))
         cinfo = {}
         if self.rl.algo == "ppo":
             t0 = time.perf_counter()
             cinfo = _update_critic(self.critic, self.critic_opt_state,
                                    self.cfg, self.rl.critic_optim,
-                                   full_tokens, full_mask, P, returns,
-                                   old_values, resp_mask)
+                                   full_tokens, full_mask, P, take(returns),
+                                   take(old_values), resp_mask, rows,
+                                   count)
             self._stage("update_critic", t0, times, "update_critic_time")
 
         t0 = time.perf_counter()
@@ -615,7 +668,7 @@ class Trainer:
         info = _update_actor(self.model, self.opt_state, self.cfg, self.pcfg,
                              self.rl.optim, full_tokens, full_mask, P, lp_old,
                              adv, resp_mask, ref_lp, self.rl.temperature,
-                             self.rl.top_p)
+                             self.rl.top_p, rows, count)
         t_end = self._stage("update_actor", t0, times, "update_actor_time")
         get_registry().observe("train.train_step_s", t_end - t_step0)
         if self.tracer.enabled:

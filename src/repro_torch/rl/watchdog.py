@@ -24,6 +24,15 @@ so the ``model`` object that the collector and any rollout service were
 handed stays the trainer's.  The key is saved as its 64-bit seed
 (``key_state``) and rebuilt on the model's device (``key_from_state``).
 
+On the mesh (a ``Trainer(mesh=...)``) a snapshot gathers the whole trees
+to the host of the mesh's first rank alone, a tensor at a time
+(``distributed/mesh.py:gather_params``, a collective of its model group),
+so its files are a single device's, the ones that already cross
+packages; that rank writes them, and after a barrier flips ``latest``
+last.  A restore reads the files on every rank, a tensor at a time, and
+keeps only its rank's slice of each (``cut_on_read`` over
+``state_models``), so no rank holds a whole tree.
+
 Stall detection is adaptive as well as absolute (§11): beyond the fixed
 ``max_collect_time`` ceiling, a step is stalled when its collect time
 exceeds ``stall_p95_mult`` × the p95 of the run's own healthy collect
@@ -44,10 +53,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.io import (load_pytree, load_rollout_cache,
                                        read_latest, save_pytree,
                                        save_rollout_cache, write_latest)
+from repro_torch.distributed.mesh import WRITER, cut_on_read, gather_params
 from repro_torch.engine.sampling import Key
 from repro_torch.obs import Histogram, get_tracer
 from repro_torch.serving.rollout_service import copy_weights
@@ -65,9 +76,10 @@ def key_from_state(words, device) -> Key:
     return Key(int(w[0]) | int(w[1]) << 32, device)
 
 
-def _opt_state(opt) -> Dict:
-    return {"mu": list(opt["mu"]), "nu": list(opt["nu"]),
-            "step": np.int64(opt["step"])}
+def _opt_state(model, opt) -> Dict:
+    """AdamW's state of ``model``, its moments whole."""
+    return {k: list(gather_params(model, opt[k]).values())
+            for k in ("mu", "nu")} | {"step": np.int64(opt["step"])}
 
 
 @torch.no_grad()
@@ -80,10 +92,12 @@ def _load_opt_state(opt, st) -> None:
 def trainer_state(trainer) -> Dict:
     """What a restore needs of a ``Trainer``: params, AdamW moments, key,
     step counters, and the critic with its moments when there is one (an
-    all-array pytree for ``checkpoint/io``)."""
+    all-array pytree for ``checkpoint/io``).  On the mesh the trees are
+    whole on the writing rank alone (``gather_params``; a collective of
+    its model group), and empty on the others, which write nothing."""
     st = {
-        "params": dict(trainer.model.named_parameters()),
-        "opt_state": _opt_state(trainer.opt_state),
+        "params": gather_params(trainer.model),
+        "opt_state": _opt_state(trainer.model, trainer.opt_state),
         "key": key_state(trainer.key),
         "scalars": {
             "step_idx": np.int64(trainer.step_idx),
@@ -93,15 +107,30 @@ def trainer_state(trainer) -> Dict:
         },
     }
     if trainer.critic is not None:
-        st["critic_params"] = dict(trainer.critic.named_parameters())
-        st["critic_opt_state"] = _opt_state(trainer.critic_opt_state)
+        st["critic_params"] = gather_params(trainer.critic)
+        st["critic_opt_state"] = _opt_state(trainer.critic,
+                                            trainer.critic_opt_state)
     return st
 
 
+def state_models(trainer, prefix: str = "") -> Dict:
+    """The subtrees of ``trainer_state`` (under ``prefix`` in a file) that
+    hold a model's tensors, each with its model: what ``cut_on_read``
+    cuts onto this rank as a snapshot is read."""
+    out = {}
+    for key, model in (("", trainer.model), ("critic_", trainer.critic)):
+        if model is not None:
+            out.update({f"{prefix}/{key}params": model,
+                        f"{prefix}/{key}opt_state/mu": model,
+                        f"{prefix}/{key}opt_state/nu": model})
+    return out
+
+
 def load_trainer_state(trainer, st: Dict, step_idx: bool) -> None:
-    """``trainer_state`` back into the live trainer, in place; the step
-    counter only with ``step_idx`` (the async pair's resume), never for a
-    watchdog restore."""
+    """``trainer_state`` back into the live trainer, in place, its trees
+    this rank's (as ``load_pytree`` with ``cut_on_read(state_models(...))``
+    reads them); the step counter only with ``step_idx`` (the async pair's
+    resume), never for a watchdog restore."""
     copy_weights(dict(trainer.model.named_parameters()), st["params"])
     _load_opt_state(trainer.opt_state, st["opt_state"])
     trainer.key = key_from_state(st["key"], trainer.device)
@@ -114,6 +143,24 @@ def load_trainer_state(trainer, st: Dict, step_idx: bool) -> None:
         trainer.step_idx = int(sc["step_idx"])
     trainer.gen_steps = int(sc["gen_steps"])
     trainer.total_generated_tokens = int(sc["total_generated_tokens"])
+
+
+def write_once(trainer, write, commit) -> None:
+    """``write()`` then ``commit()`` (the ``latest`` flip) on the mesh's
+    ``WRITER``, the other ranks waiting at a barrier after each, so that
+    no rank goes on (or reads ``latest``) before the snapshot is whole;
+    both at once off the mesh."""
+    if getattr(trainer, "mesh", None) is None:
+        write()
+        commit()
+        return
+    lead = dist.get_rank() == WRITER
+    if lead:
+        write()
+    dist.barrier()
+    if lead:
+        commit()
+    dist.barrier()
 
 
 @dataclass(frozen=True)
@@ -168,12 +215,16 @@ class TrainWatchdog:
         return os.path.join(self.cfg.checkpoint_dir, name)
 
     def snapshot(self, trainer) -> str:
-        """Persist everything a restore needs; commit via the pointer."""
+        """Persist everything a restore needs; commit via the pointer.  On
+        the mesh the first rank's model group gathers to it, and it writes
+        (``write_once``)."""
         name = f"watchdog_{trainer.step_idx:06d}"
-        save_pytree(self._path(name), trainer_state(trainer),
-                    metadata={"step": trainer.step_idx})
-        save_rollout_cache(self._path(name), trainer.cache)
-        write_latest(self.cfg.checkpoint_dir, name)   # the commit point
+        st = trainer_state(trainer)
+        write_once(trainer, lambda: (
+            save_pytree(self._path(name), st,
+                        metadata={"step": trainer.step_idx}),
+            save_rollout_cache(self._path(name), trainer.cache)),
+            lambda: write_latest(self.cfg.checkpoint_dir, name))
         self.snapshots += 1
         return name
 
@@ -185,7 +236,8 @@ class TrainWatchdog:
         name = read_latest(self.cfg.checkpoint_dir)
         if name is None:
             return False
-        tree, _ = load_pytree(self._path(name))
+        tree, _ = load_pytree(self._path(name),
+                              leaf=cut_on_read(state_models(trainer)))
         load_trainer_state(trainer, tree, step_idx=False)
         trainer.cache = load_rollout_cache(self._path(name))
         self.restores += 1

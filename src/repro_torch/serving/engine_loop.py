@@ -107,7 +107,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -332,6 +332,9 @@ class SlotEngine:
         self.deadline_steps = deadline_steps
         self.faults = faults
         self.fault_stats = FaultStats()
+        # called after every chunk of ``run`` (a mesh server's
+        # ``MetricsBoard`` publishes the shard's registry there)
+        self.on_chunk: Optional[Callable[[], None]] = None
         # §12 backoff: with a BackoffConfig a reclaimed request is held
         # until the engine step clock passes its due step; None keeps the
         # immediate resubmit
@@ -442,6 +445,8 @@ class SlotEngine:
             self._harvest()
             self._enforce_deadlines()
             chunks += 1
+            if self.on_chunk is not None:
+                self.on_chunk()
             if max_chunks is not None and chunks >= max_chunks:
                 break
         return self.responses

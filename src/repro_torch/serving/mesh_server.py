@@ -26,6 +26,10 @@ parts) and ``stats()`` adds ``per_shard``; ``state_dict`` is JAX's layout,
 snapshot, so a kill and a resume are exact (a snapshot's caches hold the
 KV heads of the model rank that took it, and each rank resumes from its
 own).  Each of these is a collective: every rank of the mesh calls it.
+A live endpoint cannot run one (a scrape reaches one rank, and the shards
+keep no common clock), so ``MetricsBoard`` has each shard publish its
+registry after its chunks into a directory the ranks share, and merges
+the latest of every shard on the rank that serves it.
 
 ``make_slot_engine`` is the one dispatch point shared by
 ``serving/rl_adapter.py`` and ``launch/serve.py``: a mesh with a data axis
@@ -37,6 +41,9 @@ hardening arguments pass straight through, applied per shard.
 """
 from __future__ import annotations
 
+import os
+import pickle
+import time
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -44,13 +51,15 @@ import numpy as np
 from repro_torch.distributed.comm import all_gather_objects
 from repro_torch.distributed.mesh import (check_mesh_family, data_group,
                                           data_rank, data_size,
-                                          data_submeshes, shard_params)
+                                          data_submeshes, model_rank,
+                                          shard_params)
 from repro_torch.engine.generate import GenerateConfig
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import MetricsRegistry
 
 from .engine_loop import SlotEngine
+from .faults import EngineKilled
 from .request import Request, Response
 
 
@@ -163,13 +172,23 @@ class MeshSlotServer:
             max_chunks: Optional[int] = None) -> Dict[int, Response]:
         """Run this rank's shard engine (``SlotEngine.run``) on the
         arrivals its shard owns, routed like ``submit``, each due against
-        its shard's own step counter.  Returns every shard's responses."""
+        its shard's own step counter.  Returns every shard's responses.
+        A shard whose engine is killed (``EngineKilled``) joins the
+        gather of the responses all the same, then raises, so the shards'
+        collectives stay in step."""
         mine = None
         if arrivals is not None:
             mine = [(due, req) for j, (due, req) in enumerate(arrivals)
                     if self._route(req, j) == self.shard]
-        self.engine.run(arrivals=mine, max_chunks=max_chunks)
-        return self.responses
+        killed = None
+        try:
+            self.engine.run(arrivals=mine, max_chunks=max_chunks)
+        except EngineKilled as e:
+            killed = e
+        out = self.responses
+        if killed is not None:
+            raise killed
+        return out
 
     # -------------------------------------------------------------- metrics
 
@@ -199,3 +218,46 @@ class MeshSlotServer:
                              f"for {self._D}")
         self.engine.load_state_dict(state["engines"][str(self.shard)])
         self._rr = int(state["rr"])
+
+
+class MetricsBoard:
+    """A ``MeshSlotServer``'s merged registry while it runs, for a live
+    endpoint (``launch/serve.py --metrics``).  After its chunks (at most
+    once every ``PERIOD`` seconds, and at ``publish(force=True)``) each
+    data shard's first model rank writes its shard's registry into
+    ``directory``, which the ranks share (a file a shard, replaced
+    atomically); ``registry()`` merges the latest of every shard there as
+    ``metrics_registry()`` merges them (``MetricsRegistry.merged``),
+    without a collective.  A scrape sees each shard as of its last
+    publication."""
+
+    PERIOD = 1.0        # a scrape's staleness against a chunk's pickle
+
+    def __init__(self, server: MeshSlotServer, mesh, directory: str):
+        self.server, self.dir = server, directory
+        self.writer = model_rank(mesh) == 0
+        self._last = float("-inf")
+        server.engine.on_chunk = self.publish
+
+    def _path(self, shard: int) -> str:
+        return os.path.join(self.dir, f"shard{shard}.pkl")
+
+    def publish(self, force: bool = False) -> None:
+        now = time.monotonic()
+        if not self.writer or (not force and now - self._last < self.PERIOD):
+            return
+        self._last = now
+        path = self._path(self.server.shard)
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(self.server.engine.metrics_registry(), f)
+        os.replace(path + ".tmp", path)
+
+    def registry(self) -> MetricsRegistry:
+        regs = []
+        for shard in range(self.server.num_shards):
+            try:
+                with open(self._path(shard), "rb") as f:
+                    regs.append(pickle.load(f))
+            except FileNotFoundError:          # not yet published
+                continue
+        return MetricsRegistry.merged(regs)

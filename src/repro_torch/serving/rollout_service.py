@@ -37,8 +37,12 @@ and at most two copies of the weights live beside the trainer's: the
 published snapshot and the service's model.
 
 The mesh: a model cut over it (``distributed/mesh.py:shard_params``) is
-not published: the async loop on the mesh is part 2 of ROADMAP Queue 1
-item 11 (the mesh).
+published shard by shard: each rank copies its own shards in place (with
+``copy=True`` to the host), and the service's own model, cut as the
+collector's mesh cuts it, installs them.  The service's snapshot
+(``state_dict``) gathers the whole parameters to the writing rank, as the
+trainer's does, and a restore installs the slices that the async pair's
+loader cut onto the rank (``rl/async_loop.py``).
 
 Failure-domain isolation: producer-side faults ride the same seeded
 ``FaultPlan`` as the slot engine — ``kill`` raises ``EngineKilled`` at a
@@ -57,6 +61,7 @@ import torch
 
 from repro_torch.core.backoff import BackoffConfig, RetriesExhausted, retry
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.mesh import gather_params, shard_params
 from repro_torch.models import model as M
 from repro_torch.obs import get_registry
 from repro_torch.rl.traj_buffer import TrajBuffer, Trajectory
@@ -117,10 +122,6 @@ class WeightSync:
     # ------------------------------------------------------------- publish
 
     def _copy_in(self, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-        if getattr(model, "tp", None) is not None:
-            raise NotImplementedError(
-                "publishing weights cut over the mesh comes with part 2 of "
-                "ROADMAP Queue 1 item 11 (the mesh)")
         params = dict(model.named_parameters())
         if self._snapshot is None:
             dev = torch.device("cpu") if self._copy else None
@@ -215,11 +216,19 @@ class RolloutService:
                 version: int) -> None:
         """Copy ``weights`` (parameter name → tensor: a published snapshot,
         or a model's ``named_parameters()`` at bootstrap / resume) into the
-        served model."""
+        served model: this rank's shards on the mesh."""
         if self.model is None:
-            self.model = M.LM(self.collector.cfg, device=self.device)
+            self.model = self._build()
         copy_weights(dict(self.model.named_parameters()), weights)
         self.version = int(version)
+
+    def _build(self) -> M.LM:
+        """An empty served model on the service's device, cut as the
+        collector's mesh cuts the trainer's."""
+        cfg = self.collector.cfg
+        return shard_params(getattr(self.collector, "mesh", None), cfg,
+                            M.LM(cfg, device="meta")).to_empty(
+                                device=self.device)
 
     def _maybe_sync(self) -> None:
         pub = self.sync.poll()
@@ -298,7 +307,7 @@ class RolloutService:
                           "stall_remaining": np.int64(self._stall_remaining),
                           "has_params": np.int64(self.model is not None)}}
         if self.model is not None:
-            st["params"] = dict(self.model.named_parameters())
+            st["params"] = gather_params(self.model)
         return st
 
     def load_state_dict(self, st: Dict) -> None:

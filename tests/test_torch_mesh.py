@@ -16,8 +16,9 @@ partial products in another order).  Every rank returns what it saw, and
 the ranks of a model group must agree bit for bit: they make the same
 host decisions.
 
-The trainer on the mesh (``test_trainer_step_identity``) is part 2 of
-ROADMAP Queue 1 item 11 (the mesh).
+The trainer on the mesh (JAX's ``test_trainer_step_identity``: GRPO,
+PPO and DAPO, the async loop, the watchdog, the step functions and the
+sinks) is held in ``test_torch_mesh_train.py``.
 """
 import copy
 import os

@@ -296,7 +296,8 @@ SLICE_MODULES = (
     "repro_torch.configs.whisper_tiny",
     "repro_torch.configs.deepseek_v3_671b", "repro_torch.distributed.mesh",
     "repro_torch.distributed.sharding", "repro_torch.distributed.shard_wrap",
-    "repro_torch.distributed.comm", "repro_torch.launch.mesh")
+    "repro_torch.distributed.comm", "repro_torch.launch.mesh",
+    "repro_torch.launch.steps")
 
 
 def test_port_imports_no_jax_and_no_repro():

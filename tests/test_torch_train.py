@@ -30,7 +30,10 @@ would exercise nothing of the gradient route.
 """
 import json
 import math
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -621,9 +624,9 @@ def _capture_port_grads(monkeypatch):
     out = {}
     update = adamw.update
 
-    def spy(cfg, params, grads, state):
+    def spy(cfg, params, grads, state, **kw):
         out[id(params[0])] = list(grads)
-        return update(cfg, params, grads, state)
+        return update(cfg, params, grads, state, **kw)
 
     monkeypatch.setattr(adamw, "update", spy)
     return out
@@ -829,11 +832,42 @@ def test_to_jax_params_inverts_from_jax_params(qwen):
     (["--mesh-data", "2"], 11), (["--mesh-model", "2"], 11),
     (["--require-mesh"], 11)],
     ids=lambda x: " ".join(x) if isinstance(x, list) else str(x))
-def test_unported_launcher_flags_raise_and_name_their_item(argv, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item} "):
-        launch_train.main(["--device", "cpu", "--smoke", "--steps", "0"]
-                          + argv)
+def test_unported_launcher_flags_raise_and_name_their_item(argv, item,
+                                                           capsys, tmp_path):
+    """The mesh flags of ROADMAP Queue 1 item ``item`` (the mesh), which
+    part 2 ported, one case each: ``--mesh-data 2`` with ``--mesh-model
+    2`` under ``torchrun`` (four ``gloo`` ranks) trains on a (2, 2) mesh,
+    rank 0 alone prints its step lines and writes the watchdog's
+    snapshots; ``--mesh-model 2`` without
+    the ranks trains in the single process, as JAX's ``MeshConfig.build``
+    falls back; ``--require-mesh`` without them raises ``RuntimeError``."""
+    base = ["--device", "cpu", "--smoke", "--steps", "2"]
+    if argv == ["--mesh-data", "2"]:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        wd = tmp_path / "wd"
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "4", "-m", "repro_torch.launch.train"]
+            + base + argv + ["--mesh-model", "2", "--watchdog-dir", str(wd),
+                             "--watchdog-every", "1"], env=env,
+            capture_output=True, text=True, timeout=240)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert "mesh (data, model) = (2, 2) over gloo on cpu" in out.stdout
+        lines = out.stdout.splitlines()
+        assert [ln.split()[:2] for ln in lines
+                if ln.startswith("step")] == [["step", "0"], ["step", "1"]]
+        assert any("mesh=2x2" in ln for ln in lines)
+        # rank 0 wrote the whole trees of every step's snapshot
+        assert read_latest(str(wd)) == "watchdog_000001"
+    elif argv == ["--mesh-model", "2"]:
+        assert launch_train.main(base + argv) == 0
+        out = capsys.readouterr().out
+        assert "mesh=off" in out and "step   1" in out
+    else:
+        with pytest.raises(RuntimeError, match="needs 4 ranks, found 1"):
+            launch_train.main(base + ["--mesh-data", "2", "--mesh-model",
+                                      "2"] + argv)
 
 
 @pytest.fixture
@@ -991,7 +1025,11 @@ def test_launcher_draft_flags_build_jax_draft_config(argv, want,
 
 @pytest.mark.parametrize("what,item", [("mesh", 11)])
 def test_unported_trainer_arguments_raise_and_name_their_item(what, item):
-    cfg = get_config("qwen3-1.7b").reduced()
+    """The trainer runs the dense GQA family on the mesh
+    (``tests/test_torch_mesh_train.py``); the other families on the mesh
+    (part 3 of ROADMAP Queue 1 item 11; an RWKV6 trunk here) are refused,
+    naming the item, before the mesh is read."""
+    cfg = get_config("rwkv6-3b").reduced()
     _, ds = _datasets()
     kw = {"mesh": {"mesh": object()}}[what]
     with pytest.raises(NotImplementedError,
