@@ -507,6 +507,31 @@ MESH_LR = 1e-3
 MESH_BF16_ULP = 2.0 ** -7
 MESH_GRAD_GAP = 0.1
 MESH_METRIC_RTOL, MESH_METRIC_ATOL = 0.02, 1e-3
+# the MoE family on the same mesh (a spawn of its own, ``mesh moe``):
+# mixtral-8x22b at full width cut to MESH_MOE_LAYERS layer, each rank with 4
+# of 8 experts, 24 of 48 query heads, 4 of 8 KV heads and half the
+# vocabulary (1.45e9 of 2.91e9 parameters).  Three of MESH_MODES' modes
+# run: the dense and the paged fixed batch (whose realign gathers the
+# pool: ``paged_gather``) and the paged slot engine hold every kernel of
+# the attention path between them.  A rank's GRPO update holds its weights,
+# gradients and float32 moments, about 17.4 GB; the KL reference's 2.9 GB
+# more a rank do not fit four ranks on one card, so the update runs with
+# kl_coef 0 (``tools/mesh_phase.py --moe --kl`` on four cards keeps it).
+# The reference records its routing (``models/moe.py:RouteLog``): the
+# teacher-forced scores, ``moe_drop_frac`` and the update replay it on the
+# ranks, each data rank its own rows, and report ``rerouted``, the tokens
+# whose own choice the replay overrode.  With one layer the MoE at position
+# t routes token t alone, so a free-running row may part (or a sampler
+# score shift past MESH_LP_TOL) where the sampled column's logits came
+# from a token whose recorded k-th and (k+1)-th router probabilities lie
+# within ROUTER_TIE_MARGIN; every rerouted token must lie within it too.
+# 0.004 is twice the largest margin the H100 has shown at such a case
+# (0.00183; a rerouted token's 0.00070; PERF.md §5)
+MESH_MOE_ARCH = "mixtral-8x22b"
+MESH_MOE_LAYERS = 1
+MESH_MOE_MODES = (("dense", "none"), ("paged", "none"), ("paged", "slots"))
+MESH_MOE_TIMEOUT_S = 600
+ROUTER_TIE_MARGIN = 0.004
 # the modality frontends at full width and depth through the same traffic
 # (pixtral-12b: 40 layers, 12.2e9 parameters; whisper-tiny: 4 + 4 layers)
 FRONTEND_LAYERS = {"pixtral-12b": 40, "whisper-tiny": 4}
@@ -3983,15 +4008,16 @@ def watchdog_path(torch, cfg, batch):
     return launches
 
 
-def update_tol(p0, g, lr, scale, eps=1e-8, noise=GRAD_NOISE):
+def update_tol(p0, g, lr, scale, eps=1e-8, noise=GRAD_NOISE, gmax=None):
     """Tolerance of a parameter after AdamW's first step from a gradient
     ``g`` known within δ = noise · max|g·scale| (GRAD_NOISE unless a
     caller bounds the gradient otherwise): 1e-6 of the update's operands
     (|p| + lr; p - lr·... cancels where p ≈ lr) plus at most 2δ·eps / (m + eps)² of g / (|g| +
     eps), m = |g·scale| - δ, and at most 2 (a sign); the same rule as
-    tests/test_torch_train.py's."""
+    tests/test_torch_train.py's.  ``gmax``: max|g| of the whole tensor,
+    when ``g`` is a block of it."""
     gs = g.abs() * scale
-    delta = noise * float(gs.max())
+    delta = noise * (float(gs.max()) if gmax is None else gmax * scale)
     m = (gs - delta).clamp_min(0.0)
     return (PARAM_RTOL * (p0.abs() + lr)
             + lr * (2 * delta * eps / (m + eps) ** 2).clamp_max(2.0))
@@ -4704,8 +4730,8 @@ def sample_chains(torch, epoch_words):
 
 
 def mesh_rollouts(torch, model, cfg, batch, gen, keys, *, mesh=None,
-                  drafts=None):
-    """Each ``MESH_MODES`` mode's two epochs (epoch 0 vanilla, epoch 1 the
+                  drafts=None, modes=MESH_MODES):
+    """Each of ``modes``' two epochs (epoch 0 vanilla, epoch 1 the
     one-pass branch) with per-row keys (``keys``: each epoch's (B, 2)
     words), recorded (``SampleRecorder``).  ``drafts``: the reference's
     epoch-0 batches, by mode: epoch 1 then verifies the reference's rows,
@@ -4715,7 +4741,7 @@ def mesh_rollouts(torch, model, cfg, batch, gen, keys, *, mesh=None,
     from repro_torch.engine.sampling import KeyBatch
 
     out = {}
-    for layout, backfill in MESH_MODES:
+    for layout, backfill in modes:
         mode = f"{layout}/{backfill}"
         c = cfg.replace(cache_layout=layout)
         spec = SpecConfig(variant="spec", one_pass="auto", lenience=LENIENCE,
@@ -4736,6 +4762,19 @@ def mesh_rollouts(torch, model, cfg, batch, gen, keys, *, mesh=None,
                                    epoch, mesh=mesh))
         out[mode] = (rbs[0], rbs[1], rec)
     return out
+
+
+def mesh_keys():
+    """Each epoch's per-row key words of the mesh phases: two splits of
+    ``make_key(SEED)``, each drawn into a key a row."""
+    from repro_torch.engine.sampling import make_key, request_keys, split_key
+
+    key = make_key(SEED)
+    keys = []
+    for _ in (0, 1):
+        key, sub = split_key(key)
+        keys.append(request_keys(sub, PROMPTS * GROUP).words.cpu().numpy())
+    return keys
 
 
 def _rb_host(rb):
@@ -4838,40 +4877,55 @@ def mesh_train_reference(torch, model, cfg, batch, rb0, tmp):
     return out
 
 
-def compare_shards(torch, label, model, grads, ref, scale, r, m):
+def compare_shards(torch, label, model, grads, ref, scale, r, m,
+                   prior=None):
     """A rank's updated shards of ``model`` (and its ``grads``) against the
     matching slices of the reference's (``ref``: a ``.pt`` blob's model
-    entry, read in place): (the gradient gap, the largest gradient error
-    over its tensor's largest, which must stay within MESH_GRAD_GAP; the
-    elements outside ``update_tol`` with MESH_GRAD_GAP as its noise plus
-    MESH_BF16_ULP of |p|; the worst error over its tolerance)."""
-    from repro_torch.distributed.mesh import _slice, param_specs
+    entry, read in place; ``prior``: this rank's own shards before the
+    update, by name, else the blob's ``prior`` slices): (the gradient gap,
+    the largest gradient error over its tensor's largest, which must stay
+    within MESH_GRAD_GAP; the elements outside ``update_tol`` with
+    MESH_GRAD_GAP as its noise plus MESH_BF16_ULP of |p|; the worst error
+    over its tolerance).  Large tensors go a piece at a time (``pieces``)."""
+    from repro_torch.distributed.mesh import _slice, param_specs, pieces
 
     specs = param_specs(model)
     dev = next(model.parameters()).device
 
     def mine(name, what):
-        return _slice(ref[what][name], specs.get(name, ()), m, r).to(
-            dev).float()
+        if what == "prior" and prior is not None:
+            return prior[name]
+        return _slice(ref[what][name], specs.get(name, ()), m, r)
+
+    def on(t):
+        return t.to(dev).float()
 
     names = [n for n, _ in model.named_parameters()]
     gap = 0.0
+    tops = {}
     for n, g in zip(names, grads):
-        g_ref = mine(n, "grads")
-        top = float(g_ref.abs().max())
+        top = err = 0.0
+        for a, b in pieces(g, mine(n, "grads")):
+            b = on(b)
+            top = max(top, float(b.abs().max()))
+            err = max(err, float((a.float() - b).abs().max()))
+        tops[n] = top
         if top > 0:
-            gap = max(gap, float((g.float() - g_ref).abs().max()) / top)
+            gap = max(gap, err / top)
     require(gap <= MESH_GRAD_GAP, f"mesh {label}: gradients off by {gap} of "
             f"a tensor's largest > MESH_GRAD_GAP {MESH_GRAD_GAP}")
     n_bad, worst = 0, 0.0
     for n, p in model.named_parameters():
-        want, got = mine(n, "updated"), p.detach().float()
-        tol = update_tol(mine(n, "prior"), mine(n, "grads"), MESH_LR, scale,
-                         noise=MESH_GRAD_GAP) \
-            + MESH_BF16_ULP * torch.maximum(want.abs(), got.abs())
-        d = (got - want).abs()
-        n_bad += int((d > tol).sum())
-        worst = max(worst, float((d / tol).max()))
+        for got, want, p0, g in pieces(p.detach(), mine(n, "updated"),
+                                           mine(n, "prior"),
+                                           mine(n, "grads")):
+            want, got = on(want), got.float()
+            tol = update_tol(on(p0), on(g), MESH_LR, scale,
+                             noise=MESH_GRAD_GAP, gmax=tops[n]) \
+                + MESH_BF16_ULP * torch.maximum(want.abs(), got.abs())
+            d = (got - want).abs()
+            n_bad += int((d > tol).sum())
+            worst = max(worst, float((d / tol).max()))
     require(n_bad == 0, f"mesh {label}: {n_bad} updated elements outside "
             f"the tolerance (worst {worst} x; gradient gap {gap})")
     return gap, n_bad, worst
@@ -5102,18 +5156,12 @@ def mesh_path(torch):
 
     from repro_torch.distributed.mesh import run_ranks
     from repro_torch.engine.generate import score
-    from repro_torch.engine.sampling import make_key, request_keys, split_key
     from repro_torch.kernels import LAUNCHES
 
     t0 = time.perf_counter()
     model, cfg, batch, gen = setup_model(torch, layers=MESH_LAYERS,
                                          n_new=ARCHS_N)
-    B = PROMPTS * GROUP
-    key = make_key(SEED)
-    keys = []
-    for _ in (0, 1):
-        key, sub = split_key(key)
-        keys.append(request_keys(sub, B).words.cpu().numpy())
+    keys = mesh_keys()
     before = dict(LAUNCHES)
     ref = mesh_rollouts(torch, model, cfg, batch, gen, keys)
     dense = ref["dense/none"]
@@ -5338,18 +5386,34 @@ def mesh_train_checks(cfg, ranks, ref, rb0):
     return out
 
 
-def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc):
+def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc,
+                  router_margin=None):
     """Each epoch's rows of one mode, mesh against reference: equal up to
     their first parting, every parting explained (``mesh_path``); the
     sampler-score shifts before the partings within ``MESH_LP_TOL``.
     ``ref_acc`` / ``mesh_acc``: each side's epoch-1 accept tests by row
-    (``accept_tests_by_row``).  Returns the mode's line."""
+    (``accept_tests_by_row``).  ``router_margin(e, b, col)`` (a MoE trunk):
+    the reference's router margin behind row b's column col of epoch e
+    (``mesh_moe_path``); where a check fails, a margin within
+    ROUTER_TIE_MARGIN explains it instead, and the case is listed under
+    ``router_ties``.  Returns the mode's line."""
     import numpy as np
 
     out = {}
     for e in range(len(want)):
         w, g = want[e], got[e]
         rows_equal, n_parts, draw_parts, shift = 0, [], [], 0.0
+        ties = []
+
+        def tie(b, col, msg, epoch=e, **what):
+            """Fail with ``msg`` unless the router nearly tied there."""
+            mg = None if router_margin is None else router_margin(epoch, b,
+                                                                  col)
+            require(mg is not None and mg <= ROUTER_TIE_MARGIN,
+                    msg + ("" if mg is None else f"; router margin there "
+                           f"{mg} > ROUTER_TIE_MARGIN {ROUTER_TIE_MARGIN}"))
+            ties.append({"row": b, "col": col, "router_margin": mg, **what})
+
         for b in range(len(w["length"])):
             diff = first_difference(w["response"][b:b + 1],
                                     g["response"][b:b + 1])
@@ -5363,24 +5427,34 @@ def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc):
                         f"before its shorter accepted prefix {m}")
                 n_parts.append(accept_parting(
                     f"mesh {mode} epoch {e} row {b}", ref_acc.get(b),
-                    mesh_acc.get(b), n_b, int(g["n"][b])) | {"row": b})
+                    mesh_acc.get(b), n_b, int(g["n"][b]),
+                    None if router_margin is None else
+                    (lambda col, b=b: router_margin(0, b, col)))
+                    | {"row": b})
                 continue
             c = (diff[1] if diff is not None else
                  min(int(w["length"][b]), int(g["length"][b])))
             # the sampled tokens before the parting: same prefix, same key
-            for j in range(c - (n_b if e else 0)):
+            first = n_b if e else 0
+            for j in range(c - first):
                 rr, mr = ref_rec.get((e, b, j)), mesh_rec.get((e, b, j))
                 require(rr is not None and mr is not None,
                         f"mesh {mode} epoch {e} row {b}: no record of sample "
                         f"{j}")
                 common = set(rr[0].tolist()) & set(mr[0].tolist())
                 for t in common:
-                    shift = max(shift, abs(
-                        float(mr[1][list(mr[0]).index(t)])
-                        - float(rr[1][list(rr[0]).index(t)])))
+                    d = abs(float(mr[1][list(mr[0]).index(t)])
+                            - float(rr[1][list(rr[0]).index(t)]))
+                    if d > MESH_LP_TOL:
+                        tie(b, first + j, f"mesh {mode} epoch {e} row {b}: "
+                            f"sampler score of token {t} at column "
+                            f"{first + j} shifted {d} (MESH_LP_TOL "
+                            f"{MESH_LP_TOL})", shift=d)
+                        break
+                    shift = max(shift, d)
             if diff is None:
                 continue
-            j = c - (n_b if e else 0)
+            j = c - first
             require(j >= 0, f"mesh {mode} epoch {e} row {b}: parts inside "
                     f"its accepted prefix ({c} < {n_b})")
             rr, mr = ref_rec.get((e, b, j)), mesh_rec.get((e, b, j))
@@ -5393,19 +5467,24 @@ def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc):
                     f"mesh {mode} epoch {e} row {b}: the records' tokens "
                     f"({a}, {t}) are not the rows' at column {c}")
             in_both = (t in rr[0].tolist() and a in mr[0].tolist())
-            require(in_both, f"mesh {mode} epoch {e} row {b} column {c}: "
-                    f"token {a} (reference) or {t} (mesh) is not among both "
-                    f"sides' {MESH_TOP_K} best sampler scores: {rr}, {mr}")
+            if not in_both:
+                tie(b, c, f"mesh {mode} epoch {e} row {b} column {c}: token "
+                    f"{a} (reference) or {t} (mesh) is not among both "
+                    f"sides' {MESH_TOP_K} best sampler scores: {rr}, {mr}",
+                    tokens=[a, t])
+                continue
 
             def s(rec, tok):
                 return float(rec[1][list(rec[0]).index(tok)])
             d_a, d_t = s(mr, a) - s(rr, a), s(mr, t) - s(rr, t)
             margin = s(rr, a) - s(rr, t)
-            require(max(abs(d_a), abs(d_t)) <= MESH_LP_TOL
-                    and margin <= d_t - d_a + 1e-6,
-                    f"mesh {mode} epoch {e} row {b} column {c}: tokens "
+            if not (max(abs(d_a), abs(d_t)) <= MESH_LP_TOL
+                    and margin <= d_t - d_a + 1e-6):
+                tie(b, c, f"mesh {mode} epoch {e} row {b} column {c}: tokens "
                     f"{a} / {t}, score shifts {d_a} / {d_t}, reference "
-                    f"margin {margin} (MESH_LP_TOL {MESH_LP_TOL})")
+                    f"margin {margin} (MESH_LP_TOL {MESH_LP_TOL})",
+                    tokens=[a, t], shifts=[d_a, d_t])
+                continue
             draw_parts.append({"row": b, "col": c, "margin": margin,
                                "shifts": [d_a, d_t]})
         require(shift <= MESH_LP_TOL, f"mesh {mode} epoch {e}: a sampler "
@@ -5416,17 +5495,23 @@ def mesh_partings(mode, want, got, ref_rec, mesh_rec, ref_acc, mesh_acc):
                   "n_generated": g["metrics"]["n_generated"],
                   "n_reused": g["metrics"]["n_reused"],
                   "ref_n_reused": w["metrics"]["n_reused"]}
+        if router_margin is not None:
+            out[e]["router_ties"] = ties
     return out
 
 
-def accept_parting(what, ref, mesh, n_ref, n_mesh):
+def accept_parting(what, ref, mesh, n_ref, n_mesh, router_margin=None):
     """The accept test parted a row at m = min(n): both sides verified the
     reference's epoch-0 row with the same key, so they must hold the same
     uniform u and draft log-prob at m, the side that accepted at m a
     threshold min(1, l * p_curr / p_prev) of at least u and the other
     one below it (the two thresholds straddle u), and the two current
     log-probs of the row's draft tokens (m among them) within
-    ``MESH_LP_TOL``.  Returns the parting's line."""
+    ``MESH_LP_TOL``.  ``router_margin(col)`` (a MoE trunk): the
+    reference's router margin behind draft column col; a draft token
+    whose log-prob gap passes the tolerance, or thresholds that do not
+    straddle u, are explained where it lies within ROUTER_TIE_MARGIN
+    (listed under ``router_ties``).  Returns the parting's line."""
     import numpy as np
 
     require(ref is not None and mesh is not None,
@@ -5445,14 +5530,438 @@ def accept_parting(what, ref, mesh, n_ref, n_mesh):
     a_r, a_m = alpha(lc_r), alpha(lc_m)
     a_acc, a_rej = (a_r, a_m) if n_ref > n_mesh else (a_m, a_r)
     u = float(u_r[m])
-    gap = float(np.abs(lc_r[:vl_r] - lc_m[:vl_r]).max())
-    require(a_rej < u <= a_acc and gap <= MESH_LP_TOL,
+    gaps = np.abs(lc_r[:vl_r] - lc_m[:vl_r])
+    ties = {}
+    if router_margin is not None:
+        for col in np.nonzero(gaps > MESH_LP_TOL)[0].tolist() + (
+                [] if a_rej < u <= a_acc else [m]):
+            ties[int(col)] = router_margin(int(col))
+    tied = {c for c, mg in ties.items() if mg <= ROUTER_TIE_MARGIN}
+    gap = float(max([0.0] + [float(x) for c, x in enumerate(gaps)
+                             if c not in tied]))
+    require((a_rej < u <= a_acc or m in tied) and gap <= MESH_LP_TOL,
             f"{what}: accept test at {m}: u {u}, thresholds {a_acc} "
             f"(accepting side) / {a_rej} (rejecting side), log-prob gap "
-            f"{gap} over the draft (MESH_LP_TOL {MESH_LP_TOL})")
-    return {"n": [n_ref, n_mesh], "u": u, "alpha": [a_r, a_m],
-            "lp_curr": [float(lc_r[m]), float(lc_m[m])],
-            "lp_prev": float(lp_r[m]), "lp_gap": gap}
+            f"{gap} over the draft (MESH_LP_TOL {MESH_LP_TOL}); router "
+            f"margins there {ties}")
+    out = {"n": [n_ref, n_mesh], "u": u, "alpha": [a_r, a_m],
+           "lp_curr": [float(lc_r[m]), float(lc_m[m])],
+           "lp_prev": float(lp_r[m]), "lp_gap": gap}
+    if router_margin is not None:
+        out["router_ties"] = {c: ties[c] for c in sorted(tied)}
+    return out
+
+
+def forced_routes(torch, model, cfg, forced, mesh=None, replay=None):
+    """Teacher-forced log-probs and ``moe_aux`` of each ``forced`` (tokens,
+    mask) under a ``RouteLog``: recording its routing (``replay`` None),
+    or replaying the reference's calls (``replay``: one list a forced
+    input), each data rank its own rows.  Returns a record a forced input:
+    the whole log-probs and aux (each data rank runs its rows), the calls,
+    each call's router margins and (replayed) rerouted tokens by row, and
+    ``rerouted``."""
+    from repro_torch.distributed.mesh import DataRows
+    from repro_torch.engine.generate import moe_aux, score
+    from repro_torch.models.moe import RouteLog
+
+    out = []
+    for i, (toks, mask) in enumerate(forced):
+        rows = DataRows(mesh, len(toks))
+        with RouteLog(None if replay is None else replay[i],
+                      rows=(rows.lo, rows.hi, rows.batch)) as rl:
+            lp = score(model, cfg, toks, mask, mesh=mesh)["logprobs"]
+            aux = moe_aux(model, cfg, toks, mask, mesh=mesh)
+        n = rows.hi - rows.lo
+        out.append({
+            "lp": lp.float().cpu().numpy(),
+            "aux": {k: v.float().cpu().numpy() for k, v in aux.items()},
+            "calls": rl.calls, "rows": (rows.lo, rows.hi),
+            "margins": [x.view(n, -1).numpy() for x in rl.margins],
+            "moved": [x.view(n, -1).numpy() for x in rl.moved],
+            "rerouted": rl.rerouted})
+    return out
+
+
+def drop_reference(torch, tr) -> None:
+    """GRPO without its KL term: no reference model, ``kl_coef`` 0 (the
+    ``mesh moe`` trainer, whose reference would not fit the card)."""
+    from dataclasses import replace
+
+    tr.ref_model = None
+    tr.pcfg = replace(tr.pcfg, kl_coef=0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_moe_train_reference(torch, model, cfg, rb0, tmp, kl):
+    """The ``mesh moe`` trainer's single-process reference: one GRPO
+    ``optimize`` of ``rb0`` (without the KL term unless ``kl``) with its
+    routing recorded; the updated weights and the gradients written to
+    ``tmp/grpo.pt`` in bfloat16 (the ranks hold their own prior shards)."""
+    from repro_torch.models.moe import RouteLog
+
+    tr = mesh_trainer(torch, cfg, model, "grpo")
+    if not kl:
+        drop_reference(torch, tr)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RouteLog() as routes:
+        m, st, grads, lp_old = mesh_optimize(torch, tr, rb0)
+    t_opt = time.perf_counter() - t0
+    g = _host_named(tr.model, grads["actor"])
+    torch.save({"actor": {"updated": _host_named(tr.model), "grads": g,
+                          "norm": math.sqrt(sum(
+                              float(x.double().square().sum())
+                              for x in g.values()))}},
+               os.path.join(tmp, "grpo.pt"))
+    check_scoring("mesh moe reference grpo", st, cfg.num_layers,
+                  scorings=("old_logprob", "ref") if kl else
+                  ("old_logprob",))
+    out = {"metrics": {k: float(v) for k, v in m.items()},
+           "lp_old": lp_old, "optimize_s": t_opt, "calls": routes.calls,
+           "launches": {k: v["launches"] for k, v in st.items()},
+           "peak_gib": max(v["peak_gib"] for v in st.values())}
+    del tr, grads, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_rank_train(torch, mesh, model, cfg, data, tmp):
+    """The ``mesh moe`` trainer on this rank: the reference's GRPO
+    ``optimize`` of its epoch-0 rows under its replayed routing, held
+    against its update (``compare_shards``, the moments freed first)."""
+    from repro_torch.distributed.mesh import DataRows, model_rank, model_size
+    from repro_torch.models.moe import RouteLog
+
+    tr = mesh_trainer(torch, cfg, model, "grpo", mesh)
+    if not data["kl"]:
+        drop_reference(torch, tr)
+    prior = _host_named(tr.model)
+    rows = DataRows(mesh, PROMPTS * GROUP)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RouteLog(data["train_calls"], rows=(rows.lo, rows.hi,
+                                             rows.batch)) as routes:
+        m, st, grads, lp_old = mesh_optimize(torch, tr, data["rb0"])
+    t_opt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = torch.load(os.path.join(tmp, "grpo.pt"), mmap=True,
+                     weights_only=True)
+    scale = min(1.0, 1.0 / (ref["actor"]["norm"] + 1e-9))
+    cmp = compare_shards(torch, "moe grpo actor", tr.model, grads["actor"],
+                         ref["actor"], scale, model_rank(mesh),
+                         model_size(mesh), prior=prior)
+    del ref, tr, grads, prior
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "lp_old": lp_old, "optimize_s": t_opt, "compare": cmp,
+            "rerouted": routes.rerouted, "peak_gib": peak,
+            "launches": {k: v["launches"] for k, v in st.items()},
+            "stage_peak_gib": {k: v["peak_gib"] for k, v in st.items()}}
+
+
+def mesh_moe_rank(rank, path):
+    """One rank of the ``mesh moe`` phase: mixtral cut over its model
+    group, each mode's two epochs, the teacher-forced scores and
+    ``moe_aux`` of the reference's rows under its routing, then the
+    trainer (``mesh_moe_rank_train``); returns what it saw."""
+    import pickle
+
+    import torch
+
+    from repro_torch.distributed.mesh import MeshConfig, shard_params
+    from repro_torch.kernels import _build, reset_launches
+
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    t0 = time.perf_counter()
+    _build.library()
+    mesh = MeshConfig(*MESH_SHAPE, require=True).build("cuda")
+    model, cfg, batch, gen = setup_model(torch, MESH_MOE_ARCH,
+                                         layers=MESH_MOE_LAYERS,
+                                         n_new=ARCHS_N)
+    model = shard_params(mesh, cfg, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    log_rank("moe rollouts")
+    runs = mesh_rollouts(torch, model, cfg, batch, gen, data["keys"],
+                         mesh=mesh, drafts=data["drafts"],
+                         modes=MESH_MOE_MODES)
+    forced = forced_routes(torch, model, cfg, data["forced"], mesh=mesh,
+                           replay=data["calls"])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log_rank("moe trainer")
+    t0 = time.perf_counter()
+    train = mesh_moe_rank_train(torch, mesh, model, cfg, data,
+                                os.path.dirname(path))
+    t_train = time.perf_counter() - t0
+    launches = read_launches()
+    for f in forced:
+        del f["calls"]
+    return {"rank": rank, "setup_s": t_setup, "run_s": t_run,
+            "train_s": t_train, "train": train, "peak_gib": peak,
+            "launches": dict(launches), "by_t": launches.by_t,
+            "runs": {mode: ([_rb_host(rb0), _rb_host(rb1)], rec.calls,
+                            rec.verifies)
+                     for mode, (rb0, rb1, rec) in runs.items()},
+            "forced": forced}
+
+
+def mesh_moe_path(torch, kl: bool = False):
+    """The MoE family on the §8 mesh on the card: the single-process
+    reference first (mixtral-8x22b at full width, MESH_MOE_LAYERS layer,
+    bfloat16: each MESH_MOE_MODES mode's two epochs with its sampler
+    records, the teacher-forced scores and ``moe_aux`` of each mode's rows
+    with their routing recorded, and one GRPO ``optimize`` of the dense
+    epoch-0 rows, without its KL term unless ``kl``), the model then
+    freed; then four ``gloo`` ranks on ``cuda:0`` as a (2, 2) mesh doing
+    the same on their shards.  Checks: the teacher-forced log-probs under
+    the reference's replayed routing within MESH_LP_TOL, ``moe_drop_frac``
+    within 1e-6 of the reference's, every token the replay rerouted at a
+    recorded router margin within ROUTER_TIE_MARGIN; every row equal to
+    the reference's up to partings that the sampler scores or a router
+    near tie explain (``mesh_partings``), every rank's rows the same,
+    epoch 1 one-pass with reuse; the update's gradients and shards
+    (``compare_shards``), its step log (loss, grad_norm, moe_lb_loss)
+    within MESH_METRIC_RTOL plus MESH_METRIC_ATOL, no kernel in the
+    update; the seven attention-path kernels launched on every rank."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.distributed.mesh import run_ranks
+    from repro_torch.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    model, cfg, batch, gen = setup_model(torch, MESH_MOE_ARCH,
+                                         layers=MESH_MOE_LAYERS,
+                                         n_new=ARCHS_N)
+    keys = mesh_keys()
+    before = dict(LAUNCHES)
+    ref = mesh_rollouts(torch, model, cfg, batch, gen, keys,
+                        modes=MESH_MOE_MODES)
+    modes = list(ref)
+    # [prompt | response] of each mode's epochs: mode-major, then epoch
+    forced = [(np.concatenate([batch.tokens, rb.response], 1),
+               np.concatenate([batch.mask, rb.response_mask], 1))
+              for mode in modes for rb in ref[mode][:2]]
+    ref_forced = forced_routes(torch, model, cfg, forced)
+    require(dict(LAUNCHES) != before, "mesh moe: the reference launched "
+            "nothing")
+    chains = sample_chains(torch, keys)
+    ref_rec = {mode: records_by_row(rec.calls, chains)
+               for mode, (_, _, rec) in ref.items()}
+    ref_acc = {mode: accept_tests_by_row(rec.verifies, keys)
+               for mode, (_, _, rec) in ref.items()}
+    ref_rbs = {mode: [_rb_host(rb0), _rb_host(rb1)]
+               for mode, (rb0, rb1, _) in ref.items()}
+    t_ref = time.perf_counter() - t0
+    drafts = {mode: rb0 for mode, (rb0, _, _) in ref.items()}
+    rb0 = ref["dense/none"][0]
+    del ref
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        t0 = time.perf_counter()
+        ref_train = mesh_moe_train_reference(torch, model, cfg, rb0, tmp, kl)
+        t_ref_train = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"mesh moe: reference ({MESH_MOE_ARCH}, {MESH_MOE_LAYERS} "
+            f"layer, {len(modes)} modes) in {t_ref:.1f} s, its trainer in "
+            f"{t_ref_train:.1f} s; the same on a {MESH_SHAPE} gloo mesh of "
+            f"{MESH_WORLD} ranks on cuda:0")
+        path = os.path.join(tmp, "mesh_moe.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"keys": keys, "drafts": drafts, "forced": forced,
+                         "calls": [r["calls"] for r in ref_forced],
+                         "train_calls": ref_train.pop("calls"), "rb0": rb0,
+                         "kl": kl}, f)
+        t0 = time.perf_counter()
+        # four ranks' 17.4 GB leave the card a few GB: the ranks' allocator
+        # maps its segments as they grow rather than caching fixed blocks
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = run_ranks(mesh_moe_rank, MESH_WORLD, (path,),
+                              device="cuda", timeout=MESH_MOE_TIMEOUT_S)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        t_ranks = time.perf_counter() - t0
+
+    # the teacher-forced scores and aux under the replayed routing; the
+    # rerouted tokens by row, from the data ranks of model rank 0
+    firsts = [r for r in ranks if r["rank"] % MESH_SHAPE[1] == 0]
+    gaps, drops, rerouted, moved_margin = [], [], 0, 0.0
+    margins = {}
+    for i, ((toks, mask), want) in enumerate(zip(forced, ref_forced)):
+        got = ranks[0]["forced"][i]
+        valid = mask & np.concatenate([np.zeros_like(mask[:, :1]),
+                                       mask[:, :-1]], 1)
+        gaps.append(float(np.abs(got["lp"] - want["lp"])[valid].max()))
+        for r in ranks[1:]:
+            require(np.array_equal(r["forced"][i]["lp"], got["lp"]),
+                    f"mesh moe: rank {r['rank']}'s scores differ from rank "
+                    "0's")
+        for r in ranks:
+            d = abs(float(r["forced"][i]["aux"]["moe_drop_frac"])
+                    - float(want["aux"]["moe_drop_frac"]))
+            drops.append(d)
+        # the reference's margins (B, L) of each layer; the replay's
+        # rerouted tokens by row, each rank's own rows
+        ref_m = np.min(np.stack(want["margins"][:cfg.num_layers]), 0)
+        margins[i] = ref_m
+        for r in firsts:
+            lo, hi = r["forced"][i]["rows"]
+            # the score's calls (the aux forward's repeat them)
+            for mv in r["forced"][i]["moved"][:cfg.num_layers]:
+                mv = mv.reshape(hi - lo, -1)[:, :ref_m.shape[1]].astype(bool)
+                mv &= mask[lo:hi]
+                rerouted += int(mv.sum())
+                if mv.any():
+                    moved_margin = max(moved_margin,
+                                       float(ref_m[lo:hi][mv].max()))
+    lp_gap = max(gaps)
+    require(lp_gap <= MESH_LP_TOL, f"mesh moe: teacher-forced log-prob gap "
+            f"{gaps} passes MESH_LP_TOL {MESH_LP_TOL}")
+    require(max(drops) <= 1e-6, f"mesh moe: moe_drop_frac off by "
+            f"{max(drops)} of the reference's")
+    require(moved_margin <= ROUTER_TIE_MARGIN, f"mesh moe: a rerouted "
+            f"token's router margin {moved_margin} passes ROUTER_TIE_MARGIN "
+            f"{ROUTER_TIE_MARGIN}")
+
+    summary = {}
+    for k, mode in enumerate(modes):
+        want = ref_rbs[mode]
+        got = ranks[0]["runs"][mode][0]
+        for r in ranks[1:]:
+            for e in (0, 1):
+                for key in ("response", "length", "n", "lp"):
+                    require(np.array_equal(r["runs"][mode][0][e][key],
+                                           got[e][key]),
+                            f"mesh moe {mode} epoch {e}: rank {r['rank']}'s "
+                            f"{key} differs from rank 0's")
+        mesh_rec = records_by_row(
+            [c for r in ranks for c in r["runs"][mode][1]], chains)
+        mesh_acc = accept_tests_by_row(
+            [v for r in ranks for v in r["runs"][mode][2]], keys)
+
+        def router_margin(e, b, col, k=k):
+            return float(margins[2 * k + e][b, P + col - 1])
+        summary[mode] = mesh_partings(f"moe {mode}", want, got,
+                                      ref_rec[mode], mesh_rec, ref_acc[mode],
+                                      mesh_acc, router_margin)
+        require(got[1]["metrics"]["one_pass"] == 1.0
+                and got[1]["metrics"]["n_reused"] > 0,
+                f"mesh moe {mode}: epoch 1 was not one-pass with reuse: "
+                f"{got[1]['metrics']}")
+    ties = sum(len(v.get("router_ties", [])) + sum(
+        len(p.get("router_ties", {})) for p in v["n_parted"])
+        for s_ in summary.values() for v in s_.values())
+
+    train = mesh_moe_train_checks(cfg, ranks, ref_train, rb0)
+
+    launches = Launches({k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]})
+    launches.by_t = {name: {} for name in ranks[0]["by_t"]}
+    for r in ranks:
+        for name, by_t in r["by_t"].items():
+            for T, c in by_t.items():
+                launches.by_t[name][T] = launches.by_t[name].get(T, 0) + c
+    launches.mamba_by_t = {}
+    line = {"arch": MESH_MOE_ARCH, "shape": list(MESH_SHAPE),
+            "layers": MESH_MOE_LAYERS, "N": ARCHS_N,
+            "reference_s": t_ref, "ranks_s": t_ranks,
+            "rank_setup_s": [r["setup_s"] for r in ranks],
+            "rank_run_s": [r["run_s"] for r in ranks],
+            "rank_peak_gib": [r["peak_gib"] for r in ranks],
+            "forced_lp_gap": gaps, "lp_tol": MESH_LP_TOL,
+            "drop_frac": float(ref_forced[0]["aux"]["moe_drop_frac"]),
+            "drop_frac_gap": max(drops), "rerouted": rerouted,
+            "rerouted_max_margin": moved_margin,
+            "router_tie_margin": ROUTER_TIE_MARGIN,
+            "router_tie_cases": ties,
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "modes": summary}
+    log("mesh moe " + json.dumps(line))
+    log("mesh moe train " + json.dumps({
+        "reference_s": t_ref_train,
+        "rank_train_s": [r["train_s"] for r in ranks], **train}))
+    for name in ("decode_attention", "flash_attention", "spec_verify",
+                 "cache_roll", "cache_slot_write", "paged_decode_attention",
+                 "paged_gather"):
+        require(all(r["launches"][name] > 0 for r in ranks),
+                f"mesh moe: a rank launched no {name}")
+    return launches
+
+
+def mesh_moe_train_checks(cfg, ranks, ref, rb0):
+    """The ``mesh moe`` trainer's checks (``mesh_moe_rank_train`` held the
+    gradients and shards on each rank): old log-probs within MESH_LP_TOL
+    of the reference's, every rank's step log the same, its loss,
+    grad_norm and moe_lb_loss within MESH_METRIC_RTOL of the reference's
+    plus MESH_METRIC_ATOL, no kernel in the update and the scoring one
+    flash_attention a layer.  Returns the ``mesh moe train`` line's
+    fields."""
+    import numpy as np
+
+    valid = np.asarray(rb0.response_mask, bool)
+    gap = max(float(np.abs(r["train"]["lp_old"] - ref["lp_old"])[valid]
+                    .max()) for r in ranks)
+    require(gap <= MESH_LP_TOL, f"mesh moe grpo: old log-probs {gap} from "
+            f"the reference's (MESH_LP_TOL {MESH_LP_TOL})")
+    scorings = tuple(k for k in ("old_logprob", "ref")
+                     if k in ranks[0]["train"]["launches"])
+    for r in ranks:
+        check_scoring(f"mesh moe rank {r['rank']} grpo",
+                      {k: {"launches": v}
+                       for k, v in r["train"]["launches"].items()},
+                      cfg.num_layers, scorings=scorings)
+        require(_untimed(r["train"]["metrics"])
+                == _untimed(ranks[0]["train"]["metrics"]),
+                f"mesh moe grpo: rank {r['rank']}'s step log differs")
+    mine, theirs = ranks[0]["train"]["metrics"], ref["metrics"]
+    keys = ("loss", "grad_norm", "moe_lb_loss", "kl_ref", "approx_kl",
+            "clip_frac", "ratio_mean")
+    require(all(np.isfinite(mine[k]) for k in keys if k in mine),
+            "mesh moe grpo: not finite")
+    for k in ("loss", "grad_norm", "moe_lb_loss", "kl_ref"):
+        if k in theirs:
+            a, b = mine[k], theirs[k]
+            require(abs(a - b) <= MESH_METRIC_RTOL * abs(b)
+                    + MESH_METRIC_ATOL, f"mesh moe grpo: {k} {a} against "
+                    f"the reference's {b} (rtol {MESH_METRIC_RTOL}, atol "
+                    f"{MESH_METRIC_ATOL})")
+    return {"mesh": {k: mine[k] for k in keys if k in mine},
+            "reference": {k: theirs[k] for k in keys if k in theirs},
+            "kl": "kl_ref" in theirs, "old_lp_gap": gap,
+            "grad_gap": max(r["train"]["compare"][0] for r in ranks),
+            "worst_param_err_over_tol": max(r["train"]["compare"][2]
+                                            for r in ranks),
+            "rerouted": [r["train"]["rerouted"] for r in ranks],
+            "reference_optimize_s": ref["optimize_s"],
+            "reference_peak_gib": ref["peak_gib"],
+            "rank_optimize_s": [r["train"]["optimize_s"] for r in ranks],
+            "rank_update_peak_gib": [r["train"]["peak_gib"] for r in ranks],
+            "rank_update_s": [r["train"]["metrics"].get("update_actor_time")
+                              for r in ranks],
+            "launches": ranks[0]["train"]["launches"]}
 
 
 BREAKDOWN_STEPS = 16
@@ -5632,6 +6141,9 @@ def main() -> int:
     for arch in FRONTEND_LAYERS:
         run(f"small {arch}", small_reference, torch, arch, SMALL_TOL[arch])
     paths = {"mesh": run("mesh", mesh_path, torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["mesh moe"] = run("mesh moe", mesh_moe_path, torch)
     gc.collect()
     torch.cuda.empty_cache()
     model, cfg, batch, gen = setup_model(torch)

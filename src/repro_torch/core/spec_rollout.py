@@ -39,8 +39,8 @@ the metrics, as JAX's global arrays are); each stage hands the whole
 batch's prompts, keys and drafts to its entry point, which runs this data
 rank's rows (``generate``, ``verify_and_prefill``, ``realign_decode_cache``,
 ``resume_from_cache``, the drafted loops) and gathers what they return.
-The dense GQA family runs on the mesh; the others come with part 3 of
-ROADMAP Queue 1 item 11 (the mesh).
+GQA attention with dense FFN or MoE layers runs on the mesh; the other
+families come with part 3 of ROADMAP Queue 1 item 11 (the mesh).
 
 §11/§14 observatory, as in JAX: each step draws its stage spans on the
 process-global tracer's ``rollout`` lane and feeds the ``rollout.*``
@@ -249,7 +249,7 @@ def _check_ported(spec: SpecConfig, cfg: ModelConfig, mesh) -> None:
     if spec.backfill not in ("none", "slots"):
         raise ValueError(f"unknown backfill {spec.backfill!r}")
     if mesh is not None:
-        check_mesh_family(cfg)
+        check_mesh_family(cfg, mesh)
 
 
 def _np(x) -> np.ndarray:

@@ -22,9 +22,11 @@ JAX's one-process GSPMD mesh becomes one process a rank over
   vocabulary-sharded ``embed`` looks up its rows and all-reduces (exact:
   one rank holds each row), the logits are gathered along the vocabulary,
   and a GQA whose KV heads the axis does not divide gathers its queries
-  (``distributed/shard_wrap.py``).  A rank's caches hold its KV heads
-  (``models/model.py:cache_config``), and every kernel runs on local
-  shards.  Every rank of a model group computes the same logits bit for
+  (``distributed/shard_wrap.py``).  A MoE's experts are cut by their 3-D
+  specs (expert-parallel, or tensor-parallel on ``d_ff``) and its output
+  is summed over the model group (``models/moe.py``).  A rank's caches
+  hold its KV heads (``models/model.py:cache_config``), and every kernel
+  runs on local shards.  Every rank of a model group computes the same logits bit for
   bit, so it samples the same tokens and makes the same host decisions.
 
 * **Training.**  The collectives carry the gradient
@@ -46,9 +48,10 @@ JAX's one-process GSPMD mesh becomes one process a rank over
   whole batch's counts, ``finish_grads`` and the data-group sum of the
   loss and diagnostics), for the trainer and ``launch/steps.py``.
 
-The dense GQA family runs on the mesh; the other families (MoE, MLA,
-Mamba, RWKV6, the frontends, MTP) arrive there with part 3 of ROADMAP
-Queue 1 item 11 (the mesh), and ``shard_params`` refuses them until then.
+GQA attention with dense FFN and MoE layers runs on the mesh (the dense
+GQA family and mixtral-8x22b); the other families (Mamba, MLA and MTP,
+RWKV6, the modality frontends) arrive there with part 3 of ROADMAP Queue 1
+item 11 (the mesh), and ``check_mesh_family`` refuses them until then.
 
 Ranks start one process each: ``torchrun`` (``launch/serve.py``,
 ``launch/train.py``), or
@@ -338,6 +341,57 @@ class LossRows(DataRows):
         all_reduce_(flat, self.group)
         return dict(zip(names, flat.unbind()))
 
+    def _mean_ce(self, stats) -> torch.Tensor:
+        """Each MoE layer's routed fraction ``ce`` (L, E) over the whole
+        batch: the data group's mean (every rank holds as many tokens)."""
+        ce = torch.stack([s["ce"] for s in stats]).detach().float()
+        return all_reduce_(ce, self.group) / data_size(self.mesh)
+
+    def router_loss(self, cfg: ModelConfig, aux, stats):
+        """A MoE trunk's router losses in this rank's loss: (the term,
+        ``router_aux_coef`` times the load-balance loss plus
+        ``router_z_coef`` times the z-loss, with its graph; this rank's
+        share of the whole batch's ``moe_lb_loss``, detached, for
+        ``sum``).  ``aux``/``stats``: the forward's aux and its
+        ``router_stats``.
+
+        Each is a mean over the batch, and the load-balance loss a product
+        of two, ``lb = E * sum_e me_e * ce_e`` a layer (JAX's, on the whole
+        batch).  Where a rank holds rows of its own, it takes the whole
+        batch's ``ce`` (the data group's mean; ``ce`` carries no gradient)
+        and its own ``me`` over D, and its own z-loss over D: the data
+        group's sum of its terms is the whole batch's value, and so is
+        the sum of their gradients (``finish``).  Where it holds the
+        whole batch, the forward's own losses are the whole batch's."""
+        if not self.sharded:
+            lb = aux["moe_lb_loss"]
+            z = aux["moe_z_loss"]
+        else:
+            D = data_size(self.mesh)
+            me = torch.stack([s["me"] for s in stats])
+            lb = cfg.num_experts * (me * self._mean_ce(stats)).sum(-1) \
+                .mean() / D
+            z = aux["moe_z_loss"] / D
+        return cfg.router_aux_coef * lb + cfg.router_z_coef * z, lb.detach()
+
+    def whole_aux(self, cfg: ModelConfig, aux, stats
+                  ) -> Dict[str, torch.Tensor]:
+        """A MoE trunk's aux diagnostics (``moe_lb_loss``, ``moe_z_loss``,
+        ``moe_expert_frac`` and ``moe_drop_frac``, each the mean over its
+        layers, detached) over the whole batch, on every rank: the
+        forward's own where the rank holds the whole batch, else the data
+        group's means (the load-balance loss by ``router_loss``'s rule)."""
+        if not self.sharded or not aux:
+            return {k: v.detach() for k, v in aux.items()}
+        D = data_size(self.mesh)
+        _, lb = self.router_loss(cfg, aux, stats)
+        out = self.sum({"moe_lb_loss": lb,
+                        **{k: aux[k] / D for k in ("moe_z_loss",
+                                                   "moe_drop_frac")
+                           if k in aux}})
+        out["moe_expert_frac"] = self._mean_ce(stats).mean(0)
+        return out
+
 
 def shard_batch(mesh, tree):
     """This rank's rows of every leaf of ``tree`` (each leaf's leading
@@ -355,19 +409,35 @@ def shard_batch(mesh, tree):
 # ------------------------------------------------------- tensor parallelism
 
 
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """The mesh runs the dense GQA family (qwen3, deepseek-7b,
-    qwen1.5-110b, granite-34b); the other families come with part 3."""
-    dense_gqa = (cfg.attention_kind == "gqa"
-                 and all(kind == ATTN and not moe
-                         for kind, moe in cfg.layer_plan())
-                 and not cfg.cross_attention and not cfg.encoder_layers
-                 and not cfg.num_prefix_embeddings and not cfg.mtp)
-    if not dense_gqa:
+def check_mesh_family(cfg: ModelConfig, mesh=None) -> None:
+    """The mesh runs GQA attention with dense FFN and MoE layers (qwen3,
+    deepseek-7b, qwen1.5-110b, granite-34b, mixtral-8x22b); the other
+    families come with part 3 of item 11.  On a data axis larger than 1
+    it also refuses the MoE dispatches that couple rows across data
+    ranks: ``sort`` (one capacity from the whole batch's tokens) and
+    ``dispatch`` with ``moe_groups`` > 0 (a group may span two ranks'
+    rows).  Reproducing them needs a data-group exchange inside every MoE
+    call, so every data rank would run its forwards in lockstep, which
+    the decode loops and the slot servers do not."""
+    gqa = (cfg.attention_kind == "gqa"
+           and all(kind == ATTN for kind, _ in cfg.layer_plan())
+           and not cfg.cross_attention and not cfg.encoder_layers
+           and not cfg.num_prefix_embeddings and not cfg.mtp)
+    if not gqa:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA, Mamba, RWKV6, the modality frontends "
-            "and MTP run on the mesh with part 3 of ROADMAP Queue 1 item 11 "
-            "(the mesh); part 1 runs the dense GQA family")
+            f"{cfg.name}: Mamba, MLA and MTP, RWKV6 and the modality "
+            "frontends (cross-attention, encoders, vision prefixes) run on "
+            "the mesh with part 3 of ROADMAP Queue 1 item 11 (the mesh); "
+            "GQA attention with dense FFN and MoE layers runs there now")
+    moe = any(m for _, m in cfg.layer_plan())
+    coupled = cfg.moe_impl == "sort" or (cfg.moe_impl == "dispatch"
+                                          and cfg.moe_groups > 0)
+    if moe and coupled and data_size(mesh) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl={cfg.moe_impl!r} with moe_groups="
+            f"{cfg.moe_groups} couples rows across the data axis; it runs "
+            "on a mesh whose data axis is 1 and comes to larger ones with "
+            "part 3 of ROADMAP Queue 1 item 11 (the mesh)")
 
 
 def _slice(t: torch.Tensor, spec, size: int, rank: int) -> torch.Tensor:
@@ -396,7 +466,7 @@ def shard_params(mesh, cfg: ModelConfig, model):
     model group as it is."""
     if mesh is None:
         return model
-    check_mesh_family(cfg)
+    check_mesh_family(cfg, mesh)
     m = model_size(mesh)
     if m <= 1:
         return model
@@ -434,6 +504,13 @@ def shard_params(mesh, cfg: ModelConfig, model):
         if kernel is not None and kernel.ndim == 2 and \
                 specs[f"{name}.kernel"] == ("model", None):
             mod.reduce_group = group             # row-parallel: all-reduce
+        if hasattr(mod, "expert_group"):
+            # a MoE: its expert stacks (E, ., .) cut together, on the
+            # experts (dim 0) or on d_ff; whole, nothing is summed
+            dim = _model_dim(specs[f"{name}.w_gate"])
+            if dim is not None:
+                mod.expert_group = group
+                mod.expert_lo = r * mod.w_gate.shape[0] if dim == 0 else 0
     return out
 
 
@@ -463,7 +540,7 @@ def clone_module(module):
     groups (a KL reference, an async service's model)."""
     memo = {}
     for mod in module.modules():
-        for attr in ("tp", "reduce_group"):
+        for attr in ("tp", "reduce_group", "expert_group"):
             g = getattr(mod, attr, None)
             if g is not None:
                 memo[id(g)] = g
@@ -475,20 +552,30 @@ def region_params(model) -> set:
     model-parallel region: those of a module whose output is a
     row-parallel ``Dense`` (``reduce_group`` set: the attention's ``wo``,
     the FFN's ``w_down``), but for that output's bias, which is added
-    after the sum.  Each rank's gradient of such a parameter is its own
-    heads' share."""
+    after the sum, and a cut MoE's own tensors (``expert_group`` set: its
+    region is its experts; its router sits outside, as the combine
+    weights enter through copy-to-model, and its shared expert is an FFN,
+    a region of its own).  Each rank's gradient of such a parameter is
+    its own heads' (or experts') share."""
     specs = param_specs(model)
     out = set()
+
+    def replicated(params):
+        out.update(n for n, _ in params
+                   if _model_dim(specs.get(n, ())) is None)
+
     for name, mod in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if getattr(mod, "expert_group", None) is not None:
+            replicated((prefix + n, p) for n, p in
+                       mod.named_parameters(recurse=False))
         outs = [c for c in mod.children()
                 if getattr(c, "reduce_group", None) is not None]
         if not outs:
             continue
         after = {id(c.bias) for c in outs if c.bias is not None}
-        for pname, p in mod.named_parameters(prefix=name):
-            if id(p) not in after and \
-                    _model_dim(specs.get(pname, ())) is None:
-                out.add(pname)
+        replicated((n, p) for n, p in mod.named_parameters(prefix=name)
+                   if id(p) not in after)
     return out
 
 
@@ -496,11 +583,23 @@ def region_params(model) -> set:
 GRAD_BUCKET = 1 << 26
 
 
+def pieces(*ts: torch.Tensor) -> List[Tuple[torch.Tensor, ...]]:
+    """Tensors of one shape, piece by piece: matching flat views of at
+    most ``GRAD_BUCKET`` elements each, so that float32 temporaries of an
+    expert stack's gradient, moments or update stay 256 MB; the tensors
+    whole when they fit, or when one is not contiguous."""
+    if ts[0].numel() <= GRAD_BUCKET or not all(t.is_contiguous()
+                                               for t in ts):
+        return [ts]
+    return list(zip(*(t.view(-1).split(GRAD_BUCKET) for t in ts)))
+
+
 @torch.no_grad()
 def _sum_over(tensors: Sequence[torch.Tensor], group, scale: float = 1.0
               ) -> None:
     """Sum every tensor over ``group`` in place (times ``scale``), in
-    float32 buckets of up to ``GRAD_BUCKET`` elements."""
+    float32 buckets of up to ``GRAD_BUCKET`` elements (a larger tensor in
+    pieces: the bucket's float32 copy stays 256 MB)."""
     bucket: List[torch.Tensor] = []
 
     def flush():
@@ -516,11 +615,12 @@ def _sum_over(tensors: Sequence[torch.Tensor], group, scale: float = 1.0
 
     n = 0
     for t in tensors:
-        bucket.append(t)
-        n += t.numel()
-        if n >= GRAD_BUCKET:
-            flush()
-            n = 0
+        for piece, in pieces(t):
+            if bucket and n + piece.numel() > GRAD_BUCKET:
+                flush()
+                n = 0
+            bucket.append(piece)
+            n += piece.numel()
     if bucket:
         flush()
 

@@ -23,9 +23,10 @@ Key decisions, as in JAX:
   the parameters' layout, as JAX's ``shard_opt_state`` lays them
   (``adamw.init`` of the cut parameters).
 
-The mesh runs the dense GQA family's rules (``distributed/mesh.py``); the
-MoE, MLA, Mamba and RWKV rules are here and held against JAX's, and run on
-the mesh with part 3 of ROADMAP Queue 1 item 11 (the mesh).
+The mesh runs the dense GQA family's rules and the MoE rules
+(``distributed/mesh.py``); the MLA, Mamba and RWKV rules are here and
+held against JAX's, and run on the mesh with part 3 of ROADMAP Queue 1
+item 11 (the mesh).
 """
 from __future__ import annotations
 

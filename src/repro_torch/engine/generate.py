@@ -36,7 +36,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.distributed.mesh import DataRows
+from repro_torch.distributed.mesh import DataRows, LossRows
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -260,10 +260,28 @@ def score(model: M.LM, cfg: ModelConfig, tokens, mask, *,
     return out
 
 
+@torch.no_grad()
+def moe_aux(model: M.LM, cfg: ModelConfig, tokens, mask, *, mesh=None
+            ) -> Dict[str, torch.Tensor]:
+    """A MoE trunk's aux diagnostics of a no-grad forward over ``tokens``
+    (B, L) left-padded with ``mask`` (B, L) bool: ``moe_lb_loss``,
+    ``moe_z_loss``, ``moe_expert_frac`` and (``dispatch``, ``sort``)
+    ``moe_drop_frac``, each its layers' mean, over the whole batch.
+    ``mesh``: this data rank runs its rows and the values are the whole
+    batch's, as JAX's global forward gives them
+    (``distributed/mesh.py:LossRows.whole_aux``)."""
+    rows = LossRows(mesh, len(tokens))
+    tokens = _on(model, rows.take(tokens), torch.int32)
+    mask = _on(model, rows.take(mask), torch.bool)
+    stats: list = []
+    _, aux = M.forward(model, cfg, tokens, positions_from_mask(mask),
+                       router_stats=stats)
+    return rows.whole_aux(cfg, aux, stats)
+
 
 def token_logprobs(model: M.LM, cfg: ModelConfig, tokens, mask,
                    temperature: float = 1.0, top_p: float = 1.0, *,
-                   entropy_grad: bool = False):
+                   entropy_grad: bool = False, router_stats=None):
     """Teacher-forced log-prob and entropy of every token given its prefix,
     carrying the graph (the differentiable part of JAX's
     ``_actor_loss_fn``): forward, ``logprobs_of`` and ``entropy_of`` of the
@@ -275,11 +293,13 @@ def token_logprobs(model: M.LM, cfg: ModelConfig, tokens, mask,
     its float32 (B, L, V) intermediates are not kept for a backward that
     never reads them.  Returns (logprobs (B, L), entropy (B, L), aux): the
     forward's aux dict (a MoE trunk's router losses, with their graph;
-    ``{}`` without MoE)."""
+    ``{}`` without MoE).  ``router_stats``: as ``models/model.py:
+    forward``'s."""
     tokens = _on(model, tokens, torch.int32)
     mask = _on(model, mask, torch.bool)
     positions = positions_from_mask(mask)
-    logits, aux = M.forward(model, cfg, tokens, positions)
+    logits, aux = M.forward(model, cfg, tokens, positions,
+                            router_stats=router_stats)
     lp_next = logprobs_of(logits[:, :-1], tokens[:, 1:], temperature, top_p)
     lp = torch.cat([torch.zeros_like(lp_next[:, :1]), lp_next], dim=1)
     with torch.set_grad_enabled(entropy_grad and torch.is_grad_enabled()):

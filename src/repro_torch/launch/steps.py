@@ -12,12 +12,14 @@ JAX's steps are pure functions of a params tree; the port's take an
 ``LM`` and update it (and the AdamW state) in place, returning them as
 JAX returns its new ones.  They run in one process for every family.
 
-``mesh=`` (the dense GQA family, ``distributed/mesh.py``): the model is
-one cut by ``shard_params`` and the batch arguments are the whole batch
-on every rank.  Each data rank runs its rows (``mesh.LossRows``); the
-cross entropy divides by the whole (micro)batch's token count, so the
-gradients need only ``LossRows.finish`` and the loss ``LossRows.sum``,
-and AdamW clips by the global norm.  The verify
+``mesh=`` (GQA attention with dense FFN or MoE layers,
+``distributed/mesh.py``): the model is one cut by ``shard_params`` and
+the batch arguments are the whole batch on every rank.  Each data rank
+runs its rows (``mesh.LossRows``); the cross entropy divides by the whole
+(micro)batch's token count and a MoE trunk's router losses are the whole
+(micro)batch's (``LossRows.router_loss``), so the gradients need only
+``LossRows.finish`` and the loss ``LossRows.sum``, and AdamW clips by the
+global norm.  The verify
 and serve steps gather their outputs over the data group.
 """
 from __future__ import annotations
@@ -109,14 +111,15 @@ def make_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, *,
     ``opt_state`` is ``adamw.init`` of the model's parameters."""
     adt = getattr(torch, accum_dtype)
 
-    def loss_parts(model, tokens, positions, extras):
+    def loss_parts(model, tokens, positions, extras, stats):
         if ce_impl == "chunked":
             hidden, aux = M.hidden_states(model, cfg, tokens, positions,
-                                          **extras)
+                                          router_stats=stats, **extras)
             s, _ = _ce_chunked_sum(model, cfg, hidden, tokens, positions,
                                    ce_chunk)
         else:
-            logits, aux = M.forward(model, cfg, tokens, positions, **extras)
+            logits, aux = M.forward(model, cfg, tokens, positions,
+                                    router_stats=stats, **extras)
             s, _ = _ce_naive_sum(logits, tokens, positions)
         return s, aux
 
@@ -125,16 +128,17 @@ def make_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, *,
         rows = LossRows(mesh, tokens.shape[0])
         count = torch.clamp_min(
             _ce_mask(tokens, positions)[:, :-1].sum(), 1.0)
+        stats = []
         for p in params:
             p.requires_grad_(True)
         try:
             s, aux = loss_parts(model, rows.take(tokens),
                                 rows.take(positions),
-                                {k: rows.take(v) for k, v in extras.items()})
+                                {k: rows.take(v) for k, v in extras.items()},
+                                stats)
             loss = s / count
             if "moe_lb_loss" in aux:
-                loss = loss + cfg.router_aux_coef * aux["moe_lb_loss"] \
-                    + cfg.router_z_coef * aux["moe_z_loss"]
+                loss = loss + rows.router_loss(cfg, aux, stats)[0]
             loss.backward()
         finally:
             for p in params:

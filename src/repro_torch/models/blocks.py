@@ -152,12 +152,13 @@ def apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, positions, *,
 def apply_block(p: Block | MambaBlock, cfg: ModelConfig, x, positions, *,
                 cache=None, cache_start=None, kv_length=None, kv_start=None,
                 causal: bool = True, encoder_out=None,
-                encoder_positions=None):
+                encoder_positions=None, router_stats=None):
     """RMSNorm -> attention or Mamba -> residual, then (a cross block)
     RMSNorm -> cross-attention over ``encoder_out`` -> residual, then
     RMSNorm -> FFN or MoE -> residual.  Returns (x, aux): the MoE layer's
     aux dict, ``{}`` for a dense FFN.  A Mamba block ignores the attention
-    arguments.
+    arguments.  ``router_stats``: a list that takes a MoE layer's router
+    statistics (``models/moe.py:_router``).
 
     A cross block refuses to run without ``encoder_out``: JAX's then
     attends the decoder's own tokens without a causal mask
@@ -183,7 +184,7 @@ def apply_block(p: Block | MambaBlock, cfg: ModelConfig, x, positions, *,
         x = x + out
     h = apply_rmsnorm(p.norm2, x, cfg.norm_eps)
     if hasattr(p, "moe"):
-        out, aux = apply_moe(p.moe, cfg, h)
+        out, aux = apply_moe(p.moe, cfg, h, router_stats)
         return x + out, aux
     return x + apply_ffn(p.mlp, h, cfg.act), {}
 
@@ -207,13 +208,14 @@ def init_trunk_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 caches=None, cache_start=None, kv_length=None,
                 kv_start=None, causal: bool = True, encoder_out=None,
-                encoder_positions=None):
+                encoder_positions=None, router_stats=None):
     """Run all layers; the caches (if given) are updated in place and
     returned.  The attention arguments (cache_start, kv_length, kv_start,
     causal, the encoder's output and positions) go unused by RWKV and
     Mamba layers; ``causal=False`` is the encoder's self-attention.
     Returns (x, caches, aux_mean): each aux key averaged over the layers
-    that reported it (``{}`` without MoE)."""
+    that reported it (``{}`` without MoE).  ``router_stats``: a list that
+    takes each MoE layer's router statistics, in layer order."""
     aux_sums: Dict[str, torch.Tensor] = {}
     aux_counts: Dict[str, int] = {}
     i = 0
@@ -232,7 +234,8 @@ def apply_trunk(layers: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                                      cache_start=cache_start,
                                      kv_length=kv_length, kv_start=kv_start,
                                      causal=causal, encoder_out=encoder_out,
-                                     encoder_positions=encoder_positions)
+                                     encoder_positions=encoder_positions,
+                                     router_stats=router_stats)
                 for k, v in aux.items():
                     aux_sums[k] = aux_sums[k] + v if k in aux_sums else v
                     aux_counts[k] = aux_counts.get(k, 0) + 1

@@ -238,7 +238,7 @@ def _logits(model: LM, cfg: ModelConfig, x):
 
 def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
             encoder_out=None, encoder_positions=None, prefix_embeds=None,
-            return_mtp: bool = False):
+            return_mtp: bool = False, router_stats=None):
     """tokens: (B, T) int; positions: (B, T) int32 with -1 on padding, or
     with ``prefix_embeds`` (B, Pv, d) (B, Pv + T) over prefix and tokens;
     ``encoder_out``/``encoder_positions``: ``encode``'s, for a
@@ -249,6 +249,9 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
     does; ``{}`` without MoE.  Prefill, decode and score ignore them.
     With ``return_mtp`` and an MTP head, also ``mtp_logits`` (B, T, V)
     float32 (``_mtp_logits``); no trainer path reads them.
+    ``router_stats``: a list that takes each MoE layer's router statistics
+    (``models/moe.py:_router``; the mesh's whole-batch router losses,
+    ``distributed/mesh.py:LossRows.router_loss``).
 
     Carries the graph when grad is enabled and the parameters require it
     (the actor in the train step): the attention and the recurrences then
@@ -258,7 +261,8 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
     x, aux = hidden_states(model, cfg, tokens, positions,
                            encoder_out=encoder_out,
                            encoder_positions=encoder_positions,
-                           prefix_embeds=prefix_embeds)
+                           prefix_embeds=prefix_embeds,
+                           router_stats=router_stats)
     if cfg.mtp and return_mtp:
         aux["mtp_logits"] = _mtp_logits(model, cfg, x, tokens,
                                         _drop_prefix(positions, prefix_embeds))
@@ -267,14 +271,15 @@ def forward(model: LM, cfg: ModelConfig, tokens, positions, *,
 
 def hidden_states(model: LM, cfg: ModelConfig, tokens, positions, *,
                   encoder_out=None, encoder_positions=None,
-                  prefix_embeds=None):
+                  prefix_embeds=None, router_stats=None):
     """``forward`` without the head (JAX's ``return_hidden=True,
     compute_logits=False``): the final norm's output over the token slots
     (B, T, d) and the aux dict."""
     x = _embed_with_prefix(model, cfg, tokens, positions, prefix_embeds)
     x, _, aux = apply_trunk(model.layers, cfg, x, positions,
                             encoder_out=encoder_out,
-                            encoder_positions=encoder_positions)
+                            encoder_positions=encoder_positions,
+                            router_stats=router_stats)
     x = _drop_prefix(apply_rmsnorm(model.final_norm, x, cfg.norm_eps),
                      prefix_embeds)
     return x, aux

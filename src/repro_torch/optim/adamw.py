@@ -37,7 +37,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.distributed.comm import all_reduce_
-from repro_torch.distributed.mesh import model_group, model_size
+from repro_torch.distributed.mesh import model_group, model_size, pieces
 
 
 @dataclass(frozen=True)
@@ -88,8 +88,9 @@ def init(params: Sequence[torch.Tensor]) -> Dict[str, object]:
 def _square_sum(tensors: Sequence[torch.Tensor]):
     total = None
     for x in tensors:
-        s = torch.sum(torch.square(x.float()))
-        total = s if total is None else total + s
+        for piece, in pieces(x):
+            s = torch.sum(torch.square(piece.float()))
+            total = s if total is None else total + s
     return total
 
 
@@ -128,14 +129,17 @@ def update(cfg: AdamWConfig, params: List[torch.Tensor],
     step32 = _f32(step, dev)
     b1c = 1.0 - torch.pow(_f32(cfg.b1, dev), step32)
     b2c = 1.0 - torch.pow(_f32(cfg.b2, dev), step32)
-    for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
-        g32 = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
-        del g32
-        p32 = p.float()
-        step_ = lr * (m / b1c / (torch.sqrt(v / b2c) + cfg.eps)
-                      + cfg.weight_decay * p32)
-        p.copy_((p32 - step_).to(p.dtype))
+    for whole in zip(params, grads, state["mu"], state["nu"]):
+        # elementwise, a piece at a time: the float32 temporaries of one
+        # piece, not of a whole expert stack
+        for p, g, m, v in pieces(*whole):
+            g32 = g.float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
+            del g32
+            p32 = p.float()
+            step_ = lr * (m / b1c / (torch.sqrt(v / b2c) + cfg.eps)
+                          + cfg.weight_decay * p32)
+            p.copy_((p32 - step_).to(p.dtype))
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}

@@ -59,8 +59,10 @@ the advantages are the whole batch's, and then each rank takes its rows
 counts (``rl/losses.py``), so after the backward the gradients need only
 the sums of ``LossRows.finish``, and AdamW clips by the global norm.  The
 loss and diagnostics are summed over the data group (``LossRows.sum``),
-so the step log is the same on every rank and equals one device's.  The other model
-families on the mesh are part 3 of ROADMAP Queue 1 item 11 (the mesh).
+so the step log is the same on every rank and equals one device's; a MoE
+trunk's router losses are the whole batch's too (``LossRows.router_loss``).
+The model families other than GQA attention with dense FFN or MoE layers
+come to the mesh with part 3 of ROADMAP Queue 1 item 11 (the mesh).
 """
 from __future__ import annotations
 
@@ -153,15 +155,21 @@ def _old_logprobs(model: M.LM, cfg: ModelConfig, full_tokens, full_mask,
 def _actor_loss_fn(model: M.LM, cfg: ModelConfig, pcfg: PolicyLossConfig,
                    full_tokens, full_mask, resp_start: int, lp_old,
                    advantages, resp_mask, ref_lp, temperature: float,
-                   top_p: float, count=None, rows=None):
+                   top_p: float, count=None, rows=None,
+                   loss_rows: Optional[LossRows] = None):
     """The GRPO actor loss with its graph, and its diagnostics (floats of
     the graph's values, detached).  A MoE trunk adds its router losses,
     ``cfg.router_aux_coef`` times the load-balance loss and
     ``cfg.router_z_coef`` times the z-loss, as JAX's does.  ``count``/
-    ``rows``: the whole batch's, when these are one data rank's rows."""
+    ``rows``: the whole batch's, when these are one data rank's rows;
+    ``loss_rows``: those rows' ``LossRows``, whose rule makes the router
+    losses the whole batch's (``LossRows.router_loss``)."""
+    if loss_rows is None:
+        loss_rows = LossRows(None, full_tokens.shape[0])
+    stats: List[Dict[str, torch.Tensor]] = []
     lp_all, ent_all, aux = token_logprobs(
         model, cfg, full_tokens, full_mask, temperature, top_p,
-        entropy_grad=pcfg.entropy_coef > 0.0)
+        entropy_grad=pcfg.entropy_coef > 0.0, router_stats=stats)
     lp_new = lp_all[:, resp_start:]
     ent = ent_all[:, resp_start:]
     loss, info = policy_loss(lp_new, lp_old, advantages, resp_mask, pcfg,
@@ -174,9 +182,8 @@ def _actor_loss_fn(model: M.LM, cfg: ModelConfig, pcfg: PolicyLossConfig,
         loss = loss - pcfg.entropy_coef * entropy_bonus(ent, resp_mask,
                                                         count=count)
     if "moe_lb_loss" in aux:
-        loss = loss + cfg.router_aux_coef * aux["moe_lb_loss"] \
-            + cfg.router_z_coef * aux["moe_z_loss"]
-        info["moe_lb_loss"] = aux["moe_lb_loss"].detach()
+        term, info["moe_lb_loss"] = loss_rows.router_loss(cfg, aux, stats)
+        loss = loss + term
     info["entropy"] = masked_mean(ent, resp_mask, count=count).detach()
     return loss, info
 
@@ -233,7 +240,8 @@ def _update_actor(model: M.LM, opt_state, cfg: ModelConfig,
     loss, info, oinfo = _grad_step(model, opt_state, ocfg, lambda: (
         _actor_loss_fn(model, cfg, pcfg, full_tokens, full_mask, resp_start,
                        lp_old, advantages, resp_mask, ref_lp, temperature,
-                       top_p, count=count, rows=rows.whole_rows)), rows)
+                       top_p, count=count, rows=rows.whole_rows,
+                       loss_rows=rows)), rows)
     return {**rows.sum({**info, "loss": loss}), **oinfo}
 
 
@@ -287,7 +295,7 @@ class Collector:
                  dataset: PromptDataset, key, lenience_schedule=None,
                  mesh=None, tracer=None):
         if mesh is not None:
-            check_mesh_family(model_cfg)
+            check_mesh_family(model_cfg, mesh)
         self.mesh = mesh          # the rollout runs on it (whole batch out)
         self.cfg = model_cfg
         self.rl = rl
@@ -442,7 +450,7 @@ class Trainer:
         if isinstance(mesh, MeshConfig):
             mesh = mesh.build(model.device if model is not None else device)
         if mesh is not None:
-            check_mesh_family(model_cfg)
+            check_mesh_family(model_cfg, mesh)
         # the §8 mesh: None (or a MeshConfig that found too few ranks) is
         # the single-device path
         self.mesh = mesh

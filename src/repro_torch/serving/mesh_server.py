@@ -82,7 +82,7 @@ def make_slot_engine(model: M.LM, cfg: ModelConfig, gen: GenerateConfig, *,
               overflow=overflow, retry_backoff=retry_backoff, tracer=tracer,
               ledger=ledger)
     if mesh is not None:
-        check_mesh_family(cfg)
+        check_mesh_family(cfg, mesh)
     if cfg.cache_layout == "paged":
         kw["kv_pool_blocks"] = kv_pool_blocks
     if mesh is not None and data_size(mesh) > 1:

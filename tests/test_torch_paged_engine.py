@@ -454,3 +454,39 @@ def test_backfill_slots_rollout_over_paged_matches_jax(models):
         np.testing.assert_array_equal(got.n, dense.n)
     assert got.metrics["one_pass"] == 1.0 and got.metrics["n_reused"] > 0
     assert math.isfinite(got.metrics["rollout_time"])
+
+
+def test_paged_slots_with_grouped_prompt_ids_are_jax_s(models):
+    """rollout(backfill="slots") over the paged layout with each GRPO
+    group's rows under one prompt id (as the trainer's batches carry
+    them) equals JAX's paged slot run token for token.  JAX's run there
+    parts from JAX's own fixed batch in a row (ROADMAP Queue 3, "Kept on
+    purpose"): the port keeps the reference's behaviour, and this test
+    shows if the reference's changes."""
+    jcfg, cfg, params, model = models
+    B, W, NN, GROUP = 8, 9, 8, 4
+    rng = np.random.default_rng(0)
+    prompt = np.repeat(rng.integers(3, cfg.vocab_size, (B // GROUP, W)),
+                       GROUP, axis=0).astype(np.int32)
+    mask = np.ones((B, W), bool)
+    ids = [i // GROUP for i in range(B)]
+    keys = row_keys(5, B)
+    jgen = JaxGenerateConfig(max_new_tokens=NN, eos_id=EOS_ID, pad_id=PAD_ID)
+    gen = GenerateConfig(max_new_tokens=NN, eos_id=EOS_ID, pad_id=PAD_ID)
+    kw = dict(variant="spec", backfill="slots", backfill_slots=4)
+    jpaged, paged = _paged(jcfg), _paged(cfg)
+    want = jax_spec_rollout.rollout(
+        params, jpaged, jgen, JaxSpecConfig(**kw), jnp.asarray(prompt),
+        jnp.asarray(mask), ids, JaxRolloutCache(group_size=GROUP), keys, 0)
+    got = rollout(model, paged, gen, SpecConfig(**kw), prompt, mask, ids,
+                  RolloutCache(group_size=GROUP), JaxKeyBatch(keys), 0)
+    np.testing.assert_array_equal(got.response, want.response)
+    np.testing.assert_array_equal(got.length, want.length)
+    np.testing.assert_allclose(got.behaviour_logprobs,
+                               want.behaviour_logprobs, atol=ATOL)
+    fixed = jax_spec_rollout.rollout(
+        params, jpaged, jgen, JaxSpecConfig(variant="spec"),
+        jnp.asarray(prompt), jnp.asarray(mask), ids,
+        JaxRolloutCache(group_size=GROUP), keys, 0)
+    assert not np.array_equal(np.asarray(want.response),
+                              np.asarray(fixed.response))
